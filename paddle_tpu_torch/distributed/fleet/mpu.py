@@ -1,0 +1,42 @@
+"""Tensor-parallel layers of the port, single-device subset (counterpart
+of ``paddle_tpu/distributed/fleet/mpu.py``).
+
+On one device the reference's mp layers are dense layers; they keep their
+names and ``[in, out]`` weights here so GPT's ``state_dict`` matches. No
+collectives yet: sharding over several cards comes with the distributed
+slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from ...nn.layers_common import Embedding, Linear
+
+__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "parallel_matmul"]
+
+
+class ColumnParallelLinear(Linear):
+    """Linear whose output dim the reference splits over 'mp'; dense on
+    one device."""
+
+
+class RowParallelLinear(Linear):
+    """Linear whose input dim the reference splits over 'mp'; dense on
+    one device."""
+
+
+class VocabParallelEmbedding(Embedding):
+    """Embedding with the vocab dim the reference splits over 'mp';
+    dense on one device. Default init Normal(0, 0.02) as the reference."""
+
+    def __init__(self, num_embeddings, embedding_dim, *, init_std=0.02,
+                 **kw):
+        super().__init__(num_embeddings, embedding_dim, init_std=init_std,
+                         **kw)
+
+
+def parallel_matmul(x, weight, transpose_y=False):
+    """Logits against a (vocab-parallel) table: x @ weight(.T) — the tied
+    LM head."""
+    return torch.matmul(x, weight.t() if transpose_y else weight)

@@ -1,0 +1,93 @@
+"""Attention entry points of the port (counterpart of
+``paddle_tpu/ops/attention.py``).
+
+Public layout is the reference's ``[batch, seq, heads, head_dim]``.
+Dispatch is by device, with no fallback: a CPU tensor runs the kernel's
+plain PyTorch twin, a CUDA tensor launches the hand-written kernel or
+raises. Unlike the TPU gate there is no sequence-multiple rule — the CUDA
+kernel masks its own ragged edge — and no environment switch for the
+paged decode kernel: on the card it is the decode path.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .kernels import flash_attention as _fa
+from .kernels import flash_decode as _fd
+
+__all__ = ["flash_attention", "paged_flash_decode", "reference_attention",
+           "HEAD_DIMS"]
+
+HEAD_DIMS = _fa.HEAD_DIMS
+
+
+def _fold(x):
+    """[B, S, H, D] -> [B*H, S, D] contiguous."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
+                    dropout_p=0.0):
+    """[B, S, H, D] flash attention forward. kv_lens: optional [B] int —
+    key positions >= kv_lens[b] are masked. Rows with no visible key give
+    0. Attention dropout needs the TPU kernel's hash, which is not ported
+    yet (ROADMAP), so a nonzero dropout_p raises."""
+    if dropout_p:
+        raise NotImplementedError(
+            "flash_attention dropout is not ported yet (the murmur3 keep "
+            "mask comes with the backward kernels, see ROADMAP.md)")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if q.device.type == "cuda" and d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in "
+                         f"{HEAD_DIMS} for the CUDA kernel")
+    lens = None
+    if kv_lens is not None:
+        lens = torch.as_tensor(kv_lens, dtype=torch.int32,
+                               device=q.device).repeat_interleave(h)
+    o, _ = _fa.flash_attention_fwd(_fold(q), _fold(k), _fold(v), lens,
+                                   causal=causal, sm_scale=sm_scale)
+    return o.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def paged_flash_decode(q, k_pages, v_pages, page_table, lens, k_scale=None,
+                       v_scale=None, sm_scale=None):
+    """Paged GQA decode attention, used by
+    ``nlp.paged_cache.paged_update_and_attend`` in every serving decode
+    step. See ``ops.kernels.flash_decode``."""
+    return _fd.paged_flash_decode(q, k_pages, v_pages, page_table, lens,
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  sm_scale=sm_scale)
+
+
+def reference_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
+                        attn_mask=None):
+    """Dense [B, S, H, D] attention in plain PyTorch (the JAX package's
+    jnp path). attn_mask: bool keep-mask or additive float bias,
+    broadcastable to [B, H, Sq, Sk]. Fully masked rows give 0."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
+    sq, sk = logits.shape[-2], logits.shape[-1]
+    neg = torch.tensor(-math.inf, dtype=logits.dtype, device=logits.device)
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(keep, logits, neg)
+    if kv_lens is not None:
+        lens = torch.as_tensor(kv_lens, device=q.device)
+        keep = torch.arange(sk, device=q.device)[None, :] < lens[:, None]
+        logits = torch.where(keep[:, None, None, :], logits, neg)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = torch.where(attn_mask, logits, neg)
+        else:
+            logits = logits + attn_mask
+    probs = torch.softmax(logits.float(), dim=-1)
+    probs = torch.where(torch.isnan(probs), torch.zeros_like(probs), probs)
+    out = torch.matmul(probs.to(q.dtype), vh)
+    return out.transpose(1, 2)
