@@ -288,7 +288,7 @@ def phase_slice(torch):
     cfg = _resolve_config("gpt3-345M")
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device="cuda",
-                           generator=seed(0, "cuda")).eval()
+                           generator=seed(0)).eval()
     torch.cuda.synchronize()
     log(f"slice: gpt3-345M built on cuda in {time.perf_counter() - t0:.2f}"
         f" s ({sum(p.numel() for p in model.parameters())} parameters, "

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .device import resolve_device
+
 __all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype", "seed"]
 
 _DTYPE_ALIASES = {
@@ -40,12 +42,13 @@ def set_default_dtype(dtype):
     _default_dtype = convert_dtype(dtype)
 
 
-def seed(s=None, device="cpu", generator=None):
-    """ref: paddle.seed. Returns a ``torch.Generator`` on ``device``
-    seeded with ``s``; with ``generator`` given, reseeds that one instead.
-    With ``s=None`` the generator draws a nondeterministic seed."""
+def seed(s=None, device=None, generator=None):
+    """ref: paddle.seed. Returns a ``torch.Generator`` on ``device`` (CUDA
+    by default, see ``device.resolve_device``) seeded with ``s``; with
+    ``generator`` given, reseeds that one instead. With ``s=None`` the
+    generator draws a nondeterministic seed."""
     g = generator if generator is not None else torch.Generator(
-        device=torch.device(device))
+        device=resolve_device(device))
     if s is None:
         g.seed()
     else:

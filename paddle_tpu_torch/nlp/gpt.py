@@ -52,7 +52,6 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
-    use_flash_attention: bool = True
     tie_word_embeddings: bool = True
     recompute: bool = False
     scan_layers: bool = False
@@ -129,8 +128,7 @@ class GPTAttention(nn.Module):
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.cfg.attention_probs_dropout_prob
             if self.training else 0.0,
-            is_causal=True, training=self.training,
-            use_flash=self.cfg.use_flash_attention, kv_lens=kv_lens)
+            is_causal=True, training=self.training, kv_lens=kv_lens)
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
         return (out, (k, v)) if cache is not None else out
 

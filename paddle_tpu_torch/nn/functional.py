@@ -51,21 +51,26 @@ def dropout(x, p=0.5, training=True, generator=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, use_flash=True,
-                                 kv_lens=None):
+                                 training=True, kv_lens=None):
     """ref: F.scaled_dot_product_attention, [B, S, H, D] layout.
 
-    With no dense mask and ``use_flash``, attention runs through
+    With no dense mask, attention runs through
     ``ops.attention.flash_attention`` — the CUDA kernel on the card, its
     plain twin on the CPU. ``kv_lens`` ([B] ints, a port extension) masks
     keys at positions >= kv_lens[b] inside the kernel: the serving
     prefill's padding mask. A dense ``attn_mask`` (bool keep-mask or
     additive bias) takes the plain dense path, as it takes the jnp path in
-    the reference; ``use_flash=False`` forces that path too."""
+    the reference, and only on the CPU: no kernel of this port takes a
+    dense mask yet, so on the card it raises (express padding as
+    ``kv_lens``)."""
     eff_drop = float(dropout_p) if (dropout_p and training) else 0.0
-    if use_flash and attn_mask is None:
+    if attn_mask is None:
         return _attn.flash_attention(query, key, value, causal=is_causal,
                                      kv_lens=kv_lens, dropout_p=eff_drop)
+    if query.device.type != "cpu":
+        raise NotImplementedError(
+            "a dense attn_mask has no kernel on the card yet (ROADMAP.md); "
+            "express padding as kv_lens, which the flash kernel takes")
     if eff_drop:
         raise NotImplementedError(
             "attention dropout on the dense path belongs to the training "

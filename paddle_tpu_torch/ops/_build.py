@@ -95,15 +95,19 @@ def build_all(names=None):
     return {n: (wall, log) for n, log in logs.items()}
 
 
-def load(name):
-    """The ctypes handle of kernel library ``name``, built on first use."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+def load(name, argtypes):
+    """The C entry point ``name`` of kernel library ``name``, built and
+    loaded on first use and typed once: it takes ``argtypes`` and returns
+    ``cudaGetLastError()`` as an int."""
+    fn = _libs.get(name)
+    if fn is not None:
+        return fn
     build_all([name])
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(_lib_path(name)[1])
-            _libs[name] = lib
-    return lib
+        fn = _libs.get(name)
+        if fn is None:
+            fn = getattr(ctypes.CDLL(_lib_path(name)[1]), name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            _libs[name] = fn
+    return fn

@@ -31,6 +31,9 @@ __all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention_fwd",
 HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the TPU kernel's masked-score sentinel
 _DTYPES = (torch.float32, torch.bfloat16)
+# q, k, v, lens, o, lse; bh, sq, sk, d, causal; sm_scale; is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _visible(sq, sk, lens, causal, device):
@@ -113,11 +116,7 @@ def flash_attention_fwd(q, k, v, lens=None, causal=False, sm_scale=None):
                          f"{q.device}")
     _check(q, k, v, lens)
     from .. import _build
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = _build.load("flash_attention_fwd", _ARGTYPES)
     bh, sq, d = q.shape
     sk = k.shape[1]
     o = torch.empty_like(q)

@@ -26,6 +26,10 @@ __all__ = ["HEAD_DIMS", "paged_flash_decode", "paged_decode_plain"]
 
 HEAD_DIMS = (64, 128, 256)
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# q, k/v pools, k/v scales, page_table, lens, out; b, hkv, g, num_pages,
+# ps, max_pages, d, pool code; sm_scale; stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def _dequant(pages, scale):
@@ -123,11 +127,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lens, k_scale=None,
                          f"{q.device}")
     _check(q, k_pages, v_pages, page_table, lens, k_scale, v_scale)
     from .. import _build
-    lib = _build.load("paged_flash_decode")
-    fn = lib.paged_flash_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = _build.load("paged_flash_decode", _ARGTYPES)
     b, hkv, g, d = q.shape
     _, num_pages, ps, _ = k_pages.shape
     qf = q.float().contiguous()

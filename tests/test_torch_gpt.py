@@ -18,6 +18,7 @@ from paddle_tpu.nlp.gpt import _resolve_config as jax_config
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nlp.gpt import _resolve_config as port_config
+from paddle_tpu_torch.nn import functional as port_F
 
 _OVR = dict(num_attention_heads=1)  # gpt-tiny widths, head_dim 64
 
@@ -92,6 +93,17 @@ def test_dense_mask_path_matches_kv_lens(models):
         a = pm(ids, attention_mask=mask)
         b = pm(ids, kv_lens=torch.tensor([9], dtype=torch.int32))
     torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_dense_mask_off_cpu_raises():
+    """The dense path is the CPU's alone: on any other device a dense
+    attn_mask raises rather than running plain attention there (the meta
+    device stands in for the card)."""
+    q = torch.empty(1, 8, 2, 64, device="meta")
+    keep = torch.ones(1, 1, 8, 8, dtype=torch.bool, device="meta")
+    with pytest.raises(NotImplementedError, match="kv_lens"):
+        port_F.scaled_dot_product_attention(q, q, q, attn_mask=keep,
+                                            is_causal=True)
 
 
 def test_load_numpy_state_is_strict(models):

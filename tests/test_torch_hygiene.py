@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch.framework import seed
 from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
 from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.ops import _build
@@ -65,6 +66,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ServingEngine(model, device="cuda")
     eng = ServingEngine(model, device="cpu", max_seq_len=64)
     assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        seed(0)
+    assert seed(0, device="cpu").device.type == "cpu"
 
 
 def test_import_builds_nothing():

@@ -73,7 +73,7 @@ def test_plain_decode_matches_pallas_and_ref(dtype, g):
 
 
 def test_cpu_decode_never_builds(monkeypatch):
-    def no_build(name):
+    def no_build(name, *args):
         raise AssertionError(f"CPU call reached the kernel build ({name})")
     monkeypatch.setattr(_build, "load", no_build)
     before = paged_flash_decode.launches
