@@ -21,15 +21,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
              max_seq_len=1024); both kernels' launch counters must be > 0
              and the free list must come back whole; 2 requests are served
              again on the CPU and must agree (prefill last-row logits
-             within 1e-3, first token equal).
+             within 1e-3, first token equal);
+5. flash-train — the flash forward (with dropout) and the two backward
+             kernels (dq; dk/dv) vs their plain twins at gpt3-345M training
+             shapes (B=8, H=16, D=64, S=1024, causal; f32 and bf16; dropout
+             0 and 0.1), plus kv_lens < S, kv_lens = 0, sq != sk, D=128 and
+             D=256; with V the identity the forward's dropped entries must
+             be exactly the twin's keep mask; times kernels, twins and
+             torch SDPA (forward, and its backward for dq and dk/dv);
+6. adamw   — the one-pass AdamW kernel vs its plain twin on a 1024x4096
+             leaf and the 50304x1024 embedding, coupled and decoupled
+             decay, plus an odd length and an unaligned view; times kernel,
+             twin and torch.optim.AdamW(fused=True);
+7. train   — gpt3-345M at full width and depth, f32 params on cuda,
+             dropout 0, through Engine(GPTPretrainingCriterion,
+             AdamW(1e-4, weight_decay=0.01, fused_kernel=True), bf16 AMP):
+             batch 8 x 1024 tokens from numpy seed 0, 3 warm-up steps and
+             10 timed steps with one sync at the end; per step 24 launches
+             of each flash kernel and one AdamW launch per eligible leaf
+             (146); the loss must be finite and fall; one step under
+             torch.profiler for the busy share and the top kernels;
+8. train-cpu — the same width cut to 2 layers, batch 1 x 256, f32 without
+             AMP: one train_batch on cuda and on the CPU from the same
+             weights (loss within 1e-4 relative; every gradient leaf within
+             1e-3 of its max-abs, the key bias, zero in exact arithmetic,
+             within 1e-3 of the largest gradient; params after the step
+             within 1e-5 where |grad| >= 1e-6 on both devices, within
+             2 * lr where Adam's first step is a step function of a grad
+             near eps), then 2 steps on cuda with attention dropout 0.1,
+             which must launch every flash kernel with dropout.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
-  bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa;
+  bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
+              the backward's grads, whose magnitudes pass 1, 2e-2 of
+              max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
+              3.1e-2;
   int8 1e-4 — both dequantize value * scale in f32 the same way; only
-              the summation order differs.
+              the summation order differs;
+  AdamW 1e-6 — the same f32 arithmetic, contracted into FMAs on the card.
 TF32 is switched off for matmuls and cuDNN so the plain twins and the
 model's projections compute in full f32.
+
+Each path's launch counts are set to 0 just before it is driven and read
+just after: the serving slice (phase 4) and the training slice (phase 7).
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
@@ -48,12 +83,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 FLOP/s on the
-# CUDA cores, the rate the kernels' f32 arithmetic runs at
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s on the
+# CUDA cores, and the dense bf16 tensor-core FLOP/s a bf16 function could
+# run at
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+ADAMW_TOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -91,10 +129,21 @@ def time_ms(torch, fn, iters=10, flush=None):
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak=F32_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def visible_pairs(b, sq, sk, lens, causal=True):
+    """(q, k) pairs a causal / key-length mask leaves visible: the work
+    this run's data needs."""
+    vis = 0
+    for bi in range(b):
+        kl = sk if lens is None else min(lens[bi], sk)
+        for r in range(sq):
+            vis += max(0, min(r + sk - sq + 1, kl)) if causal else kl
+    return vis
 
 
 # -- phases -------------------------------------------------------------------
@@ -158,11 +207,7 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
         row["library_ms"] = time_ms(torch, lambda: sdpa(
             qt, kt, vt, attn_mask=keep), flush=flush)
         # work this run's data needs: visible (q, k) pairs, causal + lens
-        vis = 0
-        for bi in range(b):
-            kl = sk if lens is None else min(lens[bi], sk)
-            for r in range(sq):
-                vis += max(0, min(r + sk - sq + 1, kl))
+        vis = visible_pairs(b, sq, sk, lens)
         esz = q.element_size()
         bytes_moved = (b * h * (sq + 2 * sk) * d * esz  # q, k, v read
                        + b * h * sq * d * esz            # o written
@@ -313,9 +358,10 @@ def phase_slice(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in WRAPPERS}
-    log(f"slice: kernel launches in the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"slice: kernel {name} never launched on the main path")
+    log(f"slice: kernel launches in the serving path: {launches}")
+    for name in ("flash_attention_fwd", "paged_flash_decode"):
+        check(launches[name] > 0,
+              f"slice: kernel {name} never launched on the serving path")
     check(eng.free_page_count == eng.num_pages - 1,
           f"slice: free pages {eng.free_page_count} != "
           f"{eng.num_pages - 1} after the run")
@@ -409,6 +455,491 @@ def profile_decode(torch, eng, prompts):
     return busy / wall
 
 
+# -- training: flash backward, AdamW, the slice -------------------------------
+
+def _err(a, b):
+    """(max |a - b|, max |a - b| / max(1, |b|)) in f32."""
+    diff = (a.float() - b.float()).abs()
+    return (diff.max().item(),
+            (diff / b.float().abs().clamp_min(1.0)).max().item())
+
+
+def _check_grad(name, dtype, a, b, where):
+    err, scaled = _err(a, b)
+    ok = err <= TOL[dtype] if dtype == "float32" else scaled <= TOL[dtype]
+    check(math.isfinite(err) and ok,
+          f"flash-train {where}: {name} max_abs_err {err} (of max(1, "
+          f"|twin|): {scaled}) over the {dtype} tolerance {TOL[dtype]}")
+    return err
+
+
+def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
+                      flush, timed):
+    """The three flash kernels vs their twins on one input; the backward
+    twins take the kernels' own forward outputs (o, lse) and the dq
+    kernel's delta, so each kernel is held against its twin on the same
+    inputs."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    dt = getattr(torch, dtype)
+    mk = lambda s: torch.randn(b * h, s, d, generator=gen,  # noqa: E731
+                               device="cuda").to(dt)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    lens_t = None if lens is None else torch.tensor(
+        [x for x in lens for _ in range(h)], dtype=torch.int32,
+        device="cuda")
+    seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
+    rest = (lens_t, seed, True, None, dropout)
+    o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
+    dq, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest)
+    dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
+    torch.cuda.synchronize()
+    where = (f"{dtype} b{b} h{h} sq{sq} sk{sk} d{d} lens{lens} "
+             f"dropout{dropout}")
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest)
+    pdq, pdelta = kfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
+                                                   *rest)
+    pdk, pdv = kfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                 *rest)
+    row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
+               dropout=dropout)
+    row["err"] = {n: _check_grad(n, dtype, a, p, where) for n, a, p in (
+        ("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
+    # lse as phase 2 holds it; delta, a sum of D products, to 1e-4 of
+    # max(1, |twin|)
+    e = _err(lse, plse)[0]
+    check(math.isfinite(e) and e <= 1e-3,
+          f"flash-train {where}: lse max_abs_err {e}")
+    e2, scaled = _err(delta, pdelta)
+    check(math.isfinite(scaled) and scaled <= 1e-4,
+          f"flash-train {where}: delta max_abs_err {e2} ({scaled} of "
+          "max(1, |twin|))")
+    row["err"].update(lse=e, delta=e2)
+    del po, pdq, pdk, pdv
+    if not timed:
+        return row
+    fwd = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
+    kern = {"fwd": fwd,
+            "dq": lambda: kfa.flash_attention_bwd_dq(
+                q, k, v, o, do, lse, *rest),
+            "dkv": lambda: kfa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, *rest)}
+    plain = {"fwd": lambda: kfa.flash_attention_fwd_plain(q, k, v, *rest),
+             "dq": lambda: kfa.flash_attention_bwd_dq_plain(
+                 q, k, v, o, do, lse, *rest),
+             "dkv": lambda: kfa.flash_attention_bwd_dkv_plain(
+                 q, k, v, do, lse, delta, *rest)}
+    row["ms"] = {n: time_ms(torch, f, flush=flush) for n, f in kern.items()}
+    row["plain_ms"] = {n: time_ms(torch, f, flush=flush)
+                       for n, f in plain.items()}
+    # torch SDPA on the same function, as the yardstick: its forward for
+    # the forward kernel, its backward (dq, dk and dv in one call) for each
+    # of the two backward kernels
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.view(b, h, -1, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                           dropout_p=dropout)
+    out = lib_fwd()
+    dout = do.view(b, h, sq, d)
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        out, (qt, kt, vt), dout, retain_graph=True)
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(torch, lib_fwd, flush=flush)
+    lib_bwd_ms = time_ms(torch, lib_bwd, flush=flush)
+    row["library_ms"] = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms,
+                         "dkv": lib_bwd_ms}
+    del out, qt, kt, vt
+    pairs = h * visible_pairs(b, sq, sk, lens)  # over every head
+    esz = q.element_size()
+    nq, nk = b * h * sq * d, b * h * sk * d
+    stat = b * h * sq * 4
+    work = {  # bytes (each input read once, each output written once), FLOPs
+        "fwd": ((nq + 2 * nk + nq) * esz + stat, 4 * d * pairs),
+        "dq": ((3 * nq + 2 * nk + nq) * esz + 2 * stat, 6 * d * pairs),
+        "dkv": ((2 * nq + 2 * nk + 2 * nk) * esz + 2 * stat, 8 * d * pairs),
+    }
+    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    row["bound"] = {n: bound(*w, peak=peak) for n, w in work.items()}
+    return row
+
+
+def _check_keep_mask(torch, s, d, dtype, gen):
+    """With V the identity (sk = D), the forward kernel's o is the dropped
+    probability matrix divided by its row sum: its zeros are exactly the
+    dropped or masked entries, which must be the twin's keep mask."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    bh, rate = 4, 0.1
+    dt = getattr(torch, dtype)
+    q = torch.randn(bh, s, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(bh, s, d, generator=gen, device="cuda").to(dt)
+    v = torch.eye(s, device="cuda").expand(bh, s, d).contiguous().to(dt)
+    seed = torch.tensor([987654], dtype=torch.int32, device="cuda")
+    o, _ = kfa.flash_attention_fwd(q, k, v, None, seed, True, None, rate)
+    keep = kfa.dropout_keep(seed, bh, s, s, rate, "cuda")
+    visible = kfa._visible(s, s, None, True, "cuda")
+    want_zero = ~(keep & visible)
+    same = torch.equal(o == 0, want_zero)
+    check(same, f"flash-train: forward keep mask differs from the twin's "
+          f"({dtype}, S={s}, D={d}): {(o == 0).ne(want_zero).sum().item()} "
+          "entries")
+    po, _ = kfa.flash_attention_fwd_plain(q, k, v, None, seed, True, None,
+                                          rate)
+    check(torch.equal(po == 0, want_zero), "flash-train: the twin's zeros "
+          "are not its keep mask")
+    log(f"flash-train: keep mask {dtype} S={s} D={d}: kernel zeros == "
+        f"twin keep mask on all {want_zero.numel()} entries "
+        f"({want_zero.float().mean().item():.4f} dropped or masked)")
+
+
+def phase_flash_train(torch, flush):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    _check_keep_mask(torch, 64, 64, "float32", gen)
+    _check_keep_mask(torch, 128, 128, "bfloat16", gen)
+    rows = []
+    for dropout in (0.0, 0.1):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(_flash_train_case(torch, 8, 16, 1024, 1024, 64,
+                                          dtype, None, dropout, gen, flush,
+                                          timed=True))
+    for dtype in ("float32", "bfloat16"):
+        rows.append(_flash_train_case(torch, 2, 4, 256, 256, 64, dtype,
+                                      [200, 256], 0.1, gen, flush, False))
+    rows += [
+        _flash_train_case(torch, 2, 2, 64, 64, 64, "float32", [0, 64], 0.1,
+                          gen, flush, False),
+        _flash_train_case(torch, 2, 4, 96, 320, 64, "float32", [320, 150],
+                          0.1, gen, flush, False),
+        _flash_train_case(torch, 1, 4, 320, 96, 64, "float32", None, 0.0,
+                          gen, flush, False),
+        _flash_train_case(torch, 1, 8, 256, 256, 128, "float32", [200], 0.1,
+                          gen, flush, False),
+        _flash_train_case(torch, 1, 8, 256, 256, 128, "bfloat16", None, 0.1,
+                          gen, flush, False),
+        _flash_train_case(torch, 1, 2, 64, 64, 256, "float32", [50], 0.1,
+                          gen, flush, False),
+    ]
+    for r in rows:
+        errs = " ".join(f"{n} {e:.2e}" for n, e in r["err"].items())
+        log(f"flash-train: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
+            f"sk{r['sk']} d{r['d']} lens{r['lens']} dropout{r['dropout']} "
+            f"max_abs_err {errs}")
+        for n in r.get("ms", {}):
+            bms, by = r["bound"][n]
+            log(f"flash-train:   {n:4s} ms {r['ms'][n]:.4f} plain_ms "
+                f"{r['plain_ms'][n]:.4f} library_ms {r['library_ms'][n]:.4f}"
+                f" bound_ms {bms:.4f} ({by}, "
+                f"{'bf16 tensor-core' if r['dtype'] == 'bfloat16' else 'f32'}"
+                f" peak)")
+    return rows
+
+
+def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
+                offset=0):
+    from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+    shape = (n_or_shape,) if isinstance(n_or_shape, int) else n_or_shape
+    n = math.prod(shape)
+    mk = lambda: torch.randn(n + offset, generator=gen,  # noqa: E731
+                             device="cuda")[offset:].view(shape)
+    p, m, g = mk(), mk() * 0.1, mk()
+    v = mk().abs() * 0.01
+    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              decoupled=decoupled)
+    step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)  # lr, bc1, bc2 at step 3
+    kern = [x.clone() if not offset else x for x in (p, m, v)]
+    twin = [x.clone() for x in (p, m, v)]
+    ka.fused_adamw_update(*kern, g, *step, **hp)
+    ka.adamw_update_plain(*twin, g, *step, **hp)
+    torch.cuda.synchronize()
+    err = max(_err(a, b)[0] for a, b in zip(kern, twin))
+    check(math.isfinite(err) and err <= ADAMW_TOL,
+          f"adamw {shape} decoupled={decoupled} offset={offset}: "
+          f"max_abs_err {err} > {ADAMW_TOL}")
+    row = dict(shape=shape, decoupled=decoupled, offset=offset,
+               max_abs_err=err)
+    if timed:
+        row["ms"] = time_ms(torch, lambda: ka.fused_adamw_update(
+            *kern, g, *step, **hp), flush=flush)
+        row["plain_ms"] = time_ms(torch, lambda: ka.adamw_update_plain(
+            *twin, g, *step, **hp), flush=flush)
+        lp = torch.nn.Parameter(p.clone())
+        lp.grad = g
+        lib = torch.optim.AdamW([lp], lr=1e-4, weight_decay=0.01,
+                                fused=True)
+        row["library_ms"] = time_ms(torch, lib.step, flush=flush)
+        # read p, m, v, g once and write p, m, v once: 28 bytes a value
+        row["bound_ms"], row["bound_by"] = bound(28 * n, 15 * n)
+    return row
+
+
+def phase_adamw(torch, flush):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape in ((1024, 4096), (50304, 1024)):
+        for decoupled in (True, False):
+            rows.append(_adamw_case(torch, shape, decoupled, gen, flush,
+                                    timed=True))
+    # a length with a ragged float4 tail, and a view 4 bytes off alignment
+    rows.append(_adamw_case(torch, 16411, True, gen, flush, False))
+    rows.append(_adamw_case(torch, 20000, True, gen, flush, False, offset=1))
+    for r in rows:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+        log(f"adamw: {r['shape']} decoupled={r['decoupled']} offset="
+            f"{r['offset']} max_abs_err {r['max_abs_err']:.3e}{extra}")
+    return rows
+
+
+def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
+                                          GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, device=device,
+                           generator=seed(weight_seed, device=device)).train()
+    eng = Engine(model, loss=GPTPretrainingCriterion(),
+                 optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 fused_kernel=True), amp_dtype=amp)
+    return model, eng
+
+
+def _batch(cfg, b, s, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = rng.integers(0, cfg.vocab_size, (b, s))
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def phase_train(torch):
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels.fused_adamw import \
+        fused_adamw_supported
+    b, s, warm, steps = 8, 1024, 3, 10
+    cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    t0 = time.perf_counter()
+    model, eng = _train_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+    ids, labels = _batch(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    log(f"train: gpt3-345M built on cuda in {time.perf_counter() - t0:.2f} "
+        f"s ({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{cfg.num_hidden_layers} layers); batch {b} x {s}, bf16 AMP, "
+        "AdamW(1e-4, weight_decay=0.01, fused_kernel=True)")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch([ids], [labels])[0])
+        torch.cuda.synchronize()
+        log(f"train: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
+            f"loss {losses[-1].item():.4f}")
+    opt = eng.optimizer
+    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
+                                         opt._state[n]["v"])
+                   for n, p in model.named_parameters())
+    log(f"train: {eligible} of {len(opt._state)} leaves eligible for the "
+        "AdamW kernel")
+    # every weight matrix (6 a layer) and both embeddings: 146 at 24 layers;
+    # the biases and LayerNorm parameters stay on the plain path
+    want = 6 * cfg.num_hidden_layers + 2
+    check(eligible == want, f"train: {eligible} eligible AdamW leaves, want "
+          f"{want} (every weight matrix and both embeddings)")
+
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(eng.train_batch([ids], [labels])[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    log(f"train: kernel launches over {steps} steps: {launches}")
+    per_layer = cfg.num_hidden_layers * steps
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(launches[name] == per_layer, f"train: {name} launched "
+              f"{launches[name]} times in {steps} steps, want {per_layer}")
+    check(launches["fused_adamw_update"] == eligible * steps,
+          f"train: fused_adamw_update launched "
+          f"{launches['fused_adamw_update']} times, want {eligible * steps}")
+    vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in vals), f"train: loss {vals}")
+    check(vals[-1] < vals[0], f"train: loss did not fall: {vals}")
+    tok_s = b * s * steps / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms"
+        f"/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> {vals[-1]:.4f};"
+        f" max_memory_allocated {peak_gb:.2f} GiB")
+    prof = profile_train(torch, eng, ids, labels)
+    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+                ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
+                losses=vals, **prof)
+
+
+def profile_train(torch, eng, ids, labels):
+    """One training step under torch.profiler: the device's busy share of
+    the step's wall time, the kernels that take the device time, and the
+    share of the port's own kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.train_batch([ids], [labels])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    busy = sum(a.self_device_time_total for a in rows) / 1e6
+    if busy <= 0:
+        log("profile: the profiler recorded no device time; training busy "
+            "share not measured")
+        return dict(busy_share=None, kernel_share=None)
+    own = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+           "flash_bwd_dkv_kernel": 0.0, "adamw_kernel": 0.0}
+    for a in rows:
+        for name in own:
+            if name in a.key:
+                own[name] += a.self_device_time_total / 1e6
+    log(f"profile: one training step: wall {wall * 1e3:.3f} ms under the "
+        f"profiler, device busy {busy * 1e3:.3f} ms = {busy / wall:.3f} "
+        "of it")
+    for name, t in own.items():
+        log(f"profile:   {name}: {t * 1e3:.3f} ms = {t / busy:.3f} of the "
+            "device time")
+    for a in rows[:10]:
+        log(f"profile:   {a.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<5d} {a.key[:90]}")
+    host = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU),
+                  key=lambda a: a.self_cpu_time_total, reverse=True)
+    log(f"profile: host time by op (self), of {wall * 1e3:.3f} ms:")
+    for a in host[:8]:
+        log(f"profile:   {a.self_cpu_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<5d} {a.key[:90]}")
+    return dict(busy_share=busy / wall,
+                kernel_share={n: t / busy for n, t in own.items()})
+
+
+def phase_train_cpu(torch):
+    """The training step on the card vs on the CPU, same weights; then
+    attention dropout on the card."""
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion, \
+        _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    cfg = _resolve_config("gpt3-345M", num_hidden_layers=2,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    gm, geng = _train_engine(torch, cfg, "cuda", weight_seed=1)
+    cm, ceng = _train_engine(torch, cfg, "cpu")
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    batches = {dev: _batch(cfg, 1, 256, dev) for dev in ("cuda", "cpu")}
+    crit = GPTPretrainingCriterion()
+    grads = {}
+    for dev, m in (("cuda", gm), ("cpu", cm)):
+        ids, labels = batches[dev]
+        crit(m(ids), labels).backward()
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in
+                      m.named_parameters()}
+        for p in m.parameters():
+            p.grad = None
+    # every leaf within 1e-3 of its max-abs; the key bias is zero in exact
+    # arithmetic (softmax ignores a shift shared by every key), so on both
+    # devices it is rounding noise, held to 1e-3 of the model's largest
+    # gradient instead
+    scale = max(g.abs().max().item() for g in grads["cpu"].values())
+    worst, noise = 0.0, 0.0
+    for n, g in grads["cpu"].items():
+        if n.endswith("k_proj.bias"):
+            noise = max(noise, g.abs().max().item(),
+                        grads["cuda"][n].abs().max().item())
+            continue
+        rel = (grads["cuda"][n] - g).abs().max().item() / max(
+            g.abs().max().item(), 1e-30)
+        check(math.isfinite(rel) and rel <= 1e-3,
+              f"train-cpu: grad {n} differs by {rel} of its max-abs")
+        worst = max(worst, rel)
+    check(noise <= 1e-3 * scale, f"train-cpu: key-bias grads reach {noise}, "
+          f"not noise against the largest gradient {scale}")
+    loss = {dev: e.train_batch([batches[dev][0]], [batches[dev][1]])[0]
+            .item() for dev, e in (("cuda", geng), ("cpu", ceng))}
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    check(rel <= 1e-4, f"train-cpu: loss cuda {loss['cuda']} vs cpu "
+          f"{loss['cpu']} ({rel} relative)")
+    # Adam's first step moves an element by lr * g / (|g| + eps): flat to
+    # 1 % of lr where |g| >= 1e-6 = 100 eps on both devices, but a step
+    # function of g near eps, where grads that agree to 1e-3 of their
+    # leaf's max-abs can still move it by different fractions of lr. The
+    # flat part is held to 1e-5, the rest to 2 * lr.
+    lr = geng.optimizer.get_lr()
+    perr, worst_leaf, steep_err, n_steep = 0.0, "", 0.0, 0
+    for (n, a), b in zip(gm.named_parameters(), cm.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        steep = ((grads["cpu"][n].abs() < 1e-6)
+                 | (grads["cuda"][n].abs() < 1e-6))
+        if (~steep).any() and diff[~steep].max().item() > perr:
+            perr, worst_leaf = diff[~steep].max().item(), n
+        if steep.any():
+            steep_err = max(steep_err, diff[steep].max().item())
+            n_steep += int(steep.sum().item())
+    check(perr <= 1e-5, f"train-cpu: params after the step differ by {perr}"
+          f" ({worst_leaf})")
+    check(steep_err <= 2 * lr, f"train-cpu: params with |grad| < 1e-6 "
+          f"differ by {steep_err} after the step, more than 2 * lr")
+    log(f"train-cpu: 2 layers, batch 1 x 256, f32: loss cuda "
+        f"{loss['cuda']:.6f} cpu {loss['cpu']:.6f} ({rel:.2e} relative); "
+        f"worst grad leaf {worst:.2e} of its max-abs over "
+        f"{len(grads['cpu'])} leaves (key-bias grads, zero in exact "
+        f"arithmetic: {noise:.2e} against the largest gradient "
+        f"{scale:.2e}); params after the step max_abs_err {perr:.2e} "
+        f"({worst_leaf}) where |grad| >= 1e-6, {steep_err:.2e} over the "
+        f"{n_steep} elements where |grad| < 1e-6 on a device")
+
+    # attention dropout on the card: every flash launch passes its rate
+    # through _drop_args once; record the rates and count the launches
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    rates, drop_args = [], kfa._drop_args
+
+    def recording(seed, dropout_p):
+        rates.append(dropout_p)
+        return drop_args(seed, dropout_p)
+
+    for w in WRAPPERS:
+        w.launches = 0
+    gm.config.attention_probs_dropout_prob = 0.1
+    kfa._drop_args = recording
+    try:
+        drop = [geng.train_batch([batches["cuda"][0]],
+                                 [batches["cuda"][1]])[0].item()
+                for _ in range(2)]
+    finally:
+        kfa._drop_args = drop_args
+        gm.config.attention_probs_dropout_prob = 0.0
+    check(all(math.isfinite(x) for x in drop), f"train-cpu: dropout loss "
+          f"{drop}")
+    want = 2 * cfg.num_hidden_layers
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    check(all(launches[n] == want for n in flash)
+          and len(rates) == 3 * want and set(rates) == {0.1},
+          f"train-cpu: flash launches {launches} with dropout rates "
+          f"{sorted(set(rates))} ({len(rates)} launches)")
+    log(f"train-cpu: 2 steps with attention dropout 0.1 on cuda: loss "
+        f"{drop[0]:.6f}, {drop[1]:.6f}; each flash kernel launched {want} "
+        "times, every launch with dropout 0.1")
+    return dict(loss_rel=rel, grad_rel=worst, param_err=perr)
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -436,23 +967,43 @@ def main():
     flush = scratch.zero_
     flash = phase_flash(torch, flush)
     decode = phase_decode(torch, flush)
+    ftrain = phase_flash_train(torch, flush)
+    adamw = phase_adamw(torch, flush)
     del scratch
     sl = phase_slice(torch)
+    tr = phase_train(torch)
+    phase_train_cpu(torch)
 
-    fmain = next(r for r in flash if r["dtype"] == "float32"
-                 and r["sq"] == 512)
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
+    # the training shape with dropout, bf16 as the slice runs it
+    fmain = next(r for r in ftrain if "ms" in r and r["dtype"] == "bfloat16"
+                 and r["dropout"])
+    amain = next(r for r in adamw if "ms" in r and r["decoupled"]
+                 and r["shape"] == (1024, 4096))
+
+    def flash_row(name, part, timing, source, replaces, errs=()):
+        bms, by = fmain["bound"][timing]
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=tr["launches"][name],
+            max_abs_err=max([r["err"][part] for r in ftrain
+                             if r["dtype"] == "float32"] + list(errs)),
+            ms=fmain["ms"][timing], plain_ms=fmain["plain_ms"][timing],
+            bound_ms=bms, bound_by=by,
+            library_ms=fmain["library_ms"][timing])
+
+    bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-             replaces="paddle_tpu/ops/pallas/flash_attention.py:309",
-             launches=sl["launches"]["flash_attention_fwd"],
-             max_abs_err=max(r["max_abs_err"] for r in flash
-                             if r["dtype"] == "float32"),
-             ms=fmain["ms"], plain_ms=fmain["plain_ms"],
-             bound_ms=fmain["bound_ms"], bound_by=fmain["bound_by"],
-             library_ms=fmain["library_ms"]),
+        flash_row("flash_attention_fwd", "o", "fwd",
+                  "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                  "paddle_tpu/ops/pallas/flash_attention.py:309",
+                  [r["max_abs_err"] for r in flash
+                   if r["dtype"] == "float32"]),
+        flash_row("flash_attention_bwd_dq", "dq", "dq", bwd_src,
+                  "paddle_tpu/ops/pallas/flash_attention.py:365"),
+        flash_row("flash_attention_bwd_dkv", "dk", "dkv", bwd_src,
+                  "paddle_tpu/ops/pallas/flash_attention.py:385"),
         dict(name="paged_flash_decode", route="cuda",
              source="paddle_tpu_torch/csrc/paged_flash_decode.cu",
              replaces="paddle_tpu/ops/pallas/flash_decode.py:99",
@@ -462,6 +1013,14 @@ def main():
              ms=dmain["ms"], plain_ms=dmain["plain_ms"],
              bound_ms=dmain["bound_ms"], bound_by=dmain["bound_by"],
              library_ms=None),
+        dict(name="fused_adamw_update", route="cuda",
+             source="paddle_tpu_torch/csrc/fused_adamw.cu",
+             replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+             launches=tr["launches"]["fused_adamw_update"],
+             max_abs_err=max(r["max_abs_err"] for r in adamw),
+             ms=amain["ms"], plain_ms=amain["plain_ms"],
+             bound_ms=amain["bound_ms"], bound_by=amain["bound_by"],
+             library_ms=amain["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

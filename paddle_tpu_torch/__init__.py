@@ -8,10 +8,13 @@ PyTorch twin that the CPU runs.
 
 Ported so far: the serving path of GPT (``nlp.serving.ServingEngine``
 over ``nlp.paged_cache``), with the flash-attention forward and paged
-decode kernels. ROADMAP.md lists what is still to come.
+decode kernels; and its training path (``hapi.engine.Engine`` or eager
+``loss.backward()`` + ``optimizer.step()``), with the flash-attention
+backward kernels, in-kernel attention dropout and the one-pass AdamW
+kernel. ROADMAP.md lists what is still to come.
 """
-from .framework import (convert_dtype, get_default_dtype,  # noqa: F401
-                        seed, set_default_dtype)
+from .framework import (bind_generator, convert_dtype,  # noqa: F401
+                        get_default_dtype, seed, set_default_dtype)
 from .device import resolve_device  # noqa: F401
 
 __version__ = "0.1.0"

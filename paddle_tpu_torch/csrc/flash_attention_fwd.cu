@@ -4,16 +4,23 @@
 // (_fwd_kernel, launched by _fwd_call). Same function: online-softmax
 // attention over q/k/v laid out [B*H, S, D], bottom-right causal masking
 // (key k visible to query row r when k <= r + sk - sq), per-(batch*head)
-// key lengths, f32 accumulation. Writes o [B*H, Sq, D] in the input dtype
-// and the row logsumexp lse [B*H, Sq] f32. A row with no visible key gives
-// o = 0 and lse = -1e30. Dropout is not part of this kernel.
+// key lengths, f32 accumulation and attention dropout. Writes o
+// [B*H, Sq, D] in the input dtype and the row logsumexp lse [B*H, Sq] f32.
+// A row with no visible key gives o = 0 and lse = -1e30. Dropout follows
+// the TPU kernel's order (flash-attn v2): the row sum l is taken over the
+// undropped p, and the kept p, scaled by 1/(1-rate) and rounded to the
+// input dtype as the reference rounds it, weighs V; the keep mask is
+// flash::dropout_keep (flash_common.cuh), which the backward
+// kernels regenerate bit for bit.
 //
-// What bounds it on the H100: operations. Prefill attention does
-// 4*Sq*Sk*D FLOPs per head (half that under the causal mask) over
-// 3 reads of S*D values, far above the card's ~295 FLOP/byte balance point.
-// This first version does its arithmetic on the CUDA cores in f32 (the
-// 67 TFLOP/s peak, not the 989 TFLOP/s bf16 tensor-core peak); wgmma and
-// TMA pipelining are later work. What the design does about the bound:
+// What bounds it on the H100: operations, at the rate it computes at.
+// Attention does 4*Sq*Sk*D FLOPs per head (half that under the causal
+// mask) over 4 S*D arrays read or written: at D=64, S=1024 ~256 FLOP per
+// bf16 byte, near the bf16 tensor cores' ~295 FLOP/byte balance point and
+// far above the CUDA cores' ~20. This first version does its arithmetic on
+// the CUDA cores in f32 (the 67 TFLOP/s peak, not the 989 TFLOP/s bf16
+// tensor-core peak); wgmma and TMA pipelining are later work. What the
+// design does about the bound:
 //   - one block per (batch*head, 64 query rows); 4 threads share a row,
 //     each owning D/4 of its dims in registers (q and the f32 accumulator),
 //     so the S x S score matrix never leaves registers;
@@ -22,49 +29,29 @@
 //     once per block and reused by all 64 rows;
 //   - tiles wholly above the causal diagonal or past the key length are
 //     never loaded; the ragged last tile is masked in place, so any
-//     sq, sk >= 1 work.
+//     sq, sk >= 1 work;
+//   - the dropout hash is a dozen integer operations per score, done in
+//     registers beside the exp; no mask ever reaches memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::kNegInf;
+using flash::load4;
+using flash::store4;
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 4;
 constexpr int kTileElems = 4096;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lens,
                  T* __restrict__ o, float* __restrict__ lse, int sq, int sk,
-                 int causal, float sm_scale) {
+                 int causal, float sm_scale, const int* __restrict__ seed,
+                 uint32_t thresh, float keep_prob) {
   constexpr int BK = kTileElems / D;  // keys per tile
   constexpr int V4 = D / 16;          // float4 chunks of a row per thread
   constexpr int CHUNKS = D / 4;       // float4 chunks per row
@@ -86,6 +73,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   // last key this row may see (inclusive)
   const int row_limit = causal ? row + offset : sk;
+  const bool drop = seed != nullptr;
+  const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
 
   const size_t q_base = (size_t)bh * sq * D;
   const size_t kv_base = (size_t)bh * sk * D;
@@ -152,8 +141,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       // masked keys contribute exactly 0, also in a row with no key yet
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
-      s[j] = p;
-      psum += p;
+      psum += p;  // the row sum takes the undropped p
+      float p_drop = p;
+      if (drop)
+        p_drop = flash::dropout_keep(mix, row, k0 + j, sk, thresh)
+                     ? p / keep_prob : 0.f;
+      s[j] = flash::round_to<T>(p_drop);  // as the reference rounds p
     }
     l = l * alpha + psum;
 #pragma unroll
@@ -186,25 +179,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lens;
+  void* o;
+  float* lse;
+  int bh, sq, sk, causal;
+  float sm_scale;
+  const int* seed;
+  uint32_t thresh;
+  float keep_prob;
+  cudaStream_t stream;
+};
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const int* lens,
-            void* o, float* lse, int bh, int sq, int sk, int causal,
-            float sm_scale, cudaStream_t stream) {
-  dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, static_cast<T*>(o), lse, sq, sk, causal,
-      sm_scale);
+void launch(const Args& a) {
+  dim3 grid((a.sq + kRowsPerBlock - 1) / kRowsPerBlock, a.bh);
+  flash_fwd_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.lse, a.sq,
+      a.sk, a.causal, a.sm_scale, a.seed, a.thresh, a.keep_prob);
 }
 
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const int* lens, void* o, float* lse, int bh, int sq, int sk,
-               int causal, float sm_scale, cudaStream_t stream) {
+int dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 64: launch<T, 64>(q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, stream); break;
-    case 128: launch<T, 128>(q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, stream); break;
-    case 256: launch<T, 256>(q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, stream); break;
+    case 64: launch<T, 64>(a); break;
+    case 128: launch<T, 128>(a); break;
+    case 256: launch<T, 256>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -213,17 +217,20 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, o: [bh, s, d] contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// lens: [bh] int32 or null; lse: [bh, sq] f32. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// lens: [bh] int32 or null; lse: [bh, sq] f32; seed: one int32 on the
+// device, or null for no dropout; thresh = int(rate * 2^24) and
+// keep_prob = 1 - rate. Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const int* lens, void* o, float* lse, int bh,
                                    int sq, int sk, int d, int causal,
-                                   float sm_scale, int is_bf16, void* stream) {
+                                   float sm_scale, const int* seed,
+                                   unsigned thresh, float keep_prob,
+                                   int is_bf16, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = is_bf16
-      ? dispatch_d<__nv_bfloat16>(d, q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, st)
-      : dispatch_d<float>(d, q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, st);
+  const Args a{q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, seed,
+               thresh, keep_prob, static_cast<cudaStream_t>(stream)};
+  const int err = is_bf16 ? dispatch_d<__nv_bfloat16>(d, a) : dispatch_d<float>(d, a);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,74 @@
+// Shared device helpers of the flash-attention kernels (forward and
+// backward): f32/bf16 vector loads and stores, and the attention-dropout
+// keep mask.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;  // the masked-score sentinel
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  uint2 raw = *reinterpret_cast<const uint2*>(p);
+  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
+  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&a);
+  raw.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// x rounded to T and back: the reference rounds the probabilities and ds
+// to the input dtype before each product with V, K, Q or dO (an identity
+// for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+}
+
+// Attention dropout, bit for bit the TPU kernel's _dropout_keep
+// (paddle_tpu/ops/pallas/flash_attention.py): a murmur3 finalizer over the
+// global element position gid = q_pos * sk + k_pos (uint32, wrapping),
+// xor-ed with the seed and the folded batch*head index. The element is kept
+// when the top 24 bits of the hash reach thresh = int(rate * 2^24). Forward
+// and backward kernels regenerate the same mask; none is stored.
+__device__ __forceinline__ uint32_t dropout_mix(int seed, int bh) {
+  return (uint32_t)seed * 0x9E3779B9u + (uint32_t)bh * 0x85EBCA6Bu;
+}
+
+__device__ __forceinline__ bool dropout_keep(uint32_t mix, int q_pos,
+                                             int k_pos, int sk,
+                                             uint32_t thresh) {
+  uint32_t x = ((uint32_t)q_pos * (uint32_t)sk + (uint32_t)k_pos) ^ mix;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (x >> 8) >= thresh;
+}
+
+}  // namespace flash

@@ -1,3 +1,4 @@
 """fleet subset of the port: the single-device mp layers."""
-from .mpu import (ColumnParallelLinear, RowParallelLinear,  # noqa: F401
-                  VocabParallelEmbedding, parallel_matmul)
+from .mpu import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
+                  RowParallelLinear, VocabParallelEmbedding,
+                  parallel_matmul)

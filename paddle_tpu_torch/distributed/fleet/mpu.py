@@ -10,10 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from torch import nn
+
+from ...nn import functional as F
 from ...nn.layers_common import Embedding, Linear
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "parallel_matmul"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "parallel_matmul"]
 
 
 class ColumnParallelLinear(Linear):
@@ -40,3 +44,17 @@ def parallel_matmul(x, weight, transpose_y=False):
     """Logits against a (vocab-parallel) table: x @ weight(.T) — the tied
     LM head."""
     return torch.matmul(x, weight.t() if transpose_y else weight)
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Softmax cross entropy per position over the (vocab-parallel)
+    logits, the reference's single-device path: f32 log-softmax, 0 where
+    label == ignore_index. Returns the unreduced [...] f32 loss."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, label):
+        return F.cross_entropy(logits, label, ignore_index=self.ignore_index,
+                               reduction="none")

@@ -1,8 +1,11 @@
 """Core framework state of the PyTorch port: default dtype and seeding.
 
 Counterpart of ``paddle_tpu/framework.py``. The JAX package keeps a global
-PRNG key stream; here randomness is an explicit ``torch.Generator`` that
-the caller creates (``seed``) and passes to whatever draws from it.
+PRNG key stream (``next_rng_key``); here randomness is an explicit
+``torch.Generator`` that the caller creates (``seed``) and passes to
+whatever draws from it. A model holds one generator on its device, from
+which hidden dropout and the attention-dropout seed both draw;
+``bind_generator`` points a model at another one (an Engine's).
 """
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype", "seed"]
+__all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype", "seed",
+           "bind_generator"]
 
 _DTYPE_ALIASES = {
     "float16": torch.float16, "fp16": torch.float16,
@@ -54,3 +58,13 @@ def seed(s=None, device=None, generator=None):
     else:
         g.manual_seed(int(s))
     return g
+
+
+def bind_generator(module, generator):
+    """Point every submodule of ``module`` that draws random numbers (one
+    with a ``generator`` attribute: ``nn.Dropout``, GPT's attention) at
+    ``generator``. Returns the module."""
+    for m in module.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+    return module

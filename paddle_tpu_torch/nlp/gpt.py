@@ -1,4 +1,4 @@
-"""GPT of the port, serving subset (counterpart of
+"""GPT of the port, serving and training (counterpart of
 ``paddle_tpu/nlp/gpt.py``).
 
 Same modules, parameter names and ``[in, out]`` weights as the reference,
@@ -10,7 +10,15 @@ Attention: with no cache, ``F.scaled_dot_product_attention`` runs the
 flash-attention forward (the CUDA kernel on the card). Serving prefill
 passes ``kv_lens=[true_len]`` — the reference's padding mask expressed as
 key lengths, the same rows through the same kernel. A
-``PagedLayerCache`` routes each layer through the paged decode kernel.
+``PagedLayerCache`` routes each layer through the paged decode kernel. In
+train mode the same flash path is differentiable (the backward kernels
+on the card) and runs attention dropout in the kernel.
+
+Randomness: the model holds one ``torch.Generator`` on its device
+(``generator``, or a fresh one seeded nondeterministically): weights are
+drawn from it at construction, and hidden dropout and the attention-
+dropout seed draw from it in training. ``framework.bind_generator``
+points the model at another (the Engine does, when given one).
 
 Not in this slice (each raises NotImplementedError): ``fused_ln``,
 ``fused_qkv``, ``scan_layers``, ``sequence_parallel``, ``chunked_ce``,
@@ -24,9 +32,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
+from ..distributed.fleet.mpu import (ColumnParallelLinear,
+                                     ParallelCrossEntropy, RowParallelLinear,
                                      VocabParallelEmbedding, parallel_matmul)
-from ..framework import convert_dtype, get_default_dtype
+from ..framework import convert_dtype, get_default_dtype, seed
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerList
 from ..nn.layers_norm import LayerNorm
@@ -34,7 +43,8 @@ from .modeling_utils import normalize_attention_mask
 from .paged_cache import PagedLayerCache, paged_layer_forward
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "GPTAttention", "GPTMLP",
-           "GPTDecoderLayer", "GPTEmbeddings", "GPTModel", "GPTForCausalLM"]
+           "GPTDecoderLayer", "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion"]
 
 _LATER = "is not ported yet (see ROADMAP.md, queue 1)"
 
@@ -106,6 +116,7 @@ class GPTAttention(nn.Module):
     def __init__(self, config, **kw):
         super().__init__()
         self.cfg = config
+        self.generator = kw.get("generator")  # the attention-dropout seed
         h = config.hidden_size
         std = config.initializer_range
         self.q_proj = ColumnParallelLinear(h, h, init_std=std, **kw)
@@ -128,7 +139,8 @@ class GPTAttention(nn.Module):
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.cfg.attention_probs_dropout_prob
             if self.training else 0.0,
-            is_causal=True, training=self.training, kv_lens=kv_lens)
+            is_causal=True, training=self.training, kv_lens=kv_lens,
+            generator=self.generator)
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
         return (out, (k, v)) if cache is not None else out
 
@@ -142,7 +154,8 @@ class GPTMLP(nn.Module):
         self.fc2 = RowParallelLinear(
             config.intermediate_size, config.hidden_size, init_std=std, **kw)
         self.act = getattr(F, config.hidden_act)
-        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               generator=kw.get("generator"))
 
     def forward(self, x):
         return self.dropout(self.fc2(self.act(self.fc1(x))))
@@ -158,7 +171,8 @@ class GPTDecoderLayer(nn.Module):
         self.ln_1 = LayerNorm(config.hidden_size, epsilon=eps,
                               device=device, dtype=dtype)
         self.attn = GPTAttention(config, **kw)
-        self.dropout1 = Dropout(config.hidden_dropout_prob)
+        self.dropout1 = Dropout(config.hidden_dropout_prob,
+                                generator=generator)
         self.ln_2 = LayerNorm(config.hidden_size, epsilon=eps,
                               device=device, dtype=dtype)
         self.mlp = GPTMLP(config, **kw)
@@ -186,7 +200,8 @@ class GPTEmbeddings(nn.Module):
             config.vocab_size, config.hidden_size, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
-        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               generator=generator)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
@@ -206,8 +221,10 @@ def _coerce_config(config, kwargs):
 
 class GPTModel(nn.Module):
     """ref: paddlenlp GPTModel. ``device`` defaults to CUDA (raises with no
-    GPU); weights draw from ``generator`` (a torch.Generator on that
-    device), dtype defaults to the framework default (float32)."""
+    GPU); weights, and dropout in training, draw from ``generator`` (a
+    torch.Generator on that device; None: a fresh one, seeded
+    nondeterministically), dtype defaults to the framework default
+    (float32)."""
 
     def __init__(self, config=None, *, device=None, dtype=None,
                  generator=None, **kwargs):
@@ -216,6 +233,8 @@ class GPTModel(nn.Module):
         self.config = config
         device = resolve_device(device)
         dtype = convert_dtype(dtype) or get_default_dtype()
+        if generator is None:
+            generator = seed(None, device)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.embeddings = GPTEmbeddings(config, **kw)
         self.h = LayerList([GPTDecoderLayer(config, **kw)
@@ -294,3 +313,20 @@ class GPTForCausalLM(nn.Module):
         raise NotImplementedError(
             f"GPTForCausalLM.generate() (static-cache decode) {_LATER}; "
             "serve through nlp.serving.ServingEngine")
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """ref: GPTPretrainingCriterion — the mean token cross entropy (f32,
+    through ParallelCrossEntropy), over the positions where ``loss_mask``
+    is 1 when one is given."""
+
+    def __init__(self, config=None):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
+        loss = self.ce(prediction_scores, masked_lm_labels)
+        if loss_mask is not None:
+            m = torch.as_tensor(loss_mask, device=loss.device).to(loss.dtype)
+            return (loss * m).sum() / m.sum()
+        return loss.mean()

@@ -5,7 +5,8 @@
 Parameter names and shapes are the reference's (``Linear.weight`` is
 ``[in, out]``), so ``state_dict`` keys match key for key. Every layer
 takes an explicit ``device`` and ``dtype``; initialisation draws from an
-explicit ``torch.Generator`` on that device (None: torch's default).
+explicit ``torch.Generator`` on that device (None: torch's default), and
+``Dropout`` draws only from the generator it holds.
 """
 from __future__ import annotations
 
@@ -74,12 +75,19 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """ref: nn.Dropout (upscale in train). Draws its mask from
+    ``generator``, given at construction or bound later by the model or
+    the Engine (``framework.bind_generator``); training with p > 0 and no
+    generator raises."""
+
+    def __init__(self, p=0.5, *, generator=None):
         super().__init__()
         self.p = p
+        self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, training=self.training,
+                         generator=self.generator)
 
 
 class LayerList(nn.ModuleList):

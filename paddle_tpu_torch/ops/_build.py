@@ -4,8 +4,8 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Libraries land in
 ``paddle_tpu_torch/_build/`` (gitignored) under a name that carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
 
 Nothing builds at import: the first CUDA call of a kernel wrapper builds
 its library (``load``), and ``build_all`` builds every source at once, one
@@ -52,8 +52,11 @@ def _nvcc():
 
 def _lib_path(name):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:16]}.so")
 
@@ -95,19 +98,20 @@ def build_all(names=None):
     return {n: (wall, log) for n, log in logs.items()}
 
 
-def load(name, argtypes):
-    """The C entry point ``name`` of kernel library ``name``, built and
-    loaded on first use and typed once: it takes ``argtypes`` and returns
-    ``cudaGetLastError()`` as an int."""
-    fn = _libs.get(name)
+def load(name, argtypes, symbol=None):
+    """The C entry point ``symbol`` (default: ``name``) of kernel library
+    ``name``, built and loaded on first use and typed once: it takes
+    ``argtypes`` and returns ``cudaGetLastError()`` as an int."""
+    key = (name, symbol or name)
+    fn = _libs.get(key)
     if fn is not None:
         return fn
     build_all([name])
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get(key)
         if fn is None:
-            fn = getattr(ctypes.CDLL(_lib_path(name)[1]), name)
+            fn = getattr(ctypes.CDLL(_lib_path(name)[1]), key[1])
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
-            _libs[name] = fn
+            _libs[key] = fn
     return fn

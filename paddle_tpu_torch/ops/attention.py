@@ -4,9 +4,11 @@
 Public layout is the reference's ``[batch, seq, heads, head_dim]``.
 Dispatch is by device, with no fallback: a CPU tensor runs the kernel's
 plain PyTorch twin, a CUDA tensor launches the hand-written kernel or
-raises. Unlike the TPU gate there is no sequence-multiple rule — the CUDA
-kernel masks its own ragged edge — and no environment switch for the
-paged decode kernel: on the card it is the decode path.
+raises. ``flash_attention`` is differentiable on both devices through one
+``torch.autograd.Function`` (``ops.kernels.flash_attention``). Unlike
+the TPU gate there is no sequence-multiple rule — the CUDA kernels mask
+their own ragged edge — and no environment switch for the paged decode
+kernel: on the card it is the decode path.
 """
 from __future__ import annotations
 
@@ -30,17 +32,17 @@ def _fold(x):
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
-                    dropout_p=0.0):
-    """[B, S, H, D] flash attention forward. kv_lens: optional [B] int —
-    key positions >= kv_lens[b] are masked. Rows with no visible key give
-    0. Attention dropout needs the TPU kernel's hash, which is not ported
-    yet (ROADMAP), so a nonzero dropout_p raises."""
-    if dropout_p:
-        raise NotImplementedError(
-            "flash_attention dropout is not ported yet (the murmur3 keep "
-            "mask comes with the backward kernels, see ROADMAP.md)")
+                    dropout_p=0.0, dropout_seed=0):
+    """[B, S, H, D] differentiable flash attention. kv_lens: optional [B]
+    int — key positions >= kv_lens[b] are masked. Rows with no visible key
+    give 0. dropout_p/dropout_seed: in-kernel attention dropout with the
+    TPU kernel's hash (the mask is regenerated in the backward, never
+    stored); dropout_seed is an int or a one-element int32 tensor (a
+    tensor on q's device keeps the call free of host syncs)."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"flash_attention: dropout_p {dropout_p} not in "
+                         "[0, 1)")
     b, sq, h, d = q.shape
-    sk = k.shape[1]
     if q.device.type == "cuda" and d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in "
                          f"{HEAD_DIMS} for the CUDA kernel")
@@ -48,8 +50,13 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
     if kv_lens is not None:
         lens = torch.as_tensor(kv_lens, dtype=torch.int32,
                                device=q.device).repeat_interleave(h)
-    o, _ = _fa.flash_attention_fwd(_fold(q), _fold(k), _fold(v), lens,
-                                   causal=causal, sm_scale=sm_scale)
+    seed = None
+    if dropout_p:
+        seed = torch.as_tensor(dropout_seed, dtype=torch.int32,
+                               device=q.device).reshape(1)
+    o = _fa.flash_attention_bhsd(_fold(q), _fold(k), _fold(v), lens, seed,
+                                 causal=causal, sm_scale=sm_scale,
+                                 dropout_p=dropout_p)
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 

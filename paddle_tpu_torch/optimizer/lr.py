@@ -1,0 +1,399 @@
+"""LR schedulers of the port (counterpart of ``paddle_tpu/optimizer/lr.py``,
+ref: python/paddle/optimizer/lr.py).
+
+A copy of the reference with its imports retargeted: it needs only
+``math``. Same semantics: scheduler.step() advances the epoch/step
+counter, the optimizer reads scheduler() each update. ``value_at(step)``
+is the schedule as a pure function of a step number (the reference takes
+a traced counter there; the port runs eagerly, so plain floats).
+"""
+from __future__ import annotations
+
+import math
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = float(learning_rate)
+        self.last_epoch = last_epoch
+        self.last_lr = self.base_lr
+        self.verbose = verbose
+        self.step()
+
+    def __call__(self):
+        return self.last_lr
+
+    def get_lr(self):
+        raise NotImplementedError
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state):
+        self.__dict__.update(state)
+
+    set_dict = set_state_dict
+
+    def value_at(self, step):
+        """Pure schedule value (may receive a traced int); default: current."""
+        return self.last_lr
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5 *
+                min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+    def value_at(self, step):
+        s = float(max(step, 1))
+        return (self.base_lr * self.d_model ** -0.5 *
+                min(s ** -0.5, s * self.warmup_steps ** -1.5))
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * max(div, 1)
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr) *
+                (1 - step / decay_steps) ** self.power + self.end_lr)
+
+    def value_at(self, step):
+        s = min(float(step), float(self.decay_steps))
+        return ((self.base_lr - self.end_lr) *
+                (1 - s / self.decay_steps) ** self.power + self.end_lr)
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.peak = learning_rate if not isinstance(learning_rate, LRScheduler) else None
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(end_lr if self.peak is None else self.peak,
+                         last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * \
+                self.last_epoch / max(self.warmup_steps, 1) + self.start_lr
+        if self.lr_sched is not None:
+            self.lr_sched.step()
+            return self.lr_sched()
+        return self.peak
+
+    def value_at(self, step):
+        if step < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * step / \
+                max(self.warmup_steps, 1) + self.start_lr
+        return self.end_lr if self.lr_sched is None else \
+            self.lr_sched.value_at(step - self.warmup_steps)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+    def value_at(self, step):
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * step / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_i = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        self.T_cur = last_epoch
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * self.T_cur / self.T_i)) / 2
+
+    def step(self, epoch=None):
+        if epoch is None:
+            epoch = self.last_epoch + 1
+            self.T_cur += 1
+            if self.T_cur >= self.T_i:
+                self.T_cur -= self.T_i
+                self.T_i *= self.T_mult
+        else:
+            if epoch >= self.T_0:
+                if self.T_mult == 1:
+                    self.T_cur = epoch % self.T_0
+                else:
+                    n = int(math.log(epoch / self.T_0 * (self.T_mult - 1) + 1,
+                                     self.T_mult))
+                    self.T_cur = epoch - self.T_0 * (self.T_mult ** n - 1) / \
+                        (self.T_mult - 1)
+                    self.T_i = self.T_0 * self.T_mult ** n
+            else:
+                self.T_i = self.T_0
+                self.T_cur = epoch
+        self.last_epoch = math.floor(epoch)
+        self.last_lr = self.get_lr()
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+    def state_dict(self):
+        d = super().state_dict()
+        d.pop("lr_lambda", None)
+        return d
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cum = 1.0
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cum *= self.lr_lambda(self.last_epoch)
+        return self.base_lr * self._cum
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        from ..tensor import Tensor
+        cur = float(metrics.item() if isinstance(metrics, Tensor) else metrics)
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            return
+        better = False
+        if self.best is None:
+            better = True
+        elif self.mode == "min":
+            thr = self.best * (1 - self.threshold) \
+                if self.threshold_mode == "rel" else self.best - self.threshold
+            better = cur < thr
+        else:
+            thr = self.best * (1 + self.threshold) \
+                if self.threshold_mode == "rel" else self.best + self.threshold
+            better = cur > thr
+        if better:
+            self.best = cur
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+            if self.num_bad_epochs > self.patience:
+                self.last_lr = max(self.last_lr * self.factor, self.min_lr)
+                self.cooldown_counter = self.cooldown
+                self.num_bad_epochs = 0
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        self.three_phase = three_phase
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return start + (end - start) * pct
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = self.phase_pct * self.total_steps
+        if step <= up:
+            return self._interp(self.initial_lr, self.max_lr, step / max(up, 1))
+        return self._interp(self.max_lr, self.end_lr,
+                            (step - up) / max(self.total_steps - up, 1))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_up:
+            pct = x / self.step_up
+        else:
+            pct = 1 - (x - self.step_up) / self.step_down
+        base_height = (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            arg = cycle if self.scale_mode == "cycle" else self.last_epoch
+            scale = self.scale_fn(arg)
+        elif self.mode == "triangular":
+            scale = 1.0
+        elif self.mode == "triangular2":
+            scale = 1.0 / (2 ** (cycle - 1))
+        else:  # exp_range
+            scale = self.exp_gamma ** self.last_epoch
+        return self.base_lr + base_height * scale
+
+
+class LinearLR(LRScheduler):
+    """ref: paddle.optimizer.lr.LinearLR — linearly interpolate the factor
+    from start_factor to end_factor over total_steps."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        if total_steps <= 0:
+            raise ValueError("total_steps must be positive")
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        frac = t / self.total_steps
+        factor = self.start_factor + (self.end_factor
+                                      - self.start_factor) * frac
+        return self.base_lr * factor

@@ -1,0 +1,211 @@
+"""Optimizers of the port: ``Optimizer``, ``Adam`` and ``AdamW``
+(counterpart of ``paddle_tpu/optimizer/optimizer.py``, ref:
+python/paddle/optimizer/optimizer.py, adam.py, adamw.py).
+
+One update core serves both ways of training, as in the reference:
+``step()`` reads ``param.grad`` (eager ``loss.backward(); opt.step()``),
+and ``hapi.Engine.train_batch`` hands its grads to ``_apply`` with its own
+update counter. Updates are in place under ``torch.no_grad()``; state is
+kept per parameter name.
+
+``parameters`` is an iterable of tensors (named ``param_<i>``) or of
+``(name, tensor)`` pairs such as ``model.named_parameters()``; the names
+are what ``apply_decay_param_fun`` sees, as the reference's structured
+parameter names.
+
+``Adam(fused_kernel=True)`` / ``AdamW(fused_kernel=True)``: every leaf
+that ``ops.kernels.fused_adamw.fused_adamw_supported`` admits (f32 p, m
+and v, at least 16384 elements) goes through the one-pass update kernel
+— the reference's documented per-leaf rule; the others, and every leaf
+under ``amsgrad``, take the plain path. Not ported (each raises
+NotImplementedError, see ROADMAP.md): ``moment_dtype="bfloat16"`` (the
+reference's stochastically rounded moments), ``multi_precision`` master
+weights and parameter groups.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..nn.clip import ClipGradBase
+from ..ops.kernels.fused_adamw import (adamw_update_plain,
+                                       fused_adamw_supported,
+                                       fused_adamw_update)
+from .lr import LRScheduler
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+_LATER = "is not ported yet (see ROADMAP.md, queue 1)"
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None, apply_decay_param_fun=None):
+        if multi_precision:
+            raise NotImplementedError(f"multi_precision master weights "
+                                      f"{_LATER}")
+        self._lr = learning_rate
+        self._parameter_list = self._normalize_params(parameters)
+        self._weight_decay = float(weight_decay or 0.0)
+        self._grad_clip = grad_clip
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._step_count = 0
+        self._state = {}  # parameter name -> {slot: tensor}
+
+    @staticmethod
+    def _normalize_params(parameters):
+        """[(name, tensor)] from tensors or (name, tensor) pairs."""
+        if parameters is None:
+            return None
+        named = []
+        for i, p in enumerate(parameters):
+            if isinstance(p, dict):
+                raise NotImplementedError(f"parameter groups {_LATER}")
+            named.append(p if isinstance(p, tuple) else (f"param_{i}", p))
+        return named
+
+    # -- lr ----------------------------------------------------------------
+    def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
+        return float(self._lr)
+
+    # -- the update core (override per optimizer) ---------------------------
+    def update(self, names, params, grads, lr, step):
+        """Update ``params`` in place from ``grads`` at optimizer step
+        ``step`` (1-based) with learning rate ``lr``."""
+        raise NotImplementedError
+
+    def _apply(self, names, params, grads, lr, step):
+        """Clip (if set) and update: the one path of eager and Engine
+        steps."""
+        if isinstance(self._grad_clip, ClipGradBase):
+            grads = self._grad_clip.apply(list(grads))
+        with torch.no_grad():
+            self.update(list(names), list(params), list(grads), lr, step)
+
+    def _decays(self, name):
+        fn = self._apply_decay_param_fun
+        return bool(self._weight_decay) and (fn is None or bool(fn(name)))
+
+    # -- eager API ----------------------------------------------------------
+    def step(self):
+        """One update over every parameter that has a grad (ref:
+        Optimizer.step over Parameter.grad)."""
+        live = [(n, p) for n, p in self._parameter_list or []
+                if p.requires_grad and p.grad is not None]
+        if live:
+            self._apply([n for n, _ in live], [p for _, p in live],
+                        [p.grad.to(p.dtype) for _, p in live],
+                        self.get_lr(), self._step_count + 1)
+        self._step_count += 1
+
+    def clear_grad(self, set_to_zero=True):
+        for _, p in self._parameter_list or []:
+            p.grad = None
+
+    # -- state dict (checkpoint/resume) -------------------------------------
+    def state_dict(self):
+        out = {"state": {n: dict(s) for n, s in self._state.items()},
+               "__step__": self._step_count}
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
+        return out
+
+    def set_state_dict(self, state):
+        self._step_count = int(state.get("__step__", 0))
+        if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state["LR_Scheduler"])
+        # copies: the slots are updated in place, and the source may still
+        # be stepping (another optimizer, a checkpoint held in memory)
+        self._state = {n: {k: t.clone() for k, t in s.items()}
+                       for n, s in state.get("state", {}).items()}
+
+
+class Adam(Optimizer):
+    """ref: paddle.optimizer.Adam (bias-corrected, coupled L2 decay)."""
+
+    _decoupled = False
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None, apply_decay_param_fun=None, amsgrad=False,
+                 moment_dtype=None, fused_kernel=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name, apply_decay_param_fun)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._amsgrad = amsgrad
+        self._fused_kernel = bool(fused_kernel)
+        if moment_dtype not in (None, "float32", torch.float32):
+            if moment_dtype in ("bfloat16", torch.bfloat16):
+                raise NotImplementedError(
+                    f"moment_dtype=bfloat16 (stochastically rounded "
+                    f"moments) {_LATER}")
+            raise ValueError(f"moment_dtype={moment_dtype}: only bfloat16 "
+                             "or float32 are supported")
+
+    def _slots(self, name, p):
+        st = self._state.get(name)
+        if st is None:
+            st = {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
+            if self._amsgrad:
+                st["vhat"] = torch.zeros_like(p, dtype=torch.float32)
+            self._state[name] = st
+        return st
+
+    def update(self, names, params, grads, lr, step):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        bc1 = 1.0 - b1 ** step
+        bc2 = 1.0 - b2 ** step
+        hyper = dict(beta1=b1, beta2=b2, eps=eps,
+                     decoupled=self._decoupled)
+        for name, p, g in zip(names, params, grads):
+            st = self._slots(name, p)
+            wd = self._weight_decay if self._decays(name) else 0.0
+            if self._amsgrad:
+                self._amsgrad_update(p, st, g, lr, bc1, bc2, wd)
+            elif self._fused_kernel and fused_adamw_supported(
+                    p, st["m"], st["v"]):
+                fused_adamw_update(p, st["m"], st["v"], g, lr, bc1, bc2,
+                                   weight_decay=wd, **hyper)
+            else:
+                adamw_update_plain(p, st["m"], st["v"], g, lr, bc1, bc2,
+                                   weight_decay=wd, **hyper)
+
+    def _amsgrad_update(self, p, st, g, lr, bc1, bc2, wd):
+        b1, b2 = self._beta1, self._beta2
+        g32 = g.float()
+        p32 = p.float()
+        if wd and not self._decoupled:
+            g32 = g32 + wd * p32
+        m = b1 * st["m"].float() + (1.0 - b1) * g32
+        v = b2 * st["v"].float() + (1.0 - b2) * g32 * g32
+        # vhat stays f32: the monotone max would ratchet rounding noise
+        vh = torch.maximum(st["vhat"], v)
+        step = lr * (m / bc1) / (torch.sqrt(vh / bc2) + self._epsilon)
+        if wd and self._decoupled:
+            step = step + lr * wd * p32
+        p.copy_(p32 - step)
+        st["m"].copy_(m)
+        st["v"].copy_(v)
+        st["vhat"].copy_(vh)
+
+
+class AdamW(Adam):
+    """ref: paddle.optimizer.AdamW — decoupled weight decay."""
+
+    _decoupled = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None,
+                 amsgrad=False, moment_dtype=None, fused_kernel=False):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         name, apply_decay_param_fun, amsgrad,
+                         moment_dtype=moment_dtype,
+                         fused_kernel=fused_kernel)

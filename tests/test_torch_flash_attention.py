@@ -5,6 +5,7 @@ against the Pallas kernel run in interpret mode, on the same numpy
 inputs: causal and not, sq != sk (bottom-right causal), kv_lens including
 0, head_dim 64 and 128, f32 (1e-5) and bf16 (1e-2). The wrappers' CPU
 dispatch must run the plain version and never touch the kernel build.
+Dropout and the backward are held in test_torch_flash_attention_bwd.py.
 """
 import importlib
 
@@ -109,6 +110,9 @@ def test_cpu_dispatch_never_builds(monkeypatch):
 
 
 def test_dropout_raises():
+    """Dropout is ported (tests/test_torch_flash_attention_bwd.py holds it
+    against the Pallas hash); a rate outside [0, 1) raises."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 1, 64, 4))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port_attn.flash_attention(q, k, v, dropout_p=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout"):
+            port_attn.flash_attention(q, k, v, dropout_p=rate)

@@ -3,7 +3,10 @@
 - No module of ``paddle_tpu_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of ``paddle_tpu`` (an AST scan of every import).
 - Entry points default to CUDA: with no GPU and no ``device`` they raise
-  instead of running on the CPU.
+  instead of running on the CPU. ``Engine`` and the optimizers follow the
+  model's device and create nothing on another one.
+- A kernel wrapper given a tensor on neither the CPU nor CUDA raises; it
+  never falls back to its plain twin.
 - Importing the port builds nothing.
 """
 import ast
@@ -14,9 +17,15 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.framework import seed
-from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+from paddle_tpu_torch.hapi import Engine
+from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
+                                      GPTPretrainingCriterion,
+                                      _resolve_config)
 from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+from paddle_tpu_torch.ops.kernels import fused_adamw as kadam
+from paddle_tpu_torch.optimizer import Adam, AdamW
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
@@ -73,3 +82,48 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_import_builds_nothing():
     assert not _build._libs
+
+
+def test_engine_and_optimizers_follow_the_model(monkeypatch):
+    """With no GPU, an Engine and optimizers over a CPU model run on the
+    CPU without being told, and every tensor they make lives there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _resolve_config("gpt-tiny", hidden_dropout_prob=0.1)
+    model = GPTForCausalLM(cfg, device="cpu")
+    assert model.gpt.embeddings.dropout.generator.device.type == "cpu"
+    ids = torch.zeros(1, 8, dtype=torch.int64)
+    for opt in (AdamW(1e-3, fused_kernel=True), Adam(1e-3, amsgrad=True)):
+        eng = Engine(model, loss=GPTPretrainingCriterion(), optimizer=opt,
+                     amp_dtype="bfloat16")
+        loss, logits = eng.train_batch([ids.numpy()], [ids])
+        assert eng.device.type == loss.device.type == "cpu"
+        assert logits.device.type == "cpu"
+        assert {t.device.type for s in opt._state.values()
+                for t in s.values()} == {"cpu"}
+    eager = AdamW(1e-3, parameters=model.parameters())
+    GPTPretrainingCriterion()(model(ids), ids).backward()
+    eager.step()
+    assert {t.device.type for s in eager._state.values()
+            for t in s.values()} == {"cpu"}
+
+
+def test_kernel_wrappers_never_fall_back(monkeypatch):
+    """A tensor off the CPU goes to the kernel or raises: on the meta
+    device (standing in for a device with no kernel) every wrapper raises
+    before it builds anything."""
+    def no_build(name, *args):
+        raise AssertionError(f"reached the kernel build ({name})")
+    monkeypatch.setattr(_build, "load", no_build)
+    t = torch.empty(2, 8, 64, device="meta")
+    st = torch.empty(2, 8, device="meta")
+    calls = [
+        lambda: kfa.flash_attention_fwd(t, t, t),
+        lambda: kfa.flash_attention_bwd_dq(t, t, t, t, t, st),
+        lambda: kfa.flash_attention_bwd_dkv(t, t, t, t, st, st),
+        lambda: kadam.fused_adamw_update(
+            t, t, t, t, 1e-3, 0.1, 0.001, beta1=0.9, beta2=0.999, eps=1e-8,
+            weight_decay=0.0, decoupled=True),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
