@@ -49,7 +49,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
              within 1e-5 where |grad| >= 1e-6 on both devices, within
              2 * lr where Adam's first step is a step function of a grad
              near eps), then 2 steps on cuda with attention dropout 0.1,
-             which must launch every flash kernel with dropout.
+             which must launch every flash kernel with dropout;
+9. fused-ln — the fused residual-add + LayerNorm kernels #6-#9 vs their
+             plain twins, forward outputs and every gradient: f32 and bf16
+             rows, H in {64, 768, 1024}, N in {7, 8192, 16384}, eps 1e-12
+             and 1e-5, gamma/beta in f32 and in the rows' dtype; a second
+             backward must repeat bit for bit and a row wider than the
+             kernel holds must raise; times at ERNIE's (N=16384, H=768)
+             and GPT's (N=8192, H=1024) shapes in bf16, with the eager
+             F.layer_norm(x + r) pair as a reference point;
+10. flash-noncausal — the three flash kernels with causal=False at ERNIE's
+             shape (B=32, H=12, S=512, D=64; bf16 and f32; no kv_lens and
+             kv_lens < S), bf16 timed next to SDPA(is_causal=False);
+11. ernie  — ERNIE-3.0-base (ernie-3.0-base-zh: vocab 40000, hidden 768,
+             12 layers, 12 heads, task-type embedding) at full width and
+             depth, fused_ln, dropout 0, f32 params on cuda, through
+             Engine(ErniePretrainingCriterion, AdamW(1e-4,
+             weight_decay=0.01, fused_kernel=True), bf16 AMP): bench.py's
+             ernie batch, 32 x 512 from numpy seed 0 (15 % of positions
+             labelled, random NSP labels), 3 warm-up and 10 timed steps
+             with one sync at the end; per step 24 launches each of the
+             y-only fused LN forward and backward, 12 of each flash
+             kernel and 77 AdamW launches, and a falling loss; one step
+             profiled;
+12. gpt-fused-ln — gpt3-345M training with fused_ln=True at batch 8 x 1024
+             (bf16 AMP), 3 steps: 24 launches each of kernels #6 and #7 a
+             step and a finite, falling loss;
+13. ernie-cpu — ERNIE cut to 2 layers at hidden 768, fused_ln, f32,
+             batch 1 x 256: one step on cuda and on the CPU from the same
+             weights, held to phase 8's bars.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -59,12 +87,16 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               3.1e-2;
   int8 1e-4 — both dequantize value * scale in f32 the same way; only
               the summation order differs;
-  AdamW 1e-6 — the same f32 arithmetic, contracted into FMAs on the card.
+  AdamW 1e-6 — the same f32 arithmetic, contracted into FMAs on the card;
+  fused LN dgamma/dbeta 1e-4 of max(1, |twin|) — f32 sums over N rows
+              taken in another order than the twin's; mu 1e-4, rstd 1e-4
+              relative (it reaches 1/sqrt(eps) on a flat row).
 TF32 is switched off for matmuls and cuDNN so the plain twins and the
 model's projections compute in full f32.
 
 Each path's launch counts are set to 0 just before it is driven and read
-just after: the serving slice (phase 4) and the training slice (phase 7).
+just after: the serving slice (phase 4), the training slice (phase 7),
+the ERNIE slice (phase 11) and GPT's fused block (phase 12).
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
@@ -474,7 +506,7 @@ def _check_grad(name, dtype, a, b, where):
 
 
 def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
-                      flush, timed):
+                      flush, timed, causal=True):
     """The three flash kernels vs their twins on one input; the backward
     twins take the kernels' own forward outputs (o, lse) and the dq
     kernel's delta, so each kernel is held against its twin on the same
@@ -488,20 +520,20 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
         [x for x in lens for _ in range(h)], dtype=torch.int32,
         device="cuda")
     seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
-    rest = (lens_t, seed, True, None, dropout)
+    rest = (lens_t, seed, causal, None, dropout)
     o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
     dq, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest)
     dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
     torch.cuda.synchronize()
     where = (f"{dtype} b{b} h{h} sq{sq} sk{sk} d{d} lens{lens} "
-             f"dropout{dropout}")
+             f"dropout{dropout} causal={causal}")
     po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest)
     pdq, pdelta = kfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
                                                    *rest)
     pdk, pdv = kfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                  *rest)
     row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
-               dropout=dropout)
+               dropout=dropout, causal=causal)
     row["err"] = {n: _check_grad(n, dtype, a, p, where) for n, a, p in (
         ("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
     # lse as phase 2 holds it; delta, a sum of D products, to 1e-4 of
@@ -537,7 +569,7 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.view(b, h, -1, d).detach().requires_grad_()
                   for x in (q, k, v))
-    lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+    lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=causal,  # noqa: E731
                            dropout_p=dropout)
     out = lib_fwd()
     dout = do.view(b, h, sq, d)
@@ -549,7 +581,7 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
     row["library_ms"] = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms,
                          "dkv": lib_bwd_ms}
     del out, qt, kt, vt
-    pairs = h * visible_pairs(b, sq, sk, lens)  # over every head
+    pairs = h * visible_pairs(b, sq, sk, lens, causal)  # over every head
     esz = q.element_size()
     nq, nk = b * h * sq * d, b * h * sk * d
     stat = b * h * sq * 4
@@ -618,18 +650,41 @@ def phase_flash_train(torch, flush):
         _flash_train_case(torch, 1, 2, 64, 64, 256, "float32", [50], 0.1,
                           gen, flush, False),
     ]
+    _log_flash_rows("flash-train", rows)
+    return rows
+
+
+def _log_flash_rows(tag, rows):
     for r in rows:
         errs = " ".join(f"{n} {e:.2e}" for n, e in r["err"].items())
-        log(f"flash-train: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
+        log(f"{tag}: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
             f"sk{r['sk']} d{r['d']} lens{r['lens']} dropout{r['dropout']} "
-            f"max_abs_err {errs}")
+            f"causal={r['causal']} max_abs_err {errs}")
         for n in r.get("ms", {}):
             bms, by = r["bound"][n]
-            log(f"flash-train:   {n:4s} ms {r['ms'][n]:.4f} plain_ms "
+            log(f"{tag}:   {n:4s} ms {r['ms'][n]:.4f} plain_ms "
                 f"{r['plain_ms'][n]:.4f} library_ms {r['library_ms'][n]:.4f}"
                 f" bound_ms {bms:.4f} ({by}, "
                 f"{'bf16 tensor-core' if r['dtype'] == 'bfloat16' else 'f32'}"
                 f" peak)")
+
+
+def phase_flash_noncausal(torch, flush):
+    """ERNIE's attention: the three flash kernels with causal=False at
+    B=32 H=12 S=512 D=64 (no kv_lens, and kv_lens < S), bf16 timed next to
+    SDPA with is_causal=False, f32 checked."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        rows.append(_flash_train_case(torch, 32, 12, 512, 512, 64, dtype,
+                                      None, 0.0, gen, flush,
+                                      timed=dtype == "bfloat16",
+                                      causal=False))
+        lens = [512 - 37 * (i % 7) for i in range(32)]
+        rows.append(_flash_train_case(torch, 32, 12, 512, 512, 64, dtype,
+                                      lens, 0.0, gen, flush, timed=False,
+                                      causal=False))
+    _log_flash_rows("flash-noncausal", rows)
     return rows
 
 
@@ -689,6 +744,181 @@ def phase_adamw(torch, flush):
         log(f"adamw: {r['shape']} decoupled={r['decoupled']} offset="
             f"{r['offset']} max_abs_err {r['max_abs_err']:.3e}{extra}")
     return rows
+
+
+# -- fused residual-add + LayerNorm (#6-#9) -----------------------------------
+
+def _ln_case(torch, n, h, dtype, w_dtype, eps, gen):
+    """The four kernels vs their twins on one input: y, s, mu, rstd of both
+    forwards and dx, dgamma, dbeta of both backwards (each backward twin
+    given the kernel forward's own saved tensors); the backward run twice
+    must give the same bits. Returns the max errors."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    dt, wdt = getattr(torch, dtype), getattr(torch, w_dtype)
+
+    def mk(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                + shift).to(dt if len(shape) == 2 else wdt)
+    x, r = mk(n, h, scale=2.0, shift=0.5), mk(n, h)
+    dy, ds = mk(n, h), mk(n, h)
+    g, b = mk(h, scale=0.1, shift=1.0), mk(h, scale=0.1)
+    y, s, mu, rstd = kln.fused_add_layer_norm_fwd(x, r, g, b, eps)
+    bwd = [kln.fused_add_layer_norm_bwd(dy, ds, s, mu, rstd, g)
+           for _ in range(2)]
+    y8, mu8, rstd8 = kln.fused_add_layer_norm_y_fwd(x, r, g, b, eps)
+    bwd9 = [kln.fused_add_layer_norm_y_bwd(dy, x, r, mu8, rstd8, g)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    where = f"{dtype} n{n} h{h} gamma {w_dtype} eps {eps}"
+    check(all(torch.equal(a, c) for run in (bwd, bwd9)
+              for a, c in zip(*run)),
+          f"fused-ln {where}: a second backward run differs")
+    check(torch.equal(mu, mu8) and torch.equal(rstd, rstd8),
+          f"fused-ln {where}: #6 and #8 row statistics differ")
+    (dx, dg, db), (dx9, dg9, db9) = bwd[0], bwd9[0]
+    t6 = kln.fused_add_layer_norm_fwd_plain(x, r, g, b, eps)
+    t7 = kln.fused_add_layer_norm_bwd_plain(dy, ds, s, mu, rstd, g)
+    t8 = kln.fused_add_layer_norm_y_fwd_plain(x, r, g, b, eps)
+    t9 = kln.fused_add_layer_norm_y_bwd_plain(dy, x, r, mu8, rstd8, g)
+    errs = {}
+    for kern, name, a, p in (("fwd", "y", y, t6[0]), ("fwd", "s", s, t6[1]),
+                             ("bwd", "dx", dx, t7[0]),
+                             ("y_fwd", "y", y8, t8[0]),
+                             ("y_bwd", "dx", dx9, t9[0])):
+        # f32 absolute, bf16 of max(1, |twin|)
+        err, scaled = _err(a, p)
+        ok = (err if dtype == "float32" else scaled) <= TOL[dtype]
+        check(math.isfinite(err) and ok and a.dtype == p.dtype,
+              f"fused-ln {where}: {kern} {name} max_abs_err {err} over the "
+              f"{dtype} bar")
+        errs[kern] = max(errs.get(kern, 0.0), err)
+    # dgamma/dbeta: f32 sums over n rows in another order than the twin's,
+    # held to 1e-4 of max(1, |twin|)
+    for kern, name, a, p in (("bwd", "dgamma", dg, t7[1]),
+                             ("bwd", "dbeta", db, t7[2]),
+                             ("y_bwd", "dgamma", dg9, t9[1]),
+                             ("y_bwd", "dbeta", db9, t9[2])):
+        err, scaled = _err(a, p)
+        check(a.dtype == torch.float32 and scaled <= 1e-4,
+              f"fused-ln {where}: {kern} {name} max_abs_err {err} "
+              f"({scaled} of max(1, |twin|))")
+        errs[f"{kern}_{name}"] = err
+    # row statistics, f32 on both sides: mu to 1e-4, rstd to 1e-4 of its
+    # size (it reaches 1/sqrt(eps) on a flat row)
+    errs["mu"] = _err(mu, t6[2])[0]
+    errs["rstd_rel"] = ((rstd - t6[3]).abs() / t6[3]).max().item()
+    check(errs["mu"] <= 1e-4 and errs["rstd_rel"] <= 1e-4,
+          f"fused-ln {where}: mu err {errs['mu']}, rstd relative err "
+          f"{errs['rstd_rel']}")
+    return dict(dtype=dtype, n=n, h=h, w_dtype=w_dtype, eps=eps, err=errs)
+
+
+def _ln_timing(torch, n, h, gen, flush):
+    """ms of the four kernels and their twins at one slice shape (bf16 rows
+    and parameters, as the Engine's AMP gives them), the bound of each,
+    and the eager F.layer_norm(x + r) pair as a reference point."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    bf = torch.bfloat16
+    x, r, dy, ds = (torch.randn(n, h, generator=gen, device="cuda").to(bf)
+                    for _ in range(4))
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(bf)
+    b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(bf)
+    y, s, mu, rstd = kln.fused_add_layer_norm_fwd(x, r, g, b, 1e-5)
+    kern = {
+        "fused_add_layer_norm_fwd": lambda: kln.fused_add_layer_norm_fwd(
+            x, r, g, b, 1e-5),
+        "fused_add_layer_norm_bwd": lambda: kln.fused_add_layer_norm_bwd(
+            dy, ds, s, mu, rstd, g),
+        "fused_add_layer_norm_y_fwd": lambda: kln.fused_add_layer_norm_y_fwd(
+            x, r, g, b, 1e-5),
+        "fused_add_layer_norm_y_bwd": lambda: kln.fused_add_layer_norm_y_bwd(
+            dy, x, r, mu, rstd, g),
+    }
+    plain = {
+        "fused_add_layer_norm_fwd":
+            lambda: kln.fused_add_layer_norm_fwd_plain(x, r, g, b, 1e-5),
+        "fused_add_layer_norm_bwd":
+            lambda: kln.fused_add_layer_norm_bwd_plain(dy, ds, s, mu, rstd,
+                                                       g),
+        "fused_add_layer_norm_y_fwd":
+            lambda: kln.fused_add_layer_norm_y_fwd_plain(x, r, g, b, 1e-5),
+        "fused_add_layer_norm_y_bwd":
+            lambda: kln.fused_add_layer_norm_y_bwd_plain(dy, x, r, mu, rstd,
+                                                         g),
+    }
+    row = {"ms": {k: time_ms(torch, f, flush=flush) for k, f in kern.items()},
+           "plain_ms": {k: time_ms(torch, f, flush=flush)
+                        for k, f in plain.items()}}
+    # no single PyTorch call computes these functions; the eager pair
+    # F.layer_norm(x + r) and its autograd backward are the reference point
+    ln = torch.nn.functional.layer_norm
+    row["eager_fwd_ms"] = time_ms(torch, lambda: ln(x + r, (h,), g, b, 1e-5),
+                                  flush=flush)
+    xl, rl, gl, bl = (t.detach().clone().requires_grad_()
+                      for t in (x, r, g, b))
+    out = ln(xl + rl, (h,), gl, bl, 1e-5)
+    row["eager_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        out, (xl, rl, gl, bl), dy, retain_graph=True), flush=flush)
+    del out
+    rows_b, vec_b = n * h * 2, h * 2         # bf16 rows and parameters
+    stat = n * 4                             # mu or rstd, f32
+    # bytes (each input read once, each output written once; the backward's
+    # partial rows are the kernel's own scratch) and ~8 FLOPs an element
+    # forward, ~12 backward
+    work = {
+        "fused_add_layer_norm_fwd": (4 * rows_b + 2 * vec_b + 2 * stat,
+                                     8 * n * h),
+        "fused_add_layer_norm_y_fwd": (3 * rows_b + 2 * vec_b + 2 * stat,
+                                       8 * n * h),
+        "fused_add_layer_norm_bwd": (4 * rows_b + vec_b + 2 * stat + 2 * h * 4,
+                                     12 * n * h),
+        "fused_add_layer_norm_y_bwd": (4 * rows_b + vec_b + 2 * stat
+                                       + 2 * h * 4, 12 * n * h),
+    }
+    row["bound"] = {k: bound(*w) for k, w in work.items()}
+    return row
+
+
+def phase_fused_ln(torch, flush):
+    """Kernels #6-#9 vs their twins: f32 and bf16, H in {64, 768, 1024},
+    N in {7, 8192, 16384}, eps 1e-12 and 1e-5, gamma/beta in f32 and in
+    the rows' dtype; a width above the kernel's raises; times at the two
+    slice shapes (ERNIE: N=16384 H=768; GPT: N=8192 H=1024; bf16)."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    cells = [(n, h) for n in (7, 8192, 16384) for h in (64, 768, 1024)]
+    for k, (n, h) in enumerate(cells):
+        for dtype in ("float32", "bfloat16"):
+            for j, eps in enumerate((1e-12, 1e-5)):
+                # bf16 rows meet f32 and bf16 parameters at each eps
+                w_dtype = dtype if (k + j) % 2 else "float32"
+                rows.append(_ln_case(torch, n, h, dtype, w_dtype, eps, gen))
+    for r in rows:
+        errs = " ".join(f"{k} {v:.2e}" for k, v in r["err"].items())
+        log(f"fused-ln: {r['dtype']} n{r['n']} h{r['h']} gamma "
+            f"{r['w_dtype']} eps {r['eps']}: {errs}")
+    log("fused-ln: dgamma/dbeta and dx identical over two backward runs in "
+        f"all {len(rows)} cases")
+    wide = torch.zeros(4, kln.MAX_H + 32, device="cuda")
+    wg = torch.ones(kln.MAX_H + 32, device="cuda")
+    try:
+        kln.fused_add_layer_norm_fwd(wide, wide, wg, wg)
+    except ValueError as e:
+        log(f"fused-ln: H = {kln.MAX_H + 32} raises: {e}")
+    else:
+        raise SmokeFailure("fused-ln: a row wider than MAX_H did not raise")
+    timing = {"ernie": _ln_timing(torch, 16384, 768, gen, flush),
+              "gpt": _ln_timing(torch, 8192, 1024, gen, flush)}
+    for shape, tm in timing.items():
+        for k in tm["ms"]:
+            bms, by = tm["bound"][k]
+            log(f"fused-ln: {shape} shape {k}: ms {tm['ms'][k]:.4f} plain_ms "
+                f"{tm['plain_ms'][k]:.4f} bound_ms {bms:.4f} ({by})")
+        log(f"fused-ln: {shape} shape eager F.layer_norm(x + r): forward ms "
+            f"{tm['eager_fwd_ms']:.4f}, autograd backward ms "
+            f"{tm['eager_bwd_ms']:.4f}")
+    return dict(rows=rows, timing=timing)
 
 
 def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
@@ -777,13 +1007,19 @@ def phase_train(torch):
     log(f"train: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms"
         f"/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> {vals[-1]:.4f};"
         f" max_memory_allocated {peak_gb:.2f} GiB")
-    prof = profile_train(torch, eng, ids, labels)
+    prof = profile_train(torch, eng, [ids], [labels])
     return dict(launches=launches, eligible=eligible, tok_s=tok_s,
                 ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
                 losses=vals, **prof)
 
 
-def profile_train(torch, eng, ids, labels):
+# device-side names of the port's kernels, as the profiler lists them
+OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel", "adamw_kernel", "ln_fwd_kernel",
+               "ln_bwd_kernel", "colsum_kernel")
+
+
+def profile_train(torch, eng, inputs, labels):
     """One training step under torch.profiler: the device's busy share of
     the step's wall time, the kernels that take the device time, and the
     share of the port's own kernels."""
@@ -792,7 +1028,7 @@ def profile_train(torch, eng, ids, labels):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.train_batch([ids], [labels])
+        eng.train_batch(inputs, labels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted((a for a in prof.key_averages()
@@ -803,8 +1039,7 @@ def profile_train(torch, eng, ids, labels):
         log("profile: the profiler recorded no device time; training busy "
             "share not measured")
         return dict(busy_share=None, kernel_share=None)
-    own = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
-           "flash_bwd_dkv_kernel": 0.0, "adamw_kernel": 0.0}
+    own = dict.fromkeys(OWN_KERNELS, 0.0)
     for a in rows:
         for name in own:
             if name in a.key:
@@ -813,8 +1048,9 @@ def profile_train(torch, eng, ids, labels):
         f"profiler, device busy {busy * 1e3:.3f} ms = {busy / wall:.3f} "
         "of it")
     for name, t in own.items():
-        log(f"profile:   {name}: {t * 1e3:.3f} ms = {t / busy:.3f} of the "
-            "device time")
+        if t:
+            log(f"profile:   {name}: {t * 1e3:.3f} ms = {t / busy:.3f} of "
+                "the device time")
     for a in rows[:10]:
         log(f"profile:   {a.self_device_time_total / 1e3:9.3f} ms  "
             f"x{a.count:<5d} {a.key[:90]}")
@@ -829,25 +1065,17 @@ def profile_train(torch, eng, ids, labels):
                 kernel_share={n: t / busy for n, t in own.items()})
 
 
-def phase_train_cpu(torch):
-    """The training step on the card vs on the CPU, same weights; then
-    attention dropout on the card."""
-    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion, \
-        _resolve_config
-    from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
-    cfg = _resolve_config("gpt3-345M", num_hidden_layers=2,
-                          hidden_dropout_prob=0.0,
-                          attention_probs_dropout_prob=0.0)
-    gm, geng = _train_engine(torch, cfg, "cuda", weight_seed=1)
-    cm, ceng = _train_engine(torch, cfg, "cpu")
-    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
-    batches = {dev: _batch(cfg, 1, 256, dev) for dev in ("cuda", "cpu")}
-    crit = GPTPretrainingCriterion()
+def _cross_device_step(tag, what, models, engines, batches, crit):
+    """One training step on the card and on the CPU from the same weights:
+    the gradients of crit(model(*inputs), *labels) on each device, then one
+    Engine.train_batch each; loss, gradients and the parameters after the
+    step held to the bars below. ``batches``: {device: (inputs, labels)}."""
     grads = {}
-    for dev, m in (("cuda", gm), ("cpu", cm)):
-        ids, labels = batches[dev]
-        crit(m(ids), labels).backward()
+    for dev, m in models.items():
+        inputs, labels = batches[dev]
+        outs = m(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        crit(*outs, *labels).backward()
         grads[dev] = {n: p.grad.detach().cpu() for n, p in
                       m.named_parameters()}
         for p in m.parameters():
@@ -866,23 +1094,24 @@ def phase_train_cpu(torch):
         rel = (grads["cuda"][n] - g).abs().max().item() / max(
             g.abs().max().item(), 1e-30)
         check(math.isfinite(rel) and rel <= 1e-3,
-              f"train-cpu: grad {n} differs by {rel} of its max-abs")
+              f"{tag}: grad {n} differs by {rel} of its max-abs")
         worst = max(worst, rel)
-    check(noise <= 1e-3 * scale, f"train-cpu: key-bias grads reach {noise}, "
+    check(noise <= 1e-3 * scale, f"{tag}: key-bias grads reach {noise}, "
           f"not noise against the largest gradient {scale}")
-    loss = {dev: e.train_batch([batches[dev][0]], [batches[dev][1]])[0]
-            .item() for dev, e in (("cuda", geng), ("cpu", ceng))}
+    loss = {dev: e.train_batch(*batches[dev])[0].item()
+            for dev, e in engines.items()}
     rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
-    check(rel <= 1e-4, f"train-cpu: loss cuda {loss['cuda']} vs cpu "
+    check(rel <= 1e-4, f"{tag}: loss cuda {loss['cuda']} vs cpu "
           f"{loss['cpu']} ({rel} relative)")
     # Adam's first step moves an element by lr * g / (|g| + eps): flat to
     # 1 % of lr where |g| >= 1e-6 = 100 eps on both devices, but a step
     # function of g near eps, where grads that agree to 1e-3 of their
     # leaf's max-abs can still move it by different fractions of lr. The
     # flat part is held to 1e-5, the rest to 2 * lr.
-    lr = geng.optimizer.get_lr()
+    lr = engines["cuda"].optimizer.get_lr()
     perr, worst_leaf, steep_err, n_steep = 0.0, "", 0.0, 0
-    for (n, a), b in zip(gm.named_parameters(), cm.parameters()):
+    for (n, a), b in zip(models["cuda"].named_parameters(),
+                         models["cpu"].parameters()):
         diff = (a.detach().cpu() - b.detach()).abs()
         steep = ((grads["cpu"][n].abs() < 1e-6)
                  | (grads["cuda"][n].abs() < 1e-6))
@@ -891,11 +1120,11 @@ def phase_train_cpu(torch):
         if steep.any():
             steep_err = max(steep_err, diff[steep].max().item())
             n_steep += int(steep.sum().item())
-    check(perr <= 1e-5, f"train-cpu: params after the step differ by {perr}"
+    check(perr <= 1e-5, f"{tag}: params after the step differ by {perr}"
           f" ({worst_leaf})")
-    check(steep_err <= 2 * lr, f"train-cpu: params with |grad| < 1e-6 "
+    check(steep_err <= 2 * lr, f"{tag}: params with |grad| < 1e-6 "
           f"differ by {steep_err} after the step, more than 2 * lr")
-    log(f"train-cpu: 2 layers, batch 1 x 256, f32: loss cuda "
+    log(f"{tag}: {what}: loss cuda "
         f"{loss['cuda']:.6f} cpu {loss['cpu']:.6f} ({rel:.2e} relative); "
         f"worst grad leaf {worst:.2e} of its max-abs over "
         f"{len(grads['cpu'])} leaves (key-bias grads, zero in exact "
@@ -903,6 +1132,28 @@ def phase_train_cpu(torch):
         f"{scale:.2e}); params after the step max_abs_err {perr:.2e} "
         f"({worst_leaf}) where |grad| >= 1e-6, {steep_err:.2e} over the "
         f"{n_steep} elements where |grad| < 1e-6 on a device")
+    return dict(loss_rel=rel, grad_rel=worst, param_err=perr)
+
+
+def phase_train_cpu(torch):
+    """The training step on the card vs on the CPU, same weights; then
+    attention dropout on the card."""
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion, \
+        _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    cfg = _resolve_config("gpt3-345M", num_hidden_layers=2,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    gm, geng = _train_engine(torch, cfg, "cuda", weight_seed=1)
+    cm, ceng = _train_engine(torch, cfg, "cpu")
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    batches = {dev: _batch(cfg, 1, 256, dev) for dev in ("cuda", "cpu")}
+    res = _cross_device_step(
+        "train-cpu", "2 layers, batch 1 x 256, f32", {"cuda": gm, "cpu": cm},
+        {"cuda": geng, "cpu": ceng},
+        {d: ([b[0]], [b[1]]) for d, b in batches.items()},
+        GPTPretrainingCriterion())
 
     # attention dropout on the card: every flash launch passes its rate
     # through _drop_args once; record the rates and count the launches
@@ -936,8 +1187,175 @@ def phase_train_cpu(torch):
     log(f"train-cpu: 2 steps with attention dropout 0.1 on cuda: loss "
         f"{drop[0]:.6f}, {drop[1]:.6f}; each flash kernel launched {want} "
         "times, every launch with dropout 0.1")
-    return dict(loss_rel=rel, grad_rel=worst, param_err=perr)
+    return res
 
+
+# -- ERNIE pretraining and GPT's fused block ----------------------------------
+
+def _ernie_batch(vocab, b, s, device):
+    """bench.py run_ernie's batch from numpy seed 0: ids uniform over the
+    vocab, 15 % of positions labelled (the rest -100), random NSP labels.
+    Returns (inputs, labels) as Engine.train_batch takes them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (b, s))
+    lbl = np.where(rng.random((b, s)) < 0.15,
+                   rng.integers(0, vocab, (b, s)), -100)
+    nsp = rng.integers(0, 2, (b,))
+    return ([torch.from_numpy(ids).to(device)],
+            [torch.from_numpy(lbl).to(device),
+             torch.from_numpy(nsp).to(device)])
+
+
+def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.ernie import (ErnieForPretraining,
+                                            ErniePretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = ErnieForPretraining(cfg, device=device, generator=seed(
+        weight_seed, device=device)).train()
+    eng = Engine(model, loss=ErniePretrainingCriterion(),
+                 optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 fused_kernel=True), amp_dtype=amp)
+    return model, eng
+
+
+def _check_launches(tag, launches, want, steps):
+    for name, n in want.items():
+        check(launches[name] == n * steps, f"{tag}: {name} launched "
+              f"{launches[name]} times in {steps} steps, want {n * steps}")
+
+
+def phase_ernie(torch):
+    """ERNIE-3.0-base pretraining, bench.py's ernie stage on the card."""
+    from paddle_tpu_torch.nlp.ernie import _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels.fused_adamw import \
+        fused_adamw_supported
+    b, s, warm, steps = 32, 512, 3, 10
+    cfg = _resolve_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    t0 = time.perf_counter()
+    model, eng = _ernie_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+    inputs, labels = _ernie_batch(cfg.vocab_size, b, s, "cuda")
+    torch.cuda.synchronize()
+    log(f"ernie: ernie-3.0-base-zh built on cuda in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{len(model.state_dict())} state-dict keys, "
+        f"{cfg.num_hidden_layers} layers, fused_ln); batch {b} x {s}, bf16 "
+        "AMP, AdamW(1e-4, weight_decay=0.01, fused_kernel=True)")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(inputs, labels)[0])
+        torch.cuda.synchronize()
+        log(f"ernie: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
+            f"loss {losses[-1].item():.4f}")
+    opt = eng.optimizer
+    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
+                                         opt._state[n]["v"])
+                   for n, p in model.named_parameters())
+    # 6 matrices a layer, the word and position embeddings, the pooler's
+    # dense weight, cls.transform.weight and cls.decoder_bias
+    want = 6 * cfg.num_hidden_layers + 5
+    check(eligible == want, f"ernie: {eligible} eligible AdamW leaves of "
+          f"{len(opt._state)}, want {want}")
+
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(eng.train_batch(inputs, labels)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    log(f"ernie: kernel launches over {steps} steps: {launches}")
+    layers = cfg.num_hidden_layers
+    _check_launches("ernie", launches, {
+        "fused_add_layer_norm_y_fwd": 2 * layers,
+        "fused_add_layer_norm_y_bwd": 2 * layers,
+        "fused_add_layer_norm_fwd": 0, "fused_add_layer_norm_bwd": 0,
+        "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+        "flash_attention_bwd_dkv": layers,
+        "fused_adamw_update": eligible}, steps)
+    vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in vals), f"ernie: loss {vals}")
+    check(vals[-1] < vals[0], f"ernie: loss did not fall: {vals}")
+    tok_s = b * s * steps / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"ernie: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms"
+        f"/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> {vals[-1]:.4f};"
+        f" max_memory_allocated {peak_gb:.2f} GiB")
+    prof = profile_train(torch, eng, inputs, labels)
+    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+                ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
+                losses=vals, **prof)
+
+
+def phase_gpt_fused_ln(torch):
+    """gpt3-345M training with fused_ln=True (the fused block's kernels #6
+    and #7) at the training slice's shape (phase 7): batch 8 x 1024, bf16
+    AMP, 3 steps."""
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    b, s, steps = 8, 1024, 3
+    cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    model, eng = _train_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+    ids, labels = _batch(cfg, b, s, "cuda")
+    for w in WRAPPERS:
+        w.launches = 0
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch([ids], [labels])[0])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    log(f"gpt-fused-ln: kernel launches over {steps} steps: {launches}")
+    layers = cfg.num_hidden_layers
+    _check_launches("gpt-fused-ln", launches, {
+        "fused_add_layer_norm_fwd": layers, "fused_add_layer_norm_bwd": layers,
+        "fused_add_layer_norm_y_fwd": 0, "fused_add_layer_norm_y_bwd": 0,
+        "flash_attention_fwd": layers}, steps)
+    vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in vals) and vals[-1] < vals[0],
+          f"gpt-fused-ln: loss {vals}")
+    log(f"gpt-fused-ln: gpt3-345M, fused_ln, batch {b} x {s}, bf16 AMP: "
+        f"steps of {', '.join(f'{x * 1e3:.2f}' for x in secs)} ms (each "
+        f"ending in a sync; the first pays first use); loss {vals[0]:.4f} "
+        f"-> {vals[-1]:.4f}")
+    return dict(launches=launches, losses=vals, step_s=secs)
+
+
+def phase_ernie_cpu(torch):
+    """One ERNIE training step on the card vs on the CPU, same weights:
+    2 layers at hidden 768, fused_ln, f32."""
+    from paddle_tpu_torch.nlp.ernie import (ErniePretrainingCriterion,
+                                            _resolve_config)
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    cfg = _resolve_config("ernie-3.0-base-zh", num_hidden_layers=2,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    gm, geng = _ernie_engine(torch, cfg, "cuda", weight_seed=1)
+    cm, ceng = _ernie_engine(torch, cfg, "cpu")
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    before = kln.fused_add_layer_norm_y_bwd.launches
+    res = _cross_device_step(
+        "ernie-cpu", "2 layers at hidden 768, batch 1 x 256, f32, fused_ln",
+        {"cuda": gm, "cpu": cm}, {"cuda": geng, "cpu": ceng},
+        {d: _ernie_batch(cfg.vocab_size, 1, 256, d) for d in ("cuda", "cpu")},
+        ErniePretrainingCriterion())
+    check(kln.fused_add_layer_norm_y_bwd.launches - before
+          == 2 * 2 * cfg.num_hidden_layers,
+          "ernie-cpu: the cuda side did not run the fused LayerNorm kernels")
+    return res
 
 
 def main():
@@ -969,10 +1387,18 @@ def main():
     decode = phase_decode(torch, flush)
     ftrain = phase_flash_train(torch, flush)
     adamw = phase_adamw(torch, flush)
+    fln = phase_fused_ln(torch, flush)
+    noncausal = phase_flash_noncausal(torch, flush)
     del scratch
     sl = phase_slice(torch)
     tr = phase_train(torch)
     phase_train_cpu(torch)
+    torch.cuda.empty_cache()
+    er = phase_ernie(torch)
+    torch.cuda.empty_cache()
+    gf = phase_gpt_fused_ln(torch)
+    torch.cuda.empty_cache()
+    phase_ernie_cpu(torch)
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -987,7 +1413,7 @@ def main():
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=tr["launches"][name],
-            max_abs_err=max([r["err"][part] for r in ftrain
+            max_abs_err=max([r["err"][part] for r in ftrain + noncausal
                              if r["dtype"] == "float32"] + list(errs)),
             ms=fmain["ms"][timing], plain_ms=fmain["plain_ms"][timing],
             bound_ms=bms, bound_by=by,
@@ -1021,6 +1447,27 @@ def main():
              ms=amain["ms"], plain_ms=amain["plain_ms"],
              bound_ms=amain["bound_ms"], bound_by=amain["bound_by"],
              library_ms=amain["library_ms"]),
+    ]
+
+    def ln_row(name, part, replaces, shape, path):
+        tm = fln["timing"][shape]
+        bms, by = tm["bound"][name]
+        return dict(
+            name=name, route="cuda", source="paddle_tpu_torch/csrc/fused_ln.cu",
+            replaces=replaces, launches=path["launches"][name],
+            max_abs_err=max(r["err"][part] for r in fln["rows"]
+                            if r["dtype"] == "float32"),
+            ms=tm["ms"][name], plain_ms=tm["plain_ms"][name], bound_ms=bms,
+            bound_by=by, library_ms=None)
+
+    ln_src = "paddle_tpu/ops/pallas/fused_ln.py"
+    kernels += [
+        ln_row("fused_add_layer_norm_fwd", "fwd", f"{ln_src}:134", "gpt", gf),
+        ln_row("fused_add_layer_norm_bwd", "bwd", f"{ln_src}:165", "gpt", gf),
+        ln_row("fused_add_layer_norm_y_fwd", "y_fwd", f"{ln_src}:267",
+               "ernie", er),
+        ln_row("fused_add_layer_norm_y_bwd", "y_bwd", f"{ln_src}:294",
+               "ernie", er),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

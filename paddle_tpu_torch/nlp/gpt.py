@@ -20,9 +20,13 @@ drawn from it at construction, and hidden dropout and the attention-
 dropout seed draw from it in training. ``framework.bind_generator``
 points the model at another (the Engine does, when given one).
 
-Not in this slice (each raises NotImplementedError): ``fused_ln``,
-``fused_qkv``, ``scan_layers``, ``sequence_parallel``, ``chunked_ce``,
-``recompute``, the static-cache ``generate()`` and cached dense decode.
+``fused_ln=True`` fuses each block's second residual add into ``ln_2``
+(``modeling_utils.fused_residual_ln``: the fused residual-add + LayerNorm
+kernel on the card), as the reference's fused block.
+
+Not in this slice (each raises NotImplementedError): ``fused_qkv``,
+``scan_layers``, ``sequence_parallel``, ``chunked_ce``, ``recompute``, the
+static-cache ``generate()`` and cached dense decode.
 """
 from __future__ import annotations
 
@@ -31,15 +35,14 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..device import resolve_device
 from ..distributed.fleet.mpu import (ColumnParallelLinear,
                                      ParallelCrossEntropy, RowParallelLinear,
                                      VocabParallelEmbedding, parallel_matmul)
-from ..framework import convert_dtype, get_default_dtype, seed
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerList
 from ..nn.layers_norm import LayerNorm
-from .modeling_utils import normalize_attention_mask
+from .modeling_utils import (coerce_config, fused_residual_ln, model_kw,
+                             normalize_attention_mask)
 from .paged_cache import PagedLayerCache, paged_layer_forward
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "GPTAttention", "GPTMLP",
@@ -74,7 +77,7 @@ class GPTConfig:
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
         for flag in ("recompute", "scan_layers", "fused_qkv", "chunked_ce",
-                     "fused_ln", "sequence_parallel"):
+                     "sequence_parallel"):
             if getattr(self, flag):
                 raise NotImplementedError(f"GPTConfig.{flag} {_LATER}")
         if not self.tie_word_embeddings:
@@ -168,6 +171,7 @@ class GPTDecoderLayer(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         eps = config.layer_norm_epsilon
+        self.fused_ln = config.fused_ln
         self.ln_1 = LayerNorm(config.hidden_size, epsilon=eps,
                               device=device, dtype=dtype)
         self.attn = GPTAttention(config, **kw)
@@ -184,8 +188,14 @@ class GPTDecoderLayer(nn.Module):
             h, cache = self.attn(h, attn_mask, cache, kv_lens=kv_lens)
         else:
             h = self.attn(h, attn_mask, kv_lens=kv_lens)
-        x = residual + self.dropout1(h)
-        x = x + self.mlp(self.ln_2(x))
+        h = self.dropout1(h)
+        if self.fused_ln:
+            # one pass: s = residual + h and ln_2(s)
+            y, s = fused_residual_ln(residual, h, self.ln_2)
+            x = s + self.mlp(y)
+        else:
+            x = residual + h
+            x = x + self.mlp(self.ln_2(x))
         return (x, cache) if cache is not None else x
 
 
@@ -211,14 +221,6 @@ class GPTEmbeddings(nn.Module):
                             + self.position_embeddings(position_ids))
 
 
-def _coerce_config(config, kwargs):
-    if config is None:
-        return GPTConfig(**kwargs)
-    if isinstance(config, dict):
-        return GPTConfig(**config)
-    return config
-
-
 class GPTModel(nn.Module):
     """ref: paddlenlp GPTModel. ``device`` defaults to CUDA (raises with no
     GPU); weights, and dropout in training, draw from ``generator`` (a
@@ -229,19 +231,15 @@ class GPTModel(nn.Module):
     def __init__(self, config=None, *, device=None, dtype=None,
                  generator=None, **kwargs):
         super().__init__()
-        config = _coerce_config(config, kwargs)
+        config = coerce_config(GPTConfig, config, kwargs)
         self.config = config
-        device = resolve_device(device)
-        dtype = convert_dtype(dtype) or get_default_dtype()
-        if generator is None:
-            generator = seed(None, device)
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = model_kw(device, dtype, generator)
         self.embeddings = GPTEmbeddings(config, **kw)
         self.h = LayerList([GPTDecoderLayer(config, **kw)
                             for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_epsilon,
-                              device=device, dtype=dtype)
+                              device=kw["device"], dtype=kw["dtype"])
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
                 use_cache=False, cache=None, cache_index=None,

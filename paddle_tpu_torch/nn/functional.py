@@ -1,5 +1,6 @@
 """paddle.nn.functional subset of the port (counterpart of
-``paddle_tpu/nn/functional.py``): what GPT serving and training need.
+``paddle_tpu/nn/functional.py``): what GPT serving and training and
+BERT/ERNIE pretraining need.
 
 Weights keep the Paddle layout: ``linear`` takes ``[in, out]``. Whatever
 draws random numbers (``dropout``, attention dropout in
@@ -13,7 +14,7 @@ import torch.nn.functional as _F
 
 from ..ops import attention as _attn
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu", "softmax",
+__all__ = ["linear", "embedding", "layer_norm", "gelu", "tanh", "softmax",
            "dropout", "cross_entropy", "scaled_dot_product_attention"]
 
 
@@ -36,6 +37,11 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 def gelu(x, approximate=False):
     """Exact erf GELU by default, as the reference."""
     return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    """The BERT/ERNIE pooler's activation (``pool_act="tanh"``)."""
+    return torch.tanh(x)
 
 
 def softmax(x, axis=-1, dtype=None):

@@ -6,8 +6,14 @@ from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_fwd_plain)
 from .flash_decode import paged_decode_plain, paged_flash_decode  # noqa: F401
 from .fused_adamw import adamw_update_plain, fused_adamw_update  # noqa: F401
+from .fused_ln import (fused_add_layer_norm,  # noqa: F401
+                       fused_add_layer_norm_bwd, fused_add_layer_norm_fwd,
+                       fused_add_layer_norm_y, fused_add_layer_norm_y_bwd,
+                       fused_add_layer_norm_y_fwd)
 
 # every kernel wrapper of the port, for code that resets or reads all the
 # launch counters at once
 WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, paged_flash_decode, fused_adamw_update)
+            flash_attention_bwd_dkv, paged_flash_decode, fused_adamw_update,
+            fused_add_layer_norm_fwd, fused_add_layer_norm_bwd,
+            fused_add_layer_norm_y_fwd, fused_add_layer_norm_y_bwd)

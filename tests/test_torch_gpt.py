@@ -122,7 +122,8 @@ def test_load_numpy_state_is_strict(models):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(fused_ln=True), dict(fused_qkv=True), dict(scan_layers=True),
+    dict(tie_word_embeddings=False), dict(fused_qkv=True),
+    dict(scan_layers=True),
     dict(sequence_parallel="ring"), dict(chunked_ce=64),
     dict(recompute=True)])
 def test_unported_options_raise(flag):

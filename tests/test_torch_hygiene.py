@@ -18,6 +18,7 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch.framework import seed
 from paddle_tpu_torch.hapi import Engine
+from paddle_tpu_torch.nlp.ernie import ErnieForPretraining, ErnieModel
 from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
                                       GPTPretrainingCriterion,
                                       _resolve_config)
@@ -25,6 +26,7 @@ from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import fused_adamw as kadam
+from paddle_tpu_torch.ops.kernels import fused_ln as kln
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +80,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         seed(0)
     assert seed(0, device="cpu").device.type == "cpu"
+    for cls in (ErnieModel, ErnieForPretraining):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            cls.from_config_name("ernie-tiny")
+        m = cls.from_config_name("ernie-tiny", device="cpu")
+        assert {p.device.type for p in m.parameters()} == {"cpu"}
 
 
 def test_import_builds_nothing():
@@ -116,6 +123,9 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     t = torch.empty(2, 8, 64, device="meta")
     st = torch.empty(2, 8, device="meta")
+    rows = torch.empty(16, 64, device="meta")
+    vec = torch.empty(64, device="meta")
+    stat = torch.empty(16, device="meta")
     calls = [
         lambda: kfa.flash_attention_fwd(t, t, t),
         lambda: kfa.flash_attention_bwd_dq(t, t, t, t, t, st),
@@ -123,6 +133,14 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         lambda: kadam.fused_adamw_update(
             t, t, t, t, 1e-3, 0.1, 0.001, beta1=0.9, beta2=0.999, eps=1e-8,
             weight_decay=0.0, decoupled=True),
+        lambda: kln.fused_add_layer_norm_fwd(rows, rows, vec, vec),
+        lambda: kln.fused_add_layer_norm_bwd(rows, rows, rows, stat, stat,
+                                             vec),
+        lambda: kln.fused_add_layer_norm_y_fwd(rows, rows, vec, vec),
+        lambda: kln.fused_add_layer_norm_y_bwd(rows, rows, rows, stat, stat,
+                                               vec),
+        lambda: kln.fused_add_layer_norm(rows, rows, vec, vec),
+        lambda: kln.fused_add_layer_norm_y(rows, rows, vec, vec),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

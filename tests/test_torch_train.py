@@ -9,7 +9,8 @@ the same parameters (1e-5) in f32; with bf16 AMP, within 1e-2. Eager
 ``loss.backward(); opt.step(); opt.clear_grad()`` must give what
 ``train_batch`` gives, and a seeded generator must make a run with
 dropout repeat exactly. The flash attention the model trains through
-is differentiable whichever device branch its forward takes.
+is differentiable whichever device branch its forward takes. The same
+three steps with ``fused_ln=True`` (GPT's fused block) hold too.
 """
 import numpy as np
 import pytest
@@ -54,8 +55,8 @@ def start():
     return numpy_state(jm), ids, labels
 
 
-def _jax_run(state, ids, labels, amp):
-    jm = JaxGPT(jax_config("gpt-tiny", **_OVR))
+def _jax_run(state, ids, labels, amp, **ovr):
+    jm = JaxGPT(jax_config("gpt-tiny", **_OVR, **ovr))
     jm.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
     jm.train()
     opt = JaxAdamW(learning_rate=1e-4, weight_decay=0.01,
@@ -74,8 +75,8 @@ def _port_model(state, **ovr):
     return load_numpy_state(pm, state).train()
 
 
-def _port_run(state, ids, labels, amp):
-    pm = _port_model(state)
+def _port_run(state, ids, labels, amp, **ovr):
+    pm = _port_model(state, **ovr)
     eng = Engine(pm, loss=GPTPretrainingCriterion(),
                  optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
                                  fused_kernel=True),
@@ -100,6 +101,21 @@ def test_engine_matches_jax_engine(start, amp, tol):
                                    err_msg=k)
         # every leaf moved, the tied embedding included
         assert not np.array_equal(pp[k], state[k]), k
+
+
+@pytest.mark.parametrize("amp,tol", [(False, 1e-5), (True, 1e-2)])
+def test_engine_fused_ln_matches_jax_engine(start, amp, tol):
+    """GPT's fused block (``fused_ln=True``: the fused residual-add +
+    LayerNorm with the sum, kernels #6/#7, in interpret mode on the JAX
+    side) trains as the JAX Engine does."""
+    state, ids, labels = start
+    jl, jp = _jax_run(state, ids, labels, amp, fused_ln=True)
+    pl, pp = _port_run(state, ids, labels, amp, fused_ln=True)
+    np.testing.assert_allclose(pl, jl, rtol=tol, atol=0)
+    assert pl[-1] < pl[0]
+    for k in jp:
+        np.testing.assert_allclose(pp[k], jp[k], atol=tol, rtol=0,
+                                   err_msg=k)
 
 
 def test_eager_step_equals_train_batch(start):
