@@ -77,7 +77,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
              step and a finite, falling loss;
 13. ernie-cpu — ERNIE cut to 2 layers at hidden 768, fused_ln, f32,
              batch 1 x 256: one step on cuda and on the CPU from the same
-             weights, held to phase 8's bars.
+             weights, held to phase 8's bars;
+14. dense-decode — kernel #2 (dense single-query flash_decode) vs its
+             plain twin at the generate slice's shapes: GPT's (B=8, H=16,
+             D=64) and Llama-2-7B's (B=4, H=32, D=128) over a 576-key
+             cache, f32 and bf16, key lengths 1, S, not a multiple of 128
+             and 0, plus D=256 and a 5-key cache; times kernel, twin and
+             torch SDPA over the live keys where every row has all 576;
+15. generate-gpt — gpt3-345M generate() at full width and depth, f32
+             weights from seed 0, batch 8 x 512, 64 new tokens: greedy with
+             an f32 and a bf16 cache (24 x 64 launches of kernel #2 each,
+             no other kernel), beam search (4 beams, batch 2, eos) and
+             sampling (top_k=50, top_p=0.9, repetition_penalty=1.2, eos):
+             tokens in range, only pad after eos; tokens/s and ms a decode
+             step; 8 decode steps profiled (busy share, kernel #2's share);
+16. generate-llama — llama2-7b (32 layers, 32 heads, D=128, FFN 11008)
+             with bf16 weights drawn on the card from seed 0, bf16 cache,
+             batch 4 x 512, 64 new tokens, greedy: 32 x 64 launches of
+             kernel #2, peak memory, tokens/s, ms a step, a profile;
+17. generate-gqa — llama-1b (GQA 16:4) at full width, bf16, batch
+             4 x 256, 32 new tokens: the grouped plain path, kernel #2 never
+             launched;
+18. generate-cpu — gpt3-345M and llama2-7b cut to 2 layers at full width,
+             f32, the same weights on cuda and on the CPU: prefill logits
+             within 1e-3 and 8 greedy tokens equal (prompts 2 x 32).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -96,7 +119,8 @@ model's projections compute in full f32.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
-the ERNIE slice (phase 11) and GPT's fused block (phase 12).
+the ERNIE slice (phase 11), GPT's fused block (phase 12) and each
+generate() call (phases 15-17).
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
@@ -1358,6 +1382,384 @@ def phase_ernie_cpu(torch):
     return res
 
 
+# -- generate(): the dense decode kernel #2, GPT and Llama -------------------
+
+DECODE_KERNELS = ("decode_partial_kernel", "decode_combine_kernel")
+
+
+def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
+    """Kernel #2 vs its plain twin on one input; timed cases also run
+    torch SDPA over the live keys (every row there has the same length)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    dt = getattr(torch, dtype)
+    mk = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                    device="cuda").to(dt)
+    q, k, v = mk(b, 1, h, d), mk(b, s, h, d), mk(b, s, h, d)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = kfa.flash_decode(q, k, v, lens_t)
+    torch.cuda.synchronize()
+    ref = kfa.flash_decode_plain(q, k, v, lens_t)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(out.dtype == dt and out.shape == (b, 1, h, d),
+          f"dense-decode: output {out.dtype} {tuple(out.shape)}")
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"dense-decode {dtype} b{b} h{h} s{s} d{d} lens{lens}: "
+          f"max_abs_err {err} > {TOL[dtype]}")
+    zero = [i for i, n in enumerate(lens) if n == 0]
+    check(not out[zero].any().item() if zero else True,
+          "dense-decode: a kv_lens-0 row gave a nonzero output")
+    row = dict(dtype=dtype, b=b, h=h, s=s, d=d, lens=lens, max_abs_err=err,
+               splits=kfa.decode_split(b, h, s, d))
+    if timed:
+        row["ms"] = time_ms(torch, lambda: kfa.flash_decode(q, k, v, lens_t),
+                            flush=flush)
+        row["plain_ms"] = time_ms(torch, lambda: kfa.flash_decode_plain(
+            q, k, v, lens_t), flush=flush)
+        n = lens[0]
+        check(all(x == n for x in lens), "dense-decode: timed rows differ")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :n], v[:, :n]))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(torch, lambda: sdpa(qt, kt, vt),
+                                    flush=flush)
+        keys = sum(lens)
+        esz = q.element_size()
+        bytes_moved = (2 * b * h * d * esz            # q read, out written
+                       + 2 * h * keys * d * esz       # live K and V rows
+                       + b * 4)                       # kv_lens
+        row["bound_ms"], row["bound_by"] = bound(
+            bytes_moved, 4 * h * d * keys,
+            BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS)
+    return row
+
+
+def phase_dense_decode(torch, flush):
+    """Kernel #2 at the generate slice's shapes: GPT's (B=8, H=16, D=64)
+    and Llama-2-7B's (B=4, H=32, D=128), f32 and bf16, over a 576-key
+    cache with ragged lengths (1, S, one not a multiple of 128, 0); D=256
+    and a cache shorter than one chunk; timed where every row has all 576
+    keys (the last decode step)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    s = 576
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        rows.append(_dense_decode_case(
+            torch, 8, 16, s, 64, dtype, [1, s, 300, 0, 513, 128, 64, 575],
+            gen, flush, False))
+        rows.append(_dense_decode_case(torch, 4, 32, s, 128, dtype,
+                                       [s, 1, 0, 333], gen, flush, False))
+        rows.append(_dense_decode_case(torch, 2, 4, 200, 256, dtype,
+                                       [200, 77], gen, flush, False))
+        rows.append(_dense_decode_case(torch, 3, 2, 5, 64, dtype,
+                                       [5, 0, 2], gen, flush, False))
+    rows.append(_dense_decode_case(torch, 8, 16, s, 64, "float32", [s] * 8,
+                                   gen, flush, True))
+    rows.append(_dense_decode_case(torch, 4, 32, s, 128, "bfloat16", [s] * 4,
+                                   gen, flush, True))
+    for r in rows:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} sdpa_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+        log(f"dense-decode: {r['dtype']} b{r['b']} h{r['h']} s{r['s']} "
+            f"d{r['d']} lens{r['lens']} (splits, chunk) {r['splits']} "
+            f"max_abs_err {r['max_abs_err']:.3e}{extra}")
+    return rows
+
+
+def _prompts(vocab, b, s, seed=0):
+    import numpy as np
+    import torch
+    ids = np.random.default_rng(seed).integers(0, vocab, (b, s))
+    return torch.from_numpy(ids).to("cuda")
+
+
+def _check_stream(tag, out, ids, new, vocab, eos=None, pad=0):
+    """Shape, prompt kept, tokens in range; after a row's first eos only
+    pad. Returns the number of rows that emitted eos."""
+    b, s0 = ids.shape
+    check(tuple(out.shape) == (b, s0 + new) and out.dtype == ids.dtype,
+          f"{tag}: output {tuple(out.shape)} {out.dtype}")
+    check(bool((out[:, :s0] == ids).all()), f"{tag}: the prompt changed")
+    toks = out[:, s0:]
+    check(bool(((toks >= 0) & (toks < vocab)).all()),
+          f"{tag}: a token out of [0, {vocab})")
+    if eos is None:
+        return 0
+    hit = toks == eos
+    after = hit.int().cumsum(dim=1) - hit.int() > 0   # past the first eos
+    check(bool((toks[after] == pad).all()),
+          f"{tag}: a token other than pad {pad} after eos {eos}")
+    return int(hit.any(dim=1).sum().item())
+
+
+def _timed_generate(torch, model, ids, new, **kw):
+    """(out, wall seconds, prefill seconds, launches of every wrapper):
+    one generate() call between syncs, with the counts set to 0 just
+    before it; then the prefill alone (the same static-cache forward
+    generate() starts with), for the decode steps' share of the wall."""
+    from paddle_tpu_torch.framework import convert_dtype
+    from paddle_tpu_torch.nlp import generation as gen
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    with torch.no_grad():
+        cache = gen._alloc_cache(model.config, ids.shape[0],
+                                 ids.shape[1] + new,
+                                 convert_dtype(kw.get("cache_dtype",
+                                                      "float32")), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen._cache_fwd(model, ids, cache, 0)
+        torch.cuda.synchronize()
+        prefill = time.perf_counter() - t0
+    return out, wall, prefill, launches
+
+
+def _report_generate(tag, what, ids, new, wall, prefill, rows=None):
+    b = ids.shape[0] if rows is None else rows
+    step_ms = (wall - prefill) / new * 1e3
+    tok_s = ids.shape[0] * new / wall
+    log(f"{tag}: {what}: {wall:.3f} s for {ids.shape[0]} x {new} new tokens "
+        f"({tok_s:.1f} tokens/s end to end); prefill {prefill * 1e3:.2f} ms "
+        f"(run alone), decode {step_ms:.3f} ms a step over {b} rows = "
+        f"{b * 1e3 / step_ms:.1f} rows x steps/s")
+    return dict(wall_s=wall, prefill_ms=prefill * 1e3, step_ms=step_ms,
+                tok_s=tok_s)
+
+
+def profile_decode_steps(torch, tag, model, ids, cache_dtype, steps=8):
+    """``steps`` greedy decode steps (the forward generate() runs each step,
+    after an unprofiled prefill) under torch.profiler: the device's busy
+    share of their wall time and kernel #2's share of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.framework import convert_dtype
+    from paddle_tpu_torch.nlp import generation as gen
+    b, s0 = ids.shape
+    with torch.no_grad():
+        cache = gen._alloc_cache(model.config, b, s0 + steps,
+                                 convert_dtype(cache_dtype), "cuda")
+        last, cache = gen._cache_fwd(model, ids, cache, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(steps):
+                nxt = torch.argmax(last, dim=-1).to(ids.dtype)
+                last, cache = gen._cache_fwd(model, nxt[:, None], cache,
+                                             s0 + t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    busy = sum(a.self_device_time_total for a in rows) / 1e6
+    if busy <= 0:
+        log(f"{tag}: the profiler recorded no device time; decode busy "
+            "share not measured")
+        return dict(busy_share=None, decode_share=None)
+    dec = sum(a.self_device_time_total for a in rows
+              if any(n in a.key for n in DECODE_KERNELS)) / 1e6
+    launches = sum(a.count for a in rows) / steps
+    log(f"{tag}: profile of {steps} decode steps: wall {wall * 1e3:.3f} ms "
+        f"under the profiler ({wall / steps * 1e3:.3f} ms a step, "
+        f"{launches:.0f} device kernels a step), device busy "
+        f"{busy * 1e3:.3f} ms = {busy / wall:.3f} of it; kernel #2 "
+        f"{dec * 1e3:.3f} ms = {dec / busy:.3f} of the device time")
+    for a in rows[:6]:
+        log(f"{tag}:   {a.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<5d} {a.key[:90]}")
+    return dict(busy_share=busy / wall, decode_share=dec / busy,
+                step_ms_profiled=wall / steps * 1e3,
+                kernels_per_step=launches)
+
+
+def phase_generate_gpt(torch):
+    """gpt3-345M generate() at full width and depth, f32 weights from seed
+    0: greedy with an f32 and a bf16 cache (batch 8 x 512, 64 new tokens),
+    beam search (num_beams=4, batch 2) and sampling (top_k=50, top_p=0.9,
+    repetition_penalty=1.2, eos)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+    cfg = _resolve_config("gpt3-345M")
+    model = GPTForCausalLM(cfg, device="cuda", generator=seed(0)).eval()
+    v, layers, new = cfg.vocab_size, cfg.num_hidden_layers, 64
+    ids = _prompts(v, 8, 512)
+    for cache in ("float32", "bfloat16"):             # first use, full shape
+        model.generate(ids, max_new_tokens=2, cache_dtype=cache)
+    res = {}
+    outs = {}
+    for cache in ("float32", "bfloat16"):
+        out, wall, pre, launches = _timed_generate(
+            torch, model, ids, new, decode_strategy="greedy_search",
+            cache_dtype=cache)
+        _check_stream(f"generate-gpt {cache}", out, ids, new, v)
+        check(launches["flash_decode"] == layers * new,
+              f"generate-gpt {cache}: flash_decode launched "
+              f"{launches['flash_decode']} times, want {layers} x {new}")
+        others = {n: c for n, c in launches.items()
+                  if c and n != "flash_decode"}
+        check(not others, f"generate-gpt {cache}: other kernels {others}")
+        res[cache] = _report_generate(
+            "generate-gpt", f"greedy, {cache} cache, flash_decode x "
+            f"{launches['flash_decode']}", ids, new, wall, pre)
+        res[cache]["launches"] = launches
+        outs[cache] = out
+    agree = (outs["float32"][:, 512:] == outs["bfloat16"][:, 512:]).float()
+    log(f"generate-gpt: greedy tokens of the bf16 cache equal the f32 "
+        f"cache's at {agree.mean().item():.3f} of positions (first tokens "
+        f"{agree[:, 0].mean().item():.3f})")
+    greedy = outs["float32"]
+
+    bids = ids[:2]
+    beam = model.generate(bids, max_new_tokens=new, num_beams=4)
+    _check_stream("generate-gpt beam", beam, bids, new, v)
+    # eos: a token the best beam of row 0 emits early without one
+    eos = int(beam[0, 512 + 3])
+    out, wall, pre, launches = _timed_generate(
+        torch, model, bids, new, num_beams=4, eos_token_id=eos,
+        pad_token_id=0)
+    fin = _check_stream("generate-gpt beam", out, bids, new, v, eos, 0)
+    check(launches["flash_decode"] == layers * new,
+          f"generate-gpt beam: flash_decode x {launches['flash_decode']}")
+    res["beam"] = _report_generate(
+        "generate-gpt", f"beam search, 4 beams, eos {eos} ({fin} of 2 rows "
+        "ended)", bids, new, wall, pre, rows=8)
+
+    eos = int(greedy[1, 512 + 1])
+    out, wall, pre, launches = _timed_generate(
+        torch, model, ids, new, top_k=50, top_p=0.9,
+        repetition_penalty=1.2, eos_token_id=eos, pad_token_id=0, seed=0)
+    fin = _check_stream("generate-gpt sampling", out, ids, new, v, eos, 0)
+    check(launches["flash_decode"] == layers * new,
+          f"generate-gpt sampling: flash_decode x {launches['flash_decode']}")
+    check(not bool((out[:, 512:] == greedy[:, 512:]).all()),
+          "generate-gpt sampling: the sampled stream is the greedy one")
+    res["sampling"] = _report_generate(
+        "generate-gpt", f"sampling top_k=50 top_p=0.9 rep 1.2, eos {eos} "
+        f"({fin} of 8 rows ended)", ids, new, wall, pre)
+    res["profile"] = profile_decode_steps(torch, "generate-gpt", model, ids,
+                                          "float32")
+    return res
+
+
+def phase_generate_llama(torch):
+    """llama2-7b generate() at full width and depth (32 layers, 32 heads,
+    D=128, FFN 11008), bf16 weights drawn on the card from seed 0, bf16
+    cache, batch 4 x 512, 64 new tokens, greedy: every decode step runs
+    kernel #2 in each layer."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, _resolve_config
+    cfg = _resolve_config("llama2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(0)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"generate-llama: llama2-7b built on cuda in "
+        f"{time.perf_counter() - t0:.2f} s ({n_params} parameters, bf16, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+    new, layers = 64, cfg.num_hidden_layers
+    ids = _prompts(cfg.vocab_size, 4, 512)
+    model.generate(ids, max_new_tokens=2, cache_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, pre, launches = _timed_generate(
+        torch, model, ids, new, cache_dtype="bfloat16")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_stream("generate-llama", out, ids, new, cfg.vocab_size)
+    check(launches["flash_decode"] == layers * new,
+          f"generate-llama: flash_decode launched {launches['flash_decode']}"
+          f" times, want {layers} x {new}")
+    res = _report_generate("generate-llama", f"llama2-7b greedy, bf16 "
+                           f"cache, flash_decode x "
+                           f"{launches['flash_decode']}", ids, new, wall, pre)
+    log(f"generate-llama: max_memory_allocated {peak:.2f} GiB; a decode "
+        f"step's weights alone take {2 * n_params / HBM_BYTES_PER_S * 1e3:.3f}"
+        " ms at 3.35 TB/s")
+    res.update(launches=launches, peak_gb=peak, params=n_params,
+               profile=profile_decode_steps(torch, "generate-llama", model,
+                                            ids, "bfloat16"))
+    return res
+
+
+def phase_generate_llama_gqa(torch):
+    """llama-1b (GQA 16:4) generate() at full width, bf16, batch 4 x 256,
+    32 new tokens, greedy: the grouped plain path, which launches no
+    kernel #2, as in the reference."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, _resolve_config
+    cfg = _resolve_config("llama-1b")
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(0)).eval()
+    ids = _prompts(cfg.vocab_size, 4, 256)
+    model.generate(ids, max_new_tokens=2, cache_dtype="bfloat16")
+    out, wall, pre, launches = _timed_generate(
+        torch, model, ids, 32, cache_dtype="bfloat16")
+    _check_stream("generate-gqa", out, ids, 32, cfg.vocab_size)
+    check(launches["flash_decode"] == 0,
+          f"generate-gqa: flash_decode launched {launches['flash_decode']} "
+          "times on the grouped path")
+    return _report_generate("generate-gqa", "llama-1b (GQA 16:4) greedy, "
+                            "bf16 cache, flash_decode x 0", ids, 32, wall,
+                            pre)
+
+
+def phase_generate_cpu(torch):
+    """The same weights on the card and on the CPU, cut to 2 layers at full
+    width, f32: gpt3-345M and llama2-7b, prompts 2 x 32, 8 new tokens;
+    greedy tokens equal and the prefill logits within 1e-3."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp import generation as gen
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nlp.gpt import _resolve_config as gpt_config
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nlp.llama import _resolve_config as llama_config
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    res = {}
+    for name, cls, cfg in (
+            ("gpt3-345M", GPTForCausalLM,
+             gpt_config("gpt3-345M", num_hidden_layers=2)),
+            ("llama2-7b", LlamaForCausalLM,
+             llama_config("llama2-7b", num_hidden_layers=2))):
+        gm = cls(cfg, device="cuda", generator=seed(1)).eval()
+        cm = cls(cfg, device="cpu", generator=seed(1, device="cpu")).eval()
+        cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+        ids = _prompts(cfg.vocab_size, 2, 32, seed=5)
+        logits = {}
+        with torch.no_grad():
+            for dev, m in (("cuda", gm), ("cpu", cm)):
+                cache = gen._alloc_cache(cfg, 2, 40, torch.float32, dev)
+                logits[dev] = m(ids.to(dev), cache=cache,
+                                cache_index=0)[0].float().cpu()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(math.isfinite(err) and err <= 1e-3,
+              f"generate-cpu {name}: prefill logits cuda vs cpu "
+              f"max_abs_err {err}")
+        before = kfa.flash_decode.launches
+        toks = {"cuda": gm.generate(ids, max_new_tokens=8).cpu()}
+        check(kfa.flash_decode.launches - before
+              == cfg.num_hidden_layers * 8,
+              f"generate-cpu {name}: the cuda side did not run kernel #2")
+        toks["cpu"] = cm.generate(ids.cpu(), max_new_tokens=8)
+        check(bool((toks["cuda"] == toks["cpu"]).all()),
+              f"generate-cpu {name}: greedy tokens differ: cuda "
+              f"{toks['cuda'][:, 32:].tolist()} cpu "
+              f"{toks['cpu'][:, 32:].tolist()}")
+        log(f"generate-cpu: {name}, 2 layers at full width, f32: prefill "
+            f"logits cuda vs cpu max_abs_err {err:.3e}; greedy tokens equal "
+            f"({toks['cpu'][:, 32:].tolist()})")
+        res[name] = err
+        del gm, cm
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1378,27 +1780,59 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
+    t_start = time.perf_counter()
+
+    def stamp(name):
+        log(f"time: {name} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_build()
+    stamp("build")
     # a 256 MB write between timed launches evicts the 50 MB L2, as the
     # model's weight reads do between a layer's attention calls
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     flush = scratch.zero_
     flash = phase_flash(torch, flush)
+    stamp("flash")
     decode = phase_decode(torch, flush)
+    stamp("decode")
     ftrain = phase_flash_train(torch, flush)
+    stamp("flash_train")
     adamw = phase_adamw(torch, flush)
+    stamp("adamw")
     fln = phase_fused_ln(torch, flush)
+    stamp("fused_ln")
     noncausal = phase_flash_noncausal(torch, flush)
+    stamp("flash_noncausal")
+    ddec = phase_dense_decode(torch, flush)
+    stamp("dense_decode")
     del scratch
     sl = phase_slice(torch)
+    stamp("slice")
     tr = phase_train(torch)
+    stamp("train")
     phase_train_cpu(torch)
+    stamp("train_cpu")
     torch.cuda.empty_cache()
     er = phase_ernie(torch)
+    stamp("ernie")
     torch.cuda.empty_cache()
     gf = phase_gpt_fused_ln(torch)
+    stamp("gpt_fused_ln")
     torch.cuda.empty_cache()
     phase_ernie_cpu(torch)
+    stamp("ernie_cpu")
+    torch.cuda.empty_cache()
+    gg = phase_generate_gpt(torch)
+    stamp("generate_gpt")
+    torch.cuda.empty_cache()
+    phase_generate_llama(torch)
+    stamp("generate_llama")
+    torch.cuda.empty_cache()
+    phase_generate_llama_gqa(torch)
+    stamp("generate_llama_gqa")
+    torch.cuda.empty_cache()
+    phase_generate_cpu(torch)
+    stamp("generate_cpu")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -1459,6 +1893,19 @@ def main():
                             if r["dtype"] == "float32"),
             ms=tm["ms"][name], plain_ms=tm["plain_ms"][name], bound_ms=bms,
             bound_by=by, library_ms=None)
+
+    # the greedy f32-cache generate at GPT's shape: every row at 576 keys
+    # (the last step)
+    dd = next(r for r in ddec if "ms" in r and r["d"] == 64)
+    kernels.append(dict(
+        name="flash_decode", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:485",
+        launches=gg["float32"]["launches"]["flash_decode"],
+        max_abs_err=max(r["max_abs_err"] for r in ddec
+                        if r["dtype"] == "float32"),
+        ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
+        bound_by=dd["bound_by"], library_ms=dd["library_ms"]))
 
     ln_src = "paddle_tpu/ops/pallas/fused_ln.py"
     kernels += [

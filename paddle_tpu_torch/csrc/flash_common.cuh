@@ -1,6 +1,7 @@
-// Shared device helpers of the flash-attention kernels (forward and
-// backward): f32/bf16 vector loads and stores, and the attention-dropout
-// keep mask.
+// Shared device helpers of the attention kernels (flash forward and
+// backward, dense and paged decode): f32/bf16 vector loads and stores, the
+// decode kernels' row loads and warp sum, and the attention-dropout keep
+// mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +36,48 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   raw.x = *reinterpret_cast<uint32_t*>(&a);
   raw.y = *reinterpret_cast<uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+template <int BYTES> struct Vec;
+template <> struct Vec<2> { using type = uint16_t; };
+template <> struct Vec<4> { using type = uint32_t; };
+template <> struct Vec<8> { using type = uint2; };
+template <> struct Vec<16> { using type = uint4; };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16(x);
+  }
+}
+
+// N contiguous values at p (aligned to N * sizeof(T), or to 16 bytes when
+// that is more) -> f32: one load of up to 16 bytes, or several
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float* out) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  if constexpr (BYTES <= 16) {
+    using V = typename Vec<BYTES>::type;
+    V raw = *reinterpret_cast<const V*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
+  } else {
+    load_row<T, N / 2>(p, out);
+    load_row<T, N / 2>(p + N / 2, out + N / 2);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // x rounded to T and back: the reference rounds the probabilities and ds

@@ -25,48 +25,17 @@
 // Not yet done: splitting one slot's keys over several blocks (flash
 // decoding) for small batches, and 16-byte loads for int8 at D=64.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::kNegInf;
+using flash::load_row;
+using flash::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroupsPerBlock = 4;
-constexpr float kNegInf = -1e30f;
-
-template <int BYTES> struct Vec;
-template <> struct Vec<2> { using type = uint16_t; };
-template <> struct Vec<4> { using type = uint32_t; };
-template <> struct Vec<8> { using type = uint2; };
-template <> struct Vec<16> { using type = uint4; };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-
-// N contiguous values at p (aligned to N * sizeof(T)) -> f32
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float* out) {
-  constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  if constexpr (BYTES <= 16) {
-    using V = typename Vec<BYTES>::type;
-    V raw = *reinterpret_cast<const V*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
-  } else {
-    load_row<T, N / 2>(p, out);
-    load_row<T, N / 2>(p + N / 2, out + N / 2);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename P, int D, int GC>
 __global__ void __launch_bounds__(kThreads)

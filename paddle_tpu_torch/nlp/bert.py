@@ -44,8 +44,8 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear,
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerList, Linear
 from ..nn.layers_norm import LayerNorm
-from .modeling_utils import (coerce_config, fused_residual_ln, model_kw,
-                             normalize_attention_mask)
+from .modeling_utils import (coerce_config, fused_residual_ln, later,
+                             model_kw, normalize_attention_mask)
 
 __all__ = ["BertConfig", "BERT_CONFIGS", "BertSelfAttention", "BertLayer",
            "BertEmbeddings", "BertPooler", "BertModel",
@@ -53,9 +53,6 @@ __all__ = ["BertConfig", "BERT_CONFIGS", "BertSelfAttention", "BertLayer",
            "BertForPretraining", "BertPretrainingCriterion",
            "BertForSequenceClassification", "BertForTokenClassification",
            "BertForQuestionAnswering", "BertForMaskedLM"]
-
-LATER = "is not ported yet (see ROADMAP.md, queue 1)"
-
 
 @dataclass
 class BertConfig:
@@ -83,14 +80,16 @@ class BertConfig:
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
-        for flag in ("scan_layers", "fused_qkv", "mlm_gather_capacity"):
+        for flag, item in (("scan_layers", "4.3"), ("fused_qkv", "4.3"),
+                           ("mlm_gather_capacity", "4.2")):
             if getattr(self, flag):
                 raise NotImplementedError(f"{type(self).__name__}.{flag} "
-                                          f"{LATER}")
+                                          f"{later(item)}")
         if not self.use_flash_attention:
             raise NotImplementedError(
-                f"{type(self).__name__}.use_flash_attention=False (plain "
-                f"attention on the card) {LATER}")
+                f"{type(self).__name__}.use_flash_attention=False: the port "
+                "has no plain attention path on the card (ROADMAP.md, "
+                "ground rules: no fallback)")
 
     @property
     def head_dim(self):
@@ -242,7 +241,8 @@ class BertPooler(nn.Module):
 
 
 def refuse_from_pretrained(cls, *args, **kwargs):
-    raise NotImplementedError(f"{cls.__name__}.from_pretrained {LATER}; "
+    raise NotImplementedError(f"{cls.__name__}.from_pretrained "
+                              f"{later('4.4')}; "
                               "carry weights in with "
                               "nlp.convert.load_numpy_state")
 
@@ -388,7 +388,7 @@ class BertPretrainingCriterion(nn.Module):
 def not_ported(name):
     """A task-head class that raises NotImplementedError on construction."""
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} (a task head) {LATER}")
+        raise NotImplementedError(f"{name} (a task head) {later('4.1')}")
     return type(name, (nn.Module,), {"__init__": __init__,
                                      "__doc__": f"{name}: not ported yet."})
 

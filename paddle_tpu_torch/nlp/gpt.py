@@ -24,9 +24,17 @@ points the model at another (the Engine does, when given one).
 (``modeling_utils.fused_residual_ln``: the fused residual-add + LayerNorm
 kernel on the card), as the reference's fused block.
 
-Not in this slice (each raises NotImplementedError): ``fused_qkv``,
-``scan_layers``, ``sequence_parallel``, ``chunked_ce``, ``recompute``, the
-static-cache ``generate()`` and cached dense decode.
+``generate()`` runs ``nlp.generation.generate``: fixed ``[B, S_max, H,
+D]`` per-layer buffers written in place at a scalar ``cache_index``
+(``GPTAttention._forward_static_cache``); a single-token step attends
+through the dense decode kernel (``ops.attention.flash_decode``), a
+prefill through masked attention over ``S_max`` in plain PyTorch, as the
+reference computes it.
+
+Not in this slice (each raises NotImplementedError naming its ROADMAP.md
+item): ``fused_qkv``, ``scan_layers``, ``sequence_parallel``,
+``chunked_ce``, ``recompute`` and cached dense decode (``cache=`` without
+``cache_index``, the reference's eager concat-cache continuation).
 """
 from __future__ import annotations
 
@@ -41,16 +49,15 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear,
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerList
 from ..nn.layers_norm import LayerNorm
-from .modeling_utils import (coerce_config, fused_residual_ln, model_kw,
-                             normalize_attention_mask)
+from .generation import generate as _generate
+from .modeling_utils import (coerce_config, fused_residual_ln, later,
+                             model_kw, normalize_attention_mask,
+                             static_cache_attention, static_index)
 from .paged_cache import PagedLayerCache, paged_layer_forward
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "GPTAttention", "GPTMLP",
            "GPTDecoderLayer", "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion"]
-
-_LATER = "is not ported yet (see ROADMAP.md, queue 1)"
-
 
 @dataclass
 class GPTConfig:
@@ -76,13 +83,16 @@ class GPTConfig:
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
-        for flag in ("recompute", "scan_layers", "fused_qkv", "chunked_ce",
-                     "sequence_parallel"):
+        for flag, item in (("recompute", "1.2"), ("scan_layers", "1.2"),
+                           ("fused_qkv", "1.2"), ("chunked_ce", "1.2"),
+                           ("sequence_parallel", "10")):
             if getattr(self, flag):
-                raise NotImplementedError(f"GPTConfig.{flag} {_LATER}")
+                raise NotImplementedError(f"GPTConfig.{flag} {later(item)}")
         if not self.tie_word_embeddings:
             raise NotImplementedError(
-                f"an untied LM head {_LATER} (the reference ties it too)")
+                "GPTConfig.tie_word_embeddings=False: the reference takes "
+                "the flag but always ties the LM head, and so does the port "
+                "(ROADMAP.md, queue 1 item 1.2)")
 
     @property
     def head_dim(self):
@@ -130,12 +140,15 @@ class GPTAttention(nn.Module):
     def _heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], -1, self.cfg.head_dim)
 
-    def forward(self, x, attn_mask=None, cache=None, kv_lens=None):
+    def forward(self, x, attn_mask=None, cache=None, kv_lens=None,
+                cache_index=None):
         q = self._heads(self.q_proj(x))
         k = self._heads(self.k_proj(x))
         v = self._heads(self.v_proj(x))
         if isinstance(cache, PagedLayerCache):
             return paged_layer_forward(q, k, v, cache, self.out_proj)
+        if cache_index is not None:
+            return self._forward_static_cache(q, k, v, cache, cache_index)
         # causal always applies (decoder-only LM); attn_mask is padding on
         # top of it, kv_lens the same padding as key lengths
         out = F.scaled_dot_product_attention(
@@ -146,6 +159,14 @@ class GPTAttention(nn.Module):
             generator=self.generator)
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1], -1))
         return (out, (k, v)) if cache is not None else out
+
+    def _forward_static_cache(self, q, k, v, cache, idx):
+        """generate()'s step over the fixed [B, S_max, H, D] buffers
+        ``cache`` at position idx (``static_cache_attention``: the dense
+        decode kernel for one query row, the masked plain attention for a
+        prefill)."""
+        out = static_cache_attention(q, k, v, cache, idx)
+        return self.out_proj(out.reshape(q.shape[0], q.shape[1], -1)), cache
 
 
 class GPTMLP(nn.Module):
@@ -181,11 +202,13 @@ class GPTDecoderLayer(nn.Module):
                               device=device, dtype=dtype)
         self.mlp = GPTMLP(config, **kw)
 
-    def forward(self, x, attn_mask=None, cache=None, kv_lens=None):
+    def forward(self, x, attn_mask=None, cache=None, kv_lens=None,
+                cache_index=None):
         residual = x
         h = self.ln_1(x)
         if cache is not None:
-            h, cache = self.attn(h, attn_mask, cache, kv_lens=kv_lens)
+            h, cache = self.attn(h, attn_mask, cache, kv_lens=kv_lens,
+                                 cache_index=cache_index)
         else:
             h = self.attn(h, attn_mask, kv_lens=kv_lens)
         h = self.dropout1(h)
@@ -245,16 +268,27 @@ class GPTModel(nn.Module):
                 use_cache=False, cache=None, cache_index=None,
                 kv_lens=None):
         """use_cache=True (prefill) also returns each layer's (k, v)
-        [B, S, H, D]; cache = a list of PagedLayerCache (serving decode)
-        with cache_index = the [B] per-slot positions."""
+        [B, S, H, D]. cache = a list of PagedLayerCache (serving decode)
+        with cache_index = the [B] per-slot positions; or a list of (k, v)
+        [B, S_max, H, D] buffers (generate()'s static cache) with
+        cache_index = one int, the position of input_ids' first token: the
+        buffers are written in place and returned."""
         s = input_ids.shape[1]
-        if cache is not None and not isinstance(cache[0], PagedLayerCache):
-            raise NotImplementedError(f"cached dense decode {_LATER}")
-        if position_ids is None and cache_index is not None:
+        static = cache is not None and not isinstance(cache[0],
+                                                      PagedLayerCache)
+        if cache_index is None and static:
+            raise NotImplementedError(f"cached dense decode {later('2.1')}")
+        if cache_index is not None and cache is None:
+            raise ValueError("cache_index was given without cache: the "
+                             "decode paths write preallocated buffers")
+        layer_index = None
+        if static:
+            layer_index = static_index(cache_index)
+            if position_ids is None:
+                position_ids = layer_index + torch.arange(
+                    s, device=input_ids.device)[None, :]
+        elif position_ids is None and cache_index is not None:
             idx = torch.as_tensor(cache_index, device=input_ids.device)
-            if idx.dim() != 1:
-                raise NotImplementedError(
-                    f"the static-cache decode of generate() {_LATER}")
             # per-slot positions (paged serving decode): [B] -> [B, s]
             position_ids = idx[:, None] + torch.arange(
                 s, device=input_ids.device, dtype=idx.dtype)[None, :]
@@ -267,7 +301,8 @@ class GPTModel(nn.Module):
             if new_caches is not None:
                 # () asks a layer for its fresh (k, v): the prefill write
                 layer_cache = cache[i] if cache is not None else ()
-                x, c = blk(x, attention_mask, layer_cache, kv_lens=kv_lens)
+                x, c = blk(x, attention_mask, layer_cache, kv_lens=kv_lens,
+                           cache_index=layer_index)
                 new_caches.append(c)
             else:
                 x = blk(x, attention_mask, kv_lens=kv_lens)
@@ -307,10 +342,15 @@ class GPTForCausalLM(nn.Module):
             return logits, new_cache
         return logits
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"GPTForCausalLM.generate() (static-cache decode) {_LATER}; "
-            "serve through nlp.serving.ServingEngine")
+    def generate(self, input_ids, **kwargs):
+        """ref: paddlenlp GenerationMixin -> [B, S0 + max_new_tokens] ids,
+        with ``nlp.generation.generate``'s arguments. Every call runs that
+        static-cache decode. The reference sends greedy and plain top-k
+        calls through an eager concat-cache loop instead, which gives the
+        same greedy tokens (its test_jit_greedy_matches_eager_generate); a
+        sampled stream cannot match across packages either way, so the
+        port keeps one decode path."""
+        return _generate(self, input_ids, **kwargs)
 
 
 class GPTPretrainingCriterion(nn.Module):

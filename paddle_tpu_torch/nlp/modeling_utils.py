@@ -2,15 +2,24 @@
 ``paddle_tpu/nlp/modeling_utils.py``)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..device import resolve_device
 from ..framework import convert_dtype, get_default_dtype, seed
+from ..ops.attention import flash_decode
 from ..ops.kernels.fused_ln import (fused_add_layer_norm,
                                     fused_add_layer_norm_y)
 
 __all__ = ["normalize_attention_mask", "fused_residual_ln", "coerce_config",
-           "model_kw"]
+           "model_kw", "later", "static_index", "static_cache_attention"]
+
+
+def later(item):
+    """The tail of a NotImplementedError for a part of the reference that
+    is not ported yet: names the ROADMAP.md queue 1 item that holds it."""
+    return f"is not ported yet (see ROADMAP.md, queue 1 item {item})"
 
 
 def coerce_config(cls, config, kwargs):
@@ -62,3 +71,54 @@ def fused_residual_ln(residual, h, ln, want_sum=True):
     eps = getattr(ln, "_epsilon", 1e-5)
     fn = fused_add_layer_norm if want_sum else fused_add_layer_norm_y
     return fn(residual, h, ln.weight, ln.bias, eps)
+
+
+def static_index(cache_index):
+    """The static cache's write position as a Python int. An int (what
+    generate() passes) costs nothing; a 0-d tensor on the card is read
+    back, a host sync."""
+    if isinstance(cache_index, torch.Tensor):
+        if cache_index.dim():
+            raise ValueError(f"a static cache takes one cache_index, got "
+                             f"shape {tuple(cache_index.shape)}")
+        return int(cache_index.item())
+    return int(cache_index)
+
+
+def static_cache_attention(q, k, v, cache, idx, groups=1):
+    """One layer's attention over generate()'s static cache (the
+    reference's ``_forward_static_cache`` of GPT and Llama): k and v
+    [B, sq, Hkv, D] are written in place into the fixed [B, S_max, Hkv, D]
+    buffers ``cache`` at positions idx.. (a Python int); q [B, sq, H, D],
+    H = Hkv * groups, at the same positions, attends keys j <= idx + row.
+
+    A single query row with one kv head per query head attends the first
+    idx + 1 keys through the dense decode kernel (``ops.attention.
+    flash_decode``; q cast to the cache dtype, as the reference casts it).
+    Anything else (a prefill, a GQA step) takes the reference's grouped
+    attention in plain PyTorch, which runs no kernel there either: each kv
+    head meets its group of query heads in one matmul, so the buffers are
+    never repeated per query head; logits in f32 (masked to -1e30), p and
+    the product in q's dtype. Returns [B, sq, H, D] in q's dtype."""
+    kbuf, vbuf = cache
+    b, sq, h, d = q.shape
+    kbuf[:, idx:idx + sq] = k
+    vbuf[:, idx:idx + sq] = v
+    if groups == 1 and sq == 1:
+        lens = torch.full((b,), idx + 1, dtype=torch.int32, device=q.device)
+        return flash_decode(q.to(kbuf.dtype), kbuf, vbuf, lens).to(q.dtype)
+    hkv, s_max = h // groups, kbuf.shape[1]
+    qg = q.reshape(b, sq, hkv, groups, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, groups * sq, d)
+    kh = kbuf.to(q.dtype).transpose(1, 2)               # [B, Hkv, S, D]
+    vh = vbuf.to(q.dtype).transpose(1, 2)
+    logits = torch.matmul(qg.float(), kh.float().transpose(-1, -2)) * (
+        1.0 / math.sqrt(d))                             # [B, Hkv, G*sq, S]
+    kpos = torch.arange(s_max, device=q.device)[None, :]
+    qpos = (idx + torch.arange(sq, device=q.device)).repeat(groups)[:, None]
+    logits = torch.where(kpos <= qpos, logits,
+                         torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.matmul(p, vh)                             # [B, Hkv, G*sq, D]
+    return o.reshape(b, hkv, groups, sq, d).permute(0, 3, 1, 2, 4).reshape(
+        b, sq, h, d)

@@ -1,6 +1,6 @@
 """paddle.nn.functional subset of the port (counterpart of
-``paddle_tpu/nn/functional.py``): what GPT serving and training and
-BERT/ERNIE pretraining need.
+``paddle_tpu/nn/functional.py``): what GPT serving and training,
+BERT/ERNIE pretraining and Llama's decode need.
 
 Weights keep the Paddle layout: ``linear`` takes ``[in, out]``. Whatever
 draws random numbers (``dropout``, attention dropout in
@@ -14,8 +14,9 @@ import torch.nn.functional as _F
 
 from ..ops import attention as _attn
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu", "tanh", "softmax",
-           "dropout", "cross_entropy", "scaled_dot_product_attention"]
+__all__ = ["linear", "embedding", "layer_norm", "rms_norm", "gelu", "silu",
+           "tanh", "softmax", "dropout", "cross_entropy",
+           "scaled_dot_product_attention"]
 
 
 def linear(x, weight, bias=None):
@@ -34,9 +35,23 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return _F.layer_norm(x, tuple(normalized_shape), weight, bias, epsilon)
 
 
+def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
+    """ref: F.rms_norm — x * rsqrt(mean(x^2) + epsilon) with the statistics
+    in f32, cast back to x's dtype, then times ``weight``."""
+    xf = x.float()
+    ms = xf.square().mean(dim=axis, keepdim=True)
+    out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight
+
+
 def gelu(x, approximate=False):
     """Exact erf GELU by default, as the reference."""
     return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x):
+    """x * sigmoid(x): Llama's SwiGLU gate."""
+    return _F.silu(x)
 
 
 def tanh(x):

@@ -1,5 +1,5 @@
 """Normalisation layers of the port (counterpart of
-``paddle_tpu/nn/layers_norm.py``): ``LayerNorm``."""
+``paddle_tpu/nn/layers_norm.py``): ``LayerNorm``, ``RMSNorm``."""
 from __future__ import annotations
 
 from torch import nn
@@ -7,7 +7,7 @@ from torch import nn
 from . import functional as F
 from .layers_common import make_param
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -29,3 +29,18 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
+
+
+class RMSNorm(nn.Module):
+    """ref: nn.RMSNorm — weight ones over the last dim, f32 statistics
+    (``F.rms_norm``)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = make_param((hidden_size,), device=device, dtype=dtype,
+                                 init="ones")
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)

@@ -7,8 +7,9 @@ plain PyTorch twin, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is differentiable on both devices through one
 ``torch.autograd.Function`` (``ops.kernels.flash_attention``). Unlike
 the TPU gate there is no sequence-multiple rule — the CUDA kernels mask
-their own ragged edge — and no environment switch for the paged decode
-kernel: on the card it is the decode path.
+their own ragged edge — and no environment switch for either decode
+kernel (dense ``flash_decode``, paged ``paged_flash_decode``): on the card
+each is the decode path of its cache.
 """
 from __future__ import annotations
 
@@ -17,10 +18,10 @@ import math
 import torch
 
 from .kernels import flash_attention as _fa
-from .kernels import flash_decode as _fd
+from .kernels.flash_decode import paged_flash_decode as _paged_flash_decode
 
-__all__ = ["flash_attention", "paged_flash_decode", "reference_attention",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
+           "reference_attention", "HEAD_DIMS"]
 
 HEAD_DIMS = _fa.HEAD_DIMS
 
@@ -60,14 +61,27 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 
+def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
+    """Single-query decode against a dense padded KV cache: q [B, 1, H, D],
+    k_cache/v_cache [B, S, H, D], kv_lens [B] ints (keys at positions >=
+    kv_lens[b] are padding) -> [B, 1, H, D]. The static-cache decode step
+    of GPT and of MHA Llama (``generate()``). Unlike the reference there
+    is no ``PADDLE_TPU_FLASH_DECODE`` gate and no ``S % 128`` rule: on the
+    card the CUDA kernel (``ops.kernels.flash_attention.flash_decode``) is
+    the decode path and reads the cache in place; on the CPU its plain
+    twin runs."""
+    lens = torch.as_tensor(kv_lens, dtype=torch.int32, device=q.device)
+    return _fa.flash_decode(q, k_cache, v_cache, lens, sm_scale=sm_scale)
+
+
 def paged_flash_decode(q, k_pages, v_pages, page_table, lens, k_scale=None,
                        v_scale=None, sm_scale=None):
     """Paged GQA decode attention, used by
     ``nlp.paged_cache.paged_update_and_attend`` in every serving decode
-    step. See ``ops.kernels.flash_decode``."""
-    return _fd.paged_flash_decode(q, k_pages, v_pages, page_table, lens,
-                                  k_scale=k_scale, v_scale=v_scale,
-                                  sm_scale=sm_scale)
+    step. See ``ops.kernels.flash_decode`` (the module)."""
+    return _paged_flash_decode(q, k_pages, v_pages, page_table, lens,
+                               k_scale=k_scale, v_scale=v_scale,
+                               sm_scale=sm_scale)
 
 
 def reference_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,

@@ -24,14 +24,23 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 - ``dropout_keep`` — the attention-dropout keep mask, the TPU kernel's
   murmur3 hash of (seed, batch*head, q_pos * sk + k_pos) in plain
   PyTorch; the kernels compute the same bits.
+- ``flash_decode`` — single-query decode over a dense padded cache (the
+  reference's ``flash_decode``, its ``_fwd_call`` with one query row and
+  ``kv_lens``), in the public layout: q ``[B, 1, H, D]``, the cache
+  ``[B, S, H, D]`` read in place through its strides. A CPU tensor runs
+  ``flash_decode_plain``; a CUDA tensor launches ``csrc/flash_decode.cu``
+  or raises.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Kernel notes (details in the .cu files): all three compute on the CUDA
-cores in f32, where operations bound them (in bf16 at the tensor cores'
-rate they would sit near the H100's balance point); each stages the tile
-it loops over in shared memory, skips tiles the causal mask or the key
-length rule out, and regenerates the dropout mask in registers.
+Kernel notes (details in the .cu files): the three flash kernels
+compute on the CUDA cores in f32, where operations bound them (in bf16 at
+the tensor cores' rate they would sit near the H100's balance point);
+each stages the tile it loops over in shared memory, skips tiles the
+causal mask or the key length rule out, and regenerates the dropout mask
+in registers. The decode kernel is bound by the bytes of the live cache:
+it splits each row's keys over several blocks (flash-decoding) and
+combines their partial softmax states in a second, small kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ __all__ = ["HEAD_DIMS", "NEG_INF", "dropout_keep", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv_plain", "flash_attention_bwd_plain",
-           "flash_attention_bwd", "flash_attention_bhsd"]
+           "flash_attention_bwd", "flash_attention_bhsd", "flash_decode",
+           "flash_decode_plain", "decode_split"]
 
 HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30  # the TPU kernel's masked-score sentinel
@@ -58,6 +68,14 @@ _FWD_ARGTYPES = [_P] * 6 + [_I] * 5 + [_F, _P, _U, _F, _I, _P]
 _DQ_ARGTYPES = [_P] * 10 + [_I] * 5 + [_F, _U, _F, _I, _P]
 # q, k, v, dout, lse, delta, lens, seed, dk, dv; then as above
 _DKV_ARGTYPES = _DQ_ARGTYPES
+# q, k, v, lens, out, part_acc, part_ml; b, h, s, d, splits, chunk; the
+# strides q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh; is_bf16; sm_scale;
+# stream
+_DECODE_ARGTYPES = ([_P] * 7 + [_I] * 6 + [ctypes.c_longlong] * 8
+                    + [_I, _F, _P])
+# partial-state blocks a decode call aims for: four on each of the H100's
+# 132 SMs
+_DECODE_BLOCKS = 4 * 132
 
 _M32 = 0xFFFFFFFF
 
@@ -399,3 +417,105 @@ def flash_attention_bhsd(q, k, v, lens=None, seed=None, causal=False,
     """Differentiable [B*H, S, D] flash attention -> o."""
     return _FlashAttention.apply(q, k, v, lens, seed, causal,
                                  _scale(sm_scale, q), float(dropout_p))
+
+
+# -- dense single-query decode ------------------------------------------------
+
+def flash_decode_plain(q, k_cache, v_cache, kv_lens, sm_scale=None):
+    """q [B, 1, H, D]; k_cache/v_cache [B, S, H, D]; kv_lens [B] int — keys
+    at positions >= kv_lens[b] are masked. Returns [B, 1, H, D] in q's
+    dtype: f32 scores and softmax, p rounded to the cache dtype before its
+    product with V, as the TPU kernel computes it. A row with kv_lens 0
+    gives 0."""
+    sm_scale = _scale(sm_scale, q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * sm_scale
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    ok = (kpos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bhqd", _rounded(p, v_cache.dtype),
+                     v_cache.float()) / safe_l
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def decode_split(b, h, s, d):
+    """(splits, chunk) of a decode call: the keys of each (b, h) row are cut
+    into ``splits`` chunks of ``chunk`` keys, one block each, so that the
+    call puts about ``_DECODE_BLOCKS`` blocks on the card. ``chunk`` is a
+    multiple of the keys a block's 4 warps take in one round (2048 // d)."""
+    unit = 2048 // d
+    want = max(1, -(-_DECODE_BLOCKS // (b * h)))
+    chunk = -(-max(1, -(-s // want)) // unit) * unit
+    return -(-s // chunk), chunk
+
+
+def _check_decode(q, k, v, lens):
+    """Raise on anything the decode kernel does not take."""
+    fn = "flash_decode"
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"{fn}: q must be [B, 1, H, D], got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: dtype {q.dtype} not in {_DTYPES}")
+    b, _, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")
+    for name, t in (("k_cache", k), ("v_cache", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != 4 or t.shape[0] != b or t.shape[3] != d:
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} does not match"
+                             f" q {tuple(q.shape)}")
+        if t.shape[2] != h:
+            raise ValueError(f"{fn}: {name} has {t.shape[2]} heads, q has "
+                             f"{h}")
+    if k.shape != v.shape or k.shape[1] < 1:
+        raise ValueError(f"{fn}: k_cache {tuple(k.shape)} / v_cache "
+                         f"{tuple(v.shape)}")
+    for name, t in (("q", q), ("k_cache", k), ("v_cache", v)):
+        if t.device != q.device:
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
+        esz = t.element_size()
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(t.stride(i) * esz % 16 for i in (0, 1, 2))):
+            raise ValueError(f"{fn}: {name} needs a contiguous last dim, "
+                             "16-byte strides and a 16-byte aligned start")
+    if (lens.device != q.device or lens.dtype != torch.int32
+            or lens.shape != (b,) or not lens.is_contiguous()):
+        raise ValueError(f"{fn}: kv_lens must be a contiguous [{b}] int32 "
+                         f"tensor on {q.device}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{fn}: too many rows for the grid: B={b}, H={h}")
+
+
+def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
+    """Single-query decode attention over a dense padded cache -> [B, 1, H,
+    D] in q's dtype. CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise. q and the cache share one dtype (f32 or
+    bf16) and one head count; the cache is read in place, never copied;
+    the wrapper never syncs with the device."""
+    sm_scale = _scale(sm_scale, q)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, kv_lens, sm_scale)
+    _on_cuda("flash_decode", q)
+    _check_decode(q, k_cache, v_cache, kv_lens)
+    b, _, h, d = q.shape
+    s = k_cache.shape[1]
+    splits, chunk = decode_split(b, h, s, d)
+    out = torch.empty(b, 1, h, d, dtype=q.dtype, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_acc = torch.empty(b, h, splits, d, **f32)
+    part_ml = torch.empty(b, h, splits, 2, **f32)
+    _launch(flash_decode, "flash_decode", None, _DECODE_ARGTYPES, q,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), b, h, s, d, splits, chunk, q.stride(0),
+            q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+            int(q.dtype == torch.bfloat16), float(sm_scale))
+    return out
+
+
+flash_decode.launches = 0

@@ -132,6 +132,17 @@ def test_unported_options_raise(flag):
 
 
 def test_generate_raises(models):
+    """generate() runs now (test_torch_generation.py holds it against the
+    reference); what it does not take raises: cached dense decode (a cache
+    without cache_index) names its ROADMAP item, an unknown strategy and
+    beam search with top_k raise as the reference's do."""
     _, pm = models
+    ids = torch.zeros(1, 3, dtype=torch.int64)
+    cache = [(torch.zeros(1, 3, 1, 64), torch.zeros(1, 3, 1, 64))] * 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.generate(torch.zeros(1, 3, dtype=torch.int64))
+        pm(ids, cache=cache)
+    with pytest.raises(ValueError, match="decode_strategy"):
+        pm.generate(ids, decode_strategy="contrastive_search")
+    with pytest.raises(ValueError, match="beam_search"):
+        pm.generate(ids, num_beams=2, top_k=4)
+    assert tuple(pm.generate(ids, max_new_tokens=2).shape) == (1, 5)

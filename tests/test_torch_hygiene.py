@@ -22,6 +22,7 @@ from paddle_tpu_torch.nlp.ernie import ErnieForPretraining, ErnieModel
 from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
                                       GPTPretrainingCriterion,
                                       _resolve_config)
+from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, LlamaModel
 from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
@@ -80,15 +81,38 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         seed(0)
     assert seed(0, device="cpu").device.type == "cpu"
-    for cls in (ErnieModel, ErnieForPretraining):
+    for cls, name in ((ErnieModel, "ernie-tiny"),
+                      (ErnieForPretraining, "ernie-tiny"),
+                      (LlamaModel, "llama-tiny"),
+                      (LlamaForCausalLM, "llama-tiny")):
         with pytest.raises(RuntimeError, match="no GPU"):
-            cls.from_config_name("ernie-tiny")
-        m = cls.from_config_name("ernie-tiny", device="cpu")
+            cls.from_config_name(name)
+        m = cls.from_config_name(name, device="cpu")
         assert {p.device.type for p in m.parameters()} == {"cpu"}
+    # generate() follows the model: the tokens and the sampler's
+    # generator live on the CPU
+    out = model.generate(torch.zeros(1, 3, dtype=torch.int64),
+                         max_new_tokens=2, top_k=3, seed=1)
+    assert out.device.type == "cpu"
 
 
 def test_import_builds_nothing():
     assert not _build._libs
+
+
+def test_wrappers_are_the_kernel_wrappers():
+    # every entry resets and reads a real counter: a module that shadowed
+    # a wrapper's name would take the reset silently and count nothing
+    import importlib
+    from paddle_tpu_torch.ops import kernels
+    kpaged = importlib.import_module("paddle_tpu_torch.ops.kernels."
+                                     "flash_decode")
+    for w in kernels.WRAPPERS:
+        assert callable(w) and not isinstance(w, type(os)), w
+        assert isinstance(w.launches, int), w
+    assert len({w.__name__ for w in kernels.WRAPPERS}) == 10
+    assert kernels.flash_decode is kfa.flash_decode
+    assert kpaged.paged_flash_decode in kernels.WRAPPERS
 
 
 def test_engine_and_optimizers_follow_the_model(monkeypatch):
@@ -141,6 +165,11 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
                                                vec),
         lambda: kln.fused_add_layer_norm(rows, rows, vec, vec),
         lambda: kln.fused_add_layer_norm_y(rows, rows, vec, vec),
+        lambda: kfa.flash_decode(
+            torch.empty(2, 1, 4, 64, device="meta"),
+            torch.empty(2, 8, 4, 64, device="meta"),
+            torch.empty(2, 8, 4, 64, device="meta"),
+            torch.empty(2, dtype=torch.int32, device="meta")),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
