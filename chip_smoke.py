@@ -100,7 +100,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
              launched;
 18. generate-cpu — gpt3-345M and llama2-7b cut to 2 layers at full width,
              f32, the same weights on cuda and on the CPU: prefill logits
-             within 1e-3 and 8 greedy tokens equal (prompts 2 x 32).
+             within 1e-3 and 8 greedy tokens equal (prompts 2 x 32);
+19. conv-bn-act — kernel #11 (fused 1x1 conv + BatchNorm + ReLU
+             (+ residual)) vs its plain twin at the 12 shapes of one
+             ResNet-50 forward (batch 256, 224 px) in bf16, four of them
+             in f32, residual and ReLU on and off, ragged M (1, 7, not a
+             multiple of 128), Cin (3, 100) and Cout (1, 9, 70); times
+             the bf16 shapes next to their bounds, the twin and the cuBLAS
+             product alone (which computes less than #11; no single
+             PyTorch call computes #11's function), and the sum over the
+             32 launches of a forward;
+20. resnet-serve — resnet50(layout="NHWC", fused_bottleneck=True) at full
+             depth and width, weights from seed 0 on the card, eval, cast
+             to bf16 with its running statistics (bench.py's
+             _resnet_serve): batch 256 x 3 x 224 x 224 from numpy seed 0
+             under inference_mode, 3 warm-up and 10 timed forwards with one
+             sync; exactly 32 launches of #11 a forward and no other
+             kernel of the port; images/s, ms a forward, peak memory, one
+             forward profiled; then f32 at batch 64 with random BatchNorm
+             statistics, fused NHWC vs the unfused NHWC model: logits
+             within 1e-3 of their max-abs, top-1 equal;
+21. resnet-cpu — resnet50 fused NHWC, f32, batch 2 x 3 x 64 x 64, the same
+             weights on cuda (kernel #11) and on the CPU (its twin): logits
+             within 1e-3 of their max-abs, argmax equal.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -108,6 +130,8 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               the backward's grads, whose magnitudes pass 1, 2e-2 of
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
               3.1e-2;
+  conv-bn-act: f32 1e-4 and bf16 2e-2 of max(1, |twin|) — the product
+              summed in another order; bf16 y rounds to 8 bits;
   int8 1e-4 — both dequantize value * scale in f32 the same way; only
               the summation order differs;
   AdamW 1e-6 — the same f32 arithmetic, contracted into FMAs on the card;
@@ -119,8 +143,8 @@ model's projections compute in full f32.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
-the ERNIE slice (phase 11), GPT's fused block (phase 12) and each
-generate() call (phases 15-17).
+the ERNIE slice (phase 11), GPT's fused block (phase 12), each
+generate() call (phases 15-17) and one ResNet-50 serve forward (phase 20).
 
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
@@ -1760,6 +1784,293 @@ def phase_generate_cpu(torch):
     return res
 
 
+
+# -- ResNet-50 serving: the fused 1x1-conv + BN + ReLU kernel #11 ------------
+
+CONV_KERNELS = ("conv_bn_act_bf16_kernel", "conv_bn_act_f32_kernel")
+# (M, Cin, Cout, residual, launches in one forward): the 32 launches of one
+# ResNet-50 forward at batch 256 x 224 px (M = N*H*W; stride 2 sits on
+# conv2, so a stage's first conv1 runs at the previous stage's resolution)
+SERVE_SHAPES = (
+    (802816, 64, 64, False, 1), (802816, 256, 64, False, 2),
+    (802816, 64, 256, True, 3), (802816, 256, 128, False, 1),
+    (200704, 512, 128, False, 3), (200704, 128, 512, True, 4),
+    (200704, 512, 256, False, 1), (50176, 1024, 256, False, 5),
+    (50176, 256, 1024, True, 6), (50176, 1024, 512, False, 1),
+    (12544, 2048, 512, False, 2), (12544, 512, 2048, True, 3))
+
+
+def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed):
+    """Kernel #11 vs its plain twin on one input; timed cases also run
+    the cuBLAS product of the same operands alone."""
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    dt = getattr(torch, dtype)
+    x2 = torch.randn(m, cin, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(cin, cout, generator=gen, device="cuda")
+         / math.sqrt(cin)).to(dt)
+    scale = 1.0 + 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    shift = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    r2 = torch.randn(m, cout, generator=gen, device="cuda").to(dt) \
+        if res else None
+    out = kcb.fused_conv1x1_bn_act(x2, w, scale, shift, r2, relu)
+    torch.cuda.synchronize()
+    ref = kcb.conv_bn_act_plain(x2, w, scale, shift, r2, relu)
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    scaled = (diff / ref.float().abs().clamp_min(1.0)).max().item()
+    check(out.dtype == dt and out.shape == (m, cout),
+          f"conv-bn-act: output {out.dtype} {tuple(out.shape)}")
+    check(math.isfinite(scaled) and scaled <= TOL[dtype],
+          f"conv-bn-act {dtype} m{m} {cin}->{cout} res={res} relu={relu}: "
+          f"error {scaled} of max(1, |twin|) > {TOL[dtype]}")
+    row = dict(dtype=dtype, m=m, cin=cin, cout=cout, res=res, relu=relu,
+               max_abs_err=err, scaled_err=scaled)
+    del ref, diff
+    if timed:
+        row["ms"] = time_ms(torch, lambda: kcb.fused_conv1x1_bn_act(
+            x2, w, scale, shift, r2, relu), flush=flush)
+        row["plain_ms"] = time_ms(torch, lambda: kcb.conv_bn_act_plain(
+            x2, w, scale, shift, r2, relu), flush=flush)
+        row["gemm_ms"] = time_ms(torch, lambda: torch.matmul(x2, w),
+                                 flush=flush)
+        esz = x2.element_size()
+        bytes_moved = ((m * cin + cin * cout + m * cout * (2 if res else 1))
+                       * esz + 2 * cout * 4)
+        flops = 2 * m * cin * cout
+        peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+        row["bound_ms"], row["bound_by"] = bound(bytes_moved, flops, peak)
+        row["bound_bytes_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
+        row["bound_ops_ms"] = flops / peak * 1e3
+    return row
+
+
+def phase_conv_bn_act(torch, flush):
+    """Kernel #11 against its twin: the 12 serve-path shapes in bf16 (timed,
+    with the GEMM alone beside them), four of them in f32, residual and
+    ReLU on and off, and ragged M, Cin and Cout."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for m, cin, cout, res, _ in SERVE_SHAPES:
+        rows.append(_conv_case(torch, m, cin, cout, res, True, "bfloat16",
+                               gen, flush, True))
+    for m, cin, cout, res, _ in (SERVE_SHAPES[0], SERVE_SHAPES[5],
+                                 SERVE_SHAPES[8], SERVE_SHAPES[11]):
+        rows.append(_conv_case(torch, m, cin, cout, res, True, "float32",
+                               gen, flush, False))
+    for dtype in ("float32", "bfloat16"):
+        for res, relu in ((False, False), (True, False), (True, True),
+                          (False, True)):
+            rows.append(_conv_case(torch, 50176, 256, 1024, res, relu, dtype,
+                                   gen, flush, False))
+        for m, cin, cout in ((1, 64, 64), (7, 256, 64), (1000, 3, 64),
+                             (333, 64, 1), (1000, 100, 70), (129, 8, 9),
+                             (12545, 512, 2048), (7, 3, 1)):
+            for res in (False, True):
+                rows.append(_conv_case(torch, m, cin, cout, res, True, dtype,
+                                       gen, flush, False))
+    for r in rows:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}) plain_ms {r['plain_ms']:.4f} GEMM alone "
+            f"(computes less than #11) {r['gemm_ms']:.4f}")
+        log(f"conv-bn-act: {r['dtype']} M={r['m']} {r['cin']}->{r['cout']} "
+            f"res={r['res']} relu={r['relu']} max_abs_err "
+            f"{r['max_abs_err']:.3e} (of max(1, |twin|): "
+            f"{r['scaled_err']:.3e}){extra}")
+    timed = [r for r in rows if "ms" in r]
+    total = {key: sum(r[key] * n for r, (*_, n) in zip(timed, SERVE_SHAPES))
+             for key in ("ms", "plain_ms", "gemm_ms", "bound_ms",
+                         "bound_bytes_ms", "bound_ops_ms")}
+    total["bound_by"] = ("bytes" if total["bound_bytes_ms"]
+                         >= total["bound_ops_ms"] else "operations")
+    log(f"conv-bn-act: the 32 launches of one ResNet-50 forward (batch 256, "
+        f"224 px, bf16): kernel {total['ms']:.4f} ms against a bound of "
+        f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.3f} "
+        f"of it); twin {total['plain_ms']:.4f} ms; GEMM alone (computes "
+        f"less than #11) {total['gemm_ms']:.4f} ms")
+    return dict(rows=rows, total=total)
+
+
+def _resnet_input(torch, b, hw, dtype, seed=0):
+    import numpy as np
+    x = np.random.default_rng(seed).standard_normal((b, 3, hw, hw))
+    return torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+
+
+def profile_forward(torch, tag, model, x):
+    """One forward under torch.profiler: the device's busy share of its
+    wall time, kernel #11's share of the device time, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    busy = sum(a.self_device_time_total for a in rows) / 1e6
+    if busy <= 0:
+        log(f"{tag}: the profiler recorded no device time; busy share not "
+            "measured")
+        return dict(busy_share=None, conv_share=None)
+    own = sum(a.self_device_time_total for a in rows
+              if any(n in a.key for n in CONV_KERNELS)) / 1e6
+    log(f"{tag}: one forward profiled: wall {wall * 1e3:.3f} ms under the "
+        f"profiler, {sum(a.count for a in rows)} device kernels, device busy "
+        f"{busy * 1e3:.3f} ms = {busy / wall:.3f} of it; kernel #11 "
+        f"{own * 1e3:.3f} ms = {own / busy:.3f} of the device time")
+    for a in rows[:8]:
+        log(f"{tag}:   {a.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<5d} {a.key[:90]}")
+    return dict(busy_share=busy / wall, conv_share=own / busy,
+                device_ms=busy * 1e3)
+
+
+def _randomize_bn(torch, model, seed):
+    """Draw every BatchNorm's statistics and affine parameters from
+    ``seed``: at their initial values (0, 1, 1, 0) a folded BatchNorm and
+    the plain one do the same arithmetic, which would hide a wrong fold."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2D):
+                c = m._mean.shape[0]
+                m.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                m._mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m._variance.copy_(0.5 + torch.rand(c, generator=gen))
+    return model
+
+
+def _logits_close(tag, got, want, tol=1e-3):
+    """Logits within tol of the reference's max-abs, top-1 equal."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(math.isfinite(err) and err <= tol * max(scale, 1e-30),
+          f"{tag}: logits max_abs_err {err} > {tol} x max-abs {scale}")
+    top = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(top == 1.0, f"{tag}: top-1 equal at only {top} of the rows")
+    return err, scale
+
+
+def phase_resnet_serve(torch):
+    """resnet50 (NHWC, fused_bottleneck) at full depth and width, weights
+    from seed 0, eval, cast to bf16 with its running statistics, as
+    bench.py's _resnet_serve: batch 256 x 3 x 224 x 224 from numpy seed 0
+    under inference_mode, 3 warm-up and 10 timed forwards with one sync;
+    32 launches of #11 a forward; then the same weights in f32 (BatchNorm
+    statistics drawn at random), fused against the unfused NHWC model at
+    batch 64 x 224 px."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    from paddle_tpu_torch.vision.models import resnet50
+    b, hw, steps = 256, 224, 10
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=True,
+                     device="cuda", generator=seed(0)).eval()
+    model.to(torch.bfloat16)
+    check(model.layer1[0].bn1._mean.dtype == torch.bfloat16,
+          "resnet-serve: the running statistics were not cast to bf16")
+    x = _resnet_input(torch, b, hw, torch.bfloat16)
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+        for w in WRAPPERS:
+            w.launches = 0
+        logits = model(x)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in WRAPPERS}
+        check(launches["fused_conv1x1_bn_act"] == 32,
+              f"resnet-serve: #11 launched {launches['fused_conv1x1_bn_act']}"
+              " times in one forward, want 32")
+        others = {n: c for n, c in launches.items()
+                  if c and n != "fused_conv1x1_bn_act"}
+        check(not others, f"resnet-serve: other kernels launched {others}")
+        check(logits.shape == (b, 1000) and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()),
+              f"resnet-serve: logits {logits.dtype} {tuple(logits.shape)} "
+              "not finite bf16 [256, 1000]")
+        kcb.fused_conv1x1_bn_act.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits = model(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(kcb.fused_conv1x1_bn_act.launches == 32 * steps,
+              f"resnet-serve: #11 x {kcb.fused_conv1x1_bn_act.launches} over "
+              f"{steps} forwards, want {32 * steps}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(launches=launches, images_per_s=b * steps / wall,
+               ms_per_forward=wall / steps * 1e3, peak_gib=peak)
+    log(f"resnet-serve: resnet50 NHWC fused, bf16, batch {b} x {hw} px: "
+        f"{res['images_per_s']:.1f} images/s, {res['ms_per_forward']:.3f} "
+        f"ms a forward ({steps} forwards, one sync), #11 x 32 a forward, "
+        f"peak {peak:.2f} GiB")
+    res["profile"] = profile_forward(torch, "resnet-serve", model, x)
+    del model, x, logits
+    torch.cuda.empty_cache()
+
+    # f32: the kernel's f32 path against the plain NHWC stack, the same
+    # weights with random BatchNorm statistics
+    fb = 64
+    fused = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=True,
+                     device="cuda", generator=seed(0)).eval()
+    _randomize_bn(torch, fused, 20)
+    plain = resnet50(num_classes=1000, layout="NHWC", device="cuda",
+                     generator=seed(1)).eval()
+    plain.load_state_dict(fused.state_dict())
+    x = _resnet_input(torch, fb, hw, torch.float32)
+    with torch.inference_mode():
+        kcb.fused_conv1x1_bn_act.launches = 0
+        yf = fused(x)
+        check(kcb.fused_conv1x1_bn_act.launches == 32,
+              "resnet-serve f32: the fused model did not launch #11 32 times")
+        yp = plain(x)
+        check(kcb.fused_conv1x1_bn_act.launches == 32,
+              "resnet-serve f32: the unfused model launched #11")
+    err, scale = _logits_close("resnet-serve f32 fused vs unfused", yf, yp)
+    log(f"resnet-serve: f32, batch {fb} x {hw} px, fused NHWC vs unfused "
+        f"NHWC: logits max_abs_err {err:.3e} of max-abs {scale:.3e}; top-1 "
+        "equal")
+    res["f32_err"] = err / scale
+    return res
+
+
+def phase_resnet_cpu(torch):
+    """resnet50, fused NHWC, f32, batch 2 x 3 x 64 x 64: the same weights
+    (BatchNorm statistics drawn at random) on the card (kernel #11) and on
+    the CPU (its twin)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    from paddle_tpu_torch.vision.models import resnet50
+    gm = resnet50(layout="NHWC", fused_bottleneck=True, device="cuda",
+                  generator=seed(2)).eval()
+    _randomize_bn(torch, gm, 21)
+    cm = resnet50(layout="NHWC", fused_bottleneck=True, device="cpu",
+                  generator=seed(3, device="cpu")).eval()
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    x = _resnet_input(torch, 2, 64, torch.float32, seed=5)
+    with torch.inference_mode():
+        kcb.fused_conv1x1_bn_act.launches = 0
+        yg = gm(x)
+        check(kcb.fused_conv1x1_bn_act.launches == 32,
+              "resnet-cpu: the cuda side did not launch #11 32 times")
+        yc = cm(x.cpu())
+        check(kcb.fused_conv1x1_bn_act.launches == 32,
+              "resnet-cpu: the CPU side counted a launch")
+    err, scale = _logits_close("resnet-cpu cuda vs cpu", yg, yc)
+    log(f"resnet-cpu: resnet50 fused NHWC, f32, batch 2 x 64 px: logits cuda "
+        f"vs cpu max_abs_err {err:.3e} of max-abs {scale:.3e}; argmax equal")
+    return err / scale
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1805,6 +2116,8 @@ def main():
     stamp("flash_noncausal")
     ddec = phase_dense_decode(torch, flush)
     stamp("dense_decode")
+    conv = phase_conv_bn_act(torch, flush)
+    stamp("conv_bn_act")
     del scratch
     sl = phase_slice(torch)
     stamp("slice")
@@ -1833,6 +2146,12 @@ def main():
     torch.cuda.empty_cache()
     phase_generate_cpu(torch)
     stamp("generate_cpu")
+    torch.cuda.empty_cache()
+    rs = phase_resnet_serve(torch)
+    stamp("resnet_serve")
+    torch.cuda.empty_cache()
+    phase_resnet_cpu(torch)
+    stamp("resnet_cpu")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -1916,6 +2235,17 @@ def main():
         ln_row("fused_add_layer_norm_y_bwd", "y_bwd", f"{ln_src}:294",
                "ernie", er),
     ]
+    # the 32 launches of one bf16 ResNet-50 serve forward, summed by shape
+    cb = conv["total"]
+    kernels.append(dict(
+        name="fused_conv1x1_bn_act", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_bn_act.cu",
+        replaces="paddle_tpu/ops/pallas/conv_bn_act.py:101",
+        launches=rs["launches"]["fused_conv1x1_bn_act"],
+        max_abs_err=max(r["max_abs_err"] for r in conv["rows"]
+                        if r["dtype"] == "float32"),
+        ms=cb["ms"], plain_ms=cb["plain_ms"], bound_ms=cb["bound_ms"],
+        bound_by=cb["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype", "seed",
-           "bind_generator"]
+           "bind_generator", "later"]
 
 _DTYPE_ALIASES = {
     "float16": torch.float16, "fp16": torch.float16,
@@ -68,3 +68,9 @@ def bind_generator(module, generator):
         if hasattr(m, "generator"):
             m.generator = generator
     return module
+
+
+def later(item):
+    """The tail of a NotImplementedError for a part of the reference that
+    is not ported yet: names the ROADMAP.md queue 1 item that holds it."""
+    return f"is not ported yet (see ROADMAP.md, queue 1 item {item})"

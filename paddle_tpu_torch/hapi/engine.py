@@ -24,11 +24,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..framework import bind_generator, convert_dtype
+from ..framework import bind_generator, convert_dtype, later
 
 __all__ = ["Engine"]
-
-_LATER = "is not ported yet (see ROADMAP.md, queue 1)"
 
 
 def _detach(x):
@@ -52,10 +50,10 @@ class Engine:
     def __init__(self, network, loss=None, optimizer=None, amp_dtype=None,
                  mesh=None, guard=None, generator=None):
         if mesh is not None:
-            raise NotImplementedError(f"Engine(mesh=...) {_LATER}")
+            raise NotImplementedError(f"Engine(mesh=...) {later('1.3')}")
         if guard is not None:
             raise NotImplementedError(f"Engine(guard=...) (TrainGuard) "
-                                      f"{_LATER}")
+                                      f"{later('1.3')}")
         self.network = network
         self.loss = loss
         self.optimizer = optimizer
@@ -84,7 +82,7 @@ class Engine:
         """One optimizer step -> (loss, outs): loss an f32 scalar tensor on
         the device, outs the network's outputs (detached)."""
         if self.collect_grad_norm:
-            raise NotImplementedError(f"grad-norm telemetry {_LATER}")
+            raise NotImplementedError(f"grad-norm telemetry {later('1.3')}")
         net = self.network
         if not net.training:
             net.train()
@@ -129,7 +127,7 @@ class Engine:
         return self.eval_batch(inputs, ())[1]
 
     def train_batch_accum(self, inputs, labels, apply_update):
-        raise NotImplementedError(f"gradient accumulation {_LATER}")
+        raise NotImplementedError(f"gradient accumulation {later('1.3')}")
 
     def train_batch_multi(self, inputs, labels):
-        raise NotImplementedError(f"Engine.train_batch_multi {_LATER}")
+        raise NotImplementedError(f"Engine.train_batch_multi {later('1.3')}")

@@ -72,10 +72,12 @@ class GPTConfig:
     max_position_embeddings: int = 1024
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    use_flash_attention: bool = True
     tie_word_embeddings: bool = True
     recompute: bool = False
     scan_layers: bool = False
     fused_qkv: bool = False
+    num_virtual_pipeline_stages: int = 1
     chunked_ce: int = 0
     fused_ln: bool = False
     sequence_parallel: str = ""
@@ -88,6 +90,16 @@ class GPTConfig:
                            ("sequence_parallel", "10")):
             if getattr(self, flag):
                 raise NotImplementedError(f"GPTConfig.{flag} {later(item)}")
+        if self.num_virtual_pipeline_stages > 1:
+            raise NotImplementedError(
+                f"GPTConfig.num_virtual_pipeline_stages="
+                f"{self.num_virtual_pipeline_stages} (interleaved pipeline) "
+                f"{later('10')}")
+        if not self.use_flash_attention:
+            raise NotImplementedError(
+                "GPTConfig.use_flash_attention=False: the port has no "
+                "plain attention path on the card (ROADMAP.md, ground "
+                "rules: no fallback)")
         if not self.tie_word_embeddings:
             raise NotImplementedError(
                 "GPTConfig.tie_word_embeddings=False: the reference takes "

@@ -7,19 +7,13 @@ import math
 import torch
 
 from ..device import resolve_device
-from ..framework import convert_dtype, get_default_dtype, seed
+from ..framework import convert_dtype, get_default_dtype, later, seed
 from ..ops.attention import flash_decode
 from ..ops.kernels.fused_ln import (fused_add_layer_norm,
                                     fused_add_layer_norm_y)
 
 __all__ = ["normalize_attention_mask", "fused_residual_ln", "coerce_config",
            "model_kw", "later", "static_index", "static_cache_attention"]
-
-
-def later(item):
-    """The tail of a NotImplementedError for a part of the reference that
-    is not ported yet: names the ROADMAP.md queue 1 item that holds it."""
-    return f"is not ported yet (see ROADMAP.md, queue 1 item {item})"
 
 
 def coerce_config(cls, config, kwargs):

@@ -29,7 +29,10 @@ PyTorch on the engine's device (CUDA unless ``device="cpu"``). Not in this
 slice (ROADMAP.md): prefix caching, speculative decoding, warmup/AOT,
 the memory ledger, profiler, tenancy/tracing/metrics registry,
 watchdog/retries/fault injection, the reject/evict policies, cancel and
-deadlines.
+deadlines. The constructor and ``submit`` take every keyword of the
+reference's, and a value other than the reference's default raises
+NotImplementedError naming ROADMAP.md queue 1 item 7, as do ``cancel``,
+``drain``, ``resume``, ``health``, ``warmup`` and ``close``.
 """
 from __future__ import annotations
 
@@ -40,12 +43,30 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework import later
 from .paged_cache import (PagedLayerCache, TRASH_PAGE, alloc_pages,
                           write_prompt_kv)
 
 __all__ = ["ServingEngine", "ServeRequest"]
 
 _M32 = 0xFFFFFFFF
+# the reference's keywords that select parts not ported yet, with the
+# reference's defaults: any other value raises
+_ENGINE_LATER = dict(
+    donate=True, admission_policy="wait", watchdog_timeout=None,
+    dispatch_retries=2, registry=None, tenant_capacity=64,
+    prefix_cache=None, min_prefix_pages=None, prefix_max_entries=512,
+    spec_decode=None, spec_k=None, spec_draft=None, profile=None,
+    profile_hz=None, mem_ledger=None, mem_admission=None,
+    mem_capacity_bytes=None)
+_SUBMIT_LATER = dict(deadline_ms=None, priority=0, trace=None, tenant=None)
+
+
+def _refuse_later(where, defaults, given):
+    for name, value in given.items():
+        if value is not defaults[name] and value != defaults[name]:
+            raise NotImplementedError(f"{where}({name}={value!r}) "
+                                      f"{later('7')}")
 
 
 class ServeRequest:
@@ -116,8 +137,31 @@ class ServingEngine:
 
     def __init__(self, model, *, max_slots=8, page_size=16,
                  max_seq_len=256, num_pages=None, cache_dtype="float32",
-                 temperature=0.0, top_k=0, seed=0, pad_token_id=0,
-                 steps_per_dispatch=8, device=None):
+                 use_flash=None, temperature=0.0, top_k=0, seed=0,
+                 pad_token_id=0, steps_per_dispatch=8, donate=True,
+                 admission_policy="wait", watchdog_timeout=None,
+                 dispatch_retries=2, registry=None,
+                 tenant_capacity=64, prefix_cache=None,
+                 min_prefix_pages=None, prefix_max_entries=512,
+                 spec_decode=None, spec_k=None, spec_draft=None,
+                 profile=None, profile_hz=None, mem_ledger=None,
+                 mem_admission=None, mem_capacity_bytes=None, device=None):
+        if use_flash is not None and not use_flash:
+            raise NotImplementedError(
+                "ServingEngine(use_flash=False): the port has no plain "
+                "attention path on the card (ROADMAP.md, ground rules: no "
+                "fallback)")
+        _refuse_later("ServingEngine", _ENGINE_LATER, dict(
+            donate=donate, admission_policy=admission_policy,
+            watchdog_timeout=watchdog_timeout,
+            dispatch_retries=dispatch_retries, registry=registry,
+            tenant_capacity=tenant_capacity, prefix_cache=prefix_cache,
+            min_prefix_pages=min_prefix_pages,
+            prefix_max_entries=prefix_max_entries, spec_decode=spec_decode,
+            spec_k=spec_k, spec_draft=spec_draft, profile=profile,
+            profile_hz=profile_hz, mem_ledger=mem_ledger,
+            mem_admission=mem_admission,
+            mem_capacity_bytes=mem_capacity_bytes))
         want = resolve_device(device)
         self.device = next(model.parameters()).device
         if self.device.type != want.type or (
@@ -185,9 +229,15 @@ class ServingEngine:
 
     # -- public API ---------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens=16, eos_token_id=None):
+    def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
+               deadline_ms=None, priority=0, trace=None, tenant=None):
         """Queue one request; returns its id. Admitted at the next step()
-        boundary (slot + pages permitting)."""
+        boundary (slot + pages permitting). Deadlines, priorities, traces
+        and tenants are not ported: a value other than the default
+        raises."""
+        _refuse_later("ServingEngine.submit", _SUBMIT_LATER, dict(
+            deadline_ms=deadline_ms, priority=priority, trace=trace,
+            tenant=tenant))
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not len(prompt):
             raise ValueError("empty prompt")
@@ -242,6 +292,24 @@ class ServingEngine:
                for p in prompts]
         res = {r["id"]: r for r in self.run_to_completion()}
         return [res[i]["tokens"] for i in ids]
+
+    def cancel(self, rid):
+        raise NotImplementedError(f"ServingEngine.cancel {later('7')}")
+
+    def drain(self):
+        raise NotImplementedError(f"ServingEngine.drain {later('7')}")
+
+    def resume(self):
+        raise NotImplementedError(f"ServingEngine.resume {later('7')}")
+
+    def health(self):
+        raise NotImplementedError(f"ServingEngine.health {later('7')}")
+
+    def warmup(self, buckets=(), decode=True):
+        raise NotImplementedError(f"ServingEngine.warmup {later('7')}")
+
+    def close(self):
+        raise NotImplementedError(f"ServingEngine.close {later('7')}")
 
     @property
     def free_page_count(self):

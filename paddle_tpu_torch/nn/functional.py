@@ -1,22 +1,30 @@
 """paddle.nn.functional subset of the port (counterpart of
 ``paddle_tpu/nn/functional.py``): what GPT serving and training,
-BERT/ERNIE pretraining and Llama's decode need.
+BERT/ERNIE pretraining, Llama's decode and ResNet serving need.
 
-Weights keep the Paddle layout: ``linear`` takes ``[in, out]``. Whatever
+Weights keep the Paddle layout: ``linear`` takes ``[in, out]``, ``conv2d``
+an OIHW kernel or, with ``weight_format="HWIO"``, the channels-last one.
+The convolutions and pools run through PyTorch's own operators on permuted
+views, as the reference leaves them to XLA outside Pallas; an NHWC tensor
+stays NHWC in memory from op to op. Whatever
 draws random numbers (``dropout``, attention dropout in
 ``scaled_dot_product_attention``) takes an explicit ``torch.Generator``
 and raises without one: the port keeps no global RNG state.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as _F
 
+from ..framework import later
 from ..ops import attention as _attn
 
 __all__ = ["linear", "embedding", "layer_norm", "rms_norm", "gelu", "silu",
-           "tanh", "softmax", "dropout", "cross_entropy",
-           "scaled_dot_product_attention"]
+           "tanh", "relu", "softmax", "dropout", "cross_entropy",
+           "scaled_dot_product_attention", "conv2d", "batch_norm",
+           "max_pool2d", "adaptive_avg_pool2d"]
 
 
 def linear(x, weight, bias=None):
@@ -57,6 +65,10 @@ def silu(x):
 def tanh(x):
     """The BERT/ERNIE pooler's activation (``pool_act="tanh"``)."""
     return torch.tanh(x)
+
+
+def relu(x):
+    return torch.relu(x)
 
 
 def softmax(x, axis=-1, dtype=None):
@@ -146,3 +158,155 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "express padding as kv_lens, which the flash kernel takes")
     return _attn.reference_attention(query, key, value, causal=is_causal,
                                      kv_lens=kv_lens, attn_mask=attn_mask)
+
+
+# -- convolution, normalisation and pooling ------------------------------------
+
+def _norm_tuple(v, n):
+    if isinstance(v, int):
+        return (int(v),) * n
+    v = tuple(int(i) for i in v)
+    return v if len(v) == n else v * n
+
+
+def _pads(padding, n, kernel, stride, dilation, spatial):
+    """The reference's padding spec (an int, n ints, 2n ints, n pairs, or
+    'SAME' / 'VALID' as lax computes them) -> n (lo, hi) pairs."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return [(0, 0)] * n
+        if mode != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = []
+        for i in range(n):
+            eff = (kernel[i] - 1) * dilation[i] + 1
+            out = -(-spatial[i] // stride[i])
+            total = max((out - 1) * stride[i] + eff - spatial[i], 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    if isinstance(padding, int):
+        return [(int(padding), int(padding))] * n
+    padding = list(padding)
+    if len(padding) == n and all(isinstance(p, int) for p in padding):
+        return [(int(p), int(p)) for p in padding]
+    if len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    return [tuple(int(q) for q in p) for p in padding]
+
+
+def _padded(x, pads, value=0.0):
+    """x (NCHW view) and the symmetric padding left for the operator: an
+    uneven pair is applied with ``F.pad`` first."""
+    if all(lo == hi for lo, hi in pads):
+        return x, tuple(lo for lo, _ in pads)
+    flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
+    return _F.pad(x, flat, value=value), (0,) * len(pads)
+
+
+def _nchw(x, data_format):
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"unknown data_format {data_format!r} (NCHW | NHWC)")
+    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+
+
+def _back(out, data_format):
+    """Return an NHWC result as a contiguous [N, H, W, C] tensor (a no-op
+    when the operator kept the channels-last memory format)."""
+    if data_format == "NHWC":
+        return out.permute(0, 2, 3, 1).contiguous()
+    return out
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", weight_format="OIHW"):
+    """ref: F.conv2d. ``data_format`` NCHW or NHWC; ``weight_format`` OIHW
+    ([out, in/groups, kh, kw]) or HWIO ([kh, kw, in/groups, out]). An NHWC
+    input goes to ``torch.nn.functional.conv2d`` as a channels-last view
+    and comes back as a contiguous NHWC tensor."""
+    if weight_format == "HWIO":
+        w = weight.permute(3, 2, 0, 1)
+    elif weight_format == "OIHW":
+        w = weight
+    else:
+        raise ValueError(f"unknown weight_format {weight_format!r} "
+                         "(OIHW | HWIO)")
+    xn = _nchw(x, data_format)
+    stride, dilation = _norm_tuple(stride, 2), _norm_tuple(dilation, 2)
+    pads = _pads(padding, 2, tuple(w.shape[2:]), stride, dilation,
+                 tuple(xn.shape[2:]))
+    xn, pad = _padded(xn, pads)
+    out = _F.conv2d(xn, w, bias, stride, pad, dilation, groups)
+    return _back(out, data_format)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """ref: F.batch_norm over the channel axis that ``data_format`` names
+    (1 for NC*, the last for N*C). In training without
+    ``use_global_stats`` it normalises by the batch statistics and updates
+    the running ones in place with Paddle's convention, running = running *
+    momentum + batch * (1 - momentum), the variance taken unbiased there;
+    otherwise it normalises by the running statistics. The arithmetic is
+    the reference's, (x - mean) * rsqrt(var + eps) * weight + bias, in the
+    dtypes the operands promote to."""
+    ch = x.dim() - 1 if data_format.endswith("C") else 1
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    if training and not use_global_stats:
+        axes = [i for i in range(x.dim()) if i != ch]
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, correction=0)
+        n = math.prod(x.shape[i] for i in axes)
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1.0, 1.0))
+            running_mean.copy_(running_mean * momentum
+                               + mean * (1.0 - momentum))
+            running_var.copy_(running_var * momentum
+                              + unbiased * (1.0 - momentum))
+    else:
+        mean, var = running_mean, running_var
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW"):
+    """ref: F.max_pool2d: windows padded with -inf (the reference's
+    reduce_window), ``ceil_mode`` extending the high pad so the last partial
+    window is kept, as the reference does."""
+    if return_mask:
+        raise NotImplementedError(f"max_pool2d(return_mask=True) "
+                                  f"{later('6')}")
+    k = _norm_tuple(kernel_size, 2)
+    s = _norm_tuple(stride if stride is not None else kernel_size, 2)
+    xn = _nchw(x, data_format)
+    pads = _pads(padding, 2, k, s, (1, 1), tuple(xn.shape[2:]))
+    if ceil_mode and not isinstance(padding, str):
+        for d in range(2):
+            size = xn.shape[2 + d] + pads[d][0] + pads[d][1]
+            rem = (size - k[d]) % s[d]
+            if rem:
+                pads[d] = (pads[d][0], pads[d][1] + s[d] - rem)
+    if any(lo != hi or 2 * lo > k[d] for d, (lo, hi) in enumerate(pads)):
+        flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
+        xn, pad = _F.pad(xn, flat, value=-math.inf), (0, 0)
+    else:
+        pad = tuple(lo for lo, _ in pads)
+    return _back(_F.max_pool2d(xn, k, s, pad), data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """ref: F.adaptive_avg_pool2d: window i of n over a length L spans
+    [floor(i L / n), ceil((i + 1) L / n)); None keeps that axis."""
+    xn = _nchw(x, data_format)
+    size = output_size if isinstance(output_size, int) else tuple(
+        output_size)
+    return _back(_F.adaptive_avg_pool2d(xn, size), data_format)

@@ -1,6 +1,6 @@
 """Common layers of the port (counterpart of
 ``paddle_tpu/nn/layers_common.py``): ``Linear``, ``Embedding``,
-``Dropout``, ``LayerList``.
+``Dropout``, ``LayerList``, ``Sequential``, ``Identity``.
 
 Parameter names and shapes are the reference's (``Linear.weight`` is
 ``[in, out]``), so ``state_dict`` keys match key for key. Every layer
@@ -17,13 +17,15 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "Dropout", "LayerList", "make_param"]
+__all__ = ["Linear", "Embedding", "Dropout", "LayerList", "Sequential",
+           "Identity", "make_param"]
 
 
 def make_param(shape, *, device, dtype, init="zeros", std=0.02,
-               generator=None):
+               generator=None, fans=None):
     """A Parameter of ``shape`` filled by ``init``: 'zeros', 'ones',
-    'normal' (mean 0, ``std``) or 'xavier' (uniform, fan_in + fan_out)."""
+    'normal' (mean 0, ``std``) or 'xavier' (uniform over fan_in +
+    fan_out: ``fans``, by default the first and last dims)."""
     t = torch.empty(shape, device=device, dtype=dtype)
     with torch.no_grad():
         if init == "zeros":
@@ -33,7 +35,8 @@ def make_param(shape, *, device, dtype, init="zeros", std=0.02,
         elif init == "normal":
             t.normal_(0.0, std, generator=generator)
         elif init == "xavier":
-            bound = math.sqrt(6.0 / (shape[0] + shape[-1]))
+            fan_in, fan_out = fans or (shape[0], shape[-1])
+            bound = math.sqrt(6.0 / (fan_in + fan_out))
             t.uniform_(-bound, bound, generator=generator)
         else:
             raise ValueError(f"unknown init {init!r}")
@@ -92,3 +95,11 @@ class Dropout(nn.Module):
 
 class LayerList(nn.ModuleList):
     """ref: nn.LayerList — sublayers named '0', '1', ..."""
+
+
+class Sequential(nn.Sequential):
+    """ref: nn.Sequential — sublayers named '0', '1', ... in call order."""
+
+
+class Identity(nn.Identity):
+    """ref: nn.Identity."""

@@ -7,6 +7,7 @@ PyTorch twin."""
 # that name never shadows it, whatever their order
 from . import flash_attention as _fa
 from . import flash_decode as _paged
+from .conv_bn_act import conv_bn_act_plain, fused_conv1x1_bn_act  # noqa: F401
 from .flash_decode import paged_decode_plain, paged_flash_decode  # noqa: F401
 from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd,
@@ -27,4 +28,4 @@ WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq,
             _paged.paged_flash_decode,
             fused_adamw_update, fused_add_layer_norm_fwd,
             fused_add_layer_norm_bwd, fused_add_layer_norm_y_fwd,
-            fused_add_layer_norm_y_bwd)
+            fused_add_layer_norm_y_bwd, fused_conv1x1_bn_act)

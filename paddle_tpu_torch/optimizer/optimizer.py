@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework import later
 from ..nn.clip import ClipGradBase
 from ..ops.kernels.fused_adamw import (adamw_update_plain,
                                        fused_adamw_supported,
@@ -34,8 +35,6 @@ from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
-_LATER = "is not ported yet (see ROADMAP.md, queue 1)"
-
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
@@ -43,7 +42,7 @@ class Optimizer:
                  name=None, apply_decay_param_fun=None):
         if multi_precision:
             raise NotImplementedError(f"multi_precision master weights "
-                                      f"{_LATER}")
+                                      f"{later('1.1')}")
         self._lr = learning_rate
         self._parameter_list = self._normalize_params(parameters)
         self._weight_decay = float(weight_decay or 0.0)
@@ -60,7 +59,7 @@ class Optimizer:
         named = []
         for i, p in enumerate(parameters):
             if isinstance(p, dict):
-                raise NotImplementedError(f"parameter groups {_LATER}")
+                raise NotImplementedError(f"parameter groups {later('1.8')}")
             named.append(p if isinstance(p, tuple) else (f"param_{i}", p))
         return named
 
@@ -143,7 +142,7 @@ class Adam(Optimizer):
             if moment_dtype in ("bfloat16", torch.bfloat16):
                 raise NotImplementedError(
                     f"moment_dtype=bfloat16 (stochastically rounded "
-                    f"moments) {_LATER}")
+                    f"moments) {later('1.1')}")
             raise ValueError(f"moment_dtype={moment_dtype}: only bfloat16 "
                              "or float32 are supported")
 

@@ -6,7 +6,8 @@
   instead of running on the CPU. ``Engine`` and the optimizers follow the
   model's device and create nothing on another one.
 - A kernel wrapper given a tensor on neither the CPU nor CUDA raises; it
-  never falls back to its plain twin.
+  never falls back to its plain twin. ``ops.kernels.WRAPPERS`` holds all
+  eleven wrappers, the fused 1x1-conv + BatchNorm one included.
 - Importing the port builds nothing.
 """
 import ast
@@ -25,6 +26,7 @@ from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
 from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, LlamaModel
 from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops.kernels import conv_bn_act as kcba
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import fused_adamw as kadam
 from paddle_tpu_torch.ops.kernels import fused_ln as kln
@@ -57,6 +59,9 @@ def test_port_files_found():
     files = _port_files()
     assert os.path.exists(files[0]), "chip_smoke.py missing"
     assert len(files) > 15
+    vision = [f for f in files if os.sep + "vision" + os.sep in f]
+    assert {os.path.basename(f) for f in vision} >= {"__init__.py",
+                                                     "resnet.py"}
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -110,8 +115,9 @@ def test_wrappers_are_the_kernel_wrappers():
     for w in kernels.WRAPPERS:
         assert callable(w) and not isinstance(w, type(os)), w
         assert isinstance(w.launches, int), w
-    assert len({w.__name__ for w in kernels.WRAPPERS}) == 10
+    assert len({w.__name__ for w in kernels.WRAPPERS}) == 11
     assert kernels.flash_decode is kfa.flash_decode
+    assert kcba.fused_conv1x1_bn_act in kernels.WRAPPERS
     assert kpaged.paged_flash_decode in kernels.WRAPPERS
 
 
@@ -170,6 +176,7 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
             torch.empty(2, 8, 4, 64, device="meta"),
             torch.empty(2, 8, 4, 64, device="meta"),
             torch.empty(2, dtype=torch.int32, device="meta")),
+        lambda: kcba.fused_conv1x1_bn_act(rows, rows.t(), vec, vec),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
