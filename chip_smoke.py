@@ -26,9 +26,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              kernels (dq; dk/dv) vs their plain twins at gpt3-345M training
              shapes (B=8, H=16, D=64, S=1024, causal; f32 and bf16; dropout
              0 and 0.1), plus kv_lens < S, kv_lens = 0, sq != sk, D=128 and
-             D=256; with V the identity the forward's dropped entries must
-             be exactly the twin's keep mask; times kernels, twins and
-             torch SDPA (forward, and its backward for dq and dk/dv);
+             D=256; then 27 bf16 cases with dropout 0.1 that cut the bf16
+             kernels' tiles raggedly (D 64/128/256; sq, sk in {1, 63, 65,
+             127, 129, 1000}, sq != sk under causal both ways; kv_lens 0,
+             mid-tile and sk); a second backward must repeat the first bit
+             for bit in every case; with V the identity the forward's
+             dropped entries must be exactly the twin's keep mask; times
+             kernels, twins and torch SDPA (forward, and its backward for
+             dq and dk/dv), with achieved TFLOP/s and share of the bound;
 6. adamw   — the one-pass AdamW kernel vs its plain twin on a 1024x4096
              leaf and the 50304x1024 embedding, coupled and decoupled
              decay, plus an odd length and an unaligned view; times kernel,
@@ -146,6 +151,13 @@ just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
 generate() call (phases 15-17) and one ResNet-50 serve forward (phase 20).
 
+Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
+between them; a spin kernel queued first holds the device until the host
+has queued them all, so host time inside a timed call (Python, autograd)
+never lands in a window, and the run fails if the spin ends first. Every
+timed number of the kernel table is reported held (the value) and unheld
+(the same launches on a free device, as the host reaches them).
+
 Prints the kernel table as one JSON line, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
 non-zero without a result when no CUDA device is present or when the
@@ -189,12 +201,35 @@ def log(msg):
 
 # -- timing -------------------------------------------------------------------
 
-def time_ms(torch, fn, iters=10, flush=None):
-    """Mean device ms of fn() over iters launches, CUDA events around each
-    launch only; ``flush`` (run between launches, untimed) evicts L2."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
+class Timing(float):
+    """A held time in ms (the value) with the unheld reading of the same
+    launches beside it (``unheld``); see time_ms."""
+    unheld = None
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def _spin_rate(torch):
+    """Cycles of torch.cuda._sleep a device ms, measured once."""
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        torch.cuda._sleep(10 ** 7)
+        e.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(1e7 / s.elapsed_time(e))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def _windows(torch, fn, iters, flush, spin_ms):
+    """(mean ms between the events around each launch, host ms to queue
+    them all, whether the last event was still pending when the host was
+    done); a spin of ``spin_ms`` is queued first when it is not 0."""
+    if spin_ms:
+        torch.cuda._sleep(int(spin_ms * _spin_rate(torch)))
+    t0 = time.perf_counter()
     evs = []
     for _ in range(iters):
         if flush is not None:
@@ -205,8 +240,44 @@ def time_ms(torch, fn, iters=10, flush=None):
         fn()
         e.record()
         evs.append((s, e))
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    pending = not evs[-1][1].query()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in evs) / iters
+    return sum(s.elapsed_time(e) for s, e in evs) / iters, queued_ms, pending
+
+
+def time_ms(torch, fn, iters=10, flush=None):
+    """Mean device ms of fn() over iters launches, CUDA events around each
+    launch only; ``flush`` (run between launches, untimed) evicts L2.
+
+    The value is held: a spin kernel (torch.cuda._sleep) queued first keeps
+    the device busy until the host has queued every launch, flush and
+    event, so the device runs them back to back and the host's own time
+    in fn (Python, autograd's bookkeeping) never lands inside a window.
+    The spin lasts 10 ms plus 3x the host time the same launches took to
+    queue unheld; if the last event has already completed when the host is
+    done, the spin ended too soon: it is tried once more 4x as long, then
+    the function raises. ``.unheld`` is the reading without the spin,
+    with the events recorded as the host reaches them."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    free_ms, queued_ms, _ = _windows(torch, fn, iters, flush, 0)
+    spin_ms = 10.0 + 3.0 * queued_ms
+    for _ in range(2):
+        held, _, pending = _windows(torch, fn, iters, flush, spin_ms)
+        if pending:
+            out = Timing(held)
+            out.unheld = free_ms
+            return out
+        spin_ms *= 4
+    raise SmokeFailure(f"time_ms: a {spin_ms / 4:.1f} ms spin ended before "
+                       "the host had queued the timed launches")
+
+
+def unheld(x):
+    """The unheld reading of a time_ms value (None for any other number)."""
+    return getattr(x, "unheld", None)
 
 
 def bound(bytes_moved, flops, peak=F32_FLOPS):
@@ -243,6 +314,17 @@ def phase_build():
         log(f"build: {name}: {len(regs)} kernels, max registers "
             f"{max(regs) if regs else 'n/a'}, max spill stores "
             f"{max(spills) if spills else 0} bytes")
+        if name == "flash_attention_bwd":
+            # each instantiation: its kernel name and template arguments
+            # from the mangled name, registers, spill stores
+            for m in re.finditer(r"entry function '([^']+)'.*?(\d+) bytes "
+                                 r"spill stores.*?Used (\d+) registers",
+                                 logtxt, re.S):
+                k = re.search(r"\d([a-z_]+kernel)(?:I((?:Li\d+E)+)E)?",
+                              m.group(1))
+                args = ",".join(re.findall(r"\d+", k.group(2) or ""))
+                log(f"build:   {k.group(1)}<{args}>: {m.group(3)} "
+                    f"registers, {m.group(2)} bytes spill stores")
     log(f"build: {len(_build.sources())} sources in {secs:.2f} s "
         "(parallel nvcc, sm_90a)")
     return secs
@@ -595,6 +677,15 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
           "max(1, |twin|))")
     row["err"].update(lse=e, delta=e2)
     del po, pdq, pdk, pdv
+    # no atomics: a second backward repeats the first bit for bit
+    dq2, delta2 = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest)
+    dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
+    torch.cuda.synchronize()
+    for n, a, a2 in (("dq", dq, dq2), ("delta", delta, delta2),
+                     ("dk", dk, dk2), ("dv", dv, dv2)):
+        check(torch.equal(a, a2), f"flash-train {where}: a second backward "
+              f"gave another {n}")
+    del dq2, delta2, dk2, dv2
     if not timed:
         return row
     fwd = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
@@ -640,6 +731,7 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
     }
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     row["bound"] = {n: bound(*w, peak=peak) for n, w in work.items()}
+    row["flops"] = {n: w[1] for n, w in work.items()}
     return row
 
 
@@ -698,8 +790,23 @@ def phase_flash_train(torch, flush):
         _flash_train_case(torch, 1, 2, 64, 64, 256, "float32", [50], 0.1,
                           gen, flush, False),
     ]
+    # the bf16 kernels' tiles (64 rows streamed, 128 owned, 64 at D=256)
+    # cut raggedly: sq and sk on either side of tile edges, sq != sk under
+    # causal both ways, kv_lens of 0, mid-tile and sk; dropout 0.1
+    for d in (64, 128, 256):
+        for sq, sk, causal in RAGGED_SHAPES:
+            lens = None if sq == sk else [0, sk // 2 + 1, sk]
+            rows.append(_flash_train_case(
+                torch, 1 if lens is None else 3, 2, sq, sk, d, "bfloat16",
+                lens, 0.1, gen, flush, False, causal=causal))
     _log_flash_rows("flash-train", rows)
     return rows
+
+
+# (sq, sk, causal) of phase 5's ragged bf16 cases
+RAGGED_SHAPES = ((1, 63, True), (63, 1, True), (65, 127, True),
+                 (127, 65, True), (129, 1000, True), (1000, 129, True),
+                 (1000, 1000, True), (65, 1000, False), (127, 129, False))
 
 
 def _log_flash_rows(tag, rows):
@@ -710,11 +817,14 @@ def _log_flash_rows(tag, rows):
             f"causal={r['causal']} max_abs_err {errs}")
         for n in r.get("ms", {}):
             bms, by = r["bound"][n]
-            log(f"{tag}:   {n:4s} ms {r['ms'][n]:.4f} plain_ms "
-                f"{r['plain_ms'][n]:.4f} library_ms {r['library_ms'][n]:.4f}"
-                f" bound_ms {bms:.4f} ({by}, "
+            ms = r["ms"][n]
+            log(f"{tag}:   {n:4s} ms {ms:.4f} (unheld {unheld(ms):.4f}) "
+                f"plain_ms {r['plain_ms'][n]:.4f} library_ms "
+                f"{r['library_ms'][n]:.4f} (unheld "
+                f"{unheld(r['library_ms'][n]):.4f}) bound_ms {bms:.4f} ({by}, "
                 f"{'bf16 tensor-core' if r['dtype'] == 'bfloat16' else 'f32'}"
-                f" peak)")
+                f" peak): {r['flops'][n] / ms / 1e9:.1f} TFLOP/s, "
+                f"{bms / ms:.3f} of the bound")
 
 
 def phase_flash_noncausal(torch, flush):
@@ -734,6 +844,122 @@ def phase_flash_noncausal(torch, flush):
                                       causal=False))
     _log_flash_rows("flash-noncausal", rows)
     return rows
+
+
+def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
+              dropout):
+    """(dq, dk/dv) callables over the C entries of a built
+    flash_attention_bwd library, with the wrapper's arguments."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (bh, sq, sk, d, int(causal), 1.0 / math.sqrt(d), thresh, keep,
+              1, stream)
+
+    def run_dq():
+        dq = torch.empty_like(q)
+        delta = torch.empty(bh, sq, dtype=torch.float32, device="cuda")
+        check(dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), None, seed_ptr,
+                    dq.data_ptr(), delta.data_ptr(), *common) == 0,
+              "compare: dq launch failed")
+        return dq, delta
+
+    def run_dkv(delta):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check(dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), None, seed_ptr,
+                     dk.data_ptr(), dv.data_ptr(), *common) == 0,
+              "compare: dk/dv launch failed")
+        return dk, dv
+    return run_dq, run_dkv
+
+
+def compare_bwd(torch, sources):
+    """``--compare-bwd SRC...``: build each given flash_attention_bwd.cu
+    (another version of the package's backward source: its parent, a
+    variant) with the package's nvcc flags and headers, hold its bf16 pair
+    to the package's own (the bf16 bar of max(1, |ours|)), and time both in
+    turns (theirs, ours, ours, theirs; held) at GPT's training shape
+    (causal, dropout 0.1), GPT's without dropout and ERNIE's (non-causal),
+    beside SDPA's backward held and unheld."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    out = os.path.join(_build.BUILD_DIR, "compare")
+    os.makedirs(out, exist_ok=True)
+    started = [(src, os.path.join(out, f"libbwd{i}.so")) for i, src in
+               enumerate(sources)]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                               _build.CSRC_DIR, "-o", lib, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, lib in started]
+    entries = []
+    for (src, lib), proc in zip(started, procs):
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"compare: nvcc failed for {src}:\n{text}")
+        cdll = ctypes.CDLL(lib)
+        fns = (cdll.flash_attention_bwd_dq, cdll.flash_attention_bwd_dkv)
+        for fn, types in zip(fns, (kfa._DQ_ARGTYPES, kfa._DKV_ARGTYPES)):
+            fn.restype, fn.argtypes = ctypes.c_int, types
+        entries.append((src, fns))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, b, h, s, causal, dropout in (
+            ("gpt", 8, 16, 1024, True, 0.1), ("gpt-nodrop", 8, 16, 1024, True,
+                                               0.0),
+            ("ernie", 32, 12, 512, False, 0.0)):
+        q, k, v, do = (torch.randn(b * h, s, 64, generator=gen,
+                                   device="cuda").bfloat16() for _ in range(4))
+        seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
+        rest = (None, seed, causal, None, dropout)
+        o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
+        dq, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest)
+        dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
+        ours = {"dq": lambda: kfa.flash_attention_bwd_dq(
+                    q, k, v, o, do, lse, *rest),
+                "dkv": lambda: kfa.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, *rest)}
+        for src, (dq_fn, dkv_fn) in entries:
+            run_dq, run_dkv = _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do,
+                                        lse, seed, causal, dropout)
+            (tq, tdelta), (tk, tv) = run_dq(), run_dkv(delta)
+            for n, a, w in (("dq", tq, dq), ("dk", tk, dk), ("dv", tv, dv)):
+                e = _err(a, w)[1]
+                check(e <= TOL["bfloat16"], f"compare {tag}: {src} {n} "
+                      f"differs from the package's by {e} of max(1, |ours|)")
+            theirs = {"dq": run_dq, "dkv": lambda: run_dkv(delta)}
+            ms = {}
+            for who, fns in (("theirs", theirs), ("ours", ours),
+                             ("ours", ours), ("theirs", theirs)):
+                for n, f in fns.items():
+                    ms.setdefault((who, n), []).append(
+                        time_ms(torch, f, flush=flush))
+            mean = {key: sum(v_) / len(v_) for key, v_ in ms.items()}
+            pair = {who: mean[(who, "dq")] + mean[(who, "dkv")]
+                    for who in ("theirs", "ours")}
+            runs = {key: " ".join(f"{x:.4f}" for x in v_)
+                    for key, v_ in ms.items()}
+            log(f"compare {tag}: {src}: held ms in turns (theirs, ours, "
+                f"ours, theirs): dq theirs {runs[('theirs', 'dq')]}, ours "
+                f"{runs[('ours', 'dq')]}; dkv theirs {runs[('theirs', 'dkv')]}"
+                f", ours {runs[('ours', 'dkv')]}; pair theirs "
+                f"{pair['theirs']:.4f}, ours {pair['ours']:.4f}: theirs / "
+                f"ours = {pair['theirs'] / pair['ours']:.2f}")
+        qt, kt, vt = (x.view(b, h, s, 64).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = sdpa(qt, kt, vt, is_causal=causal, dropout_p=dropout)
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.view(b, h, s, 64), retain_graph=True),
+            flush=flush)
+        log(f"compare {tag}: SDPA's backward (dq, dk, dv in one call) held "
+            f"{lib:.4f} ms, unheld {unheld(lib):.4f} ms")
+        del lib_out, qt, kt, vt
 
 
 def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
@@ -1062,7 +1288,8 @@ def phase_train(torch):
 
 
 # device-side names of the port's kernels, as the profiler lists them
-OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_tc_kernel",
+               "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_kernel",
                "flash_bwd_dkv_kernel", "adamw_kernel", "ln_fwd_kernel",
                "ln_bwd_kernel", "colsum_kernel")
 
@@ -1881,6 +2108,10 @@ def phase_conv_bn_act(torch, flush):
     total = {key: sum(r[key] * n for r, (*_, n) in zip(timed, SERVE_SHAPES))
              for key in ("ms", "plain_ms", "gemm_ms", "bound_ms",
                          "bound_bytes_ms", "bound_ops_ms")}
+    for key in ("ms", "plain_ms", "gemm_ms"):
+        total[key] = Timing(total[key])
+        total[key].unheld = sum(unheld(r[key]) * n
+                                for r, (*_, n) in zip(timed, SERVE_SHAPES))
     total["bound_by"] = ("bytes" if total["bound_bytes_ms"]
                          >= total["bound_ops_ms"] else "operations")
     log(f"conv-bn-act: the 32 launches of one ResNet-50 forward (batch 256, "
@@ -2072,6 +2303,8 @@ def phase_resnet_cpu(torch):
 
 
 def main():
+    """Every phase, then the kernel table and the result line; with
+    ``--compare-bwd SRC...``, only compare_bwd."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2084,6 +2317,10 @@ def main():
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--compare-bwd"]:
+        check(len(sys.argv) > 2, "--compare-bwd needs source files")
+        compare_bwd(torch, sys.argv[2:])
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2246,6 +2483,17 @@ def main():
                         if r["dtype"] == "float32"),
         ms=cb["ms"], plain_ms=cb["plain_ms"], bound_ms=cb["bound_ms"],
         bound_by=cb["bound_by"], library_ms=None))
+    # every timed number of the table held (the values) and unheld
+    for kr in kernels:
+        kr["unheld"] = {key: unheld(kr[key])
+                        for key in ("ms", "plain_ms", "library_ms")}
+        u = kr["unheld"]
+        log(f"kernels: {kr['name']}: ms {kr['ms']:.4f} (unheld "
+            f"{u['ms']:.4f}), plain_ms {kr['plain_ms']:.4f} (unheld "
+            f"{u['plain_ms']:.4f}), library_ms "
+            + ("none" if kr["library_ms"] is None else
+               f"{kr['library_ms']:.4f} (unheld {u['library_ms']:.4f})")
+            + f", bound_ms {kr['bound_ms']:.4f}, launches {kr['launches']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@
 // k visible to row r when k <= r + sk - sq), per-(batch*head) key lengths
 // and the dropout mask of flash::dropout_keep (flash_common.cuh)
 // regenerated bit for bit. A row with no visible key gets dq = 0; a key
-// no row sees gets dk = dv = 0.
+// no row sees gets dk = dv = 0, written.
 //
 //   flash_attention_bwd_dq:  one block per (batch*head, tile of query rows);
 //       it loops over the K/V tiles and also writes delta (the reference's
@@ -22,32 +22,79 @@
 //   flash_attention_bwd_dkv: one block per (batch*head, tile of key rows);
 //       it loops over the Q/dO tiles, with dK and dV in registers.
 // Each output row is owned by one block, so neither kernel needs atomics
-// and both are deterministic, which is why the reference splits dq from
-// dk/dv too.
+// and both are deterministic (two runs give bit-equal results), which is
+// why the reference splits dq from dk/dv too.
 //
-// What bounds them on the H100: operations, at the rate they compute at.
-// dq does 6*D FLOPs per visible (q, k) pair and dk/dv 8*D, against 6 S*D
-// arrays read or written: in bf16 near the tensor cores' balance point,
-// far above the CUDA cores'. This first version computes on the CUDA
-// cores in f32 (67 TFLOP/s peak; the bf16 tensor cores' 989 TFLOP/s is
-// later work with wgmma). What the design does about the bound:
-//   - TPR = D/16 threads share a row, each owning 16 of its dims in
-//     registers (q, dO and the dq sum; or k, v, dK and dV), so no thread
-//     spills at any D and the dot products reduce over TPR lanes with
-//     shuffles;
-//   - the tile it loops over is staged in shared memory as f32 (4096
-//     values per array: 64 rows at D=64, 32 at D=128, 16 at D=256) and
-//     reused by all the block's rows, each row reading a whole shared row
-//     that the warp's other rows read at the same moment (a broadcast);
-//   - tiles that the causal mask or the key length rule out entirely are
-//     never loaded.
+// What bounds them on the H100, at GPT's training shape (bf16, B=8 H=16
+// S=1024 D=64, causal): dq does 6 D FLOPs a visible (q, k) pair, 25.8
+// GFLOP, and moves ~101 MB (q, k, v, o, dO, lse read, dq and delta
+// written): bytes bound it, 0.0304 ms at 3.35 TB/s against 0.0261 ms of
+// tensor-core time; dk/dv does 8 D, 34.4 GFLOP: operations bound it,
+// 0.0348 ms at 989 TFLOP/s. Either way the tensor cores are the only road
+// to the bound, and the rebuilt p (an exp and, with dropout, a dozen-op
+// hash per pair, twice) is CUDA-core work beside them.
+//
+// bf16 (the training path, bf16 AMP): every product on the tensor cores,
+// wgmma.mma_async m64n64k16 with bf16 operands and f32 accumulators
+// (tensor_core.cuh). A block is two warpgroups (one at D=256), each owning
+// 64 rows; tiles of 64 rows stream past them:
+//   - dk/dv: the block's 128 keys (K, V) stay in shared memory and dK, dV
+//     in registers; per streamed Q/dO tile each warpgroup computes
+//     S^T = K.Q^T and dP^T = V.dO^T (both operands from shared memory),
+//     then P^T, the dropped P^T and dS^T = P^T (dP^T_drop - delta)
+//     element by element in the accumulators (row = key, column = query:
+//     the keep mask takes q_pos from the column), converts them to bf16 in
+//     place as the A fragments of dV += P^T_drop.dO and dK += dS^T.Q (A
+//     from registers, B the streamed tile read MN-major), so P and dS never
+//     touch shared memory;
+//   - dq: the block's 128 query rows (Q, dO) stay in shared memory and dQ
+//     in registers; per streamed K/V tile: S = Q.K^T, dP = dO.V^T, dS,
+//     dQ += dS.K. delta is summed from o and dO while the first tiles load.
+// Tiles live in shared memory in wgmma's 128-byte-swizzle layout (one
+// layout read both K-major and MN-major, free of bank conflicts), filled
+// by 16-byte cp.async copies (zero fill past the edge) through a ring of
+// two stages, so the next tile loads under this tile's products. D = 256
+// keeps 64-row tiles, one warpgroup a block and splits the output columns
+// over two blocks (each recomputes S and dP), so dK and dV still fit in
+// registers. Tiles wholly masked are never loaded (causal, key length);
+// only diagonal and ragged tiles pay for the mask; causal grids launch the
+// longest blocks first (dk/dv: key tile 0; dq: the last query tile).
+// The scale multiplies dQ and dK once, at the end; the results are staged
+// through shared memory as bf16 for 16-byte stores. What is left between
+// these kernels and the bound (PERF.md section 6) is the per-pair CUDA-core
+// work (the exp and the dropout hash, in both kernels) that the products
+// wait on, with few warps to hide it: dk/dv holds 233 registers a thread,
+// one block an SM; dq at D=64 fits two blocks an SM, which took it from
+// 0.17 to 0.13 ms at GPT's shape. Running each warpgroup's second product
+// under its first's arithmetic (wgmma.wait_group 1) did not help and
+// spilled.
+//
+// f32: the CUDA cores, not TF32, which would break the f32 bar of 1e-4
+// (f32 is not the training path): TPR = D/16 threads share a row, each
+// owning 16 of its dims in registers (q, dO and the dq sum; or k, v, dK
+// and dV), dot products reduce over TPR lanes with shuffles, the tile it
+// loops over is staged in shared memory as f32 (4096 values an array) and
+// read by all the block's rows as a broadcast.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12 on the H100), registers a thread and
+// spill stores (chip_smoke.py's build phase prints them for every
+// instantiation):
+//   bf16 dq    D=64: 128 (two blocks an SM), 0;  D=128: 237, 0
+//   bf16 dk/dv D=64: 233, 0;                     D=128: 255, 0
+//   bf16 dk/dv D=256: 255, 304 bytes (off the training paths, which run
+//   D=64; dq D=256 is printed by the build phase)
+//   f32 (CUDA cores) dq 98-99, dk/dv 123, no spills
 
 #include "flash_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using flash::load4;
 using flash::store4;
+
+// -- f32: CUDA cores --------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kTileElems = 4096;
@@ -70,8 +117,9 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // thread r of a row owns the float4 chunks c = i*TPR + r, i < 4
-template <typename T, int D>
-__device__ __forceinline__ void load_row(const T* row, int r, float out[16]) {
+template <int D>
+__device__ __forceinline__ void load_row(const float* row, int r,
+                                         float out[16]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float4 x = load4(row + (i * Geo<D>::TPR + r) * 4);
@@ -82,9 +130,9 @@ __device__ __forceinline__ void load_row(const T* row, int r, float out[16]) {
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* row, int r, const float in[16],
-                                          float scale) {
+template <int D>
+__device__ __forceinline__ void store_row(float* row, int r,
+                                          const float in[16], float scale) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     store4(row + (i * Geo<D>::TPR + r) * 4,
@@ -123,10 +171,10 @@ __device__ __forceinline__ void axpy(float acc[16], float w, const float* srow,
   }
 }
 
-// stage rows [r0, r0 + BT) of a [S, D] array into shared memory as f32;
-// rows at or past `limit` become zeros
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
+// stage rows [r0, r0 + BT) of a [S, D] array into shared memory; rows at or
+// past `limit` become zeros
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
                                       int limit, int tid) {
   constexpr int CHUNKS = Geo<D>::CHUNKS;
 #pragma unroll
@@ -139,13 +187,14 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
                     const int* __restrict__ lens, const int* __restrict__ seed,
-                    T* __restrict__ dq, float* __restrict__ delta, int sq,
+                    float* __restrict__ dq, float* __restrict__ delta, int sq,
                     int sk, int causal, float sm_scale, uint32_t thresh,
                     float keep_prob) {
   using G = Geo<D>;
@@ -174,9 +223,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dl = 0.f;
   if (row_ok) {
     float orow[16];
-    load_row<T, D>(q + q_base + (size_t)row * D, r, qr);
-    load_row<T, D>(dout + q_base + (size_t)row * D, r, dor);
-    load_row<T, D>(o + q_base + (size_t)row * D, r, orow);
+    load_row<D>(q + q_base + (size_t)row * D, r, qr);
+    load_row<D>(dout + q_base + (size_t)row * D, r, dor);
+    load_row<D>(o + q_base + (size_t)row * D, r, orow);
 #pragma unroll
     for (int i = 0; i < 16; ++i) dl += dor[i] * orow[i];
   } else {
@@ -191,8 +240,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += G::BT) {
     __syncthreads();  // the previous tile is consumed
-    stage<T, D>(ks, k + kv_base, k0, kv_len, tid);
-    stage<T, D>(vs, v + kv_base, k0, kv_len, tid);
+    stage<D>(ks, k + kv_base, k0, kv_len, tid);
+    stage<D>(vs, v + kv_base, k0, kv_len, tid);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < G::BT; ++j) {
@@ -205,21 +254,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (drop)
         dp = flash::dropout_keep(mix, row, kpos, sk, thresh) ? dp / keep_prob
                                                              : 0.f;
-      axpy<D>(acc, flash::round_to<T>(p * (dp - dl)), ks + j * D, r);
+      axpy<D>(acc, p * (dp - dl), ks + j * D, r);
     }
   }
-  if (row_ok) store_row<T, D>(dq + q_base + (size_t)row * D, r, acc, sm_scale);
+  if (row_ok) store_row<D>(dq + q_base + (size_t)row * D, r, acc, sm_scale);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const int* __restrict__ lens,
-                     const int* __restrict__ seed, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int causal,
+                     const int* __restrict__ seed, float* __restrict__ dk,
+                     float* __restrict__ dv, int sq, int sk, int causal,
                      float sm_scale, uint32_t thresh, float keep_prob) {
   using G = Geo<D>;
   __shared__ __align__(16) float qs[kTileElems];
@@ -242,8 +292,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float kr[16], vr[16], dka[16], dva[16];
   if (key_live) {
-    load_row<T, D>(k + kv_base + (size_t)key * D, r, kr);
-    load_row<T, D>(v + kv_base + (size_t)key * D, r, vr);
+    load_row<D>(k + kv_base + (size_t)key * D, r, kr);
+    load_row<D>(v + kv_base + (size_t)key * D, r, vr);
   } else {
 #pragma unroll
     for (int i = 0; i < 16; ++i) kr[i] = vr[i] = 0.f;
@@ -259,8 +309,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = q_begin; q0 < q_end; q0 += G::BT) {
     __syncthreads();  // the previous tile is consumed
-    stage<T, D>(qs, q + q_base, q0, sq, tid);
-    stage<T, D>(dos, dout + q_base, q0, sq, tid);
+    stage<D>(qs, q + q_base, q0, sq, tid);
+    stage<D>(dos, dout + q_base, q0, sq, tid);
     if (tid < G::BT) {
       const int qp = q0 + tid;
       ls[tid] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
@@ -282,15 +332,515 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_drop = keep ? p / keep_prob : 0.f;
         dp = keep ? dp / keep_prob : 0.f;
       }
-      axpy<D>(dva, flash::round_to<T>(p_drop), dos + i * D, r);
-      axpy<D>(dka, flash::round_to<T>(p * (dp - dls[i])), qs + i * D, r);
+      axpy<D>(dva, p_drop, dos + i * D, r);
+      axpy<D>(dka, p * (dp - dls[i]), qs + i * D, r);
     }
   }
   if (key < sk) {
-    store_row<T, D>(dk + kv_base + (size_t)key * D, r, dka, sm_scale);
-    store_row<T, D>(dv + kv_base + (size_t)key * D, r, dva, 1.f);
+    store_row<D>(dk + kv_base + (size_t)key * D, r, dka, sm_scale);
+    store_row<D>(dv + kv_base + (size_t)key * D, r, dva, 1.f);
   }
 }
+
+// -- bf16: tensor cores (wgmma) ---------------------------------------------
+
+using tc::fence_acc;
+using tc::pack_bf16;
+using tc::sw128_desc;
+using tc::sw_offset;
+using tc::wgmma_rs;
+using tc::wgmma_ss;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// tile geometry of the bf16 kernels at head dim D
+template <int D>
+struct Tc {
+  static constexpr int NWG = D == 256 ? 1 : 2;  // warpgroups a block
+  static constexpr int NT = NWG * 128;          // threads a block
+  static constexpr int ROWS = NWG * 64;         // rows a block owns
+  static constexpr int BS = 64;                 // rows a streamed tile
+  static constexpr int DO = D < 128 ? D : 128;  // output columns a block
+  static constexpr int SPLIT = D / DO;          // blocks a row tile
+  static constexpr int NB = DO / 64;            // 64-wide output blocks
+  // dq blocks an SM: two fit at D=64 (128 registers a thread, no spills)
+  static constexpr int DQ_BLOCKS = D == 64 ? 2 : 1;
+  static constexpr int OWN = ROWS * D * 2;      // bytes of a resident tile
+  static constexpr int STREAM = BS * D * 2;     // bytes of a streamed tile
+  // two streamed tiles and (dk/dv) lse and delta of their rows
+  static constexpr int STAGE = 2 * STREAM + 1024;
+  // two resident tiles, (dq) lse and delta of their rows, two stages, and
+  // slack to align the base to 1024 bytes
+  static constexpr int SMEM = 2 * OWN + 1024 + 2 * STAGE + 1024;
+  static_assert(ROWS * 2 * 4 <= 1024 && BS * 2 * 4 <= 1024, "stats");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (tc::smem_u32(p) & 1023u)) & 1023u);
+}
+
+// rows [r0, r0 + R) of a [S, D] bf16 array into a swizzled tile of R rows;
+// rows at or past `limit` are zero-filled
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
+                                          int r0, int limit, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  static_assert((R * CPR) % NT == 0, "tile chunks");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NT; ++it) {
+    const int i = it * NT + tid;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < limit;
+    tc::cp_async16(dst + sw_offset<R>(r, c),
+                   src + (ok ? (size_t)(r0 + r) * D + c * 8 : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// acc (+)= the [64 x 64] product of rows [a_row, a_row + 64) of the
+// resident tile `a` (ROWS rows) with the streamed tile `b` (BS rows),
+// contracting over D: both K-major
+template <int D>
+__device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* a,
+                                           int a_row, const uint8_t* b) {
+  using G = Tc<D>;
+  const uint64_t da = sw128_desc(a + a_row * 128, 0);
+  const uint64_t db = sw128_desc(b, 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t oa = (kk >> 2) * (G::ROWS * 128) + (kk & 3) * 32;
+    const uint32_t ob = (kk >> 2) * (G::BS * 128) + (kk & 3) * 32;
+    wgmma_ss(acc, da + (oa >> 4), db + (ob >> 4), kk > 0);
+  }
+}
+
+// acc[c] += A . B[:, col0 + 64 c ..] for the NB output blocks: A [64 x 64]
+// as register fragments (4 k16 steps of 4 registers), B the streamed tile
+// (BS = 64 rows, contracted over) read MN-major
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[Tc<D>::NB][32],
+                                           const uint32_t (&a)[16],
+                                           const uint8_t* b, int col0) {
+  using G = Tc<D>;
+  const uint64_t db = sw128_desc(b, G::BS * 128);
+#pragma unroll
+  for (int kk = 0; kk < G::BS / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < G::NB; ++c) {
+      const uint32_t ob = (col0 / 64 + c) * (G::BS * 128) + kk * 2048;
+      wgmma_rs(acc[c], a + 4 * kk, db + (ob >> 4));
+    }
+  }
+}
+
+// the accumulator as four k16 A fragments (bf16, rounded to nearest even)
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// the epilogue: acc * scale as bf16 into a swizzled [ROWS x DO] tile at
+// `st` (this thread's two rows of each 8-column group)
+template <int D>
+__device__ __forceinline__ void stage_out(uint8_t* st,
+                                          const float (&acc)[Tc<D>::NB][32],
+                                          float scale, int row) {
+  using G = Tc<D>;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < G::NB; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(
+            st + sw_offset<G::ROWS>(row + 8 * h, c * 8 + j) +
+            (lane % 4) * 4) = pack_bf16(acc[c][i] * scale,
+                                        acc[c][i + 1] * scale);
+      }
+    }
+  }
+}
+
+// 16-byte chunks of the staged [ROWS x DO] tile to rows [r0, min(r0 +
+// ROWS, limit)) of a [S, D] array, columns [col0, col0 + DO)
+template <int D>
+__device__ __forceinline__ void store_out(bf16* dst, const uint8_t* st,
+                                          int r0, int limit, int col0) {
+  using G = Tc<D>;
+  constexpr int CPR = G::DO / 8;
+  for (int i = threadIdx.x; i < G::ROWS * CPR; i += G::NT) {
+    const int r = i / CPR, c = i % CPR;
+    if (r0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + col0 + c * 8) =
+          *reinterpret_cast<const uint4*>(st + sw_offset<G::ROWS>(r, c));
+  }
+}
+
+// p, the dropped p and ds of one tile, in place in the accumulators s and
+// dp of one warpgroup (the element of index i at row `row0 + 8 ((i / 2) %
+// 2)`, column `col0 + 8 (i / 4) + i % 2`, both absolute, in the
+// accumulator's own orientation). KT: rows are keys and columns queries
+// (dk/dv), else the other way round (dq). lse2 (lse * log2 e) and delta
+// come from `stat(h, e, j)`: the row's (dq) or the column's (dk/dv).
+template <bool KT, bool MASK, bool DROP, typename Stat>
+__device__ __forceinline__ void softmax_grad(float (&s)[32], float (&dp)[32],
+                                             int row0, int col0,
+                                             float scale_log2, Stat stat,
+                                             int sq, int sk, int kv_len,
+                                             int causal, uint32_t mix,
+                                             uint32_t thresh,
+                                             float inv_keep) {
+  const int offset = sk - sq;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1, e = i & 1, j = i >> 2;
+    const int r = row0 + 8 * h, c = col0 + 8 * j + e;
+    const int qpos = KT ? c : r, key = KT ? r : c;
+    float lse2, dlt;
+    stat(h, e, j, lse2, dlt);
+    float p = exp2f(fmaf(s[i], scale_log2, -lse2));
+    if (MASK &&
+        !(key < kv_len && qpos < sq && (!causal || key <= qpos + offset)))
+      p = 0.f;
+    float pd = p, dpv = dp[i];
+    if (DROP) {
+      const bool keep = flash::dropout_keep(mix, qpos, key, sk, thresh);
+      pd = keep ? p * inv_keep : 0.f;
+      dpv = keep ? dpv * inv_keep : 0.f;
+    }
+    s[i] = pd;
+    dp[i] = p * (dpv - dlt);
+  }
+}
+
+template <bool KT, typename Stat>
+__device__ __forceinline__ void softmax_grad_any(
+    bool mask, bool drop, float (&s)[32], float (&dp)[32], int row0,
+    int col0, float scale_log2, Stat stat, int sq, int sk, int kv_len,
+    int causal, uint32_t mix, uint32_t thresh, float inv_keep) {
+  if (mask) {
+    if (drop)
+      softmax_grad<KT, true, true>(s, dp, row0, col0, scale_log2, stat, sq,
+                                   sk, kv_len, causal, mix, thresh, inv_keep);
+    else
+      softmax_grad<KT, true, false>(s, dp, row0, col0, scale_log2, stat, sq,
+                                    sk, kv_len, causal, mix, thresh,
+                                    inv_keep);
+  } else {
+    if (drop)
+      softmax_grad<KT, false, true>(s, dp, row0, col0, scale_log2, stat, sq,
+                                    sk, kv_len, causal, mix, thresh,
+                                    inv_keep);
+    else
+      softmax_grad<KT, false, false>(s, dp, row0, col0, scale_log2, stat,
+                                     sq, sk, kv_len, causal, mix, thresh,
+                                     inv_keep);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::DQ_BLOCKS)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ seed, bf16* __restrict__ dq,
+                       float* __restrict__ delta, int sq, int sk, int causal,
+                       float sm_scale, uint32_t thresh, float keep_prob) {
+  using G = Tc<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* dos = smem + G::OWN;
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * G::OWN);
+  float* dl_s = lse_s + G::ROWS;
+  uint8_t* stages = smem + 2 * G::OWN + 1024;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // the longest blocks first: under the causal mask the last query tile
+  // sees the most keys
+  const int tile = gridDim.y / G::SPLIT - 1 - (int)blockIdx.y / G::SPLIT;
+  const int col0 = ((int)blockIdx.y % G::SPLIT) * G::DO;
+  const int q0 = tile * G::ROWS;
+  const int offset = sk - sq;
+  const int kv_len = lens != nullptr ? min(lens[bh], sk) : sk;
+  int kend = kv_len;  // keys past kend are masked for every row
+  if (causal) kend = min(kend, min(q0 + G::ROWS, sq) - 1 + offset + 1);
+  const int n_tiles = kend > 0 ? (kend + G::BS - 1) / G::BS : 0;
+  const size_t q_base = (size_t)bh * sq * D;
+  const size_t kv_base = (size_t)bh * sk * D;
+
+  auto load_kv = [&](int t) {
+    uint8_t* st = stages + (t & 1) * G::STAGE;
+    load_tile<G::BS, D, G::NT>(st, k + kv_base, t * G::BS, sk, tid);
+    load_tile<G::BS, D, G::NT>(st + G::STREAM, v + kv_base, t * G::BS, sk,
+                               tid);
+  };
+  load_tile<G::ROWS, D, G::NT>(qs, q + q_base, q0, sq, tid);
+  load_tile<G::ROWS, D, G::NT>(dos, dout + q_base, q0, sq, tid);
+  if (n_tiles > 0) load_kv(0);
+  tc::cp_async_commit();
+
+  // delta = rowsum(dO * o) in f32, and lse, of the block's rows, while the
+  // first tiles load: every 16-byte chunk of o and dO is read at once (a
+  // row's CPR chunks on CPR neighbouring lanes), then summed over the lanes
+  {
+    constexpr int CPR = D / 8;
+    constexpr int IT = G::ROWS * CPR / G::NT;
+    float part[IT];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = it * G::NT + tid, row = q0 + i / CPR;
+      part[it] = 0.f;
+      if (row < sq) {
+        const size_t at = q_base + (size_t)row * D + (i % CPR) * 8;
+        float ov[8], dov[8];
+        flash::load_row<bf16, 8>(o + at, ov);
+        flash::load_row<bf16, 8>(dout + at, dov);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part[it] += dov[e] * ov[e];
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      float x = part[it];
+#pragma unroll
+      for (int off = 1; off < CPR; off <<= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      const int i = it * G::NT + tid, r = i / CPR, row = q0 + r;
+      if (i % CPR == 0) {
+        dl_s[r] = x;
+        lse_s[r] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
+        if (row < sq && col0 == 0) delta[(size_t)bh * sq + row] = x;
+      }
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows of the accumulators: row + 8 h, h < 2
+  const int wrow = wg * 64;                // in the block tile
+  const int row = wrow + warp * 16 + lane / 4;
+  const int wq0 = q0 + wrow;               // first query of the warpgroup
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = lse_s[row + 8 * h] * kLog2e;
+    dlt[h] = dl_s[row + 8 * h];
+  }
+  auto stat = [&](int h, int, int, float& l2, float& d) {
+    l2 = lse2[h];
+    d = dlt[h];
+  };
+  int wkend = kv_len;  // the warpgroup's own key end
+  if (causal) wkend = min(wkend, min(wq0 + 63, sq - 1) + offset + 1);
+  const bool wg_live = wq0 < sq;
+  const float scale_log2 = sm_scale * kLog2e;
+  const bool drop = seed != nullptr;
+  const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
+  const float inv_keep = 1.f / keep_prob;
+
+  float acc[G::NB][32];
+#pragma unroll
+  for (int c = 0; c < G::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const int key0 = t * G::BS;
+    const uint8_t* kst = stages + (t & 1) * G::STAGE;
+    if (wg_live && key0 < wkend) {
+      float s[32], dp[32];
+      tc::wgmma_fence();
+      product_ss<D>(s, qs, wrow, kst);
+      tc::wgmma_commit();
+      product_ss<D>(dp, dos, wrow, kst + G::STREAM);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      const bool mask = key0 + G::BS > kv_len ||
+                        (causal && key0 + G::BS - 1 > wq0 + offset);
+      softmax_grad_any<false>(mask, drop, s, dp, q0 + row,
+                              key0 + 2 * (lane % 4), scale_log2, stat, sq,
+                              sk, kv_len, causal, mix, thresh, inv_keep);
+      uint32_t ds[16];
+      to_frags(dp, ds);
+#pragma unroll
+      for (int c = 0; c < G::NB; ++c) fence_acc(acc[c]);
+      tc::wgmma_fence();
+      product_rs<D>(acc, ds, kst, col0);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < G::NB; ++c) fence_acc(acc[c]);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  stage_out<D>(qs, acc, sm_scale, row);
+  __syncthreads();
+  store_out<D>(dq + q_base, qs, q0, sq, col0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::NT, 1)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ lens,
+                        const int* __restrict__ seed, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int sq, int sk, int causal,
+                        float sm_scale, uint32_t thresh, float keep_prob) {
+  using G = Tc<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* ks = smem;
+  uint8_t* vs = smem + G::OWN;
+  uint8_t* stages = smem + 2 * G::OWN + 1024;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  // key tile 0 first: under the causal mask it sees the most rows
+  const int key0 = ((int)blockIdx.y / G::SPLIT) * G::ROWS;
+  const int col0 = ((int)blockIdx.y % G::SPLIT) * G::DO;
+  const int offset = sk - sq;
+  const int kv_len = lens != nullptr ? min(lens[bh], sk) : sk;
+  const size_t q_base = (size_t)bh * sq * D;
+  const size_t kv_base = (size_t)bh * sk * D;
+  const float* lse_bh = lse + (size_t)bh * sq;
+  const float* dl_bh = delta + (size_t)bh * sq;
+
+  // the query tiles that see a key of the block: from the first row that
+  // sees key0 (causal), aligned down to a streamed tile; none when every
+  // key of the block lies at or past the key length
+  const int q_begin = (causal ? max(0, key0 - offset) : 0) / G::BS * G::BS;
+  const int q_end = key0 < kv_len ? sq : 0;
+  const int n_tiles =
+      q_end > q_begin ? (q_end - q_begin + G::BS - 1) / G::BS : 0;
+
+  auto load_q = [&](int t) {
+    uint8_t* st = stages + (t & 1) * G::STAGE;
+    const int q0 = q_begin + t * G::BS;
+    load_tile<G::BS, D, G::NT>(st, q + q_base, q0, sq, tid);
+    load_tile<G::BS, D, G::NT>(st + G::STREAM, dout + q_base, q0, sq, tid);
+    float* ls = reinterpret_cast<float*>(st + 2 * G::STREAM);
+    if (tid < G::BS) {
+      const bool ok = q0 + tid < sq;
+      tc::cp_async4(ls + tid, lse_bh + (ok ? q0 + tid : 0), ok);
+      tc::cp_async4(ls + G::BS + tid, dl_bh + (ok ? q0 + tid : 0), ok);
+    }
+  };
+  load_tile<G::ROWS, D, G::NT>(ks, k + kv_base, key0, sk, tid);
+  load_tile<G::ROWS, D, G::NT>(vs, v + kv_base, key0, sk, tid);
+  if (n_tiles > 0) load_q(0);
+  tc::cp_async_commit();
+
+  const int wrow = wg * 64;                // in the block tile
+  const int row = wrow + warp * 16 + lane / 4;
+  const int wkey0 = key0 + wrow;           // first key of the warpgroup
+  const bool wg_live = wkey0 < kv_len;
+  const float scale_log2 = sm_scale * kLog2e;
+  const bool drop = seed != nullptr;
+  const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
+  const float inv_keep = 1.f / keep_prob;
+
+  float dk_acc[G::NB][32], dv_acc[G::NB][32];
+#pragma unroll
+  for (int c = 0; c < G::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_q(t + 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const int q0 = q_begin + t * G::BS;
+    const uint8_t* st = stages + (t & 1) * G::STAGE;
+    if (wg_live && (!causal || wkey0 <= q0 + G::BS - 1 + offset)) {
+      const float* ls = reinterpret_cast<const float*>(st + 2 * G::STREAM);
+      // lse2 and delta of this thread's 16 query columns
+      const int cq = 2 * (lane % 4);
+      auto stat = [&](int, int e, int j, float& l2, float& d) {
+        l2 = ls[8 * j + cq + e] * kLog2e;
+        d = ls[G::BS + 8 * j + cq + e];
+      };
+      float s[32], dp[32];
+      tc::wgmma_fence();
+      product_ss<D>(s, ks, wrow, st);
+      tc::wgmma_commit();
+      product_ss<D>(dp, vs, wrow, st + G::STREAM);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      const bool mask = wkey0 + 64 > kv_len || q0 + G::BS > sq ||
+                        (causal && wkey0 + 63 > q0 + offset);
+      softmax_grad_any<true>(mask, drop, s, dp, key0 + row, q0 + cq,
+                             scale_log2, stat, sq, sk, kv_len, causal, mix,
+                             thresh, inv_keep);
+      uint32_t pa[16], dsa[16];
+      to_frags(s, pa);
+      to_frags(dp, dsa);
+#pragma unroll
+      for (int c = 0; c < G::NB; ++c) {
+        fence_acc(dk_acc[c]);
+        fence_acc(dv_acc[c]);
+      }
+      tc::wgmma_fence();
+      product_rs<D>(dv_acc, pa, st + G::STREAM, col0);
+      product_rs<D>(dk_acc, dsa, st, col0);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < G::NB; ++c) {
+        fence_acc(dk_acc[c]);
+        fence_acc(dv_acc[c]);
+      }
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  stage_out<D>(ks, dk_acc, sm_scale, row);
+  stage_out<D>(vs, dv_acc, 1.f, row);
+  __syncthreads();
+  store_out<D>(dk + kv_base, ks, key0, sk, col0);
+  store_out<D>(dv + kv_base, vs, key0, sk, col0);
+}
+
+// -- launch -----------------------------------------------------------------
 
 struct Args {
   const void* q;
@@ -312,45 +862,93 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-void launch_dq(const Args& a) {
+template <int D>
+int launch_dq_f32(const Args& a) {
   dim3 grid((a.sq + Geo<D>::ROWS - 1) / Geo<D>::ROWS, a.bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.dout), a.lse, a.lens, a.seed,
-      static_cast<T*>(a.out0), a.delta_out, a.sq, a.sk, a.causal, a.sm_scale,
-      a.thresh, a.keep_prob);
-}
-
-template <typename T, int D>
-void launch_dkv(const Args& a) {
-  dim3 grid((a.sk + Geo<D>::ROWS - 1) / Geo<D>::ROWS, a.bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta_in, a.lens, a.seed, static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale, a.thresh,
-      a.keep_prob);
-}
-
-template <bool DQ, typename T>
-int dispatch_d(int d, const Args& a) {
-  switch (d) {
-    case 64: DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a); break;
-    case 128: DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a); break;
-    case 256: DQ ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), a.lse, a.lens, a.seed,
+      static_cast<float*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
+      a.sm_scale, a.thresh, a.keep_prob);
   return 0;
+}
+
+template <int D>
+int launch_dkv_f32(const Args& a) {
+  dim3 grid((a.sk + Geo<D>::ROWS - 1) / Geo<D>::ROWS, a.bh);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta_in, a.lens, a.seed, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
+      a.thresh, a.keep_prob);
+  return 0;
+}
+
+// the grid of a bf16 kernel: (batch*head, tiles of `rows` rows x SPLIT)
+template <int D>
+bool tc_grid(int rows, int bh, dim3* grid) {
+  const long long tiles =
+      (long long)(rows + Tc<D>::ROWS - 1) / Tc<D>::ROWS * Tc<D>::SPLIT;
+  *grid = dim3(bh, (unsigned)tiles);
+  return tiles <= 65535;
+}
+
+template <int D>
+int launch_dq_bf16(const Args& a) {
+  using G = Tc<D>;
+  dim3 grid;
+  if (!tc_grid<D>(a.sq, a.bh, &grid)) return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory needs the opt-in, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_bwd_dq_tc_kernel<D><<<grid, G::NT, G::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), a.lse, a.lens, a.seed,
+      static_cast<bf16*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
+      a.sm_scale, a.thresh, a.keep_prob);
+  return 0;
+}
+
+template <int D>
+int launch_dkv_bf16(const Args& a) {
+  using G = Tc<D>;
+  dim3 grid;
+  if (!tc_grid<D>(a.sk, a.bh, &grid)) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_bwd_dkv_tc_kernel<D><<<grid, G::NT, G::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse, a.delta_in, a.lens, a.seed, static_cast<bf16*>(a.out0),
+      static_cast<bf16*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
+      a.thresh, a.keep_prob);
+  return 0;
+}
+
+template <bool DQ, int D>
+int launch(const Args& a, int is_bf16) {
+  if (is_bf16) return DQ ? launch_dq_bf16<D>(a) : launch_dkv_bf16<D>(a);
+  return DQ ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
 }
 
 template <bool DQ>
 int run(const Args& a, int d, int is_bf16) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || a.bh > 65535)
     return (int)cudaErrorInvalidValue;
-  const int err = is_bf16 ? dispatch_d<DQ, __nv_bfloat16>(d, a)
-                          : dispatch_d<DQ, float>(d, a);
+  int err;
+  switch (d) {
+    case 64: err = launch<DQ, 64>(a, is_bf16); break;
+    case 128: err = launch<DQ, 128>(a, is_bf16); break;
+    case 256: err = launch<DQ, 256>(a, is_bf16); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
   return (int)cudaGetLastError();
 }

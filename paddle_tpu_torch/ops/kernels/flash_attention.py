@@ -33,12 +33,13 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Kernel notes (details in the .cu files): the three flash kernels
-compute on the CUDA cores in f32, where operations bound them (in bf16 at
-the tensor cores' rate they would sit near the H100's balance point);
-each stages the tile it loops over in shared memory, skips tiles the
-causal mask or the key length rule out, and regenerates the dropout mask
-in registers. The decode kernel is bound by the bytes of the live cache:
+Kernel notes (details in the .cu files): the forward computes on the
+CUDA cores in f32 for either dtype; the two backward kernels run every
+bf16 product on the tensor cores (wgmma, tiles streamed through shared
+memory by cp.async) and f32 on the CUDA cores, where TF32 would miss the
+f32 bar. Each kernel skips tiles the causal mask or the key length rule
+out and regenerates the dropout mask in registers. The decode kernel is
+bound by the bytes of the live cache:
 it splits each row's keys over several blocks (flash-decoding) and
 combines their partial softmax states in a second, small kernel.
 """
