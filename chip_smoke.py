@@ -6,11 +6,16 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build   — compile every kernel under paddle_tpu_torch/csrc with nvcc
-             (one process per source, all started together);
+             (one process per source, all started together); registers
+             and spill stores of every flash forward, backward and decode
+             instantiation, and the bf16 forward's largest SASS basic
+             blocks (a tile's softmax) counted by opcode class;
 2. flash   — the flash-attention forward kernel vs its plain PyTorch twin
              at gpt3-345M prefill shapes (B=1, H=16, D=64, S in 64..1024,
-             causal, kv_lens < S; f32 and bf16), plus D=128, sq != sk and
-             kv_lens=0; times kernel, plain twin and torch SDPA;
+             causal, kv_lens < S; f32 and bf16), plus D=128, sq != sk,
+             kv_lens=0, and bf16 at D=256 and with one query row; a
+             second bf16 forward must repeat o and lse bit for bit;
+             times kernel, plain twin and torch SDPA;
 3. decode  — the paged decode kernel vs its plain twin (paged_attention_ref)
              at serving shapes (B in {8, 32}, Hkv=16, G=1, ps=16, MP=64;
              f32, bf16, int8 pools), plus G=4 and a batch with lens 0 and
@@ -30,7 +35,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              kernels' tiles raggedly (D 64/128/256; sq, sk in {1, 63, 65,
              127, 129, 1000}, sq != sk under causal both ways; kv_lens 0,
              mid-tile and sk); a second backward must repeat the first bit
-             for bit in every case; with V the identity the forward's
+             for bit in every case, a second forward in every bf16 case; with V the identity the forward's
              dropped entries must be exactly the twin's keep mask; times
              kernels, twins and torch SDPA (forward, and its backward for
              dq and dk/dv), with achieved TFLOP/s and share of the bound;
@@ -87,8 +92,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              plain twin at the generate slice's shapes: GPT's (B=8, H=16,
              D=64) and Llama-2-7B's (B=4, H=32, D=128) over a 576-key
              cache, f32 and bf16, key lengths 1, S, not a multiple of 128
-             and 0, plus D=256 and a 5-key cache; times kernel, twin and
-             torch SDPA over the live keys where every row has all 576;
+             and 0, plus D=256, a 5-key cache and a 4096-key cache at
+             B=1 and 2, H=32 (16 and 8 chunks a row, combined in the
+             launch); a second call must repeat the first bit for bit,
+             and one call put exactly one kernel on the device (profiler);
+             times kernel, twin and torch SDPA over the live keys where
+             every row has all 576;
 15. generate-gpt — gpt3-345M generate() at full width and depth, f32
              weights from seed 0, batch 8 x 512, 64 new tokens: greedy with
              an f32 and a bf16 cache (24 x 64 launches of kernel #2 each,
@@ -158,13 +167,31 @@ never lands in a window, and the run fails if the spin ends first. Every
 timed number of the kernel table is reported held (the value) and unheld
 (the same launches on a free device, as the host reaches them).
 
-Prints the kernel table as one JSON line, the card's name and power limit
-(nvidia-smi), and as the last line {"ok": true, "device": {...}}. Exits
-non-zero without a result when no CUDA device is present or when the
-package is not beside this script.
+Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
+main path runs), the card's name and power limit (nvidia-smi), and as the
+last line {"ok": true, "device": {...}}. Exits non-zero without a result
+when no CUDA device is present or when the package is not beside this
+script.
+
+Comparisons, each alone and instead of the phases, the other version's
+sources given as files (the parent's from `git show
+<parent>:paddle_tpu_torch/csrc/<file>`, or a variant), built with the
+package's flags and held to the package's kernel at the dtype's bar, both
+timed held in turns (theirs, ours, ours, theirs) beside SDPA held and
+unheld:
+
+    python3 chip_smoke.py --compare-fwd SRC...     # flash_attention_fwd.cu
+    python3 chip_smoke.py --compare-bwd SRC...     # flash_attention_bwd.cu
+    python3 chip_smoke.py --compare-decode SRC...  # flash_decode.cu
+
+at GPT's training shape with and without dropout and ERNIE's (the
+forward also the f32 serving prefill, the backward as a dq + dk/dv pair),
+and for the decode GPT's f32 and Llama-2-7B's bf16 generate shapes (then
+the package's decode at other targets of blocks a call).
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -299,6 +326,80 @@ def visible_pairs(b, sq, sk, lens, causal=True):
 
 # -- phases -------------------------------------------------------------------
 
+# one ptxas record: the mangled entry name, spill stores, registers
+_PTXAS_ENTRY = re.compile(r"entry function '([^']+)'.*?(\d+) bytes spill "
+                          r"stores.*?Used (\d+) registers", re.S)
+_TEMPLATE_ARG = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def _instantiations(logtxt):
+    """[(kernel<args>, registers, spill bytes)] of a ptxas -v log, the
+    template arguments read off the mangled names."""
+    out = []
+    for m in _PTXAS_ENTRY.finditer(logtxt):
+        k = re.search(r"\d([a-z_]+kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E)+)"
+                      r"E)?", m.group(1))
+        args = re.findall(r"f|13__nv_bfloat16|Li(\d+)E", k.group(2) or "")
+        toks = re.findall(r"f|13__nv_bfloat16|Li\d+E", k.group(2) or "")
+        names = [_TEMPLATE_ARG.get(t, a) for t, a in zip(toks, args)]
+        out.append((f"{k.group(1)}<{','.join(names)}>", int(m.group(3)),
+                    int(m.group(2))))
+    return out
+
+
+# SASS opcode classes of the forward's softmax count
+_SASS_CLASSES = (
+    ("ex2", ("MUFU",)),
+    ("int", ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "IMNMX", "LEA", "SEL",
+             "IABS", "PRMT", "I2F", "F2I", "VIMNMX")),
+    ("float", ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FCHK")),
+    ("pack", ("F2FP",)),
+    ("shfl", ("SHFL",)),
+)
+
+
+def sass_blocks(lib, kernel):
+    """The basic blocks (straight-line runs between labels and branches)
+    of the first function of ``lib`` whose name holds ``kernel`` that run
+    32 or more ex2 (a tile's softmax over 32 pairs a thread), largest
+    first, by ``cuobjdump -sass``: [(instructions, {class: count})]. None
+    when cuobjdump or the function is missing."""
+    from paddle_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if not funcs:
+        return None
+    blocks, cur = [], []
+    for line in funcs[0].split("\n"):
+        if re.match(r"\s*\.L_x_\d+:", line):
+            blocks.append(cur)
+            cur = []
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                       line)
+        if not op:
+            continue
+        opcode = op.group(1).split(".")[0]
+        cur.append(opcode)
+        if opcode in ("BRA", "EXIT", "BAR", "RET", "WARPSYNC", "BSYNC"):
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    out = []
+    for b in sorted(blocks, key=len, reverse=True):
+        counts = {name: sum(op in ops for op in b)
+                  for name, ops in _SASS_CLASSES}
+        if counts["ex2"] >= 32:
+            out.append((len(b), counts))
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -314,17 +415,23 @@ def phase_build():
         log(f"build: {name}: {len(regs)} kernels, max registers "
             f"{max(regs) if regs else 'n/a'}, max spill stores "
             f"{max(spills) if spills else 0} bytes")
-        if name == "flash_attention_bwd":
-            # each instantiation: its kernel name and template arguments
-            # from the mangled name, registers, spill stores
-            for m in re.finditer(r"entry function '([^']+)'.*?(\d+) bytes "
-                                 r"spill stores.*?Used (\d+) registers",
-                                 logtxt, re.S):
-                k = re.search(r"\d([a-z_]+kernel)(?:I((?:Li\d+E)+)E)?",
-                              m.group(1))
-                args = ",".join(re.findall(r"\d+", k.group(2) or ""))
-                log(f"build:   {k.group(1)}<{args}>: {m.group(3)} "
-                    f"registers, {m.group(2)} bytes spill stores")
+        if name in ("flash_attention_fwd", "flash_attention_bwd",
+                    "flash_decode"):
+            for kern, nreg, spill in _instantiations(logtxt):
+                log(f"build:   {kern}: {nreg} registers, {spill} bytes "
+                    "spill stores")
+    # the forward's CUDA-core work: a tile's softmax is straight-line code
+    # between its two products, over 32 (q, k) pairs a thread
+    lib = _build._lib_path("flash_attention_fwd")[1]
+    blocks = sass_blocks(lib, "flash_fwd_tc_kernelILi64E")
+    if blocks is None:
+        log("build: cuobjdump or the kernel not found; the forward's SASS "
+            "count not measured")
+    else:
+        for n, counts in blocks:
+            log(f"build: flash_fwd_tc_kernel<64> SASS basic block of {n} "
+                f"instructions = {n / 32:.1f} a pair over 32 pairs a "
+                f"thread: {counts}")
     log(f"build: {len(_build.sources())} sources in {secs:.2f} s "
         "(parallel nvcc, sm_90a)")
     return secs
@@ -350,6 +457,10 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
           f"max_abs_err {err} > {TOL[dtype]}")
     check(math.isfinite(lerr) and lerr <= 1e-3,
           f"flash lse b{b} sq{sq} sk{sk}: max_abs_err {lerr}")
+    if dtype == "bfloat16":
+        _check_repeat_fwd(torch, f"flash b{b} sq{sq} sk{sk} d{d}", o, lse,
+                          lambda: kfa.flash_attention_fwd(q, k, v, lens_t,
+                                                          causal=True))
     row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
                max_abs_err=err)
     if timed:
@@ -379,6 +490,15 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
     return row
 
 
+def _check_repeat_fwd(torch, where, o, lse, fwd):
+    """The forward uses no atomics: a second call gives o and lse bit for
+    bit."""
+    o2, lse2 = fwd()
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          f"{where}: a second forward gave another o or lse")
+
+
 def phase_flash(torch, flush):
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -394,6 +514,14 @@ def phase_flash(torch, flush):
                             [320, 150], gen, flush, False))
     rows.append(_flash_case(torch, 2, 4, 64, 64, 64, "float32",
                             [0, 64], gen, flush, False))
+    # the bf16 kernel at D=256 (one warpgroup, output columns over two
+    # blocks) and with one query row
+    rows.append(_flash_case(torch, 2, 4, 300, 300, 256, "bfloat16",
+                            [300, 170], gen, flush, False))
+    rows.append(_flash_case(torch, 4, 8, 1, 576, 64, "bfloat16",
+                            [576, 1, 0, 300], gen, flush, False))
+    rows.append(_flash_case(torch, 2, 8, 1, 200, 128, "bfloat16",
+                            [200, 65], gen, flush, False))
     for r in rows:
         extra = "" if "ms" not in r else (
             f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
@@ -686,6 +814,9 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
         check(torch.equal(a, a2), f"flash-train {where}: a second backward "
               f"gave another {n}")
     del dq2, delta2, dk2, dv2
+    if dtype == "bfloat16":
+        _check_repeat_fwd(torch, f"flash-train {where}", o, lse,
+                          lambda: kfa.flash_attention_fwd(q, k, v, *rest))
     if not timed:
         return row
     fwd = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
@@ -877,6 +1008,206 @@ def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
     return run_dq, run_dkv
 
 
+def _build_compare(sources, tag):
+    """[(source, ctypes.CDLL)]: each given source (another version of one
+    of the package's kernel sources: its parent, a variant) built with the
+    package's nvcc flags, all at once, and loaded. A source's own
+    directory comes first on the include path, then the package's csrc/,
+    so a parent's source builds with the parent's headers beside it."""
+    from paddle_tpu_torch.ops import _build
+    out = os.path.join(_build.BUILD_DIR, "compare")
+    os.makedirs(out, exist_ok=True)
+    started = [(src, os.path.join(out, f"lib{tag}{i}.so")) for i, src in
+               enumerate(sources)]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                               _build.CSRC_DIR, "-o", lib, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, lib in started]
+    built = []
+    for (src, lib), proc in zip(started, procs):
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"compare: nvcc failed for {src}:\n{text}")
+        built.append((src, ctypes.CDLL(lib)))
+    return built
+
+
+def _in_turns(torch, theirs, ours, flush):
+    """Held ms of two callables in turns (theirs, ours, ours, theirs):
+    ({"theirs": [ms, ms], "ours": [ms, ms]}, mean theirs, mean ours)."""
+    ms = {"theirs": [], "ours": []}
+    for who, fn in (("theirs", theirs), ("ours", ours), ("ours", ours),
+                    ("theirs", theirs)):
+        ms[who].append(time_ms(torch, fn, flush=flush))
+    return ms, sum(ms["theirs"]) / 2, sum(ms["ours"]) / 2
+
+
+def compare_fwd(torch, sources):
+    """``--compare-fwd SRC...``: build each given flash_attention_fwd.cu
+    (its C entry has the package's signature) with the package's flags,
+    hold its forward to the package's (o at the dtype's bar, lse within
+    1e-3) and time both in turns (theirs, ours, ours, theirs; held) at
+    GPT's training shape with and without dropout 0.1 (bf16, causal),
+    ERNIE's (bf16, non-causal) and the f32 serving prefill (causal, key
+    length 921 of 1024), beside SDPA held and unheld, with TFLOP/s and
+    share of the bound."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    entries = []
+    for src, cdll in _build_compare(sources, "fwd"):
+        fn = cdll.flash_attention_fwd
+        fn.restype, fn.argtypes = ctypes.c_int, kfa._FWD_ARGTYPES
+        entries.append((src, fn))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, b, h, s, causal, dropout, dtype, lens in (
+            ("gpt", 8, 16, 1024, True, 0.1, "bfloat16", None),
+            ("gpt-nodrop", 8, 16, 1024, True, 0.0, "bfloat16", None),
+            ("ernie", 32, 12, 512, False, 0.0, "bfloat16", None),
+            ("prefill-f32", 1, 16, 1024, True, 0.0, "float32", [921])):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(b * h, s, 64, generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        lens_t = None if lens is None else torch.tensor(
+            [x for x in lens for _ in range(h)], dtype=torch.int32,
+            device="cuda")
+        seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
+        rest = (lens_t, seed, causal, None, dropout)
+        o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
+        ours = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
+        pairs = h * visible_pairs(b, s, s, lens, causal)
+        esz = q.element_size()
+        work = (4 * b * h * s * 64 * esz + b * h * s * 4, 4 * 64 * pairs)
+        bms, by = bound(*work, peak=BF16_FLOPS if dtype == "bfloat16"
+                        else F32_FLOPS)
+        seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
+        for src, fn in entries:
+            def theirs():
+                to = torch.empty_like(q)
+                tl = torch.empty(b * h, s, dtype=torch.float32,
+                                 device="cuda")
+                check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         None if lens_t is None else lens_t.data_ptr(),
+                         to.data_ptr(), tl.data_ptr(), b * h, s, s, 64,
+                         int(causal), 1.0 / math.sqrt(64), seed_ptr, thresh,
+                         keep, int(dtype == "bfloat16"),
+                         torch.cuda.current_stream().cuda_stream) == 0,
+                      "compare: forward launch failed")
+                return to, tl
+            to, tl = theirs()
+            torch.cuda.synchronize()
+            e, le = _err(to, o)[0], _err(tl, lse)[0]
+            check(e <= TOL[dtype] and le <= 1e-3, f"compare {tag}: {src} o "
+                  f"differs from the package's by {e}, lse by {le}")
+            ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+            log(f"compare-fwd {tag}: {src}: held ms in turns (theirs, ours, "
+                f"ours, theirs): theirs {ms['theirs'][0]:.4f} "
+                f"{ms['theirs'][1]:.4f}, ours {ms['ours'][0]:.4f} "
+                f"{ms['ours'][1]:.4f}; theirs / ours = {t_ms / o_ms:.2f}; "
+                f"ours {work[1] / o_ms / 1e9:.1f} TFLOP/s, {bms / o_ms:.3f} "
+                f"of the bound {bms:.4f} ms ({by}); o err {e:.2e}, lse "
+                f"err {le:.2e}")
+        qt, kt, vt = (x.view(b, h, s, 64) for x in (q, k, v))
+        mask = None
+        if lens is not None:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] < lens[0]))[None, None]
+        lib = time_ms(torch, lambda: sdpa(
+            qt, kt, vt, attn_mask=mask, dropout_p=dropout,
+            is_causal=causal and mask is None), flush=flush)
+        log(f"compare-fwd {tag}: SDPA held {lib:.4f} ms, unheld "
+            f"{unheld(lib):.4f} ms")
+
+
+def compare_decode(torch, sources):
+    """``--compare-decode SRC...``: build each given flash_decode.cu with
+    the package's flags, hold it to the package's kernel (the dtype's bar)
+    and time both in turns (theirs, ours, ours, theirs; held) at GPT's f32
+    generate shape (B=8 H=16 D=64) and Llama-2-7B's bf16 one (B=4 H=32
+    D=128), every row at 576 keys, beside SDPA held and unheld. A source
+    of the earlier two-launch design (a decode_combine_kernel; C entry
+    with part_acc, part_ml) is given its scratch and split (4 x 132
+    blocks, chunks of 2048 / D keys); any other, the package's. Then the package's kernel at other targets
+    of blocks a call (``_DECODE_BLOCKS``; 1 gives one block a row)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    entries = []
+    for src, cdll in _build_compare(sources, "decode"):
+        fn = cdll.flash_decode
+        fn.restype, fn.argtypes = ctypes.c_int, kfa._DECODE_ARGTYPES
+        with open(src) as f:  # the two-launch source has a combine kernel
+            entries.append((src, fn, "decode_combine_kernel" in f.read()))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, b, h, d, dtype in (("gpt-f32", 8, 16, 64, "float32"),
+                                ("llama-bf16", 4, 32, 128, "bfloat16")):
+        dt, s = getattr(torch, dtype), 576
+        q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        out = kfa.flash_decode(q, k, v, lens)
+        ours = lambda: kfa.flash_decode(q, k, v, lens)  # noqa: E731
+        for src, fn, two_launch in entries:
+            if two_launch:
+                unit = 2048 // d
+                want = max(1, -(-528 // (b * h)))
+                chunk = -(-max(1, -(-s // want)) // unit) * unit
+                splits = -(-s // chunk)
+                p0 = torch.empty(b * h * splits * d, dtype=torch.float32,
+                                 device="cuda")
+                p1 = torch.empty(b * h * splits * 2, dtype=torch.float32,
+                                 device="cuda")
+            else:
+                splits, chunk = kfa.decode_split(b, h, s)
+                p0 = torch.empty(b * h * splits * (d + 2),
+                                 dtype=torch.float32, device="cuda")
+                p1 = torch.zeros(b * h, dtype=torch.int32, device="cuda")
+
+            def theirs():
+                to = torch.empty_like(q)
+                check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lens.data_ptr(), to.data_ptr(), p0.data_ptr(),
+                         p1.data_ptr(), b, h, s, d, splits, chunk,
+                         q.stride(0), q.stride(2), *k.stride()[:3],
+                         *v.stride()[:3], int(dtype == "bfloat16"),
+                         1.0 / math.sqrt(d),
+                         torch.cuda.current_stream().cuda_stream) == 0,
+                      "compare: decode launch failed")
+                return to
+            e = _err(theirs(), out)[0]
+            check(e <= TOL[dtype], f"compare {tag}: {src} differs from the "
+                  f"package's decode by {e}")
+            ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+            log(f"compare-decode {tag}: {src} ({'two launches' if two_launch else 'one launch'}, "
+                f"splits {splits} x {chunk}): held ms in turns (theirs, "
+                f"ours, ours, theirs): theirs {ms['theirs'][0]:.4f} "
+                f"{ms['theirs'][1]:.4f}, ours {ms['ours'][0]:.4f} "
+                f"{ms['ours'][1]:.4f}; theirs / ours = {t_ms / o_ms:.2f}; "
+                f"err {e:.2e}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt), flush=flush)
+        log(f"compare-decode {tag}: SDPA held {lib:.4f} ms, unheld "
+            f"{unheld(lib):.4f} ms; ours splits {kfa.decode_split(b, h, s)}")
+        default = kfa._DECODE_BLOCKS
+        try:
+            for blocks in (1, 132, 264, 528, 1056):
+                kfa._DECODE_BLOCKS = blocks
+                got = ours()
+                e = _err(got, out)[0]
+                check(e <= TOL[dtype], f"compare {tag}: {blocks} blocks: "
+                      f"err {e}")
+                t = time_ms(torch, ours, flush=flush)
+                log(f"compare-decode {tag}: ours aiming at {blocks} blocks "
+                    f"(splits, chunk) {kfa.decode_split(b, h, s)}: held "
+                    f"{t:.4f} ms, unheld {unheld(t):.4f}; err {e:.2e}")
+        finally:
+            kfa._DECODE_BLOCKS = default
+
+
 def compare_bwd(torch, sources):
     """``--compare-bwd SRC...``: build each given flash_attention_bwd.cu
     (another version of the package's backward source: its parent, a
@@ -885,23 +1216,9 @@ def compare_bwd(torch, sources):
     turns (theirs, ours, ours, theirs; held) at GPT's training shape
     (causal, dropout 0.1), GPT's without dropout and ERNIE's (non-causal),
     beside SDPA's backward held and unheld."""
-    import ctypes
-    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
-    out = os.path.join(_build.BUILD_DIR, "compare")
-    os.makedirs(out, exist_ok=True)
-    started = [(src, os.path.join(out, f"libbwd{i}.so")) for i, src in
-               enumerate(sources)]
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                               _build.CSRC_DIR, "-o", lib, src],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, lib in started]
     entries = []
-    for (src, lib), proc in zip(started, procs):
-        text = proc.communicate()[0]
-        check(proc.returncode == 0, f"compare: nvcc failed for {src}:\n{text}")
-        cdll = ctypes.CDLL(lib)
+    for src, cdll in _build_compare(sources, "bwd"):
         fns = (cdll.flash_attention_bwd_dq, cdll.flash_attention_bwd_dkv)
         for fn, types in zip(fns, (kfa._DQ_ARGTYPES, kfa._DKV_ARGTYPES)):
             fn.restype, fn.argtypes = ctypes.c_int, types
@@ -1288,10 +1605,10 @@ def phase_train(torch):
 
 
 # device-side names of the port's kernels, as the profiler lists them
-OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_tc_kernel",
-               "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_kernel",
-               "flash_bwd_dkv_kernel", "adamw_kernel", "ln_fwd_kernel",
-               "ln_bwd_kernel", "colsum_kernel")
+OWN_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
+               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel",
+               "ln_fwd_kernel", "ln_bwd_kernel", "colsum_kernel")
 
 
 def profile_train(torch, eng, inputs, labels):
@@ -1635,7 +1952,7 @@ def phase_ernie_cpu(torch):
 
 # -- generate(): the dense decode kernel #2, GPT and Llama -------------------
 
-DECODE_KERNELS = ("decode_partial_kernel", "decode_combine_kernel")
+DECODE_KERNELS = ("flash_decode_kernel",)
 
 
 def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
@@ -1659,8 +1976,13 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
     zero = [i for i, n in enumerate(lens) if n == 0]
     check(not out[zero].any().item() if zero else True,
           "dense-decode: a kv_lens-0 row gave a nonzero output")
+    # the combine runs in a fixed chunk order: a second call is bit-equal
+    out2 = kfa.flash_decode(q, k, v, lens_t)
+    torch.cuda.synchronize()
+    check(torch.equal(out, out2), f"dense-decode {dtype} b{b} h{h} s{s} "
+          f"d{d}: a second call gave another output")
     row = dict(dtype=dtype, b=b, h=h, s=s, d=d, lens=lens, max_abs_err=err,
-               splits=kfa.decode_split(b, h, s, d))
+               splits=kfa.decode_split(b, h, s))
     if timed:
         row["ms"] = time_ms(torch, lambda: kfa.flash_decode(q, k, v, lens_t),
                             flush=flush)
@@ -1683,6 +2005,38 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
     return row
 
 
+def _check_one_decode_kernel(torch, calls=4):
+    """Under torch.profiler, ``calls`` flash_decode calls at Llama-2-7B's
+    shape (their scratch already made) put exactly one kernel each on the
+    device. A profile that recorded no device kernel at all is taken
+    again, at most twice more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    q = torch.randn(4, 1, 32, 128, device="cuda").bfloat16()
+    k = torch.randn(4, 576, 32, 128, device="cuda").bfloat16()
+    lens = torch.tensor([576, 300, 1, 0], dtype=torch.int32, device="cuda")
+    kfa.flash_decode(q, k, k, lens)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kfa.flash_decode(q, k, k, lens)
+            torch.cuda.synchronize()
+        kernels = {a.key: a.count for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA}
+        if kernels:
+            break
+    ours = sum(c for n, c in kernels.items()
+               if any(d in n for d in DECODE_KERNELS))
+    check(sum(kernels.values()) == calls and ours == calls,
+          f"dense-decode: {calls} flash_decode calls ran {kernels} on the "
+          "device")
+    log(f"dense-decode: {calls} calls under the profiler, one device kernel "
+        f"each: {kernels}")
+
+
 def phase_dense_decode(torch, flush):
     """Kernel #2 at the generate slice's shapes: GPT's (B=8, H=16, D=64)
     and Llama-2-7B's (B=4, H=32, D=128), f32 and bf16, over a 576-key
@@ -1702,10 +2056,17 @@ def phase_dense_decode(torch, flush):
                                        [200, 77], gen, flush, False))
         rows.append(_dense_decode_case(torch, 3, 2, 5, 64, dtype,
                                        [5, 0, 2], gen, flush, False))
+    # a long cache and a small batch: 16 chunks a row, the in-launch
+    # combine over them
+    rows.append(_dense_decode_case(torch, 1, 32, 4096, 128, "bfloat16",
+                                   [4001], gen, flush, False))
+    rows.append(_dense_decode_case(torch, 2, 32, 4096, 128, "float32",
+                                   [4096, 1111], gen, flush, False))
     rows.append(_dense_decode_case(torch, 8, 16, s, 64, "float32", [s] * 8,
                                    gen, flush, True))
     rows.append(_dense_decode_case(torch, 4, 32, s, 128, "bfloat16", [s] * 4,
                                    gen, flush, True))
+    _check_one_decode_kernel(torch)
     for r in rows:
         extra = "" if "ms" not in r else (
             f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} sdpa_ms "
@@ -2304,7 +2665,8 @@ def phase_resnet_cpu(torch):
 
 def main():
     """Every phase, then the kernel table and the result line; with
-    ``--compare-bwd SRC...``, only compare_bwd."""
+    ``--compare-bwd SRC...``, ``--compare-fwd SRC...`` or
+    ``--compare-decode SRC...``, only that comparison."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2317,9 +2679,14 @@ def main():
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--compare-bwd"]:
-        check(len(sys.argv) > 2, "--compare-bwd needs source files")
-        compare_bwd(torch, sys.argv[2:])
+    modes = {"--compare-bwd": compare_bwd, "--compare-fwd": compare_fwd,
+             "--compare-decode": compare_decode}
+    if sys.argv[1:2] and sys.argv[1] in modes:
+        check(len(sys.argv) > 2, f"{sys.argv[1]} needs source files")
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip())
+        modes[sys.argv[1]](torch, sys.argv[2:])
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2375,7 +2742,7 @@ def main():
     gg = phase_generate_gpt(torch)
     stamp("generate_gpt")
     torch.cuda.empty_cache()
-    phase_generate_llama(torch)
+    gl = phase_generate_llama(torch)
     stamp("generate_llama")
     torch.cuda.empty_cache()
     phase_generate_llama_gqa(torch)
@@ -2392,30 +2759,45 @@ def main():
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
-    # the training shape with dropout, bf16 as the slice runs it
+    # #1, #3, #4 at the training shape with dropout, bf16 as the slice
+    # runs it
     fmain = next(r for r in ftrain if "ms" in r and r["dtype"] == "bfloat16"
                  and r["dropout"])
     amain = next(r for r in adamw if "ms" in r and r["decoupled"]
                  and r["shape"] == (1024, 4096))
 
-    def flash_row(name, part, timing, source, replaces, errs=()):
+    def flash_row(name, part, timing, source, replaces, errs=(),
+                  dtype="float32"):
         bms, by = fmain["bound"][timing]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=tr["launches"][name],
             max_abs_err=max([r["err"][part] for r in ftrain + noncausal
-                             if r["dtype"] == "float32"] + list(errs)),
+                             if r["dtype"] == dtype] + list(errs)),
             ms=fmain["ms"][timing], plain_ms=fmain["plain_ms"][timing],
             bound_ms=bms, bound_by=by,
             library_ms=fmain["library_ms"][timing])
 
+    fwd_src = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
+    fwd_tpu = "paddle_tpu/ops/pallas/flash_attention.py:309"
     bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+    # #1 in f32: the serving slice's prefill (phase 2's S=1024 case)
+    fprefill = next(r for r in flash if "ms" in r and r["sq"] == 1024)
     kernels = [
-        flash_row("flash_attention_fwd", "o", "fwd",
-                  "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                  "paddle_tpu/ops/pallas/flash_attention.py:309",
-                  [r["max_abs_err"] for r in flash
-                   if r["dtype"] == "float32"]),
+        dict(flash_row("flash_attention_fwd", "o", "fwd", fwd_src, fwd_tpu,
+                       [r["max_abs_err"] for r in flash
+                        if r["dtype"] == "bfloat16"], dtype="bfloat16"),
+             dtype="bfloat16"),
+        dict(name="flash_attention_fwd", dtype="float32", route="cuda",
+             source=fwd_src, replaces=fwd_tpu,
+             launches=sl["launches"]["flash_attention_fwd"],
+             max_abs_err=max([r["err"]["o"] for r in ftrain + noncausal
+                              if r["dtype"] == "float32"]
+                             + [r["max_abs_err"] for r in flash
+                                if r["dtype"] == "float32"]),
+             ms=fprefill["ms"], plain_ms=fprefill["plain_ms"],
+             bound_ms=fprefill["bound_ms"], bound_by=fprefill["bound_by"],
+             library_ms=fprefill["library_ms"]),
         flash_row("flash_attention_bwd_dq", "dq", "dq", bwd_src,
                   "paddle_tpu/ops/pallas/flash_attention.py:365"),
         flash_row("flash_attention_bwd_dkv", "dk", "dkv", bwd_src,
@@ -2450,18 +2832,20 @@ def main():
             ms=tm["ms"][name], plain_ms=tm["plain_ms"][name], bound_ms=bms,
             bound_by=by, library_ms=None)
 
-    # the greedy f32-cache generate at GPT's shape: every row at 576 keys
-    # (the last step)
-    dd = next(r for r in ddec if "ms" in r and r["d"] == 64)
-    kernels.append(dict(
-        name="flash_decode", route="cuda",
-        source="paddle_tpu_torch/csrc/flash_decode.cu",
-        replaces="paddle_tpu/ops/pallas/flash_attention.py:485",
-        launches=gg["float32"]["launches"]["flash_decode"],
-        max_abs_err=max(r["max_abs_err"] for r in ddec
-                        if r["dtype"] == "float32"),
-        ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
-        bound_by=dd["bound_by"], library_ms=dd["library_ms"]))
+    # #2 at the greedy generate shapes, every row at 576 keys (the last
+    # step): GPT's f32 cache and Llama-2-7B's bf16 one
+    for dtype, d, path in (("float32", 64, gg["float32"]),
+                           ("bfloat16", 128, gl)):
+        dd = next(r for r in ddec if "ms" in r and r["d"] == d)
+        kernels.append(dict(
+            name="flash_decode", dtype=dtype, route="cuda",
+            source="paddle_tpu_torch/csrc/flash_decode.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:485",
+            launches=path["launches"]["flash_decode"],
+            max_abs_err=max(r["max_abs_err"] for r in ddec
+                            if r["dtype"] == dtype),
+            ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
+            bound_by=dd["bound_by"], library_ms=dd["library_ms"]))
 
     ln_src = "paddle_tpu/ops/pallas/fused_ln.py"
     kernels += [
@@ -2488,7 +2872,9 @@ def main():
         kr["unheld"] = {key: unheld(kr[key])
                         for key in ("ms", "plain_ms", "library_ms")}
         u = kr["unheld"]
-        log(f"kernels: {kr['name']}: ms {kr['ms']:.4f} (unheld "
+        log(f"kernels: {kr['name']}"
+            + (f" ({kr['dtype']})" if "dtype" in kr else "")
+            + f": ms {kr['ms']:.4f} (unheld "
             f"{u['ms']:.4f}), plain_ms {kr['plain_ms']:.4f} (unheld "
             f"{u['plain_ms']:.4f}), library_ms "
             + ("none" if kr["library_ms"] is None else

@@ -33,15 +33,16 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Kernel notes (details in the .cu files): the forward computes on the
-CUDA cores in f32 for either dtype; the two backward kernels run every
-bf16 product on the tensor cores (wgmma, tiles streamed through shared
-memory by cp.async) and f32 on the CUDA cores, where TF32 would miss the
-f32 bar. Each kernel skips tiles the causal mask or the key length rule
-out and regenerates the dropout mask in registers. The decode kernel is
-bound by the bytes of the live cache:
-it splits each row's keys over several blocks (flash-decoding) and
-combines their partial softmax states in a second, small kernel.
+Kernel notes (details in the .cu files): the forward and the two backward
+kernels run every bf16 product on the tensor cores (wgmma, tiles streamed
+through shared memory by cp.async, the probabilities kept in registers as
+the second product's operand) and f32 on the CUDA cores, where TF32 would
+miss the f32 bar. Each kernel skips tiles the causal mask or the key
+length rule out and regenerates the dropout mask in registers. The decode
+kernel is bound by the bytes of the live cache: one launch splits each
+row's keys over several blocks (flash-decoding), and the last block of a
+row to finish combines the row's partial softmax states, in chunk order,
+through scratch the wrapper keeps (``_decode_scratch``).
 """
 from __future__ import annotations
 
@@ -69,14 +70,20 @@ _FWD_ARGTYPES = [_P] * 6 + [_I] * 5 + [_F, _P, _U, _F, _I, _P]
 _DQ_ARGTYPES = [_P] * 10 + [_I] * 5 + [_F, _U, _F, _I, _P]
 # q, k, v, dout, lse, delta, lens, seed, dk, dv; then as above
 _DKV_ARGTYPES = _DQ_ARGTYPES
-# q, k, v, lens, out, part_acc, part_ml; b, h, s, d, splits, chunk; the
+# q, k, v, lens, out, part, counters; b, h, s, d, splits, chunk; the
 # strides q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh; is_bf16; sm_scale;
 # stream
 _DECODE_ARGTYPES = ([_P] * 7 + [_I] * 6 + [ctypes.c_longlong] * 8
                     + [_I, _F, _P])
-# partial-state blocks a decode call aims for: four on each of the H100's
-# 132 SMs
+# blocks a decode call aims for: four on each of the H100's 132 SMs (at
+# Llama-2-7B's and GPT's generate shapes it beat 1, 132, 264 and 1056 on
+# the card, PERF.md section 6)
 _DECODE_BLOCKS = 4 * 132
+# a decode chunk is a multiple of 64 keys, two of a block's largest rounds
+# (4 warps x 8 keys, bf16 at D=64)
+_DECODE_UNIT = 64
+# device -> (partial states, per-row counters) of the decode kernel
+_DECODE_SCRATCH = {}
 
 _M32 = 0xFFFFFFFF
 
@@ -442,15 +449,29 @@ def flash_decode_plain(q, k_cache, v_cache, kv_lens, sm_scale=None):
     return o.transpose(1, 2).to(q.dtype)
 
 
-def decode_split(b, h, s, d):
+def decode_split(b, h, s):
     """(splits, chunk) of a decode call: the keys of each (b, h) row are cut
     into ``splits`` chunks of ``chunk`` keys, one block each, so that the
-    call puts about ``_DECODE_BLOCKS`` blocks on the card. ``chunk`` is a
-    multiple of the keys a block's 4 warps take in one round (2048 // d)."""
-    unit = 2048 // d
+    call puts about ``_DECODE_BLOCKS`` blocks on the card; every key lies
+    in exactly one chunk. ``chunk`` is a multiple of ``_DECODE_UNIT``."""
     want = max(1, -(-_DECODE_BLOCKS // (b * h)))
-    chunk = -(-max(1, -(-s // want)) // unit) * unit
+    chunk = -(-max(1, -(-s // want)) // _DECODE_UNIT) * _DECODE_UNIT
     return -(-s // chunk), chunk
+
+
+def _decode_scratch(device, rows, splits, d):
+    """(part, counters) of a decode call: f32 room for ``rows * splits``
+    partial states (acc, then m and l) and one int32 ticket counter a row.
+    Made once per device and size, grown to the largest call so far; the
+    counters start at zero and the kernel leaves them so."""
+    part, counters = _DECODE_SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < rows * splits * (d + 2):
+        part = torch.empty(rows * splits * (d + 2), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(rows, dtype=torch.int32, device=device)
+    _DECODE_SCRATCH[device] = (part, counters)
+    return part, counters
 
 
 def _check_decode(q, k, v, lens):
@@ -497,7 +518,8 @@ def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
     D] in q's dtype. CPU tensors run the plain version; CUDA tensors
     launch the kernel or raise. q and the cache share one dtype (f32 or
     bf16) and one head count; the cache is read in place, never copied;
-    the wrapper never syncs with the device."""
+    the wrapper never syncs with the device. One launch a call; its scratch
+    (``_decode_scratch``) serves one call at a time, on one stream."""
     sm_scale = _scale(sm_scale, q)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, kv_lens, sm_scale)
@@ -505,15 +527,13 @@ def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
     _check_decode(q, k_cache, v_cache, kv_lens)
     b, _, h, d = q.shape
     s = k_cache.shape[1]
-    splits, chunk = decode_split(b, h, s, d)
+    splits, chunk = decode_split(b, h, s)
     out = torch.empty(b, 1, h, d, dtype=q.dtype, device=q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_acc = torch.empty(b, h, splits, d, **f32)
-    part_ml = torch.empty(b, h, splits, 2, **f32)
+    part, counters = _decode_scratch(q.device, b * h, splits, d)
     _launch(flash_decode, "flash_decode", None, _DECODE_ARGTYPES, q,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), b, h, s, d, splits, chunk, q.stride(0),
+            kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), b, h, s, d, splits, chunk, q.stride(0),
             q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
             int(q.dtype == torch.bfloat16), float(sm_scale))
     return out

@@ -108,16 +108,18 @@ def test_cpu_dispatch_never_builds(monkeypatch):
     assert port_fa.flash_decode.launches == before
 
 
-@pytest.mark.parametrize("b,s", [(8, 576), (4, 576), (1, 10), (128, 4096)])
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_decode_split_covers_the_cache(b, s, d):
-    """The key chunks cover S, each a multiple of a block's round of keys,
-    and the call puts at least the card's SM count of blocks to work when
-    S allows it."""
-    splits, chunk = port_fa.decode_split(b, 16, s, d)
+@pytest.mark.parametrize("b,s", [(8, 576), (4, 576), (1, 10), (128, 4096),
+                                 (1, 4096)])
+@pytest.mark.parametrize("h", [16, 32, 2])
+def test_decode_split_covers_the_cache(b, s, h):
+    """Every key lies in exactly one chunk: the chunks cover S and the last
+    one is not empty; each is a multiple of the most keys a block takes in
+    one round (64), and the call puts at least the card's SM count of
+    blocks to work when S allows it."""
+    splits, chunk = port_fa.decode_split(b, h, s)
     assert splits * chunk >= s > (splits - 1) * chunk
-    assert chunk % (2048 // d) == 0
-    assert b * 16 * splits >= min(132, b * 16 * -(-s // (2048 // d)))
+    assert chunk % 64 == 0
+    assert b * h * splits >= min(132, b * h * -(-s // 64))
 
 
 def _meta(*shape, dtype=torch.float32):
