@@ -7,19 +7,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build   — compile every kernel under paddle_tpu_torch/csrc with nvcc
              (one process per source, all started together); registers
-             and spill stores of every flash forward, backward and decode
-             instantiation, and the bf16 forward's largest SASS basic
-             blocks (a tile's softmax) counted by opcode class;
+             and spill stores of every flash forward, backward, dense and
+             paged decode instantiation, the bf16 forward's largest SASS
+             basic blocks (a tile's softmax) counted by opcode class, and
+             the f32 forward's SASS at each D: its TF32 HMMAs must
+             outnumber its FFMAs (the products on the tensor cores);
 2. flash   — the flash-attention forward kernel vs its plain PyTorch twin
              at gpt3-345M prefill shapes (B=1, H=16, D=64, S in 64..1024,
              causal, kv_lens < S; f32 and bf16), plus D=128, sq != sk,
-             kv_lens=0, and bf16 at D=256 and with one query row; a
-             second bf16 forward must repeat o and lse bit for bit;
-             times kernel, plain twin and torch SDPA;
+             kv_lens=0, f32 (3xTF32) at D=64, 128 and 256 with dropout 0
+             and 0.1 (kv_lens 0, mid-tile, sk), and bf16 at D=256 and with
+             one query row; a second forward must repeat o and lse bit for
+             bit in every case; the f32 kernel's zeros at D=256 with V the
+             identity must be the twin's keep mask; times kernel, plain
+             twin and torch SDPA, with the f32 bound in 3xTF32;
 3. decode  — the paged decode kernel vs its plain twin (paged_attention_ref)
              at serving shapes (B in {8, 32}, Hkv=16, G=1, ps=16, MP=64;
-             f32, bf16, int8 pools), plus G=4 and a batch with lens 0 and
-             lens on a page boundary;
+             f32, bf16, int8 pools), plus G=4, a batch with lens 0 and
+             lens on a page boundary, the split's edges (lens on a chunk
+             boundary and one key either side, one full slot among empty
+             ones, one slot), D=128 and 256 in every pool with G=1 and
+             G=6, and ps=7; a second call must repeat the first bit for
+             bit in every case; at the serving shape one call puts exactly
+             one kernel on the device (profiler) and raises nothing under
+             torch.cuda's sync debug mode "error";
 4. slice   — gpt3-345M at full width with seeded random weights, f32 on
              cuda, serving 16 greedy requests (prompts 64..512, 64 new
              tokens) through ServingEngine(max_slots=8, page_size=16,
@@ -70,7 +81,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              F.layer_norm(x + r) pair as a reference point;
 10. flash-noncausal — the three flash kernels with causal=False at ERNIE's
              shape (B=32, H=12, S=512, D=64; bf16 and f32; no kv_lens and
-             kv_lens < S), bf16 timed next to SDPA(is_causal=False);
+             kv_lens < S), bf16 timed next to SDPA(is_causal=False); f32
+             at D=64, 128 and 256 with dropout 0 and 0.1 (kv_lens 0,
+             mid-tile, sk);
 11. ernie  — ERNIE-3.0-base (ernie-3.0-base-zh: vocab 40000, hidden 768,
              12 layers, 12 heads, task-type embedding) at full width and
              depth, fused_ln, dropout 0, f32 params on cuda, through
@@ -140,6 +153,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
+              the f32 forward's products are 3xTF32 (hi.hi + hi.lo +
+              lo.hi of operands split into two TF32 parts, ~2^-21
+              relative), measured near 1e-6;
   bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
               the backward's grads, whose magnitudes pass 1, 2e-2 of
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
@@ -183,11 +199,18 @@ unheld:
     python3 chip_smoke.py --compare-fwd SRC...     # flash_attention_fwd.cu
     python3 chip_smoke.py --compare-bwd SRC...     # flash_attention_bwd.cu
     python3 chip_smoke.py --compare-decode SRC...  # flash_decode.cu
+    python3 chip_smoke.py --compare-paged SRC...   # paged_flash_decode.cu
 
 at GPT's training shape with and without dropout and ERNIE's (the
-forward also the f32 serving prefill, the backward as a dq + dk/dv pair),
-and for the decode GPT's f32 and Llama-2-7B's bf16 generate shapes (then
-the package's decode at other targets of blocks a call).
+forward also the f32 serving prefill, GPT's shape in f32 with and without
+dropout and f32 at D=128; the backward as a dq + dk/dv pair), for the
+dense decode GPT's f32 and Llama-2-7B's bf16 generate shapes, and for the
+paged decode phase 3's timed shapes (each decode mode then times the
+package's kernel at other targets of blocks a call; the paged mode also
+with L2 evicted by a read, with every lens 0 and beside a torch.sum of as
+many bytes). The forward mode first checks that cvt.rna.tf32.f32 rounds
+as the kernels' integer tf32 rounding does and times back-to-back
+mma.sync TF32 products, the ceiling the f32 kernel is read against.
 """
 from __future__ import annotations
 
@@ -203,11 +226,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s on the
-# CUDA cores, and the dense bf16 tensor-core FLOP/s a bf16 function could
-# run at
+# CUDA cores, the dense bf16 tensor-core FLOP/s a bf16 function could run
+# at, and the dense TF32 tensor-core FLOP/s: an f32 product at the f32 bar
+# takes three TF32 products (3xTF32), so its least time is 3x its FLOPs at
+# this rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 ADAMW_TOL = 1e-6
@@ -329,7 +355,23 @@ def visible_pairs(b, sq, sk, lens, causal=True):
 # one ptxas record: the mangled entry name, spill stores, registers
 _PTXAS_ENTRY = re.compile(r"entry function '([^']+)'.*?(\d+) bytes spill "
                           r"stores.*?Used (\d+) registers", re.S)
-_TEMPLATE_ARG = {"f": "float", "13__nv_bfloat16": "bf16"}
+_TEMPLATE_ARG = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
+def _kernel_name(mangled):
+    """(kernel name, template arguments' mangling) of a mangled entry: the
+    <length><identifier> ending in "kernel", its length read off the
+    digits before it (an anonymous namespace's name may end in digits)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n, at = int(mangled[i:run.end()]), run.end()
+            name = mangled[at:at + n]
+            if (len(name) == n and name.endswith("kernel")
+                    and re.fullmatch(r"[A-Za-z_]\w*", name)):
+                args = re.match(r"I((?:f|a|13__nv_bfloat16|Li\d+E)+)E",
+                                mangled[at + n:])
+                return name, args.group(1) if args else ""
+    return mangled, ""
 
 
 def _instantiations(logtxt):
@@ -337,12 +379,11 @@ def _instantiations(logtxt):
     template arguments read off the mangled names."""
     out = []
     for m in _PTXAS_ENTRY.finditer(logtxt):
-        k = re.search(r"\d([a-z_]+kernel)(?:I((?:f|13__nv_bfloat16|Li\d+E)+)"
-                      r"E)?", m.group(1))
-        args = re.findall(r"f|13__nv_bfloat16|Li(\d+)E", k.group(2) or "")
-        toks = re.findall(r"f|13__nv_bfloat16|Li\d+E", k.group(2) or "")
+        name, targs = _kernel_name(m.group(1))
+        args = re.findall(r"f|a|13__nv_bfloat16|Li(\d+)E", targs)
+        toks = re.findall(r"f|a|13__nv_bfloat16|Li\d+E", targs)
         names = [_TEMPLATE_ARG.get(t, a) for t, a in zip(toks, args)]
-        out.append((f"{k.group(1)}<{','.join(names)}>", int(m.group(3)),
+        out.append((f"{name}<{','.join(names)}>", int(m.group(3)),
                     int(m.group(2))))
     return out
 
@@ -358,12 +399,10 @@ _SASS_CLASSES = (
 )
 
 
-def sass_blocks(lib, kernel):
-    """The basic blocks (straight-line runs between labels and branches)
-    of the first function of ``lib`` whose name holds ``kernel`` that run
-    32 or more ex2 (a tile's softmax over 32 pairs a thread), largest
-    first, by ``cuobjdump -sass``: [(instructions, {class: count})]. None
-    when cuobjdump or the function is missing."""
+def _sass_function(lib, kernel):
+    """The SASS (``cuobjdump -sass``) of the first function of ``lib`` whose
+    name holds ``kernel``; None when cuobjdump or the function is
+    missing."""
     from paddle_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())),
                         "cuobjdump")
@@ -373,16 +412,44 @@ def sass_blocks(lib, kernel):
                           text=True, check=True).stdout
     funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:]
              if kernel in f.split("\n", 1)[0]]
-    if not funcs:
+    return funcs[0] if funcs else None
+
+
+# one SASS instruction: (predicate) opcode with its modifiers
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes(lib, kernel):
+    """{opcode with modifiers: count} over the whole SASS function of
+    ``kernel`` in ``lib``; None when it cannot be read."""
+    text = _sass_function(lib, kernel)
+    if text is None:
+        return None
+    counts = {}
+    for line in text.split("\n"):
+        op = _SASS_OP.search(line)
+        if op:
+            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    return counts
+
+
+def sass_blocks(lib, kernel):
+    """The basic blocks (straight-line runs between labels and branches)
+    of the first function of ``lib`` whose name holds ``kernel`` that run
+    32 or more ex2 (a tile's softmax over 32 pairs a thread), largest
+    first: [(instructions, {class: count})]. None when cuobjdump or the
+    function is missing."""
+    text = _sass_function(lib, kernel)
+    if text is None:
         return None
     blocks, cur = [], []
-    for line in funcs[0].split("\n"):
+    for line in text.split("\n"):
         if re.match(r"\s*\.L_x_\d+:", line):
             blocks.append(cur)
             cur = []
             continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                       line)
+        op = _SASS_OP.search(line)
         if not op:
             continue
         opcode = op.group(1).split(".")[0]
@@ -398,6 +465,31 @@ def sass_blocks(lib, kernel):
         if counts["ex2"] >= 32:
             out.append((len(b), counts))
     return out
+
+
+def _f32_fwd_sass(lib):
+    """The f32 forward's products in SASS, per head dim: TF32 HMMAs (three
+    m16n8k8 a product step in 3xTF32) against the f32 FFMAs of the whole
+    function (the softmax's exponent folding; a product loop on the CUDA
+    cores would take thousands a thread). Fails when an instantiation runs
+    no TF32 HMMA or more FFMAs than HMMAs."""
+    for d in (64, 128, 256):
+        ops = sass_opcodes(lib, f"flash_fwd_f32_kernelILi{d}E")
+        if ops is None:
+            log("build: cuobjdump or the f32 forward not found; its SASS not "
+                "counted")
+            return
+        hmma = {k: n for k, n in ops.items() if k.startswith("HMMA")}
+        tf32 = sum(n for k, n in hmma.items() if "TF32" in k)
+        ffma = sum(n for k, n in ops.items() if k.split(".")[0] == "FFMA")
+        other = {k: n for k, n in sorted(ops.items(), key=lambda x: -x[1])
+                 if n >= 64 and not k.startswith("HMMA")}
+        log(f"build: flash_fwd_f32_kernel<{d}> SASS: {sum(ops.values())} "
+            f"instructions, HMMA {hmma}, FFMA {ffma}; opcodes with 64 or "
+            f"more: {other}")
+        check(tf32 > 0 and ffma < tf32,
+              f"build: flash_fwd_f32_kernel<{d}> runs {tf32} TF32 HMMAs and "
+              f"{ffma} FFMAs: its products are not on the tensor cores")
 
 
 def phase_build():
@@ -416,7 +508,7 @@ def phase_build():
             f"{max(regs) if regs else 'n/a'}, max spill stores "
             f"{max(spills) if spills else 0} bytes")
         if name in ("flash_attention_fwd", "flash_attention_bwd",
-                    "flash_decode"):
+                    "flash_decode", "paged_flash_decode"):
             for kern, nreg, spill in _instantiations(logtxt):
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
@@ -432,13 +524,43 @@ def phase_build():
             log(f"build: flash_fwd_tc_kernel<64> SASS basic block of {n} "
                 f"instructions = {n / 32:.1f} a pair over 32 pairs a "
                 f"thread: {counts}")
+    _f32_fwd_sass(lib)
     log(f"build: {len(_build.sources())} sources in {secs:.2f} s "
         "(parallel nvcc, sm_90a)")
     return secs
 
 
+def fwd_bound(dtype, bytes_moved, pairs, d):
+    """(bound ms, what bounds it) of the flash forward over ``pairs``
+    visible (q, k) pairs, 4 D FLOPs each: bf16 at the bf16 tensor-core
+    peak; f32 at the f32 bar, which the tensor cores reach in 3xTF32 (three
+    TF32 products a product, so three times the FLOPs at the TF32 peak)."""
+    flops = 4 * d * pairs
+    if dtype == "bfloat16":
+        return bound(bytes_moved, flops, peak=BF16_FLOPS)
+    return bound(bytes_moved, 3 * flops, peak=TF32_FLOPS)
+
+
+def f32_fwd_hmmas(bh_lens, sq, sk, d, causal):
+    """The m16n8k8 TF32 HMMAs the f32 forward issues (csrc/
+    flash_attention_fwd.cu): a warp owns 16 query rows and runs the key
+    tiles (64 keys, 32 at D=256) below its own key end, each tile three
+    products (3xTF32) of S = Q.K^T and of O += P.V; ``bh_lens`` holds each
+    batch*head's key length."""
+    bk = 32 if d == 256 else 64
+    per_tile = 6 * (d // 8) * (bk // 8)
+    tiles = 0
+    for kv_len in bh_lens:
+        for wq0 in range(0, sq, 16):
+            end = kv_len
+            if causal:
+                end = min(end, min(wq0 + 15, sq - 1) + sk - sq + 1)
+            tiles += max(0, -(-end // bk))
+    return tiles * per_tile
+
+
 def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
-                timed):
+                timed, dropout=0.0):
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     dt = getattr(torch, dtype)
     mk = lambda s: torch.randn(b * h, s, d, generator=gen,  # noqa: E731
@@ -447,27 +569,27 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
     lens_t = None if lens is None else torch.tensor(
         [x for x in lens for _ in range(h)], dtype=torch.int32,
         device="cuda")
-    o, lse = kfa.flash_attention_fwd(q, k, v, lens_t, causal=True)
+    seed = torch.tensor([4321], dtype=torch.int32, device="cuda")
+    rest = (lens_t, seed, True, None, dropout)
+    o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
     torch.cuda.synchronize()
-    po, plse = kfa.flash_attention_fwd_plain(q, k, v, lens_t, causal=True)
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest)
     err = (o.float() - po.float()).abs().max().item()
     lerr = (lse - plse).abs().max().item()
     check(math.isfinite(err) and err <= TOL[dtype],
-          f"flash {dtype} b{b} h{h} sq{sq} sk{sk} d{d} lens{lens}: "
-          f"max_abs_err {err} > {TOL[dtype]}")
+          f"flash {dtype} b{b} h{h} sq{sq} sk{sk} d{d} lens{lens} dropout"
+          f"{dropout}: max_abs_err {err} > {TOL[dtype]}")
     check(math.isfinite(lerr) and lerr <= 1e-3,
           f"flash lse b{b} sq{sq} sk{sk}: max_abs_err {lerr}")
-    if dtype == "bfloat16":
-        _check_repeat_fwd(torch, f"flash b{b} sq{sq} sk{sk} d{d}", o, lse,
-                          lambda: kfa.flash_attention_fwd(q, k, v, lens_t,
-                                                          causal=True))
+    _check_repeat_fwd(torch, f"flash {dtype} b{b} sq{sq} sk{sk} d{d}", o,
+                      lse, lambda: kfa.flash_attention_fwd(q, k, v, *rest))
     row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
-               max_abs_err=err)
+               dropout=dropout, max_abs_err=err)
     if timed:
         row["ms"] = time_ms(torch, lambda: kfa.flash_attention_fwd(
-            q, k, v, lens_t, causal=True), flush=flush)
+            q, k, v, *rest), flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: kfa.flash_attention_fwd_plain(
-            q, k, v, lens_t, causal=True), flush=flush)
+            q, k, v, *rest), flush=flush)
         # torch SDPA on the same function, as the yardstick
         qt, kt, vt = (x.view(b, h, -1, d) for x in (q, k, v))
         qpos = torch.arange(sq, device="cuda")[:, None]
@@ -478,15 +600,19 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
                 lens, device="cuda")[:, None, None, None])
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(torch, lambda: sdpa(
-            qt, kt, vt, attn_mask=keep), flush=flush)
+            qt, kt, vt, attn_mask=keep, dropout_p=dropout), flush=flush)
         # work this run's data needs: visible (q, k) pairs, causal + lens
-        vis = visible_pairs(b, sq, sk, lens)
+        vis = h * visible_pairs(b, sq, sk, lens)
         esz = q.element_size()
         bytes_moved = (b * h * (sq + 2 * sk) * d * esz  # q, k, v read
                        + b * h * sq * d * esz            # o written
                        + b * h * sq * 4)                 # lse written
-        row["bound_ms"], row["bound_by"] = bound(bytes_moved,
-                                                 4 * d * h * vis)
+        row["flops"] = 4 * d * vis
+        row["bound_ms"], row["bound_by"] = fwd_bound(dtype, bytes_moved, vis,
+                                                     d)
+        # the same work's bound on the CUDA cores, the f32 kernel's before
+        # it ran 3xTF32
+        row["cuda_core_bound_ms"] = bound(bytes_moved, row["flops"])[0]
     return row
 
 
@@ -514,6 +640,13 @@ def phase_flash(torch, flush):
                             [320, 150], gen, flush, False))
     rows.append(_flash_case(torch, 2, 4, 64, 64, 64, "float32",
                             [0, 64], gen, flush, False))
+    # f32 (3xTF32) at every head dim, with dropout 0.1 and without: 64-row
+    # blocks and 64-key tiles (32 at D=256) cut raggedly, kv_lens 0
+    for d in (64, 128, 256):
+        for dropout in (0.0, 0.1):
+            rows.append(_flash_case(torch, 3, 2, 200, 330, d, "float32",
+                                    [0, 330, 97], gen, flush, False,
+                                    dropout))
     # the bf16 kernel at D=256 (one warpgroup, output columns over two
     # blocks) and with one query row
     rows.append(_flash_case(torch, 2, 4, 300, 300, 256, "bfloat16",
@@ -522,22 +655,34 @@ def phase_flash(torch, flush):
                             [576, 1, 0, 300], gen, flush, False))
     rows.append(_flash_case(torch, 2, 8, 1, 200, 128, "bfloat16",
                             [200, 65], gen, flush, False))
+    _check_keep_mask(torch, 256, 256, "float32", gen)
     for r in rows:
         extra = "" if "ms" not in r else (
-            f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"sdpa_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+            f" ms {r['ms']:.4f} (unheld {unheld(r['ms']):.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} sdpa_ms {r['library_ms']:.4f} (unheld "
+            f"{unheld(r['library_ms']):.4f}) bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}; the CUDA-core bound "
+            f"{r['cuda_core_bound_ms']:.4f}): "
+            f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the bound")
         log(f"flash: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
-            f"sk{r['sk']} d{r['d']} lens{r['lens']} max_abs_err "
-            f"{r['max_abs_err']:.3e}{extra}")
+            f"sk{r['sk']} d{r['d']} lens{r['lens']} dropout{r['dropout']} "
+            f"max_abs_err {r['max_abs_err']:.3e}{extra}")
     return rows
 
 
-def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
-                 timed):
-    from paddle_tpu_torch.nlp.paged_cache import (paged_attention_ref,
-                                                  quantize_rows)
-    from paddle_tpu_torch.ops.kernels.flash_decode import paged_flash_decode
+def _paged_module():
+    """ops/kernels/flash_decode.py, the paged decode's module (the package
+    attribute of that name is the dense decode wrapper)."""
+    import importlib
+    return importlib.import_module("paddle_tpu_torch.ops.kernels.flash_decode")
+
+
+def _decode_inputs(torch, b, hkv, g, d, ps, mp, dtype, lens, gen):
+    """(q, k pool, v pool, page table, lens, k scales, v scales) of a paged
+    decode call: each slot owns its own pages, entries past its pages are
+    the trash page 0."""
+    from paddle_tpu_torch.nlp.paged_cache import quantize_rows
     num_pages = b * mp + 1
     q = torch.randn(b, hkv, g, d, generator=gen, device="cuda")
     kf = torch.randn(hkv, num_pages, ps, d, generator=gen, device="cuda")
@@ -549,43 +694,120 @@ def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
     else:
         kp, vp = kf.to(getattr(torch, dtype)), vf.to(getattr(torch, dtype))
     del kf, vf
-    # each slot owns its own pages; entries past its pages are trash
     pt = (1 + torch.randperm(b * mp, generator=gen, device="cuda")
           .view(b, mp)).int()
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     used = (lens_t.long() + ps - 1) // ps
     pt = torch.where(torch.arange(mp, device="cuda")[None] < used[:, None],
                      pt, torch.zeros_like(pt)).contiguous()
-    out = paged_flash_decode(q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
+    return q, kp, vp, pt, lens_t, ks, vs
+
+
+def _decode_bytes(b, hkv, g, d, lens, kp, pt, quant):
+    """Bytes a paged decode call must move: q read and out written (f32),
+    the live K and V rows (and their int8 scales), the table and lens."""
+    keys = int(sum(lens))
+    return (2 * b * hkv * g * d * 4 + 2 * hkv * keys * d * kp.element_size()
+            + (2 * hkv * keys * 4 if quant else 0) + pt.numel() * 4 + b * 4)
+
+
+def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
+                 timed):
+    from paddle_tpu_torch.nlp.paged_cache import paged_attention_ref
+    kpd = _paged_module()
+    q, kp, vp, pt, lens_t, ks, vs = _decode_inputs(torch, b, hkv, g, d, ps,
+                                                   mp, dtype, lens, gen)
+    call = lambda: kpd.paged_flash_decode(  # noqa: E731
+        q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
+    out = call()
     torch.cuda.synchronize()
     ref = paged_attention_ref(q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
     err = (out - ref).abs().max().item()
+    where = f"decode {dtype} b{b} hkv{hkv} g{g} d{d} ps{ps} mp{mp}"
     check(math.isfinite(err) and err <= TOL[dtype],
-          f"decode {dtype} b{b} hkv{hkv} g{g}: max_abs_err {err} > "
-          f"{TOL[dtype]}")
+          f"{where}: max_abs_err {err} > {TOL[dtype]}")
     zero = [i for i, n in enumerate(lens) if n == 0]
     check(not out[zero].any().item() if zero else True,
-          "decode: a lens-0 slot gave a nonzero row")
+          f"{where}: a lens-0 slot gave a nonzero row")
+    # the combine runs in a fixed chunk order: a second call is bit-equal
+    out2 = call()
+    torch.cuda.synchronize()
+    check(torch.equal(out, out2), f"{where}: a second call gave another "
+          "output")
     row = dict(dtype=dtype, b=b, hkv=hkv, g=g, d=d, ps=ps, mp=mp,
-               max_abs_err=err)
+               max_abs_err=err, split=kpd.paged_decode_split(b, hkv, g, mp,
+                                                             ps))
     if timed:
-        row["ms"] = time_ms(torch, lambda: paged_flash_decode(
-            q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs), flush=flush)
+        row["ms"] = time_ms(torch, call, flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: paged_attention_ref(
             q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs), flush=flush)
-        keys = int(sum(lens))
-        esz = kp.element_size()
-        bytes_moved = (q.numel() * 4 + out.numel() * 4   # q read, out written
-                       + 2 * hkv * keys * d * esz        # live K and V rows
-                       + (2 * hkv * keys * 4 if ks is not None else 0)
-                       + pt.numel() * 4 + b * 4)         # table, lens
-        row["bound_ms"], row["bound_by"] = bound(bytes_moved,
-                                                 4 * hkv * g * d * keys)
+        row["bound_ms"], row["bound_by"] = bound(
+            _decode_bytes(b, hkv, g, d, lens, kp, pt, ks is not None),
+            4 * hkv * g * d * int(sum(lens)))
     return row
+
+
+PAGED_KERNELS = ("paged_decode_kernel",)
+
+
+def _check_one_kernel(torch, tag, call, names, calls=4):
+    """Under torch.profiler, ``calls`` calls of ``call`` (a kernel wrapper
+    whose scratch is already made) put exactly one kernel each on the
+    device, one of ``names``. Each profile opens and closes with a spin
+    kernel (torch.cuda._sleep) that is not counted: after an earlier
+    profiling session in the process, a kernel at the edge of a new one
+    can go unrecorded. A profile that recorded fewer of the calls' kernels
+    than calls is taken again, at most twice more; more kernels, or
+    another kernel, fail at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                call()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kernels = {a.key: a.count for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in a.key}
+        if sum(kernels.values()) >= calls:
+            break
+    ours = sum(c for n, c in kernels.items() if any(d in n for d in names))
+    check(sum(kernels.values()) == calls and ours == calls,
+          f"{tag}: {calls} calls ran {kernels} on the device (profile "
+          f"{attempt})")
+    log(f"{tag}: {calls} calls under the profiler (profile {attempt}), one "
+        f"device kernel each: {kernels}")
+
+
+def _check_paged_no_sync(torch):
+    """One launch a call, and no call syncs with the host: 4 calls at the
+    serving shape (slots spanning several chunks) under the profiler, then
+    one under torch.cuda's sync debug mode set to raise on a sync."""
+    kpd = _paged_module()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = [576, 65, 300, 1024, 0, 208, 417, 16]
+    q, kp, vp, pt, lens_t, _, _ = _decode_inputs(torch, 8, 16, 1, 64, 16,
+                                                 64, "float32", lens, gen)
+    call = lambda: kpd.paged_flash_decode(q, kp, vp, pt, lens_t)  # noqa
+    _check_one_kernel(torch, "decode", call, PAGED_KERNELS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("decode: a call under the sync debug mode 'error' raised nothing: "
+        "the wrapper does not sync")
 
 
 def phase_decode(torch, flush):
     import numpy as np
+    kpd = _paged_module()
     rng = np.random.default_rng(2)
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -603,13 +825,42 @@ def phase_decode(torch, flush):
     for dtype in ("float32", "int8"):
         rows.append(_decode_case(torch, 8, 16, 1, 64, 16, 64, dtype, edge,
                                  gen, flush, timed=False))
+    # the split's edges: slots ending exactly on a chunk boundary and one
+    # key either side of it; one slot with the full 1024 keys, the rest 0;
+    # one slot (many chunks of a row, combined in the launch)
+    _, ppc = kpd.paged_decode_split(8, 16, 1, 64, 16)
+    ck = ppc * 16
+    chunk_edge = [ck, 2 * ck, ck - 1, ck + 1, 3 * ck, 1, 2 * ck + 1, 1024]
+    for dtype in ("float32", "bfloat16", "int8"):
+        rows.append(_decode_case(torch, 8, 16, 1, 64, 16, 64, dtype,
+                                 chunk_edge, gen, flush, timed=False))
+        rows.append(_decode_case(torch, 8, 16, 1, 64, 16, 64, dtype,
+                                 [0] * 7 + [1024], gen, flush, timed=False))
+        rows.append(_decode_case(torch, 1, 16, 1, 64, 16, 64, dtype, [777],
+                                 gen, flush, timed=False))
+    # every head dim and pool (16-byte rows of 4 to 32 lanes, two chunks a
+    # lane for f32 at D=256), GQA groups of 4 and a ragged last group, a
+    # page size that does not divide a warp's step
+    for d in (128, 256):
+        for dtype in ("float32", "bfloat16", "int8"):
+            rows.append(_decode_case(torch, 4, 2, 1, d, 16, 32, dtype,
+                                     [512, 0, 77, 300], gen, flush,
+                                     timed=False))
+            rows.append(_decode_case(torch, 3, 2, 6, d, 16, 32, dtype,
+                                     [100, 512, 17], gen, flush,
+                                     timed=False))
+    for dtype in ("float32", "int8"):
+        rows.append(_decode_case(torch, 4, 4, 4, 64, 7, 40, dtype,
+                                 [280, 6, 7, 141], gen, flush, timed=False))
+    _check_paged_no_sync(torch)
     for r in rows:
         extra = "" if "ms" not in r else (
-            f" ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f" ms {r['ms']:.4f} (unheld {unheld(r['ms']):.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}): {r['bound_ms'] / r['ms']:.3f} of the bound")
         log(f"decode: {r['dtype']} b{r['b']} hkv{r['hkv']} g{r['g']} "
-            f"d{r['d']} ps{r['ps']} mp{r['mp']} max_abs_err "
-            f"{r['max_abs_err']:.3e}{extra}")
+            f"d{r['d']} ps{r['ps']} mp{r['mp']} (splits, pages a chunk) "
+            f"{r['split']} max_abs_err {r['max_abs_err']:.3e}{extra}")
     return rows
 
 
@@ -814,9 +1065,8 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
         check(torch.equal(a, a2), f"flash-train {where}: a second backward "
               f"gave another {n}")
     del dq2, delta2, dk2, dv2
-    if dtype == "bfloat16":
-        _check_repeat_fwd(torch, f"flash-train {where}", o, lse,
-                          lambda: kfa.flash_attention_fwd(q, k, v, *rest))
+    _check_repeat_fwd(torch, f"flash-train {where}", o, lse,
+                      lambda: kfa.flash_attention_fwd(q, k, v, *rest))
     if not timed:
         return row
     fwd = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
@@ -860,8 +1110,11 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
         "dq": ((3 * nq + 2 * nk + nq) * esz + 2 * stat, 6 * d * pairs),
         "dkv": ((2 * nq + 2 * nk + 2 * nk) * esz + 2 * stat, 8 * d * pairs),
     }
+    # the forward's f32 bound in 3xTF32 (fwd_bound); the f32 backward runs
+    # on the CUDA cores
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     row["bound"] = {n: bound(*w, peak=peak) for n, w in work.items()}
+    row["bound"]["fwd"] = fwd_bound(dtype, work["fwd"][0], pairs, d)
     row["flops"] = {n: w[1] for n, w in work.items()}
     return row
 
@@ -949,12 +1202,13 @@ def _log_flash_rows(tag, rows):
         for n in r.get("ms", {}):
             bms, by = r["bound"][n]
             ms = r["ms"][n]
+            peak = ("bf16 tensor-core" if r["dtype"] == "bfloat16" else
+                    "3xTF32" if n == "fwd" else "f32 CUDA-core")
             log(f"{tag}:   {n:4s} ms {ms:.4f} (unheld {unheld(ms):.4f}) "
                 f"plain_ms {r['plain_ms'][n]:.4f} library_ms "
                 f"{r['library_ms'][n]:.4f} (unheld "
                 f"{unheld(r['library_ms'][n]):.4f}) bound_ms {bms:.4f} ({by}, "
-                f"{'bf16 tensor-core' if r['dtype'] == 'bfloat16' else 'f32'}"
-                f" peak): {r['flops'][n] / ms / 1e9:.1f} TFLOP/s, "
+                f"{peak} peak): {r['flops'][n] / ms / 1e9:.1f} TFLOP/s, "
                 f"{bms / ms:.3f} of the bound")
 
 
@@ -973,6 +1227,14 @@ def phase_flash_noncausal(torch, flush):
         rows.append(_flash_train_case(torch, 32, 12, 512, 512, 64, dtype,
                                       lens, 0.0, gen, flush, timed=False,
                                       causal=False))
+    # the f32 forward (3xTF32) at every head dim, non-causal, with dropout
+    # 0.1 and without, kv_lens 0 and mid-tile
+    for d in (64, 128, 256):
+        for dropout in (0.0, 0.1):
+            rows.append(_flash_train_case(torch, 3, 2, 160, 300, d,
+                                          "float32", [300, 0, 129], dropout,
+                                          gen, flush, timed=False,
+                                          causal=False))
     _log_flash_rows("flash-noncausal", rows)
     return rows
 
@@ -1042,32 +1304,139 @@ def _in_turns(torch, theirs, ours, flush):
     return ms, sum(ms["theirs"]) / 2, sum(ms["ours"]) / 2
 
 
+# back-to-back m16n8k8 TF32 products from registers, eight independent
+# accumulators a warp (the rate mma.sync reaches with no load and no other
+# instruction in the way), and cvt.rna.tf32.f32 over an array
+_HMMA_RATE_SRC = r"""
+#include <stdint.h>
+__global__ void hmma_rate_kernel(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i)
+    a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i);
+  b[0] = a[1];
+  b[1] = a[2];
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 4; ++i) s += d[j][i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int hmma_rate(float* out, int blocks, int iters, void* stream) {
+  hmma_rate_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+__global__ void cvt_rna_kernel(const float* x, uint32_t* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(out[i]) : "f"(x[i]));
+}
+extern "C" int cvt_rna(const float* x, uint32_t* out, int n, void* stream) {
+  cvt_rna_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(x, out,
+                                                                    n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def tf32_checks(torch):
+    """The TF32 facts the f32 forward rests on: ``cvt.rna.tf32.f32`` gives
+    exactly the integer rounding ``tc::to_tf32`` does ((bits + 0x1000) &
+    ~0x1fff) on normal values of every exponent, ties and signed zeros
+    (else the run fails); and the TF32 rate of back-to-back mma.sync
+    m16n8k8 products (no loads) at 2 and at 8 blocks of 4 warps an SM,
+    what the forward's products could reach on mma.sync."""
+    import numpy as np
+    from paddle_tpu_torch.ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, "compare")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = (os.path.join(out_dir, f"tf32_checks.{x}")
+                for x in ("cu", "so"))
+    with open(src, "w") as f:
+        f.write(_HMMA_RATE_SRC)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True)
+    cdll = ctypes.CDLL(lib)
+    stream = torch.cuda.current_stream().cuda_stream
+    cvt = cdll.cvt_rna
+    cvt.restype = ctypes.c_int
+    cvt.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.standard_normal(1 << 20) * np.exp2(rng.integers(-100, 100,
+                                                            1 << 20)),
+        [1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 0.0, -0.0,
+         3.4e38]]).astype(np.float32)
+    xt = torch.from_numpy(x).cuda()
+    got = torch.empty(len(x), dtype=torch.int32, device="cuda")
+    check(cvt(xt.data_ptr(), got.data_ptr(), len(x), stream) == 0, "cvt_rna")
+    bits = x.view(np.uint32).astype(np.uint64)
+    want = ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32)
+    differ = int((got.cpu().numpy().view(np.uint32) != want).sum())
+    check(differ == 0, f"tf32: cvt.rna.tf32.f32 differs from the integer "
+          f"rounding on {differ} of {len(x)} values")
+    log(f"compare-fwd: cvt.rna.tf32.f32 == (bits + 0x1000) & ~0x1fff on all "
+        f"{len(x)} values (normals of exponents -100..100, ties, zeros)")
+    fn = cdll.hmma_rate
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    iters = 4096
+    for per_sm in (2, 8):
+        blocks = 132 * per_sm
+        out = torch.empty(blocks * 128, device="cuda")
+        run = lambda: check(fn(  # noqa: E731
+            out.data_ptr(), blocks, iters,
+            torch.cuda.current_stream().cuda_stream) == 0, "hmma_rate")
+        ms = time_ms(torch, run)
+        rate = blocks * 4 * iters * 8 * 2048 / ms / 1e9
+        log(f"compare-fwd: mma.sync m16n8k8 TF32 back to back, {per_sm} "
+            f"blocks of 4 warps an SM: {rate:.1f} TFLOP/s = "
+            f"{rate * 1e12 / TF32_FLOPS:.3f} of the 495 TFLOP/s TF32 peak")
+
+
 def compare_fwd(torch, sources):
     """``--compare-fwd SRC...``: build each given flash_attention_fwd.cu
     (its C entry has the package's signature) with the package's flags,
     hold its forward to the package's (o at the dtype's bar, lse within
     1e-3) and time both in turns (theirs, ours, ours, theirs; held) at
     GPT's training shape with and without dropout 0.1 (bf16, causal),
-    ERNIE's (bf16, non-causal) and the f32 serving prefill (causal, key
-    length 921 of 1024), beside SDPA held and unheld, with TFLOP/s and
-    share of the bound."""
+    ERNIE's (bf16, non-causal), the f32 serving prefill (causal, key
+    length 921 of 1024), GPT's shape in f32 with and without dropout 0.1,
+    and f32 at D=128 (B=2 H=16 S=1024, causal), beside SDPA held and
+    unheld, with TFLOP/s of the visible work and share of the bound
+    (fwd_bound: f32 in 3xTF32), and for f32 the TF32 rate the kernel's
+    HMMAs ran at, after the TF32 checks (tf32_checks)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     entries = []
     for src, cdll in _build_compare(sources, "fwd"):
         fn = cdll.flash_attention_fwd
         fn.restype, fn.argtypes = ctypes.c_int, kfa._FWD_ARGTYPES
         entries.append((src, fn))
+    tf32_checks(torch)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for tag, b, h, s, causal, dropout, dtype, lens in (
-            ("gpt", 8, 16, 1024, True, 0.1, "bfloat16", None),
-            ("gpt-nodrop", 8, 16, 1024, True, 0.0, "bfloat16", None),
-            ("ernie", 32, 12, 512, False, 0.0, "bfloat16", None),
-            ("prefill-f32", 1, 16, 1024, True, 0.0, "float32", [921])):
+    for tag, b, h, s, d, causal, dropout, dtype, lens in (
+            ("gpt", 8, 16, 1024, 64, True, 0.1, "bfloat16", None),
+            ("gpt-nodrop", 8, 16, 1024, 64, True, 0.0, "bfloat16", None),
+            ("ernie", 32, 12, 512, 64, False, 0.0, "bfloat16", None),
+            ("prefill-f32", 1, 16, 1024, 64, True, 0.0, "float32", [921]),
+            ("gpt-f32", 8, 16, 1024, 64, True, 0.1, "float32", None),
+            ("gpt-f32-nodrop", 8, 16, 1024, 64, True, 0.0, "float32", None),
+            ("f32-d128", 2, 16, 1024, 128, True, 0.0, "float32", None)):
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(b * h, s, 64, generator=gen,
+        q, k, v = (torch.randn(b * h, s, d, generator=gen,
                                device="cuda").to(dt) for _ in range(3))
         lens_t = None if lens is None else torch.tensor(
             [x for x in lens for _ in range(h)], dtype=torch.int32,
@@ -1078,9 +1447,9 @@ def compare_fwd(torch, sources):
         ours = lambda: kfa.flash_attention_fwd(q, k, v, *rest)  # noqa: E731
         pairs = h * visible_pairs(b, s, s, lens, causal)
         esz = q.element_size()
-        work = (4 * b * h * s * 64 * esz + b * h * s * 4, 4 * 64 * pairs)
-        bms, by = bound(*work, peak=BF16_FLOPS if dtype == "bfloat16"
-                        else F32_FLOPS)
+        flops = 4 * d * pairs
+        bms, by = fwd_bound(dtype, 4 * b * h * s * d * esz + b * h * s * 4,
+                            pairs, d)
         seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
         for src, fn in entries:
             def theirs():
@@ -1089,8 +1458,8 @@ def compare_fwd(torch, sources):
                                  device="cuda")
                 check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          None if lens_t is None else lens_t.data_ptr(),
-                         to.data_ptr(), tl.data_ptr(), b * h, s, s, 64,
-                         int(causal), 1.0 / math.sqrt(64), seed_ptr, thresh,
+                         to.data_ptr(), tl.data_ptr(), b * h, s, s, d,
+                         int(causal), 1.0 / math.sqrt(d), seed_ptr, thresh,
                          keep, int(dtype == "bfloat16"),
                          torch.cuda.current_stream().cuda_stream) == 0,
                       "compare: forward launch failed")
@@ -1101,14 +1470,25 @@ def compare_fwd(torch, sources):
             check(e <= TOL[dtype] and le <= 1e-3, f"compare {tag}: {src} o "
                   f"differs from the package's by {e}, lse by {le}")
             ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+            # f32: the TF32 rate the tensor cores ran at (every HMMA the
+            # kernel issues, masked products and all), against 495 TFLOP/s
+            executed = ""
+            if dtype == "float32":
+                rate = 2048 * f32_fwd_hmmas(
+                    [s if lens is None else lens[i // h]
+                     for i in range(b * h)], s, s, d, causal) / o_ms / 1e9
+                executed = (f"; ours executed {rate:.1f} TF32 TFLOP/s = "
+                            f"{rate * 1e12 / TF32_FLOPS:.3f} of the TF32 "
+                            "peak")
             log(f"compare-fwd {tag}: {src}: held ms in turns (theirs, ours, "
                 f"ours, theirs): theirs {ms['theirs'][0]:.4f} "
                 f"{ms['theirs'][1]:.4f}, ours {ms['ours'][0]:.4f} "
                 f"{ms['ours'][1]:.4f}; theirs / ours = {t_ms / o_ms:.2f}; "
-                f"ours {work[1] / o_ms / 1e9:.1f} TFLOP/s, {bms / o_ms:.3f} "
-                f"of the bound {bms:.4f} ms ({by}); o err {e:.2e}, lse "
-                f"err {le:.2e}")
-        qt, kt, vt = (x.view(b, h, s, 64) for x in (q, k, v))
+                f"ours {flops / o_ms / 1e9:.1f} TFLOP/s, {bms / o_ms:.3f} "
+                f"of the bound {bms:.4f} ms ({by}); theirs "
+                f"{flops / t_ms / 1e9:.1f} TFLOP/s; o err {e:.2e}, lse "
+                f"err {le:.2e}{executed}")
+        qt, kt, vt = (x.view(b, h, s, d) for x in (q, k, v))
         mask = None
         if lens is not None:
             pos = torch.arange(s, device="cuda")
@@ -1206,6 +1586,133 @@ def compare_decode(torch, sources):
                     f"{t:.4f} ms, unheld {unheld(t):.4f}; err {e:.2e}")
         finally:
             kfa._DECODE_BLOCKS = default
+
+
+# the C entry of a paged_flash_decode.cu without scratch (one block per
+# slot and kv head, before the split): q, pools, scales, page_table, lens,
+# out; b, hkv, g, num_pages, ps, max_pages, d, pool code; sm_scale; stream
+_PAGED_UNSPLIT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+# phase_decode's timed shapes: (tag, b, hkv, g, dtype)
+PAGED_SHAPES = (("f32-b8", 8, 16, 1, "float32"),
+                ("bf16-b8", 8, 16, 1, "bfloat16"),
+                ("int8-b8", 8, 16, 1, "int8"),
+                ("f32-b32", 32, 16, 1, "float32"),
+                ("bf16-b32", 32, 16, 1, "bfloat16"),
+                ("int8-b32", 32, 16, 1, "int8"),
+                ("gqa-f32-b8", 8, 4, 4, "float32"))
+
+
+def compare_paged(torch, sources):
+    """``--compare-paged SRC...``: build each given paged_flash_decode.cu
+    with the package's flags, hold it to the package's kernel (the dtype's
+    bar) and time both in turns (theirs, ours, ours, theirs; held) at
+    phase_decode's timed shapes (hkv16 g1 d64 ps16 mp64 at b8 and b32 in
+    f32, bf16 and int8, and GQA b8 hkv4 g4 f32; lens 65..576, the GQA
+    case 1..1024, from numpy seed 2), beside the bound. A source whose C
+    entry takes no scratch (one block per slot and kv head) is called so;
+    any other with the package's split and its own scratch. Then the
+    package's kernel with L2 evicted by a read in place of the usual
+    write (no dirty lines to write back), with every lens 0, and at other
+    targets of blocks a call (``_PAGED_BLOCKS``; 1 gives one chunk a
+    slot)."""
+    import numpy as np
+    kpd = _paged_module()
+    entries = []
+    for src, cdll in _build_compare(sources, "paged"):
+        fn = cdll.paged_flash_decode
+        with open(src) as f:
+            unsplit = "counters" not in f.read()
+        fn.restype = ctypes.c_int
+        fn.argtypes = _PAGED_UNSPLIT_ARGTYPES if unsplit else kpd._ARGTYPES
+        entries.append((src, fn, unsplit))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    d, ps, mp = 64, 16, 64
+    for tag, b, hkv, g, dtype in PAGED_SHAPES:
+        lens = (rng.integers(1, 1025, b) if g > 1
+                else rng.integers(65, 577, b)).tolist()
+        q, kp, vp, pt, lens_t, ks, vs = _decode_inputs(
+            torch, b, hkv, g, d, ps, mp, dtype, lens, gen)
+        ours = lambda: kpd.paged_flash_decode(  # noqa: E731
+            q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
+        out = ours()
+        bms, by = bound(_decode_bytes(b, hkv, g, d, lens, kp, pt,
+                                      ks is not None),
+                        4 * hkv * g * d * int(sum(lens)))
+        code = kpd._POOL_CODES[kp.dtype]
+        scale_ptrs = (None, None) if ks is None else (ks.data_ptr(),
+                                                      vs.data_ptr())
+        for src, fn, unsplit in entries:
+            splits, ppc = kpd.paged_decode_split(b, hkv, g, mp, ps)
+            part = torch.empty(b * hkv * g * splits * (d + 2),
+                               dtype=torch.float32, device="cuda")
+            counters = torch.zeros(b * hkv * -(-g // 4), dtype=torch.int32,
+                                   device="cuda")
+
+            def theirs():
+                to = torch.empty_like(out)
+                head = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                        *scale_ptrs, pt.data_ptr(), lens_t.data_ptr(),
+                        to.data_ptr())
+                stream = torch.cuda.current_stream().cuda_stream
+                if unsplit:
+                    err = fn(*head, b, hkv, g, kp.shape[1], ps, mp, d, code,
+                             1.0 / math.sqrt(d), stream)
+                else:
+                    err = fn(*head, part.data_ptr(), counters.data_ptr(), b,
+                             hkv, g, kp.shape[1], ps, mp, d, code, splits,
+                             ppc, 1.0 / math.sqrt(d), stream)
+                check(err == 0, "compare: paged decode launch failed")
+                return to
+            e = _err(theirs(), out)[0]
+            check(e <= TOL[dtype], f"compare {tag}: {src} differs from the "
+                  f"package's paged decode by {e}")
+            ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+            log(f"compare-paged {tag}: {src} "
+                f"({'one block a slot and kv head' if unsplit else 'split'}"
+                f"): held ms in turns (theirs, ours, ours, theirs): theirs "
+                f"{ms['theirs'][0]:.4f} {ms['theirs'][1]:.4f}, ours "
+                f"{ms['ours'][0]:.4f} {ms['ours'][1]:.4f}; theirs / ours = "
+                f"{t_ms / o_ms:.2f}; of the bound {bms:.4f} ms ({by}): "
+                f"theirs {bms / t_ms:.3f}, ours {bms / o_ms:.3f}; err "
+                f"{e:.2e}")
+        # what the time holds besides the live pages: the flush's dirty L2
+        # lines written back under the kernel's reads (a flush by a read
+        # leaves clean ones), and the launch with no key to read
+        clean = time_ms(torch, ours, flush=scratch.sum)
+        no_keys = torch.zeros_like(lens_t)
+        empty = time_ms(torch, lambda: kpd.paged_flash_decode(
+            q, kp, vp, pt, no_keys, k_scale=ks, v_scale=vs), flush=flush)
+        # a plain read of as many bytes as the live pages, contiguous: what
+        # one streaming kernel reaches here
+        live = torch.empty(int(_decode_bytes(b, hkv, g, d, lens, kp, pt,
+                                             ks is not None)) // 4,
+                           dtype=torch.float32, device="cuda")
+        read = time_ms(torch, live.sum, flush=flush)
+        log(f"compare-paged {tag}: ours with L2 evicted by a read (clean "
+            f"lines) held {clean:.4f} ms, {bms / clean:.3f} of the bound; "
+            f"with every lens 0 (launch, lens, exit) held {empty:.4f} ms; "
+            f"torch.sum over as many contiguous bytes held {read:.4f} ms, "
+            f"{bms / read:.3f} of the bound")
+        del live
+        default = kpd._PAGED_BLOCKS
+        try:
+            for blocks in (1, 132, 264, 528, 1056):
+                kpd._PAGED_BLOCKS = blocks
+                e = _err(ours(), out)[0]
+                check(e <= TOL[dtype], f"compare {tag}: {blocks} blocks: "
+                      f"err {e}")
+                t = time_ms(torch, ours, flush=flush)
+                log(f"compare-paged {tag}: ours aiming at {blocks} blocks "
+                    f"(splits, pages a chunk) "
+                    f"{kpd.paged_decode_split(b, hkv, g, mp, ps)}: held "
+                    f"{t:.4f} ms, unheld {unheld(t):.4f}, {bms / t:.3f} of "
+                    f"the bound; err {e:.2e}")
+        finally:
+            kpd._PAGED_BLOCKS = default
 
 
 def compare_bwd(torch, sources):
@@ -2005,36 +2512,16 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
     return row
 
 
-def _check_one_decode_kernel(torch, calls=4):
-    """Under torch.profiler, ``calls`` flash_decode calls at Llama-2-7B's
-    shape (their scratch already made) put exactly one kernel each on the
-    device. A profile that recorded no device kernel at all is taken
-    again, at most twice more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _check_one_decode_kernel(torch):
+    """Four flash_decode calls at Llama-2-7B's shape put exactly one
+    kernel each on the device."""
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     q = torch.randn(4, 1, 32, 128, device="cuda").bfloat16()
     k = torch.randn(4, 576, 32, 128, device="cuda").bfloat16()
     lens = torch.tensor([576, 300, 1, 0], dtype=torch.int32, device="cuda")
-    kfa.flash_decode(q, k, k, lens)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                kfa.flash_decode(q, k, k, lens)
-            torch.cuda.synchronize()
-        kernels = {a.key: a.count for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA}
-        if kernels:
-            break
-    ours = sum(c for n, c in kernels.items()
-               if any(d in n for d in DECODE_KERNELS))
-    check(sum(kernels.values()) == calls and ours == calls,
-          f"dense-decode: {calls} flash_decode calls ran {kernels} on the "
-          "device")
-    log(f"dense-decode: {calls} calls under the profiler, one device kernel "
-        f"each: {kernels}")
+    _check_one_kernel(torch, "dense-decode",
+                      lambda: kfa.flash_decode(q, k, k, lens),
+                      DECODE_KERNELS)
 
 
 def phase_dense_decode(torch, flush):
@@ -2665,8 +3152,9 @@ def phase_resnet_cpu(torch):
 
 def main():
     """Every phase, then the kernel table and the result line; with
-    ``--compare-bwd SRC...``, ``--compare-fwd SRC...`` or
-    ``--compare-decode SRC...``, only that comparison."""
+    ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
+    ``--compare-decode SRC...`` or ``--compare-paged SRC...``, only that
+    comparison."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2680,7 +3168,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     modes = {"--compare-bwd": compare_bwd, "--compare-fwd": compare_fwd,
-             "--compare-decode": compare_decode}
+             "--compare-decode": compare_decode,
+             "--compare-paged": compare_paged}
     if sys.argv[1:2] and sys.argv[1] in modes:
         check(len(sys.argv) > 2, f"{sys.argv[1]} needs source files")
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -53,17 +53,61 @@
 //     output columns over two blocks (each recomputes S), as the backward
 //     does, so O fits in registers; D = 64 fits two blocks an SM.
 //
-// f32 (serving prefill, not the training path): the CUDA cores, not TF32,
-// which would break the f32 bar of 1e-4: 4 threads share a row, each
-// owning D/4 of its dims in registers; K and V are staged tile by tile in
-// shared memory (4096 values a tile) and read by all 64 rows of a block.
+// f32 (the serving prefill; not the training path): the tensor cores at
+// the f32 bar, in 3xTF32 (mma.sync m16n8k8, tf32 in, f32 accumulate;
+// tensor_core.cuh). Every f32 operand x is split as hi = tf32(x), lo =
+// tf32(x - hi) (round to nearest, ties away, on 10 mantissa bits: the
+// rounding of cvt.rna.tf32.f32, done as two integer instructions where
+// cvt's SASS takes four) and a product is lo.hi + hi.lo + hi.hi, the
+// dropped lo.lo ~2^-22 of it: errors near 1e-6 against the f32 twin, where
+// one TF32 product would miss the bar of 1e-4. The least time is then
+// three times the visible work at 495 TFLOP/s, or the bytes: 0.0129 ms
+// (operations) at the serving prefill (B=1 H=16 S=1024 D=64, causal, key
+// length 921: 8.31 M visible pairs), 0.104 ms at GPT's f32 shape (67.2 M);
+// on the CUDA cores the same work's bound was 0.0318 and 0.257 ms.
+//   - a block is 4 warps owning 64 query rows, 16 a warp; K/V tiles of 64
+//     keys (32 at D=256, so two stages fit) stream through two cp.async
+//     stages (16-byte copies, zero fill past the edge) into rows padded
+//     to D + 8 (K, Q) and D + 4 (V) floats, so the fragment loads below
+//     hit distinct banks; the next tile loads under this tile's products;
+//   - S = Q.K^T: the contraction is relabelled inside each 8-dim step (its
+//     columns t and t + 4 are dims 2t and 2t + 1) so a thread's Q and K
+//     fragments are one float2 load a row; Q is split once into hi and lo
+//     registers at D=64, and at each fragment load from shared memory at
+//     D >= 128; K is split at fragment load;
+//   - the online softmax runs in the S accumulator with the bf16 kernel's
+//     code (the m16n8 accumulators of a warp have the m64n64 accumulator's
+//     per-warp layout);
+//   - P stays in registers: the accumulator gives a thread keys 2t and
+//     2t + 1 of each 8-key slice, which become the A fragment's columns t
+//     and t + 4 by reading V's rows 2t and 2t + 1 as the B fragment's rows
+//     t and t + 4; the dropped p is split (not rounded: the reference's
+//     f32 path does not round it) like any operand, V split at fragment
+//     load;
+//   - wholly masked tiles are never loaded, causal grids launch the
+//     longest query tiles first, no atomics (a second call is bit-equal);
+//     o (float2 stores from the accumulator) = acc / l, lse = m + log(l).
+// Measured (chip_smoke.py --compare-fwd, H100 80GB HBM3 at 700 W, held):
+// 0.067 ms at the serving prefill against the CUDA-core kernel's 0.343
+// and SDPA's 0.19; at GPT's f32 shape the HMMAs run at 162 TFLOP/s of
+// TF32, 0.55 of what back-to-back mma.sync m16n8k8 reaches (~300 TFLOP/s,
+// 0.6 of the TF32 peak). Each warp reads the whole K and V tile from
+// shared memory (32 KB a 64-key tile at D=64, about the HMMAs' own time at
+// 128 bytes a cycle), beside ~4 CUDA-core instructions a split element.
+// Variants measured no faster (within 7 % at GPT's shape, up to 16 %
+// slower elsewhere): Q split at each load at D=64 (fewer registers, still
+// two blocks an SM), 32-key tiles at three stages and three blocks an SM,
+// the three products of a tile ordered term by term across its slices,
+// and K/V split once a block into hi and lo tiles in shared memory (a
+// quarter of the split, twice the fragment loads).
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8 on the H100), registers a thread
 // and spill stores (chip_smoke.py's build phase prints them for every
 // instantiation):
 //   bf16 (wgmma) D=64: 128 (two blocks an SM), 0; D=128: 221, 0;
 //   D=256: 254, 0
-//   f32 (CUDA cores) D=64: 218; D=128: 172; D=256: 243; no spills
+//   f32 (3xTF32) D=64: 227 (two blocks an SM), 0; D=128: 249, 0; D=256:
+//   255, 24 bytes
 // SASS (cuobjdump -sass of the built library; chip_smoke.py's build phase
 // counts the straight-line blocks that run a tile's 32 exps a thread),
 // bf16 D=64, over the 32 (q, k) pairs a thread owns in a tile:
@@ -72,8 +116,12 @@
 //   dropout: 586 and 571 instructions in the two variants, 18.3 and 17.8
 //     a pair, of which 391 integer (12.2 a pair: the keep mask's hash)
 //     and 140 float.
-// So with dropout the hash is what the products wait on (0.1136 against
-// 0.0688 ms held at GPT's shape, PERF.md section 6). Running a
+// The f32 kernel's SASS (the build phase counts it and fails on fewer TF32
+// HMMAs than FFMAs): HMMA.1688.F32.TF32 384 at D=64 (192 for S, 192 for
+// P.V, a 64-key tile), 768 at D=128 and D=256; FFMA 175, 175 and 111, all
+// the softmax's.
+// So with dropout the hash is what the bf16 products wait on (0.1136
+// against 0.0688 ms held at GPT's shape, PERF.md section 6). Running a
 // warpgroup's next S product under this tile's softmax (wgmma.wait_group
 // after both, three stages at every D) measured 5-13 % slower at two
 // blocks an SM and 23-52 % slower at one: each product is waited for at
@@ -87,152 +135,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using flash::kNegInf;
-using flash::load4;
-using flash::store4;
-
-// -- f32: CUDA cores --------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 4;
-constexpr int kTileElems = 4096;
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ lens,
-                 float* __restrict__ o, float* __restrict__ lse, int sq,
-                 int sk, int causal, float sm_scale,
-                 const int* __restrict__ seed, uint32_t thresh,
-                 float keep_prob) {
-  constexpr int BK = kTileElems / D;  // keys per tile
-  constexpr int V4 = D / 16;          // float4 chunks of a row per thread
-  constexpr int CHUNKS = D / 4;       // float4 chunks per row
-  __shared__ __align__(16) float ks[kTileElems];
-  __shared__ __align__(16) float vs[kTileElems];
-
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int r = tid & 3;  // this thread's quarter of the row
-  const int row = blockIdx.x * kRowsPerBlock + (tid >> 2);
-  const bool row_ok = row < sq;
-  const int offset = sk - sq;
-
-  int kv_len = lens != nullptr ? min(lens[bh], sk) : sk;
-  int kend = kv_len;
-  if (causal) {
-    const int last_row = min((blockIdx.x + 1) * kRowsPerBlock, sq) - 1;
-    kend = min(kend, last_row + offset + 1);
-  }
-  // last key this row may see (inclusive)
-  const int row_limit = causal ? row + offset : sk;
-  const bool drop = seed != nullptr;
-  const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
-
-  const size_t q_base = (size_t)bh * sq * D;
-  const size_t kv_base = (size_t)bh * sk * D;
-
-  // thread r owns float4 chunks c = 4*i + r: the 4 threads of a row read
-  // 64 contiguous bytes of a shared-memory row, conflict-free
-  float qr[4 * V4];
-  float acc[4 * V4];
-#pragma unroll
-  for (int i = 0; i < V4; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_ok) x = load4(q + q_base + (size_t)row * D + (4 * i + r) * 4);
-    qr[4 * i + 0] = x.x * sm_scale;
-    qr[4 * i + 1] = x.y * sm_scale;
-    qr[4 * i + 2] = x.z * sm_scale;
-    qr[4 * i + 3] = x.w * sm_scale;
-    acc[4 * i + 0] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int j = 0; j < kTileElems / 4 / kThreads; ++j) {
-      const int c = tid + j * kThreads;
-      const int key = c / CHUNKS;
-      const int col = (c % CHUNKS) * 4;
-      const int kpos = k0 + key;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (kpos < kv_len) {
-        kx = load4(k + kv_base + (size_t)kpos * D + col);
-        vx = load4(v + kv_base + (size_t)kpos * D + col);
-      }
-      store4(ks + key * D + col, kx);
-      store4(vs + key * D + col, vx);
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float* kr = ks + j * D;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(kr + (4 * i + r) * 4);
-        part += qr[4 * i] * x.x + qr[4 * i + 1] * x.y + qr[4 * i + 2] * x.z +
-                qr[4 * i + 3] * x.w;
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kpos = k0 + j;
-      const bool ok = kpos < kv_len && kpos <= row_limit;
-      s[j] = ok ? part : kNegInf;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      // masked keys contribute exactly 0, also in a row with no key yet
-      const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
-      psum += p;  // the row sum takes the undropped p
-      float p_drop = p;
-      if (drop)
-        p_drop = flash::dropout_keep(mix, row, k0 + j, sk, thresh)
-                     ? p / keep_prob : 0.f;
-      s[j] = p_drop;
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int i = 0; i < 4 * V4; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float* vr = vs + j * D;
-      const float p = s[j];
-#pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(vr + (4 * i + r) * 4);
-        acc[4 * i + 0] += p * x.x;
-        acc[4 * i + 1] += p * x.y;
-        acc[4 * i + 2] += p * x.z;
-        acc[4 * i + 3] += p * x.w;
-      }
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float safe_l = l == 0.f ? 1.f : l;
-#pragma unroll
-    for (int i = 0; i < V4; ++i) {
-      store4(o + q_base + (size_t)row * D + (4 * i + r) * 4,
-             make_float4(acc[4 * i] / safe_l, acc[4 * i + 1] / safe_l,
-                         acc[4 * i + 2] / safe_l, acc[4 * i + 3] / safe_l));
-    }
-    if (r == 0) lse[(size_t)bh * sq + row] = m + logf(safe_l);
-  }
-}
-
-// -- bf16: tensor cores (wgmma) ---------------------------------------------
-
 using flash_tc::align1024;
 using flash_tc::fence_async_smem;
 using flash_tc::kLog2e;
@@ -244,6 +146,8 @@ using flash_tc::store_out;
 using flash_tc::Tc;
 using flash_tc::to_frags;
 using tc::fence_acc;
+
+// -- the online softmax, in the accumulator of either kernel ----------------
 
 // 2^x on the SFU (ex2.approx, flushing subnormal results to 0): exp2f's
 // range handling around it is CUDA-core work the products would wait on
@@ -260,15 +164,15 @@ __device__ __forceinline__ float ex2(float x) {
 // factor alpha that rescales O; s becomes the dropped p as the next
 // product takes it. Masked scores are -inf, so their p is exactly 0, also
 // in a row with no visible key yet (m stays at the finite -1e30).
-template <bool MASK, bool DROP>
+template <bool MASK, bool DROP, int N>
 __device__ __forceinline__ void online_softmax(
-    float (&s)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float (&s)[N], float (&m)[2], float (&l)[2], float (&alpha)[2],
     int row0, int col0, float scale_log2, int sq, int sk, int kv_len,
     int causal, uint32_t mix, uint32_t thresh, float inv_keep) {
   const int offset = sk - sq;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1;
     if (MASK) {
       const int r = row0 + 8 * h, c = col0 + 8 * (i >> 2) + (i & 1);
@@ -288,7 +192,7 @@ __device__ __forceinline__ void online_softmax(
   }
   float ps[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1;
     const float p = ex2(fmaf(s[i], scale_log2, -mb[h]));
     ps[h] += p;  // the row sum takes the undropped p
@@ -303,9 +207,9 @@ __device__ __forceinline__ void online_softmax(
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ps[h];
 }
 
-template <bool MASK>
+template <bool MASK, int N>
 __device__ __forceinline__ void online_softmax_drop(
-    bool drop, float (&s)[32], float (&m)[2], float (&l)[2],
+    bool drop, float (&s)[N], float (&m)[2], float (&l)[2],
     float (&alpha)[2], int row0, int col0, float scale_log2, int sq, int sk,
     int kv_len, int causal, uint32_t mix, uint32_t thresh, float inv_keep) {
   if (drop)
@@ -315,6 +219,8 @@ __device__ __forceinline__ void online_softmax_drop(
     online_softmax<MASK, false>(s, m, l, alpha, row0, col0, scale_log2, sq,
                                 sk, kv_len, causal, mix, thresh, inv_keep);
 }
+
+// -- bf16: tensor cores (wgmma) ---------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::FWD_BLOCKS)
@@ -451,6 +357,239 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_out<D>(o + q_base, qs, q0, sq, col0);
 }
 
+// -- f32: tensor cores in 3xTF32 (mma.sync m16n8k8) ------------------------
+
+// tile geometry of the f32 kernel at head dim D
+template <int D>
+struct F32 {
+  static constexpr int NW = 4;                   // warps a block
+  static constexpr int NT = NW * 32;             // threads a block
+  static constexpr int ROWS = NW * 16;           // query rows a block
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys a streamed tile
+  static constexpr int NS = 2;                   // cp.async stages
+  // Q split once into registers (hi and lo fragments); at D >= 128 it is
+  // split at each fragment load from shared memory instead
+  static constexpr bool Q_REGS = D == 64;
+  // row pitches in floats: a half-warp's float2 loads of Q or K (rows g,
+  // columns 2t) and a warp's loads of V (rows 2t, columns g) each hit
+  // distinct banks
+  static constexpr int KP = D + 8;
+  static constexpr int VP = D + 4;
+  static constexpr int QS = ROWS * KP;  // floats of the Q tile
+  static constexpr int KS = BK * KP;    // floats of a K tile
+  static constexpr int STAGE = KS + BK * VP;
+  static constexpr int SMEM = (QS + NS * STAGE) * 4;
+  static constexpr int BLOCKS = D == 64 ? 2 : 1;  // blocks an SM
+  static_assert(BLOCKS * SMEM <= 232448, "f32 forward shared memory");
+};
+
+// rows [r0, r0 + R) of a [S, D] f32 array into R rows of pitch P floats
+// (16-byte cp.async); rows at or past `limit` are zero-filled
+template <int R, int D, int P, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int limit, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert((R * CPR) % NT == 0, "tile chunks");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NT; ++it) {
+    const int i = it * NT + tid;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < limit;
+    tc::cp_async16(dst + r * P + 4 * c,
+                   src + (ok ? (size_t)(r0 + r) * D + 4 * c : 0), ok);
+  }
+}
+
+// The A fragment (rows g and g + 8 of a warp's 16) of contraction step kk
+// over the Q tile in shared memory, split into hi and lo. The contraction
+// is relabelled inside each step: its columns t and t + 4 are the dims
+// 8 kk + 2t and 8 kk + 2t + 1, one float2 load a row (K's B fragment
+// uses the same labels).
+template <int D>
+__device__ __forceinline__ void q_frag(const float* qrow, int kk, int t,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float2 x0 =
+      *reinterpret_cast<const float2*>(qrow + 8 * kk + 2 * t);
+  const float2 x1 =
+      *reinterpret_cast<const float2*>(qrow + 8 * F32<D>::KP + 8 * kk + 2 * t);
+  tc::split_tf32(x0.x, ah[0], al[0]);
+  tc::split_tf32(x1.x, ah[1], al[1]);
+  tc::split_tf32(x0.y, ah[2], al[2]);
+  tc::split_tf32(x1.y, ah[3], al[3]);
+}
+
+// A block owns 64 query rows (16 a warp) of one batch*head; K/V tiles of
+// BK keys stream through NS cp.async stages; each warp computes S = Q.K^T
+// and O += P.V for its rows with mma.sync m16n8k8 in 3xTF32, the online
+// softmax in the S accumulator, and P kept in registers: the accumulator
+// gives a thread keys 2t and 2t + 1 of each 8-key slice, which become the
+// A fragment's columns t and t + 4 by reading V's rows 2t and 2t + 1 as
+// the B fragment's rows t and t + 4.
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NT, F32<D>::BLOCKS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ lens,
+                     float* __restrict__ o, float* __restrict__ lse, int sq,
+                     int sk, int causal, float sm_scale,
+                     const int* __restrict__ seed, uint32_t thresh,
+                     float keep_prob) {
+  using G = F32<D>;
+  constexpr int NS = G::NS, BK = G::BK;
+  constexpr int NJ = BK / 8;  // 8-key slices of a tile
+  constexpr int ND = D / 8;   // 8-dim steps of S, 8-column blocks of O
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;
+  float* stages = smem_f + G::QS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  // the longest blocks first: under the causal mask the last query tile
+  // sees the most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * G::ROWS;
+  const int offset = sk - sq;
+  const int kv_len = lens != nullptr ? min(lens[bh], sk) : sk;
+  int kend = kv_len;  // keys past kend are masked for every row
+  if (causal) kend = min(kend, min(q0 + G::ROWS, sq) - 1 + offset + 1);
+  const int n_tiles = kend > 0 ? (kend + BK - 1) / BK : 0;
+  const size_t q_base = (size_t)bh * sq * D;
+  const size_t kv_base = (size_t)bh * sk * D;
+
+  auto load_kv = [&](int tt) {
+    float* st = stages + (tt % NS) * G::STAGE;
+    load_rows<BK, D, G::KP, G::NT>(st, k + kv_base, tt * BK, sk, tid);
+    load_rows<BK, D, G::VP, G::NT>(st + G::KS, v + kv_base, tt * BK, sk,
+                                   tid);
+  };
+  // group s < NS - 1 holds tile s (group 0 also Q)
+  load_rows<G::ROWS, D, G::KP, G::NT>(qs, q + q_base, q0, sq, tid);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    tc::cp_async_commit();
+  }
+
+  const int wrow = warp * 16;  // the warp's first row in the block tile
+  const int wq0 = q0 + wrow;
+  int wkend = kv_len;  // the warp's own key end
+  if (causal) wkend = min(wkend, min(wq0 + 15, sq - 1) + offset + 1);
+  const bool live = wq0 < sq;
+  const float* qrow = qs + (wrow + g) * G::KP;
+  const float scale_log2 = sm_scale * kLog2e;
+  const bool drop = seed != nullptr;
+  const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
+  const float inv_keep = 1.f / keep_prob;
+
+  uint32_t qh[G::Q_REGS ? ND : 1][4], ql[G::Q_REGS ? ND : 1][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    // tile tt has landed, and every warp is done with tile tt - 1, whose
+    // stage the load below refills
+    tc::cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (tt + NS - 1 < n_tiles) load_kv(tt + NS - 1);
+    tc::cp_async_commit();
+    if constexpr (G::Q_REGS) {
+      if (tt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < ND; ++kk) q_frag<D>(qrow, kk, t, qh[kk], ql[kk]);
+      }
+    }
+    const int key0 = tt * BK;
+    if (!live || key0 >= wkend) continue;
+    const float* ks = stages + (tt % NS) * G::STAGE;
+    const float* vs = ks + G::KS;
+
+    float s[NJ * 4];
+#pragma unroll
+    for (int i = 0; i < NJ * 4; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (G::Q_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[kk][i];
+          al[i] = ql[kk][i];
+        }
+      } else {
+        q_frag<D>(qrow, kk, t, ah, al);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 kx = *reinterpret_cast<const float2*>(
+            ks + (8 * j + g) * G::KP + 8 * kk + 2 * t);
+        uint32_t bh_[2], bl_[2];
+        tc::split_tf32(kx.x, bh_[0], bl_[0]);
+        tc::split_tf32(kx.y, bh_[1], bl_[1]);
+        tc::mma_3xtf32(s + 4 * j, ah, al, bh_, bl_);
+      }
+    }
+
+    const bool mask = key0 + BK > kv_len ||
+                      (causal && key0 + BK - 1 > wq0 + offset);
+    float alpha[2];
+    const int row0 = wq0 + g, col0 = key0 + 2 * t;
+    if (mask)
+      online_softmax_drop<true>(drop, s, m, l, alpha, row0, col0, scale_log2,
+                                sq, sk, kv_len, causal, mix, thresh,
+                                inv_keep);
+    else
+      online_softmax_drop<false>(drop, s, m, l, alpha, row0, col0,
+                                 scale_log2, sq, sk, kv_len, causal, mix,
+                                 thresh, inv_keep);
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][i] *= alpha[i >> 1];
+
+    // O += P.V: the dropped p is not rounded (the reference's f32 path
+    // does not round it) but split like any operand
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      uint32_t ah[4], al[4];
+      tc::split_tf32(s[4 * kk + 0], ah[0], al[0]);
+      tc::split_tf32(s[4 * kk + 2], ah[1], al[1]);
+      tc::split_tf32(s[4 * kk + 1], ah[2], al[2]);
+      tc::split_tf32(s[4 * kk + 3], ah[3], al[3]);
+      const float* v0 = vs + (8 * kk + 2 * t) * G::VP + g;
+#pragma unroll
+      for (int c = 0; c < ND; ++c) {
+        uint32_t bh_[2], bl_[2];
+        tc::split_tf32(v0[8 * c], bh_[0], bl_[0]);
+        tc::split_tf32(v0[G::VP + 8 * c], bh_[1], bl_[1]);
+        tc::mma_3xtf32(acc[c], ah, al, bh_, bl_);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  // the row sums over the quad; o = acc / l, lse = m + log(l) (a row with
+  // no visible key: o = 0, lse = -1e30)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float inv_l = l[h] == 0.f ? 1.f : 1.f / l[h];
+    const int r = wq0 + g + 8 * h;
+    if (r >= sq) continue;
+    if (t == 0)
+      lse[(size_t)bh * sq + r] =
+          l[h] == 0.f ? kNegInf : m[h] * sm_scale + logf(l[h]);
+    float* orow = o + q_base + (size_t)r * D + 2 * t;
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(acc[c][2 * h] * inv_l, acc[c][2 * h + 1] * inv_l);
+  }
+}
+
 // -- launch -----------------------------------------------------------------
 
 struct Args {
@@ -470,8 +609,14 @@ struct Args {
 
 template <int D>
 int launch_f32(const Args& a) {
-  dim3 grid((a.sq + kRowsPerBlock - 1) / kRowsPerBlock, a.bh);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+  using G = F32<D>;
+  const int tiles = (a.sq + G::ROWS - 1) / G::ROWS;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_fwd_f32_kernel<D><<<dim3(a.bh, tiles), G::NT, G::SMEM, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.lens, static_cast<float*>(a.o),
       a.lse, a.sq, a.sk, a.causal, a.sm_scale, a.seed, a.thresh,

@@ -1,7 +1,7 @@
 // Shared device helpers of the attention kernels (flash forward and
 // backward, dense and paged decode): f32/bf16 vector loads and stores, the
-// decode kernels' row loads and warp sum, and the attention-dropout keep
-// mask.
+// decode kernels' warp geometry and 16-byte unpacking, row loads, and the
+// attention-dropout keep mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,10 +74,42 @@ __device__ __forceinline__ void load_row(const T* p, float* out) {
   }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The decode kernels' warp geometry at element type T (f32, bf16 or int8)
+// and head dim D: a key row is taken by a lane group of LPR lanes, each
+// loading 16 bytes (VEC values) NCH times; a warp-wide load covers RPW
+// rows, a lane group takes U rows a step.
+template <typename T, int D>
+struct Dec {
+  static constexpr int VEC = 16 / (int)sizeof(T);  // values a 16-byte load
+  static constexpr int LPR = D / VEC < 32 ? D / VEC : 32;  // lanes a row
+  static constexpr int NCH = D / (VEC * LPR);  // 16-byte chunks a lane a row
+  static constexpr int NE = VEC * NCH;         // dims a lane owns
+  static constexpr int RPW = 32 / LPR;         // key rows a warp-wide load
+  static constexpr int U = 2;                  // key rows a lane group a step
+  static constexpr int KK = RPW * U;           // keys a warp step
+};
+
+// 16 bytes of T -> f32
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+  if constexpr (std::is_same<T, float>::value) {
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(e[i]);
+  }
 }
 
 // x rounded to T and back: the reference rounds the probabilities and ds

@@ -55,9 +55,11 @@
 
 namespace {
 
+using flash::Dec;
 using flash::from_float;
 using flash::kNegInf;
 using flash::round_to;
+using flash::unpack;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -67,37 +69,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   long long b, s, h;
 };
-
-// a warp's geometry at dtype T and head dim D
-template <typename T, int D>
-struct Dec {
-  static constexpr int VEC = 16 / (int)sizeof(T);  // values a 16-byte load
-  static constexpr int LPR = D / VEC < 32 ? D / VEC : 32;  // lanes a row
-  static constexpr int NCH = D / (VEC * LPR);  // 16-byte chunks a lane a row
-  static constexpr int NE = VEC * NCH;         // dims a lane owns
-  static constexpr int RPW = 32 / LPR;         // key rows a warp-wide load
-  static constexpr int U = 2;                  // key rows a lane group a step
-  static constexpr int KK = RPW * U;           // keys a warp step
-};
-
-// 16 bytes of T -> f32
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
-  if constexpr (std::is_same<T, float>::value) {
-    out[0] = __uint_as_float(raw.x);
-    out[1] = __uint_as_float(raw.y);
-    out[2] = __uint_as_float(raw.z);
-    out[3] = __uint_as_float(raw.w);
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,7 @@
 // Shared device helpers of the tensor-core kernels (the fused 1x1 conv and
-// the flash-attention backward): cp.async copies into shared memory,
-// ldmatrix and mma.sync m16n8k16 (sm_80 style, one warp), and Hopper's
+// the flash-attention kernels): cp.async copies into shared memory,
+// ldmatrix and mma.sync m16n8k16 (sm_80 style, one warp), the 3xTF32
+// split and mma.sync m16n8k8 tf32 (the f32 flash forward), and Hopper's
 // warpgroup products wgmma.mma_async m64n64k16 over 128-byte-swizzled
 // shared-memory tiles.
 #pragma once
@@ -71,6 +72,53 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// -- 3xTF32: f32 products on the tensor cores --------------------------------
+//
+// mma.sync m16n8k8 with tf32 operands (10 mantissa bits), f32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4): A [16 x 8] row-major a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B [8 x 8] b0 (t, g),
+// b1 (t + 4, g); C [16 x 8] c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+// c3 (g + 8, 2t + 1). An f32 operand x is split as x = hi + lo, hi =
+// tf32(x), lo = tf32(x - hi); a.b ~ hi.hi + hi.lo + lo.hi, the dropped
+// lo.lo being ~2^-22 of a.b: f32 accuracy from three TF32 products.
+
+// x rounded to tf32 (round to nearest, ties away from zero, on 10
+// mantissa bits), in a b32 with its 13 low bits zero: half of the dropped
+// bits' range added to the magnitude, then dropped. For every finite x
+// (and inf) this is what cvt.rna.tf32.f32 gives, in two integer
+// instructions where cvt's SASS takes four (it also screens NaN).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi). lo keeps its 13 low
+// bits: the tensor core reads a tf32 operand's top 19 bits only, so adding
+// half their range is the rounding
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32 from split operands, the two small terms first
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
 }
 
 // two f32 -> one register of two bf16 (round to nearest even), lo in the

@@ -36,9 +36,12 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 Kernel notes (details in the .cu files): the forward and the two backward
 kernels run every bf16 product on the tensor cores (wgmma, tiles streamed
 through shared memory by cp.async, the probabilities kept in registers as
-the second product's operand) and f32 on the CUDA cores, where TF32 would
-miss the f32 bar. Each kernel skips tiles the causal mask or the key
-length rule out and regenerates the dropout mask in registers. The decode
+the second product's operand). The f32 forward runs on the tensor cores
+too, in 3xTF32 (mma.sync m16n8k8, each f32 operand split into two TF32
+parts, three products: the f32 bar, where one TF32 product would miss
+it); the f32 backward runs on the CUDA cores. Each kernel skips tiles the
+causal mask or the key length rule out and regenerates the dropout mask in
+registers. The decode
 kernel is bound by the bytes of the live cache: one launch splits each
 row's keys over several blocks (flash-decoding), and the last block of a
 row to finish combines the row's partial softmax states, in chunk order,

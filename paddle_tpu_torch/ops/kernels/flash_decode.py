@@ -10,10 +10,17 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_decode.py``
 - ``paged_decode_plain`` — the same function in plain PyTorch: gather the
   slot's pages into a dense view, mask keys past ``lens``, one softmax.
   It is also ``nlp.paged_cache.paged_attention_ref``.
+- ``paged_decode_split`` — how a call cuts each slot's page table row into
+  chunks of whole pages, one block each, from shapes alone.
 
-Kernel note (details in the .cu): bound by the bytes of the pages it
-reads (3.35 TB/s on the H100); one block per (slot, kv head) walks only the
-slot's live pages and reads K/V once for all its query heads.
+Kernel note (details in the .cu): bound by the bytes of the live pages
+(3.35 TB/s on the H100). One launch a call splits each slot's keys over
+blocks (chunks of whole pages, about four blocks an SM); a block reads its
+chunk's page ids once, streams its rows with 16-byte loads (the next step's
+rows in flight under this step's math) and reads K/V once for all the query
+heads of a kv head; the last block of a slot to finish combines the
+chunks' partial softmax states, in chunk order, through scratch the
+wrapper keeps (``_paged_scratch``).
 """
 from __future__ import annotations
 
@@ -22,14 +29,28 @@ import math
 
 import torch
 
-__all__ = ["HEAD_DIMS", "paged_flash_decode", "paged_decode_plain"]
+__all__ = ["HEAD_DIMS", "paged_flash_decode", "paged_decode_plain",
+           "paged_decode_split"]
 
 HEAD_DIMS = (64, 128, 256)
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# q, k/v pools, k/v scales, page_table, lens, out; b, hkv, g, num_pages,
-# ps, max_pages, d, pool code; sm_scale; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+# q, k/v pools, k/v scales, page_table, lens, out, part, counters; b, hkv,
+# g, num_pages, ps, max_pages, d, pool code, splits, pages a chunk;
+# sm_scale; stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
+# blocks a call aims for at most: four on each of the H100's 132 SMs
+_PAGED_BLOCKS = 4 * 132
+# a chunk holds at least this many keys: one step of a block's four warps
+# at the widest rows (int8 at D=64, 16 keys a warp)
+_PAGED_MIN_KEYS = 64
+# at most this many pages a chunk: their ids sit in the block's shared
+# memory
+_PAGED_MAX_PAGES = 4096
+# query heads a block (the kernel's group of a kv head's query heads)
+_GROUPS = 4
+# device -> (partial states, ticket counters) of the paged decode
+_PAGED_SCRATCH = {}
 
 
 def _dequant(pages, scale):
@@ -107,8 +128,47 @@ def _check(q, k_pages, v_pages, page_table, lens, k_scale, v_scale):
                          f"[{b}, MP] int32")
     if lens.dtype != torch.int32 or lens.shape != (b,):
         raise ValueError(f"paged_flash_decode: lens must be [{b}] int32")
-    if hkv > 65535 or g > 65535:
-        raise ValueError("paged_flash_decode: too many heads for the grid")
+    if b > 65535 or hkv * -(-g // _GROUPS) > 65535:
+        raise ValueError("paged_flash_decode: too many slots or heads for "
+                         "the grid")
+
+
+def paged_decode_split(b, hkv, g, mp, ps):
+    """(splits, pages a chunk) of a call over a ``[b, mp]`` page table of
+    ``ps``-key pages: each slot's row is cut into ``splits`` chunks of
+    whole pages, one block per (chunk, kv head, group of up to four query
+    heads, slot), so that the call puts at most about ``_PAGED_BLOCKS``
+    blocks on the card (one wave), and one chunk a slot when the slots
+    alone come near it. From shapes only, never from ``lens``: the wrapper
+    does not sync. Every page of the row lies in exactly one chunk."""
+    rows = b * hkv * -(-g // _GROUPS)
+    want = max(1, _PAGED_BLOCKS // rows)
+    ppc = max(-(-mp // want), -(-_PAGED_MIN_KEYS // ps))
+    ppc = min(ppc, mp, _PAGED_MAX_PAGES)
+    return -(-mp // ppc), ppc
+
+
+def _paged_scratch(device, b, hkv, g, splits, d):
+    """(part, counters) of a call: f32 room for the ``b * hkv * g * splits``
+    partial states (acc, then m and l) and one int32 ticket counter per
+    (slot, kv head, head group). Made once per device and size, grown to
+    the largest call so far; the counters start at zero and the kernel
+    leaves them so."""
+    part, counters = _PAGED_SCRATCH.get(device, (None, None))
+    n_part = b * hkv * g * splits * (d + 2)
+    n_count = b * hkv * -(-g // _GROUPS)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_count:
+        counters = torch.zeros(n_count, dtype=torch.int32, device=device)
+    _PAGED_SCRATCH[device] = (part, counters)
+    return part, counters
+
+
+def _on_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode: unsupported device "
+                         f"{q.device}")
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, lens, k_scale=None,
@@ -116,30 +176,34 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lens, k_scale=None,
     """Paged GQA decode attention -> [B, Hkv, G, D] in q's dtype. CPU
     tensors run the plain version; CUDA tensors launch the kernel or
     raise. ``page_table`` entries are trusted to be valid page ids (the
-    serving engine owns them); the wrapper never syncs with the device."""
+    serving engine owns them); the wrapper never syncs with the device.
+    One launch a call; its scratch (``_paged_scratch``) serves one call at
+    a time, on one stream."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_table, lens,
                                   k_scale, v_scale, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_decode: unsupported device "
-                         f"{q.device}")
+    _on_cuda(q)
     _check(q, k_pages, v_pages, page_table, lens, k_scale, v_scale)
     from .. import _build
     fn = _build.load("paged_flash_decode", _ARGTYPES)
     b, hkv, g, d = q.shape
     _, num_pages, ps, _ = k_pages.shape
+    mp = page_table.shape[1]
+    splits, ppc = paged_decode_split(b, hkv, g, mp, ps)
     qf = q.float().contiguous()
     out = torch.empty(b, hkv, g, d, dtype=torch.float32, device=q.device)
+    part, counters = _paged_scratch(q.device, b, hkv, g, splits, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  None if k_scale is None else k_scale.data_ptr(),
                  None if v_scale is None else v_scale.data_ptr(),
                  page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 b, hkv, g, num_pages, ps, page_table.shape[1], d,
-                 _POOL_CODES[k_pages.dtype], float(sm_scale), stream)
+                 part.data_ptr(), counters.data_ptr(), b, hkv, g, num_pages,
+                 ps, mp, d, _POOL_CODES[k_pages.dtype], splits, ppc,
+                 float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: "
                            f"CUDA error {err}")
