@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build   — compile every kernel under paddle_tpu_torch/csrc with nvcc
              (one process per source, all started together); registers
              and spill stores of every flash forward, backward, dense and
-             paged decode instantiation, the bf16 forward's largest SASS
+             paged decode and fused LN instantiation (the LN backward must
+             not spill), the bf16 forward's largest SASS
              basic blocks (a tile's softmax) counted by opcode class, and
              the f32 forward's SASS at each D: its TF32 HMMAs must
              outnumber its FFMAs (the products on the tensor cores);
@@ -73,12 +74,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              which must launch every flash kernel with dropout;
 9. fused-ln — the fused residual-add + LayerNorm kernels #6-#9 vs their
              plain twins, forward outputs and every gradient: f32 and bf16
-             rows, H in {64, 768, 1024}, N in {7, 8192, 16384}, eps 1e-12
-             and 1e-5, gamma/beta in f32 and in the rows' dtype; a second
-             backward must repeat bit for bit and a row wider than the
-             kernel holds must raise; times at ERNIE's (N=16384, H=768)
-             and GPT's (N=8192, H=1024) shapes in bf16, with the eager
-             F.layer_norm(x + r) pair as a reference point;
+             rows, H in {64, 768, 1024}, N in {7, 8192, 16384}, and H in
+             {100, 1000} at N in {7, 8192} and {7, 16384}, eps 1e-12 and
+             1e-5, gamma/beta in f32 and in the rows' dtype, and rows that
+             start off a 16-byte boundary (big[1:] at H 1023 and 101); a
+             second backward must repeat bit for bit and a row wider than
+             the kernel holds must raise; the backward's row kernel must
+             reside as many blocks an SM as its plan's grid counts on
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with no
+             local bytes; times at ERNIE's (N=16384, H=768) and GPT's
+             (N=8192, H=1024) shapes in bf16, beside
+             aten.native_layer_norm_backward and the eager
+             F.layer_norm(x + r) pair;
 10. flash-noncausal — the three flash kernels with causal=False at ERNIE's
              shape (B=32, H=12, S=512, D=64; bf16 and f32; no kv_lens and
              kv_lens < S), bf16 timed next to SDPA(is_causal=False); f32
@@ -200,6 +207,7 @@ unheld:
     python3 chip_smoke.py --compare-bwd SRC...     # flash_attention_bwd.cu
     python3 chip_smoke.py --compare-decode SRC...  # flash_decode.cu
     python3 chip_smoke.py --compare-paged SRC...   # paged_flash_decode.cu
+    python3 chip_smoke.py --compare-ln SRC...      # fused_ln.cu
 
 at GPT's training shape with and without dropout and ERNIE's (the
 forward also the f32 serving prefill, GPT's shape in f32 with and without
@@ -208,9 +216,13 @@ dense decode GPT's f32 and Llama-2-7B's bf16 generate shapes, and for the
 paged decode phase 3's timed shapes (each decode mode then times the
 package's kernel at other targets of blocks a call; the paged mode also
 with L2 evicted by a read, with every lens 0 and beside a torch.sum of as
-many bytes). The forward mode first checks that cvt.rna.tf32.f32 rounds
-as the kernels' integer tf32 rounding does and times back-to-back
-mma.sync TF32 products, the ceiling the f32 kernel is read against.
+many bytes), and for the fused LN backwards #7 and #9 ERNIE's and GPT's
+bf16 shapes beside aten.native_layer_norm_backward and a torch.addcmul
+over as many row bytes (each source also at grids of 132 x 1..5 blocks,
+its two kernels under the profiler, ours with a read flush). The forward
+mode first checks that cvt.rna.tf32.f32 rounds as the kernels' integer
+tf32 rounding does and times back-to-back mma.sync TF32 products, the
+ceiling the f32 kernel is read against.
 """
 from __future__ import annotations
 
@@ -355,7 +367,9 @@ def visible_pairs(b, sq, sk, lens, causal=True):
 # one ptxas record: the mangled entry name, spill stores, registers
 _PTXAS_ENTRY = re.compile(r"entry function '([^']+)'.*?(\d+) bytes spill "
                           r"stores.*?Used (\d+) registers", re.S)
-_TEMPLATE_ARG = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+_TEMPLATE_ARG = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
+                 "Lb0E": "false", "Lb1E": "true"}
+_TEMPLATE_TOKEN = r"f|a|13__nv_bfloat16|Li\d+E|Lb[01]E"
 
 
 def _kernel_name(mangled):
@@ -368,7 +382,7 @@ def _kernel_name(mangled):
             name = mangled[at:at + n]
             if (len(name) == n and name.endswith("kernel")
                     and re.fullmatch(r"[A-Za-z_]\w*", name)):
-                args = re.match(r"I((?:f|a|13__nv_bfloat16|Li\d+E)+)E",
+                args = re.match(rf"I((?:{_TEMPLATE_TOKEN})+)E",
                                 mangled[at + n:])
                 return name, args.group(1) if args else ""
     return mangled, ""
@@ -380,9 +394,8 @@ def _instantiations(logtxt):
     out = []
     for m in _PTXAS_ENTRY.finditer(logtxt):
         name, targs = _kernel_name(m.group(1))
-        args = re.findall(r"f|a|13__nv_bfloat16|Li(\d+)E", targs)
-        toks = re.findall(r"f|a|13__nv_bfloat16|Li\d+E", targs)
-        names = [_TEMPLATE_ARG.get(t, a) for t, a in zip(toks, args)]
+        toks = re.findall(_TEMPLATE_TOKEN, targs)
+        names = [_TEMPLATE_ARG.get(t, t[2:-1]) for t in toks]
         out.append((f"{name}<{','.join(names)}>", int(m.group(3)),
                     int(m.group(2))))
     return out
@@ -508,10 +521,12 @@ def phase_build():
             f"{max(regs) if regs else 'n/a'}, max spill stores "
             f"{max(spills) if spills else 0} bytes")
         if name in ("flash_attention_fwd", "flash_attention_bwd",
-                    "flash_decode", "paged_flash_decode"):
+                    "flash_decode", "paged_flash_decode", "fused_ln"):
             for kern, nreg, spill in _instantiations(logtxt):
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
+                check(not (kern.startswith("ln_bwd_kernel") and spill),
+                      f"build: {kern} spills {spill} bytes")
     # the forward's CUDA-core work: a tile's softmax is straight-line code
     # between its two products, over 32 (q, k) pairs a thread
     lib = _build._lib_path("flash_attention_fwd")[1]
@@ -1273,16 +1288,17 @@ def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
 def _build_compare(sources, tag):
     """[(source, ctypes.CDLL)]: each given source (another version of one
     of the package's kernel sources: its parent, a variant) built with the
-    package's nvcc flags, all at once, and loaded. A source's own
-    directory comes first on the include path, then the package's csrc/,
-    so a parent's source builds with the parent's headers beside it."""
+    package's nvcc flags, all at once, and loaded; each instantiation's
+    registers and spill stores printed. A source's own directory comes
+    first on the include path, then the package's csrc/, so a parent's
+    source builds with the parent's headers beside it."""
     from paddle_tpu_torch.ops import _build
     out = os.path.join(_build.BUILD_DIR, "compare")
     os.makedirs(out, exist_ok=True)
     started = [(src, os.path.join(out, f"lib{tag}{i}.so")) for i, src in
                enumerate(sources)]
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                               _build.CSRC_DIR, "-o", lib, src],
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                               "-v", "-I", _build.CSRC_DIR, "-o", lib, src],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, lib in started]
@@ -1290,6 +1306,9 @@ def _build_compare(sources, tag):
     for (src, lib), proc in zip(started, procs):
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"compare: nvcc failed for {src}:\n{text}")
+        for kern, nreg, spill in _instantiations(text):
+            log(f"compare: {src}: {kern}: {nreg} registers, {spill} bytes "
+                "spill stores")
         built.append((src, ctypes.CDLL(lib)))
     return built
 
@@ -1846,11 +1865,13 @@ def phase_adamw(torch, flush):
 
 # -- fused residual-add + LayerNorm (#6-#9) -----------------------------------
 
-def _ln_case(torch, n, h, dtype, w_dtype, eps, gen):
+def _ln_case(torch, n, h, dtype, w_dtype, eps, gen, offset=False):
     """The four kernels vs their twins on one input: y, s, mu, rstd of both
     forwards and dx, dgamma, dbeta of both backwards (each backward twin
     given the kernel forward's own saved tensors); the backward run twice
-    must give the same bits. Returns the max errors."""
+    must give the same bits. ``offset``: every input row tensor is the
+    contiguous view big[1:] of an [n + 1, h] tensor, which at an odd h
+    starts off a 16-byte boundary. Returns the max errors."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     dt, wdt = getattr(torch, dtype), getattr(torch, w_dtype)
 
@@ -1860,6 +1881,13 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen):
     x, r = mk(n, h, scale=2.0, shift=0.5), mk(n, h)
     dy, ds = mk(n, h), mk(n, h)
     g, b = mk(h, scale=0.1, shift=1.0), mk(h, scale=0.1)
+    if offset:
+        x, r, dy, ds = (torch.empty(n + 1, h, dtype=dt, device="cuda")[1:]
+                        .copy_(t) for t in (x, r, dy, ds))
+        check(all(t.is_contiguous() and t.data_ptr() % 16
+                  for t in (x, r, dy, ds)),
+              f"fused-ln: the offset rows at h {h} start on a 16-byte "
+              "boundary")
     y, s, mu, rstd = kln.fused_add_layer_norm_fwd(x, r, g, b, eps)
     bwd = [kln.fused_add_layer_norm_bwd(dy, ds, s, mu, rstd, g)
            for _ in range(2)]
@@ -1867,7 +1895,8 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen):
     bwd9 = [kln.fused_add_layer_norm_y_bwd(dy, x, r, mu8, rstd8, g)
             for _ in range(2)]
     torch.cuda.synchronize()
-    where = f"{dtype} n{n} h{h} gamma {w_dtype} eps {eps}"
+    where = (f"{dtype} n{n} h{h} gamma {w_dtype} eps {eps}"
+             + (" offset" if offset else ""))
     check(all(torch.equal(a, c) for run in (bwd, bwd9)
               for a, c in zip(*run)),
           f"fused-ln {where}: a second backward run differs")
@@ -1908,13 +1937,58 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen):
     check(errs["mu"] <= 1e-4 and errs["rstd_rel"] <= 1e-4,
           f"fused-ln {where}: mu err {errs['mu']}, rstd relative err "
           f"{errs['rstd_rel']}")
-    return dict(dtype=dtype, n=n, h=h, w_dtype=w_dtype, eps=eps, err=errs)
+    return dict(dtype=dtype, n=n, h=h, w_dtype=w_dtype, eps=eps,
+                offset=offset, err=errs)
+
+
+def _ln_bounds(n, h):
+    """(bound ms, what bounds it) of the four kernels on [n, h] bf16 rows
+    and bf16 parameters: bytes (each input read once, each output written
+    once; the backward's partial rows are the kernel's own scratch) and ~8
+    FLOPs an element forward, ~12 backward."""
+    rows_b, vec_b = n * h * 2, h * 2         # bf16 rows and parameters
+    stat = n * 4                             # mu or rstd, f32
+    bwd = (4 * rows_b + vec_b + 2 * stat + 2 * h * 4, 12 * n * h)
+    work = {
+        "fused_add_layer_norm_fwd": (4 * rows_b + 2 * vec_b + 2 * stat,
+                                     8 * n * h),
+        "fused_add_layer_norm_y_fwd": (3 * rows_b + 2 * vec_b + 2 * stat,
+                                       8 * n * h),
+        "fused_add_layer_norm_bwd": bwd,
+        "fused_add_layer_norm_y_bwd": bwd,
+    }
+    return {k: bound(*w) for k, w in work.items()}
+
+
+def _ln_library(torch, x, r, dy, g, b, h, flush):
+    """Held ms of PyTorch's calls beside the kernels, on bf16 rows: its own
+    LayerNorm backward (aten.native_layer_norm_backward: dy and the saved
+    sum s -> dx, dgamma, dbeta in one call, with mean and rstd as
+    native_layer_norm gives them on the card; it reads one row tensor fewer
+    than #9, which rebuilds s from x and r, and lacks #7's + ds), and the
+    eager pair F.layer_norm(x + r) with its autograd backward (no single
+    call adds and normalises)."""
+    aten = torch.ops.aten
+    s = x + r
+    _, mean, rstd = aten.native_layer_norm(s, [h], g, b, 1e-5)
+    back = lambda: aten.native_layer_norm_backward(  # noqa: E731
+        dy, s, [h], mean, rstd, g, b, [True, True, True])
+    out = {"native_bwd_ms": time_ms(torch, back, flush=flush)}
+    ln = torch.nn.functional.layer_norm
+    out["eager_fwd_ms"] = time_ms(torch, lambda: ln(x + r, (h,), g, b, 1e-5),
+                                  flush=flush)
+    xl, rl, gl, bl = (t.detach().clone().requires_grad_()
+                      for t in (x, r, g, b))
+    y = ln(xl + rl, (h,), gl, bl, 1e-5)
+    out["eager_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        y, (xl, rl, gl, bl), dy, retain_graph=True), flush=flush)
+    return out
 
 
 def _ln_timing(torch, n, h, gen, flush):
     """ms of the four kernels and their twins at one slice shape (bf16 rows
     and parameters, as the Engine's AMP gives them), the bound of each,
-    and the eager F.layer_norm(x + r) pair as a reference point."""
+    and PyTorch's calls beside them (_ln_library)."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     bf = torch.bfloat16
     x, r, dy, ds = (torch.randn(n, h, generator=gen, device="cuda").to(bf)
@@ -1947,57 +2021,76 @@ def _ln_timing(torch, n, h, gen, flush):
     row = {"ms": {k: time_ms(torch, f, flush=flush) for k, f in kern.items()},
            "plain_ms": {k: time_ms(torch, f, flush=flush)
                         for k, f in plain.items()}}
-    # no single PyTorch call computes these functions; the eager pair
-    # F.layer_norm(x + r) and its autograd backward are the reference point
-    ln = torch.nn.functional.layer_norm
-    row["eager_fwd_ms"] = time_ms(torch, lambda: ln(x + r, (h,), g, b, 1e-5),
-                                  flush=flush)
-    xl, rl, gl, bl = (t.detach().clone().requires_grad_()
-                      for t in (x, r, g, b))
-    out = ln(xl + rl, (h,), gl, bl, 1e-5)
-    row["eager_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-        out, (xl, rl, gl, bl), dy, retain_graph=True), flush=flush)
-    del out
-    rows_b, vec_b = n * h * 2, h * 2         # bf16 rows and parameters
-    stat = n * 4                             # mu or rstd, f32
-    # bytes (each input read once, each output written once; the backward's
-    # partial rows are the kernel's own scratch) and ~8 FLOPs an element
-    # forward, ~12 backward
-    work = {
-        "fused_add_layer_norm_fwd": (4 * rows_b + 2 * vec_b + 2 * stat,
-                                     8 * n * h),
-        "fused_add_layer_norm_y_fwd": (3 * rows_b + 2 * vec_b + 2 * stat,
-                                       8 * n * h),
-        "fused_add_layer_norm_bwd": (4 * rows_b + vec_b + 2 * stat + 2 * h * 4,
-                                     12 * n * h),
-        "fused_add_layer_norm_y_bwd": (4 * rows_b + vec_b + 2 * stat
-                                       + 2 * h * 4, 12 * n * h),
-    }
-    row["bound"] = {k: bound(*w) for k, w in work.items()}
+    row.update(_ln_library(torch, x, r, dy, g, b, h, flush))
+    row["bound"] = _ln_bounds(n, h)
     return row
+
+
+# the backward's new cases: widths that cut its 16-byte chunks and lanes
+# (100: bf16 rows of 200 bytes; 1000: 125 bf16 or 250 f32 chunks), and
+# rows that start off a 16-byte boundary (big[1:] at an odd h)
+LN_RAGGED = ((7, 100), (8192, 100), (7, 1000), (16384, 1000))
+LN_OFFSET = ((8192, 1023, "bfloat16"), (8192, 101, "bfloat16"),
+             (8192, 1023, "float32"))
+
+
+def _ln_residency(torch):
+    """The backward's row kernel as the card resides it, against its plan:
+    each (#7, #9) x (f32, bf16) x h in {64, 100, 768, 1000, 1024} must
+    reside as many blocks an SM as the plan counts on (so the grid is one
+    wave), with the plan's shared memory and no local (spill) bytes."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for h in (64, 100, 768, 1000, 1024):
+            for kern, with_sum in (("#7", True), ("#9", False)):
+                plan = kln.bwd_plan(16384, h, dtype)
+                res = kln.bwd_residency(h, dtype, with_sum)
+                tag = f"{kern} {str(dtype)[6:]} h{h}"
+                log(f"fused-ln: backward {tag}: {plan.chunks} chunks a lane, "
+                    f"{res['registers']} registers, {res['smem']} B shared, "
+                    f"{res['spill_bytes']} local bytes; "
+                    f"{res['blocks_per_sm']} blocks an SM resident (plan "
+                    f"{plan.blocks_per_sm}), grid at n = 16384 "
+                    f"{plan.blocks} (one wave: "
+                    f"{plan.blocks <= 132 * res['blocks_per_sm']})")
+                check(res["blocks_per_sm"] >= plan.blocks_per_sm
+                      and res["smem"] == plan.smem
+                      and res["spill_bytes"] == 0,
+                      f"fused-ln: backward {tag} resides {res} against the "
+                      f"plan {plan}")
+                out[tag] = dict(res, plan=plan._asdict())
+    return out
 
 
 def phase_fused_ln(torch, flush):
     """Kernels #6-#9 vs their twins: f32 and bf16, H in {64, 768, 1024},
     N in {7, 8192, 16384}, eps 1e-12 and 1e-5, gamma/beta in f32 and in
-    the rows' dtype; a width above the kernel's raises; times at the two
-    slice shapes (ERNIE: N=16384 H=768; GPT: N=8192 H=1024; bf16)."""
+    the rows' dtype, plus H = 100 and 1000 and rows off a 16-byte boundary
+    (LN_RAGGED, LN_OFFSET); a width above the kernel's raises; the
+    backward resides as its plan counts on (_ln_residency); times at the
+    two slice shapes (ERNIE: N=16384 H=768; GPT: N=8192 H=1024; bf16)."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     cells = [(n, h) for n in (7, 8192, 16384) for h in (64, 768, 1024)]
-    for k, (n, h) in enumerate(cells):
+    for k, (n, h) in enumerate(cells + list(LN_RAGGED)):
         for dtype in ("float32", "bfloat16"):
             for j, eps in enumerate((1e-12, 1e-5)):
                 # bf16 rows meet f32 and bf16 parameters at each eps
                 w_dtype = dtype if (k + j) % 2 else "float32"
                 rows.append(_ln_case(torch, n, h, dtype, w_dtype, eps, gen))
+    for n, h, dtype in LN_OFFSET:
+        rows.append(_ln_case(torch, n, h, dtype, "float32", 1e-5, gen,
+                             offset=True))
     for r in rows:
         errs = " ".join(f"{k} {v:.2e}" for k, v in r["err"].items())
         log(f"fused-ln: {r['dtype']} n{r['n']} h{r['h']} gamma "
-            f"{r['w_dtype']} eps {r['eps']}: {errs}")
+            f"{r['w_dtype']} eps {r['eps']}"
+            + (" offset" if r["offset"] else "") + f": {errs}")
     log("fused-ln: dgamma/dbeta and dx identical over two backward runs in "
         f"all {len(rows)} cases")
+    residency = _ln_residency(torch)
     wide = torch.zeros(4, kln.MAX_H + 32, device="cuda")
     wg = torch.ones(kln.MAX_H + 32, device="cuda")
     try:
@@ -2013,10 +2106,159 @@ def phase_fused_ln(torch, flush):
             bms, by = tm["bound"][k]
             log(f"fused-ln: {shape} shape {k}: ms {tm['ms'][k]:.4f} plain_ms "
                 f"{tm['plain_ms'][k]:.4f} bound_ms {bms:.4f} ({by})")
-        log(f"fused-ln: {shape} shape eager F.layer_norm(x + r): forward ms "
-            f"{tm['eager_fwd_ms']:.4f}, autograd backward ms "
+        log(f"fused-ln: {shape} shape native_layer_norm_backward ms "
+            f"{tm['native_bwd_ms']:.4f}; eager F.layer_norm(x + r): forward "
+            f"ms {tm['eager_fwd_ms']:.4f}, autograd backward ms "
             f"{tm['eager_bwd_ms']:.4f}")
-    return dict(rows=rows, timing=timing)
+    return dict(rows=rows, timing=timing, residency=residency)
+
+
+def _ln_bwd_call(torch, fn, rows, mu, rstd, g, blocks):
+    """A callable that launches a fused_ln.cu's backward entry ``fn`` on
+    ``rows`` = (dy, ds, a, b) (ds or b None: #9 or #7) at ``blocks``
+    blocks and returns (dx, dgamma, dbeta)."""
+    dy, ds, a, b = rows
+    n, h = dy.shape
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def run():
+        dx = torch.empty_like(dy)
+        part = torch.empty(2, blocks, h, dtype=torch.float32, device="cuda")
+        dgb = torch.empty(2, h, dtype=torch.float32, device="cuda")
+        err = fn(ptr(dy), ptr(ds), ptr(a), ptr(b), ptr(mu), ptr(rstd), ptr(g),
+                 ptr(dx), ptr(part[0]), ptr(part[1]), ptr(dgb[0]),
+                 ptr(dgb[1]), n, h, blocks, int(dy.dtype == torch.bfloat16),
+                 int(g.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"compare-ln: backward launch failed ({err})")
+        return dx, dgb[0], dgb[1]
+    return run
+
+
+def _ln_kernel_ms(torch, fn, flush, reps=5):
+    """{kernel: device ms a call} of the LN backward's two kernels
+    (ln_bwd_kernel, colsum_kernel) over ``reps`` calls of fn, L2 flushed
+    between them (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for a in prof.key_averages():
+        for name in ("ln_bwd_kernel", "colsum_kernel"):
+            if a.device_type == DeviceType.CUDA and name in a.key:
+                out[name] = out.get(name, 0.0) + \
+                    a.self_device_time_total / 1e3 / reps
+    return out
+
+
+def compare_ln(torch, sources):
+    """``--compare-ln SRC...``: build each given fused_ln.cu (its parent
+    from git, a variant) with the package's flags; hold its backward's
+    dx, dgamma and dbeta to the package's #7 and #9 (bf16 dx 2e-2 and
+    dgamma/dbeta 1e-4, of max(1, |ours|)); time both in turns (theirs,
+    ours, ours, theirs; held) at ERNIE's (16384 x 768) and GPT's
+    (8192 x 1024) bf16 shapes beside the bound,
+    aten.native_layer_norm_backward and the eager F.layer_norm(x + r)
+    pair (held), and torch.addcmul over as many row bytes (the floor one
+    elementwise pass reaches); then each source at grids of 132 x {1, ...,
+    5} blocks, each side's two kernels (ln_bwd_kernel, colsum_kernel)
+    under the profiler, and ours with L2 evicted by a read. A source whose
+    fused_ln_bwd takes another argument list than the package's is
+    refused; one without the residency entry (the parent's design) runs
+    at its own grid, min(ceil(n / 4), 528)."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    entries = []
+    for src, cdll in _build_compare(sources, "ln"):
+        with open(src) as f:
+            text = f.read()
+        sig = re.search(r'extern "C" int fused_ln_bwd\(([^)]*)\)', text)
+        check(sig is not None, f"compare-ln: {src} has no fused_ln_bwd")
+        nargs = len(sig.group(1).split(","))
+        check(nargs == len(kln._BWD_ARGTYPES),
+              f"compare-ln: {src}'s fused_ln_bwd takes {nargs} arguments, "
+              f"the package's {len(kln._BWD_ARGTYPES)}")
+        fn = cdll.fused_ln_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = kln._BWD_ARGTYPES
+        entries.append((src, fn, "fused_ln_bwd_residency" in text))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf = torch.bfloat16
+    for tag, n, h in (("ernie", 16384, 768), ("gpt", 8192, 1024)):
+        x, r, dy, ds = (torch.randn(n, h, generator=gen, device="cuda").to(bf)
+                        for _ in range(4))
+        g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(bf)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(bf)
+        _, s, mu, rstd = kln.fused_add_layer_norm_fwd(x, r, g, b, 1e-5)
+        lib = _ln_library(torch, x, r, dy, g, b, h, flush)
+        log(f"compare-ln {tag}: native_layer_norm_backward held "
+            f"{lib['native_bwd_ms']:.4f} ms (unheld "
+            f"{unheld(lib['native_bwd_ms']):.4f}); eager F.layer_norm(x + r) "
+            f"forward {lib['eager_fwd_ms']:.4f}, its autograd backward "
+            f"{lib['eager_bwd_ms']:.4f}")
+        # what one elementwise pass over as many row bytes reaches under
+        # the same flush: three bf16 row tensors read, one written
+        out4 = torch.empty_like(dy)
+        rows_ms = bound(4 * n * h * 2, 0)[0]
+        floor = [time_ms(torch, lambda: torch.addcmul(dy, x, r, out=out4),
+                         flush=f) for f in (flush, scratch.sum)]
+        log(f"compare-ln {tag}: torch.addcmul(dy, x, r) into a fourth row "
+            f"tensor (#9's row bytes, one pass) held {floor[0]:.4f} ms, "
+            f"{rows_ms / floor[0]:.3f} of its {rows_ms:.4f} ms bound; with "
+            f"L2 evicted by a read (clean lines) {floor[1]:.4f} ms")
+        del out4
+        plan = kln.bwd_plan(n, h, bf)
+        kernels = (
+            ("#7", "fused_add_layer_norm_bwd", (dy, ds, s, None),
+             lambda: kln.fused_add_layer_norm_bwd(dy, ds, s, mu, rstd, g)),
+            ("#9", "fused_add_layer_norm_y_bwd", (dy, None, x, r),
+             lambda: kln.fused_add_layer_norm_y_bwd(dy, x, r, mu, rstd, g)))
+        for kern, name, rows, ours in kernels:
+            want = ours()
+            bms, by = _ln_bounds(n, h)[name]
+            log(f"compare-ln {tag} {kern}: ours {plan}; kernels under the "
+                f"profiler (ms a call): "
+                f"{_ln_kernel_ms(torch, ours, flush)}; held with L2 evicted "
+                f"by a read (clean lines) "
+                f"{time_ms(torch, ours, flush=scratch.sum):.4f} ms")
+            for src, fn, planned in entries:
+                blocks = plan.blocks if planned else min(-(-n // 4), 528)
+                theirs = _ln_bwd_call(torch, fn, rows, mu, rstd, g, blocks)
+                got = theirs()
+                e_dx = _err(got[0], want[0])[1]
+                e_gb = max(_err(a, w)[1] for a, w in zip(got[1:], want[1:]))
+                check(e_dx <= TOL["bfloat16"] and e_gb <= 1e-4,
+                      f"compare-ln {tag} {kern}: {src} differs from the "
+                      f"package's: dx {e_dx}, dgamma/dbeta {e_gb} (of "
+                      "max(1, |ours|))")
+                ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+                log(f"compare-ln {tag} {kern}: {src} ({blocks} blocks): held "
+                    f"ms in turns (theirs, ours, ours, theirs): theirs "
+                    f"{ms['theirs'][0]:.4f} {ms['theirs'][1]:.4f}, ours "
+                    f"{ms['ours'][0]:.4f} {ms['ours'][1]:.4f}; theirs / ours "
+                    f"= {t_ms / o_ms:.2f}; of the bound {bms:.4f} ms ({by}): "
+                    f"theirs {bms / t_ms:.3f}, ours {bms / o_ms:.3f}; "
+                    f"native_layer_norm_backward / ours = "
+                    f"{lib['native_bwd_ms'] / o_ms:.2f}; err dx {e_dx:.2e}, "
+                    f"dgamma/dbeta {e_gb:.2e}")
+                log(f"compare-ln {tag} {kern}: {src}: kernels under the "
+                    f"profiler (ms a call): "
+                    f"{_ln_kernel_ms(torch, theirs, flush)}")
+                grids = []
+                for k in range(1, 6):
+                    t = time_ms(torch, _ln_bwd_call(torch, fn, rows, mu, rstd,
+                                                    g, 132 * k), flush=flush)
+                    grids.append(f"{132 * k}: {t:.4f}")
+                log(f"compare-ln {tag} {kern}: {src}: held ms by grid "
+                    f"(blocks: ms): {', '.join(grids)}")
 
 
 def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
@@ -3153,8 +3395,8 @@ def phase_resnet_cpu(torch):
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
-    ``--compare-decode SRC...`` or ``--compare-paged SRC...``, only that
-    comparison."""
+    ``--compare-decode SRC...``, ``--compare-paged SRC...`` or
+    ``--compare-ln SRC...``, only that comparison."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3169,7 +3411,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     modes = {"--compare-bwd": compare_bwd, "--compare-fwd": compare_fwd,
              "--compare-decode": compare_decode,
-             "--compare-paged": compare_paged}
+             "--compare-paged": compare_paged, "--compare-ln": compare_ln}
     if sys.argv[1:2] and sys.argv[1] in modes:
         check(len(sys.argv) > 2, f"{sys.argv[1]} needs source files")
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3314,12 +3556,17 @@ def main():
         tm = fln["timing"][shape]
         bms, by = tm["bound"][name]
         return dict(
-            name=name, route="cuda", source="paddle_tpu_torch/csrc/fused_ln.cu",
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/fused_ln.cu",
             replaces=replaces, launches=path["launches"][name],
             max_abs_err=max(r["err"][part] for r in fln["rows"]
                             if r["dtype"] == "float32"),
             ms=tm["ms"][name], plain_ms=tm["plain_ms"][name], bound_ms=bms,
-            bound_by=by, library_ms=None)
+            # the backwards beside PyTorch's own LayerNorm backward, which
+            # reads one row tensor fewer than #9 and lacks #7's + ds; no
+            # single call adds and normalises (#6, #8)
+            bound_by=by, library_ms=tm["native_bwd_ms"] if "bwd" in name
+            else None)
 
     # #2 at the greedy generate shapes, every row at 576 keys (the last
     # step): GPT's f32 cache and Llama-2-7B's bf16 one

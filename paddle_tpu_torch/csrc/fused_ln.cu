@@ -21,23 +21,47 @@
 // row statistics (_STAT_LANES) are [n] here, and the block-row picker is
 // gone: any row count runs (no jnp fallback for rows that do not tile).
 //
+//
 // What bounds it on the H100: bytes. Per element the forward reads x, r and
 // writes y (and s), the backward reads dy, s (or x and r), ds and writes dx,
 // for ~10 FLOPs: far below the card's balance point, so the floor is those
-// bytes at 3.35 TB/s. What the design does about it: one warp owns one row
-// at a time and keeps it in registers (VPT values a lane, columns lane +
-// 32 j, so each load instruction of a warp is one coalesced run), so every
-// element is read once and written once; the row sums are warp shuffles.
+// bytes at 3.35 TB/s.
 //
+// The forward: one warp owns one row at a time and keeps it in registers
+// (VPT values a lane, columns lane + 32 j, so each load instruction of a
+// warp is one coalesced run), so every element is read once and written
+// once; the row sums are warp shuffles.
+//
+// The backward (#7, #9): one warp a row, lane l owning the 16-byte chunks
+// l + 32 j of it (8 bf16 or 4 f32 values each), so one warp instruction
+// moves 512 bytes; and
+// - one wave: __launch_bounds__(128, 4) holds a thread to 128 registers,
+//   so four blocks reside on an SM where shared memory allows (every bf16
+//   row; f32 rows past 512 values fit three or two); the caller's grid is
+//   two blocks an SM of the card's 132 (measured faster than four), all
+//   resident at once: no tail wave;
+// - the next row in flight: each warp streams its rows through two stages
+//   of shared memory. Row i + 1's dy and two row tensors go out as 16-byte
+//   cp.async copies, its mu and rstd as register loads, before row i is
+//   worked on. A lane reads back only the chunks it copied, so no barrier
+//   is needed. The row is read from shared memory once for the two sums and
+//   once for dx; registers hold the dg/db accumulators and one chunk;
+// - gamma read once a block, into shared memory in f32;
+// - a row that is not 16-byte aligned (h * sizeof(T) not a multiple of 16,
+//   or a view that starts off a 16-byte boundary) takes the same path with
+//   its stages filled by scalar loads, zero past h.
 // dg/db across rows: the TPU kernel adds them up over its sequential grid.
-// Here blocks run in parallel, so each lane keeps f32 partial sums for its
-// own columns over the rows its warp visits, the warps of a block add theirs
-// into shared memory in warp order, each block writes one partial row
-// [blocks, h], and a second kernel (part of the same launch) sums the
-// partial rows in a fixed order. No float atomics: a seeded run repeats bit
-// for bit. The grid size is the caller's and depends on n only.
+// Here each lane keeps f32 sums for its own columns over the rows its warp
+// visits, the warps of a block add theirs in warp order into one partial
+// row [blocks, h], and a second kernel (part of the same launch) sums the
+// partial rows in a fixed order. No float atomics: the grid is a function
+// of (n, h, dtype), so a seeded run repeats bit for bit.
 //
-// Later work (not here): 16-byte vector loads, several rows a warp, TMA.
+// What is left: one elementwise pass over as many row bytes
+// (torch.addcmul of three row tensors into a fourth) runs ~1.5x faster on
+// the H100 than this backward; the second kernel's launch; and a wave's
+// last rows (a warp runs ceil(n / (4 * blocks)) rows, at ERNIE's shape 16
+// where the mean is 15.5).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,78 +156,240 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
+// -- the backward (#7, #9) ---------------------------------------------------
+
+constexpr int kBwdMinBlocks = 4;  // blocks an SM: 128 registers a thread
+constexpr int kChunk = 16;        // bytes a lane moves a load
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous (L1 bypassed); the memory
+// clobbers keep the compiler from moving shared loads across these
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest N groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes of T <-> f32
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < kChunk / (int)sizeof(T); ++e) out[e] = to_f(v[e]);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* in) {
+  uint4 raw;
+  T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < kChunk / (int)sizeof(T); ++e) v[e] = from_f<T>(in[e]);
+  return raw;
+}
+
+// The backward's geometry at row type T and C chunks a lane. A row is
+// NCH = ceil(h / E) chunks of E values; lane l owns chunks l + 32 j, j < C.
+// Shared memory: gamma in f32 ([C][E / 4][32 lanes][4], so a lane's float4
+// reads of a chunk are one 512-byte run a warp), then a ring for each warp
+// of two stages of three row tensors ([stage][tensor][chunk][16 bytes]).
+template <typename T, int C>
+struct Bwd {
+  static constexpr int E = kChunk / (int)sizeof(T);  // values a chunk
+  static constexpr int V = C * E;                    // values a lane
+  static constexpr int ROW = C * 32 * kChunk;        // bytes a staged row
+  static constexpr int STAGE = 3 * ROW;              // dy, a, b (or ds)
+  static constexpr int GAMMA = 32 * V * 4;           // f32 gamma bytes
+  static constexpr int SMEM = GAMMA + kWarps * 2 * STAGE;
+};
+
 // kSum: #7 (a = the saved s, ds added) or #9 (s = a + b recomputed, no ds).
-// Writes dx and one [h] row of dg and db partials per block.
-template <typename T, int VPT, bool kSum>
-__global__ void __launch_bounds__(kThreads)
+// Writes dx and one [h] row of dg and db partials per block. vec: every
+// row pointer and h * sizeof(T) are 16-byte multiples, so the stages fill
+// by cp.async; else by scalar loads, zero past h.
+template <typename T, int C, bool kSum>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
               const T* __restrict__ a, const T* __restrict__ b,
               const float* __restrict__ mu, const float* __restrict__ rstd,
               const void* __restrict__ gamma, bool w_bf16,
               T* __restrict__ dx, float* __restrict__ part_g,
-              float* __restrict__ part_b, long long n, int h) {
-  extern __shared__ float red[];  // [2, h]: the block's dg and db
+              float* __restrict__ part_b, long long n, int h, bool vec) {
+  using G = Bwd<T, C>;
+  constexpr int E = G::E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* gs = reinterpret_cast<float*>(smem);
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
-  const long long nwarps = (long long)gridDim.x * kWarps;
-  float acc_g[VPT], acc_b[VPT];
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) acc_g[j] = acc_b[j] = 0.f;
+  unsigned char* ring = smem + G::GAMMA + wib * 2 * G::STAGE;
+  const int nch = (h + E - 1) / E;
+  const T* rows2 = kSum ? ds : b;
 
-  for (long long row = (long long)blockIdx.x * kWarps + wib; row < n;
-       row += nwarps) {
-    const long long base = row * h;
-    const float m = mu[row], rs = rstd[row];
-    float xhat[VPT], dxh[VPT];
+  // this lane's chunks of row `row` into stage s (an empty group past n)
+  auto fill = [&](int s, long long row) {
+    if (row < n) {
+      const long long base = row * h;
+      const T* src[3] = {dy + base, a + base, rows2 + base};
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int k = lane + 32 * j;
+          unsigned char* dst = ring + s * G::STAGE + t * G::ROW + k * kChunk;
+          if (k < nch) {
+            if (vec) {
+              cp_async16(dst, src[t] + k * E);
+            } else {
+              uint4 raw;
+              T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+              for (int e = 0; e < E; ++e) {
+                const int c = k * E + e;
+                v[e] = c < h ? src[t][c] : from_f<T>(0.f);
+              }
+              *reinterpret_cast<uint4*>(dst) = raw;
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // chunk j of tensor t in stage s, and gamma's values of chunk j
+  auto staged = [&](int s, int t, int j, float* out) {
+    unpack16<T>(*reinterpret_cast<const uint4*>(
+                    ring + s * G::STAGE + t * G::ROW +
+                    (lane + 32 * j) * kChunk),
+                out);
+  };
+  auto gamma_of = [&](int j, float* out) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 g4 = reinterpret_cast<const float4*>(
+          gs)[(j * (E / 4) + q) * 32 + lane];
+      out[4 * q] = g4.x;
+      out[4 * q + 1] = g4.y;
+      out[4 * q + 2] = g4.z;
+      out[4 * q + 3] = g4.w;
+    }
+  };
+
+  float acc_g[G::V], acc_b[G::V];
+#pragma unroll
+  for (int i = 0; i < G::V; ++i) acc_g[i] = acc_b[i] = 0.f;
+
+  // the first row's copies go out before gamma is read
+  const long long stride = (long long)gridDim.x * kWarps;
+  long long row = (long long)blockIdx.x * kWarps + wib;
+  fill(0, row);
+  float m_next = row < n ? mu[row] : 0.f;
+  float rs_next = row < n ? rstd[row] : 0.f;
+  for (int i = threadIdx.x; i < 32 * G::V; i += kThreads) {
+    const int t = i & 3, l = (i >> 2) & 31, jq = i >> 7;
+    const int c = (l + 32 * (jq / (E / 4))) * E + 4 * (jq % (E / 4)) + t;
+    gs[i] = c < h ? load_w(gamma, c, w_bf16) : 0.f;
+  }
+  __syncthreads();
+  for (int s = 0; row < n; row += stride, s ^= 1) {
+    const float m = m_next, rs = rs_next;
+    const long long next = row + stride;
+    fill(s ^ 1, next);  // the next row's copies go out first
+    if (next < n) {
+      m_next = mu[next];
+      rs_next = rstd[next];
+    }
+    cp_async_wait<1>();  // this row's copies landed
+
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) {
-      const int c = lane + 32 * j;
-      if (c < h) {
-        const float sv = kSum ? to_f(a[base + c])
-                              : to_f(a[base + c]) + to_f(b[base + c]);
-        const float d = to_f(dy[base + c]);
-        xhat[j] = (sv - m) * rs;
-        dxh[j] = d * load_w(gamma, c, w_bf16);
-        acc_g[j] += d * xhat[j];
-        acc_b[j] += d;
-      } else {
-        xhat[j] = dxh[j] = 0.f;
+    for (int j = 0; j < C; ++j) {
+      if (lane + 32 * j < nch) {
+        float d[E], u[E], w[E], g[E];
+        staged(s, 0, j, d);
+        staged(s, 1, j, u);
+        if constexpr (!kSum) staged(s, 2, j, w);
+        gamma_of(j, g);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float sv = kSum ? u[e] : u[e] + w[e];
+          const float xhat = (sv - m) * rs;
+          const float dxh = d[e] * g[e];
+          acc_g[j * E + e] += d[e] * xhat;
+          acc_b[j * E + e] += d[e];
+          s1 += dxh;
+          s2 += dxh * xhat;
+        }
       }
-      s1 += dxh[j];
-      s2 += dxh[j] * xhat[j];
     }
     const float m1 = warp_sum(s1) / h;
     const float m2 = warp_sum(s2) / h;
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) {
-      const int c = lane + 32 * j;
-      if (c < h) {
-        float v = rs * (dxh[j] - m1 - xhat[j] * m2);
-        if constexpr (kSum) v += to_f(ds[base + c]);
-        dx[base + c] = from_f<T>(v);
-      }
-    }
-  }
-
-  // the block's partials: warps add theirs in warp order
-  for (int w = 0; w < kWarps; ++w) {
-    if (wib == w) {
+    for (int j = 0; j < C; ++j) {
+      const int k = lane + 32 * j;
+      if (k < nch) {
+        float d[E], u[E], w[E], g[E], v[E];
+        staged(s, 0, j, d);
+        staged(s, 1, j, u);
+        staged(s, 2, j, w);
+        gamma_of(j, g);
 #pragma unroll
-      for (int j = 0; j < VPT; ++j) {
-        const int c = lane + 32 * j;
-        if (c < h) {
-          red[c] = w ? red[c] + acc_g[j] : acc_g[j];
-          red[h + c] = w ? red[h + c] + acc_b[j] : acc_b[j];
+        for (int e = 0; e < E; ++e) {
+          const float sv = kSum ? u[e] : u[e] + w[e];
+          const float xhat = (sv - m) * rs;
+          v[e] = rs * (d[e] * g[e] - m1 - xhat * m2);
+          if constexpr (kSum) v[e] += w[e];
+        }
+        T* out = dx + row * h + k * E;
+        if (vec) {
+          *reinterpret_cast<uint4*>(out) = pack16<T>(v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (k * E + e < h) out[e] = from_f<T>(v[e]);
         }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
+  // the block's partials: each warp's accumulators into its own [2, 32 V]
+  // slice of the (now idle) rings, then the warps added in warp order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + G::GAMMA);
+  float* mine = red + wib * 2 * 32 * G::V;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = (lane + 32 * j) * E + e;
+      mine[c] = acc_g[j * E + e];
+      mine[32 * G::V + c] = acc_b[j * E + e];
+    }
+  }
+  __syncthreads();
   const long long prow = (long long)blockIdx.x * h;
   for (int c = threadIdx.x; c < h; c += kThreads) {
-    part_g[prow + c] = red[c];
-    part_b[prow + c] = red[h + c];
+    float g = red[c], bb = red[32 * G::V + c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      g += red[w * 2 * 32 * G::V + c];
+      bb += red[w * 2 * 32 * G::V + 32 * G::V + c];
+    }
+    part_g[prow + c] = g;
+    part_b[prow + c] = bb;
   }
 }
 
@@ -275,26 +461,117 @@ int launch_fwd(const void* x, const void* r, const void* gamma,
   return (int)cudaGetLastError();
 }
 
+// C: chunks a lane for a row of h values of `es` bytes, rounded up to an
+// instantiated count (bf16 rows take 1-4, f32 rows 1-4, 6 or 8); 0 above
+// h = 1024
+int pick_chunks(int h, int es) {
+  if (h > 1024) return 0;
+  const int e = kChunk / es;
+  const int c = ((h + e - 1) / e + 31) / 32;
+  return c <= 4 ? c : (c <= 6 ? 6 : 8);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int C, bool kSum>
+cudaError_t bwd_attrs() {
+  // above 48 KB of dynamic shared memory needs the opt-in, and all of the
+  // SM's shared memory as such (the copies bypass L1): once each
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ln_bwd_kernel<T, C, kSum>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd<T, C>::SMEM);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ln_bwd_kernel<T, C, kSum>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  return attr;
+}
+
+// CALL(C) for the chunk count of h values of T (a function body's end)
+#define FLN_CHUNKS(CALL)                                      \
+  switch (pick_chunks(h, (int)sizeof(T))) {                   \
+    case 1: return CALL(1);                                   \
+    case 2: return CALL(2);                                   \
+    case 3: return CALL(3);                                   \
+    case 4: return CALL(4);                                   \
+    case 6: if constexpr (sizeof(T) == 4) return CALL(6); break; \
+    case 8: if constexpr (sizeof(T) == 4) return CALL(8); break; \
+  }                                                           \
+  return (int)cudaErrorInvalidValue;
+
+template <typename T, int C, bool kSum>
+int launch_rows_c(const void* dy, const void* ds, const void* a,
+                  const void* b, const float* mu, const float* rstd,
+                  const void* gamma, bool w_bf16, void* dx, float* part_g,
+                  float* part_b, long long n, int h, int blocks,
+                  cudaStream_t stream) {
+  const cudaError_t err = bwd_attrs<T, C, kSum>();
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = (h * sizeof(T)) % kChunk == 0 && aligned16(dy) &&
+                   aligned16(a) && aligned16(kSum ? ds : b) &&
+                   aligned16(dx);
+  ln_bwd_kernel<T, C, kSum>
+      <<<blocks, kThreads, Bwd<T, C>::SMEM, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(ds),
+      static_cast<const T*>(a), static_cast<const T*>(b), mu, rstd, gamma,
+      w_bf16, static_cast<T*>(dx), part_g, part_b, n, h, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kSum>
+int launch_rows(const void* dy, const void* ds, const void* a, const void* b,
+                const float* mu, const float* rstd, const void* gamma,
+                bool w_bf16, void* dx, float* part_g, float* part_b,
+                long long n, int h, int blocks, cudaStream_t stream) {
+#define FLN_ROWS(CC)                                                      \
+  launch_rows_c<T, CC, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,  \
+                             part_g, part_b, n, h, blocks, stream)
+  FLN_CHUNKS(FLN_ROWS)
+#undef FLN_ROWS
+}
+
 template <typename T, bool kSum>
 int launch_bwd(const void* dy, const void* ds, const void* a, const void* b,
                const float* mu, const float* rstd, const void* gamma,
                bool w_bf16, void* dx, float* part_g, float* part_b,
                float* dg, float* db, long long n, int h, int blocks,
                cudaStream_t stream) {
-  const int vpt = pick_vpt(h);
-  const size_t smem = 2 * (size_t)h * sizeof(float);
-#define FLN_BWD(V)                                                          \
-  ln_bwd_kernel<T, V, kSum><<<blocks, kThreads, smem, stream>>>(            \
-      static_cast<const T*>(dy), static_cast<const T*>(ds),                 \
-      static_cast<const T*>(a), static_cast<const T*>(b), mu, rstd, gamma,  \
-      w_bf16, static_cast<T*>(dx), part_g, part_b, n, h)
-  FLN_DISPATCH(vpt, FLN_BWD)
-#undef FLN_BWD
-  int err = (int)cudaGetLastError();
+  const int err = launch_rows<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16,
+                                       dx, part_g, part_b, n, h, blocks,
+                                       stream);
   if (err) return err;
   colsum_kernel<<<(h + kColX - 1) / kColX, dim3(kColX, kColY), 0, stream>>>(
       part_g, part_b, blocks, h, dg, db);
   return (int)cudaGetLastError();
+}
+
+// out: [blocks an SM resident, dynamic shared memory bytes, registers a
+// thread, local (spill) bytes a thread] of one backward instantiation
+template <typename T, int C, bool kSum>
+int bwd_residency(int* out) {
+  cudaError_t err = bwd_attrs<T, C, kSum>();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, ln_bwd_kernel<T, C, kSum>, kThreads, Bwd<T, C>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, ln_bwd_kernel<T, C, kSum>);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = Bwd<T, C>::SMEM;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+template <typename T, bool kSum>
+int residency(int h, int* out) {
+#define FLN_RES(CC) bwd_residency<T, CC, kSum>(out)
+  FLN_CHUNKS(FLN_RES)
+#undef FLN_RES
 }
 
 }  // namespace
@@ -325,15 +602,17 @@ extern "C" int fused_ln_fwd(const void* x, const void* r, const void* gamma,
 // a = x, b = r). dy, ds, a, b, dx: n x h of one dtype; mu/rstd: n floats;
 // gamma: h values (w_bf16); part_g/part_b: blocks x h float scratch;
 // dg/db: h floats. `blocks` is the grid of the row kernel (the caller's
-// choice, a function of n alone, so a run repeats bit for bit). Two
-// kernels on `stream`; returns cudaGetLastError().
+// choice, a function of n, h and the dtype, so a run repeats bit for bit;
+// one wave where it is at most 132 SMs x the resident blocks). Two kernels
+// on `stream`; returns cudaGetLastError().
 extern "C" int fused_ln_bwd(const void* dy, const void* ds, const void* a,
                             const void* b, const float* mu, const float* rstd,
                             const void* gamma, void* dx, float* part_g,
                             float* part_b, float* dg, float* db, long long n,
                             int h, int blocks, int is_bf16, int w_bf16,
                             void* stream) {
-  if (n <= 0 || h <= 0 || blocks <= 0 || !pick_vpt(h) || (!ds && !b))
+  if (n <= 0 || h <= 0 || blocks <= 0 || !pick_chunks(h, is_bf16 ? 2 : 4) ||
+      (!ds && !b))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wb = w_bf16 != 0;
@@ -351,4 +630,19 @@ extern "C" int fused_ln_bwd(const void* dy, const void* ds, const void* a,
             : launch_bwd<float, false>(dy, ds, a, b, mu, rstd, gamma, wb, dx,
                                        part_g, part_b, dg, db, n, h, blocks,
                                        st);
+}
+
+// The backward row kernel's residency for rows of h values (is_bf16), #7
+// (with_sum) or #9: out[0] blocks an SM (cudaOccupancy...), out[1] its
+// dynamic shared memory bytes, out[2] registers a thread, out[3] local
+// (spill) bytes a thread. Launches nothing; returns a CUDA error or 0.
+extern "C" int fused_ln_bwd_residency(int h, int is_bf16, int with_sum,
+                                      int* out) {
+  if (h <= 0 || !pick_chunks(h, is_bf16 ? 2 : 4))
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return with_sum ? residency<__nv_bfloat16, true>(h, out)
+                    : residency<__nv_bfloat16, false>(h, out);
+  return with_sum ? residency<float, true>(h, out)
+                  : residency<float, false>(h, out);
 }

@@ -31,17 +31,21 @@ and res. mu and rstd are [N] f32 (the TPU's 128-lane replication is
 dropped); dgamma and dbeta are f32 sums over the rows.
 
 Kernel note (details in the .cu): bound by bytes, every element read and
-written once, one warp a row held in registers; dgamma/dbeta through
-per-block partial rows and a fixed-order column sum, so a run repeats bit
-for bit.
+written once, one warp a row. The forward holds the row in registers; the
+backward moves it in 16-byte chunks through two shared-memory stages a
+warp (the next row in flight while this one is worked on), in one wave of
+resident blocks (``bwd_plan``); dgamma/dbeta through per-block partial
+rows and a fixed-order column sum, so a run repeats bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["MAX_H", "fused_add_layer_norm_fwd", "fused_add_layer_norm_bwd",
+__all__ = ["MAX_H", "BwdPlan", "bwd_plan", "bwd_residency",
+           "fused_add_layer_norm_fwd", "fused_add_layer_norm_bwd",
            "fused_add_layer_norm_y_fwd", "fused_add_layer_norm_y_bwd",
            "fused_add_layer_norm_fwd_plain", "fused_add_layer_norm_bwd_plain",
            "fused_add_layer_norm_y_fwd_plain",
@@ -51,7 +55,14 @@ __all__ = ["MAX_H", "fused_add_layer_norm_fwd", "fused_add_layer_norm_bwd",
 MAX_H = 1024  # the widest row the kernels keep in registers (32 x 32)
 _DTYPES = (torch.float32, torch.bfloat16)
 _WARPS = 4               # rows a block works on at once (kWarps in the .cu)
-_MAX_BWD_BLOCKS = 528    # 132 SMs x 4: the backward's grid, and its partials
+# the backward's launch (csrc/fused_ln.cu: kBwdMinBlocks, kChunk, Bwd<T, C>)
+_SMS = 132               # H100 SXM
+_BWD_MIN_BLOCKS = 4      # __launch_bounds__(128, 4): 128 registers a thread
+_BWD_GRID_PER_SM = 2     # blocks an SM the grid aims at (of those resident)
+_CHUNK = 16              # bytes a lane moves a load
+_CHUNK_COUNTS = (1, 2, 3, 4, 6, 8)   # chunks a lane, as instantiated
+_SMEM_PER_SM = 233472    # 228 KB of shared memory an SM
+_SMEM_RESERVED = 1024    # ... of which the runtime keeps 1 KB a block
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 # x, r, gamma, beta, y, s, mu, rstd; n; h; eps; is_bf16; w_bf16; stream
@@ -59,6 +70,8 @@ _FWD_ARGTYPES = [_P] * 8 + [_L, _I, _F, _I, _I, _P]
 # dy, ds, a, b, mu, rstd, gamma, dx, part_g, part_b, dg, db; n; h; blocks;
 # is_bf16; w_bf16; stream
 _BWD_ARGTYPES = [_P] * 12 + [_L, _I, _I, _I, _I, _P]
+# h; is_bf16; with_sum; out (4 ints)
+_RESIDENCY_ARGTYPES = [_I, _I, _I, _P]
 
 
 # -- the plain twins ----------------------------------------------------------
@@ -112,14 +125,53 @@ def fused_add_layer_norm_y_bwd_plain(dy, x, res, mu, rstd, gamma):
     return dx.to(dy.dtype), dg, db
 
 
+# -- the backward's launch plan -----------------------------------------------
+
+class BwdPlan(NamedTuple):
+    """How the backward (#7, #9) runs [n, h] rows: ``chunks`` 16-byte
+    chunks a lane (lane l owns chunks l + 32 j of a row), ``smem`` bytes of
+    shared memory a block, ``blocks_per_sm`` blocks resident an SM, and a
+    grid of ``blocks`` blocks of 4 warps; warp w of block b takes rows
+    b * 4 + w, then every 4 * blocks rows on. The partial rows of
+    dgamma/dbeta are [2, blocks, h] f32."""
+    chunks: int
+    smem: int
+    blocks_per_sm: int
+    blocks: int
+
+
+def bwd_plan(n, h, dtype):
+    """The backward's launch plan: a function of (n, h, dtype) alone, so
+    the partial rows, and with them dgamma/dbeta, repeat bit for bit. The
+    grid is one wave: two blocks an SM of the card's 132, where up to four
+    reside (registers held to 128 a thread; shared memory: gamma in f32
+    and, per warp, two stages of three row tensors). Two run 3-11 % faster
+    than four on the H100 at both slice shapes, and sum half the partial
+    rows."""
+    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
+    nch = -(-h // per)                                      # chunks a row
+    chunks = next((c for c in _CHUNK_COUNTS if 32 * c >= nch), None)
+    if chunks is None or h > MAX_H or n < 1 or h < 1:
+        raise ValueError(f"bwd_plan: no plan for [{n}, {h}] rows")
+    row = chunks * 32 * _CHUNK
+    smem = 32 * chunks * per * 4 + _WARPS * 2 * 3 * row
+    per_sm = min(_BWD_MIN_BLOCKS, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    grid = _SMS * min(_BWD_GRID_PER_SM, per_sm)
+    return BwdPlan(chunks, smem, per_sm, min(-(-n // _WARPS), grid))
+
+
 # -- the CUDA side ------------------------------------------------------------
+
+def _on_cuda(fn, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+
 
 def _check(fn, rows, gamma, beta=None):
     """Raise on anything the kernels do not take. ``rows``: (name, tensor)
     pairs of one [N, H] shape and dtype."""
     first = rows[0][1]
-    if first.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {first.device}")
+    _on_cuda(fn, first)
     if first.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {first.dtype} not in {_DTYPES}")
     if first.dim() != 2 or first.shape[0] < 1 or first.shape[1] < 1:
@@ -185,19 +237,13 @@ def _fwd_cuda(fn, x, res, gamma, beta, eps, with_sum):
     return y, s, mu, rstd
 
 
-def _bwd_blocks(n):
-    """The backward's grid: a function of N alone, so the partial rows, and
-    with them dgamma/dbeta, repeat bit for bit."""
-    return min(-(-n // _WARPS), _MAX_BWD_BLOCKS)
-
-
 def _bwd_cuda(fn, dy, ds, a, b, mu, rstd, gamma):
     rows = [("dy", dy), ("ds", ds) if ds is not None else ("res", b),
             ("s", a) if ds is not None else ("x", a)]
     _check(fn.__name__, rows, gamma)
     _stats_for(fn.__name__, mu, rstd, dy)
     n, h = dy.shape
-    blocks = _bwd_blocks(n)
+    blocks = bwd_plan(n, h, dy.dtype).blocks
     dx = torch.empty_like(dy)
     part = torch.empty(2, blocks, h, dtype=torch.float32, device=dy.device)
     dgb = torch.empty(2, h, dtype=torch.float32, device=dy.device)
@@ -209,6 +255,23 @@ def _bwd_cuda(fn, dy, ds, a, b, mu, rstd, gamma):
             dgb[1].data_ptr(), n, h, blocks, int(dy.dtype == torch.bfloat16),
             int(gamma.dtype == torch.bfloat16))
     return dx, dgb[0], dgb[1]
+
+
+def bwd_residency(h, dtype, with_sum, device="cuda"):
+    """What the card makes of the backward's row kernel for [*, h] rows of
+    ``dtype``, #7 (``with_sum``) or #9: {"blocks_per_sm"
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "smem", "registers",
+    "spill_bytes" (local memory a thread)}. Launches nothing."""
+    from .. import _build
+    entry = _build.load("fused_ln", _RESIDENCY_ARGTYPES,
+                        "fused_ln_bwd_residency")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device(device)):
+        err = entry(h, int(dtype == torch.bfloat16), int(with_sum), out)
+    if err:
+        raise RuntimeError(f"bwd_residency: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "smem", "registers", "spill_bytes"),
+                    out))
 
 
 def fused_add_layer_norm_fwd(x, res, gamma, beta, eps=1e-5):
