@@ -43,8 +43,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              kernels (dq; dk/dv) vs their plain twins at gpt3-345M training
              shapes (B=8, H=16, D=64, S=1024, causal; f32 and bf16; dropout
              0 and 0.1), plus kv_lens < S, kv_lens = 0, sq != sk, D=128 and
-             D=256; then 27 bf16 cases with dropout 0.1 that cut the bf16
-             kernels' tiles raggedly (D 64/128/256; sq, sk in {1, 63, 65,
+             D=256, and GPT-1.3B's shape (B=4, H=16, S=1024, D=128; bf16,
+             dropout 0.1) timed; then 27 bf16 cases with dropout 0.1 that
+             cut the bf16 kernels' tiles raggedly (D 64/128/256; sq, sk in {1, 63, 65,
              127, 129, 1000}, sq != sk under causal both ways; kv_lens 0,
              mid-tile and sk); a second backward must repeat the first bit
              for bit in every case, a second forward in every bf16 case; with V the identity the forward's
@@ -53,8 +54,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              dq and dk/dv), with achieved TFLOP/s and share of the bound;
 6. adamw   — the one-pass AdamW kernel vs its plain twin on a 1024x4096
              leaf and the 50304x1024 embedding, coupled and decoupled
-             decay, plus an odd length and an unaligned view; times kernel,
-             twin and torch.optim.AdamW(fused=True);
+             decay, GPT-1.3B's 50304x2048 embedding and 2048x8192 MLP leaf,
+             plus an odd length and an unaligned view; times kernel, twin
+             and torch.optim.AdamW(fused=True);
 7. train   — gpt3-345M at full width and depth, f32 params on cuda,
              dropout 0, through Engine(GPTPretrainingCriterion,
              AdamW(1e-4, weight_decay=0.01, fused_kernel=True), bf16 AMP):
@@ -75,15 +77,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. fused-ln — the fused residual-add + LayerNorm kernels #6-#9 vs their
              plain twins, forward outputs and every gradient: f32 and bf16
              rows, H in {64, 768, 1024}, N in {7, 8192, 16384}, and H in
-             {100, 1000} at N in {7, 8192} and {7, 16384}, eps 1e-12 and
-             1e-5, gamma/beta in f32 and in the rows' dtype, and rows that
-             start off a 16-byte boundary (big[1:] at H 1023 and 101); a
-             second backward must repeat bit for bit and a row wider than
-             the kernel holds must raise; the backward's row kernel must
-             reside as many blocks an SM as its plan's grid counts on
-             (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with no
-             local bytes; times at ERNIE's (N=16384, H=768) and GPT's
-             (N=8192, H=1024) shapes in bf16, beside
+             {100, 1000} at N in {7, 8192} and {7, 16384}, the wide rows
+             H in {1025, 1536, 2048, 2056, 3000, 4096, 8192} at N in
+             {7, 4096}, eps 1e-12 and 1e-5, gamma/beta in f32 and in the
+             rows' dtype, and rows that start one value into a buffer, off
+             a 16-byte boundary (H 1023, 101, 2048 and 3000); a second
+             backward must repeat bit for bit and a row wider than MAX_H
+             must raise naming ROADMAP queue 2; the backward's row kernel
+             must reside as many blocks an SM as its plan's grid counts on
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor; exactly as
+             many for a wide row), with no local bytes; times at ERNIE's
+             (N=16384, H=768), GPT's (N=8192, H=1024) and GPT-1.3B's
+             (N=4096, H=2048) shapes in bf16, beside
              aten.native_layer_norm_backward and the eager
              F.layer_norm(x + r) pair;
 10. flash-noncausal — the three flash kernels with causal=False at ERNIE's
@@ -156,7 +161,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
              within 1e-3 of their max-abs, top-1 equal;
 21. resnet-cpu — resnet50 fused NHWC, f32, batch 2 x 3 x 64 x 64, the same
              weights on cuda (kernel #11) and on the CPU (its twin): logits
-             within 1e-3 of their max-abs, argmax equal.
+             within 1e-3 of their max-abs, argmax equal;
+22. gpt-1.3b — gpt3-1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads of
+             128) at full width and depth, seeded random weights, dropout
+             0, f32 params, bf16 AMP, AdamW(1e-4, weight_decay=0.01,
+             fused_kernel=True) through Engine, batch 4 x 1024 (bench.py's
+             gpt-1.3b stage without the TPU's recompute and bf16 moments):
+             fused_ln off, 2 warm-up and 10 timed steps ending in one
+             sync, and on, 2 + 5; per step 24 launches of each flash
+             kernel, 146 AdamW launches, 24 of #6 and #7 with fused_ln (0
+             without) and none of #8/#9; a finite, falling loss; ms a step,
+             tokens/s, peak memory and one profiled step each;
+23. gpt-1.3b-cpu — gpt3-1.3B cut to 2 layers at hidden 2048, fused_ln,
+             f32, batch 1 x 128: one step on cuda (kernels #6/#7 on rows of
+             2048) and on the CPU from the same weights, held to phase 8's
+             bars.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -181,7 +200,8 @@ model's projections compute in full f32.
 Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
-generate() call (phases 15-17) and one ResNet-50 serve forward (phase 20).
+generate() call (phases 15-17), one ResNet-50 serve forward (phase 20)
+and each GPT-1.3B run (phase 22).
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -191,7 +211,8 @@ timed number of the kernel table is reported held (the value) and unheld
 (the same launches on a free device, as the host reaches them).
 
 Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
-main path runs), the card's name and power limit (nvidia-smi), and as the
+main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
+with a "shape" key), the card's name and power limit (nvidia-smi), and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
 when no CUDA device is present or when the package is not beside this
 script.
@@ -216,10 +237,11 @@ dense decode GPT's f32 and Llama-2-7B's bf16 generate shapes, and for the
 paged decode phase 3's timed shapes (each decode mode then times the
 package's kernel at other targets of blocks a call; the paged mode also
 with L2 evicted by a read, with every lens 0 and beside a torch.sum of as
-many bytes), and for the fused LN backwards #7 and #9 ERNIE's and GPT's
-bf16 shapes beside aten.native_layer_norm_backward and a torch.addcmul
-over as many row bytes (each source also at grids of 132 x 1..5 blocks,
-its two kernels under the profiler, ours with a read flush). The forward
+many bytes), and for the fused LN forwards #6 and #8 and backwards #7
+and #9 ERNIE's and GPT's bf16 shapes (the backwards beside
+aten.native_layer_norm_backward and a torch.addcmul over as many row
+bytes, each source also at grids of 132 x 1..5 blocks, its two kernels
+under the profiler, ours with a read flush). The forward
 mode first checks that cvt.rna.tf32.f32 rounds as the kernels' integer
 tf32 rounding does and times back-to-back mma.sync TF32 products, the
 ceiling the f32 kernel is read against.
@@ -525,7 +547,7 @@ def phase_build():
             for kern, nreg, spill in _instantiations(logtxt):
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
-                check(not (kern.startswith("ln_bwd_kernel") and spill),
+                check(not (kern.startswith("ln_bwd") and spill),
                       f"build: {kern} spills {spill} bytes")
     # the forward's CUDA-core work: a tile's softmax is straight-line code
     # between its two products, over 32 (q, k) pairs a thread
@@ -1172,6 +1194,9 @@ def phase_flash_train(torch, flush):
             rows.append(_flash_train_case(torch, 8, 16, 1024, 1024, 64,
                                           dtype, None, dropout, gen, flush,
                                           timed=True))
+    # GPT-1.3B's training shape: 16 heads of 128 at batch 4 x 1024
+    rows.append(_flash_train_case(torch, 4, 16, 1024, 1024, 128, "bfloat16",
+                                  None, 0.1, gen, flush, timed=True))
     for dtype in ("float32", "bfloat16"):
         rows.append(_flash_train_case(torch, 2, 4, 256, 256, 64, dtype,
                                       [200, 256], 0.1, gen, flush, False))
@@ -1850,6 +1875,10 @@ def phase_adamw(torch, flush):
         for decoupled in (True, False):
             rows.append(_adamw_case(torch, shape, decoupled, gen, flush,
                                     timed=True))
+    # GPT-1.3B's largest leaves: the 50304 x 2048 embedding (103 M values)
+    # and an MLP matrix
+    for shape in ((50304, 2048), (2048, 8192)):
+        rows.append(_adamw_case(torch, shape, True, gen, flush, timed=True))
     # a length with a ragged float4 tail, and a view 4 bytes off alignment
     rows.append(_adamw_case(torch, 16411, True, gen, flush, False))
     rows.append(_adamw_case(torch, 20000, True, gen, flush, False, offset=1))
@@ -1869,9 +1898,9 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen, offset=False):
     """The four kernels vs their twins on one input: y, s, mu, rstd of both
     forwards and dx, dgamma, dbeta of both backwards (each backward twin
     given the kernel forward's own saved tensors); the backward run twice
-    must give the same bits. ``offset``: every input row tensor is the
-    contiguous view big[1:] of an [n + 1, h] tensor, which at an odd h
-    starts off a 16-byte boundary. Returns the max errors."""
+    must give the same bits. ``offset``: every input row tensor is a
+    contiguous [n, h] view that starts one value into a flat buffer, off a
+    16-byte boundary whatever h. Returns the max errors."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     dt, wdt = getattr(torch, dtype), getattr(torch, w_dtype)
 
@@ -1882,8 +1911,8 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen, offset=False):
     dy, ds = mk(n, h), mk(n, h)
     g, b = mk(h, scale=0.1, shift=1.0), mk(h, scale=0.1)
     if offset:
-        x, r, dy, ds = (torch.empty(n + 1, h, dtype=dt, device="cuda")[1:]
-                        .copy_(t) for t in (x, r, dy, ds))
+        x, r, dy, ds = (torch.empty(n * h + 1, dtype=dt, device="cuda")[1:]
+                        .view(n, h).copy_(t) for t in (x, r, dy, ds))
         check(all(t.is_contiguous() and t.data_ptr() % 16
                   for t in (x, r, dy, ds)),
               f"fused-ln: the offset rows at h {h} start on a 16-byte "
@@ -2028,21 +2057,32 @@ def _ln_timing(torch, n, h, gen, flush):
 
 # the backward's new cases: widths that cut its 16-byte chunks and lanes
 # (100: bf16 rows of 200 bytes; 1000: 125 bf16 or 250 f32 chunks), and
-# rows that start off a 16-byte boundary (big[1:] at an odd h)
+# rows that start off a 16-byte boundary (one value into a buffer)
 LN_RAGGED = ((7, 100), (8192, 100), (7, 1000), (16384, 1000))
 LN_OFFSET = ((8192, 1023, "bfloat16"), (8192, 101, "bfloat16"),
-             (8192, 1023, "float32"))
+             (8192, 1023, "float32"), (4096, 2048, "bfloat16"),
+             (4096, 3000, "bfloat16"), (4096, 3000, "float32"))
+# rows wider than 1024 values, W = ceil(h / 512) warps a row, 16 // W rows
+# a block of 16 warps: three slices of 344 / 344 / 337 values (1025) and of
+# 512 (1536), four (2048, GPT-1.3B's width), five (2056: slices of 416 and
+# a last of 392 bf16 / 408 f32), six (3000: rows of 6000 bytes, not
+# 16-byte multiples), eight (4096) and sixteen (8192, MAX_H)
+LN_WIDE = (1025, 1536, 2048, 2056, 3000, 4096, 8192)
+# the backward's widths held against its plan: one warp a row, and wide
+# (4608: nine warps a row, seven of a block left over)
+LN_RESIDENCY = (64, 100, 768, 1000, 1024) + LN_WIDE + (4608,)
 
 
 def _ln_residency(torch):
     """The backward's row kernel as the card resides it, against its plan:
-    each (#7, #9) x (f32, bf16) x h in {64, 100, 768, 1000, 1024} must
-    reside as many blocks an SM as the plan counts on (so the grid is one
-    wave), with the plan's shared memory and no local (spill) bytes."""
+    each (#7, #9) x (f32, bf16) x h in LN_RESIDENCY must reside as many
+    blocks an SM as the plan counts on (so the grid is one wave), exactly
+    as many for a wide row (its shared memory sets them), with the plan's
+    shared memory and no local (spill) bytes."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for h in (64, 100, 768, 1000, 1024):
+        for h in LN_RESIDENCY:
             for kern, with_sum in (("#7", True), ("#9", False)):
                 plan = kln.bwd_plan(16384, h, dtype)
                 res = kln.bwd_residency(h, dtype, with_sum)
@@ -2054,7 +2094,9 @@ def _ln_residency(torch):
                     f"{plan.blocks_per_sm}), grid at n = 16384 "
                     f"{plan.blocks} (one wave: "
                     f"{plan.blocks <= 132 * res['blocks_per_sm']})")
-                check(res["blocks_per_sm"] >= plan.blocks_per_sm
+                resident = res["blocks_per_sm"]
+                check((resident == plan.blocks_per_sm if h > 1024 else
+                       resident >= plan.blocks_per_sm)
                       and res["smem"] == plan.smem
                       and res["spill_bytes"] == 0,
                       f"fused-ln: backward {tag} resides {res} against the "
@@ -2066,10 +2108,11 @@ def _ln_residency(torch):
 def phase_fused_ln(torch, flush):
     """Kernels #6-#9 vs their twins: f32 and bf16, H in {64, 768, 1024},
     N in {7, 8192, 16384}, eps 1e-12 and 1e-5, gamma/beta in f32 and in
-    the rows' dtype, plus H = 100 and 1000 and rows off a 16-byte boundary
-    (LN_RAGGED, LN_OFFSET); a width above the kernel's raises; the
-    backward resides as its plan counts on (_ln_residency); times at the
-    two slice shapes (ERNIE: N=16384 H=768; GPT: N=8192 H=1024; bf16)."""
+    the rows' dtype, plus H = 100 and 1000, the wide rows of LN_WIDE at
+    N in {7, 4096}, and rows off a 16-byte boundary (LN_RAGGED, LN_OFFSET);
+    a width above the kernels' raises; the backward resides as its plan
+    counts on (_ln_residency); times at the three slice shapes (ERNIE:
+    N=16384 H=768; GPT: N=8192 H=1024; GPT-1.3B: N=4096 H=2048; bf16)."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
@@ -2080,6 +2123,13 @@ def phase_fused_ln(torch, flush):
                 # bf16 rows meet f32 and bf16 parameters at each eps
                 w_dtype = dtype if (k + j) % 2 else "float32"
                 rows.append(_ln_case(torch, n, h, dtype, w_dtype, eps, gen))
+    for k, h in enumerate(LN_WIDE):
+        for n in (7, 4096):
+            for dtype in ("float32", "bfloat16"):
+                for j, eps in enumerate((1e-12, 1e-5)):
+                    w_dtype = dtype if (k + j) % 2 else "float32"
+                    rows.append(_ln_case(torch, n, h, dtype, w_dtype, eps,
+                                         gen))
     for n, h, dtype in LN_OFFSET:
         rows.append(_ln_case(torch, n, h, dtype, "float32", 1e-5, gen,
                              offset=True))
@@ -2096,11 +2146,14 @@ def phase_fused_ln(torch, flush):
     try:
         kln.fused_add_layer_norm_fwd(wide, wide, wg, wg)
     except ValueError as e:
+        check("queue 2" in str(e), f"fused-ln: the raise names no ROADMAP "
+              f"queue: {e}")
         log(f"fused-ln: H = {kln.MAX_H + 32} raises: {e}")
     else:
         raise SmokeFailure("fused-ln: a row wider than MAX_H did not raise")
     timing = {"ernie": _ln_timing(torch, 16384, 768, gen, flush),
-              "gpt": _ln_timing(torch, 8192, 1024, gen, flush)}
+              "gpt": _ln_timing(torch, 8192, 1024, gen, flush),
+              "gpt-1.3b": _ln_timing(torch, 4096, 2048, gen, flush)}
     for shape, tm in timing.items():
         for k in tm["ms"]:
             bms, by = tm["bound"][k]
@@ -2135,6 +2188,28 @@ def _ln_bwd_call(torch, fn, rows, mu, rstd, g, blocks):
     return run
 
 
+def _ln_fwd_call(torch, fn, x, r, g, b, with_sum):
+    """A callable that launches a fused_ln.cu's forward entry ``fn`` on
+    [n, h] rows x, r (#6 with ``with_sum``, else #8) and returns (y, s or
+    None, mu, rstd)."""
+    n, h = x.shape
+
+    def run():
+        y = torch.empty_like(x)
+        s = torch.empty_like(x) if with_sum else None
+        mu = torch.empty(n, dtype=torch.float32, device="cuda")
+        rstd = torch.empty_like(mu)
+        err = fn(x.data_ptr(), r.data_ptr(), g.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), None if s is None else s.data_ptr(),
+                 mu.data_ptr(), rstd.data_ptr(), n, h, 1e-5,
+                 int(x.dtype == torch.bfloat16),
+                 int(g.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"compare-ln: forward launch failed ({err})")
+        return y, s, mu, rstd
+    return run
+
+
 def _ln_kernel_ms(torch, fn, flush, reps=5):
     """{kernel: device ms a call} of the LN backward's two kernels
     (ln_bwd_kernel, colsum_kernel) over ``reps`` calls of fn, L2 flushed
@@ -2160,11 +2235,13 @@ def _ln_kernel_ms(torch, fn, flush, reps=5):
 
 def compare_ln(torch, sources):
     """``--compare-ln SRC...``: build each given fused_ln.cu (its parent
-    from git, a variant) with the package's flags; hold its backward's
-    dx, dgamma and dbeta to the package's #7 and #9 (bf16 dx 2e-2 and
-    dgamma/dbeta 1e-4, of max(1, |ours|)); time both in turns (theirs,
-    ours, ours, theirs; held) at ERNIE's (16384 x 768) and GPT's
-    (8192 x 1024) bf16 shapes beside the bound,
+    from git, a variant) with the package's flags; hold its forwards' y,
+    s, mu and rstd to the package's #6 and #8 (y, s 2e-2 and mu, rstd
+    1e-4, of max(1, |ours|)) and its backward's dx, dgamma and dbeta to
+    the package's #7 and #9 (bf16 dx 2e-2 and dgamma/dbeta 1e-4, of
+    max(1, |ours|)); time each pair in turns (theirs, ours, ours, theirs;
+    held) at ERNIE's (16384 x 768) and GPT's (8192 x 1024) bf16 shapes
+    beside the bound; the backwards also beside
     aten.native_layer_norm_backward and the eager F.layer_norm(x + r)
     pair (held), and torch.addcmul over as many row bytes (the floor one
     elementwise pass reaches); then each source at grids of 132 x {1, ...,
@@ -2187,7 +2264,10 @@ def compare_ln(torch, sources):
         fn = cdll.fused_ln_bwd
         fn.restype = ctypes.c_int
         fn.argtypes = kln._BWD_ARGTYPES
-        entries.append((src, fn, "fused_ln_bwd_residency" in text))
+        fwd = cdll.fused_ln_fwd
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = kln._FWD_ARGTYPES
+        entries.append((src, fn, "fused_ln_bwd_residency" in text, fwd))
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2215,6 +2295,32 @@ def compare_ln(torch, sources):
             f"{rows_ms / floor[0]:.3f} of its {rows_ms:.4f} ms bound; with "
             f"L2 evicted by a read (clean lines) {floor[1]:.4f} ms")
         del out4
+        forwards = (
+            ("#6", "fused_add_layer_norm_fwd", True,
+             lambda: kln.fused_add_layer_norm_fwd(x, r, g, b, 1e-5)),
+            ("#8", "fused_add_layer_norm_y_fwd", False,
+             lambda: kln.fused_add_layer_norm_y_fwd(x, r, g, b, 1e-5)))
+        for kern, name, with_sum, ours in forwards:
+            want = ours()
+            want = want if with_sum else (want[0], None) + want[1:]
+            bms, by = _ln_bounds(n, h)[name]
+            for src, _, _, fwd in entries:
+                theirs = _ln_fwd_call(torch, fwd, x, r, g, b, with_sum)
+                got = theirs()
+                e_y = max(_err(a, w)[1] for a, w in zip(got[:2], want[:2])
+                          if a is not None)
+                e_st = max(_err(a, w)[1] for a, w in zip(got[2:], want[2:]))
+                check(e_y <= TOL["bfloat16"] and e_st <= 1e-4,
+                      f"compare-ln {tag} {kern}: {src} differs from the "
+                      f"package's: y/s {e_y}, mu/rstd {e_st}")
+                ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+                log(f"compare-ln {tag} {kern}: {src}: held ms in turns "
+                    f"(theirs, ours, ours, theirs): theirs "
+                    f"{ms['theirs'][0]:.4f} {ms['theirs'][1]:.4f}, ours "
+                    f"{ms['ours'][0]:.4f} {ms['ours'][1]:.4f}; theirs / ours "
+                    f"= {t_ms / o_ms:.3f}; of the bound {bms:.4f} ms ({by}): "
+                    f"theirs {bms / t_ms:.3f}, ours {bms / o_ms:.3f}; err y/s "
+                    f"{e_y:.2e}, mu/rstd {e_st:.2e}")
         plan = kln.bwd_plan(n, h, bf)
         kernels = (
             ("#7", "fused_add_layer_norm_bwd", (dy, ds, s, None),
@@ -2229,7 +2335,7 @@ def compare_ln(torch, sources):
                 f"{_ln_kernel_ms(torch, ours, flush)}; held with L2 evicted "
                 f"by a read (clean lines) "
                 f"{time_ms(torch, ours, flush=scratch.sum):.4f} ms")
-            for src, fn, planned in entries:
+            for src, fn, planned, _ in entries:
                 blocks = plan.blocks if planned else min(-(-n // 4), 528)
                 theirs = _ln_bwd_call(torch, fn, rows, mu, rstd, g, blocks)
                 got = theirs()
@@ -2244,7 +2350,7 @@ def compare_ln(torch, sources):
                     f"ms in turns (theirs, ours, ours, theirs): theirs "
                     f"{ms['theirs'][0]:.4f} {ms['theirs'][1]:.4f}, ours "
                     f"{ms['ours'][0]:.4f} {ms['ours'][1]:.4f}; theirs / ours "
-                    f"= {t_ms / o_ms:.2f}; of the bound {bms:.4f} ms ({by}): "
+                    f"= {t_ms / o_ms:.3f}; of the bound {bms:.4f} ms ({by}): "
                     f"theirs {bms / t_ms:.3f}, ours {bms / o_ms:.3f}; "
                     f"native_layer_norm_backward / ours = "
                     f"{lib['native_bwd_ms'] / o_ms:.2f}; err dx {e_dx:.2e}, "
@@ -2357,7 +2463,8 @@ def phase_train(torch):
 OWN_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel",
-               "ln_fwd_kernel", "ln_bwd_kernel", "colsum_kernel")
+               "ln_fwd_kernel", "ln_bwd_kernel", "ln_fwd_wide_kernel",
+               "ln_bwd_wide_kernel", "colsum_kernel")
 
 
 def profile_train(torch, eng, inputs, labels):
@@ -2696,6 +2803,119 @@ def phase_ernie_cpu(torch):
     check(kln.fused_add_layer_norm_y_bwd.launches - before
           == 2 * 2 * cfg.num_hidden_layers,
           "ernie-cpu: the cuda side did not run the fused LayerNorm kernels")
+    return res
+
+
+# -- GPT-1.3B training: the wide fused LayerNorm on the main path ------------
+
+def _gpt13b_run(torch, fused_ln, b, s, warm, steps):
+    """gpt3-1.3B training on the card, one configuration: warm-up steps,
+    then ``steps`` timed steps ending in one sync with the launch counts
+    read over them, then one profiled step."""
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels.fused_adamw import \
+        fused_adamw_supported
+    tag = "gpt-1.3b" + (" fused_ln" if fused_ln else "")
+    cfg = _resolve_config("gpt3-1.3B", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=fused_ln)
+    t0 = time.perf_counter()
+    model, eng = _train_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+    ids, labels = _batch(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    log(f"{tag}: gpt3-1.3B built on cuda in {time.perf_counter() - t0:.2f} "
+        f"s ({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads of {cfg.head_dim}); batch {b} x "
+        f"{s}, bf16 AMP, AdamW(1e-4, weight_decay=0.01, fused_kernel=True)")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch([ids], [labels])[0])
+        torch.cuda.synchronize()
+        log(f"{tag}: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
+            f"loss {losses[-1].item():.4f}")
+    opt = eng.optimizer
+    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
+                                         opt._state[n]["v"])
+                   for n, p in model.named_parameters())
+    check(eligible == 6 * cfg.num_hidden_layers + 2,
+          f"{tag}: {eligible} eligible AdamW leaves")
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(eng.train_batch([ids], [labels])[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    log(f"{tag}: kernel launches over {steps} steps: {launches}")
+    layers = cfg.num_hidden_layers
+    ln = layers if fused_ln else 0
+    _check_launches(tag, launches, {
+        "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+        "flash_attention_bwd_dkv": layers,
+        "fused_add_layer_norm_fwd": ln, "fused_add_layer_norm_bwd": ln,
+        "fused_add_layer_norm_y_fwd": 0, "fused_add_layer_norm_y_bwd": 0,
+        "fused_adamw_update": eligible}, steps)
+    vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in vals), f"{tag}: loss {vals}")
+    check(vals[-1] < vals[0], f"{tag}: loss did not fall: {vals}")
+    tok_s = b * s * steps / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} "
+        f"ms/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> "
+        f"{vals[-1]:.4f}; max_memory_allocated {peak_gb:.2f} GiB")
+    prof = profile_train(torch, eng, [ids], [labels])
+    del model, eng, opt
+    torch.cuda.empty_cache()
+    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+                ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
+                losses=vals, steps=steps, **prof)
+
+
+def phase_gpt13b(torch):
+    """GPT-1.3B training, bench.py's gpt-1.3b stage off the TPU (no
+    recompute, f32 moments): gpt3-1.3B at full width and depth, seeded
+    random weights, dropout 0, batch 4 x 1024, bf16 AMP, fused AdamW
+    through Engine; fused_ln off (2 warm-up + 10 timed steps) and on
+    (2 + 5)."""
+    return {False: _gpt13b_run(torch, False, 4, 1024, 2, 10),
+            True: _gpt13b_run(torch, True, 4, 1024, 2, 5)}
+
+
+def phase_gpt13b_cpu(torch):
+    """One GPT-1.3B-wide training step on the card vs on the CPU, same
+    weights: gpt3-1.3B cut to 2 layers (hidden 2048, 16 heads of 128),
+    fused_ln, f32, batch 1 x 128, held to phase 8's bars; the card's side
+    runs kernels #6/#7 on rows of 2048 values."""
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion, \
+        _resolve_config
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    cfg = _resolve_config("gpt3-1.3B", num_hidden_layers=2,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    gm, geng = _train_engine(torch, cfg, "cuda", weight_seed=1)
+    cm, ceng = _train_engine(torch, cfg, "cpu")
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    batches = {dev: _batch(cfg, 1, 128, dev) for dev in ("cuda", "cpu")}
+    before = (kln.fused_add_layer_norm_fwd.launches,
+              kln.fused_add_layer_norm_bwd.launches)
+    res = _cross_device_step(
+        "gpt-1.3b-cpu", "2 layers at hidden 2048, batch 1 x 128, f32, "
+        "fused_ln", {"cuda": gm, "cpu": cm}, {"cuda": geng, "cpu": ceng},
+        {d: ([b[0]], [b[1]]) for d, b in batches.items()},
+        GPTPretrainingCriterion())
+    # a backward for the gradients and a train step: two of each a layer
+    want = 2 * cfg.num_hidden_layers
+    got = (kln.fused_add_layer_norm_fwd.launches - before[0],
+           kln.fused_add_layer_norm_bwd.launches - before[1])
+    check(got == (want, want), f"gpt-1.3b-cpu: kernels #6/#7 launched {got} "
+          f"times on the card, want {want} each")
+    del gm, geng, cm, ceng
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3470,6 +3690,11 @@ def main():
     phase_ernie_cpu(torch)
     stamp("ernie_cpu")
     torch.cuda.empty_cache()
+    g13 = phase_gpt13b(torch)
+    stamp("gpt_1_3b")
+    phase_gpt13b_cpu(torch)
+    stamp("gpt_1_3b_cpu")
+    torch.cuda.empty_cache()
     gg = phase_generate_gpt(torch)
     stamp("generate_gpt")
     torch.cuda.empty_cache()
@@ -3493,21 +3718,23 @@ def main():
     # #1, #3, #4 at the training shape with dropout, bf16 as the slice
     # runs it
     fmain = next(r for r in ftrain if "ms" in r and r["dtype"] == "bfloat16"
-                 and r["dropout"])
+                 and r["dropout"] and r["d"] == 64)
+    # ... and at GPT-1.3B's (B=4, H=16, S=1024, D=128)
+    f13 = next(r for r in ftrain if "ms" in r and r["d"] == 128)
     amain = next(r for r in adamw if "ms" in r and r["decoupled"]
                  and r["shape"] == (1024, 4096))
 
     def flash_row(name, part, timing, source, replaces, errs=(),
-                  dtype="float32"):
-        bms, by = fmain["bound"][timing]
+                  dtype="float32", fm=fmain, path=tr):
+        bms, by = fm["bound"][timing]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=tr["launches"][name],
+            launches=path["launches"][name],
             max_abs_err=max([r["err"][part] for r in ftrain + noncausal
                              if r["dtype"] == dtype] + list(errs)),
-            ms=fmain["ms"][timing], plain_ms=fmain["plain_ms"][timing],
+            ms=fm["ms"][timing], plain_ms=fm["plain_ms"][timing],
             bound_ms=bms, bound_by=by,
-            library_ms=fmain["library_ms"][timing])
+            library_ms=fm["library_ms"][timing])
 
     fwd_src = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
     fwd_tpu = "paddle_tpu/ops/pallas/flash_attention.py:309"
@@ -3592,6 +3819,34 @@ def main():
         ln_row("fused_add_layer_norm_y_bwd", "y_bwd", f"{ln_src}:294",
                "ernie", er),
     ]
+    # GPT-1.3B's training path (phase gpt-1.3b): #1, #3, #4 at its
+    # attention shape, #6/#7 at its 4096 x 2048 rows (launches from the
+    # fused_ln run), #10 on its 50304 x 2048 embedding
+    s13 = "4096x2048"
+    a13 = next(r for r in adamw if "ms" in r and r["shape"] == (50304, 2048))
+    kernels += [
+        dict(flash_row("flash_attention_fwd", "o", "fwd", fwd_src, fwd_tpu,
+                       dtype="bfloat16", fm=f13, path=g13[False]),
+             dtype="bfloat16", shape="4x16x1024x128"),
+        dict(flash_row("flash_attention_bwd_dq", "dq", "dq", bwd_src,
+                       "paddle_tpu/ops/pallas/flash_attention.py:365",
+                       fm=f13, path=g13[False]), shape="4x16x1024x128"),
+        dict(flash_row("flash_attention_bwd_dkv", "dk", "dkv", bwd_src,
+                       "paddle_tpu/ops/pallas/flash_attention.py:385",
+                       fm=f13, path=g13[False]), shape="4x16x1024x128"),
+        dict(ln_row("fused_add_layer_norm_fwd", "fwd", f"{ln_src}:134",
+                    "gpt-1.3b", g13[True]), shape=s13),
+        dict(ln_row("fused_add_layer_norm_bwd", "bwd", f"{ln_src}:165",
+                    "gpt-1.3b", g13[True]), shape=s13),
+        dict(name="fused_adamw_update", shape="50304x2048", route="cuda",
+             source="paddle_tpu_torch/csrc/fused_adamw.cu",
+             replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+             launches=g13[False]["launches"]["fused_adamw_update"],
+             max_abs_err=max(r["max_abs_err"] for r in adamw),
+             ms=a13["ms"], plain_ms=a13["plain_ms"],
+             bound_ms=a13["bound_ms"], bound_by=a13["bound_by"],
+             library_ms=a13["library_ms"]),
+    ]
     # the 32 launches of one bf16 ResNet-50 serve forward, summed by shape
     cb = conv["total"]
     kernels.append(dict(
@@ -3610,6 +3865,7 @@ def main():
         u = kr["unheld"]
         log(f"kernels: {kr['name']}"
             + (f" ({kr['dtype']})" if "dtype" in kr else "")
+            + (f" at {kr['shape']}" if "shape" in kr else "")
             + f": ms {kr['ms']:.4f} (unheld "
             f"{u['ms']:.4f}), plain_ms {kr['plain_ms']:.4f} (unheld "
             f"{u['plain_ms']:.4f}), library_ms "

@@ -57,6 +57,20 @@
 // partial rows in a fixed order. No float atomics: the grid is a function
 // of (n, h, dtype), so a seeded run repeats bit for bit.
 //
+// Rows wider than 1024 values (up to 8192; GPT-1.3B's are 2048) would
+// need a warp to hold more than 32 values a lane in registers in the
+// forward, and more than 2 x 32 dg/db accumulators in the backward, past
+// 128 registers. So such a row is cut
+// into W = ceil(h / 512) slices, one warp a slice, and each warp runs the
+// code above on its slice: the forward's values and the backward's chunks,
+// ring and accumulators are those of a row of at most 512 values. The row
+// sums (the mean, then the squared deviations; m1 and m2) cross the W
+// warps through shared memory, added in warp order after a named barrier
+// of the row's warps. A block is 16 warps (R = 16 / W rows at once); its
+// shared memory holds gamma's W slices and a two-stage ring a warp (at
+// h = 8192 f32: 32 KB + 16 x 12 KB). The same partial rows and column sum
+// carry dg/db, the R rows' sums added in order into the block's row.
+//
 // What is left: one elementwise pass over as many row bytes
 // (torch.addcmul of three row tensors into a fourth) runs ~1.5x faster on
 // the H100 than this backward; the second kernel's launch; and a wave's
@@ -423,6 +437,336 @@ colsum_kernel(const float* __restrict__ part_g,
   }
 }
 
+// -- rows wider than 1024 values (h in (1024, 8192]) -------------------------
+//
+// A row of h values is cut into W = ceil(h / 512) slices (3-16) of sw
+// values (ceil(h / W) rounded up to a 16-byte chunk; the last slice takes
+// what is left), one warp a slice, so a warp runs the per-warp code above
+// on at most 512 values. A block is 16 warps: R = 16 / W rows (rounded
+// down) of W warps each; warp wid of a block is row group g = wid / W,
+// slice w = wid % W, and the 16 - W R warps left over take no row. A
+// 1024-value slice would keep the backward's accumulators as at h = 1024
+// (2 x 32 floats a lane), which left no room under 128 registers for the
+// sums across warps (ptxas spilled 200 bytes of the f32 kernel): a
+// 512-value slice keeps 2 x 16. And at 16 warps a block, 128 registers
+// or fewer and more than 64 make one block an SM whatever the count
+// (65,536 registers), so the plan knows the residency.
+
+constexpr int kWarpRow = 1024;   // rows up to this run one warp a row
+constexpr int kWideSlice = 512;  // the widest slice a warp takes
+constexpr int kWideWarps = 16;   // warps a block, so W <= 16: h <= 8192
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideMaxH = kWideSlice * kWideWarps;
+
+struct Wide {
+  int warps;  // W: warps a row
+  int rows;   // R: rows a block
+  int sw;     // values a slice
+};
+
+__host__ __device__ __forceinline__ Wide wide_geometry(int h, int es) {
+  const int w = (h + kWideSlice - 1) / kWideSlice;
+  const int e = kChunk / es;
+  const int per = (h + w - 1) / w;
+  return {w, kWideWarps / w, (per + e - 1) / e * e};
+}
+
+// the threads of row group g alone (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_barrier(int g, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(threads) : "memory");
+}
+
+// The row sums over a row group's W warps: warp w's butterfly sums (a, b)
+// go to slot[w], the group's warps meet, and every warp adds the W pairs
+// in warp order, so all hold the same bits. `slot` alternates between two
+// buffers from one sum to the next: a warp that stores the sum after next
+// has passed the next barrier, which every warp of its group reaches only
+// after reading this one.
+__device__ __forceinline__ float2 group_sum(float a, float b, float2* slot,
+                                            int w, int W, int g, int lane) {
+  if (lane == 0) slot[w] = make_float2(a, b);
+  group_barrier(g, 32 * W);
+  float2 t = slot[0];
+  for (int k = 1; k < W; ++k) {
+    t.x += slot[k].x;
+    t.y += slot[k].y;
+  }
+  return t;
+}
+
+// #6 / #8 on wide rows: as ln_fwd_kernel, a warp's slice in registers
+// (VPT values a lane, columns lane + 32 j of the slice), the mean and then
+// the squared deviations summed over the row's warps in warp order. Two
+// blocks an SM, 64 registers a thread: at one block (80 registers) it ran
+// 1.26x slower at 4096 x 2048 bf16 on the H100.
+template <typename T, int VPT, bool kSum>
+__global__ void __launch_bounds__(kWideThreads, 2)
+ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                   const void* __restrict__ gamma,
+                   const void* __restrict__ beta, bool w_bf16,
+                   T* __restrict__ y, T* __restrict__ s_out,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   long long n, int h, float eps) {
+  __shared__ float2 red[2][kWideWarps];
+  const Wide geo = wide_geometry(h, (int)sizeof(T));
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int g = wid / geo.warps, w = wid % geo.warps;
+  if (g >= geo.rows) return;  // a warp left over
+  const int col0 = w * geo.sw;
+  const int width = min(geo.sw, h - col0);
+  int buf = 0;
+  for (long long row = (long long)blockIdx.x * geo.rows + g; row < n;
+       row += (long long)gridDim.x * geo.rows) {
+    const long long base = row * h + col0;
+    float s[VPT];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int c = lane + 32 * j;
+      s[j] = c < width ? to_f(x[base + c]) + to_f(r[base + c]) : 0.f;
+      sum += s[j];
+    }
+    const float mu = group_sum(warp_sum(sum), 0.f, red[buf] + g * geo.warps,
+                               w, geo.warps, g, lane).x / h;
+    buf ^= 1;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int c = lane + 32 * j;
+      const float d = c < width ? s[j] - mu : 0.f;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(group_sum(warp_sum(sq), 0.f,
+                                        red[buf] + g * geo.warps, w,
+                                        geo.warps, g, lane).x / h + eps);
+    buf ^= 1;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int c = lane + 32 * j;
+      if (c < width) {
+        const float xhat = (s[j] - mu) * rstd;
+        y[base + c] = from_f<T>(xhat * load_w(gamma, col0 + c, w_bf16) +
+                                load_w(beta, col0 + c, w_bf16));
+        if constexpr (kSum) s_out[base + c] = from_f<T>(s[j]);
+      }
+    }
+    if (w == 0 && lane == 0) {
+      mu_out[row] = mu;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+// The wide backward's shared memory at W warps a row and R rows a block:
+// gamma in f32, W slices in the per-warp layout of Bwd<T, C> (GAMMA bytes
+// each); a ring of two stages for each of the W R warps; and the m1/m2
+// exchange, [2 buffers][16 warps] float2.
+template <typename T, int C>
+__host__ __device__ constexpr int wide_bwd_smem(int warps, int rows) {
+  return warps * Bwd<T, C>::GAMMA + warps * rows * 2 * Bwd<T, C>::STAGE +
+         2 * kWideWarps * (int)sizeof(float2);
+}
+
+// #7 / #9 on wide rows: as ln_bwd_kernel, each warp on its slice (C
+// chunks a lane, its own ring, dgamma/dbeta accumulators for its slice's
+// columns), m1 and m2 summed over the row's warps in warp order. The
+// block's R rows' accumulators are added in row-group order into one
+// partial row.
+template <typename T, int C, bool kSum>
+__global__ void __launch_bounds__(kWideThreads, 1)
+ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
+                   const T* __restrict__ a, const T* __restrict__ b,
+                   const float* __restrict__ mu,
+                   const float* __restrict__ rstd,
+                   const void* __restrict__ gamma, bool w_bf16,
+                   T* __restrict__ dx, float* __restrict__ part_g,
+                   float* __restrict__ part_b, long long n, int h,
+                   bool vec) {
+  using G = Bwd<T, C>;
+  constexpr int E = G::E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Wide geo = wide_geometry(h, (int)sizeof(T));
+  const int W = geo.warps, R = geo.rows;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int g = wid / W, w = wid % W;
+  float* gs = reinterpret_cast<float*>(smem) + w * 32 * G::V;
+  unsigned char* ring = smem + W * G::GAMMA + wid * 2 * G::STAGE;
+  float2* red = reinterpret_cast<float2*>(smem + W * G::GAMMA +
+                                          W * R * 2 * G::STAGE);
+  const int col0 = w * geo.sw;
+  const int width = min(geo.sw, h - col0);
+  const int nch = (width + E - 1) / E;
+  const T* rows2 = kSum ? ds : b;
+
+  // this lane's chunks of the slice of row `row` into stage s (an empty
+  // group past n)
+  auto fill = [&](int s, long long row) {
+    if (row < n) {
+      const long long base = row * h + col0;
+      const T* src[3] = {dy + base, a + base, rows2 + base};
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int k = lane + 32 * j;
+          unsigned char* dst = ring + s * G::STAGE + t * G::ROW + k * kChunk;
+          if (k < nch) {
+            if (vec) {
+              cp_async16(dst, src[t] + k * E);
+            } else {
+              uint4 raw;
+              T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+              for (int e = 0; e < E; ++e) {
+                const int c = k * E + e;
+                v[e] = c < width ? src[t][c] : from_f<T>(0.f);
+              }
+              *reinterpret_cast<uint4*>(dst) = raw;
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto staged = [&](int s, int t, int j, float* out) {
+    unpack16<T>(*reinterpret_cast<const uint4*>(
+                    ring + s * G::STAGE + t * G::ROW +
+                    (lane + 32 * j) * kChunk),
+                out);
+  };
+  auto gamma_of = [&](int j, float* out) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const float4 g4 = reinterpret_cast<const float4*>(
+          gs)[(j * (E / 4) + q) * 32 + lane];
+      out[4 * q] = g4.x;
+      out[4 * q + 1] = g4.y;
+      out[4 * q + 2] = g4.z;
+      out[4 * q + 3] = g4.w;
+    }
+  };
+
+  float acc_g[G::V], acc_b[G::V];
+#pragma unroll
+  for (int i = 0; i < G::V; ++i) acc_g[i] = acc_b[i] = 0.f;
+
+  const long long stride = (long long)gridDim.x * R;
+  long long row = g < R ? (long long)blockIdx.x * R + g : n;  // n: no row
+  fill(0, row);
+  float m_next = row < n ? mu[row] : 0.f;
+  float rs_next = row < n ? rstd[row] : 0.f;
+  // gamma: slice ws's value at its column cl sits where Bwd's layout puts
+  // column cl of a row; zero past the slice and past h
+  for (int i = threadIdx.x; i < W * 32 * G::V; i += blockDim.x) {
+    const int ws = i / (32 * G::V), ii = i - ws * 32 * G::V;
+    const int t = ii & 3, l = (ii >> 2) & 31, jq = ii >> 7;
+    const int cl = (l + 32 * (jq / (E / 4))) * E + 4 * (jq % (E / 4)) + t;
+    const int c = ws * geo.sw + cl;
+    reinterpret_cast<float*>(smem)[i] =
+        cl < geo.sw && c < h ? load_w(gamma, c, w_bf16) : 0.f;
+  }
+  __syncthreads();
+  int buf = 0;
+  for (int s = 0; row < n; row += stride, s ^= 1) {
+    const float m = m_next, rs = rs_next;
+    const long long next = row + stride;
+    fill(s ^ 1, next);  // the next row's copies go out first
+    if (next < n) {
+      m_next = mu[next];
+      rs_next = rstd[next];
+    }
+    cp_async_wait<1>();  // this row's copies landed
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (lane + 32 * j < nch) {
+        float d[E], u[E], v[E], gm[E];
+        staged(s, 0, j, d);
+        staged(s, 1, j, u);
+        if constexpr (!kSum) staged(s, 2, j, v);
+        gamma_of(j, gm);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float sv = kSum ? u[e] : u[e] + v[e];
+          const float xhat = (sv - m) * rs;
+          const float dxh = d[e] * gm[e];
+          acc_g[j * E + e] += d[e] * xhat;
+          acc_b[j * E + e] += d[e];
+          s1 += dxh;
+          s2 += dxh * xhat;
+        }
+      }
+    }
+    const float2 tot = group_sum(warp_sum(s1), warp_sum(s2),
+                                 red + buf * kWideWarps + g * W, w, W, g,
+                                 lane);
+    buf ^= 1;
+    const float m1 = tot.x / h;
+    const float m2 = tot.y / h;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int k = lane + 32 * j;
+      if (k < nch) {
+        float d[E], u[E], v[E], gm[E], o[E];
+        staged(s, 0, j, d);
+        staged(s, 1, j, u);
+        staged(s, 2, j, v);
+        gamma_of(j, gm);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float sv = kSum ? u[e] : u[e] + v[e];
+          const float xhat = (sv - m) * rs;
+          o[e] = rs * (d[e] * gm[e] - m1 - xhat * m2);
+          if constexpr (kSum) o[e] += v[e];
+        }
+        T* out = dx + row * h + col0 + k * E;
+        if (vec) {
+          *reinterpret_cast<uint4*>(out) = pack16<T>(o);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (k * E + e < width) out[e] = from_f<T>(o[e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the block's partials: each warp's accumulators into its row group's
+  // [2, W 32 V] row of the (now idle) rings at its slice, then the R row
+  // groups added in order
+  __syncthreads();
+  const int span = W * 32 * G::V;
+  float* part = reinterpret_cast<float*>(smem + W * G::GAMMA);
+  float* mine = part + g * 2 * span + w * 32 * G::V;
+  if (g < R) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int c = (lane + 32 * j) * E + e;
+        mine[c] = acc_g[j * E + e];
+        mine[span + c] = acc_b[j * E + e];
+      }
+    }
+  }
+  __syncthreads();
+  const long long prow = (long long)blockIdx.x * h;
+  for (int c = threadIdx.x; c < h; c += blockDim.x) {
+    const int ws = c / geo.sw;
+    const int at = ws * 32 * G::V + (c - ws * geo.sw);
+    float sg = part[at], sb = part[span + at];
+    for (int q = 1; q < R; ++q) {
+      sg += part[q * 2 * span + at];
+      sb += part[q * 2 * span + span + at];
+    }
+    part_g[prow + c] = sg;
+    part_b[prow + c] = sb;
+  }
+}
+
 // values a lane holds: the smallest that covers h / 32; 0 above h = 1024,
 // the widest row the registers hold (the wrapper raises there first)
 int pick_vpt(int h) {
@@ -534,15 +878,109 @@ int launch_rows(const void* dy, const void* ds, const void* a, const void* b,
 #undef FLN_ROWS
 }
 
+// -- the wide launches (1024 < h <= 8192) ------------------------------------
+
+template <typename T, bool kSum>
+int launch_fwd_wide(const void* x, const void* r, const void* gamma,
+                    const void* beta, bool w_bf16, void* y, void* s,
+                    float* mu, float* rstd, long long n, int h, float eps,
+                    cudaStream_t stream) {
+  const Wide geo = wide_geometry(h, (int)sizeof(T));
+  const long long want = (n + geo.rows - 1) / geo.rows;
+  const int grid = (int)(want < (1LL << 30) ? want : (1LL << 30));
+  ln_fwd_wide_kernel<T, kWideSlice / 32, kSum>
+      <<<grid, kWideThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), gamma, beta,
+      w_bf16, static_cast<T*>(y), static_cast<T*>(s), mu, rstd, n, h, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kSum>
+struct WideBwd {
+  // chunks a lane for a slice of up to 512 values (2 bf16, 4 f32)
+  static constexpr int C = kWideSlice / (32 * Bwd<T, 1>::E);
+  static int smem(const Wide& geo) {
+    return wide_bwd_smem<T, C>(geo.warps, geo.rows);
+  }
+  // the block's dynamic shared memory depends on W: allow all that the
+  // card gives a block, and all of the SM's shared memory as such; once
+  static cudaError_t attrs() {
+    static const cudaError_t attr = [] {
+      int dev = 0, optin = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(ln_bwd_wide_kernel<T, C, kSum>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(
+          ln_bwd_wide_kernel<T, C, kSum>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    }();
+    return attr;
+  }
+};
+
+template <typename T, bool kSum>
+int launch_wide(const void* dy, const void* ds, const void* a, const void* b,
+                const float* mu, const float* rstd, const void* gamma,
+                bool w_bf16, void* dx, float* part_g, float* part_b,
+                long long n, int h, int blocks, cudaStream_t stream) {
+  using K = WideBwd<T, kSum>;
+  const cudaError_t err = K::attrs();
+  if (err != cudaSuccess) return (int)err;
+  const Wide geo = wide_geometry(h, (int)sizeof(T));
+  const bool vec = (h * sizeof(T)) % kChunk == 0 && aligned16(dy) &&
+                   aligned16(a) && aligned16(kSum ? ds : b) &&
+                   aligned16(dx);
+  ln_bwd_wide_kernel<T, K::C, kSum>
+      <<<blocks, kWideThreads, K::smem(geo), stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(ds),
+      static_cast<const T*>(a), static_cast<const T*>(b), mu, rstd, gamma,
+      w_bf16, static_cast<T*>(dx), part_g, part_b, n, h, vec);
+  return (int)cudaGetLastError();
+}
+
+// as bwd_residency, for the wide kernel at rows of h values
+template <typename T, bool kSum>
+int wide_residency(int h, int* out) {
+  using K = WideBwd<T, kSum>;
+  cudaError_t err = K::attrs();
+  if (err != cudaSuccess) return (int)err;
+  const Wide geo = wide_geometry(h, (int)sizeof(T));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, ln_bwd_wide_kernel<T, K::C, kSum>, kWideThreads, K::smem(geo));
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, ln_bwd_wide_kernel<T, K::C, kSum>);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = K::smem(geo);
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+// a row width the kernels take: up to 1024 one warp a row, up to 8192 wide
+bool width_ok(int h) {
+  return h > kWarpRow ? h <= kWideMaxH : pick_vpt(h) != 0;
+}
+
 template <typename T, bool kSum>
 int launch_bwd(const void* dy, const void* ds, const void* a, const void* b,
                const float* mu, const float* rstd, const void* gamma,
                bool w_bf16, void* dx, float* part_g, float* part_b,
                float* dg, float* db, long long n, int h, int blocks,
                cudaStream_t stream) {
-  const int err = launch_rows<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16,
-                                       dx, part_g, part_b, n, h, blocks,
-                                       stream);
+  const int err =
+      h > kWarpRow
+          ? launch_wide<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,
+                                 part_g, part_b, n, h, blocks, stream)
+          : launch_rows<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,
+                                 part_g, part_b, n, h, blocks, stream);
   if (err) return err;
   colsum_kernel<<<(h + kColX - 1) / kColX, dim3(kColX, kColY), 0, stream>>>(
       part_g, part_b, blocks, h, dg, db);
@@ -574,6 +1012,7 @@ int residency(int h, int* out) {
 #undef FLN_RES
 }
 
+
 }  // namespace
 
 // Forward, #6 (s != NULL: s is written) or #8 (s == NULL). x, r, y, s: n x h
@@ -583,9 +1022,24 @@ extern "C" int fused_ln_fwd(const void* x, const void* r, const void* gamma,
                             const void* beta, void* y, void* s, float* mu,
                             float* rstd, long long n, int h, float eps,
                             int is_bf16, int w_bf16, void* stream) {
-  if (n <= 0 || h <= 0 || !pick_vpt(h)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || h <= 0 || !width_ok(h))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wb = w_bf16 != 0;
+  if (h > kWarpRow) {
+    if (is_bf16)
+      return s ? launch_fwd_wide<__nv_bfloat16, true>(x, r, gamma, beta, wb,
+                                                      y, s, mu, rstd, n, h,
+                                                      eps, st)
+               : launch_fwd_wide<__nv_bfloat16, false>(
+                     x, r, gamma, beta, wb, y, nullptr, mu, rstd, n, h, eps,
+                     st);
+    return s ? launch_fwd_wide<float, true>(x, r, gamma, beta, wb, y, s, mu,
+                                            rstd, n, h, eps, st)
+             : launch_fwd_wide<float, false>(x, r, gamma, beta, wb, y,
+                                             nullptr, mu, rstd, n, h, eps,
+                                             st);
+  }
   if (is_bf16)
     return s ? launch_fwd<__nv_bfloat16, true>(x, r, gamma, beta, wb, y, s,
                                                mu, rstd, n, h, eps, st)
@@ -611,7 +1065,7 @@ extern "C" int fused_ln_bwd(const void* dy, const void* ds, const void* a,
                             float* part_b, float* dg, float* db, long long n,
                             int h, int blocks, int is_bf16, int w_bf16,
                             void* stream) {
-  if (n <= 0 || h <= 0 || blocks <= 0 || !pick_chunks(h, is_bf16 ? 2 : 4) ||
+  if (n <= 0 || h <= 0 || blocks <= 0 || !width_ok(h) ||
       (!ds && !b))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -638,8 +1092,15 @@ extern "C" int fused_ln_bwd(const void* dy, const void* ds, const void* a,
 // (spill) bytes a thread. Launches nothing; returns a CUDA error or 0.
 extern "C" int fused_ln_bwd_residency(int h, int is_bf16, int with_sum,
                                       int* out) {
-  if (h <= 0 || !pick_chunks(h, is_bf16 ? 2 : 4))
+  if (h <= 0 || !width_ok(h))
     return (int)cudaErrorInvalidValue;
+  if (h > kWarpRow) {
+    if (is_bf16)
+      return with_sum ? wide_residency<__nv_bfloat16, true>(h, out)
+                      : wide_residency<__nv_bfloat16, false>(h, out);
+    return with_sum ? wide_residency<float, true>(h, out)
+                    : wide_residency<float, false>(h, out);
+  }
   if (is_bf16)
     return with_sum ? residency<__nv_bfloat16, true>(h, out)
                     : residency<__nv_bfloat16, false>(h, out);

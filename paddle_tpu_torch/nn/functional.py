@@ -149,13 +149,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                      dropout_seed=seed)
     if query.device.type != "cpu":
         raise NotImplementedError(
-            "a dense attn_mask has no kernel on the card yet (ROADMAP.md); "
-            "express padding as kv_lens, which the flash kernel takes")
+            f"a dense attn_mask on the card {later('1.7')}; express "
+            "padding as kv_lens, which the flash kernel takes")
     if eff_drop:
         raise NotImplementedError(
-            "attention dropout with a dense attn_mask is not ported (the "
-            "reference draws it with jax.random there; ROADMAP.md); "
-            "express padding as kv_lens, which the flash kernel takes")
+            "attention dropout with a dense attn_mask (the reference draws "
+            f"it with jax.random there) {later('1.7')}; express padding as "
+            "kv_lens, which the flash kernel takes")
     return _attn.reference_attention(query, key, value, causal=is_causal,
                                      kv_lens=kv_lens, attn_mask=attn_mask)
 

@@ -31,11 +31,14 @@ and res. mu and rstd are [N] f32 (the TPU's 128-lane replication is
 dropped); dgamma and dbeta are f32 sums over the rows.
 
 Kernel note (details in the .cu): bound by bytes, every element read and
-written once, one warp a row. The forward holds the row in registers; the
-backward moves it in 16-byte chunks through two shared-memory stages a
-warp (the next row in flight while this one is worked on), in one wave of
-resident blocks (``bwd_plan``); dgamma/dbeta through per-block partial
-rows and a fixed-order column sum, so a run repeats bit for bit.
+written once, one warp a row of up to 1024 values; a wider row (up to
+``MAX_H`` = 8192) is cut into W = ceil(H / 512) slices, one warp a slice
+(``row_split``), its sums added over the W warps in warp order. The
+forward holds a warp's values in registers; the backward moves them in
+16-byte chunks through two shared-memory stages a warp (the next row in
+flight while this one is worked on), in one wave of resident blocks
+(``bwd_plan``); dgamma/dbeta through per-block partial rows and a
+fixed-order column sum, so a run repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["MAX_H", "BwdPlan", "bwd_plan", "bwd_residency",
+__all__ = ["MAX_H", "RowSplit", "row_split", "BwdPlan", "bwd_plan",
+           "bwd_residency",
            "fused_add_layer_norm_fwd", "fused_add_layer_norm_bwd",
            "fused_add_layer_norm_y_fwd", "fused_add_layer_norm_y_bwd",
            "fused_add_layer_norm_fwd_plain", "fused_add_layer_norm_bwd_plain",
@@ -52,9 +56,14 @@ __all__ = ["MAX_H", "BwdPlan", "bwd_plan", "bwd_residency",
            "fused_add_layer_norm_y_bwd_plain", "fused_add_layer_norm",
            "fused_add_layer_norm_y"]
 
-MAX_H = 1024  # the widest row the kernels keep in registers (32 x 32)
+MAX_H = 8192  # the widest row: 16 warps of 512 values (kWideMaxH)
 _DTYPES = (torch.float32, torch.bfloat16)
 _WARPS = 4               # rows a block works on at once (kWarps in the .cu)
+# rows wider than 1024 values (kWarpRow, kWideSlice, kWideWarps)
+_WARP_ROW = 1024         # rows up to this run one warp a row
+_WIDE_SLICE = 512        # the widest slice a warp takes
+_WIDE_WARPS = 16         # warps a block (a thread: 128 registers at most)
+_REGS = 65536            # registers an SM
 # the backward's launch (csrc/fused_ln.cu: kBwdMinBlocks, kChunk, Bwd<T, C>)
 _SMS = 132               # H100 SXM
 _BWD_MIN_BLOCKS = 4      # __launch_bounds__(128, 4): 128 registers a thread
@@ -125,15 +134,43 @@ def fused_add_layer_norm_y_bwd_plain(dy, x, res, mu, rstd, gamma):
     return dx.to(dy.dtype), dg, db
 
 
-# -- the backward's launch plan -----------------------------------------------
+# -- the launch plans ---------------------------------------------------------
+
+class RowSplit(NamedTuple):
+    """How the kernels cut [*, h] rows: ``warps`` warps a row, ``rows``
+    rows a block (of ``warps * rows`` warps) and ``slice`` values a warp.
+    Warp w of a row takes its values w * slice up to (w + 1) * slice (the
+    last warp up to h); the row's sums are added over its warps in warp
+    order."""
+    warps: int
+    rows: int
+    slice: int
+
+
+def row_split(h, dtype):
+    """One warp a row of up to 1024 values, four rows a block; a wider row
+    W = ceil(h / 512) warps (3-16) of ceil(h / W) values rounded up to a
+    16-byte chunk, 16 // W rows a block of 16 warps (the 16 - W R left
+    over take no row). A function of (h, dtype) alone: the forward's and
+    the backward's (csrc/fused_ln.cu: wide_geometry)."""
+    if h < 1 or h > MAX_H:
+        raise ValueError(f"row_split: no split for rows of {h} values")
+    if h <= _WARP_ROW:
+        return RowSplit(1, _WARPS, h)
+    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
+    warps = -(-h // _WIDE_SLICE)
+    share = -(-h // warps)
+    return RowSplit(warps, _WIDE_WARPS // warps, -(-share // per) * per)
+
 
 class BwdPlan(NamedTuple):
     """How the backward (#7, #9) runs [n, h] rows: ``chunks`` 16-byte
-    chunks a lane (lane l owns chunks l + 32 j of a row), ``smem`` bytes of
-    shared memory a block, ``blocks_per_sm`` blocks resident an SM, and a
-    grid of ``blocks`` blocks of 4 warps; warp w of block b takes rows
-    b * 4 + w, then every 4 * blocks rows on. The partial rows of
-    dgamma/dbeta are [2, blocks, h] f32."""
+    chunks a lane (lane l owns chunks l + 32 j of its warp's slice of a
+    row), ``smem`` bytes of shared memory a block, ``blocks_per_sm``
+    blocks resident an SM, and a grid of ``blocks`` blocks of R rows
+    (``row_split``); row group g of block b takes rows b * R + g, then
+    every R * blocks rows on. The partial rows of dgamma/dbeta are
+    [2, blocks, h] f32."""
     chunks: int
     smem: int
     blocks_per_sm: int
@@ -147,17 +184,37 @@ def bwd_plan(n, h, dtype):
     reside (registers held to 128 a thread; shared memory: gamma in f32
     and, per warp, two stages of three row tensors). Two run 3-11 % faster
     than four on the H100 at both slice shapes, and sum half the partial
-    rows."""
-    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
-    nch = -(-h // per)                                      # chunks a row
-    chunks = next((c for c in _CHUNK_COUNTS if 32 * c >= nch), None)
-    if chunks is None or h > MAX_H or n < 1 or h < 1:
+    rows.
+
+    A row wider than 1024 values runs on ``row_split``'s W warps, each
+    with the chunks (2 bf16, 4 f32: room for 512 values), ring and
+    accumulators of a 512-value row, in blocks of 16 warps that keep
+    gamma's W slices, the W * R rings and the row sums' exchange in
+    shared memory. At 128 registers a thread or fewer (and more than 64)
+    one such block resides an SM; the grid is one an SM."""
+    if n < 1 or h < 1 or h > MAX_H:
         raise ValueError(f"bwd_plan: no plan for [{n}, {h}] rows")
+    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
+    split = row_split(h, dtype)
+    if split.warps == 1:
+        nch = -(-h // per)                                  # chunks a row
+        chunks = next(c for c in _CHUNK_COUNTS if 32 * c >= nch)
+    else:
+        chunks = _WIDE_SLICE // (32 * per)    # a slice of up to 512 values
     row = chunks * 32 * _CHUNK
-    smem = 32 * chunks * per * 4 + _WARPS * 2 * 3 * row
-    per_sm = min(_BWD_MIN_BLOCKS, _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    gamma = 32 * chunks * per * 4
+    if split.warps == 1:
+        smem = gamma + _WARPS * 2 * 3 * row
+        per_sm = min(_BWD_MIN_BLOCKS,
+                     _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+    else:
+        smem = (split.warps * gamma + split.warps * split.rows * 2 * 3 * row
+                + 2 * _WIDE_WARPS * 8)
+        per_sm = min(_REGS // (128 * 32 * _WIDE_WARPS),
+                     _SMEM_PER_SM // (smem + _SMEM_RESERVED))
     grid = _SMS * min(_BWD_GRID_PER_SM, per_sm)
-    return BwdPlan(chunks, smem, per_sm, min(-(-n // _WARPS), grid))
+    return BwdPlan(chunks, smem, per_sm,
+                   min(-(-n // split.rows), grid))
 
 
 # -- the CUDA side ------------------------------------------------------------
@@ -179,8 +236,9 @@ def _check(fn, rows, gamma, beta=None):
                          f"{tuple(first.shape)}")
     h = first.shape[1]
     if h > MAX_H:
-        raise ValueError(f"{fn}: H = {h} is wider than the kernel holds "
-                         f"({MAX_H})")
+        raise ValueError(f"{fn}: H = {h} is wider than the kernels take "
+                         f"({MAX_H}); wider rows are still to port "
+                         "(ROADMAP.md, queue 2)")
     for name, t in rows:
         if t.device != first.device or t.dtype != first.dtype \
                 or t.shape != first.shape:

@@ -13,6 +13,8 @@ and held here (ROADMAP.md §3):
    naming item 7, as do the engine methods not ported.
 4. The optimizer's and the Engine's NotImplementedErrors name their queue
    1 items (1.1, 1.3, 1.8).
+5. ``nn.functional.scaled_dot_product_attention``'s two refusals of a
+   dense ``attn_mask`` (on the card; with attention dropout) name item 1.7.
 """
 import dataclasses
 import inspect
@@ -139,3 +141,18 @@ def test_optimizer_and_engine_name_their_items():
         eng.train_batch_multi([], [])
     with pytest.raises(NotImplementedError, match="queue 1 item 1.3"):
         eng.train_batch_accum([], [], True)
+
+
+def test_dense_mask_refusals_name_their_item():
+    """Attention dropout with a dense mask raises on the CPU; a dense mask
+    on any other device (the meta device stands in for the card) raises
+    before any kernel is reached. Both name item 1.7."""
+    from paddle_tpu_torch.nn import functional as F
+    q = torch.zeros(1, 4, 2, 8)
+    mask = torch.ones(1, 1, 4, 4, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="queue 1 item 1.7"):
+        F.scaled_dot_product_attention(q, q, q, attn_mask=mask,
+                                       dropout_p=0.1, training=True)
+    qm = q.to("meta")
+    with pytest.raises(NotImplementedError, match="queue 1 item 1.7"):
+        F.scaled_dot_product_attention(qm, qm, qm, attn_mask=mask.to("meta"))
