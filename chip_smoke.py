@@ -30,7 +30,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ones, one slot), D=128 and 256 in every pool with G=1 and
              G=6, and ps=7; a second call must repeat the first bit for
              bit in every case; at the serving shape one call puts exactly
-             one kernel on the device (profiler) and raises nothing under
+             one kernel on the device (a captured CUDA graph's nodes, and
+             the profiler shows no other) and raises nothing under
              torch.cuda's sync debug mode "error";
 4. slice   — gpt3-345M at full width with seeded random weights, f32 on
              cuda, serving 16 greedy requests (prompts 64..512, 64 new
@@ -120,7 +121,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and 0, plus D=256, a 5-key cache and a 4096-key cache at
              B=1 and 2, H=32 (16 and 8 chunks a row, combined in the
              launch); a second call must repeat the first bit for bit,
-             and one call put exactly one kernel on the device (profiler);
+             and one call put exactly one kernel on the device (a
+             captured CUDA graph's nodes; the profiler shows no other);
              times kernel, twin and torch SDPA over the live keys where
              every row has all 576;
 15. generate-gpt — gpt3-345M generate() at full width and depth, f32
@@ -175,7 +177,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
 23. gpt-1.3b-cpu — gpt3-1.3B cut to 2 layers at hidden 2048, fused_ln,
              f32, batch 1 x 128: one step on cuda (kernels #6/#7 on rows of
              2048) and on the CPU from the same weights, held to phase 8's
-             bars.
+             bars;
+24. resnet-train — bench.py's resnet50 stage: resnet50(num_classes=1000,
+             layout="NHWC", fused_bottleneck=True), weights from seed 0,
+             train mode, Momentum(0.1, momentum=0.9), Engine(model,
+             CrossEntropyLoss(), opt, amp_dtype="bfloat16"), batch 256 x 3
+             x 224 x 224 and labels from numpy seed 0: 3 warm-up and 10
+             timed steps ending in one sync, exactly 17 launches of #11 a
+             step (the train-mode route fuses where Cin <= Cout: layer1.0's
+             conv1 and the sixteen conv3s, with batch statistics by the
+             Gram trick) and no other kernel of the port; a finite loss,
+             f32 running statistics that moved, f32 parameters; images/s,
+             ms a step, peak memory; one step profiled (busy share, the
+             host's kernel launches, device time grouped: cuDNN
+             convolutions, elementwise and reduction passes, #11, GEMMs,
+             Momentum, the loss); then the same unfused (2 + 5 steps, #11
+             never launched) and fused with s2d_stem (3 + 2), each with its
+             images/s, ms a step, peak memory and a profiled step;
+25. resnet-train-cpu — resnet50 fused NHWC, f32, Momentum(0.1, 0.9), batch
+             32 x 3 x 96 x 96, the same weights (BatchNorm statistics and
+             affine parameters drawn at random) training 3 steps on cuda
+             (#11, 17 launches a step) and on the CPU (its twin), each step
+             from the CPU's state: the loss within 1e-4 relative, the
+             running statistics within 1e-4 of their max-abs, the
+             classifier's velocity within 1e-3 of its max-abs and its
+             parameters within 1e-5; every other leaf's update within 5e-2
+             relative L2 (an input of a ReLU within the f32 forward's error
+             of 0 takes the other side of the kink on the other device,
+             and every gradient upstream of it moves), with the share of
+             its velocities within 1e-3 of their max-abs reported; both
+             devices' first gradients against a float64 step of the
+             unfused model on the CPU, the card's median and worst leaf
+             at most 1.5x as far from it as the CPU twin's.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -200,8 +233,8 @@ model's projections compute in full f32.
 Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
-generate() call (phases 15-17), one ResNet-50 serve forward (phase 20)
-and each GPT-1.3B run (phase 22).
+generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
+each GPT-1.3B run (phase 22) and each ResNet-50 training run (phase 24).
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -212,10 +245,11 @@ timed number of the kernel table is reported held (the value) and unheld
 
 Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
 main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
-with a "shape" key), the card's name and power limit (nvidia-smi), and as the
-last line {"ok": true, "device": {...}}. Exits non-zero without a result
-when no CUDA device is present or when the package is not beside this
-script.
+with a "shape" key; #11 again on the training path, with a "path" key and
+its 17 launches a forward), the card's name and power limit (nvidia-smi),
+and as the last line {"ok": true, "device": {...}}. Exits non-zero without
+a result when no CUDA device is present or when the package is not beside
+this script.
 
 Comparisons, each alone and instead of the phases, the other version's
 sources given as files (the parent's from `git show
@@ -787,38 +821,104 @@ def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
 PAGED_KERNELS = ("paged_decode_kernel",)
 
 
+def _graph_nodes(torch, call, calls):
+    """What ``calls`` calls of ``call`` put on the device, read from a CUDA
+    graph captured around them: one entry a graph node, a kernel node by
+    its kernel's mangled name, any other node (memset, copy, ...) as
+    ``<node type N>``. Capture records every launch on the stream, so the
+    list is exact where a profiler's record can be lost."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(err, what):
+        check(err == 0, f"CUDA driver {what} returned error {err}")
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            call()
+    graph = vp(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2",
+                         cu.cuGraphKernelNodeGetParams)
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(f"<node type {kind.value}>")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2 in words: func, 3.5 words of grid,
+        # block and smem, kernelParams, extra, kern, ctx (room to spare)
+        params = (vp * 16)()
+        ok(get_params(vp(node), params), "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(params[0])),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(params[7])),
+               "cuKernelGetName")
+        out.append(name.value.decode())
+    del g
+    torch.cuda.synchronize()
+    return out
+
+
 def _check_one_kernel(torch, tag, call, names, calls=4):
-    """Under torch.profiler, ``calls`` calls of ``call`` (a kernel wrapper
-    whose scratch is already made) put exactly one kernel each on the
-    device, one of ``names``. Each profile opens and closes with a spin
-    kernel (torch.cuda._sleep) that is not counted: after an earlier
-    profiling session in the process, a kernel at the edge of a new one
-    can go unrecorded. A profile that recorded fewer of the calls' kernels
-    than calls is taken again, at most twice more; more kernels, or
-    another kernel, fail at once."""
+    """``calls`` calls of ``call`` (a kernel wrapper whose scratch is
+    already made) put exactly one kernel each on the device, one of
+    ``names``, and nothing else.
+
+    The count is read from a CUDA graph captured around the calls
+    (_graph_nodes), which is exact. The calls then run eagerly under
+    torch.profiler as well: every device kernel it records must be one of
+    ``names``, and no more of them than calls. The profiler can lose a
+    kernel's record (it lost one of four in each of three profiles in a
+    row on an H100), so a profile recording fewer is taken again, at most
+    twice more, and if all three fall short that is logged, not failed:
+    the count stands on the graph. Each profile opens
+    and closes with a 5 ms spin kernel (torch.cuda._sleep, not counted),
+    so the calls' kernels lie well inside the profile's window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
+    nodes = _graph_nodes(torch, call, calls)
+    ours = [n for n in nodes if any(d in n for d in names)]
+    check(len(nodes) == calls and len(ours) == calls,
+          f"{tag}: {calls} calls captured {len(nodes)} graph nodes {nodes}")
+    spin = int(5 * _spin_rate(torch))
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(spin)
             for _ in range(calls):
                 call()
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(spin)
             torch.cuda.synchronize()
-        kernels = {a.key: a.count for a in prof.key_averages()
+        avgs = prof.key_averages()
+        kernels = {a.key: a.count for a in avgs
                    if a.device_type == DeviceType.CUDA
                    and "spin_kernel" not in a.key}
-        if sum(kernels.values()) >= calls:
+        spins = sum(a.count for a in avgs if a.device_type == DeviceType.CUDA
+                    and "spin_kernel" in a.key)
+        recorded = sum(kernels.values())
+        mine = sum(c for n, c in kernels.items() if any(d in n for d in names))
+        check(mine == recorded <= calls,
+              f"{tag}: {calls} calls ran {kernels} on the device (profile "
+              f"{attempt})")
+        if recorded == calls:
             break
-    ours = sum(c for n, c in kernels.items() if any(d in n for d in names))
-    check(sum(kernels.values()) == calls and ours == calls,
-          f"{tag}: {calls} calls ran {kernels} on the device (profile "
-          f"{attempt})")
-    log(f"{tag}: {calls} calls under the profiler (profile {attempt}), one "
-        f"device kernel each: {kernels}")
+    log(f"{tag}: {calls} calls captured as {calls} kernel nodes, "
+        f"{ours[0]}; under the profiler (profile {attempt}) {recorded} of "
+        f"their kernels recorded, none other, and {spins} of 2 spins: "
+        f"{kernels}")
 
 
 def _check_paged_no_sync(torch):
@@ -3415,21 +3515,32 @@ def phase_conv_bn_act(torch, flush):
             f"{r['max_abs_err']:.3e} (of max(1, |twin|): "
             f"{r['scaled_err']:.3e}){extra}")
     timed = [r for r in rows if "ms" in r]
-    total = {key: sum(r[key] * n for r, (*_, n) in zip(timed, SERVE_SHAPES))
+    total = _shape_sum(timed, [n for *_, n in SERVE_SHAPES])
+    train = _shape_sum(timed, [TRAIN_SHAPES.get(i, 0)
+                               for i in range(len(SERVE_SHAPES))])
+    for what, t in (("the 32 launches of one ResNet-50 serve forward",
+                     total),
+                    ("the 17 launches of one training forward", train)):
+        log(f"conv-bn-act: {what} (batch 256, 224 px, bf16): kernel "
+            f"{t['ms']:.4f} ms against a bound of {t['bound_ms']:.4f} ms "
+            f"({t['bound_ms'] / t['ms']:.3f} of it); twin "
+            f"{t['plain_ms']:.4f} ms; GEMM alone (computes less than #11) "
+            f"{t['gemm_ms']:.4f} ms")
+    return dict(rows=rows, total=total, train_total=train)
+
+
+def _shape_sum(timed, counts):
+    """The timed rows of SERVE_SHAPES summed with a launch count each."""
+    total = {key: sum(r[key] * n for r, n in zip(timed, counts))
              for key in ("ms", "plain_ms", "gemm_ms", "bound_ms",
                          "bound_bytes_ms", "bound_ops_ms")}
     for key in ("ms", "plain_ms", "gemm_ms"):
         total[key] = Timing(total[key])
         total[key].unheld = sum(unheld(r[key]) * n
-                                for r, (*_, n) in zip(timed, SERVE_SHAPES))
+                                for r, n in zip(timed, counts))
     total["bound_by"] = ("bytes" if total["bound_bytes_ms"]
                          >= total["bound_ops_ms"] else "operations")
-    log(f"conv-bn-act: the 32 launches of one ResNet-50 forward (batch 256, "
-        f"224 px, bf16): kernel {total['ms']:.4f} ms against a bound of "
-        f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.3f} "
-        f"of it); twin {total['plain_ms']:.4f} ms; GEMM alone (computes "
-        f"less than #11) {total['gemm_ms']:.4f} ms")
-    return dict(rows=rows, total=total)
+    return total
 
 
 def _resnet_input(torch, b, hw, dtype, seed=0):
@@ -3612,6 +3723,295 @@ def phase_resnet_cpu(torch):
     return err / scale
 
 
+# -- ResNet-50 training: #11 on the train-mode fused bottleneck -------------
+
+# SERVE_SHAPES rows a training forward launches #11 at, with their counts:
+# the route fuses only where Cin <= Cout under batch statistics, which is
+# layer1.0's conv1 (64 -> 64) and the sixteen conv3s
+TRAIN_SHAPES = {0: 1, 2: 3, 5: 4, 8: 6, 11: 3}
+# device kernels of a training step, grouped by name (first match wins)
+TRAIN_GROUPS = (
+    ("#11", ("conv_bn_act",)),
+    ("cuDNN convolutions", ("fprop", "dgrad", "wgrad", "implicit", "conv",
+                            "winograd", "cudnn", "nhwc", "nchw")),
+    ("f32/bf16 GEMMs (#11's backward, the Gram products, fc)",
+     ("gemm", "cutlass", "cublas")),
+    ("Momentum (foreach)", ("multi_tensor_apply",)),
+    ("the loss", ("softmax", "nll", "gather", "scatter")),
+    ("pools", ("pool",)),
+    ("elementwise and reductions (eager BatchNorm, ReLU, residual, casts)",
+     ("elementwise", "reduce", "copy", "fill", "cat", "index")),
+)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+
+
+def _resnet_train_engine(torch, device, fused=True, s2d=False, amp=None,
+                         weight_seed=0):
+    """bench.py's build_resnet_engine on the port: resnet50(num_classes=
+    1000, NHWC, fused_bottleneck, s2d_stem).train(), Momentum(0.1, 0.9),
+    Engine(model, CrossEntropyLoss(), opt, amp_dtype)."""
+    from paddle_tpu_torch import nn, seed
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=fused,
+                     s2d_stem=s2d, device=device,
+                     generator=seed(weight_seed, device=device)).train()
+    opt = Momentum(0.1, momentum=0.9, parameters=model.named_parameters())
+    return model, Engine(model, nn.CrossEntropyLoss(), opt, amp_dtype=amp)
+
+
+def _resnet_train_batch(torch, b, hw, device="cuda", seed=0):
+    """run_resnet's batch: x from numpy's standard_normal, labels from
+    integers(0, 1000), one generator seeded ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 3, hw, hw)).astype(np.float32)
+    y = rng.integers(0, 1000, (b,))
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(y).to(device))
+
+
+def profile_resnet_train(torch, tag, eng, x, y):
+    """One training step under torch.profiler: busy time over wall time,
+    the host's kernel launches, and the device time grouped by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.train_batch([x], [y])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    rows = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+                  key=lambda a: a.self_device_time_total, reverse=True)
+    launches = sum(a.count for a in avgs if a.key in LAUNCH_CALLS)
+    busy = sum(a.self_device_time_total for a in rows) / 1e6
+    if busy <= 0:
+        log(f"{tag}: the profiler recorded no device time; busy share not "
+            "measured")
+        return dict(busy_share=None, launch_calls=launches)
+    groups = {name: [0.0, 0] for name, _ in TRAIN_GROUPS}
+    groups["other"] = [0.0, 0]
+    for a in rows:
+        key = a.key.lower()
+        name = next((g for g, pats in TRAIN_GROUPS
+                     if any(p in key for p in pats)), "other")
+        groups[name][0] += a.self_device_time_total / 1e3
+        groups[name][1] += a.count
+    log(f"{tag}: one training step profiled: wall {wall * 1e3:.3f} ms "
+        f"under the profiler, device busy {busy * 1e3:.3f} ms = "
+        f"{busy / wall:.3f} of it; {launches} kernel launches by the host, "
+        f"{sum(a.count for a in rows)} device kernels")
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        if n:
+            log(f"{tag}:   {ms:9.3f} ms = {ms / (busy * 1e3):.3f}  x{n:<5d} "
+                f"{name}")
+    for a in rows[:10]:
+        log(f"{tag}:   {a.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<5d} {a.key[:90]}")
+    return dict(busy_share=busy / wall, device_ms=busy * 1e3,
+                launch_calls=launches,
+                groups={n: g[0] for n, g in groups.items()})
+
+
+def _resnet_train_run(torch, tag, fused, s2d, warm, steps):
+    """One configuration of resnet50 training on the card at batch 256 x
+    224 px, bf16 AMP: ``warm`` steps, then ``steps`` timed steps ending in
+    one sync with the launch counts read over them, then one profiled
+    step."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    b, hw = 256, 224
+    t0 = time.perf_counter()
+    model, eng = _resnet_train_engine(torch, "cuda", fused, s2d, "bfloat16")
+    x, y = _resnet_train_batch(torch, b, hw)
+    stats0 = {n: t.clone() for n, t in model.named_buffers()}
+    torch.cuda.synchronize()
+    log(f"{tag}: resnet50 built on cuda in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters; NHWC, "
+        f"fused_bottleneck={fused}, s2d_stem={s2d}); batch {b} x 3 x {hw} x "
+        f"{hw}, bf16 AMP, Momentum(0.1, 0.9)")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch([x], [y])[0])
+        torch.cuda.synchronize()
+        log(f"{tag}: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
+            f"loss {losses[-1].item():.4f}")
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(eng.train_batch([x], [y])[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    want = 17 if fused else 0
+    check(launches["fused_conv1x1_bn_act"] == want * steps,
+          f"{tag}: #11 launched {launches['fused_conv1x1_bn_act']} times in "
+          f"{steps} steps, want {want * steps}")
+    others = {n: c for n, c in launches.items()
+              if c and n != "fused_conv1x1_bn_act"}
+    check(not others, f"{tag}: other kernels of the port launched {others}")
+    vals = [v.item() for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"{tag}: loss {vals}")
+    bufs = dict(model.named_buffers())
+    check(all(t.dtype == torch.float32 for t in bufs.values()),
+              f"{tag}: running statistics not f32")
+    moved = sum(not torch.equal(bufs[n], t) for n, t in stats0.items())
+    check(moved == len(stats0), f"{tag}: {len(stats0) - moved} running "
+          "statistics did not move")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"{tag}: parameters not f32")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(launches=launches, images_per_s=b * steps / wall,
+               ms_per_step=wall / steps * 1e3, peak_gib=peak, losses=vals,
+               steps=steps)
+    log(f"{tag}: {steps} steps in {wall:.3f} s = {res['ms_per_step']:.3f} "
+        f"ms/step, {res['images_per_s']:.1f} images/s; #11 x "
+        f"{want} a step, no other kernel of the port; loss {vals[0]:.4f} "
+        f"-> {vals[-1]:.4f}; {len(stats0)} f32 running statistics moved; "
+        f"max_memory_allocated {peak:.2f} GiB")
+    res.update(profile_resnet_train(torch, tag, eng, x, y))
+    del model, eng, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_resnet_train(torch):
+    """bench.py's resnet50 stage on the card at batch 256 x 224 px, bf16
+    AMP: fused_bottleneck (3 warm-up + 10 timed steps), unfused (2 + 5),
+    and the fused model with s2d_stem (3 + 2: a step after one warm-up
+    still runs up to twice as long as a settled one)."""
+    res = {"fused": _resnet_train_run(torch, "resnet-train", True, False,
+                                      3, 10),
+           "unfused": _resnet_train_run(torch, "resnet-train unfused", False,
+                                        False, 2, 5),
+           "s2d": _resnet_train_run(torch, "resnet-train s2d_stem", True,
+                                    True, 3, 2)}
+    log("resnet-train: images/s fused {:.1f}, unfused {:.1f}, fused with "
+        "s2d_stem {:.1f} (7x7 stem: the fused run)".format(
+            *(res[k]["images_per_s"] for k in ("fused", "unfused", "s2d"))))
+    return res
+
+
+def phase_resnet_train_cpu(torch):
+    """resnet50 fused NHWC, f32, Momentum(0.1, 0.9), batch 32 x 3 x 96 x
+    96 (layer4 at 3 x 3): the same weights (BatchNorm statistics and affine
+    parameters drawn at random) train 3 steps on the card (#11) and on the
+    CPU (its twin), the card's side starting each step from the CPU's
+    parameters, statistics and velocity.
+
+    Held to section 2's training-step bars where they are defined: the
+    loss 1e-4 relative, the running statistics 1e-4 of their max-abs, the
+    classifier's velocity 1e-3 of its max-abs and its parameters 1e-5. A
+    leaf below a ReLU gets another gradient wherever a ReLU input lies
+    within the f32 forward's error of 0 on one device (the kink), so its
+    update is held by its relative L2 norm (5e-2) and the per-element
+    reading is reported. Both devices' first gradients (the velocity after
+    step 1) are also read against a float64 step of the unfused model on
+    the CPU, which shows how far f32 itself sits from the exact one: the
+    card's median and worst leaf may sit at most 1.5x as far as the CPU
+    twin's."""
+    from paddle_tpu_torch import nn, seed
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    from paddle_tpu_torch.vision.models import resnet50
+    b, hw, steps = 32, 96, 3
+    gm, geng = _resnet_train_engine(torch, "cuda", weight_seed=4)
+    _randomize_bn(torch, gm, 22)
+    cm, ceng = _resnet_train_engine(torch, "cpu", weight_seed=5)
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    gx, gy = _resnet_train_batch(torch, b, hw, "cuda", seed=6)
+    cx, cy = gx.cpu(), gy.cpu()
+    gopt, copt = geng.optimizer, ceng.optimizer
+    exact = resnet50(num_classes=1000, layout="NHWC", device="cpu",
+                     dtype=torch.float64,
+                     generator=seed(7, device="cpu")).train()
+    exact.load_state_dict(cm.state_dict())
+    nn.CrossEntropyLoss()(exact(cx.double()), cy).backward()
+    g64 = {n: p.grad for n, p in exact.named_parameters()}
+    del exact
+    worst = dict(loss=0.0, stats=0.0, fc_vel=0.0, fc_param=0.0, update=0.0)
+    elem_ok, leaves = 0, 0
+    kcb.fused_conv1x1_bn_act.launches = 0
+    for step in range(1, steps + 1):
+        before = {k: v.clone() for k, v in cm.state_dict().items()}
+        lg = geng.train_batch([gx], [gy])[0].item()
+        lc = ceng.train_batch([cx], [cy])[0].item()
+        rel = abs(lg - lc) / abs(lc)
+        check(math.isfinite(rel) and rel <= 1e-4, f"resnet-train-cpu step "
+              f"{step}: loss cuda {lg} vs cpu {lc} ({rel} relative)")
+        worst["loss"] = max(worst["loss"], rel)
+        gstate = {k: v.cpu() for k, v in gm.state_dict().items()}
+        for k, c in cm.state_dict().items():
+            g = gstate[k]
+            if k.endswith(("_mean", "_variance")):
+                e = (g - c).abs().max().item() / c.abs().max().item()
+                check(e <= 1e-4, f"resnet-train-cpu step {step}: {k} "
+                      f"differs by {e} of its max-abs")
+                worst["stats"] = max(worst["stats"], e)
+                continue
+            vg = gopt._state[k]["velocity"].cpu()
+            vc = copt._state[k]["velocity"]
+            vel = (vg - vc).abs().max().item() / vc.abs().max().item()
+            if k.startswith("fc."):
+                perr = (g - c).abs().max().item()
+                check(vel <= 1e-3 and perr <= 1e-5, f"resnet-train-cpu step "
+                      f"{step}: {k} velocity {vel} of its max-abs, "
+                      f"parameters {perr}")
+                worst["fc_vel"] = max(worst["fc_vel"], vel)
+                worst["fc_param"] = max(worst["fc_param"], perr)
+                continue
+            leaves += 1
+            elem_ok += vel <= 1e-3
+            upd = ((g - before[k]) - (c - before[k])).norm().item() / max(
+                (c - before[k]).norm().item(), 1e-30)
+            check(math.isfinite(upd) and upd <= 5e-2, f"resnet-train-cpu "
+                  f"step {step}: {k}'s update differs by {upd} (relative "
+                  "L2)")
+            worst["update"] = max(worst["update"], upd)
+        if step == 1:
+            far = {}
+            for dev, opt in (("cuda", gopt), ("cpu", copt)):
+                far[dev] = sorted(
+                    (opt._state[k]["velocity"].cpu().double() - g).norm()
+                    .item() / g.norm().item() for k, g in g64.items())
+            log("resnet-train-cpu: step 1's gradients against a float64 step "
+                "of the unfused model, relative L2 (median, worst leaf): "
+                + "; ".join(f"{dev} {v[len(v) // 2]:.2e}, {v[-1]:.2e}"
+                            for dev, v in far.items()))
+            for at in (len(g64) // 2, -1):
+                check(far["cuda"][at] <= 1.5 * far["cpu"][at],
+                      f"resnet-train-cpu: the card's gradients sit "
+                      f"{far['cuda'][at]} from float64, the CPU twin's "
+                      f"{far['cpu'][at]}")
+            worst["f64"] = {dev: v[-1] for dev, v in far.items()}
+        # the next step starts from the CPU's state on both devices
+        gm.load_state_dict({k: v.to("cuda") for k, v in
+                            cm.state_dict().items()})
+        for k, st in copt._state.items():
+            gopt._state[k]["velocity"].copy_(st["velocity"])
+    check(kcb.fused_conv1x1_bn_act.launches == 17 * steps,
+          f"resnet-train-cpu: #11 launched "
+          f"{kcb.fused_conv1x1_bn_act.launches} times on the card in "
+          f"{steps} steps, want {17 * steps}")
+    log(f"resnet-train-cpu: resnet50 fused NHWC, f32, batch {b} x 3 x {hw} x "
+        f"{hw}, Momentum(0.1, 0.9), {steps} steps (each from the CPU's "
+        f"state): loss {worst['loss']:.2e} relative; running statistics "
+        f"{worst['stats']:.2e} of their max-abs; fc velocity "
+        f"{worst['fc_vel']:.2e} of its max-abs, fc parameters "
+        f"{worst['fc_param']:.2e}; the other leaves' updates "
+        f"{worst['update']:.2e} relative L2, their velocity within 1e-3 of "
+        f"its max-abs in {elem_ok} of {leaves} leaf-steps")
+    del gm, geng, cm, ceng
+    torch.cuda.empty_cache()
+    return dict(worst, elem_ok=elem_ok, leaves=leaves)
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
@@ -3712,6 +4112,11 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_cpu(torch)
     stamp("resnet_cpu")
+    torch.cuda.empty_cache()
+    rt = phase_resnet_train(torch)
+    stamp("resnet_train")
+    phase_resnet_train_cpu(torch)
+    stamp("resnet_train_cpu")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -3858,6 +4263,19 @@ def main():
                         if r["dtype"] == "float32"),
         ms=cb["ms"], plain_ms=cb["plain_ms"], bound_ms=cb["bound_ms"],
         bound_by=cb["bound_by"], library_ms=None))
+    # ... and the 17 launches of one resnet50 training forward, summed over
+    # the same timed shapes; launches over phase resnet-train's 10 steps
+    ct = conv["train_total"]
+    kernels.append(dict(
+        name="fused_conv1x1_bn_act", path="resnet-train", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_bn_act.cu",
+        replaces="paddle_tpu/ops/pallas/conv_bn_act.py:101",
+        launches=rt["fused"]["launches"]["fused_conv1x1_bn_act"],
+        launches_per_forward=17,
+        max_abs_err=max(r["max_abs_err"] for r in conv["rows"]
+                        if r["dtype"] == "float32"),
+        ms=ct["ms"], plain_ms=ct["plain_ms"], bound_ms=ct["bound_ms"],
+        bound_by=ct["bound_by"], library_ms=None))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])
@@ -3866,6 +4284,7 @@ def main():
         log(f"kernels: {kr['name']}"
             + (f" ({kr['dtype']})" if "dtype" in kr else "")
             + (f" at {kr['shape']}" if "shape" in kr else "")
+            + (f" on {kr['path']}" if "path" in kr else "")
             + f": ms {kr['ms']:.4f} (unheld "
             f"{u['ms']:.4f}), plain_ms {kr['plain_ms']:.4f} (unheld "
             f"{u['plain_ms']:.4f}), library_ms "

@@ -5,5 +5,6 @@ from .layers_activation import ReLU  # noqa: F401
 from .layers_common import (Dropout, Embedding, Identity,  # noqa: F401
                             LayerList, Linear, Sequential)
 from .layers_conv import Conv2D, to_channels_last  # noqa: F401
+from .layers_loss import CrossEntropyLoss  # noqa: F401
 from .layers_norm import BatchNorm2D, LayerNorm, RMSNorm  # noqa: F401
 from .layers_pooling import AdaptiveAvgPool2D, MaxPool2D  # noqa: F401

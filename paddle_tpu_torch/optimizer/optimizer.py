@@ -1,6 +1,6 @@
-"""Optimizers of the port: ``Optimizer``, ``Adam`` and ``AdamW``
-(counterpart of ``paddle_tpu/optimizer/optimizer.py``, ref:
-python/paddle/optimizer/optimizer.py, adam.py, adamw.py).
+"""Optimizers of the port: ``Optimizer``, ``Momentum``, ``Adam`` and
+``AdamW`` (counterpart of ``paddle_tpu/optimizer/optimizer.py``, ref:
+python/paddle/optimizer/optimizer.py, momentum.py, adam.py, adamw.py).
 
 One update core serves both ways of training, as in the reference:
 ``step()`` reads ``param.grad`` (eager ``loss.backward(); opt.step()``),
@@ -33,7 +33,7 @@ from ..ops.kernels.fused_adamw import (adamw_update_plain,
                                        fused_adamw_update)
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 
 class Optimizer:
@@ -119,6 +119,44 @@ class Optimizer:
         # be stepping (another optimizer, a checkpoint held in memory)
         self._state = {n: {k: t.clone() for k, t in s.items()}
                        for n, s in state.get("state", {}).items()}
+
+
+class Momentum(Optimizer):
+    """ref: paddle.optimizer.Momentum — heavy ball, optional Nesterov, with
+    coupled L2 decay on every leaf:
+
+        g += wd * p;  v = mu * v + g;  p -= lr * v
+        (Nesterov: p -= lr * (g + mu * v))
+
+    The velocity is f32, one per parameter name. Each step is a handful of
+    ``torch._foreach_*`` calls over all the leaves."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _velocity(self, name, p):
+        st = self._state.get(name)
+        if st is None:
+            st = {"velocity": torch.zeros_like(p, dtype=torch.float32)}
+            self._state[name] = st
+        return st["velocity"]
+
+    def update(self, names, params, grads, lr, step):
+        vel = [self._velocity(n, p) for n, p in zip(names, params)]
+        g = [t.float() for t in grads]
+        if self._weight_decay:
+            g = torch._foreach_add(g, [p.float() for p in params],
+                                   alpha=self._weight_decay)
+        torch._foreach_mul_(vel, self._momentum)
+        torch._foreach_add_(vel, g)
+        upd = (torch._foreach_add(g, vel, alpha=self._momentum)
+               if self._nesterov else vel)
+        torch._foreach_add_(params, upd, alpha=-lr)
 
 
 class Adam(Optimizer):

@@ -1,6 +1,8 @@
 """Vision model zoo of the port (counterpart of
 ``paddle_tpu/vision/models``): the ResNet family so far."""
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
-                     resnet18, resnet34, resnet50, resnet101, resnet152,
-                     resnext50_32x4d, resnext101_32x4d, resnext101_64x4d,
-                     resnext152_64x4d, wide_resnet50_2, wide_resnet101_2)
+                     SpaceToDepthStem, resnet18, resnet34, resnet50,
+                     resnet101, resnet152, resnext50_32x4d,
+                     resnext101_32x4d, resnext101_64x4d, resnext152_64x4d,
+                     s2d_weights_from_7x7, space_to_depth, wide_resnet50_2,
+                     wide_resnet101_2)

@@ -10,7 +10,18 @@ on real ``[N, H, W, C]`` tensors with HWIO kernels
 bottleneck, conv1 + bn1 + ReLU and conv3 + bn3 + residual + ReLU, through
 ``ops.kernels.conv_bn_act.fused_conv1x1_bn_act``: kernel #11 on the card,
 its plain twin on the CPU. In eval mode the running statistics fold into
-the kernel's f32 scale and shift.
+the kernel's f32 scale and shift. In training the batch statistics of
+the conv output come from ``conv1x1_batch_stats`` (the Gram-matrix trick,
+without forming the product), update the running statistics as
+``F.batch_norm`` does and fold into scale and shift with autograd live, so
+the gradients reach x, w, gamma and beta both through the kernel's
+backward and through the statistics. As the reference, training fuses
+only where Cin <= Cout (the Gram product costs Cin/Cout of the conv): a
+contracting 1x1 runs the plain ops.
+
+``s2d_stem=True`` replaces the 7x7/2 stem conv by ``SpaceToDepthStem``:
+2x2 pixel blocks packed into 12 channels, then a 4x4/1 conv, exactly
+equivalent under ``s2d_weights_from_7x7``.
 
 ``layout="auto"`` means NHWC for a model built on CUDA and NCHW on the
 CPU, as the reference picks NHWC on its accelerator. Every module takes an
@@ -20,14 +31,14 @@ are the reference's, so a reference ``state_dict`` (conv kernels OIHW, or
 HWIO in NHWC, and BatchNorm's ``_mean``/``_variance``) loads key for key
 through ``nlp.convert.load_numpy_state``.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the train-mode fused route (batch statistics through
-``conv1x1_batch_stats``), ``s2d_stem`` and ``pretrained`` weights.
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+``pretrained`` weights.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,12 +49,14 @@ from ...nn.layers_common import Linear, Sequential
 from ...nn.layers_conv import Conv2D, to_channels_last
 from ...nn.layers_norm import BatchNorm2D
 from ...nn.layers_pooling import AdaptiveAvgPool2D, MaxPool2D
-from ...ops.kernels.conv_bn_act import fused_conv1x1_bn_act
+from ...ops.kernels.conv_bn_act import (conv1x1_batch_stats,
+                                        fused_conv1x1_bn_act)
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "wide_resnet50_2",
            "wide_resnet101_2", "resnext50_32x4d", "resnext101_32x4d",
-           "resnext101_64x4d", "resnext152_64x4d"]
+           "resnext101_64x4d", "resnext152_64x4d", "SpaceToDepthStem",
+           "space_to_depth", "s2d_weights_from_7x7"]
 
 
 def _resolve_layout(layout, device):
@@ -65,7 +78,9 @@ def _fused_conv1x1_bn(x, conv, bn, residual=None, training=False):
     kernel; a strided, padded, grouped or biased conv; a BatchNorm without
     affine parameters; batch statistics with Cin > Cout), and the caller
     runs the plain ops. ``x`` and ``residual`` are contiguous NHWC maps,
-    viewed as [M, C] rows with no copy."""
+    viewed as [M, C] rows with no copy. With batch statistics the running
+    ones are updated in place (Paddle's convention, the variance unbiased
+    by M / (M - 1)), as ``F.batch_norm`` updates them."""
     w = conv.weight
     pad = conv._padding
     padded = isinstance(pad, str) or (
@@ -79,20 +94,25 @@ def _fused_conv1x1_bn(x, conv, bn, residual=None, training=False):
             or any(k != 1 for k in conv._kernel_size)):
         return None
     cin, cout = int(w.shape[-2]), int(w.shape[-1])
-    if training and not bn._use_global_stats:
-        if cin > cout:
-            return None
-        raise NotImplementedError(
-            f"the train-mode fused bottleneck (batch statistics through "
-            f"conv1x1_batch_stats) {later('6')}")
-    scale = bn.weight.float() * torch.rsqrt(bn._variance.float()
-                                            + bn._epsilon)
-    shift = bn.bias.float() - bn._mean.float() * scale
+    use_batch = training and not bn._use_global_stats
+    if use_batch and cin > cout:
+        return None
     lead = tuple(x.shape[:-1])
     m = math.prod(lead)
+    x2, w2 = x.view(m, cin), w.view(cin, cout)
+    if use_batch:
+        mean, var = conv1x1_batch_stats(x2, w2)
+        mom = bn._momentum
+        with torch.no_grad():
+            unbiased = var * (m / max(m - 1.0, 1.0))
+            bn._mean.copy_(bn._mean * mom + mean * (1.0 - mom))
+            bn._variance.copy_(bn._variance * mom + unbiased * (1.0 - mom))
+    else:
+        mean, var = bn._mean, bn._variance
+    scale = bn.weight.float() * torch.rsqrt(var.float() + bn._epsilon)
+    shift = bn.bias.float() - mean.float() * scale
     r2 = None if residual is None else residual.view(m, cout)
-    y2 = fused_conv1x1_bn_act(x.view(m, cin), w.view(cin, cout), scale,
-                              shift, r2, True)
+    y2 = fused_conv1x1_bn_act(x2, w2, scale, shift, r2, True)
     return y2.view(*lead, cout)
 
 
@@ -182,6 +202,64 @@ class BottleneckBlock(nn.Module):
         return fused3
 
 
+def space_to_depth(x, block_size, data_format="NCHW"):
+    """NCHW: [B, C, H, W] -> [B, C*b*b, H/b, W/b]; NHWC: [B, H, W, C] ->
+    [B, H/b, W/b, C*b*b]. The channel index is (c, di, dj) in both layouts,
+    so ``s2d_weights_from_7x7`` kernels serve either (up to the OIHW ->
+    HWIO transpose)."""
+    b = int(block_size)
+    if data_format == "NHWC":
+        n, h, w, c = x.shape
+        x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 5, 2, 4)
+        return x.reshape(n, h // b, w // b, c * b * b)
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+class SpaceToDepthStem(nn.Module):
+    """The 7x7/2 stem conv as an exactly equivalent 4x4/1 conv over the
+    input packed 2x2 pixels into 12 channels (padding [2, 1, 2, 1]): pad
+    the 7x7 kernel to 8x8 with a zero row on top and a zero column on the
+    left, then regroup its taps by pixel parity (``s2d_weights_from_7x7``).
+    The parameter is ``conv.weight``, as the reference's."""
+
+    def __init__(self, out_channels=64, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.conv = Conv2D(12, out_channels, 4, stride=1,
+                           padding=[2, 1, 2, 1], bias_attr=False,
+                           device=device, dtype=dtype, generator=generator)
+
+    def forward(self, x):
+        cl = self.conv._weight_format == "HWIO"
+        h, w = (x.shape[1], x.shape[2]) if cl else (x.shape[2], x.shape[3])
+        if h % 2 or w % 2:
+            raise ValueError(
+                f"SpaceToDepthStem needs even input H/W (got {h}x{w}): the "
+                "2x2 pixel packing has no exact 7x7/s2 equivalent on odd "
+                "sizes; pad the input or use the default stem "
+                "(s2d_stem=False)")
+        return self.conv(space_to_depth(x, 2, "NHWC" if cl else "NCHW"))
+
+
+def s2d_weights_from_7x7(w7):
+    """A [O, 3, 7, 7] stem kernel as the exactly equivalent [O, 12, 4, 4]
+    space-to-depth kernel (numpy in, numpy out)."""
+    w7 = np.asarray(w7)
+    o = w7.shape[0]
+    w = np.zeros((o, 12, 4, 4), w7.dtype)
+    for c in range(3):
+        for di in range(2):
+            for dj in range(2):
+                for p in range(4):
+                    for q in range(4):
+                        u, v = 2 * p + di - 1, 2 * q + dj - 1
+                        if 0 <= u < 7 and 0 <= v < 7:
+                            w[:, c * 4 + di * 2 + dj, p, q] = w7[:, c, u, v]
+    return w
+
+
 class ResNet(nn.Module):
     """ref: ResNet(block, depth, width, num_classes, with_pool, groups,
     s2d_stem, layout, fused_bottleneck), plus ``device``, ``dtype`` and
@@ -192,9 +270,6 @@ class ResNet(nn.Module):
                  fused_bottleneck=False, *, device=None, dtype=None,
                  generator=None):
         super().__init__()
-        if s2d_stem:
-            raise NotImplementedError(f"ResNet(s2d_stem=True) "
-                                      f"(SpaceToDepthStem) {later('6')}")
         kw = model_kw(device, dtype, generator)
         self._layout = "NCHW"  # built in the reference layout first
         self._fused_bottleneck = False
@@ -216,9 +291,13 @@ class ResNet(nn.Module):
         self.inplanes = 64
         self.dilation = 1
         dk = dict(device=kw["device"], dtype=kw["dtype"])
-        self.conv1 = Conv2D(3, self.inplanes, kernel_size=7, stride=2,
-                            padding=3, bias_attr=False,
-                            generator=kw["generator"], **dk)
+        if s2d_stem:
+            self.conv1 = SpaceToDepthStem(self.inplanes,
+                                          generator=kw["generator"], **dk)
+        else:
+            self.conv1 = Conv2D(3, self.inplanes, kernel_size=7, stride=2,
+                                padding=3, bias_attr=False,
+                                generator=kw["generator"], **dk)
         self.bn1 = self._norm_layer(self.inplanes, **dk)
         self.relu = ReLU()
         self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
