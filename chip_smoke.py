@@ -208,7 +208,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
              its velocities within 1e-3 of their max-abs reported; both
              devices' first gradients against a float64 step of the
              unfused model on the CPU, the card's median and worst leaf
-             at most 1.5x as far from it as the CPU twin's.
+             at most 1.5x as far from it as the CPU twin's;
+26. fit-resnet50 — paddle.Model over io.DataLoader at full width:
+             Model(resnet50 NHWC fused, weights from seed 0).prepare(
+             Momentum(0.1, 0.9), CrossEntropyLoss(), Accuracy(topk=(1, 5)),
+             amp_configs="O1"), fit(SyntheticImageNet(224 px), batch_size
+             256, 1 epoch of 13 steps, shuffle, drop_last, num_workers=2)
+             with a callback that stamps every step end (steps 4-13 timed,
+             step 3 profiled: busy share, memcpy, launches): exactly 17
+             launches of #11 a step and no other kernel of the port,
+             finite losses, running statistics that moved; images/s
+             beside phase resnet-train's Engine-direct figure, the
+             loader's wait a batch, peak memory; then evaluate and
+             predict over 512 held-out images (exactly 32 launches of #11
+             a forward, f32), save, load into a fresh Model (other seed)
+             whose evaluate must equal the first bit for bit; #11 in f32
+             held to its twin and timed at the forward's 12 shapes;
+27. fit-lenet — the reference's smoke test through Model: LeNet,
+             MNIST(mode="train") (6000 synthetic images), Adam(1e-3,
+             fused_kernel=True), CrossEntropyLoss, Accuracy, 6 epochs at
+             batch 256: exactly 144 launches of #10 (one a step, on
+             fc.0.weight) and no other kernel; evaluate(MNIST(mode=
+             "test")) acc > 0.95; #10 at that 400 x 120 leaf held to its
+             twin and timed; then 3 Model.train_batch calls on cuda and
+             on the CPU from the same weights (each from the CPU's
+             state), held to phase 8's bars.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -234,7 +258,8 @@ Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
 generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
-each GPT-1.3B run (phase 22) and each ResNet-50 training run (phase 24).
+each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
+Model.fit, evaluate and predict (phase 26) and LeNet's fit (phase 27).
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -246,7 +271,9 @@ timed number of the kernel table is reported held (the value) and unheld
 Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
 main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
 with a "shape" key; #11 again on the training path, with a "path" key and
-its 17 launches a forward), the card's name and power limit (nvidia-smi),
+its 17 launches a forward; #11 on fit-resnet50's training and f32
+evaluate/predict forwards and #10 on fit-lenet, with a "path" key), the
+card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
 this script.
@@ -4012,6 +4039,346 @@ def phase_resnet_train_cpu(torch):
     return dict(worst, elem_ok=elem_ok, leaves=leaves)
 
 
+# -- paddle.Model over io.DataLoader (phases fit-resnet50, fit-lenet) ---------
+
+def _zero_launches():
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def _read_launches():
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def _only(tag, launches, name, want):
+    """Exactly ``want`` launches of ``name`` and none of another kernel."""
+    check(launches[name] == want, f"{tag}: {name} launched "
+          f"{launches[name]} times, want {want}")
+    others = {n: c for n, c in launches.items() if c and n != name}
+    check(not others, f"{tag}: other kernels of the port launched {others}")
+
+
+class _FitProbe:
+    """A fit callback: the wall clock at every batch end (each step ends in
+    the float read of its loss, so these are step boundaries) and the loss;
+    one step profiled, from the end of batch ``profile_after`` to the end
+    of the next."""
+
+    def __init__(self, torch, profile_after):
+        from paddle_tpu_torch.hapi.callbacks import Callback
+        probe = self
+
+        class _CB(Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                probe.begins.append(time.perf_counter())
+
+            def on_train_batch_end(self, step, logs=None):
+                probe.batch_end(step, logs)
+
+        self.callback = _CB()
+        self.torch = torch
+        self.profile_after = profile_after
+        self.begins, self.ends, self.losses = [], [], []
+        self.prof, self.prof_wall = None, None
+
+    def gaps_ms(self, first, last):
+        """Host time from each step's end to the next one's begin (the
+        next batch's wait, its copy issued, the loop), steps first..last
+        (0-based), sorted."""
+        return sorted((self.begins[i + 1] - self.ends[i]) * 1e3
+                      for i in range(first, last))
+
+    def batch_end(self, step, logs):
+        from torch.profiler import ProfilerActivity, profile
+        if step == self.profile_after + 1 and self.prof is not None:
+            self.torch.cuda.synchronize()
+            self.prof_wall = time.perf_counter() - self.prof_t0
+            self.prof.stop()
+        self.ends.append(time.perf_counter())
+        self.losses.append(logs["loss"][0])
+        if step == self.profile_after:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.prof_t0 = time.perf_counter()
+
+    def busy(self, tag):
+        """The profiled step: device busy time over its wall time."""
+        from torch.autograd import DeviceType
+        avgs = self.prof.key_averages()
+        rows = [a for a in avgs if a.device_type == DeviceType.CUDA]
+        busy = sum(a.self_device_time_total for a in rows) / 1e6
+        launches = sum(a.count for a in avgs if a.key in LAUNCH_CALLS)
+        copies = sum(a.self_device_time_total for a in rows
+                     if "memcpy" in a.key.lower()) / 1e3
+        if busy <= 0:
+            log(f"{tag}: the profiler recorded no device time; busy share "
+                "not measured")
+            return dict(busy_share=None, launch_calls=launches)
+        log(f"{tag}: one fit step profiled (batch end to batch end: the "
+            f"next batch's wait and copy, the step, the loss and metric "
+            f"reads): wall {self.prof_wall * 1e3:.3f} ms, device busy "
+            f"{busy * 1e3:.3f} ms = {busy / self.prof_wall:.3f} of it; "
+            f"memcpy {copies:.3f} ms; {launches} kernel launches by the "
+            f"host, {sum(a.count for a in rows)} device kernels")
+        top = sorted(rows, key=lambda a: a.self_device_time_total,
+                     reverse=True)
+        for a in top[:8] + [a for a in top[8:]
+                            if "memcpy" in a.key.lower()]:
+            log(f"{tag}:   {a.self_device_time_total / 1e3:9.3f} ms  "
+                f"x{a.count:<5d} {a.key[:90]}")
+        return dict(busy_share=busy / self.prof_wall, device_ms=busy * 1e3,
+                    wall_ms=self.prof_wall * 1e3, memcpy_ms=copies,
+                    launch_calls=launches)
+
+
+def _resnet_fit_model(torch, weight_seed):
+    """The fit-resnet50 Model: resnet50 NHWC with the fused bottleneck,
+    Momentum(0.1, 0.9), CrossEntropyLoss, Accuracy(topk=(1, 5)), AMP O1."""
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=True,
+                   device="cuda", generator=seed(weight_seed, device="cuda"))
+    model = Model(net)
+    model.prepare(Momentum(0.1, momentum=0.9), nn.CrossEntropyLoss(),
+                  Accuracy(topk=(1, 5)), amp_configs="O1")
+    return model
+
+
+def _conv_f32_forward(torch):
+    """Kernel #11 in f32 against its twin at the 12 shapes of one resnet50
+    forward at batch 256 x 224 px (what evaluate and predict launch),
+    timed, and summed over the forward's 32 launches."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = [_conv_case(torch, m, cin, cout, res, True, "float32", gen,
+                       scratch.zero_, True)
+            for m, cin, cout, res, _ in SERVE_SHAPES]
+    del scratch
+    total = _shape_sum(rows, [n for *_, n in SERVE_SHAPES])
+    log(f"fit-resnet50: #11 in f32 at the 12 forward shapes: max_abs_err "
+        f"{max(r['max_abs_err'] for r in rows):.3e}; the 32 launches of one "
+        f"forward {total['ms']:.4f} ms against a bound of "
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']}); twin "
+        f"{total['plain_ms']:.4f} ms")
+    return dict(rows=rows, total=total)
+
+
+def phase_fit_resnet50(torch, engine_direct):
+    """paddle.Model over io.DataLoader at full width: resnet50 fused NHWC,
+    AMP O1, Momentum, Accuracy top-1/5; fit 13 steps at batch 256 x 224 px
+    from SyntheticImageNet (2 thread workers, shuffle, drop_last; steps
+    4-13 timed, step 3 profiled), then evaluate and predict over 512
+    held-out images, save, load into a fresh Model and evaluate again."""
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch.io import Subset
+    from paddle_tpu_torch.vision.datasets import SyntheticImageNet
+    tag, b, steps, held_n = "fit-resnet50", 256, 13, 512
+    ds = SyntheticImageNet(n=b * steps + held_n, image_size=224)
+    train = Subset(ds, range(b * steps))
+    held = Subset(ds, range(b * steps, b * steps + held_n))
+    t0 = time.perf_counter()
+    model = _resnet_fit_model(torch, 0)
+    net = model.network
+    stats0 = {n: t.clone() for n, t in net.named_buffers()}
+    torch.cuda.synchronize()
+    log(f"{tag}: resnet50 built on cuda in {time.perf_counter() - t0:.2f} "
+        f"s; Model.prepare(Momentum(0.1, 0.9), CrossEntropyLoss(), "
+        f"Accuracy(topk=(1, 5)), amp_configs='O1')")
+    probe = _FitProbe(torch, profile_after=1)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    model.fit(train, batch_size=b, epochs=1, shuffle=True, drop_last=True,
+              num_workers=2, verbose=0, callbacks=[probe.callback])
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _only(tag, launches, "fused_conv1x1_bn_act", 17 * steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(probe.losses) == steps and all(
+        math.isfinite(v) for v in probe.losses), f"{tag}: losses "
+        f"{probe.losses}")
+    moved = sum(not torch.equal(t, stats0[n]) for n, t in
+                net.named_buffers())
+    check(moved == len(stats0), f"{tag}: {len(stats0) - moved} running "
+          "statistics did not move")
+    window = probe.ends[steps - 1] - probe.ends[2]  # steps 4-13
+    gaps = probe.gaps_ms(2, steps - 1)
+    loader = model._loaders["train"]
+    res = dict(launches=launches, steps=steps, losses=probe.losses,
+               images_per_s=b * 10 / window, ms_per_step=window / 10 * 1e3,
+               fit_wall_s=fit_wall, peak_gib=peak,
+               wait_ms_per_batch=loader.batch_wait_s / loader.batches * 1e3,
+               gap_ms_median=gaps[len(gaps) // 2], gap_ms_max=gaps[-1],
+               engine_images_per_s=engine_direct["images_per_s"],
+               engine_ms_per_step=engine_direct["ms_per_step"])
+    res["profile"] = probe.busy(tag)
+    # the profiler slows the host, not the device: the profiled step's
+    # device time over an unprofiled step's wall is the busy share the
+    # timed window ran at
+    dev_ms = res["profile"].get("device_ms")
+    res["device_over_step"] = None if dev_ms is None else \
+        dev_ms / res["ms_per_step"]
+    log(f"{tag}: the profiled step's device time over steps 4-13's ms a "
+        f"step: {res['device_over_step']}")
+    log(f"{tag}: fit of {steps} steps in {fit_wall:.3f} s; steps 4-13 "
+        f"{res['ms_per_step']:.3f} ms/step = {res['images_per_s']:.1f} "
+        f"images/s (Engine direct, phase resnet-train, this run: "
+        f"{res['engine_images_per_s']:.1f}); the loader's wait "
+        f"{res['wait_ms_per_batch']:.3f} ms a batch over {loader.batches} "
+        f"batches; host time from a step's end to the next one's begin "
+        f"(steps 4-13) median {res['gap_ms_median']:.3f} ms, max "
+        f"{res['gap_ms_max']:.3f}; #11 x 17 a step, no other kernel of the "
+        f"port; loss "
+        f"{probe.losses[0]:.4f} -> {probe.losses[-1]:.4f}; "
+        f"max_memory_allocated {peak:.2f} GiB")
+
+    _zero_launches()
+    first = model.evaluate(held, batch_size=b, num_workers=2, verbose=0)
+    _only(f"{tag} evaluate", _read_launches(), "fused_conv1x1_bn_act",
+          32 * held_n // b)
+    _zero_launches()
+    pred = model.predict(held, batch_size=b, num_workers=2,
+                         stack_outputs=True)
+    _only(f"{tag} predict", _read_launches(), "fused_conv1x1_bn_act",
+          32 * held_n // b)
+    check(pred[0].shape == (held_n, 1000) and pred[0].dtype == np.float32
+          and bool(np.isfinite(pred[0]).all()), f"{tag}: predict gave "
+          f"{pred[0].shape} {pred[0].dtype}")
+    check(math.isfinite(first["loss"][0]) and
+          0.0 <= first["acc_top1"] <= first["acc_top5"] <= 1.0,
+          f"{tag}: evaluate {first}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "resnet50")
+        model.save(path)
+        fresh = _resnet_fit_model(torch, 1)
+        fresh.load(path)
+        again = fresh.evaluate(held, batch_size=b, num_workers=2,
+                               verbose=0)
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdparams", ".pdopt")}
+    check(again == first, f"{tag}: the reloaded Model evaluates {again}, "
+          f"the first {first}")
+    check(fresh._engine._step == steps, f"{tag}: reloaded engine step "
+          f"{fresh._engine._step}")
+    log(f"{tag}: evaluate over {held_n} held-out images {first} (#11 x 32 "
+        f"a forward, f32); predict {pred[0].shape}; save "
+        f"({sizes['.pdparams'] / 2 ** 20:.1f} + "
+        f"{sizes['.pdopt'] / 2 ** 20:.1f} MiB) and load into a fresh "
+        "Model: evaluate bit for bit the first one's")
+    # one batch's copy to the card from pinned memory, as device_prefetch
+    # issues it (the images; the labels are 2 KB), held and timed alone
+    x = torch.empty((b, 3, 224, 224), pin_memory=True)
+    res["h2d_ms"] = time_ms(torch, lambda: x.to("cuda", non_blocking=True))
+    log(f"{tag}: one batch's images pinned -> cuda ({x.nbytes / 1e6:.1f} "
+        f"MB): {res['h2d_ms']:.3f} ms = "
+        f"{x.nbytes / res['h2d_ms'] / 1e6:.1f} GB/s")
+    del x
+    res.update(evaluate=first, conv_f32=_conv_f32_forward(torch),
+               eval_launches=2 * 32 * held_n // b)
+    del model, fresh, net
+    torch.cuda.empty_cache()
+    return res
+
+
+class _ModelSteps:
+    """Model.train_batch in the shape _cross_device_step drives an
+    Engine: (loss tensor, outputs), and the optimizer."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.optimizer = model._optimizer
+
+    def train_batch(self, inputs, labels):
+        loss = self.model.train_batch(inputs, labels)[0][0]
+        return self.torch.tensor(loss), None
+
+
+def phase_fit_lenet(torch):
+    """The reference's smoke test through Model on the card: LeNet,
+    MNIST(mode="train") (6000 synthetic images), Adam(1e-3,
+    fused_kernel=True), 6 epochs at batch 256 (24 steps an epoch, one
+    launch of #10 a step, on fc.0.weight), evaluate(MNIST(mode="test"))
+    over 0.95; #10 at that leaf against its twin; then 3 train_batch calls
+    on the card and on the CPU from the same weights, phase 8's bars."""
+    import numpy as np
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    tag = "fit-lenet"
+
+    def build(device, weight_seed=0):
+        net = LeNet(device=device, generator=seed(weight_seed,
+                                                  device=device))
+        m = Model(net)
+        m.prepare(Adam(1e-3, parameters=net.parameters(), fused_kernel=True),
+                  nn.CrossEntropyLoss(), Accuracy())
+        return m
+
+    model = build("cuda")
+    train = MNIST(mode="train")
+    np.random.seed(0)  # the shuffle order
+    _zero_launches()
+    t0 = time.perf_counter()
+    model.fit(train, epochs=6, batch_size=256, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _only(tag, launches, "fused_adamw_update", 6 * 24)
+    res = model.evaluate(MNIST(mode="test"), batch_size=256, verbose=0)
+    check(res["acc"] > 0.95, f"{tag}: evaluate {res}")
+    loader = model._loaders["train"]
+    log(f"{tag}: fit 6 epochs x 24 steps in {wall:.3f} s "
+        f"({6 * len(train) / wall:.1f} images/s; the loader's wait "
+        f"{loader.batch_wait_s / loader.batches * 1e3:.3f} ms a batch); "
+        f"#10 x {launches['fused_adamw_update']} (one a step, "
+        f"fc.0.weight's 48000 values), no other kernel; evaluate {res}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    adamw = _adamw_case(torch, (400, 120), False, gen, scratch.zero_, True)
+    del scratch
+    log(f"{tag}: #10 at fc.0.weight (400 x 120): max_abs_err "
+        f"{adamw['max_abs_err']:.3e} ms {adamw['ms']:.4f} plain_ms "
+        f"{adamw['plain_ms']:.4f} library_ms {adamw['library_ms']:.4f} "
+        f"bound_ms {adamw['bound_ms']:.4f} ({adamw['bound_by']})")
+
+    gm, cm = build("cuda", 1), build("cpu", 2)
+    cm.network.load_state_dict({k: v.cpu() for k, v in
+                                gm.network.state_dict().items()})
+    rng = np.random.default_rng(28)
+    idx = rng.permutation(len(train))[:256]
+    x = np.stack([train[i][0] for i in idx])
+    y = np.stack([train[i][1] for i in idx])
+    batches = {"cuda": ([torch.from_numpy(x).cuda()],
+                        [torch.from_numpy(y).cuda()]),
+               "cpu": ([torch.from_numpy(x)], [torch.from_numpy(y)])}
+    worst = {}
+    for step in range(1, 4):
+        r = _cross_device_step(
+            f"{tag} cpu step {step}", "LeNet, batch 256, f32, Adam fused",
+            {"cuda": gm.network, "cpu": cm.network},
+            {"cuda": _ModelSteps(torch, gm), "cpu": _ModelSteps(torch, cm)},
+            batches, nn.CrossEntropyLoss())
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in r.items()}
+        # the next step starts from the CPU's state on both devices
+        gm.network.load_state_dict({k: v.cuda() for k, v in
+                                    cm.network.state_dict().items()})
+        for n, st in cm._optimizer._state.items():
+            for k, t in st.items():
+                gm._optimizer._state[n][k].copy_(t)
+    return dict(launches=launches, wall_s=wall, evaluate=res, adamw=adamw,
+                cpu=worst)
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
@@ -4117,6 +4484,11 @@ def main():
     stamp("resnet_train")
     phase_resnet_train_cpu(torch)
     stamp("resnet_train_cpu")
+    torch.cuda.empty_cache()
+    fr = phase_fit_resnet50(torch, rt["fused"])
+    stamp("fit_resnet50")
+    fl = phase_fit_lenet(torch)
+    stamp("fit_lenet")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -4276,6 +4648,39 @@ def main():
                         if r["dtype"] == "float32"),
         ms=ct["ms"], plain_ms=ct["plain_ms"], bound_ms=ct["bound_ms"],
         bound_by=ct["bound_by"], library_ms=None))
+    # the high-level path (phases fit-resnet50 and fit-lenet): #11 over
+    # Model.fit's 13 training steps at the training route's 17 shapes, and
+    # over evaluate's and predict's f32 forwards (32 launches each); #10 at
+    # LeNet's fc.0.weight, one launch a step over 6 epochs
+    kernels.append(dict(
+        name="fused_conv1x1_bn_act", path="fit-resnet50", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_bn_act.cu",
+        replaces="paddle_tpu/ops/pallas/conv_bn_act.py:101",
+        launches=fr["launches"]["fused_conv1x1_bn_act"],
+        launches_per_forward=17,
+        max_abs_err=max(r["max_abs_err"] for r in conv["rows"]
+                        if r["dtype"] == "float32"),
+        ms=ct["ms"], plain_ms=ct["plain_ms"], bound_ms=ct["bound_ms"],
+        bound_by=ct["bound_by"], library_ms=None))
+    ce = fr["conv_f32"]["total"]
+    kernels.append(dict(
+        name="fused_conv1x1_bn_act", dtype="float32",
+        path="fit-resnet50 evaluate+predict", route="cuda",
+        source="paddle_tpu_torch/csrc/conv_bn_act.cu",
+        replaces="paddle_tpu/ops/pallas/conv_bn_act.py:101",
+        launches=fr["eval_launches"], launches_per_forward=32,
+        max_abs_err=max(r["max_abs_err"] for r in fr["conv_f32"]["rows"]),
+        ms=ce["ms"], plain_ms=ce["plain_ms"], bound_ms=ce["bound_ms"],
+        bound_by=ce["bound_by"], library_ms=None))
+    al = fl["adamw"]
+    kernels.append(dict(
+        name="fused_adamw_update", shape="400x120", path="fit-lenet",
+        route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+        launches=fl["launches"]["fused_adamw_update"],
+        max_abs_err=al["max_abs_err"], ms=al["ms"],
+        plain_ms=al["plain_ms"], bound_ms=al["bound_ms"],
+        bound_by=al["bound_by"], library_ms=al["library_ms"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -6,15 +6,27 @@ the caller passes ``device="cpu"``; the TPU's Pallas kernels become
 hand-written CUDA C++ kernels for Hopper (``csrc/``), each with a plain
 PyTorch twin that the CPU runs.
 
-Ported so far: the serving path of GPT (``nlp.serving.ServingEngine``
-over ``nlp.paged_cache``), with the flash-attention forward and paged
-decode kernels; and its training path (``hapi.engine.Engine`` or eager
-``loss.backward()`` + ``optimizer.step()``), with the flash-attention
-backward kernels, in-kernel attention dropout and the one-pass AdamW
-kernel. ROADMAP.md lists what is still to come.
+Ported so far: GPT serving (``nlp.serving.ServingEngine`` over
+``nlp.paged_cache``) and ``generate()`` for GPT and Llama; training
+through ``hapi.engine.Engine`` (or eager ``loss.backward()`` +
+``optimizer.step()``) of GPT (up to gpt3-1.3B), ERNIE/BERT pretraining
+and ResNet; ResNet serving; and the high-level API, ``Model(net).prepare(
+...).fit/evaluate/predict/save/load`` over ``io.DataLoader``, with
+``metric``, the callbacks, ``summary``/``flops``, ``save``/``load`` in the
+reference's file format, and ``vision`` (datasets, transforms, LeNet,
+ResNet). ROADMAP.md lists what is still to come.
 """
 from .framework import (bind_generator, convert_dtype,  # noqa: F401
                         get_default_dtype, seed, set_default_dtype)
 from .device import resolve_device  # noqa: F401
+from . import nn  # noqa: E402,F401
+from . import optimizer  # noqa: E402,F401
+from . import metric  # noqa: E402,F401
+from . import io  # noqa: E402,F401
+from . import vision  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+from .hapi.summary import summary, flops  # noqa: E402,F401
+from .serialization import save, load  # noqa: E402,F401
+from .hapi import callbacks  # noqa: E402,F401  (ref: paddle.callbacks)
 
 __version__ = "0.1.0"

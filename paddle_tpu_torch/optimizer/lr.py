@@ -287,8 +287,7 @@ class ReduceOnPlateau(LRScheduler):
     def step(self, metrics=None, epoch=None):
         if metrics is None:
             return
-        from ..tensor import Tensor
-        cur = float(metrics.item() if isinstance(metrics, Tensor) else metrics)
+        cur = float(metrics.item() if hasattr(metrics, "item") else metrics)
         self.last_epoch += 1
         if self.cooldown_counter > 0:
             self.cooldown_counter -= 1

@@ -70,6 +70,11 @@ class Optimizer:
         return float(self._lr)
 
     # -- the update core (override per optimizer) ---------------------------
+    def _slot_names(self):
+        """The names of the state slots kept per parameter (the keys of
+        ``_state[name]``, and of the reference's optimizer state)."""
+        return ()
+
     def update(self, names, params, grads, lr, step):
         """Update ``params`` in place from ``grads`` at optimizer step
         ``step`` (1-based) with learning rate ``lr``."""
@@ -139,6 +144,9 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._nesterov = use_nesterov
 
+    def _slot_names(self):
+        return ("velocity",)
+
     def _velocity(self, name, p):
         st = self._state.get(name)
         if st is None:
@@ -183,6 +191,9 @@ class Adam(Optimizer):
                     f"moments) {later('1.1')}")
             raise ValueError(f"moment_dtype={moment_dtype}: only bfloat16 "
                              "or float32 are supported")
+
+    def _slot_names(self):
+        return ("m", "v", "vhat") if self._amsgrad else ("m", "v")
 
     def _slots(self, name, p):
         st = self._state.get(name)

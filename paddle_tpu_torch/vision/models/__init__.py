@@ -1,5 +1,6 @@
 """Vision model zoo of the port (counterpart of
-``paddle_tpu/vision/models``): the ResNet family so far."""
+``paddle_tpu/vision/models``): LeNet and the ResNet family so far."""
+from .lenet import LeNet  # noqa: F401
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      SpaceToDepthStem, resnet18, resnet34, resnet50,
                      resnet101, resnet152, resnext50_32x4d,

@@ -60,8 +60,43 @@ def test_port_files_found():
     assert os.path.exists(files[0]), "chip_smoke.py missing"
     assert len(files) > 15
     vision = [f for f in files if os.sep + "vision" + os.sep in f]
-    assert {os.path.basename(f) for f in vision} >= {"__init__.py",
-                                                     "resnet.py"}
+    assert {os.path.basename(f) for f in vision} >= {
+        "__init__.py", "resnet.py", "lenet.py", "datasets.py",
+        "transforms.py"}
+    rel = {os.path.relpath(f, _PKG) for f in files}
+    assert rel >= {os.path.join("hapi", "model.py"),
+                   os.path.join("hapi", "callbacks.py"),
+                   os.path.join("hapi", "summary.py"),
+                   os.path.join("io", "dataloader.py"),
+                   os.path.join("io", "process_worker.py"),
+                   os.path.join("metric", "__init__.py"),
+                   os.path.join("resilience", "preemption.py"),
+                   "serialization.py"}
+
+
+def test_high_level_path_imports_no_jax():
+    """Model.fit, save and load in a fresh interpreter leave jax and the
+    JAX package out of sys.modules."""
+    import subprocess
+    import sys
+    code = (
+        "import sys, os, tempfile, numpy as np\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.vision.models import LeNet\n"
+        "net = LeNet(device='cpu')\n"
+        "m = pt.Model(net)\n"
+        "m.prepare(pt.optimizer.Adam(1e-3), pt.nn.CrossEntropyLoss(),\n"
+        "          pt.metric.Accuracy())\n"
+        "ds = pt.vision.datasets.MNIST(mode='test')\n"
+        "m.fit(pt.io.Subset(ds, range(64)), batch_size=32, verbose=0)\n"
+        "d = tempfile.mkdtemp()\n"
+        "m.save(os.path.join(d, 'x')); m.load(os.path.join(d, 'x'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", _port_files(),
