@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              not spill), the bf16 forward's largest SASS
              basic blocks (a tile's softmax) counted by opcode class, and
              the f32 forward's SASS at each D: its TF32 HMMAs must
-             outnumber its FFMAs (the products on the tensor cores);
+             outnumber its FFMAs (the products on the tensor cores); and
+             #11's f32 kernel at each tile width: its TF32 HGMMAs, in
+             m16n8k8 units a warp, must outnumber its FFMAs;
 2. flash   — the flash-attention forward kernel vs its plain PyTorch twin
              at gpt3-345M prefill shapes (B=1, H=16, D=64, S in 64..1024,
              causal, kv_lens < S; f32 and bf16), plus D=128, sq != sk,
@@ -57,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              leaf and the 50304x1024 embedding, coupled and decoupled
              decay, GPT-1.3B's 50304x2048 embedding and 2048x8192 MLP leaf,
              plus an odd length and an unaligned view; times kernel, twin
-             and torch.optim.AdamW(fused=True);
+             and torch.optim.AdamW(fused=True); times the launch floor
+             (an add_ on one f32 value, held);
 7. train   — gpt3-345M at full width and depth, f32 params on cuda,
              dropout 0, through Engine(GPTPretrainingCriterion,
              AdamW(1e-4, weight_decay=0.01, fused_kernel=True), bf16 AMP):
@@ -146,11 +149,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (+ residual)) vs its plain twin at the 12 shapes of one
              ResNet-50 forward (batch 256, 224 px) in bf16, four of them
              in f32, residual and ReLU on and off, ragged M (1, 7, not a
-             multiple of 128), Cin (3, 100) and Cout (1, 9, 70); times
-             the bf16 shapes next to their bounds, the twin and the cuBLAS
-             product alone (which computes less than #11; no single
-             PyTorch call computes #11's function), and the sum over the
-             32 launches of a forward;
+             multiple of 128), Cin (3, 100) and Cout (1, 9, 70), and x
+             one value off a 16-byte boundary; times the bf16 shapes next
+             to their bounds, the twin and the cuBLAS product alone (which
+             computes less than #11; no single PyTorch call computes #11's
+             function), and the sum over the 32 launches of a forward;
 20. resnet-serve — resnet50(layout="NHWC", fused_bottleneck=True) at full
              depth and width, weights from seed 0 on the card, eval, cast
              to bf16 with its running statistics (bench.py's
@@ -222,8 +225,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              loader's wait a batch, peak memory; then evaluate and
              predict over 512 held-out images (exactly 32 launches of #11
              a forward, f32), save, load into a fresh Model (other seed)
-             whose evaluate must equal the first bit for bit; #11 in f32
-             held to its twin and timed at the forward's 12 shapes;
+             whose evaluate must equal the first bit for bit; evaluate's
+             images/s (both calls) and one f32 forward at batch 256
+             profiled (device time, #11's share); #11 in f32 held to its
+             twin and timed at the forward's 12 shapes beside its bound
+             (3xTF32; the CUDA cores' beside it) and cuBLAS's f32 GEMM
+             alone;
 27. fit-lenet — the reference's smoke test through Model: LeNet,
              MNIST(mode="train") (6000 synthetic images), Adam(1e-3,
              fused_kernel=True), CrossEntropyLoss, Accuracy, 6 epochs at
@@ -244,7 +251,8 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
               3.1e-2;
   conv-bn-act: f32 1e-4 and bf16 2e-2 of max(1, |twin|) — the product
-              summed in another order; bf16 y rounds to 8 bits;
+              summed in another order (f32: 3xTF32 on the tensor cores,
+              like the f32 flash forward); bf16 y rounds to 8 bits;
   int8 1e-4 — both dequantize value * scale in f32 the same way; only
               the summation order differs;
   AdamW 1e-6 — the same f32 arithmetic, contracted into FMAs on the card;
@@ -290,6 +298,7 @@ unheld:
     python3 chip_smoke.py --compare-decode SRC...  # flash_decode.cu
     python3 chip_smoke.py --compare-paged SRC...   # paged_flash_decode.cu
     python3 chip_smoke.py --compare-ln SRC...      # fused_ln.cu
+    python3 chip_smoke.py --compare-conv SRC...    # conv_bn_act.cu
 
 at GPT's training shape with and without dropout and ERNIE's (the
 forward also the f32 serving prefill, GPT's shape in f32 with and without
@@ -302,7 +311,9 @@ many bytes), and for the fused LN forwards #6 and #8 and backwards #7
 and #9 ERNIE's and GPT's bf16 shapes (the backwards beside
 aten.native_layer_norm_backward and a torch.addcmul over as many row
 bytes, each source also at grids of 132 x 1..5 blocks, its two kernels
-under the profiler, ours with a read flush). The forward
+under the profiler, ours with a read flush), and for #11 the 12 shapes
+of a ResNet-50 forward at batch 256 x 224 px in f32 and bf16 (beside
+cuBLAS's GEMM alone and the bound; the 32- and 17-launch sums). The forward
 mode first checks that cvt.rna.tf32.f32 rounds as the kernels' integer
 tf32 rounding does and times back-to-back mma.sync TF32 products, the
 ceiling the f32 kernel is read against.
@@ -331,6 +342,9 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+# #11's f32 output from the float64 product of the same operands, of
+# max(1, |y|): the f32 bar the CPU tests hold the port to
+F32_EXACT_TOL = 1e-5
 ADAMW_TOL = 1e-6
 
 
@@ -495,14 +509,20 @@ _SASS_CLASSES = (
 )
 
 
+def _cuobjdump():
+    """cuobjdump beside nvcc, or None where the toolkit lacks it."""
+    from paddle_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())),
+                        "cuobjdump")
+    return tool if os.path.exists(tool) else None
+
+
 def _sass_function(lib, kernel):
     """The SASS (``cuobjdump -sass``) of the first function of ``lib`` whose
     name holds ``kernel``; None when cuobjdump or the function is
     missing."""
-    from paddle_tpu_torch.ops import _build
-    tool = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())),
-                        "cuobjdump")
-    if not os.path.exists(tool):
+    tool = _cuobjdump()
+    if tool is None:
         return None
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -588,6 +608,42 @@ def _f32_fwd_sass(lib):
               f"{ffma} FFMAs: its products are not on the tensor cores")
 
 
+# a tf32 warpgroup product in SASS: one HGMMA of 64 x N x 8
+_HGMMA_TF32 = re.compile(r"HGMMA\.64x(\d+)x8\.F32\.TF32")
+
+
+def _conv_f32_sass(lib):
+    """#11's f32 kernel in SASS, per tile width: its products counted in
+    m16n8k8 TF32 units a warp (an HGMMA.64xNx8 is N / 8 of them, an HMMA
+    TF32 one) against the f32 FFMAs of the whole function (the epilogue's
+    scale and shift; a product loop on the CUDA cores would take
+    thousands). Fails when an instantiation is not found in the library,
+    runs no TF32 HGMMA or HMMA, or more FFMAs than products; skipped only
+    where the toolkit has no cuobjdump."""
+    if _cuobjdump() is None:
+        log("build: no cuobjdump; #11's f32 SASS not counted")
+        return
+    for bc in (64, 128):
+        name = f"conv_bn_act_tf32_kernelILi{bc}E"
+        text = _sass_function(lib, name)
+        check(text is not None,
+              f"build: {name} not found in {lib}: #11's f32 products unread")
+        gmma = [int(n) for n in _HGMMA_TF32.findall(text)]
+        ops = sass_opcodes(lib, name)
+        hmma = sum(n for k, n in ops.items()
+                   if k.startswith("HMMA") and "TF32" in k)
+        ffma = sum(n for k, n in ops.items() if k.split(".")[0] == "FFMA")
+        products = sum(n // 8 for n in gmma) + hmma
+        log(f"build: conv_bn_act_tf32_kernel<{bc}> SASS: "
+            f"{sum(ops.values())} instructions, {len(gmma)} TF32 HGMMA "
+            f"(64 x {sorted(set(gmma))} x 8), {hmma} TF32 HMMA = {products} "
+            f"m16n8k8 products a warp; FFMA {ffma}")
+        check(products > 0 and ffma < products,
+              f"build: conv_bn_act_tf32_kernel<{bc}> runs {products} TF32 "
+              f"products and {ffma} FFMAs: its products are not on the "
+              "tensor cores")
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -604,7 +660,8 @@ def phase_build():
             f"{max(regs) if regs else 'n/a'}, max spill stores "
             f"{max(spills) if spills else 0} bytes")
         if name in ("flash_attention_fwd", "flash_attention_bwd",
-                    "flash_decode", "paged_flash_decode", "fused_ln"):
+                    "flash_decode", "paged_flash_decode", "fused_ln",
+                    "conv_bn_act"):
             for kern, nreg, spill in _instantiations(logtxt):
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
@@ -623,6 +680,7 @@ def phase_build():
                 f"instructions = {n / 32:.1f} a pair over 32 pairs a "
                 f"thread: {counts}")
     _f32_fwd_sass(lib)
+    _conv_f32_sass(_build._lib_path("conv_bn_act")[1])
     log(f"build: {len(_build.sources())} sources in {secs:.2f} s "
         "(parallel nvcc, sm_90a)")
     return secs
@@ -1995,6 +2053,14 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
     return row
 
 
+def launch_floor(torch):
+    """Held ms of the card's smallest kernel, an add_ on one f32 value:
+    what a launch costs the device when nothing waits on the host, the
+    floor under a toy-sized kernel's time."""
+    one = torch.zeros(1, device="cuda")
+    return time_ms(torch, lambda: one.add_(1.0))
+
+
 def phase_adamw(torch, flush):
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
@@ -2016,7 +2082,10 @@ def phase_adamw(torch, flush):
             f"({r['bound_by']})")
         log(f"adamw: {r['shape']} decoupled={r['decoupled']} offset="
             f"{r['offset']} max_abs_err {r['max_abs_err']:.3e}{extra}")
-    return rows
+    floor = launch_floor(torch)
+    log(f"adamw: the launch floor (an add_ on one f32 value) held "
+        f"{floor:.4f} ms (unheld {unheld(floor):.4f})")
+    return dict(rows=rows, launch_floor_ms=floor)
 
 
 # -- fused residual-add + LayerNorm (#6-#9) -----------------------------------
@@ -2492,6 +2561,123 @@ def compare_ln(torch, sources):
                     grids.append(f"{132 * k}: {t:.4f}")
                 log(f"compare-ln {tag} {kern}: {src}: held ms by grid "
                     f"(blocks: ms): {', '.join(grids)}")
+
+
+def compare_conv(torch, sources):
+    """``--compare-conv SRC...``: build each given conv_bn_act.cu (its
+    parent from git, a variant; the package's C entry and argument list)
+    with the package's flags; hold its output to the package's kernel at
+    the dtype's bar (f32 1e-4, bf16 2e-2, of max(1, |ours|)) and time both
+    held in turns (theirs, ours, ours, theirs) at the 12 shapes of one
+    ResNet-50 forward at batch 256 x 224 px, in f32 and in bf16, beside
+    cuBLAS's GEMM of the same operands alone (TF32 off; it computes less
+    than #11) and the bound (conv_bound: f32 in 3xTF32, with the CUDA
+    cores' bound beside it), in f32 with each side's distance from the
+    float64 product (and the twin's; ours held to F32_EXACT_TOL); then
+    the 32-launch (serve,
+    evaluate) and 17-launch (training) sums. ptxas's registers and spills
+    of every instantiation are printed as each source builds."""
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    entries = []
+    for src, cdll in _build_compare(sources, "conv"):
+        fn = cdll.conv_bn_act
+        fn.restype, fn.argtypes = ctypes.c_int, kcb._ARGTYPES
+        entries.append((src, fn))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        rows = {src: [] for src, _ in entries}
+        for m, cin, cout, res, _ in SERVE_SHAPES:
+            x2 = torch.randn(m, cin, generator=gen, device="cuda").to(dt)
+            w = (torch.randn(cin, cout, generator=gen, device="cuda")
+                 / math.sqrt(cin)).to(dt)
+            scale = 1.0 + 0.1 * torch.randn(cout, generator=gen,
+                                            device="cuda")
+            shift = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+            r2 = torch.randn(m, cout, generator=gen, device="cuda").to(dt) \
+                if res else None
+
+            def ours():
+                return kcb.fused_conv1x1_bn_act(x2, w, scale, shift, r2)
+            want = ours().float()
+            gemm = time_ms(torch, lambda: torch.matmul(x2, w), flush=flush)
+            bd = conv_bound(m, cin, cout, res, dtype)
+            exact = None
+            if dtype == "float32":
+                # each side's distance from the float64 product, of
+                # max(1, |y|): the twin's is the f32 CUDA-core GEMM's
+                exact = _conv_exact(x2, w, scale, shift, r2)
+                scale64 = exact.abs().clamp_min(1.0)
+
+                def far(y):
+                    return ((y.double() - exact).abs() / scale64).max().item()
+                twin = kcb.conv_bn_act_plain(x2, w, scale, shift, r2)
+                log(f"compare-conv float32 M={m} {cin}->{cout} res={res}: "
+                    f"from float64, of max(1, |y|): ours {far(want):.2e}, "
+                    f"the twin (cuBLAS f32) {far(twin):.2e}")
+                check(far(want) <= F32_EXACT_TOL,
+                      f"compare-conv float32 M={m} {cin}->{cout}: ours is "
+                      f"{far(want)} of max(1, |y|) from float64")
+                del twin
+            for src, fn in entries:
+                y = torch.empty(m, cout, dtype=dt, device="cuda")
+
+                def theirs(fn=fn, y=y):
+                    err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                             shift.data_ptr(),
+                             0 if r2 is None else r2.data_ptr(),
+                             y.data_ptr(), m, cin, cout,
+                             int(dt == torch.bfloat16), 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    check(err == 0, f"compare-conv: {src}: CUDA error {err}")
+                    return y
+                got = theirs().float()
+                e = ((got - want).abs()
+                     / want.abs().clamp_min(1.0)).max().item()
+                if exact is not None:
+                    log(f"compare-conv float32 M={m} {cin}->{cout}: {src} "
+                        f"from float64 {far(got):.2e}")
+                check(math.isfinite(e) and e <= TOL[dtype],
+                      f"compare-conv {dtype} M={m} {cin}->{cout}: {src} "
+                      f"differs from the package's by {e} of max(1, |ours|)")
+                ms, t_ms, o_ms = _in_turns(torch, theirs, ours, flush)
+                rows[src].append(dict(theirs=t_ms, ours=o_ms, gemm=gemm,
+                                      **bd))
+                log(f"compare-conv {dtype} M={m} {cin}->{cout} res={res}: "
+                    f"{src}: held ms in turns (theirs, ours, ours, theirs): "
+                    f"theirs {ms['theirs'][0]:.4f} {ms['theirs'][1]:.4f}, "
+                    f"ours {ms['ours'][0]:.4f} {ms['ours'][1]:.4f}; theirs "
+                    f"/ ours = {t_ms / o_ms:.3f}; bound {bd['bound_ms']:.4f} "
+                    f"ms ({bd['bound_by']}): theirs "
+                    f"{bd['bound_ms'] / t_ms:.3f}, ours "
+                    f"{bd['bound_ms'] / o_ms:.3f} of it"
+                    + (f" (CUDA cores' {bd['cuda_core_bound_ms']:.4f} ms)"
+                       if "cuda_core_bound_ms" in bd else "")
+                    + f"; GEMM alone {gemm:.4f}; err {e:.2e}")
+            del x2, w, r2, want, exact
+        for src, rs in rows.items():
+            for what, counts in (
+                    ("32 launches of a forward",
+                     [n for *_, n in SERVE_SHAPES]),
+                    ("17 launches of a training forward",
+                     [TRAIN_SHAPES.get(i, 0)
+                      for i in range(len(SERVE_SHAPES))])):
+                tot = {k: sum(r[k] * n for r, n in zip(rs, counts))
+                       for k in ("theirs", "ours", "gemm", "bound_ms")}
+                cc = ""
+                if dtype == "float32":
+                    cc = sum(r["cuda_core_bound_ms"] * n
+                             for r, n in zip(rs, counts))
+                    cc = f"; the CUDA cores' bound {cc:.4f}"
+                log(f"compare-conv {dtype}: {src}: the {what}: theirs "
+                    f"{tot['theirs']:.4f} ms, ours {tot['ours']:.4f} ms "
+                    f"(theirs / ours = {tot['theirs'] / tot['ours']:.3f}); "
+                    f"bound {tot['bound_ms']:.4f} ms (theirs "
+                    f"{tot['bound_ms'] / tot['theirs']:.3f}, ours "
+                    f"{tot['bound_ms'] / tot['ours']:.3f} of it){cc}; GEMM "
+                    f"alone {tot['gemm']:.4f} ms")
 
 
 def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
@@ -3451,7 +3637,7 @@ def phase_generate_cpu(torch):
 
 # -- ResNet-50 serving: the fused 1x1-conv + BN + ReLU kernel #11 ------------
 
-CONV_KERNELS = ("conv_bn_act_bf16_kernel", "conv_bn_act_f32_kernel")
+CONV_KERNELS = ("conv_bn_act_bf16_kernel", "conv_bn_act_tf32_kernel")
 # (M, Cin, Cout, residual, launches in one forward): the 32 launches of one
 # ResNet-50 forward at batch 256 x 224 px (M = N*H*W; stride 2 sits on
 # conv2, so a stage's first conv1 runs at the previous stage's resolution)
@@ -3464,12 +3650,15 @@ SERVE_SHAPES = (
     (12544, 2048, 512, False, 2), (12544, 512, 2048, True, 3))
 
 
-def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed):
-    """Kernel #11 vs its plain twin on one input; timed cases also run
-    the cuBLAS product of the same operands alone."""
+def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed,
+               offset=0):
+    """Kernel #11 vs its plain twin on one input (x ``offset`` values
+    into its buffer); timed cases also run the cuBLAS product of the same
+    operands alone."""
     from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
     dt = getattr(torch, dtype)
-    x2 = torch.randn(m, cin, generator=gen, device="cuda").to(dt)
+    x2 = torch.randn(m * cin + offset, generator=gen,
+                     device="cuda").to(dt)[offset:].view(m, cin)
     w = (torch.randn(cin, cout, generator=gen, device="cuda")
          / math.sqrt(cin)).to(dt)
     scale = 1.0 + 0.1 * torch.randn(cout, generator=gen, device="cuda")
@@ -3488,8 +3677,17 @@ def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed):
           f"conv-bn-act {dtype} m{m} {cin}->{cout} res={res} relu={relu}: "
           f"error {scaled} of max(1, |twin|) > {TOL[dtype]}")
     row = dict(dtype=dtype, m=m, cin=cin, cout=cout, res=res, relu=relu,
-               max_abs_err=err, scaled_err=scaled)
+               offset=offset, max_abs_err=err, scaled_err=scaled)
     del ref, diff
+    if dtype == "float32":
+        exact = _conv_exact(x2, w, scale, shift, r2, relu)
+        row["exact_err"] = ((out.double() - exact).abs()
+                            / exact.abs().clamp_min(1.0)).max().item()
+        check(row["exact_err"] <= F32_EXACT_TOL,
+              f"conv-bn-act float32 m{m} {cin}->{cout} res={res} "
+              f"relu={relu}: {row['exact_err']} of max(1, |y|) from the "
+              f"float64 product > {F32_EXACT_TOL}")
+        del exact
     if timed:
         row["ms"] = time_ms(torch, lambda: kcb.fused_conv1x1_bn_act(
             x2, w, scale, shift, r2, relu), flush=flush)
@@ -3497,21 +3695,46 @@ def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed):
             x2, w, scale, shift, r2, relu), flush=flush)
         row["gemm_ms"] = time_ms(torch, lambda: torch.matmul(x2, w),
                                  flush=flush)
-        esz = x2.element_size()
-        bytes_moved = ((m * cin + cin * cout + m * cout * (2 if res else 1))
-                       * esz + 2 * cout * 4)
-        flops = 2 * m * cin * cout
-        peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-        row["bound_ms"], row["bound_by"] = bound(bytes_moved, flops, peak)
-        row["bound_bytes_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
-        row["bound_ops_ms"] = flops / peak * 1e3
+        row.update(conv_bound(m, cin, cout, res, dtype))
     return row
+
+
+def _conv_exact(x2, w, scale, shift, r2, relu=True):
+    """#11's function in float64 on the card."""
+    y = (x2.double() @ w.double()) * scale.double() + shift.double()
+    if r2 is not None:
+        y += r2.double()
+    return y.clamp_min(0) if relu else y
+
+
+def conv_bound(m, cin, cout, res, dtype):
+    """#11's least time at one shape: x, w, scale, shift (and res) read
+    once, y written once; the product's 2 M Cin Cout FLOPs at the bf16
+    tensor-core peak, or in f32 at the f32 bar as fwd_bound reckons it
+    (3xTF32: three TF32 products at the TF32 peak), with the CUDA cores'
+    f32 bound beside it (``cuda_core_bound_ms``)."""
+    esz = 2 if dtype == "bfloat16" else 4
+    bytes_moved = ((m * cin + cin * cout + m * cout * (2 if res else 1))
+                   * esz + 2 * cout * 4)
+    flops = 2 * m * cin * cout
+    out = dict(bound_bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
+    if dtype == "bfloat16":
+        out["bound_ops_ms"] = flops / BF16_FLOPS * 1e3
+        out["bound_ms"], out["bound_by"] = bound(bytes_moved, flops,
+                                                 BF16_FLOPS)
+    else:
+        out["bound_ops_ms"] = 3 * flops / TF32_FLOPS * 1e3
+        out["bound_ms"], out["bound_by"] = bound(bytes_moved, 3 * flops,
+                                                 peak=TF32_FLOPS)
+        out["cuda_core_bound_ms"] = bound(bytes_moved, flops)[0]
+    return out
 
 
 def phase_conv_bn_act(torch, flush):
     """Kernel #11 against its twin: the 12 serve-path shapes in bf16 (timed,
     with the GEMM alone beside them), four of them in f32, residual and
-    ReLU on and off, and ragged M, Cin and Cout."""
+    ReLU on and off, and ragged M, Cin and Cout; every f32 case also
+    against the float64 product at F32_EXACT_TOL."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     rows = []
     for m, cin, cout, res, _ in SERVE_SHAPES:
@@ -3532,15 +3755,22 @@ def phase_conv_bn_act(torch, flush):
             for res in (False, True):
                 rows.append(_conv_case(torch, m, cin, cout, res, True, dtype,
                                        gen, flush, False))
+        # x off a 16-byte boundary: the scalar copies of the x tile
+        for m, cin, cout in ((1000, 64, 70), (257, 512, 256)):
+            rows.append(_conv_case(torch, m, cin, cout, True, True, dtype,
+                                   gen, flush, False, offset=1))
     for r in rows:
         extra = "" if "ms" not in r else (
             f" ms {r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
             f"({r['bound_by']}) plain_ms {r['plain_ms']:.4f} GEMM alone "
             f"(computes less than #11) {r['gemm_ms']:.4f}")
         log(f"conv-bn-act: {r['dtype']} M={r['m']} {r['cin']}->{r['cout']} "
-            f"res={r['res']} relu={r['relu']} max_abs_err "
+            f"res={r['res']} relu={r['relu']} offset={r['offset']} "
+            f"max_abs_err "
             f"{r['max_abs_err']:.3e} (of max(1, |twin|): "
-            f"{r['scaled_err']:.3e}){extra}")
+            f"{r['scaled_err']:.3e})"
+            + (f"; from float64 {r['exact_err']:.3e} of max(1, |y|)"
+               if "exact_err" in r else "") + extra)
     timed = [r for r in rows if "ms" in r]
     total = _shape_sum(timed, [n for *_, n in SERVE_SHAPES])
     train = _shape_sum(timed, [TRAIN_SHAPES.get(i, 0)
@@ -3560,7 +3790,8 @@ def _shape_sum(timed, counts):
     """The timed rows of SERVE_SHAPES summed with a launch count each."""
     total = {key: sum(r[key] * n for r, n in zip(timed, counts))
              for key in ("ms", "plain_ms", "gemm_ms", "bound_ms",
-                         "bound_bytes_ms", "bound_ops_ms")}
+                         "bound_bytes_ms", "bound_ops_ms",
+                         "cuda_core_bound_ms") if key in timed[0]}
     for key in ("ms", "plain_ms", "gemm_ms"):
         total[key] = Timing(total[key])
         total[key].unheld = sum(unheld(r[key]) * n
@@ -4160,11 +4391,21 @@ def _conv_f32_forward(torch):
             for m, cin, cout, res, _ in SERVE_SHAPES]
     del scratch
     total = _shape_sum(rows, [n for *_, n in SERVE_SHAPES])
+    for r in rows:
+        log(f"fit-resnet50: #11 f32 M={r['m']} {r['cin']}->{r['cout']} "
+            f"res={r['res']}: ms {r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}; CUDA cores {r['cuda_core_bound_ms']:.4f}) "
+            f"GEMM alone {r['gemm_ms']:.4f} max_abs_err "
+            f"{r['max_abs_err']:.3e}")
     log(f"fit-resnet50: #11 in f32 at the 12 forward shapes: max_abs_err "
         f"{max(r['max_abs_err'] for r in rows):.3e}; the 32 launches of one "
         f"forward {total['ms']:.4f} ms against a bound of "
-        f"{total['bound_ms']:.4f} ms ({total['bound_by']}); twin "
-        f"{total['plain_ms']:.4f} ms")
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']}, 3xTF32; "
+        f"{total['bound_ms'] / total['ms']:.3f} of it) and the CUDA cores' "
+        f"{total['cuda_core_bound_ms']:.4f} ms "
+        f"({total['cuda_core_bound_ms'] / total['ms']:.3f} of it); twin "
+        f"{total['plain_ms']:.4f} ms; cuBLAS's f32 GEMM alone (TF32 off; "
+        f"computes less than #11) {total['gemm_ms']:.4f} ms")
     return dict(rows=rows, total=total)
 
 
@@ -4241,7 +4482,11 @@ def phase_fit_resnet50(torch, engine_direct):
         f"max_memory_allocated {peak:.2f} GiB")
 
     _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     first = model.evaluate(held, batch_size=b, num_workers=2, verbose=0)
+    torch.cuda.synchronize()
+    eval_s = [time.perf_counter() - t0]
     _only(f"{tag} evaluate", _read_launches(), "fused_conv1x1_bn_act",
           32 * held_n // b)
     _zero_launches()
@@ -4260,8 +4505,12 @@ def phase_fit_resnet50(torch, engine_direct):
         model.save(path)
         fresh = _resnet_fit_model(torch, 1)
         fresh.load(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         again = fresh.evaluate(held, batch_size=b, num_workers=2,
                                verbose=0)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
         sizes = {ext: os.path.getsize(path + ext)
                  for ext in (".pdparams", ".pdopt")}
     check(again == first, f"{tag}: the reloaded Model evaluates {again}, "
@@ -4273,6 +4522,19 @@ def phase_fit_resnet50(torch, engine_direct):
         f"({sizes['.pdparams'] / 2 ** 20:.1f} + "
         f"{sizes['.pdopt'] / 2 ** 20:.1f} MiB) and load into a fresh "
         "Model: evaluate bit for bit the first one's")
+    # evaluate's images/s (the first call, and the reloaded Model's), and
+    # one f32 eval forward profiled: its device time and #11's share
+    res["eval_images_per_s"] = [held_n / t for t in eval_s]
+    x = _resnet_input(torch, b, 224, torch.float32)
+    res["eval_profile"] = profile_forward(torch, f"{tag} evaluate",
+                                          fresh.network, x)
+    del x
+    log(f"{tag}: evaluate over {held_n} images ({held_n // b} batches of "
+        f"{b}, f32, the loader's two workers): "
+        f"{res['eval_images_per_s'][0]:.1f} images/s, the reloaded Model's "
+        f"{res['eval_images_per_s'][1]:.1f}; one f32 forward at batch {b}: "
+        f"device {res['eval_profile'].get('device_ms')} ms, #11 "
+        f"{res['eval_profile'].get('conv_share')} of it")
     # one batch's copy to the card from pinned memory, as device_prefetch
     # issues it (the images; the labels are 2 KB), held and timed alone
     x = torch.empty((b, 3, 224, 224), pin_memory=True)
@@ -4382,8 +4644,9 @@ def phase_fit_lenet(torch):
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
-    ``--compare-decode SRC...``, ``--compare-paged SRC...`` or
-    ``--compare-ln SRC...``, only that comparison."""
+    ``--compare-decode SRC...``, ``--compare-paged SRC...``,
+    ``--compare-ln SRC...`` or ``--compare-conv SRC...``, only that
+    comparison."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -4398,7 +4661,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     modes = {"--compare-bwd": compare_bwd, "--compare-fwd": compare_fwd,
              "--compare-decode": compare_decode,
-             "--compare-paged": compare_paged, "--compare-ln": compare_ln}
+             "--compare-paged": compare_paged, "--compare-ln": compare_ln,
+             "--compare-conv": compare_conv}
     if sys.argv[1:2] and sys.argv[1] in modes:
         check(len(sys.argv) > 2, f"{sys.argv[1]} needs source files")
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4498,7 +4762,7 @@ def main():
                  and r["dropout"] and r["d"] == 64)
     # ... and at GPT-1.3B's (B=4, H=16, S=1024, D=128)
     f13 = next(r for r in ftrain if "ms" in r and r["d"] == 128)
-    amain = next(r for r in adamw if "ms" in r and r["decoupled"]
+    amain = next(r for r in adamw["rows"] if "ms" in r and r["decoupled"]
                  and r["shape"] == (1024, 4096))
 
     def flash_row(name, part, timing, source, replaces, errs=(),
@@ -4550,7 +4814,7 @@ def main():
              source="paddle_tpu_torch/csrc/fused_adamw.cu",
              replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
              launches=tr["launches"]["fused_adamw_update"],
-             max_abs_err=max(r["max_abs_err"] for r in adamw),
+             max_abs_err=max(r["max_abs_err"] for r in adamw["rows"]),
              ms=amain["ms"], plain_ms=amain["plain_ms"],
              bound_ms=amain["bound_ms"], bound_by=amain["bound_by"],
              library_ms=amain["library_ms"]),
@@ -4600,7 +4864,8 @@ def main():
     # attention shape, #6/#7 at its 4096 x 2048 rows (launches from the
     # fused_ln run), #10 on its 50304 x 2048 embedding
     s13 = "4096x2048"
-    a13 = next(r for r in adamw if "ms" in r and r["shape"] == (50304, 2048))
+    a13 = next(r for r in adamw["rows"] if "ms" in r
+               and r["shape"] == (50304, 2048))
     kernels += [
         dict(flash_row("flash_attention_fwd", "o", "fwd", fwd_src, fwd_tpu,
                        dtype="bfloat16", fm=f13, path=g13[False]),
@@ -4619,7 +4884,7 @@ def main():
              source="paddle_tpu_torch/csrc/fused_adamw.cu",
              replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
              launches=g13[False]["launches"]["fused_adamw_update"],
-             max_abs_err=max(r["max_abs_err"] for r in adamw),
+             max_abs_err=max(r["max_abs_err"] for r in adamw["rows"]),
              ms=a13["ms"], plain_ms=a13["plain_ms"],
              bound_ms=a13["bound_ms"], bound_by=a13["bound_by"],
              library_ms=a13["library_ms"]),
@@ -4680,7 +4945,8 @@ def main():
         launches=fl["launches"]["fused_adamw_update"],
         max_abs_err=al["max_abs_err"], ms=al["ms"],
         plain_ms=al["plain_ms"], bound_ms=al["bound_ms"],
-        bound_by=al["bound_by"], library_ms=al["library_ms"]))
+        bound_by=al["bound_by"], library_ms=al["library_ms"],
+        launch_floor_ms=adamw["launch_floor_ms"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])
@@ -4695,7 +4961,9 @@ def main():
             f"{u['plain_ms']:.4f}), library_ms "
             + ("none" if kr["library_ms"] is None else
                f"{kr['library_ms']:.4f} (unheld {u['library_ms']:.4f})")
-            + f", bound_ms {kr['bound_ms']:.4f}, launches {kr['launches']}")
+            + f", bound_ms {kr['bound_ms']:.4f}, launches {kr['launches']}"
+            + (f", the launch floor {kr['launch_floor_ms']:.4f}"
+               if "launch_floor_ms" in kr else ""))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

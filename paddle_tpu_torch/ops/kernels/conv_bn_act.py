@@ -33,8 +33,11 @@ operand) raises on every device.
 
 Kernel note (details in the .cu): bound by bytes at most of ResNet-50's
 shapes; one block of 8 warps per 128 x 128 output tile, bf16 through
-tensor-core mma.sync with f32 accumulators, f32 through CUDA-core FMAs
-(no TF32), the epilogue in registers.
+tensor-core mma.sync with f32 accumulators; f32 on the tensor cores in
+3xTF32 (each operand split into two TF32 parts, three wgmma products a
+step, at the f32 bar), the block's tile computed transposed so that x is
+the K-major shared-memory operand; the epilogue staged through shared
+memory for 16-byte stores.
 """
 from __future__ import annotations
 
