@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              paged decode and fused LN instantiation (the LN backward must
              not spill), the bf16 forward's largest SASS
              basic blocks (a tile's softmax) counted by opcode class, and
-             the f32 forward's SASS at each D: its TF32 HMMAs must
+             the f32 forward's SASS at each D (32, 64, 128, 256): its
+             TF32 HMMAs must
              outnumber its FFMAs (the products on the tensor cores); and
              #11's f32 kernel at each tile width: its TF32 HGMMAs, in
              m16n8k8 units a warp, must outnumber its FFMAs;
@@ -161,9 +162,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              under inference_mode, 3 warm-up and 10 timed forwards with one
              sync; exactly 32 launches of #11 a forward and no other
              kernel of the port; images/s, ms a forward, peak memory, one
-             forward profiled; then f32 at batch 64 with random BatchNorm
-             statistics, fused NHWC vs the unfused NHWC model: logits
-             within 1e-3 of their max-abs, top-1 equal;
+             forward profiled; then bench.py's --fold-bn: the same
+             model folded in f32 by incubate.fuse_conv_bn (53 pairs),
+             then bf16: no launch of #11 (a folded convolution carries a
+             bias), images/s beside the fused route's; then f32 at batch
+             64 with random BatchNorm statistics, fused NHWC vs the
+             unfused NHWC model: logits within 1e-3 of their max-abs,
+             top-1 equal, and the unfused model folded vs itself within
+             1e-4;
 21. resnet-cpu — resnet50 fused NHWC, f32, batch 2 x 3 x 64 x 64, the same
              weights on cuda (kernel #11) and on the CPU (its twin): logits
              within 1e-3 of their max-abs, argmax equal;
@@ -239,7 +245,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
              "test")) acc > 0.95; #10 at that 400 x 120 leaf held to its
              twin and timed; then 3 Model.train_batch calls on cuda and
              on the CPU from the same weights (each from the CPU's
-             state), held to phase 8's bars.
+             state), held to phase 8's bars;
+28. flash-d32 — kernel #1's f32 forward at head_dim 32 vs its plain twin
+             at DETR's three attention shapes (B=8, H=8, non-causal:
+             1050 x 1050, 100 x 100, 100 x 1050), key lengths none, 0
+             and mid-tile, dropout 0 and 0.1; a second forward bit for
+             bit; against a float64 product at the encoder's shape,
+             beside D=64, within 1e-4 of max(1, |o|); timed at the
+             encoder's shape beside SDPA in f32 and the 3xTF32 bound;
+29. detr-serve — DETR() at the JAX package's defaults (80 classes, 100
+             queries, d_model 256, 8 heads, 6 + 6 layers, feed-forward
+             2048, ResNet-50 backbone, NHWC on the card), weights from
+             seed 0, eval, f32, batch 8 x 3 x 800 x 1333 (DETR's eval
+             resize; 25 x 42 = 1050 encoder tokens) from numpy seed 0
+             under inference_mode: exactly 18 launches of #1 a forward
+             and no other kernel of the port; finite boxes [8, 100, 4]
+             and probabilities [8, 100, 81] summing to 1; images/s and ms
+             a forward over 10 forwards ending in one sync, peak memory,
+             one forward profiled (busy share, device time grouped:
+             cuDNN convolutions, #1, GEMMs, LayerNorm, elementwise);
+30. detr-cpu — that model (BatchNorm statistics drawn at random) and a
+             CPU copy on one 800 x 1333 image: boxes and probabilities
+             within 1e-3 of their max-abs, the top class of every query
+             equal;
+31. ppyoloe-serve — PP-YOLOE-l (PaddleDetection's ppyoloe_crn_l: CSPResNet
+             layers (3, 6, 6, 3), channels (64, 128, 256, 512, 1024), 80
+             classes), weights from seed 0 with random BatchNorm
+             statistics, eval, f32, batch 8 x 3 x 640 x 640 (8400
+             anchors): no kernel of the port (cuDNN convolutions);
+             images/s over 10 forwards ending in one sync, peak memory,
+             one forward profiled; then folded by incubate.fuse_conv_bn
+             (107 pairs): outputs within 1e-4 of the unfolded ones'
+             max-abs, images/s; then multiclass_nms (the reference's
+             thresholds) on one image's output, timed on the host;
+32. ppyoloe-cpu — PP-YOLOE-l with those weights on the card and on the
+             CPU, one 640 x 640 image: boxes and scores within 1e-3 of
+             their max-abs; the top class of every anchor equal where
+             the CPU's top two scores lie further apart than twice the
+             devices' largest score difference (random weights put every
+             score near 0.5, and the closest top two ~1e-6 apart).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -267,7 +311,9 @@ just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
 generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
 each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
-Model.fit, evaluate and predict (phase 26) and LeNet's fit (phase 27).
+Model.fit, evaluate and predict (phase 26), LeNet's fit (phase 27),
+and one DETR forward and one PP-YOLOE forward and their 10 timed
+forwards (phases 29 and 31).
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -280,8 +326,9 @@ Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
 main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
 with a "shape" key; #11 again on the training path, with a "path" key and
 its 17 launches a forward; #11 on fit-resnet50's training and f32
-evaluate/predict forwards and #10 on fit-lenet, with a "path" key), the
-card's name and power limit (nvidia-smi),
+evaluate/predict forwards and #10 on fit-lenet, with a "path" key; #1
+f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve),
+the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
 this script.
@@ -302,7 +349,8 @@ unheld:
 
 at GPT's training shape with and without dropout and ERNIE's (the
 forward also the f32 serving prefill, GPT's shape in f32 with and without
-dropout and f32 at D=128; the backward as a dq + dk/dv pair), for the
+dropout, f32 at D=128 and DETR's encoder at D=32; the backward as a
+dq + dk/dv pair), for the
 dense decode GPT's f32 and Llama-2-7B's bf16 generate shapes, and for the
 paged decode phase 3's timed shapes (each decode mode then times the
 package's kernel at other targets of blocks a call; the paged mode also
@@ -589,7 +637,7 @@ def _f32_fwd_sass(lib):
     function (the softmax's exponent folding; a product loop on the CUDA
     cores would take thousands a thread). Fails when an instantiation runs
     no TF32 HMMA or more FFMAs than HMMAs."""
-    for d in (64, 128, 256):
+    for d in (32, 64, 128, 256):
         ops = sass_opcodes(lib, f"flash_fwd_f32_kernelILi{d}E")
         if ops is None:
             log("build: cuobjdump or the f32 forward not found; its SASS not "
@@ -716,7 +764,7 @@ def f32_fwd_hmmas(bh_lens, sq, sk, d, causal):
 
 
 def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
-                timed, dropout=0.0):
+                timed, dropout=0.0, causal=True):
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     dt = getattr(torch, dtype)
     mk = lambda s: torch.randn(b * h, s, d, generator=gen,  # noqa: E731
@@ -726,7 +774,7 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
         [x for x in lens for _ in range(h)], dtype=torch.int32,
         device="cuda")
     seed = torch.tensor([4321], dtype=torch.int32, device="cuda")
-    rest = (lens_t, seed, True, None, dropout)
+    rest = (lens_t, seed, causal, None, dropout)
     o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
     torch.cuda.synchronize()
     po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest)
@@ -740,7 +788,7 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
     _check_repeat_fwd(torch, f"flash {dtype} b{b} sq{sq} sk{sk} d{d}", o,
                       lse, lambda: kfa.flash_attention_fwd(q, k, v, *rest))
     row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
-               dropout=dropout, max_abs_err=err)
+               dropout=dropout, causal=causal, max_abs_err=err)
     if timed:
         row["ms"] = time_ms(torch, lambda: kfa.flash_attention_fwd(
             q, k, v, *rest), flush=flush)
@@ -750,15 +798,16 @@ def _flash_case(torch, b, h, sq, sk, d, dtype, lens, gen, flush,
         qt, kt, vt = (x.view(b, h, -1, d) for x in (q, k, v))
         qpos = torch.arange(sq, device="cuda")[:, None]
         kpos = torch.arange(sk, device="cuda")[None, :]
-        keep = (kpos <= qpos + (sk - sq))[None, None]
+        keep = (kpos <= qpos + (sk - sq))[None, None] if causal else None
         if lens is not None:
-            keep = keep & (kpos[None, None] < torch.tensor(
-                lens, device="cuda")[:, None, None, None])
+            lkeep = kpos[None, None] < torch.tensor(
+                lens, device="cuda")[:, None, None, None]
+            keep = lkeep if keep is None else keep & lkeep
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(torch, lambda: sdpa(
             qt, kt, vt, attn_mask=keep, dropout_p=dropout), flush=flush)
         # work this run's data needs: visible (q, k) pairs, causal + lens
-        vis = h * visible_pairs(b, sq, sk, lens)
+        vis = h * visible_pairs(b, sq, sk, lens, causal)
         esz = q.element_size()
         bytes_moved = (b * h * (sq + 2 * sk) * d * esz  # q, k, v read
                        + b * h * sq * d * esz            # o written
@@ -812,6 +861,13 @@ def phase_flash(torch, flush):
     rows.append(_flash_case(torch, 2, 8, 1, 200, 128, "bfloat16",
                             [200, 65], gen, flush, False))
     _check_keep_mask(torch, 256, 256, "float32", gen)
+    _log_fwd_rows("flash", rows)
+    return rows
+
+
+def _log_fwd_rows(tag, rows):
+    """One line a forward case: its error and, for a timed case, kernel,
+    twin and SDPA ms against the bound."""
     for r in rows:
         extra = "" if "ms" not in r else (
             f" ms {r['ms']:.4f} (unheld {unheld(r['ms']):.4f}) plain_ms "
@@ -821,10 +877,10 @@ def phase_flash(torch, flush):
             f"{r['cuda_core_bound_ms']:.4f}): "
             f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
             f"{r['bound_ms'] / r['ms']:.3f} of the bound")
-        log(f"flash: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
+        log(f"{tag}: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
             f"sk{r['sk']} d{r['d']} lens{r['lens']} dropout{r['dropout']} "
-            f"max_abs_err {r['max_abs_err']:.3e}{extra}")
-    return rows
+            f"causal={r['causal']} max_abs_err {r['max_abs_err']:.3e}"
+            f"{extra}")
 
 
 def _paged_module():
@@ -1464,6 +1520,59 @@ def phase_flash_noncausal(torch, flush):
     return rows
 
 
+# DETR's attention shapes at batch 8 (d_model 256 over 8 heads: B*H = 64,
+# head_dim 32): the encoder over the 25 x 42 = 1050 tokens of an 800 x
+# 1333 image, the decoder's 100 queries against themselves and against
+# the encoder's tokens
+DETR_ATTENTION = (("encoder", 1050, 1050), ("decoder-self", 100, 100),
+                  ("decoder-cross", 100, 1050))
+
+
+def _f64_attention(torch, q, k, v):
+    """Non-causal attention over [BH, S, D] in float64, no mask."""
+    s = torch.matmul(q.double(), k.double().transpose(1, 2))
+    p = torch.softmax(s / math.sqrt(q.shape[-1]), dim=-1)
+    return torch.matmul(p, v.double())
+
+
+def phase_flash_d32(torch, flush):
+    """#1's f32 forward at head_dim 32 against its plain twin at DETR's
+    three attention shapes (B=8, H=8, non-causal), key lengths none, 0
+    (every other batch) and mid-tile, dropout 0 and 0.1; against a float64
+    product at the encoder's shape beside the same case at D=64, both
+    within the f32 bar; timed at the encoder's shape beside SDPA in f32
+    and the 3xTF32 bound."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    rows = []
+    for _, sq, sk in DETR_ATTENTION:
+        for lens in (None, [0, sk] * 4,
+                     [min(sk, 97 + 131 * i) for i in range(8)]):
+            for dropout in (0.0, 0.1):
+                rows.append(_flash_case(
+                    torch, 8, 8, sq, sk, 32, "float32", lens, gen, flush,
+                    timed=sk == sq == 1050 and lens is None and not dropout,
+                    dropout=dropout, causal=False))
+    _log_fwd_rows("flash-d32", rows)
+    f64 = {}
+    for d in (32, 64):
+        q, k, v = (torch.randn(64, 1050, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        want = _f64_attention(torch, q, k, v)
+        scale = want.abs().clamp(min=1.0)
+        o, _ = kfa.flash_attention_fwd(q, k, v)
+        po, _ = kfa.flash_attention_fwd_plain(q, k, v)
+        f64[d] = ((o.double() - want).abs() / scale).max().item()
+        twin = ((po.double() - want).abs() / scale).max().item()
+        log(f"flash-d32: f32 b8 h8 sq1050 sk1050 d{d}: kernel from float64 "
+            f"{f64[d]:.3e}, the twin {twin:.3e}, of max(1, |o|)")
+        check(f64[d] <= TOL["float32"],
+              f"flash-d32: the f32 kernel at D={d} is {f64[d]} from float64"
+              f" > {TOL['float32']}")
+    timed = next(r for r in rows if "ms" in r)
+    return dict(rows=rows, timed=timed, f64=f64)
+
+
 def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
               dropout):
     """(dq, dk/dv) callables over the C entries of a built
@@ -1641,7 +1750,9 @@ def compare_fwd(torch, sources):
     GPT's training shape with and without dropout 0.1 (bf16, causal),
     ERNIE's (bf16, non-causal), the f32 serving prefill (causal, key
     length 921 of 1024), GPT's shape in f32 with and without dropout 0.1,
-    and f32 at D=128 (B=2 H=16 S=1024, causal), beside SDPA held and
+    f32 at D=128 (B=2 H=16 S=1024, causal) and DETR's encoder (B=8 H=8
+    S=1050 D=32, non-causal; a source without D=32 is skipped there),
+    beside SDPA held and
     unheld, with TFLOP/s of the visible work and share of the bound
     (fwd_bound: f32 in 3xTF32), and for f32 the TF32 rate the kernel's
     HMMAs ran at, after the TF32 checks (tf32_checks)."""
@@ -1663,7 +1774,8 @@ def compare_fwd(torch, sources):
             ("prefill-f32", 1, 16, 1024, 64, True, 0.0, "float32", [921]),
             ("gpt-f32", 8, 16, 1024, 64, True, 0.1, "float32", None),
             ("gpt-f32-nodrop", 8, 16, 1024, 64, True, 0.0, "float32", None),
-            ("f32-d128", 2, 16, 1024, 128, True, 0.0, "float32", None)):
+            ("f32-d128", 2, 16, 1024, 128, True, 0.0, "float32", None),
+            ("detr-enc-f32", 8, 8, 1050, 32, False, 0.0, "float32", None)):
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(b * h, s, d, generator=gen,
                                device="cuda").to(dt) for _ in range(3))
@@ -1681,19 +1793,28 @@ def compare_fwd(torch, sources):
                             pairs, d)
         seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
         for src, fn in entries:
-            def theirs():
+            def launch():
                 to = torch.empty_like(q)
                 tl = torch.empty(b * h, s, dtype=torch.float32,
                                  device="cuda")
-                check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          None if lens_t is None else lens_t.data_ptr(),
                          to.data_ptr(), tl.data_ptr(), b * h, s, s, d,
                          int(causal), 1.0 / math.sqrt(d), seed_ptr, thresh,
                          keep, int(dtype == "bfloat16"),
-                         torch.cuda.current_stream().cuda_stream) == 0,
-                      "compare: forward launch failed")
+                         torch.cuda.current_stream().cuda_stream)
+                return err, to, tl
+
+            def theirs():
+                err, to, tl = launch()
+                check(err == 0, "compare: forward launch failed")
                 return to, tl
-            to, tl = theirs()
+            err, to, tl = launch()
+            if err and d == 32:
+                log(f"compare-fwd {tag}: {src} has no D=32 instantiation; "
+                    "skipped")
+                continue
+            check(err == 0, "compare: forward launch failed")
             torch.cuda.synchronize()
             e, le = _err(to, o)[0], _err(tl, lse)[0]
             check(e <= TOL[dtype] and le <= 1e-3, f"compare {tag}: {src} o "
@@ -3873,10 +3994,13 @@ def phase_resnet_serve(torch):
     from seed 0, eval, cast to bf16 with its running statistics, as
     bench.py's _resnet_serve: batch 256 x 3 x 224 x 224 from numpy seed 0
     under inference_mode, 3 warm-up and 10 timed forwards with one sync;
-    32 launches of #11 a forward; then the same weights in f32 (BatchNorm
+    32 launches of #11 a forward; then bench.py's --fold-bn (the pairs
+    folded in f32 by incubate.fuse_conv_bn, then bf16): 53 pairs, no
+    launch of #11, its images/s; then the same weights in f32 (BatchNorm
     statistics drawn at random), fused against the unfused NHWC model at
-    batch 64 x 224 px."""
+    batch 64 x 224 px, and the unfused model folded against itself."""
     from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate import fuse_conv_bn
     from paddle_tpu_torch.ops.kernels import WRAPPERS
     from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
     from paddle_tpu_torch.vision.models import resnet50
@@ -3924,7 +4048,28 @@ def phase_resnet_serve(torch):
         f"ms a forward ({steps} forwards, one sync), #11 x 32 a forward, "
         f"peak {peak:.2f} GiB")
     res["profile"] = profile_forward(torch, "resnet-serve", model, x)
-    del model, x, logits
+    del model, logits
+    torch.cuda.empty_cache()
+
+    # bench.py --fold-bn: the 53 pairs folded in f32, then the cast to
+    # bf16; a folded convolution carries a bias, so #11's route declines it
+    fm = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=True,
+                  device="cuda", generator=seed(0)).eval()
+    fm, folded = fuse_conv_bn(fm)
+    check(folded == 53, f"resnet-serve: fuse_conv_bn folded {folded} "
+          "pairs, want 53")
+    fm.to(torch.bfloat16)
+    flog, _, fips, fms = _serve(torch, "resnet-serve folded", fm, x, {})
+    check(bool(torch.isfinite(flog).all()) and flog.shape == (b, 1000),
+          "resnet-serve folded: logits not finite [256, 1000]")
+    res["fold"] = dict(pairs=folded, images_per_s=fips, ms_per_forward=fms,
+                       ratio=fips / res["images_per_s"])
+    log(f"resnet-serve: --fold-bn ({folded} pairs folded in f32, then "
+        f"bf16): {fips:.1f} images/s, {fms:.3f} ms a forward, no launch of "
+        f"#11 (the folded convolutions carry a bias); "
+        f"{res['fold']['ratio']:.3f} of the fused route's "
+        f"{res['images_per_s']:.1f}")
+    del fm, flog, x
     torch.cuda.empty_cache()
 
     # f32: the kernel's f32 path against the plain NHWC stack, the same
@@ -3950,6 +4095,14 @@ def phase_resnet_serve(torch):
         f"NHWC: logits max_abs_err {err:.3e} of max-abs {scale:.3e}; top-1 "
         "equal")
     res["f32_err"] = err / scale
+    fuse_conv_bn(plain)
+    with torch.inference_mode():
+        yfold = plain(x)
+    ferr, _ = _logits_close("resnet-serve f32 folded vs unfolded", yfold,
+                            yp, tol=1e-4)
+    log(f"resnet-serve: f32, batch {fb}, the unfused model folded: logits "
+        f"max_abs_err {ferr:.3e} from unfolded (of max-abs {scale:.3e}); "
+        "top-1 equal")
     return res
 
 
@@ -4034,12 +4187,36 @@ def _resnet_train_batch(torch, b, hw, device="cuda", seed=0):
 def profile_resnet_train(torch, tag, eng, x, y):
     """One training step under torch.profiler: busy time over wall time,
     the host's kernel launches, and the device time grouped by kind."""
+    return profile_grouped(torch, tag, "one training step",
+                           lambda: eng.train_batch([x], [y]), TRAIN_GROUPS)
+
+
+def _busy_union(events, device_type):
+    """Seconds during which at least one device kernel ran: the union of
+    the kernels' intervals (None when the events carry none). Where
+    kernels overlap (cuDNN's own streams) the union is below their sum."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == device_type)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e6 if spans else None
+
+
+def profile_grouped(torch, tag, what, run, groups_spec):
+    """``run()`` once under torch.profiler: busy time over wall time (the
+    union of the kernels' intervals), the host's kernel launches, and the
+    device time grouped by kernel name (``groups_spec``: (group, name
+    patterns), the first match wins), each group's share of the kernels'
+    summed time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.train_batch([x], [y])
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -4051,27 +4228,30 @@ def profile_resnet_train(torch, tag, eng, x, y):
         log(f"{tag}: the profiler recorded no device time; busy share not "
             "measured")
         return dict(busy_share=None, launch_calls=launches)
-    groups = {name: [0.0, 0] for name, _ in TRAIN_GROUPS}
+    groups = {name: [0.0, 0] for name, _ in groups_spec}
     groups["other"] = [0.0, 0]
     for a in rows:
         key = a.key.lower()
-        name = next((g for g, pats in TRAIN_GROUPS
+        name = next((g for g, pats in groups_spec
                      if any(p in key for p in pats)), "other")
         groups[name][0] += a.self_device_time_total / 1e3
         groups[name][1] += a.count
-    log(f"{tag}: one training step profiled: wall {wall * 1e3:.3f} ms "
+    summed = busy
+    busy = _busy_union(prof.events(), DeviceType.CUDA) or summed
+    log(f"{tag}: {what} profiled: wall {wall * 1e3:.3f} ms "
         f"under the profiler, device busy {busy * 1e3:.3f} ms = "
-        f"{busy / wall:.3f} of it; {launches} kernel launches by the host, "
+        f"{busy / wall:.3f} of it (kernel times summed {summed * 1e3:.3f} "
+        f"ms); {launches} kernel launches by the host, "
         f"{sum(a.count for a in rows)} device kernels")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         if n:
-            log(f"{tag}:   {ms:9.3f} ms = {ms / (busy * 1e3):.3f}  x{n:<5d} "
-                f"{name}")
+            log(f"{tag}:   {ms:9.3f} ms = {ms / (summed * 1e3):.3f}  "
+                f"x{n:<5d} {name}")
     for a in rows[:10]:
         log(f"{tag}:   {a.self_device_time_total / 1e3:9.3f} ms  "
             f"x{a.count:<5d} {a.key[:90]}")
     return dict(busy_share=busy / wall, device_ms=busy * 1e3,
-                launch_calls=launches,
+                summed_ms=summed * 1e3, launch_calls=launches,
                 groups={n: g[0] for n, g in groups.items()})
 
 
@@ -4641,6 +4821,258 @@ def phase_fit_lenet(torch):
                 cpu=worst)
 
 
+# -- detection serving: DETR-R50 and PP-YOLOE-l --------------------------------
+
+# DETR's eval resize (shorter side 800, longer at most 1333): a 25 x 42
+# feature map at stride 32, 1050 encoder tokens
+DETR_HW = (800, 1333)
+# PP-YOLOE-l as PaddleDetection's ppyoloe_crn_l sizes it (depth_mult and
+# width_mult 1.0) at its 640 x 640 eval size: 80 x 80 + 40 x 40 + 20 x 20
+# = 8400 anchors
+PPYOLOE_L = dict(num_classes=80, layers=(3, 6, 6, 3),
+                 channels=(64, 128, 256, 512, 1024))
+# device kernels of a detection forward, grouped by name (first match wins)
+DETECT_GROUPS = (
+    ("#1 (flash_fwd_f32_kernel)", ("flash_fwd",)),
+    ("cuDNN convolutions (FFT and layout transposes included)",
+     ("fprop", "dgrad", "wgrad", "implicit", "conv", "winograd", "cudnn",
+      "nhwc", "nchw", "fft", "dse::", "pointwise_mult_and_sum")),
+    ("GEMMs (projections, feed-forward, heads)",
+     ("gemm", "cutlass", "cublas")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("elementwise and reductions (eager BatchNorm, activations, residuals, "
+     "copies, softmax, pools)",
+     ("elementwise", "reduce", "copy", "fill", "cat", "index", "softmax",
+      "pool")),
+)
+
+
+def _images(torch, b, h, w, seed=0, device="cuda"):
+    import numpy as np
+    x = np.random.default_rng(seed).standard_normal((b, 3, h, w))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def _serve(torch, tag, model, x, want, steps=10):
+    """``model`` in eval under inference_mode on the card: 2 warm-up
+    forwards, one counted forward (``want``: {kernel: launches}, every
+    other kernel of the port at 0), then ``steps`` forwards ending in one
+    sync, which must launch ``want`` x ``steps``. Returns (the counted
+    forward's outputs, launches, images/s, ms a forward)."""
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        _zero_launches()
+        out = model(x)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        for name, n in launches.items():
+            check(n == want.get(name, 0), f"{tag}: {name} launched {n} "
+                  f"times in one forward, want {want.get(name, 0)}")
+        _zero_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, n in _read_launches().items():
+            check(n == want.get(name, 0) * steps,
+                  f"{tag}: {name} launched {n} times over {steps} forwards")
+    return out, launches, x.shape[0] * steps / wall, wall / steps * 1e3
+
+
+def _close_rel(tag, got, want, tol):
+    """got within tol x max|want| of want, elementwise; returns the error
+    over max|want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(math.isfinite(err) and err <= tol * max(scale, 1e-30),
+          f"{tag}: max_abs_err {err} > {tol} x max-abs {scale}")
+    return err / max(scale, 1e-30)
+
+
+def _inference_profile(torch, tag, model, x):
+    def run():
+        with torch.inference_mode():
+            model(x)
+    return profile_grouped(torch, tag, "one forward", run, DETECT_GROUPS)
+
+
+def phase_detr_serve(torch):
+    """DETR() at the JAX package's defaults (80 classes, 100 queries,
+    d_model 256, 8 heads, 6 + 6 layers, feed-forward 2048, ResNet-50,
+    NHWC on the card), weights from seed 0, eval, f32: batch 8 x 3 x 800
+    x 1333 from numpy seed 0 under inference_mode; 18 launches of #1 a
+    forward (6 encoder, 12 decoder) and no other kernel of the port;
+    images/s over 10 forwards ending in one sync, peak memory, one forward
+    profiled. Returns the model for phase detr-cpu."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision.models import DETR
+    tag, b, (h, w) = "detr-serve", 8, DETR_HW
+    torch.cuda.reset_peak_memory_stats()
+    model = DETR(device="cuda", generator=seed(0)).eval()
+    attn = model.transformer.encoder.layers[0].self_attn
+    check(attn.head_dim == 32 and model.num_queries == 100
+          and len(model.transformer.decoder.layers) == 6
+          and model.backbone._layout == "NHWC",
+          f"{tag}: not DETR-R50's configuration")
+    x = _images(torch, b, h, w)
+    (boxes, probs), launches, ips, ms = _serve(
+        torch, tag, model, x, {"flash_attention_fwd": 18})
+    check(tuple(boxes.shape) == (b, 100, 4)
+          and tuple(probs.shape) == (b, 100, 81)
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(probs).all()),
+          f"{tag}: boxes {tuple(boxes.shape)} / probs {tuple(probs.shape)}"
+          " not finite [8, 100, 4] / [8, 100, 81]")
+    check(float((probs.sum(-1) - 1).abs().max()) <= 1e-4,
+          f"{tag}: class probabilities do not sum to 1")
+    check(float(boxes[..., 0::2].min()) >= -w / 2
+          and float(boxes[..., 0::2].max()) <= 1.5 * w,
+          f"{tag}: boxes outside the image's frame")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: DETR-R50 f32, batch {b} x {h} x {w}: {ips:.2f} images/s, "
+        f"{ms:.3f} ms a forward (10 forwards, one sync), #1 x 18 a forward "
+        f"(B*H 64, D 32: 6 x 1050 x 1050, 6 x 100 x 100, 6 x 100 x 1050), "
+        f"peak {peak:.2f} GiB")
+    prof = _inference_profile(torch, tag, model, x)
+    return dict(model=model, launches=launches, images_per_s=ips,
+                ms_per_forward=ms, peak_gib=peak, profile=prof)
+
+
+def phase_detr_cpu(torch, gm):
+    """The detr-serve model (BatchNorm statistics drawn at random) and a
+    CPU copy of it, NHWC both, on one 800 x 1333 image: boxes and class
+    probabilities within 1e-3 of their max-abs, the top class of every
+    query equal."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    from paddle_tpu_torch.vision.models import DETR
+    tag = "detr-cpu"
+    _randomize_bn(torch, gm, 22)
+    cm = DETR(layout="NHWC", device="cpu",
+              generator=seed(1, device="cpu")).eval()
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    x = _images(torch, 1, *DETR_HW, seed=6)
+    with torch.inference_mode():
+        kfa.flash_attention_fwd.launches = 0
+        bg, pg = gm(x)
+        check(kfa.flash_attention_fwd.launches == 18,
+              f"{tag}: the card launched #1 "
+              f"{kfa.flash_attention_fwd.launches} times, want 18")
+        bc, pc = cm(x.cpu())
+        check(kfa.flash_attention_fwd.launches == 18,
+              f"{tag}: the CPU side counted a launch")
+    eb = _close_rel(f"{tag} boxes", bg, bc, 1e-3)
+    perr, _ = _logits_close(f"{tag} probs", pg[0], pc[0])
+    log(f"{tag}: DETR-R50 f32, 1 x {DETR_HW[0]} x {DETR_HW[1]}, cuda vs "
+        f"cpu: boxes {eb:.3e} of their max-abs, probabilities max_abs_err "
+        f"{perr:.3e}; the top class of all 100 queries equal")
+    return dict(boxes=eb, probs=perr)
+
+
+def phase_ppyoloe_serve(torch):
+    """PP-YOLOE-l (CSPResNet layers (3, 6, 6, 3), channels (64, 128, 256,
+    512, 1024), 80 classes), weights from seed 0 with random BatchNorm
+    statistics, eval, f32: batch 8 x 3 x 640 x 640 from numpy seed 0, no
+    kernel of the port (its convolutions are cuDNN's); images/s over 10
+    forwards ending in one sync, peak memory, one forward profiled; then
+    folded by incubate.fuse_conv_bn: its outputs within 1e-4 of the
+    unfolded ones' max-abs, its images/s; then multiclass_nms on one
+    image's output, timed on the host. Returns the unfolded state for
+    phase ppyoloe-cpu."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate import fuse_conv_bn
+    from paddle_tpu_torch.vision.models import PPYOLOE, multiclass_nms
+    tag, b, hw = "ppyoloe-serve", 8, 640
+    torch.cuda.reset_peak_memory_stats()
+    model = PPYOLOE(**PPYOLOE_L, device="cuda", generator=seed(0)).eval()
+    _randomize_bn(torch, model, 23)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    x = _images(torch, b, hw, hw)
+    (boxes, scores), _, ips, ms = _serve(torch, tag, model, x, {})
+    a = sum((hw // s) ** 2 for s in (8, 16, 32))
+    check(tuple(boxes.shape) == (b, a, 4)
+          and tuple(scores.shape) == (b, a, 80)
+          and bool(torch.isfinite(boxes).all())
+          and bool(torch.isfinite(scores).all()),
+          f"{tag}: boxes {tuple(boxes.shape)} / scores "
+          f"{tuple(scores.shape)} not finite [{b}, {a}, 4] / [{b}, {a}, "
+          "80]")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: PP-YOLOE-l f32, batch {b} x {hw} x {hw}: {ips:.2f} "
+        f"images/s, {ms:.3f} ms a forward (10 forwards, one sync), no "
+        f"kernel of the port, peak {peak:.2f} GiB")
+    prof = _inference_profile(torch, tag, model, x)
+
+    model, folded = fuse_conv_bn(model)
+    (fb, fs), _, fips, fms = _serve(torch, f"{tag} folded", model, x, {})
+    eb = _close_rel(f"{tag} folded boxes", fb, boxes, 1e-4)
+    es = _close_rel(f"{tag} folded scores", fs, scores, 1e-4)
+    log(f"{tag}: fuse_conv_bn folded {folded} pairs: {fips:.2f} images/s, "
+        f"{fms:.3f} ms a forward ({fips / ips:.3f} of the unfolded); "
+        f"outputs from the unfolded ones: boxes {eb:.3e}, scores {es:.3e} "
+        "of their max-abs")
+
+    b0, s0 = boxes[0].cpu().numpy(), scores[0].cpu().numpy()
+    t0 = time.perf_counter()
+    dets = multiclass_nms(b0, s0)
+    nms_s = time.perf_counter() - t0
+    check(len(dets) == 100 and all(0 <= c < 80 for c, _, _ in dets),
+          f"{tag}: multiclass_nms gave {len(dets)} detections")
+    log(f"{tag}: multiclass_nms (score 0.05, iou 0.6, 100 kept) on one "
+        f"image's {a} anchors x 80 classes, {(s0 > 0.05).sum()} scores "
+        f"above 0.05 (range {s0.min():.3f}..{s0.max():.3f}): "
+        f"{nms_s * 1e3:.1f} ms on the host")
+    return dict(state=state, images_per_s=ips, ms_per_forward=ms,
+                peak_gib=peak, profile=prof, folded=folded,
+                folded_images_per_s=fips, folded_err=max(eb, es),
+                nms_ms=nms_s * 1e3)
+
+
+def phase_ppyoloe_cpu(torch, state):
+    """PP-YOLOE-l with the ppyoloe-serve weights on the card and on the
+    CPU, one 640 x 640 image: boxes and scores within 1e-3 of their
+    max-abs; the top class of every anchor equal wherever the CPU's top
+    two scores lie further apart than twice the largest score difference
+    between the devices. With random weights every score sits near 0.5:
+    over 8400 anchors x 80 classes the closest top two differ by ~1e-6
+    (a CPU run of this phase), about the two devices' difference, so an
+    anchor inside that band may take either class on either device."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision.models import PPYOLOE
+    tag = "ppyoloe-cpu"
+    gm = PPYOLOE(**PPYOLOE_L, device="cuda", generator=seed(2)).eval()
+    cm = PPYOLOE(**PPYOLOE_L, device="cpu",
+                 generator=seed(3, device="cpu")).eval()
+    gm.load_state_dict(state)
+    cm.load_state_dict(state)
+    x = _images(torch, 1, 640, 640, seed=7)
+    with torch.inference_mode():
+        bg, sg = gm(x)
+        bc, sc = cm(x.cpu())
+    eb = _close_rel(f"{tag} boxes", bg, bc, 1e-3)
+    es = _close_rel(f"{tag} scores", sg, sc, 1e-3)
+    sg, sc = sg[0].float().cpu(), sc[0]
+    serr = (sg - sc).abs().max().item()
+    top2 = sc.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * serr
+    same = sg.argmax(-1) == sc.argmax(-1)
+    check(bool(same[clear].all()),
+          f"{tag}: the top class differs at {int((~same & clear).sum())} "
+          "anchors whose top two scores are further apart than twice the "
+          "devices' difference")
+    log(f"{tag}: PP-YOLOE-l f32, 1 x 640 x 640, cuda vs cpu: boxes "
+        f"{eb:.3e}, scores {es:.3e} of their max-abs (max_abs_err "
+        f"{serr:.3e}); the top class equal at {int(clear.sum())} of "
+        f"{len(clear)} anchors clear of a tie, {int((~clear).sum())} "
+        f"within 2 x {serr:.1e} of one ({int((~same).sum())} differ)")
+    return dict(boxes=eb, scores=es)
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
@@ -4700,6 +5132,8 @@ def main():
     stamp("fused_ln")
     noncausal = phase_flash_noncausal(torch, flush)
     stamp("flash_noncausal")
+    d32 = phase_flash_d32(torch, flush)
+    stamp("flash_d32")
     ddec = phase_dense_decode(torch, flush)
     stamp("dense_decode")
     conv = phase_conv_bn_act(torch, flush)
@@ -4753,6 +5187,16 @@ def main():
     stamp("fit_resnet50")
     fl = phase_fit_lenet(torch)
     stamp("fit_lenet")
+    torch.cuda.empty_cache()
+    dt = phase_detr_serve(torch)
+    stamp("detr_serve")
+    phase_detr_cpu(torch, dt.pop("model"))
+    stamp("detr_cpu")
+    torch.cuda.empty_cache()
+    py = phase_ppyoloe_serve(torch)
+    stamp("ppyoloe_serve")
+    phase_ppyoloe_cpu(torch, py.pop("state"))
+    stamp("ppyoloe_cpu")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -4947,6 +5391,16 @@ def main():
         plain_ms=al["plain_ms"], bound_ms=al["bound_ms"],
         bound_by=al["bound_by"], library_ms=al["library_ms"],
         launch_floor_ms=adamw["launch_floor_ms"]))
+    # #1 f32 at DETR's head_dim 32, timed at its encoder's shape; launches
+    # over one detr-serve forward
+    de = d32["timed"]
+    kernels.append(dict(
+        name="flash_attention_fwd", dtype="float32", shape="8x8x1050x1050x32",
+        path="detr-serve", route="cuda", source=fwd_src, replaces=fwd_tpu,
+        launches=dt["launches"]["flash_attention_fwd"],
+        max_abs_err=max(r["max_abs_err"] for r in d32["rows"]),
+        ms=de["ms"], plain_ms=de["plain_ms"], bound_ms=de["bound_ms"],
+        bound_by=de["bound_by"], library_ms=de["library_ms"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -14,7 +14,9 @@ and ResNet; ResNet serving; and the high-level API, ``Model(net).prepare(
 ...).fit/evaluate/predict/save/load`` over ``io.DataLoader``, with
 ``metric``, the callbacks, ``summary``/``flops``, ``save``/``load`` in the
 reference's file format, and ``vision`` (datasets, transforms, LeNet,
-ResNet). ROADMAP.md lists what is still to come.
+ResNet); detection serving (``vision.models`` PP-YOLOE and DETR, over
+``nn``'s transformer layers) and ``incubate.fuse_conv_bn``. ROADMAP.md
+lists what is still to come.
 """
 from .framework import (bind_generator, convert_dtype,  # noqa: F401
                         get_default_dtype, seed, set_default_dtype)
@@ -24,6 +26,7 @@ from . import optimizer  # noqa: E402,F401
 from . import metric  # noqa: E402,F401
 from . import io  # noqa: E402,F401
 from . import vision  # noqa: E402,F401
+from . import incubate  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 from .hapi.summary import summary, flops  # noqa: E402,F401
 from .serialization import save, load  # noqa: E402,F401

@@ -86,7 +86,17 @@
 //     load;
 //   - wholly masked tiles are never loaded, causal grids launch the
 //     longest query tiles first, no atomics (a second call is bit-equal);
-//     o (float2 stores from the accumulator) = acc / l, lse = m + log(l).
+//     o (float2 stores from the accumulator) = acc / l, lse = m + log(l);
+//   - D = 32 (DETR: d_model 256 over 8 heads) is the same kernel: 64-key
+//     tiles, Q split once into registers as at D=64, rows padded to 40
+//     (K, Q) and 36 (V) floats, which hit the banks 72 and 68 do; 48 KB of
+//     shared memory a block, three blocks an SM (157 registers). At DETR's
+//     encoder (B*H = 64, 1050 x 1050, non-causal; 9.03 GFLOP, 0.0547 ms
+//     bound in 3xTF32) it takes 0.2013 ms held, 0.27 of the bound, against
+//     SDPA's 0.54 in f32. A build for two blocks an SM (167 registers)
+//     still resides three and times the same; one for four is capped at
+//     128 registers, spills 48 bytes and runs 1.06x slower. No bf16 D = 32:
+//     the wgmma tiles' 128-byte rows would need the 64-byte swizzle.
 // Measured (chip_smoke.py --compare-fwd, H100 80GB HBM3 at 700 W, held):
 // 0.067 ms at the serving prefill against the CUDA-core kernel's 0.343
 // and SDPA's 0.19; at GPT's f32 shape the HMMAs run at 162 TFLOP/s of
@@ -106,8 +116,8 @@
 // instantiation):
 //   bf16 (wgmma) D=64: 128 (two blocks an SM), 0; D=128: 221, 0;
 //   D=256: 254, 0
-//   f32 (3xTF32) D=64: 227 (two blocks an SM), 0; D=128: 249, 0; D=256:
-//   255, 24 bytes
+//   f32 (3xTF32) D=32: 157 (three blocks an SM), 0; D=64: 227 (two
+//   blocks an SM), 0; D=128: 249, 0; D=256: 255, 24 bytes
 // SASS (cuobjdump -sass of the built library; chip_smoke.py's build phase
 // counts the straight-line blocks that run a tile's 32 exps a thread),
 // bf16 D=64, over the 32 (q, k) pairs a thread owns in a tile:
@@ -117,9 +127,9 @@
 //     a pair, of which 391 integer (12.2 a pair: the keep mask's hash)
 //     and 140 float.
 // The f32 kernel's SASS (the build phase counts it and fails on fewer TF32
-// HMMAs than FFMAs): HMMA.1688.F32.TF32 384 at D=64 (192 for S, 192 for
-// P.V, a 64-key tile), 768 at D=128 and D=256; FFMA 175, 175 and 111, all
-// the softmax's.
+// HMMAs than FFMAs): HMMA.1688.F32.TF32 192 at D=32, 384 at D=64 (192
+// for S, 192 for P.V, a 64-key tile), 768 at D=128 and D=256; FFMA 175 at
+// D=32, 64 and 128, 111 at D=256, all the softmax's.
 // So with dropout the hash is what the bf16 products wait on (0.1136
 // against 0.0688 ms held at GPT's shape, PERF.md section 6). Running a
 // warpgroup's next S product under this tile's softmax (wgmma.wait_group
@@ -369,7 +379,7 @@ struct F32 {
   static constexpr int NS = 2;                   // cp.async stages
   // Q split once into registers (hi and lo fragments); at D >= 128 it is
   // split at each fragment load from shared memory instead
-  static constexpr bool Q_REGS = D == 64;
+  static constexpr bool Q_REGS = D <= 64;
   // row pitches in floats: a half-warp's float2 loads of Q or K (rows g,
   // columns 2t) and a warp's loads of V (rows 2t, columns g) each hit
   // distinct banks
@@ -379,7 +389,12 @@ struct F32 {
   static constexpr int KS = BK * KP;    // floats of a K tile
   static constexpr int STAGE = KS + BK * VP;
   static constexpr int SMEM = (QS + NS * STAGE) * 4;
-  static constexpr int BLOCKS = D == 64 ? 2 : 1;  // blocks an SM
+  // blocks an SM: two at D=64; at D=32 (48 KB of shared memory a block)
+  // three, where shared memory would hold four: four cap a thread at 128
+  // registers and spill (1.06x slower at DETR's encoder), and that grid
+  // (64 x 17 = 1088 blocks) fills 2.75 waves of 396 blocks at three
+  // against 2.06 of 528 at four
+  static constexpr int BLOCKS = D == 32 ? 3 : D == 64 ? 2 : 1;
   static_assert(BLOCKS * SMEM <= 232448, "f32 forward shared memory");
 };
 
@@ -651,6 +666,7 @@ int launch(const Args& a, int is_bf16) {
 }  // namespace
 
 // q, k, v, o: [bh, s, d] contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// d is 64, 128 or 256, and also 32 in f32;
 // lens: [bh] int32 or null; lse: [bh, sq] f32; seed: one int32 on the
 // device, or null for no dropout; thresh = int(rate * 2^24) and
 // keep_prob = 1 - rate. Launches on `stream` and returns cudaGetLastError()
@@ -666,6 +682,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                thresh, keep_prob, static_cast<cudaStream_t>(stream)};
   int err;
   switch (d) {
+    // head_dim 32 (DETR's): the f32 forward only
+    case 32:
+      err = is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<32>(a);
+      break;
     case 64: err = launch<64>(a, is_bf16); break;
     case 128: err = launch<128>(a, is_bf16); break;
     case 256: err = launch<256>(a, is_bf16); break;

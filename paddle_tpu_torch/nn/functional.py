@@ -1,6 +1,7 @@
 """paddle.nn.functional subset of the port (counterpart of
 ``paddle_tpu/nn/functional.py``): what GPT serving and training,
-BERT/ERNIE pretraining, Llama's decode and ResNet serving need.
+BERT/ERNIE pretraining, Llama's decode, ResNet and the detection models
+need.
 
 Weights keep the Paddle layout: ``linear`` takes ``[in, out]``, ``conv2d``
 an OIHW kernel or, with ``weight_format="HWIO"``, the channels-last one.
@@ -22,9 +23,9 @@ from ..framework import later
 from ..ops import attention as _attn
 
 __all__ = ["linear", "embedding", "layer_norm", "rms_norm", "gelu", "silu",
-           "tanh", "relu", "softmax", "dropout", "cross_entropy",
-           "scaled_dot_product_attention", "conv2d", "batch_norm",
-           "max_pool2d", "adaptive_avg_pool2d"]
+           "sigmoid", "hardsigmoid", "tanh", "relu", "softmax", "dropout",
+           "cross_entropy", "scaled_dot_product_attention", "conv2d",
+           "batch_norm", "max_pool2d", "adaptive_avg_pool2d", "interpolate"]
 
 
 def linear(x, weight, bias=None):
@@ -60,6 +61,15 @@ def gelu(x, approximate=False):
 def silu(x):
     """x * sigmoid(x): Llama's SwiGLU gate."""
     return _F.silu(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def hardsigmoid(x, slope=1.0 / 6, offset=0.5):
+    """ref: F.hardsigmoid — clip(slope * x + offset, 0, 1)."""
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
 
 
 def tanh(x):
@@ -310,3 +320,26 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     size = output_size if isinstance(output_size, int) else tuple(
         output_size)
     return _back(_F.adaptive_avg_pool2d(xn, size), data_format)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW"):
+    """ref: F.interpolate in ``nearest`` mode with an integer
+    ``scale_factor`` (what the detection necks upsample with): output
+    pixel i of an axis reads input pixel i // f, the reference's sampling
+    matrix at an integer factor, so every value repeats f times along each
+    spatial axis. ``data_format`` NCHW or NHWC. Other modes, ``size`` and
+    fractional factors raise."""
+    factors = (scale_factor if isinstance(scale_factor, (list, tuple))
+               else [scale_factor] * (x.dim() - 2))
+    if (mode != "nearest" or size is not None
+            or any(f is None or not float(f).is_integer() or f < 1
+                   for f in factors)):
+        raise NotImplementedError(
+            f"interpolate(mode={mode!r}, size={size!r}, scale_factor="
+            f"{scale_factor!r}) {later('6')}; nearest with an integer "
+            "scale_factor is ported")
+    first = 1 if data_format.endswith("C") else 2
+    for i, f in enumerate(factors):
+        x = x.repeat_interleave(int(f), dim=first + i)
+    return x

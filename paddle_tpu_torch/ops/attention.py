@@ -44,9 +44,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
         raise ValueError(f"flash_attention: dropout_p {dropout_p} not in "
                          "[0, 1)")
     b, sq, h, d = q.shape
-    if q.device.type == "cuda" and d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in "
-                         f"{HEAD_DIMS} for the CUDA kernel")
+    if q.device.type == "cuda":
+        _fa.check_head_dim("flash_attention", d, _fa.fwd_head_dims(q.dtype))
     lens = None
     if kv_lens is not None:
         lens = torch.as_tensor(kv_lens, dtype=torch.int32,

@@ -6,7 +6,9 @@
   instead of running on the CPU. ``Engine`` and the optimizers follow the
   model's device and create nothing on another one.
 - A kernel wrapper given a tensor on neither the CPU nor CUDA raises; it
-  never falls back to its plain twin. ``ops.kernels.WRAPPERS`` holds all
+  never falls back to its plain twin. On the card head_dim 32 goes to the
+  f32 forward only: a bf16 forward or a backward there raises, naming
+  ROADMAP.md queue 2. ``ops.kernels.WRAPPERS`` holds all
   eleven wrappers, the fused 1x1-conv + BatchNorm one included.
 - Importing the port builds nothing.
 """
@@ -129,6 +131,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
             cls.from_config_name(name)
         m = cls.from_config_name(name, device="cpu")
         assert {p.device.type for p in m.parameters()} == {"cpu"}
+    from paddle_tpu_torch.vision.models import DETR, PPYOLOE
+    for cls in (DETR, PPYOLOE):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            cls()
     # generate() follows the model: the tokens and the sampler's
     # generator live on the CPU
     out = model.generate(torch.zeros(1, 3, dtype=torch.int64),
@@ -216,3 +222,31 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_head_dim_32_is_the_f32_forward_only(monkeypatch):
+    """With the meta device standing in for the card (the device check
+    passed over), the f32 forward at head_dim 32 goes on to its kernel's
+    build, while the bf16 forward and both backward kernels raise before
+    any build, naming ROADMAP.md queue 2: none runs its plain twin."""
+    def no_build(name, *args):
+        raise AssertionError(f"reached the kernel build ({name})")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(kfa, "_on_cuda", lambda fn, q: None)
+    f32 = torch.empty(2, 8, 32, device="meta")
+    bf16 = torch.empty(2, 8, 32, device="meta", dtype=torch.bfloat16)
+    st = torch.empty(2, 8, device="meta")
+    with pytest.raises(AssertionError, match="flash_attention_fwd"):
+        kfa.flash_attention_fwd(f32, f32, f32)
+    calls = [
+        lambda: kfa.flash_attention_fwd(bf16, bf16, bf16),
+        lambda: kfa.flash_attention_bwd_dq(f32, f32, f32, f32, f32, st),
+        lambda: kfa.flash_attention_bwd_dkv(f32, f32, f32, f32, st, st),
+        lambda: kfa.flash_attention_bwd_dq(bf16, bf16, bf16, bf16, bf16, st),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+            call()
+    assert kfa.F32_FWD_HEAD_DIMS == (32, 64, 128, 256)
+    assert kfa.fwd_head_dims(torch.bfloat16) == kfa.HEAD_DIMS == (64, 128,
+                                                                  256)
