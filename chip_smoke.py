@@ -251,8 +251,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              1050 x 1050, 100 x 100, 100 x 1050), key lengths none, 0
              and mid-tile, dropout 0 and 0.1; a second forward bit for
              bit; against a float64 product at the encoder's shape,
-             beside D=64, within 1e-4 of max(1, |o|); timed at the
-             encoder's shape beside SDPA in f32 and the 3xTF32 bound;
+             beside D=64, within 1e-4 of max(1, |o|), and D=32 within
+             D=64's reading there (4.33e-6); timed at the encoder's shape
+             beside SDPA in f32 and the 3xTF32 bound; then #3/#4's f32
+             kernels at head_dim 32 (with the forward) vs their twins at
+             the same three shapes at detr-train's batch (B=4, H=8), the
+             same key lengths and dropouts, a second backward bit for
+             bit, timed at the encoder's shape beside the twins, SDPA's
+             f32 backward and the bounds on the CUDA cores and in 3xTF32;
 29. detr-serve — DETR() at the JAX package's defaults (80 classes, 100
              queries, d_model 256, 8 heads, 6 + 6 layers, feed-forward
              2048, ResNet-50 backbone, NHWC on the card), weights from
@@ -283,7 +289,49 @@ Phases, each of which fails the run (non-zero exit, no result line):
              their max-abs; the top class of every anchor equal where
              the CPU's top two scores lie further apart than twice the
              devices' largest score difference (random weights put every
-             score near 0.5, and the closest top two ~1e-6 apart).
+             score near 0.5, and the closest top two ~1e-6 apart);
+33. detr-train — DETR() at the JAX package's defaults (as detr-serve, with
+             dropout 0.1), weights from seed 0, f32, through Model(net,
+             inputs=[one]).prepare(AdamW(1e-4, weight_decay=1e-4,
+             fused_kernel=True, grad_clip=ClipGradByGlobalNorm(0.1)),
+             DETRLoss(80)).fit over io.DataLoader (2 workers): 16 images
+             of 800 x 1333 (numpy seed 40) with 1-20 gts each padded to 20
+             (cxcywh normalised, w and h in [0.05, 0.5], 80 classes), batch
+             4, 4 epochs of 4 steps: per step 18 launches of each of #1,
+             #3 and #4 (f32, head_dim 32) and one of #10 a leaf of at least
+             16384 values, no other kernel of the port; finite losses, the
+             last epoch's below the first's; ms a step and images/s over
+             steps 5-16 (and the median step, the loader's wait a batch,
+             the host's time between steps), peak memory, the auction's
+             host reads and
+             iterations a step; one fit step and one Model.train_batch
+             profiled (busy share, device time grouped: cuDNN, eager
+             passes, GEMMs, #1, #3, #4, #10); the auction alone on one
+             batch's cost; #10 timed at a feed-forward leaf;
+34. detr-train-cpu — a DETR with head_dim 32 (d_model 256, 8 heads) cut to
+             2 + 2 layers on the tiny backbone, dropout 0, at 1 x 3 x 256 x
+             256: the auction's matches on each device's outputs equal,
+             then one step on the card and on the CPU from the same
+             weights (BatchNorm statistics drawn at random), AdamW fused
+             with the clip, held to phase 8's bars (#1, #3, #4 x 12 on the
+             card);
+35. ppyoloe-train — PP-YOLOE-l (as ppyoloe-serve), weights from seed 0,
+             f32, through Model.fit as detr-train with Momentum(0.00125,
+             0.9, L2 5e-4) and PPYOLOECriterion: 32 images of 640 x 640
+             (numpy seed 42) with 1-20 gts each as xyxy pixels, batch 8, 4
+             epochs of 4 steps: no kernel of the port (cuDNN's
+             convolutions, Momentum's foreach kernels); the loss falls; ms
+             a step, images/s, peak memory, profiles as detr-train;
+36. ppyoloe-train-cpu — a small PP-YOLOE (layers (1, 1, 1, 1), channels
+             (16, 32, 64, 128, 256), 80 classes) at 2 x 3 x 160 x 160: the
+             task-aligned assignment on each device's outputs equal at
+             every anchor clear of a tie (its metric further from its gt's
+             k-th metric, and its best two candidates further apart, than
+             twice the devices' largest metric difference), then one
+             Momentum step on the card and on the CPU, phase 8's bars on
+             the loss and the gradients, and each leaf's parameters after
+             the step within 1e-5 + lr x 1e-3 x its gradient max-abs (the
+             gradient bar carried through a step linear in the gradient).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -312,8 +360,9 @@ the ERNIE slice (phase 11), GPT's fused block (phase 12), each
 generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
 each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
 Model.fit, evaluate and predict (phase 26), LeNet's fit (phase 27),
-and one DETR forward and one PP-YOLOE forward and their 10 timed
-forwards (phases 29 and 31).
+one DETR forward and one PP-YOLOE forward and their 10 timed
+forwards (phases 29 and 31), and each detection Model.fit (phases 33 and
+35).
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -327,7 +376,10 @@ main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
 with a "shape" key; #11 again on the training path, with a "path" key and
 its 17 launches a forward; #11 on fit-resnet50's training and f32
 evaluate/predict forwards and #10 on fit-lenet, with a "path" key; #1
-f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve),
+f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve;
+#1, #3 and #4 f32 at head_dim 32 on detr-train, timed at its encoder's
+shape, the backward's 3xTF32 bound beside its CUDA-core one in
+"bound_tf32_ms", and #10 on detr-train at a feed-forward leaf),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -393,6 +445,10 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 # #11's f32 output from the float64 product of the same operands, of
 # max(1, |y|): the f32 bar the CPU tests hold the port to
 F32_EXACT_TOL = 1e-5
+# #1 f32 at D = 32 (DETR's encoder, 8 x 8 x 1050 x 1050) from float64, of
+# max(1, |o|): D = 64's reading at that shape, which D = 32 holds since
+# each key tile's P.V is summed apart
+F32_D32_F64_TOL = 4.33e-6
 ADAMW_TOL = 1e-6
 
 
@@ -1389,10 +1445,16 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
         "dkv": ((2 * nq + 2 * nk + 2 * nk) * esz + 2 * stat, 8 * d * pairs),
     }
     # the forward's f32 bound in 3xTF32 (fwd_bound); the f32 backward runs
-    # on the CUDA cores
+    # on the CUDA cores, and its bound in 3xTF32 (three TF32 products a
+    # product at the TF32 peak), what a tensor-core design would face,
+    # stands beside it
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     row["bound"] = {n: bound(*w, peak=peak) for n, w in work.items()}
     row["bound"]["fwd"] = fwd_bound(dtype, work["fwd"][0], pairs, d)
+    if dtype == "float32":
+        row["bound_tf32"] = {n: bound(work[n][0], 3 * work[n][1],
+                                      peak=TF32_FLOPS)
+                             for n in ("dq", "dkv")}
     row["flops"] = {n: w[1] for n, w in work.items()}
     return row
 
@@ -1485,12 +1547,16 @@ def _log_flash_rows(tag, rows):
             ms = r["ms"][n]
             peak = ("bf16 tensor-core" if r["dtype"] == "bfloat16" else
                     "3xTF32" if n == "fwd" else "f32 CUDA-core")
+            tf32 = r.get("bound_tf32", {}).get(n)
             log(f"{tag}:   {n:4s} ms {ms:.4f} (unheld {unheld(ms):.4f}) "
                 f"plain_ms {r['plain_ms'][n]:.4f} library_ms "
                 f"{r['library_ms'][n]:.4f} (unheld "
                 f"{unheld(r['library_ms'][n]):.4f}) bound_ms {bms:.4f} ({by}, "
                 f"{peak} peak): {r['flops'][n] / ms / 1e9:.1f} TFLOP/s, "
-                f"{bms / ms:.3f} of the bound")
+                f"{bms / ms:.3f} of the bound"
+                + ("" if tf32 is None else
+                   f"; 3xTF32 bound_ms {tf32[0]:.4f} ({tf32[1]}), "
+                   f"{tf32[0] / ms:.3f} of it"))
 
 
 def phase_flash_noncausal(torch, flush):
@@ -1569,8 +1635,39 @@ def phase_flash_d32(torch, flush):
         check(f64[d] <= TOL["float32"],
               f"flash-d32: the f32 kernel at D={d} is {f64[d]} from float64"
               f" > {TOL['float32']}")
+    check(f64[32] <= F32_D32_F64_TOL,
+          f"flash-d32: the f32 kernel at D=32 is {f64[32]} from float64, "
+          f"over D=64's reading at this shape ({F32_D32_F64_TOL})")
     timed = next(r for r in rows if "ms" in r)
-    return dict(rows=rows, timed=timed, f64=f64)
+    return dict(rows=rows, timed=timed, f64=f64, bwd=_flash_d32_bwd(
+        torch, flush, gen))
+
+
+def _flash_d32_bwd(torch, flush, gen):
+    """#3/#4's f32 kernels at head_dim 32 against their twins at DETR's
+    three attention shapes at detr-train's batch (B=4, H=8, non-causal),
+    key lengths none, 0 (every other batch) and mid-tile, dropout 0 and
+    0.1, each with the forward (the f32 bar; a second backward bit for
+    bit); timed at the encoder's shape (4 x 8 x 1050 x 1050, no dropout)
+    beside the twin, SDPA's f32 backward and the bounds on the CUDA cores
+    and in 3xTF32."""
+    rows = []
+    for _, sq, sk in DETR_ATTENTION:
+        for lens in (None, [0, sk] * 2,
+                     [min(sk, 97 + 131 * i) for i in range(4)]):
+            for dropout in (0.0, 0.1):
+                rows.append(_flash_train_case(
+                    torch, 4, 8, sq, sk, 32, "float32", lens, dropout, gen,
+                    flush, timed=sk == sq == 1050 and lens is None
+                    and not dropout, causal=False))
+    _log_flash_rows("flash-d32 bwd", rows)
+    timed = next(r for r in rows if "ms" in r)
+    pair, sdpa = timed["ms"]["dq"] + timed["ms"]["dkv"], \
+        timed["library_ms"]["dq"]
+    log(f"flash-d32 bwd: at the encoder's shape #3 + #4 take {pair:.4f} "
+        f"ms, {pair / sdpa:.3f} x SDPA's whole f32 backward ({sdpa:.4f} "
+        "ms, TF32 off)")
+    return dict(rows=rows, timed=timed)
 
 
 def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
@@ -2947,11 +3044,15 @@ def profile_train(torch, eng, inputs, labels):
                 kernel_share={n: t / busy for n, t in own.items()})
 
 
-def _cross_device_step(tag, what, models, engines, batches, crit):
+def _cross_device_step(tag, what, models, engines, batches, crit,
+                       zero_grads=("k_proj.bias",), linear_step=False):
     """One training step on the card and on the CPU from the same weights:
     the gradients of crit(model(*inputs), *labels) on each device, then one
     Engine.train_batch each; loss, gradients and the parameters after the
-    step held to the bars below. ``batches``: {device: (inputs, labels)}."""
+    step held to the bars below. ``batches``: {device: (inputs, labels)};
+    ``zero_grads``: name suffixes of the leaves whose gradient is zero in
+    exact arithmetic; ``linear_step``: the optimizer's first step is lr
+    times the gradient (Momentum, SGD), not Adam's."""
     grads = {}
     for dev, m in models.items():
         inputs, labels = batches[dev]
@@ -2963,13 +3064,13 @@ def _cross_device_step(tag, what, models, engines, batches, crit):
         for p in m.parameters():
             p.grad = None
     # every leaf within 1e-3 of its max-abs; the key bias is zero in exact
-    # arithmetic (softmax ignores a shift shared by every key), so on both
-    # devices it is rounding noise, held to 1e-3 of the model's largest
-    # gradient instead
+    # arithmetic (softmax ignores a shift shared by every key), as is a
+    # convolution's bias ahead of a BatchNorm, so on both devices it is
+    # rounding noise, held to 1e-3 of the model's largest gradient instead
     scale = max(g.abs().max().item() for g in grads["cpu"].values())
     worst, noise = 0.0, 0.0
     for n, g in grads["cpu"].items():
-        if n.endswith("k_proj.bias"):
+        if n.endswith(tuple(zero_grads)):
             noise = max(noise, g.abs().max().item(),
                         grads["cuda"][n].abs().max().item())
             continue
@@ -2991,6 +3092,9 @@ def _cross_device_step(tag, what, models, engines, batches, crit):
     # leaf's max-abs can still move it by different fractions of lr. The
     # flat part is held to 1e-5, the rest to 2 * lr.
     lr = engines["cuda"].optimizer.get_lr()
+    if linear_step:
+        return _linear_step_params(tag, what, models, grads, loss, rel,
+                                   worst, noise, scale, lr)
     perr, worst_leaf, steep_err, n_steep = 0.0, "", 0.0, 0
     for (n, a), b in zip(models["cuda"].named_parameters(),
                          models["cpu"].parameters()):
@@ -3015,6 +3119,31 @@ def _cross_device_step(tag, what, models, engines, batches, crit):
         f"({worst_leaf}) where |grad| >= 1e-6, {steep_err:.2e} over the "
         f"{n_steep} elements where |grad| < 1e-6 on a device")
     return dict(loss_rel=rel, grad_rel=worst, param_err=perr)
+
+
+def _linear_step_params(tag, what, models, grads, loss, rel, worst, noise,
+                        scale, lr):
+    """The parameters after a first step that is lr times the gradient
+    (plus an L2 term of the same parameters on both devices): each leaf
+    within 1e-5 plus lr times the gradient bar (1e-3 of the leaf's
+    gradient max-abs), the gradients' agreement carried through the
+    step."""
+    perr, worst_leaf = 0.0, ""
+    for (n, a), b in zip(models["cuda"].named_parameters(),
+                         models["cpu"].parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs().max().item()
+        bar = 1e-5 + lr * 1e-3 * grads["cpu"][n].abs().max().item()
+        check(diff <= bar, f"{tag}: params {n} differ by {diff} after the "
+              f"step, over 1e-5 + lr x 1e-3 x its gradient max-abs ({bar})")
+        if diff / bar > perr:
+            perr, worst_leaf = diff / bar, n
+    log(f"{tag}: {what}: loss cuda "
+        f"{loss['cuda']:.6f} cpu {loss['cpu']:.6f} ({rel:.2e} relative); "
+        f"worst grad leaf {worst:.2e} of its max-abs over "
+        f"{len(grads['cpu'])} leaves (gradients zero in exact arithmetic: "
+        f"{noise:.2e} against the largest gradient {scale:.2e}); params "
+        f"after the step at worst {perr:.3f} of their bar ({worst_leaf})")
+    return dict(loss_rel=rel, grad_rel=worst, param_of_bar=perr)
 
 
 def phase_train_cpu(torch):
@@ -4503,6 +4632,7 @@ class _FitProbe:
 
     def batch_end(self, step, logs):
         from torch.profiler import ProfilerActivity, profile
+        step = len(self.ends)  # counted over every epoch
         if step == self.profile_after + 1 and self.prof is not None:
             self.torch.cuda.synchronize()
             self.prof_wall = time.perf_counter() - self.prof_t0
@@ -5073,6 +5203,457 @@ def phase_ppyoloe_cpu(torch, state):
     return dict(boxes=eb, scores=es)
 
 
+# -- detection training: DETR-R50 and PP-YOLOE-l through Model.fit ------------
+
+# device kernels of a detection training step, grouped by name (first match
+# wins)
+DETECT_TRAIN_GROUPS = (
+    ("#1 (flash_fwd_f32_kernel)", ("flash_fwd",)),
+    ("#3 (flash_bwd_dq_kernel)", ("flash_bwd_dq",)),
+    ("#4 (flash_bwd_dkv_kernel)", ("flash_bwd_dkv",)),
+    ("#10 (adamw_kernel)", ("adamw_kernel",)),
+    ("cuDNN convolutions, forward and backward (FFT and layout transposes "
+     "included)",
+     ("fprop", "dgrad", "wgrad", "implicit", "conv", "winograd", "cudnn",
+      "nhwc", "nchw", "fft", "dse::", "pointwise_mult_and_sum")),
+    ("GEMMs (projections, feed-forward, heads)",
+     ("gemm", "cutlass", "cublas")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("foreach (Momentum, the small AdamW leaves, the clip)",
+     ("multi_tensor_apply",)),
+    ("elementwise and reductions (eager BatchNorm, activations, residuals, "
+     "copies, softmax, pools, the losses and the matcher)",
+     ("elementwise", "reduce", "copy", "fill", "cat", "index", "softmax",
+      "pool", "gather", "scatter", "sort", "topk", "arg")),
+)
+# gt slots an image (padded) and the images of a training set that fit
+# repeats epoch after epoch, so the loss must fall on the images it saw
+DETECT_GT_SLOTS = 20
+
+
+class _DetectionSet:
+    """Four-field samples from a numpy seed: an image [3, h, w] f32 (normal
+    draws), gt boxes [20, 4], classes [20] (80 classes) and the slots'
+    mask [20], with 1-20 real boxes an image. DETR's boxes are cxcywh
+    normalised, w and h in [0.05, 0.5]; PP-YOLOE's (``pixels=True``) the
+    same boxes as xyxy pixels."""
+
+    def __init__(self, n, h, w, seed, pixels=False):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        m = DETECT_GT_SLOTS
+        self.x = rng.standard_normal((n, 3, h, w), dtype=np.float32)
+        wh = rng.uniform(0.05, 0.5, (n, m, 2))
+        ctr = rng.uniform(wh / 2, 1 - wh / 2)
+        box = np.concatenate([ctr, wh], -1)
+        if pixels:
+            scale = np.array([w, h, w, h])
+            box = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1) * scale
+        self.gb = box.astype(np.float32)
+        self.gc = rng.integers(0, 80, (n, m)).astype(np.int64)
+        real = rng.integers(1, m + 1, (n, 1))
+        self.gm = (np.arange(m)[None] < real).astype(np.float32)
+        self.gb[self.gm == 0] = 0
+        self.gc[self.gm == 0] = 0
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.gb[i], self.gc[i], self.gm[i]
+
+    def batch(self, torch, idx, device):
+        return [torch.from_numpy(a[idx]).to(device)
+                for a in (self.x, self.gb, self.gc, self.gm)]
+
+
+def _detection_set(n, h, w, seed, pixels=False):
+    """A _DetectionSet that is an io.Dataset (Model.fit wraps a Dataset in
+    its DataLoader)."""
+    from paddle_tpu_torch.io import Dataset
+    return type("DetectionSet", (_DetectionSet, Dataset), {})(
+        n, h, w, seed, pixels)
+
+
+def _detr_adamw(model, fused=True):
+    """PaddleDetection's DETR recipe: AdamW(1e-4, weight_decay=1e-4) with
+    the global-norm clip at 0.1."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(1e-4, parameters=model.named_parameters(),
+                 weight_decay=1e-4, grad_clip=ClipGradByGlobalNorm(0.1),
+                 fused_kernel=fused)
+
+
+def _ppyoloe_momentum(model):
+    """PaddleDetection's PP-YOLOE recipe (ppyoloe_crn_l): Momentum(0.9)
+    with L2 weight decay 5e-4, its base lr 0.025 for 8 cards x 20 images
+    scaled linearly to one batch of 8: 0.00125 (its linear warmup from 0
+    left out: over a smoke run's 16 steps it would hold the lr near 0). At
+    lr 0.01 the loss of the reference's initialisation (no prior on the
+    classification bias) first climbs 24-fold (a CPU run at 320 px)."""
+    from paddle_tpu_torch.optimizer import Momentum
+    return Momentum(0.00125, momentum=0.9,
+                    parameters=model.named_parameters(), weight_decay=5e-4)
+
+
+def _fit_detection(torch, tag, model, ds, b, epochs, profile_after):
+    """Model.fit over ``ds`` (io.DataLoader, 2 thread workers, no
+    shuffle), launch counts zeroed before and read after, with a probe
+    stamping every step and profiling step ``profile_after + 1`` (ahead of
+    the timed steps: starting the profiler costs the host seconds):
+    (launches, probe, wall s, peak GiB)."""
+    probe = _FitProbe(torch, profile_after=profile_after)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    model.fit(ds, batch_size=b, epochs=epochs, shuffle=False,
+              num_workers=2, verbose=0, callbacks=[probe.callback])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = epochs * (len(ds) // b)
+    check(len(probe.losses) == steps and all(
+        math.isfinite(v) for v in probe.losses),
+        f"{tag}: losses {probe.losses}")
+    # the same images open the first epoch and the last
+    per_epoch = len(ds) // b
+    first = probe.losses[:per_epoch]
+    last = probe.losses[-per_epoch:]
+    check(sum(last) < sum(first), f"{tag}: the loss did not fall: first "
+          f"epoch {first}, last {last}")
+    return launches, probe, wall, peak
+
+
+def _step_rates(tag, model, probe, b, warm):
+    """ms a step and images/s over the steps after ``warm`` (each ends in
+    the loss's read, so their ends are step boundaries), the epochs'
+    starts included; the median step, the loader's wait a batch and the
+    host's median time from a step's end to the next one's begin."""
+    n = len(probe.ends) - warm
+    window = probe.ends[-1] - probe.ends[warm - 1]
+    steps = sorted((probe.ends[i] - probe.ends[i - 1]) * 1e3
+                   for i in range(warm, len(probe.ends)))
+    gaps = probe.gaps_ms(warm - 1, len(probe.ends) - 1)
+    loader = model._loaders["train"]
+    r = dict(ms_per_step=window / n * 1e3, images_per_s=b * n / window,
+             median_step_ms=steps[len(steps) // 2],
+             wait_ms_per_batch=loader.batch_wait_s / loader.batches * 1e3,
+             gap_ms_median=gaps[len(gaps) // 2], gap_ms_max=gaps[-1])
+    log(f"{tag}: steps {warm + 1}-{len(probe.ends)}: "
+        f"{r['ms_per_step']:.3f} ms a step ({r['images_per_s']:.2f} "
+        f"images/s), the median step {r['median_step_ms']:.3f} ms; the "
+        f"loader's wait {r['wait_ms_per_batch']:.3f} ms a batch over "
+        f"{loader.batches} batches; host time from a step's end to the "
+        f"next one's begin median {r['gap_ms_median']:.3f} ms, max "
+        f"{r['gap_ms_max']:.3f}")
+    return r
+
+
+def phase_detr_train(torch):
+    """DETR() at the JAX package's defaults (ResNet-50 NHWC, d_model 256, 8
+    heads, 6 + 6 layers, feed-forward 2048, 100 queries, dropout 0.1, f32),
+    weights from seed 0, through Model(net, inputs=[one]).prepare(AdamW(
+    1e-4, weight_decay=1e-4, fused_kernel=True, ClipGradByGlobalNorm(0.1)),
+    DETRLoss(80)).fit over io.DataLoader (2 workers): 16 images of 800 x
+    1333 with 1-20 gts each, batch 4, 4 epochs (16 steps; steps 5-16
+    timed, each epoch's start included): 18 launches of each of #1, #3,
+    #4 a step and one of #10 a leaf of at least MIN_SIZE values, no other
+    kernel of the port; the loss falls; the auction's host reads and
+    iterations a step; peak memory; one Model.train_batch profiled; the
+    auction timed alone on one batch's cost; #10 at a feed-forward
+    leaf."""
+    from paddle_tpu_torch import Model, seed
+    from paddle_tpu_torch.ops.kernels.fused_adamw import MIN_SIZE
+    from paddle_tpu_torch.vision.models import DETR, DETRLoss
+    from paddle_tpu_torch.vision.models.detection import detr as port_detr
+    tag, b, epochs, warm = "detr-train", 4, 4, 4
+    ds = _detection_set(4 * b, *DETR_HW, seed=40)
+    net = DETR(device="cuda", generator=seed(0))
+    attn = net.transformer.encoder.layers[0].self_attn
+    check(attn.head_dim == 32 and attn.dropout == 0.1
+          and net.num_queries == 100
+          and len(net.transformer.decoder.layers) == 6
+          and net.backbone._layout == "NHWC",
+          f"{tag}: not DETR-R50's configuration")
+    leaves = sum(p.numel() >= MIN_SIZE for p in net.parameters())
+    model = Model(net, inputs=["images"])  # one input, three labels
+    model.prepare(_detr_adamw(net), DETRLoss(num_classes=80))
+    syncs0 = port_detr.auction_match.host_syncs
+    iters0 = port_detr.auction_match.iterations
+    launches, probe, wall, peak = _fit_detection(
+        torch, tag, model, ds, b, epochs, profile_after=warm - 2)
+    steps = len(probe.losses)
+    want = {"flash_attention_fwd": 18 * steps,
+            "flash_attention_bwd_dq": 18 * steps,
+            "flash_attention_bwd_dkv": 18 * steps,
+            "fused_adamw_update": leaves * steps}
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{tag}: {name} launched {n} times "
+              f"over {steps} steps, want {want.get(name, 0)}")
+    syncs = port_detr.auction_match.host_syncs - syncs0
+    iters = port_detr.auction_match.iterations - iters0
+    res = dict(launches=launches, steps=steps, losses=probe.losses,
+               peak_gib=peak, fit_wall_s=wall, adamw_leaves=leaves,
+               auction_syncs_per_step=syncs / steps,
+               auction_iters_per_step=iters / steps,
+               fit_profile=probe.busy(tag))
+    res.update(_step_rates(tag, model, probe, b, warm))
+    log(f"{tag}: DETR-R50 f32, batch {b} x {DETR_HW[0]} x {DETR_HW[1]}, "
+        f"AdamW fused + clip 0.1, Model.fit over {steps} steps ({epochs} "
+        f"epochs of {len(ds)} images) in {wall:.2f} s; steps {warm + 1}-"
+        f"{steps}: {res['ms_per_step']:.3f} ms a step, "
+        f"{res['images_per_s']:.2f} images/s; a step launches "
+        f"#1, #3 and #4 x 18 each and #10 x {leaves} (its leaves of >= "
+        f"{MIN_SIZE} values), no other kernel of the port; the auction "
+        f"{syncs / steps:.2f} host reads and {iters / steps:.1f} iterations "
+        f"a step (B x Q x M = {b} x 100 x {DETECT_GT_SLOTS}); loss "
+        f"{probe.losses[0]:.4f} -> {probe.losses[-1]:.4f} (every step "
+        f"{[round(v, 4) for v in probe.losses]}); max_memory_allocated "
+        f"{peak:.2f} GiB")
+    x, gb, gc, gm = ds.batch(torch, slice(0, b), "cuda")
+    res["profile"] = profile_grouped(
+        torch, tag, "one Model.train_batch", lambda: model.train_batch(
+            [x], [gb, gc, gm]), DETECT_TRAIN_GROUPS)
+    # the matcher alone on one batch's cost (its iterations read the stop
+    # condition back, so a host clock around it, ending in a sync)
+    crit = model._loss
+    with torch.no_grad():
+        logits, boxes = net(x)
+        cost = crit.cost(logits, boxes, gb, gc.long())
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s0, i0 = port_detr.auction_match.host_syncs, \
+            port_detr.auction_match.iterations
+        t0 = time.perf_counter()
+        port_detr.auction_match(cost, gm > 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res["auction_ms"] = min(walls)
+    res["auction_one"] = dict(
+        syncs=port_detr.auction_match.host_syncs - s0,
+        iterations=port_detr.auction_match.iterations - i0)
+    log(f"{tag}: the auction alone on one batch's cost [{b}, 100, "
+        f"{DETECT_GT_SLOTS}]: {res['auction_ms']:.3f} ms of host time "
+        f"(best of 3, each ending in a sync), "
+        f"{res['auction_one']['iterations']} iterations, "
+        f"{res['auction_one']['syncs']} host reads")
+    del model, net, x, cost
+    # #10 at a leaf of the path: a feed-forward weight (256 x 2048)
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    res["adamw"] = _adamw_case(torch, (256, 2048), True, gen, scratch.zero_,
+                               True)
+    del scratch
+    a = res["adamw"]
+    log(f"{tag}: #10 at a feed-forward leaf (256 x 2048): max_abs_err "
+        f"{a['max_abs_err']:.3e} ms {a['ms']:.4f} plain_ms "
+        f"{a['plain_ms']:.4f} library_ms {a['library_ms']:.4f} bound_ms "
+        f"{a['bound_ms']:.4f} ({a['bound_by']})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _small_detr(torch, device, weight_seed):
+    """A DETR that keeps DETR's head_dim 32 (d_model 256, 8 heads) cut to
+    2 + 2 layers on the tiny backbone (4 stride-2 convolutions with
+    BatchNorm), dropout 0, train mode. Not resnet18: there an f32 step on
+    the CPU lies 2e-2 of a leaf's max-abs from a float64 one (a CPU run:
+    a ReLU input within the f32 forward's error of 0 takes the other side
+    on the other device, as resnet-train-cpu finds), against 1.4e-5 here."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision.models import DETR
+    return DETR(num_encoder_layers=2, num_decoder_layers=2, backbone="tiny",
+                dropout=0.0, device=device,
+                generator=seed(weight_seed, device=device)).train()
+
+
+def phase_detr_train_cpu(torch):
+    """One training step of a small DETR (head_dim 32: d_model 256, 8 heads,
+    2 + 2 layers, the tiny backbone, dropout 0) at 1 x 3 x 256 x 256 with
+    1-20 gts, on the card and on the CPU from the same weights (BatchNorm
+    statistics drawn at random), AdamW fused with the clip: phase 8's bars
+    (_cross_device_step); the auction's matches on each device's own cost
+    equal, a difference logged with the cost's margin; the card launching
+    #1, #3 and #4 x 12 for the gradients and the step (6 each a forward
+    and backward)."""
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.vision.models import DETRLoss
+    from paddle_tpu_torch.vision.models.detection import auction_match
+    tag = "detr-train-cpu"
+    gm_, cm = _small_detr(torch, "cuda", 3), _small_detr(torch, "cpu", 4)
+    _randomize_bn(torch, gm_, 24)
+    cm.load_state_dict({k: v.cpu() for k, v in gm_.state_dict().items()})
+    ds = _detection_set(1, 256, 256, seed=41)
+    crit = DETRLoss(num_classes=80)
+    batches = {}
+    for dev in ("cuda", "cpu"):
+        x, gb, gc, gm = ds.batch(torch, slice(0, 1), dev)
+        batches[dev] = ([x], [gb, gc, gm])
+    # the matches: the auction on each device's own outputs
+    match, cost = {}, {}
+    with torch.no_grad():
+        for dev, m in (("cuda", gm_), ("cpu", cm)):
+            (x,), (gb, gc, gmask) = batches[dev]
+            logits, boxes = m(x)
+            cost[dev] = crit.cost(logits, boxes, gb, gc).cpu()
+            match[dev] = auction_match(cost[dev].to(dev), gmask > 0).cpu()
+    valid = torch.from_numpy(ds.gm[0] > 0)
+    same = match["cuda"][0][valid] == match["cpu"][0][valid]
+    cerr = (cost["cuda"] - cost["cpu"]).abs().max().item()
+    if not bool(same.all()):
+        log(f"{tag}: the matches differ at {int((~same).sum())} of "
+            f"{int(valid.sum())} gts (the costs {cerr:.3e} apart)")
+    check(bool(same.all()), f"{tag}: the card's matches "
+          f"{match['cuda'][0][valid].tolist()} are not the CPU's "
+          f"{match['cpu'][0][valid].tolist()}")
+    engines = {"cuda": Engine(gm_, crit, _detr_adamw(gm_)),
+               "cpu": Engine(cm, crit, _detr_adamw(cm))}
+    _zero_launches()
+    # the tiny backbone's convolution biases feed BatchNorms
+    r = _cross_device_step(tag, "DETR head_dim 32, 2 + 2 layers, tiny "
+                           "backbone, 1 x 256 x 256, f32, AdamW fused + clip",
+                           {"cuda": gm_, "cpu": cm}, engines, batches, crit,
+                           zero_grads=("k_proj.bias", "backbone.0.bias",
+                                       "backbone.3.bias", "backbone.6.bias",
+                                       "backbone.9.bias"))
+    launches = _read_launches()
+    n = {k: launches[k] for k in ("flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")}
+    # 6 attentions a forward: the gradients' forward and the step's
+    check(all(v == 12 for v in n.values()), f"{tag}: the card launched "
+          f"{n}, want 12 of each (two forwards and backwards)")
+    log(f"{tag}: the matches of all {int(valid.sum())} gts equal on both "
+        f"devices (costs {cerr:.3e} apart); #1, #3, #4 x 12 on the card")
+    r.update(matches_equal=True, cost_err=cerr)
+    return r
+
+
+def phase_ppyoloe_train(torch):
+    """PP-YOLOE-l (PPYOLOE_L), weights from seed 0, f32, through
+    Model(net, inputs=[one]).prepare(Momentum(0.00125, 0.9, L2 5e-4),
+    PPYOLOECriterion(net)).fit over io.DataLoader (2 workers): 32 images of
+    640 x 640 with 1-20 gts each (xyxy pixels), batch 8, 4 epochs (16
+    steps; steps 5-16 timed, each epoch's start included): no kernel of
+    the port (cuDNN's convolutions, Momentum's foreach kernels); the loss
+    falls; peak memory; one Model.train_batch profiled."""
+    from paddle_tpu_torch import Model, seed
+    from paddle_tpu_torch.vision.models import PPYOLOE, PPYOLOECriterion
+    tag, b, epochs, warm, hw = "ppyoloe-train", 8, 4, 4, 640
+    ds = _detection_set(4 * b, hw, hw, seed=42, pixels=True)
+    net = PPYOLOE(**PPYOLOE_L, device="cuda", generator=seed(0))
+    model = Model(net, inputs=["images"])  # one input, three labels
+    model.prepare(_ppyoloe_momentum(net), PPYOLOECriterion(net))
+    launches, probe, wall, peak = _fit_detection(
+        torch, tag, model, ds, b, epochs, profile_after=warm - 2)
+    others = {k: v for k, v in launches.items() if v}
+    check(not others, f"{tag}: kernels of the port launched: {others}")
+    steps = len(probe.losses)
+    res = dict(launches=launches, steps=steps, losses=probe.losses,
+               peak_gib=peak, fit_wall_s=wall, fit_profile=probe.busy(tag))
+    res.update(_step_rates(tag, model, probe, b, warm))
+    log(f"{tag}: PP-YOLOE-l f32, batch {b} x {hw} x {hw}, Momentum("
+        f"0.00125, 0.9, L2 5e-4), Model.fit over {steps} steps ({epochs} "
+        f"epochs of {len(ds)} images) in {wall:.2f} s; steps {warm + 1}-"
+        f"{steps}: {res['ms_per_step']:.3f} ms a step, "
+        f"{res['images_per_s']:.2f} images/s;"
+        f" no kernel of the port (cuDNN's convolutions, Momentum's foreach"
+        f" kernels); loss {probe.losses[0]:.4f} -> {probe.losses[-1]:.4f} "
+        f"(every step {[round(v, 4) for v in probe.losses]}); "
+        f"max_memory_allocated {peak:.2f} GiB")
+    x, gb, gc, gm = ds.batch(torch, slice(0, b), "cuda")
+    res["profile"] = profile_grouped(
+        torch, tag, "one Model.train_batch", lambda: model.train_batch(
+            [x], [gb, gc, gm]), DETECT_TRAIN_GROUPS)
+    del model, net, x
+    torch.cuda.empty_cache()
+    return res
+
+
+def _small_ppyoloe(torch, device, weight_seed):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision.models import PPYOLOE
+    return PPYOLOE(num_classes=80, channels=(16, 32, 64, 128, 256),
+                   device=device,
+                   generator=seed(weight_seed, device=device)).train()
+
+
+def phase_ppyoloe_train_cpu(torch):
+    """One training step of a small PP-YOLOE (80 classes, layers (1, 1, 1,
+    1), channels (16, 32, 64, 128, 256)) at 2 x 3 x 160 x 160 with 1-20
+    gts an image, on the card and on the CPU from the same weights
+    (BatchNorm statistics drawn at random), Momentum(0.00125, 0.9, L2
+    5e-4): phase 8's bars (the parameters after the step: the gradient
+    bar carried through Momentum's first step, lr x g); the task-aligned
+    assignment on each device's own outputs equal at every anchor clear of
+    a tie (the rule of ppyoloe-cpu: its deciding metrics, the gt's k-th
+    metric and the best two candidates, further apart on the CPU than
+    twice the devices' largest metric difference)."""
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.vision.models import PPYOLOECriterion
+    from paddle_tpu_torch.vision.models.detection import ppyoloe as port_pp
+    tag = "ppyoloe-train-cpu"
+    gm_, cm = _small_ppyoloe(torch, "cuda", 5), _small_ppyoloe(torch, "cpu",
+                                                               6)
+    _randomize_bn(torch, gm_, 25)
+    cm.load_state_dict({k: v.cpu() for k, v in gm_.state_dict().items()})
+    ds = _detection_set(2, 160, 160, seed=43, pixels=True)
+    batches = {dev: ([x], labels) for dev, (x, *labels) in (
+        (dev, ds.batch(torch, slice(0, 2), dev)) for dev in ("cuda", "cpu"))}
+    got = {}
+    with torch.no_grad():
+        for dev, m in (("cuda", gm_), ("cpu", cm)):
+            (x,), (gb, gc, gmask) = batches[dev]
+            cls_logits, _, boxes = m(x)
+            anchors, _ = m._last_anchors
+            scores = torch.sigmoid(cls_logits)
+            metric, iou, valid = port_pp.tal_metric(
+                scores, boxes, anchors, gb, gc, gmask)
+            assigned, fg, _ = port_pp.task_aligned_assign(
+                scores, boxes, anchors, gb, gc, gmask)
+            got[dev] = [t.cpu() for t in (metric, valid, assigned, fg)]
+    mg, _, ag, fgg = got["cuda"]
+    mc, vc, ac, fgc = got["cpu"]
+    err = (mg - mc).abs().max().item()
+    band = 2 * err
+    # a tie: the anchor's metric within the band of its gt's k-th metric,
+    # or its best two candidates within the band of each other
+    k = min(13, mc.shape[1])
+    thresh = mc.transpose(1, 2).topk(k, dim=-1).values[..., -1]
+    near_k = ((mc - thresh[:, None, :]).abs() <= band) & vc
+    top2 = mc.topk(2, dim=-1).values
+    near = near_k.any(-1) | ((top2[..., 0] - top2[..., 1]) <= band) & (
+        top2[..., 0] > 0)
+    clear = ~near
+    same = (ag == ac) & (fgg == fgc)
+    check(bool(same[clear].all()), f"{tag}: the assignment differs at "
+          f"{int((~same & clear).sum())} anchors clear of a tie")
+    log(f"{tag}: task-aligned assignment, cuda vs cpu on each one's own "
+        f"outputs: metrics {err:.3e} apart; equal at all "
+        f"{int(clear.sum())} anchors clear of a tie, {int(near.sum())} "
+        f"within 2 x {err:.1e} of one ({int((~same).sum())} differ); "
+        f"{int(fgc.sum())} foreground anchors on the CPU")
+    crit = PPYOLOECriterion(gm_)
+    ccrit = PPYOLOECriterion(cm)
+    engines = {"cuda": Engine(gm_, crit, _ppyoloe_momentum(gm_)),
+               "cpu": Engine(cm, ccrit, _ppyoloe_momentum(cm))}
+
+    class _ByDevice:
+        """The criterion of the model on the outputs' device."""
+
+        def __call__(self, *a):
+            return (crit if a[0].is_cuda else ccrit)(*a)
+    r = _cross_device_step(tag, "PP-YOLOE small, 2 x 160 x 160, f32, "
+                           "Momentum(0.00125, 0.9, L2 5e-4)",
+                           {"cuda": gm_, "cpu": cm}, engines, batches,
+                           _ByDevice(), linear_step=True)
+    r.update(metric_err=err, ties=int(near.sum()))
+    return r
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
@@ -5197,6 +5778,16 @@ def main():
     stamp("ppyoloe_serve")
     phase_ppyoloe_cpu(torch, py.pop("state"))
     stamp("ppyoloe_cpu")
+    torch.cuda.empty_cache()
+    dtr = phase_detr_train(torch)
+    stamp("detr_train")
+    phase_detr_train_cpu(torch)
+    stamp("detr_train_cpu")
+    torch.cuda.empty_cache()
+    phase_ppyoloe_train(torch)
+    stamp("ppyoloe_train")
+    phase_ppyoloe_train_cpu(torch)
+    stamp("ppyoloe_train_cpu")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -5401,6 +5992,38 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in d32["rows"]),
         ms=de["ms"], plain_ms=de["plain_ms"], bound_ms=de["bound_ms"],
         bound_by=de["bound_by"], library_ms=de["library_ms"]))
+    # detection training (phase detr-train): #1, #3 and #4 f32 at head_dim
+    # 32, timed at DETR's encoder at detr-train's batch (4 x 8 x 1050 x
+    # 1050; the backward's bound on the CUDA cores, the 3xTF32 one beside
+    # it), and #10 at DETR's feed-forward leaf; launches over its steps
+    db = d32["bwd"]["timed"]
+    for name, part, timing, replaces in (
+            ("flash_attention_fwd", "o", "fwd", fwd_tpu),
+            ("flash_attention_bwd_dq", "dq", "dq",
+             "paddle_tpu/ops/pallas/flash_attention.py:365"),
+            ("flash_attention_bwd_dkv", "dk", "dkv",
+             "paddle_tpu/ops/pallas/flash_attention.py:385")):
+        bms, by = db["bound"][timing]
+        row = dict(
+            name=name, dtype="float32", shape="4x8x1050x1050x32",
+            path="detr-train", route="cuda",
+            source=fwd_src if timing == "fwd" else bwd_src,
+            replaces=replaces, launches=dtr["launches"][name],
+            max_abs_err=max(r["err"][part] for r in d32["bwd"]["rows"]),
+            ms=db["ms"][timing], plain_ms=db["plain_ms"][timing],
+            bound_ms=bms, bound_by=by, library_ms=db["library_ms"][timing])
+        if timing != "fwd":
+            row["bound_tf32_ms"] = db["bound_tf32"][timing][0]
+        kernels.append(row)
+    ad = dtr["adamw"]
+    kernels.append(dict(
+        name="fused_adamw_update", shape="256x2048", path="detr-train",
+        route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+        launches=dtr["launches"]["fused_adamw_update"],
+        max_abs_err=ad["max_abs_err"], ms=ad["ms"], plain_ms=ad["plain_ms"],
+        bound_ms=ad["bound_ms"], bound_by=ad["bound_by"],
+        library_ms=ad["library_ms"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -70,12 +70,22 @@
 // under its first's arithmetic (wgmma.wait_group 1) did not help and
 // spilled.
 //
-// f32: the CUDA cores, not TF32, which would break the f32 bar of 1e-4
-// (f32 is not the training path): TPR = D/16 threads share a row, each
-// owning 16 of its dims in registers (q, dO and the dq sum; or k, v, dK
-// and dV), dot products reduce over TPR lanes with shuffles, the tile it
-// loops over is staged in shared memory as f32 (4096 values an array) and
-// read by all the block's rows as a broadcast.
+// f32: the CUDA cores, not TF32, which would break the f32 bar of 1e-4:
+// TPR = D/16 threads share a row, each owning 16 of its dims in registers
+// (q, dO and the dq sum; or k, v, dK and dV), dot products reduce over
+// TPR lanes with shuffles, the tile it loops over is staged in shared
+// memory as f32 (4096 values an array) and read by all the block's rows
+// as a broadcast. D = 32 (DETR's head dim, whose training runs in f32) is
+// an instantiation of the same code: two threads a row, 128 rows a block
+// and 128-row staged tiles; bf16 at 32 is refused (cudaErrorInvalidValue),
+// as its wgmma tiles would need the 64-byte swizzle. At DETR's encoder
+// (B*H = 32, 1050 x 1050, non-causal: 35.28 M pairs) the work's bound on
+// the CUDA cores is 0.101 ms (dq, 6 D FLOPs a pair) and 0.135 ms (dk/dv,
+// 8 D), in 3xTF32 on the tensor cores 0.041 and 0.055 ms; the kernels take
+// 0.497 and 0.769 ms held (H100 80GB HBM3 at 700 W, chip_smoke.py phase
+// flash-d32), together 1.56x SDPA's whole f32 backward (0.811 ms, TF32
+// off). The way to the 3xTF32 bound is this file's bf16 design in 3xTF32,
+// as the f32 forward and #11 f32 run it.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12 on the H100), registers a thread and
 // spill stores (chip_smoke.py's build phase prints them for every
@@ -84,7 +94,8 @@
 //   bf16 dk/dv D=64: 233, 0;                     D=128: 255, 0
 //   bf16 dk/dv D=256: 255, 304 bytes (off the training paths, which run
 //   D=64; dq D=256 is printed by the build phase)
-//   f32 (CUDA cores) dq 98-99, dk/dv 123, no spills
+//   f32 (CUDA cores) dq 98-99, dk/dv 123, no spills; at D=32 dq 80 with
+//   16 bytes of spill stores, dk/dv 125, no spills
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -818,6 +829,12 @@ int run(const Args& a, int d, int is_bf16) {
     return (int)cudaErrorInvalidValue;
   int err;
   switch (d) {
+    // head_dim 32 (DETR's): the f32 kernel only; bf16 tiles at 32 would
+    // need wgmma's 64-byte swizzle
+    case 32:
+      if (is_bf16) return (int)cudaErrorInvalidValue;
+      err = DQ ? launch_dq_f32<32>(a) : launch_dkv_f32<32>(a);
+      break;
     case 64: err = launch<DQ, 64>(a, is_bf16); break;
     case 128: err = launch<DQ, 128>(a, is_bf16); break;
     case 256: err = launch<DQ, 256>(a, is_bf16); break;

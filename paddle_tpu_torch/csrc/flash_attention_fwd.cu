@@ -90,13 +90,20 @@
 //   - D = 32 (DETR: d_model 256 over 8 heads) is the same kernel: 64-key
 //     tiles, Q split once into registers as at D=64, rows padded to 40
 //     (K, Q) and 36 (V) floats, which hit the banks 72 and 68 do; 48 KB of
-//     shared memory a block, three blocks an SM (157 registers). At DETR's
+//     shared memory a block, three blocks an SM (159 registers). At DETR's
 //     encoder (B*H = 64, 1050 x 1050, non-causal; 9.03 GFLOP, 0.0547 ms
 //     bound in 3xTF32) it takes 0.2013 ms held, 0.27 of the bound, against
 //     SDPA's 0.54 in f32. A build for two blocks an SM (167 registers)
 //     still resides three and times the same; one for four is capped at
 //     128 registers, spills 48 bytes and runs 1.06x slower. No bf16 D = 32:
-//     the wgmma tiles' 128-byte rows would need the 64-byte swizzle.
+//     the wgmma tiles' 128-byte rows would need the 64-byte swizzle. Each
+//     key tile's P.V is summed apart from zero and added to the running
+//     sum in f32 (PV_APART): with every tile's products accumulated in the
+//     one tensor-core sum, o read 1.005e-5 of max(1, |o|) from float64 at
+//     the encoder's shape, apart 1.109e-6 (the twin 1.705e-6, D = 64
+//     4.33e-6), for 0.2034 against 0.2008 ms held in turns (1.3 %; H100
+//     80GB HBM3 at 700 W, chip_smoke.py phase flash-d32 and
+//     --compare-fwd).
 // Measured (chip_smoke.py --compare-fwd, H100 80GB HBM3 at 700 W, held):
 // 0.067 ms at the serving prefill against the CUDA-core kernel's 0.343
 // and SDPA's 0.19; at GPT's f32 shape the HMMAs run at 162 TFLOP/s of
@@ -116,7 +123,7 @@
 // instantiation):
 //   bf16 (wgmma) D=64: 128 (two blocks an SM), 0; D=128: 221, 0;
 //   D=256: 254, 0
-//   f32 (3xTF32) D=32: 157 (three blocks an SM), 0; D=64: 227 (two
+//   f32 (3xTF32) D=32: 159 (three blocks an SM), 0; D=64: 227 (two
 //   blocks an SM), 0; D=128: 249, 0; D=256: 255, 24 bytes
 // SASS (cuobjdump -sass of the built library; chip_smoke.py's build phase
 // counts the straight-line blocks that run a tile's 32 exps a thread),
@@ -380,6 +387,11 @@ struct F32 {
   // Q split once into registers (hi and lo fragments); at D >= 128 it is
   // split at each fragment load from shared memory instead
   static constexpr bool Q_REGS = D <= 64;
+  // a tile's P.V summed apart (from zero) and added to the running sum in
+  // f32: the tensor cores' f32 accumulation drops low bits, which over
+  // DETR's 1050 keys put D = 32 at 1e-5 of max(1, |o|) from float64 when
+  // every tile's products ran into the one sum (16 more registers)
+  static constexpr bool PV_APART = D == 32;
   // row pitches in floats: a half-warp's float2 loads of Q or K (rows g,
   // columns 2t) and a warp's loads of V (rows 2t, columns g) each hit
   // distinct banks
@@ -559,10 +571,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       online_softmax_drop<false>(drop, s, m, l, alpha, row0, col0,
                                  scale_log2, sq, sk, kv_len, causal, mix,
                                  thresh, inv_keep);
+    // the tile's P.V lands in pv (PV_APART), else in the rescaled acc
+    float pv[G::PV_APART ? ND : 1][4];
 #pragma unroll
     for (int c = 0; c < ND; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[c][i] *= alpha[i >> 1];
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (G::PV_APART)
+          pv[c][i] = 0.f;
+        else
+          acc[c][i] *= alpha[i >> 1];
+      }
 
     // O += P.V: the dropped p is not rounded (the reference's f32 path
     // does not round it) but split like any operand
@@ -579,8 +598,21 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         uint32_t bh_[2], bl_[2];
         tc::split_tf32(v0[8 * c], bh_[0], bl_[0]);
         tc::split_tf32(v0[G::VP + 8 * c], bh_[1], bl_[1]);
-        tc::mma_3xtf32(acc[c], ah, al, bh_, bl_);
+        if constexpr (G::PV_APART)
+          tc::mma_3xtf32(pv[c], ah, al, bh_, bl_);
+        else
+          tc::mma_3xtf32(acc[c], ah, al, bh_, bl_);
       }
+    }
+    if constexpr (G::PV_APART) {
+      // a multiply and an add (no FFMA: the build phase reads the FFMAs
+      // as CUDA-core product work against the TF32 HMMAs)
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[c][i] = __fadd_rn(__fmul_rn(acc[c][i], alpha[i >> 1]),
+                                pv[c][i]);
     }
   }
   tc::cp_async_wait<0>();

@@ -12,8 +12,10 @@ dense mask, the flash kernel on the card (its f32 forward takes head_dim
 32, 64, 128 and 256) and its plain twin on the CPU; a dense ``attn_mask``
 runs the plain dense path on the CPU and raises on the card, as that
 function does. Every layer takes an explicit ``device``, ``dtype`` and
-``generator`` for initialisation; attention and hidden dropout draw from
-the generator bound to them (``framework.bind_generator``).
+``generator``: the weights are drawn from it, and attention and hidden
+dropout draw from it too (or from one bound later by
+``framework.bind_generator``); the deep copies of a stack's layers share
+it.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ class MultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.need_weights = need_weights
         # attention dropout's seed is drawn from this generator
-        self.generator = None
+        self.generator = generator
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.q_proj = _linear(embed_dim, embed_dim, weight_attr, bias_attr, kw)
         self.k_proj = _linear(self.kdim, embed_dim, weight_attr, bias_attr,
@@ -115,6 +117,17 @@ class MultiHeadAttention(nn.Module):
         return out
 
 
+def _clones(layer, n):
+    """``layer`` and ``n - 1`` deep copies of it (the same initial weights)
+    that draw from ``layer``'s generators: ``copy.deepcopy`` alone would
+    clone a ``torch.Generator`` with its state, and every copy would then
+    draw the first layer's dropout masks."""
+    shared = {id(m.generator): m.generator for m in layer.modules()
+              if getattr(m, "generator", None) is not None}
+    return [layer] + [copy.deepcopy(layer, dict(shared))
+                      for _ in range(n - 1)]
+
+
 def _dropouts(attn_dropout, act_dropout, dropout):
     attn = dropout if attn_dropout is None else attn_dropout
     act = dropout if act_dropout is None else act_dropout
@@ -141,13 +154,13 @@ class TransformerEncoderLayer(nn.Module):
                                             bias_attr=bias_attr, **kw)
         self.linear1 = _linear(d_model, dim_feedforward, weight_attr,
                                bias_attr, kw)
-        self.dropout = Dropout(act_dropout)
+        self.dropout = Dropout(act_dropout, generator=generator)
         self.linear2 = _linear(dim_feedforward, d_model, weight_attr,
                                bias_attr, kw)
         self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps, **dk)
         self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps, **dk)
-        self.dropout1 = Dropout(dropout)
-        self.dropout2 = Dropout(dropout)
+        self.dropout1 = Dropout(dropout, generator=generator)
+        self.dropout2 = Dropout(dropout, generator=generator)
         self.activation = getattr(F, activation)
 
     def forward(self, src, src_mask=None, cache=None):
@@ -180,9 +193,7 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = LayerList(
-            [encoder_layer] + [copy.deepcopy(encoder_layer)
-                               for _ in range(num_layers - 1)])
+        self.layers = LayerList(_clones(encoder_layer, num_layers))
         self.num_layers = num_layers
         self.norm = norm
 
@@ -227,15 +238,15 @@ class TransformerDecoderLayer(nn.Module):
                                              bias_attr=bias_attr, **kw)
         self.linear1 = _linear(d_model, dim_feedforward, weight_attr,
                                bias_attr, kw)
-        self.dropout = Dropout(act_dropout)
+        self.dropout = Dropout(act_dropout, generator=generator)
         self.linear2 = _linear(dim_feedforward, d_model, weight_attr,
                                bias_attr, kw)
         self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps, **dk)
         self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps, **dk)
         self.norm3 = LayerNorm(d_model, epsilon=layer_norm_eps, **dk)
-        self.dropout1 = Dropout(dropout)
-        self.dropout2 = Dropout(dropout)
-        self.dropout3 = Dropout(dropout)
+        self.dropout1 = Dropout(dropout, generator=generator)
+        self.dropout2 = Dropout(dropout, generator=generator)
+        self.dropout3 = Dropout(dropout, generator=generator)
         self.activation = getattr(F, activation)
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
@@ -285,9 +296,7 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = LayerList(
-            [decoder_layer] + [copy.deepcopy(decoder_layer)
-                               for _ in range(num_layers - 1)])
+        self.layers = LayerList(_clones(decoder_layer, num_layers))
         self.num_layers = num_layers
         self.norm = norm
 

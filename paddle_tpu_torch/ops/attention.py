@@ -45,7 +45,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
                          "[0, 1)")
     b, sq, h, d = q.shape
     if q.device.type == "cuda":
-        _fa.check_head_dim("flash_attention", d, _fa.fwd_head_dims(q.dtype))
+        _fa.check_head_dim("flash_attention", d, _fa.head_dims(q.dtype))
     lens = None
     if kv_lens is not None:
         lens = torch.as_tensor(kv_lens, dtype=torch.int32,

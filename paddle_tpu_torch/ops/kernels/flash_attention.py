@@ -34,8 +34,8 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
 Head dims on the card: 64, 128 and 256 for every kernel (``HEAD_DIMS``);
-the f32 forward also takes 32 (``F32_FWD_HEAD_DIMS``: DETR's d_model 256
-over 8 heads). A bf16 forward or a backward at 32 on CUDA raises,
+the f32 forward and the f32 backward also take 32 (``F32_HEAD_DIMS``:
+DETR's d_model 256 over 8 heads). A bf16 call at 32 on CUDA raises,
 naming ROADMAP.md queue 2; the plain twins take any head dim on the CPU.
 
 Kernel notes (details in the .cu files): the forward and the two backward
@@ -59,7 +59,7 @@ import math
 
 import torch
 
-__all__ = ["HEAD_DIMS", "F32_FWD_HEAD_DIMS", "fwd_head_dims",
+__all__ = ["HEAD_DIMS", "F32_HEAD_DIMS", "head_dims",
            "check_head_dim", "NEG_INF", "dropout_keep", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq_plain",
@@ -67,10 +67,11 @@ __all__ = ["HEAD_DIMS", "F32_FWD_HEAD_DIMS", "fwd_head_dims",
            "flash_attention_bwd", "flash_attention_bhsd", "flash_decode",
            "flash_decode_plain", "decode_split"]
 
-# head dims of the bf16 forward, both backward kernels and the decode
+# head dims of the bf16 forward and backward kernels and the decode
 HEAD_DIMS = (64, 128, 256)
-# the f32 forward also takes DETR's head_dim 32 (d_model 256, 8 heads)
-F32_FWD_HEAD_DIMS = (32,) + HEAD_DIMS
+# the f32 forward and backward also take DETR's head_dim 32 (d_model 256,
+# 8 heads)
+F32_HEAD_DIMS = (32,) + HEAD_DIMS
 NEG_INF = -1e30  # the TPU kernel's masked-score sentinel
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
@@ -247,27 +248,25 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, lens=None, seed=None,
 
 # -- the CUDA side ------------------------------------------------------------
 
-def fwd_head_dims(dtype):
-    """The head dims the CUDA forward takes in ``dtype``."""
-    return F32_FWD_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+def head_dims(dtype):
+    """The head dims the CUDA forward and backward take in ``dtype``."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
 
 
 def check_head_dim(fn, d, dims):
     """Raise ValueError unless the CUDA kernel of ``fn`` takes head_dim
     ``d`` (one of ``dims``)."""
     if d not in dims:
-        note = (" (the bf16 forward and the backward kernels at head_dim "
-                "32 are still to port: ROADMAP.md queue 2)"
-                if d in F32_FWD_HEAD_DIMS else "")
+        note = (" (the bf16 forward and backward kernels at head_dim 32 "
+                "are still to port: ROADMAP.md queue 2)"
+                if d in F32_HEAD_DIMS else "")
         raise ValueError(f"{fn}: head_dim {d} not in {dims} for the CUDA "
                          f"kernel{note}")
 
 
-def _check(fn, q, k, v, lens, seed, dropout_p, rows=(), stats=(),
-           head_dims=HEAD_DIMS):
+def _check(fn, q, k, v, lens, seed, dropout_p, rows=(), stats=()):
     """Raise on anything the kernels do not take. ``rows``: (name, tensor)
-    pairs shaped like q; ``stats``: (name, tensor) f32 [BH, Sq] pairs;
-    ``head_dims``: what this kernel takes in q's dtype."""
+    pairs shaped like q; ``stats``: (name, tensor) f32 [BH, Sq] pairs."""
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(rows):
         if t.device != q.device:
             raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
@@ -282,7 +281,7 @@ def _check(fn, q, k, v, lens, seed, dropout_p, rows=(), stats=(),
     if q.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not in {_DTYPES}")
     bh, sq, d = q.shape
-    check_head_dim(fn, d, head_dims)
+    check_head_dim(fn, d, head_dims(q.dtype))
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"{fn}: k {tuple(k.shape)} / v {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -344,8 +343,7 @@ def flash_attention_fwd(q, k, v, lens=None, seed=None, causal=False,
         return flash_attention_fwd_plain(q, k, v, lens, seed, causal,
                                          sm_scale, dropout_p)
     _on_cuda("flash_attention_fwd", q)
-    _check("flash_attention_fwd", q, k, v, lens, seed, dropout_p,
-           head_dims=fwd_head_dims(q.dtype))
+    _check("flash_attention_fwd", q, k, v, lens, seed, dropout_p)
     bh, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)

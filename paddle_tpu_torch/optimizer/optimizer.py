@@ -217,8 +217,10 @@ class Adam(Optimizer):
                 self._amsgrad_update(p, st, g, lr, bc1, bc2, wd)
             elif self._fused_kernel and fused_adamw_supported(
                     p, st["m"], st["v"]):
-                fused_adamw_update(p, st["m"], st["v"], g, lr, bc1, bc2,
-                                   weight_decay=wd, **hyper)
+                # the kernel reads g flat: a channels-last convolution's
+                # weight gradient comes back strided from cuDNN
+                fused_adamw_update(p, st["m"], st["v"], g.contiguous(), lr,
+                                   bc1, bc2, weight_decay=wd, **hyper)
             else:
                 adamw_update_plain(p, st["m"], st["v"], g, lr, bc1, bc2,
                                    weight_decay=wd, **hyper)

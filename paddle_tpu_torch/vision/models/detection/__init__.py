@@ -1,8 +1,8 @@
 """Detection zoo of the port (counterpart of
 ``paddle_tpu/vision/models/detection``; ref: PaddleDetection
-ppdet/modeling): PP-YOLOE and DETR, their inference paths, and the box
-utilities. The training losses, the assigner and the matcher raise,
-naming ROADMAP.md queue 1 item 6."""
+ppdet/modeling): PP-YOLOE and DETR for inference and training (their
+losses, PP-YOLOE's task-aligned assigner and DETR's auction matcher), and
+the box utilities."""
 from .box_utils import (  # noqa: F401
     cxcywh_to_xyxy, xyxy_to_cxcywh, box_area, pairwise_iou, pairwise_giou,
     elementwise_giou,

@@ -16,10 +16,14 @@ default on the card, takes the HWIO kernels of a reference converted with
 On the card every attention of the transformer runs kernel #1's f32
 forward at DETR's head_dim 32 (d_model 256, 8 heads): per forward, one
 launch a layer over the encoder's tokens, two a decoder layer (100
-queries against themselves, then against the encoder's tokens).
+queries against themselves, then against the encoder's tokens); in
+training the f32 backward, #3 (dq) and #4 (dk/dv), as many times.
 
-Not ported yet (raises NotImplementedError naming ROADMAP.md queue 1 item
-6): the training loss, ``DETRLoss``, and its matcher ``auction_match``.
+The training loss ``DETRLoss`` (eos-weighted CE + L1 + GIoU on the
+matched pairs) and its matcher ``auction_match``, the reference's
+in-graph Bertsekas auction, run on the card over the whole batch at once:
+one [B, Q, M] auction whose stop condition is read back once every
+``AUCTION_CHECK_EVERY`` iterations.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ....framework import bind_generator, later
+from ....framework import bind_generator
 from ....nlp.modeling_utils import model_kw
 from ....nn import functional as F
 from ....nn.layers_activation import ReLU
@@ -36,7 +40,7 @@ from ....nn.layers_conv import Conv2D
 from ....nn.layers_norm import BatchNorm2D
 from ....nn.layers_transformer import Transformer
 from ..resnet import resnet18, resnet50
-from .box_utils import cxcywh_to_xyxy
+from .box_utils import cxcywh_to_xyxy, elementwise_giou, pairwise_giou
 
 __all__ = ["DETR", "DETRLoss", "MLP", "auction_match",
            "sine_position_embedding"]
@@ -57,9 +61,80 @@ def sine_position_embedding(h, w, dim, temperature=10000.0, device=None):
     return torch.from_numpy(emb.astype(np.float32)).to(device)
 
 
-def auction_match(*args, **kwargs):
-    """The in-graph bipartite matcher of DETR's training loss."""
-    raise NotImplementedError(f"auction_match {later('6')}")
+# iterations run between two host reads of the stop condition: once an
+# image has no unassigned valid gt an iteration leaves its state as it is,
+# so the batch runs in chunks and reads back one bool a chunk
+AUCTION_CHECK_EVERY = 16
+
+
+@torch.no_grad()
+def auction_match(cost, valid, eps=1e-3, max_iter=2000):
+    """eps-optimal min-cost bipartite matching on the cost's device, the
+    JAX package's Bertsekas auction (Jacobi variant: every unassigned gt
+    bids for its best query each round, the highest bid per query wins).
+
+    cost [Q, M] (one image, as the reference takes it) or [B, Q, M] (a
+    batch, matched together), valid [M] / [B, M] bool. Returns match
+    [M] / [B, M] int64: the query of each gt (0 for invalid gts, and for a
+    gt still unassigned when ``max_iter`` cut the auction).
+
+    The reference stops in its graph (``lax.while_loop``); here the stop
+    condition is read back on the host once every ``AUCTION_CHECK_EVERY``
+    iterations, and the run ends at exactly ``max_iter``, so a capped run
+    ends in the reference's state. Ties go to the lower index, as
+    ``lax.top_k`` and ``jnp.argmax`` break them: the best query by
+    ``argmax``, the second value by ``max`` with the best masked.
+    ``auction_match.host_syncs`` and ``auction_match.iterations`` count
+    the reads and the iterations run."""
+    single = cost.dim() == 2
+    if single:
+        cost, valid = cost[None], valid[None]
+    b, qn, m = cost.shape
+    value = -cost
+    dev, dt = cost.device, cost.dtype
+    big_neg = torch.tensor(-1e9, dtype=dt, device=dev)
+    valid = valid.to(device=dev, dtype=torch.bool)
+    price = torch.zeros(b, qn, dtype=dt, device=dev)
+    owner = torch.full((b, qn), -1, dtype=torch.int64, device=dev)
+    match = torch.where(valid, -1, 0).to(torch.int64)
+    gts = torch.arange(m, device=dev)
+    queries = torch.arange(qn, device=dev)[None, :, None]
+    it = 0
+    while it < max_iter:
+        for _ in range(min(AUCTION_CHECK_EVERY, max_iter - it)):
+            unassigned = (match < 0) & valid                   # [B, M]
+            net = value - price[:, :, None]                    # [B, Q, M]
+            best_q = net.argmax(1)                             # [B, M]
+            top = net.gather(1, best_q[:, None])[:, 0]
+            second = net.scatter(1, best_q[:, None],
+                                 float("-inf")).amax(1)
+            bid = price.gather(1, best_q) + (top - second) + eps
+            to_q = best_q[:, None, :] == queries               # [B, Q, M]
+            bid_mat = torch.where(to_q & unassigned[:, None, :],
+                                  bid[:, None, :], big_neg)
+            win_bid, win_gt = bid_mat.max(2).values, bid_mat.argmax(2)
+            got_bid = win_bid > big_neg / 2
+            # evict the previous owners of re-auctioned queries
+            evicted = (match >= 0) & got_bid.gather(1, match.clamp(0,
+                                                                   qn - 1))
+            match = torch.where(evicted, -1, match)
+            price = torch.where(got_bid, win_bid, price)
+            owner = torch.where(got_bid, win_gt, owner)
+            # the winners take their queries
+            won = (unassigned & (owner.gather(1, best_q) == gts)
+                   & got_bid.gather(1, best_q))
+            match = torch.where(won, best_q, match)
+            it += 1
+        auction_match.host_syncs += 1
+        if not bool(((match < 0) & valid).any()):
+            break
+    auction_match.iterations += it
+    match = match.clamp(0, qn - 1)
+    return match[0] if single else match
+
+
+auction_match.host_syncs = 0
+auction_match.iterations = 0
 
 
 class MLP(nn.Module):
@@ -160,7 +235,66 @@ class DETR(nn.Module):
 
 
 class DETRLoss(nn.Module):
-    """The Hungarian set loss: CE + L1 + GIoU on matched pairs."""
+    """The Hungarian set loss (ref: ppdet/modeling/losses/detr_loss.py):
+    the eos-weighted CE over every query, and L1 + GIoU on the matched
+    pairs, per image, then the mean over images.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"DETRLoss {later('6')}")
+    forward(logits [B, Q, NC + 1], boxes [B, Q, 4] cxcywh in [0, 1],
+    gt_boxes [B, M, 4] cxcywh normalised, gt_class [B, M], gt_mask [B, M])
+    -> a scalar. The cost ``cc * (-prob[:, gc]) + cl * L1 + cg * (-GIoU)``
+    is matched by ``auction_match`` on a detached copy (no gradient through
+    the matching, as the reference stops it), the batch in one auction on
+    the inputs' device. Padded gts never clobber a real match: only valid
+    gts write their class into the queries' targets."""
+
+    def __init__(self, num_classes, eos_coef=0.1, w_class=1.0, w_l1=5.0,
+                 w_giou=2.0, cost_class=1.0, cost_l1=5.0, cost_giou=2.0):
+        super().__init__()
+        self.num_classes = num_classes
+        self.eos_coef = eos_coef
+        self.w = (w_class, w_l1, w_giou)
+        self.cost_w = (cost_class, cost_l1, cost_giou)
+
+    def cost(self, logits, boxes, gt_boxes, gt_class):
+        """The matching cost [B, Q, M] (detached)."""
+        cc, cl, cg = self.cost_w
+        with torch.no_grad():
+            prob = torch.softmax(logits, -1)
+            q = prob.shape[1]
+            c_cls = -prob.gather(
+                2, gt_class[:, None, :].expand(-1, q, -1))
+            c_l1 = (boxes[:, :, None] - gt_boxes[:, None]).abs().sum(-1)
+            c_giou = -torch.vmap(pairwise_giou)(cxcywh_to_xyxy(boxes),
+                                                cxcywh_to_xyxy(gt_boxes))
+            return cc * c_cls + cl * c_l1 + cg * c_giou
+
+    def forward(self, logits, boxes, gt_boxes, gt_class, gt_mask):
+        nc, eos = self.num_classes, self.eos_coef
+        wc, wl, wg = self.w
+        logits, boxes = logits.float(), boxes.float()
+        gt_boxes = gt_boxes.to(boxes)
+        gt_class = gt_class.to(device=logits.device, dtype=torch.int64)
+        mvalid = gt_mask.to(logits.device) > 0                     # [B, M]
+        b, q, _ = logits.shape
+        match = auction_match(self.cost(logits, boxes, gt_boxes, gt_class),
+                              mvalid)                              # [B, M]
+
+        # every query's target is no-object unless a valid gt matched it
+        # (the padded gts write into a spare column q, dropped)
+        tgt_cls = torch.full((b, q + 1), nc, dtype=torch.int64,
+                             device=logits.device)
+        tgt_cls.scatter_(1, torch.where(mvalid, match, q), gt_class)
+        tgt_cls = tgt_cls[:, :q]
+        logp = torch.log_softmax(logits, -1)
+        ce = -logp.gather(2, tgt_cls[..., None])[..., 0]
+        w_ce = torch.where(tgt_cls == nc, eos, 1.0)
+        l_cls = (ce * w_ce).sum(1) / w_ce.sum(1)
+
+        # the box losses on the matched pairs
+        mf = mvalid.to(boxes.dtype)
+        mb = boxes.gather(1, match[..., None].expand(-1, -1, 4))  # [B, M, 4]
+        l_l1 = ((mb - gt_boxes).abs().sum(-1) * mf).sum(1)
+        gi = elementwise_giou(cxcywh_to_xyxy(mb), cxcywh_to_xyxy(gt_boxes))
+        l_giou = ((1.0 - gi) * mf).sum(1)
+        n = mf.sum(1).clamp(min=1.0)
+        return (wc * l_cls + (wl * l_l1 + wg * l_giou) / n).mean()

@@ -12,11 +12,12 @@ raw (cls_logits, reg_dist, boxes). As in the reference there is no NMS in
 the forward: ``multiclass_nms`` finishes on the host, in numpy. Every
 convolution runs through PyTorch's (cuDNN on the card); no kernel of the
 port is on this path. The anchors are a function of the feature sizes
-alone and are kept on the device after the first forward of a size.
+alone and are kept on the device after the first forward of a size; each
+forward leaves them in ``_last_anchors`` for the criterion.
 
-Not ported yet (raises NotImplementedError naming ROADMAP.md queue 1 item
-6): the training losses, ``task_aligned_assign``, ``PPYOLOELoss`` and
-``PPYOLOECriterion``.
+Training: ``PPYOLOECriterion(model)`` drives ``PPYOLOELoss`` (VFL + GIoU
++ DFL) over the task-aligned assignment (``task_aligned_assign``), all on
+the device and batched over the images, with no host sync.
 """
 from __future__ import annotations
 
@@ -24,13 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ....framework import later
 from ....nlp.modeling_utils import model_kw
 from ....nn import functional as F
 from ....nn.layers_activation import Silu
 from ....nn.layers_common import LayerList, Sequential
 from ....nn.layers_conv import Conv2D
 from ....nn.layers_norm import BatchNorm2D
+from .box_utils import elementwise_giou, pairwise_iou
 
 __all__ = ["ConvBNLayer", "EffectiveSELayer", "RepVggBlock", "CSPResBlock",
            "CSPResStage", "CSPResNet", "CustomCSPPAN", "ESEHead",
@@ -217,9 +218,81 @@ def _anchor_points(sizes, strides, device=None):
             torch.from_numpy(np.concatenate(strs)).to(device))
 
 
-def task_aligned_assign(*args, **kwargs):
-    """The task-aligned assigner of PP-YOLOE's training loss."""
-    raise NotImplementedError(f"task_aligned_assign {later('6')}")
+def tal_metric(pred_scores, pred_boxes, anchors, gt_boxes, gt_class,
+               gt_mask, alpha=1.0, beta=6.0):
+    """The task-aligned metric of a batch -> (metric [B, A, M], 0 where the
+    anchor's centre lies outside the gt or the gt is padding; iou [B, A,
+    M]; that validity [B, A, M]): cls^alpha * iou^beta, with the shapes
+    of ``task_aligned_assign``'s batched form."""
+    a = pred_scores.shape[1]
+    iou = torch.vmap(lambda p, g: pairwise_iou(p, g)[0])(
+        pred_boxes, gt_boxes)                                # [B, A, M]
+    cls = pred_scores.gather(2, gt_class.long()[:, None, :].expand(-1, a,
+                                                                   -1))
+    metric = (cls ** alpha) * (iou ** beta)
+    # candidates: the anchor's centre inside the gt box
+    ax, ay = anchors[None, :, None, 0], anchors[None, :, None, 1]
+    gb = gt_boxes[:, None, :, :]
+    inside = ((ax >= gb[..., 0]) & (ax <= gb[..., 2])
+              & (ay >= gb[..., 1]) & (ay <= gb[..., 3]))
+    valid = inside & (gt_mask[:, None, :] > 0)
+    metric = torch.where(valid, metric, torch.zeros((), dtype=metric.dtype,
+                                                    device=metric.device))
+    return metric, iou, valid
+
+
+def task_aligned_assign(pred_scores, pred_boxes, anchors, gt_boxes,
+                        gt_class, gt_mask, alpha=1.0, beta=6.0, topk=13):
+    """The task-aligned assigner (TAL; ref: ppdet/modeling/assigners/
+    task_aligned_assigner.py) in the JAX package's static form, on the
+    inputs' device, for one image or a batch at once.
+
+    pred_scores [(B,) A, NC] (sigmoid), pred_boxes [(B,) A, 4] xyxy,
+    anchors [A, 2], gt_boxes [(B,) M, 4], gt_class [(B,) M] int, gt_mask
+    [(B,) M] {0, 1}. Returns (assigned_gt [(B,) A] int64, fg_mask [(B,)
+    A] bool, target_score [(B,) A, NC]).
+
+    The metric is cls^alpha * iou^beta over the anchors whose centre lies
+    inside a valid gt; each gt keeps its top-k anchors (the k-th metric
+    from ``topk``'s values alone, so ties there cannot matter); an anchor
+    claimed by several gts goes to the one of largest metric (``argmax``:
+    the first, as ``jnp.argmax``); the target score is the metric
+    normalised by its gt's largest metric times the gt's largest IoU. The
+    maxima are ``amax``, which shares a tie's gradient evenly, as JAX's
+    max does: gradients flow through the scores into the target score, as
+    in the reference."""
+    single = pred_scores.dim() == 2
+    if single:
+        pred_scores, pred_boxes, gt_boxes, gt_class, gt_mask = (
+            t[None] for t in (pred_scores, pred_boxes, gt_boxes, gt_class,
+                              gt_mask))
+    a, nc = pred_scores.shape[1:]
+    gt_class = gt_class.long()
+    metric, iou, valid = tal_metric(pred_scores, pred_boxes, anchors,
+                                    gt_boxes, gt_class, gt_mask, alpha, beta)
+    zero = torch.zeros((), dtype=metric.dtype, device=metric.device)
+
+    # each gt's top-k anchors
+    k = min(topk, a)
+    thresh = metric.transpose(1, 2).topk(k, dim=-1).values[..., -1]
+    is_topk = (metric >= thresh.clamp(min=1e-9)[:, None, :]) & valid
+    cand = torch.where(is_topk, metric, zero)
+    # conflicts: the anchor goes to the gt of largest metric
+    assigned = cand.argmax(2)                                # [B, A]
+    best = cand.amax(2)
+    fg = best > 0.0
+
+    # the normalised target score
+    max_metric = cand.amax(1)                                # [B, M]
+    max_iou = torch.where(is_topk, iou, zero).amax(1)
+    norm = torch.where(max_metric > 0, max_iou / (max_metric + 1e-9), zero)
+    t = best * norm.gather(1, assigned)
+    onehot = torch.nn.functional.one_hot(gt_class.gather(1, assigned),
+                                         nc).to(t.dtype)
+    target_score = onehot * t[..., None] * fg[..., None]
+    if single:
+        return assigned[0], fg[0], target_score[0]
+    return assigned, fg, target_score
 
 
 class PPYOLOEHead(nn.Module):
@@ -270,10 +343,67 @@ class PPYOLOEHead(nn.Module):
 
 
 class PPYOLOELoss(nn.Module):
-    """VFL + GIoU + DFL over the task-aligned assignment."""
+    """VFL + GIoU + DFL over the task-aligned assignment (ref:
+    ppyoloe_head.py get_loss), on the inputs' device, the batch at once.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"PPYOLOELoss {later('6')}")
+    forward(cls_logits [B, A, NC], pred_boxes [B, A, 4] xyxy, reg_dist
+    [B, A, 4, reg_max + 1], anchors [A, 2], strides [A], gt_boxes [B, M,
+    4] xyxy in pixels, gt_class [B, M], gt_mask [B, M]) -> a scalar. The
+    assignment runs on detached boxes (and on the live scores, as the
+    reference's does)."""
+
+    def __init__(self, num_classes=80, reg_max=16, w_cls=1.0, w_iou=2.5,
+                 w_dfl=0.5):
+        super().__init__()
+        self.num_classes = num_classes
+        self.reg_max = reg_max
+        self.w = (w_cls, w_iou, w_dfl)
+
+    def forward(self, cls_logits, pred_boxes, reg_dist, anchors, strides,
+                gt_boxes, gt_class, gt_mask):
+        cls_logits, pred_boxes = cls_logits.float(), pred_boxes.float()
+        reg_dist = reg_dist.float()
+        dev = cls_logits.device
+        gt_boxes = gt_boxes.to(device=dev, dtype=torch.float32)
+        gt_class = gt_class.to(device=dev, dtype=torch.int64)
+        gt_mask = gt_mask.to(dev)
+        scores = torch.sigmoid(cls_logits)
+        assigned, fg, tscore = task_aligned_assign(
+            scores, pred_boxes.detach(), anchors, gt_boxes, gt_class,
+            gt_mask)
+
+        # varifocal loss (an IoU-aware classification target)
+        q, p = tscore, scores
+        w_vfl = torch.where(q > 0, q, 0.75 * (p ** 2))
+        logsig = torch.nn.functional.logsigmoid
+        bce = -(q * logsig(cls_logits) + (1 - q) * logsig(-cls_logits))
+        n_pos = tscore.sum().clamp(min=1.0)
+        l_cls = (w_vfl * bce).sum() / n_pos
+
+        # the box losses on the foreground anchors
+        tgt_box = gt_boxes.gather(1, assigned[..., None].expand(-1, -1, 4))
+        giou = elementwise_giou(pred_boxes, tgt_box)
+        wt = tscore.sum(-1) * fg
+        l_iou = ((1.0 - giou) * wt).sum() / n_pos
+
+        # DFL: the target distances in stride units, the two bins around
+        # each, cross-entropy weighted by the distance to each
+        ax, ay, st = anchors[None, :, 0], anchors[None, :, 1], strides[None]
+        tdist = torch.stack([(ax - tgt_box[..., 0]) / st,
+                             (ay - tgt_box[..., 1]) / st,
+                             (tgt_box[..., 2] - ax) / st,
+                             (tgt_box[..., 3] - ay) / st], -1)
+        tdist = tdist.clamp(0, self.reg_max - 0.01)
+        tl = torch.floor(tdist)
+        wl = tl + 1.0 - tdist
+        logp = torch.log_softmax(reg_dist, -1)
+        li = tl.long()[..., None]
+        ce = -(logp.gather(-1, li)[..., 0] * wl
+               + logp.gather(-1, li + 1)[..., 0] * (1.0 - wl))
+        l_dfl = (ce.mean(-1) * wt).sum() / n_pos
+
+        wc, wi, wd = self.w
+        return wc * l_cls + wi * l_iou + wd * l_dfl
 
 
 class PPYOLOE(nn.Module):
@@ -297,6 +427,7 @@ class PPYOLOE(nn.Module):
                                 **kw)
         self.num_classes = num_classes
         self._anchors = {}
+        self._last_anchors = None
 
     def forward(self, images):
         feats = self.neck(self.backbone(images))
@@ -305,17 +436,31 @@ class PPYOLOE(nn.Module):
         if key not in self._anchors:
             self._anchors[key] = _anchor_points(sizes, self.head.strides,
                                                 images.device)
-        boxes = self.head.decode_boxes(reg_dist, *self._anchors[key])
+        # the anchors of this forward, read by PPYOLOECriterion
+        self._last_anchors = self._anchors[key]
+        boxes = self.head.decode_boxes(reg_dist, *self._last_anchors)
         if self.training:
             return cls_logits, reg_dist, boxes
         return boxes, F.sigmoid(cls_logits)
 
 
 class PPYOLOECriterion(nn.Module):
-    """The adapter that drives PPYOLOE's loss from Engine/Model."""
+    """The adapter that drives PPYOLOE from Engine/Model: loss(cls_logits,
+    reg_dist, boxes, gt_boxes, gt_class, gt_mask), with the anchors of the
+    model's last forward (``model._last_anchors``). The model is held in a
+    one-element list, so the criterion does not register it as a
+    submodule."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"PPYOLOECriterion {later('6')}")
+    def __init__(self, model):
+        super().__init__()
+        self.loss = PPYOLOELoss(model.num_classes, model.head.reg_max)
+        self._model = [model]
+
+    def forward(self, cls_logits, reg_dist, boxes, gt_boxes, gt_class,
+                gt_mask):
+        anchors, strides = self._model[0]._last_anchors
+        return self.loss(cls_logits, boxes, reg_dist, anchors, strides,
+                         gt_boxes, gt_class, gt_mask)
 
 
 def multiclass_nms(boxes, scores, score_thresh=0.05, iou_thresh=0.6,

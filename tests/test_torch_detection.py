@@ -20,9 +20,11 @@ inputs. Checked on the CPU:
   (head_dim 32, DETR's own) in eval and in train mode (dropout 0): whole
   models within 1e-4 of max(1, |reference|);
 - ``multiclass_nms``: the same detections, in the same order, bit for
-  bit;
-- the training losses, the assigner and the matcher raise, naming
-  ROADMAP.md queue 1 item 6.
+  bit.
+
+The training losses, the assigner and the matcher are held in
+test_torch_detection_train.py, the training steps in
+test_torch_detection_steps.py.
 """
 import numpy as np
 import pytest
@@ -197,7 +199,7 @@ def test_detr_matches(backbone, train):
         assert float(pout[0].max()) <= 64.0 + 1e-3
 
 
-# -- multiclass_nms, and what raises ------------------------------------------------
+# -- multiclass_nms ----------------------------------------------------------------
 
 @pytest.mark.parametrize("thresh", [(0.05, 0.6), (0.3, 0.3)])
 def test_multiclass_nms_lists_are_identical(thresh):
@@ -213,11 +215,3 @@ def test_multiclass_nms_lists_are_identical(thresh):
     assert len(got) == len(want) == 100
     for (gc, gs, gb), (wc, ws, wb) in zip(got, want):
         assert gc == wc and gs == ws and np.array_equal(gb, wb)
-
-
-@pytest.mark.parametrize("name", ["PPYOLOELoss", "PPYOLOECriterion",
-                                  "DETRLoss", "task_aligned_assign",
-                                  "auction_match"])
-def test_training_parts_raise_naming_item_6(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        getattr(port_det, name)(None)

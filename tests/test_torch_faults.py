@@ -15,6 +15,10 @@ and held here (ROADMAP.md §3):
    1 items (1.1, 1.3, 1.8).
 5. ``nn.functional.scaled_dot_product_attention``'s two refusals of a
    dense ``attn_mask`` (on the card; with attention dropout) name item 1.7.
+6. The transformer layers draw their dropout from their ``generator``:
+   a ``Transformer(..., generator=g)`` trains with dropout 0.1, every
+   deep-copied layer shares ``g``, a step repeats bit for bit from the
+   same seed, and different layers draw different masks.
 """
 import dataclasses
 import inspect
@@ -29,6 +33,7 @@ import paddle_tpu as paddle
 from paddle_tpu.nlp import llama as jax_llama
 from paddle_tpu.nlp.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.nlp.serving import ServingEngine as JaxServingEngine
+from paddle_tpu_torch import seed
 from paddle_tpu_torch.hapi import Engine
 from paddle_tpu_torch.nlp import llama as port_llama
 from paddle_tpu_torch.nlp.convert import load_numpy_state
@@ -36,6 +41,7 @@ from paddle_tpu_torch.nlp.gpt import GPTConfig, GPTForCausalLM, \
     _resolve_config
 from paddle_tpu_torch.nlp.modeling_utils import coerce_config
 from paddle_tpu_torch.nlp.serving import ServingEngine
+from paddle_tpu_torch.nn import Dropout, Transformer
 from paddle_tpu_torch.optimizer import AdamW
 
 
@@ -156,3 +162,49 @@ def test_dense_mask_refusals_name_their_item():
     qm = q.to("meta")
     with pytest.raises(NotImplementedError, match="queue 1 item 1.7"):
         F.scaled_dot_product_attention(qm, qm, qm, attn_mask=mask.to("meta"))
+
+
+def _transformer_step(seed_value):
+    """One Engine step of a 2 + 2-layer Transformer with dropout 0.1 on the
+    CPU, its weights and dropout both from ``seed(seed_value)``: (loss, the
+    hidden dropouts' masks in call order, the state after the step)."""
+    g = seed(seed_value, device="cpu")
+    m = Transformer(32, 2, 2, 2, 64, dropout=0.1, device="cpu",
+                    generator=g)
+    drawers = [mod for mod in m.modules() if hasattr(mod, "generator")]
+    # an encoder layer: its attention and 3 Dropouts; a decoder layer: 2
+    # attentions and 4 Dropouts
+    assert len(drawers) == 2 * 4 + 2 * 6
+    assert all(mod.generator is g for mod in drawers)
+    masks = []
+    for mod in m.modules():
+        if isinstance(mod, Dropout):
+            mod.register_forward_hook(
+                lambda mod, inp, out: masks.append(out == 0))
+    rng = np.random.default_rng(0)
+    src, tgt, y = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((2, 6, 32), (2, 5, 32), (2, 5, 32)))
+    eng = Engine(m, lambda out, want: ((out - want) ** 2).mean(),
+                 AdamW(1e-3, parameters=m.named_parameters()))
+    loss, _ = eng.train_batch([src, tgt], [y])
+    return loss, masks, {k: v.clone() for k, v in m.state_dict().items()}
+
+
+def test_transformer_dropout_draws_from_its_generator():
+    loss, masks, state = _transformer_step(7)
+    assert torch.isfinite(loss)
+    # encoder: dropout1, dropout, dropout2 a layer; decoder: dropout1,
+    # dropout2, dropout, dropout3
+    assert len(masks) == 2 * 3 + 2 * 4
+    # every Dropout dropped something (after the feed-forward's ReLU the
+    # zeros are its own too)
+    assert all(mk.any() for mk in masks)
+    assert 0.05 < masks[0].float().mean() < 0.15
+    assert not torch.equal(masks[0], masks[3])    # encoder 0 vs 1
+    assert not torch.equal(masks[6], masks[10])   # decoder 0 vs 1
+    loss2, masks2, state2 = _transformer_step(7)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(masks, masks2))
+    assert all(torch.equal(v, state2[k]) for k, v in state.items())
+    loss3, masks3, _ = _transformer_step(8)
+    assert not torch.equal(masks[0], masks3[0])

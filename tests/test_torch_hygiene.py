@@ -224,29 +224,38 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
             call()
 
 
-def test_head_dim_32_is_the_f32_forward_only(monkeypatch):
+def test_head_dim_32_is_the_f32_kernels_only(monkeypatch):
     """With the meta device standing in for the card (the device check
-    passed over), the f32 forward at head_dim 32 goes on to its kernel's
-    build, while the bf16 forward and both backward kernels raise before
-    any build, naming ROADMAP.md queue 2: none runs its plain twin."""
-    def no_build(name, *args):
-        raise AssertionError(f"reached the kernel build ({name})")
+    passed over), the f32 forward and both f32 backward kernels at
+    head_dim 32 go on to their kernel's build, while the bf16 forward and
+    backward raise before any build, naming ROADMAP.md queue 2: none runs
+    its plain twin."""
+    def no_build(name, argtypes, symbol=None):
+        raise AssertionError(f"reached the kernel build ({symbol or name})")
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(kfa, "_on_cuda", lambda fn, q: None)
     f32 = torch.empty(2, 8, 32, device="meta")
     bf16 = torch.empty(2, 8, 32, device="meta", dtype=torch.bfloat16)
     st = torch.empty(2, 8, device="meta")
-    with pytest.raises(AssertionError, match="flash_attention_fwd"):
-        kfa.flash_attention_fwd(f32, f32, f32)
+    builds = {
+        "flash_attention_fwd": lambda: kfa.flash_attention_fwd(f32, f32,
+                                                               f32),
+        "flash_attention_bwd_dq": lambda: kfa.flash_attention_bwd_dq(
+            f32, f32, f32, f32, f32, st),
+        "flash_attention_bwd_dkv": lambda: kfa.flash_attention_bwd_dkv(
+            f32, f32, f32, f32, st, st),
+    }
+    for name, call in builds.items():
+        with pytest.raises(AssertionError, match=f"build \\({name}\\)"):
+            call()
     calls = [
         lambda: kfa.flash_attention_fwd(bf16, bf16, bf16),
-        lambda: kfa.flash_attention_bwd_dq(f32, f32, f32, f32, f32, st),
-        lambda: kfa.flash_attention_bwd_dkv(f32, f32, f32, f32, st, st),
         lambda: kfa.flash_attention_bwd_dq(bf16, bf16, bf16, bf16, bf16, st),
+        lambda: kfa.flash_attention_bwd_dkv(bf16, bf16, bf16, bf16, st, st),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
             call()
-    assert kfa.F32_FWD_HEAD_DIMS == (32, 64, 128, 256)
-    assert kfa.fwd_head_dims(torch.bfloat16) == kfa.HEAD_DIMS == (64, 128,
-                                                                  256)
+    assert kfa.F32_HEAD_DIMS == (32, 64, 128, 256)
+    assert kfa.head_dims(torch.float32) == kfa.F32_HEAD_DIMS
+    assert kfa.head_dims(torch.bfloat16) == kfa.HEAD_DIMS == (64, 128, 256)

@@ -261,5 +261,5 @@ def test_plain_forward_at_head_dim_32_matches_reference_attention(lens,
     o, _ = kfa.flash_attention_fwd_plain(
         fold(q), fold(k), fold(v),
         None if tl is None else tl.repeat_interleave(h), causal=causal)
-    assert d in kfa.F32_FWD_HEAD_DIMS and d not in kfa.HEAD_DIMS
+    assert d in kfa.F32_HEAD_DIMS and d not in kfa.HEAD_DIMS
     _close(o.reshape(b, h, sq, d).transpose(1, 2), want)
