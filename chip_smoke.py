@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              basic blocks (a tile's softmax) counted by opcode class, and
              the f32 forward's SASS at each D (32, 64, 128, 256): its
              TF32 HMMAs must
-             outnumber its FFMAs (the products on the tensor cores); and
+             outnumber its FFMAs (the products on the tensor cores); the
+             f32 backward's kernels at D = 32 and 64: each must run
+             TF32 HMMAs (FFMAs beside) and spill nothing; and
              #11's f32 kernel at each tile width: its TF32 HGMMAs, in
              m16n8k8 units a warp, must outnumber its FFMAs;
 2. flash   — the flash-attention forward kernel vs its plain PyTorch twin
@@ -257,8 +259,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              kernels at head_dim 32 (with the forward) vs their twins at
              the same three shapes at detr-train's batch (B=4, H=8), the
              same key lengths and dropouts, a second backward bit for
-             bit, timed at the encoder's shape beside the twins, SDPA's
-             f32 backward and the bounds on the CUDA cores and in 3xTF32;
+             bit, timed at each of the three shapes with dropout 0.1 and
+             0 beside the twins, SDPA's f32 backward at that dropout and
+             the bounds in 3xTF32 and on the CUDA cores; dq, dk and dv
+             from a float64 backward of the same inputs at the encoder's
+             shape (dropout 0 and 0.1) and GPT's f32 shape (8 x 16 x
+             1024, D=64, causal), the twins' beside, within
+             F32_BWD_F64_TOL (the CUDA-core kernels' reading there);
 29. detr-serve — DETR() at the JAX package's defaults (80 classes, 100
              queries, d_model 256, 8 heads, 6 + 6 layers, feed-forward
              2048, ResNet-50 backbone, NHWC on the card), weights from
@@ -298,7 +305,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              of 800 x 1333 (numpy seed 40) with 1-20 gts each padded to 20
              (cxcywh normalised, w and h in [0.05, 0.5], 80 classes), batch
              4, 4 epochs of 4 steps: per step 18 launches of each of #1,
-             #3 and #4 (f32, head_dim 32) and one of #10 a leaf of at least
+             #3 and #4 (f32, head_dim 32; #3/#4 6 at each of DETR's three
+             attention shapes) and one of #10 a leaf of at least
              16384 values, no other kernel of the port; finite losses, the
              last epoch's below the first's; ms a step and images/s over
              steps 5-16 (and the median step, the loader's wait a batch,
@@ -337,7 +345,8 @@ Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
               the f32 forward's products are 3xTF32 (hi.hi + hi.lo +
               lo.hi of operands split into two TF32 parts, ~2^-21
-              relative), measured near 1e-6;
+              relative), measured near 1e-6, and so are the f32
+              backward's at D = 32 and 64;
   bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
               the backward's grads, whose magnitudes pass 1, 2e-2 of
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
@@ -377,9 +386,10 @@ with a "shape" key; #11 again on the training path, with a "path" key and
 its 17 launches a forward; #11 on fit-resnet50's training and f32
 evaluate/predict forwards and #10 on fit-lenet, with a "path" key; #1
 f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve;
-#1, #3 and #4 f32 at head_dim 32 on detr-train, timed at its encoder's
-shape, the backward's 3xTF32 bound beside its CUDA-core one in
-"bound_tf32_ms", and #10 on detr-train at a feed-forward leaf),
+#1 f32 at head_dim 32 on detr-train, timed at its encoder's shape, #3
+and #4 f32 at each of its three attention shapes with their launches
+there, the backward's 3xTF32 bound with its CUDA-core one beside in
+"bound_cores_ms", and #10 on detr-train at a feed-forward leaf),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -402,7 +412,9 @@ unheld:
 at GPT's training shape with and without dropout and ERNIE's (the
 forward also the f32 serving prefill, GPT's shape in f32 with and without
 dropout, f32 at D=128 and DETR's encoder at D=32; the backward as a
-dq + dk/dv pair), for the
+dq + dk/dv pair, also in f32 at DETR's three attention shapes at
+detr-train's batch with dropout 0.1 and GPT's f32 shape, each side's dq,
+dk and dv read from a float64 backward beside, with the bounds), for the
 dense decode GPT's f32 and Llama-2-7B's bf16 generate shapes, and for the
 paged decode phase 3's timed shapes (each decode mode then times the
 package's kernel at other targets of blocks a call; the paged mode also
@@ -449,6 +461,13 @@ F32_EXACT_TOL = 1e-5
 # max(1, |o|): D = 64's reading at that shape, which D = 32 holds since
 # each key tile's P.V is summed apart
 F32_D32_F64_TOL = 4.33e-6
+# #3/#4 f32 (dq, dk and dv) from a float64 backward of the same inputs, of
+# max(1, |g|), at each of BWD_F64_CASES: the largest of the three read
+# from the CUDA-core kernels the tensor-core ones replaced, on the same
+# inputs (--compare-bwd against the parent's source)
+F32_BWD_F64_TOL = {("detr-encoder", 0.0): 1.240e-6,
+                   ("detr-encoder", 0.1): 9.785e-7,
+                   ("gpt-f32", 0.0): 3.428e-6}
 ADAMW_TOL = 1e-6
 
 
@@ -712,6 +731,33 @@ def _f32_fwd_sass(lib):
               f"{ffma} FFMAs: its products are not on the tensor cores")
 
 
+def _f32_bwd_sass(lib):
+    """The f32 backward's products in SASS at D = 32 and 64 (the tensor-core
+    kernels; dq with and without its key split): TF32 HMMAs
+    (three m16n8k8 a product step in 3xTF32) beside the FFMAs of the whole
+    function (the softmax gradient's). Fails when an instantiation is not
+    found or runs no TF32 HMMA; skipped only where the toolkit has no
+    cuobjdump."""
+    if _cuobjdump() is None:
+        log("build: no cuobjdump; the f32 backward's SASS not counted")
+        return
+    for d in (32, 64):
+        for kern, targs, name in (
+                ("flash_bwd_dq_f32_kernel", f"ILi{d}ELi1EE", f"{d},1"),
+                ("flash_bwd_dq_f32_kernel", f"ILi{d}ELi4EE", f"{d},4"),
+                ("flash_bwd_dkv_f32_kernel", f"ILi{d}EE", f"{d}")):
+            ops = sass_opcodes(lib, kern + targs)
+            check(ops is not None, f"build: {kern}<{name}> not found in {lib}")
+            hmma = {k: n for k, n in ops.items() if k.startswith("HMMA")}
+            tf32 = sum(n for k, n in hmma.items() if "TF32" in k)
+            ffma = sum(n for k, n in ops.items()
+                       if k.split(".")[0] == "FFMA")
+            log(f"build: {kern}<{name}> SASS: {sum(ops.values())} "
+                f"instructions, HMMA {hmma}, FFMA {ffma}")
+            check(tf32 > 0, f"build: {kern}<{name}> runs no TF32 HMMA: its "
+                  "products are not on the tensor cores")
+
+
 # a tf32 warpgroup product in SASS: one HGMMA of 64 x N x 8
 _HGMMA_TF32 = re.compile(r"HGMMA\.64x(\d+)x8\.F32\.TF32")
 
@@ -769,7 +815,11 @@ def phase_build():
             for kern, nreg, spill in _instantiations(logtxt):
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
-                check(not (kern.startswith("ln_bwd") and spill),
+                # the LN backward and the f32 backward on the tensor
+                # cores must not spill
+                check(not ((kern.startswith("ln_bwd")
+                            or kern.startswith("flash_bwd_d")
+                            and "_f32_kernel<" in kern) and spill),
                       f"build: {kern} spills {spill} bytes")
     # the forward's CUDA-core work: a tile's softmax is straight-line code
     # between its two products, over 32 (q, k) pairs a thread
@@ -784,6 +834,7 @@ def phase_build():
                 f"instructions = {n / 32:.1f} a pair over 32 pairs a "
                 f"thread: {counts}")
     _f32_fwd_sass(lib)
+    _f32_bwd_sass(_build._lib_path("flash_attention_bwd")[1])
     _conv_f32_sass(_build._lib_path("conv_bn_act")[1])
     log(f"build: {len(_build.sources())} sources in {secs:.2f} s "
         "(parallel nvcc, sm_90a)")
@@ -1435,28 +1486,71 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
     row["library_ms"] = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms,
                          "dkv": lib_bwd_ms}
     del out, qt, kt, vt
+    work = flash_work(b, h, sq, sk, d, q.element_size(), lens, causal)
+    # bf16 at the bf16 tensor-core peak; f32 at the f32 bar, which the
+    # tensor cores reach in 3xTF32 (three TF32 products a product at the
+    # TF32 peak), the CUDA cores' bound beside it
+    row["bound"] = {n: flash_bound(dtype, n, *w) for n, w in work.items()}
+    if dtype == "float32":
+        row["bound_cores"] = {n: bound(*work[n], peak=F32_FLOPS)
+                              for n in ("dq", "dkv")}
+    row["flops"] = {n: w[1] for n, w in work.items()}
+    return row
+
+
+def flash_work(b, h, sq, sk, d, esz, lens, causal):
+    """{kernel: (bytes, FLOPs)} of the flash forward ("fwd"), dq and dk/dv
+    over the visible (q, k) pairs, each input read once and each output
+    written once: 4 D FLOPs a pair forward, 6 D for dq, 8 D for dk/dv."""
     pairs = h * visible_pairs(b, sq, sk, lens, causal)  # over every head
-    esz = q.element_size()
     nq, nk = b * h * sq * d, b * h * sk * d
     stat = b * h * sq * 4
-    work = {  # bytes (each input read once, each output written once), FLOPs
+    return {
         "fwd": ((nq + 2 * nk + nq) * esz + stat, 4 * d * pairs),
         "dq": ((3 * nq + 2 * nk + nq) * esz + 2 * stat, 6 * d * pairs),
         "dkv": ((2 * nq + 2 * nk + 2 * nk) * esz + 2 * stat, 8 * d * pairs),
     }
-    # the forward's f32 bound in 3xTF32 (fwd_bound); the f32 backward runs
-    # on the CUDA cores, and its bound in 3xTF32 (three TF32 products a
-    # product at the TF32 peak), what a tensor-core design would face,
-    # stands beside it
-    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    row["bound"] = {n: bound(*w, peak=peak) for n, w in work.items()}
-    row["bound"]["fwd"] = fwd_bound(dtype, work["fwd"][0], pairs, d)
-    if dtype == "float32":
-        row["bound_tf32"] = {n: bound(work[n][0], 3 * work[n][1],
-                                      peak=TF32_FLOPS)
-                             for n in ("dq", "dkv")}
-    row["flops"] = {n: w[1] for n, w in work.items()}
-    return row
+
+
+def flash_bound(dtype, kernel, bytes_moved, flops):
+    """(bound ms, what bounds it) of a flash kernel: bf16 at the bf16
+    tensor-core peak, f32 in 3xTF32 (three times the FLOPs at the TF32
+    peak)."""
+    if dtype == "bfloat16":
+        return bound(bytes_moved, flops, peak=BF16_FLOPS)
+    return bound(bytes_moved, 3 * flops, peak=TF32_FLOPS)
+
+
+def _f64_bwd(torch, q, k, v, o, lse, do, causal, keep=None, rate=0.0):
+    """The backward's function in float64 from the kernels' own f32 inputs
+    (q, k, v [BH, S, D]; o and dO; the forward's lse): (dq, dk, dv) with
+    delta = rowsum(dO * o), p = exp(q.k * scale - lse) masked by the
+    bottom-right causal rule, dp and p dropped by ``keep``."""
+    qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(torch.matmul(qd, kd.transpose(1, 2)) * scale
+                  - lse.double()[..., None])
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        pos = torch.arange(max(sq, sk), device=q.device)
+        p = p.masked_fill(pos[None, :sk] > pos[:sq, None] + (sk - sq), 0.0)
+    dp = torch.matmul(dod, vd.transpose(1, 2))
+    pd = p
+    if keep is not None:
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - rate), 0.0)
+    ds = p * (dp - (dod * od).sum(-1, keepdim=True))
+    del p, dp
+    return (torch.matmul(ds, kd) * scale,
+            torch.matmul(ds.transpose(1, 2), qd) * scale,
+            torch.matmul(pd.transpose(1, 2), dod))
+
+
+def _from_f64(got, want):
+    """max |got - want| / max(1, |want|) of each pair, got f32 and want
+    float64."""
+    return [((a.double() - w).abs() / w.abs().clamp(min=1.0)).max().item()
+            for a, w in zip(got, want)]
 
 
 def _check_keep_mask(torch, s, d, dtype, gen):
@@ -1545,18 +1639,18 @@ def _log_flash_rows(tag, rows):
         for n in r.get("ms", {}):
             bms, by = r["bound"][n]
             ms = r["ms"][n]
-            peak = ("bf16 tensor-core" if r["dtype"] == "bfloat16" else
-                    "3xTF32" if n == "fwd" else "f32 CUDA-core")
-            tf32 = r.get("bound_tf32", {}).get(n)
+            peak = "bf16 tensor-core" if r["dtype"] == "bfloat16" else \
+                "3xTF32"
+            cores = r.get("bound_cores", {}).get(n)
             log(f"{tag}:   {n:4s} ms {ms:.4f} (unheld {unheld(ms):.4f}) "
                 f"plain_ms {r['plain_ms'][n]:.4f} library_ms "
                 f"{r['library_ms'][n]:.4f} (unheld "
                 f"{unheld(r['library_ms'][n]):.4f}) bound_ms {bms:.4f} ({by}, "
                 f"{peak} peak): {r['flops'][n] / ms / 1e9:.1f} TFLOP/s, "
                 f"{bms / ms:.3f} of the bound"
-                + ("" if tf32 is None else
-                   f"; 3xTF32 bound_ms {tf32[0]:.4f} ({tf32[1]}), "
-                   f"{tf32[0] / ms:.3f} of it"))
+                + ("" if cores is None else
+                   f"; on the CUDA cores bound_ms {cores[0]:.4f} "
+                   f"({cores[1]}), {cores[0] / ms:.3f} of it"))
 
 
 def phase_flash_noncausal(torch, flush):
@@ -1648,9 +1742,10 @@ def _flash_d32_bwd(torch, flush, gen):
     three attention shapes at detr-train's batch (B=4, H=8, non-causal),
     key lengths none, 0 (every other batch) and mid-tile, dropout 0 and
     0.1, each with the forward (the f32 bar; a second backward bit for
-    bit); timed at the encoder's shape (4 x 8 x 1050 x 1050, no dropout)
-    beside the twin, SDPA's f32 backward and the bounds on the CUDA cores
-    and in 3xTF32."""
+    bit); timed at each shape without key lengths, with dropout 0.1 (what
+    detr-train runs) and 0, beside the twin, SDPA's f32 backward at the
+    same dropout and the bounds (3xTF32, the CUDA cores'); then dq, dk and
+    dv from a float64 backward of the same inputs (_bwd_f64_readings)."""
     rows = []
     for _, sq, sk in DETR_ATTENTION:
         for lens in (None, [0, sk] * 2,
@@ -1658,16 +1753,73 @@ def _flash_d32_bwd(torch, flush, gen):
             for dropout in (0.0, 0.1):
                 rows.append(_flash_train_case(
                     torch, 4, 8, sq, sk, 32, "float32", lens, dropout, gen,
-                    flush, timed=sk == sq == 1050 and lens is None
-                    and not dropout, causal=False))
+                    flush, timed=lens is None, causal=False))
     _log_flash_rows("flash-d32 bwd", rows)
-    timed = next(r for r in rows if "ms" in r)
-    pair, sdpa = timed["ms"]["dq"] + timed["ms"]["dkv"], \
-        timed["library_ms"]["dq"]
-    log(f"flash-d32 bwd: at the encoder's shape #3 + #4 take {pair:.4f} "
-        f"ms, {pair / sdpa:.3f} x SDPA's whole f32 backward ({sdpa:.4f} "
-        "ms, TF32 off)")
-    return dict(rows=rows, timed=timed)
+    timed = {(name, r["dropout"]): r for name, sq, sk in DETR_ATTENTION
+             for r in rows if "ms" in r and (r["sq"], r["sk"]) == (sq, sk)}
+    for (name, dropout), r in timed.items():
+        pair, sdpa = r["ms"]["dq"] + r["ms"]["dkv"], r["library_ms"]["dq"]
+        log(f"flash-d32 bwd: {name} dropout {dropout}: #3 + #4 take "
+            f"{pair:.4f} ms, {pair / sdpa:.3f} x SDPA's whole f32 backward "
+            f"at that dropout ({sdpa:.4f} ms, TF32 off)")
+    return dict(rows=rows, timed=timed, f64=_bwd_f64_readings(torch))
+
+
+# (tag, b, h, s, d, causal, dropout, input seed) of the f32 backward's
+# float64 readings
+BWD_F64_CASES = (("detr-encoder", 4, 8, 1050, 32, False, 0.0, 64),
+                 ("detr-encoder", 4, 8, 1050, 32, False, 0.1, 65),
+                 ("gpt-f32", 8, 16, 1024, 64, True, 0.0, 66))
+
+
+def _f64_case(torch, b, h, s, d, causal, dropout, seed):
+    """One BWD_F64_CASES input, made from its own seed: ((q, k, v, o, dO,
+    lse, seed tensor, causal, dropout), the float64 backward (dq, dk, dv))
+    with o and lse from the f32 forward kernel."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    seed_t = torch.tensor([4321], dtype=torch.int32, device="cuda")
+    o, lse = kfa.flash_attention_fwd(q, k, v, None, seed_t, causal, None,
+                                     dropout)
+    keep = (kfa.dropout_keep(seed_t, b * h, s, s, dropout, "cuda")
+            if dropout else None)
+    want = _f64_bwd(torch, q, k, v, o, lse, do, causal, keep, dropout)
+    return (q, k, v, o, do, lse, seed_t, causal, dropout), want
+
+
+def _bwd_f64_readings(torch):
+    """dq, dk and dv of #3/#4 f32 and of their twins from a float64
+    backward of the same inputs, of max(1, |g|), at BWD_F64_CASES (DETR's
+    encoder, dropout 0 and 0.1; GPT's f32 shape, 8 x 16 x 1024, D = 64,
+    causal): the kernels' within the f32 bar and within the CUDA-core
+    kernels' reading on the same inputs (F32_BWD_F64_TOL)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    out = {}
+    for tag, b, h, s, d, causal, dropout, seed in BWD_F64_CASES:
+        (q, k, v, o, do, lse, seed_t, _, _), want = _f64_case(
+            torch, b, h, s, d, causal, dropout, seed)
+        rest = (None, seed_t, causal, None, dropout)
+        names = ("dq", "dk", "dv")
+        got = dict(zip(names, _from_f64(
+            kfa.flash_attention_bwd(q, k, v, o, lse, do, *rest), want)))
+        twin = dict(zip(names, _from_f64(
+            kfa.flash_attention_bwd_plain(q, k, v, o, lse, do, *rest), want)))
+        bar = F32_BWD_F64_TOL[(tag, dropout)]
+        log(f"flash-d32 bwd: f32 {tag} b{b} h{h} s{s} d{d} causal={causal} "
+            f"dropout {dropout}: from a float64 backward, of max(1, |g|): "
+            + ", ".join(f"{n} kernel {got[n]:.3e} twin {twin[n]:.3e}"
+                        for n in names)
+            + f"; the CUDA-core kernels' reading {bar:.3e}")
+        worst = max(got.values())
+        check(worst <= TOL["float32"] and worst <= bar,
+              f"flash-d32 bwd: {tag} dropout {dropout}: the f32 backward is "
+              f"{worst} from float64, over the CUDA-core kernels' {bar}")
+        out[(tag, dropout)] = dict(kernel=got, twin=twin)
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
@@ -1680,7 +1832,7 @@ def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
     seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
     stream = torch.cuda.current_stream().cuda_stream
     common = (bh, sq, sk, d, int(causal), 1.0 / math.sqrt(d), thresh, keep,
-              1, stream)
+              int(q.dtype == torch.bfloat16), stream)
 
     def run_dq():
         dq = torch.empty_like(q)
@@ -2162,14 +2314,33 @@ def compare_paged(torch, sources):
             kpd._PAGED_BLOCKS = default
 
 
+# (tag, b, h, sq, sk, d, causal, dropout, dtype) of --compare-bwd: GPT's
+# and ERNIE's bf16 training shapes; DETR's three attention shapes at
+# detr-train's batch, GPT's f32 training shape and GPT-1.3B's in f32
+COMPARE_BWD = (
+    ("gpt", 8, 16, 1024, 1024, 64, True, 0.1, "bfloat16"),
+    ("gpt-nodrop", 8, 16, 1024, 1024, 64, True, 0.0, "bfloat16"),
+    ("ernie", 32, 12, 512, 512, 64, False, 0.0, "bfloat16"),
+    ("detr-encoder-f32", 4, 8, 1050, 1050, 32, False, 0.1, "float32"),
+    ("detr-decoder-self-f32", 4, 8, 100, 100, 32, False, 0.1, "float32"),
+    ("detr-decoder-cross-f32", 4, 8, 100, 1050, 32, False, 0.1,
+     "float32"),
+    ("gpt-f32", 8, 16, 1024, 1024, 64, True, 0.1, "float32"),
+    ("gpt-f32-nodrop", 8, 16, 1024, 1024, 64, True, 0.0, "float32"),
+    ("gpt-1.3b-f32", 4, 16, 1024, 1024, 128, True, 0.1, "float32"))
+
+
 def compare_bwd(torch, sources):
     """``--compare-bwd SRC...``: build each given flash_attention_bwd.cu
     (another version of the package's backward source: its parent, a
-    variant) with the package's nvcc flags and headers, hold its bf16 pair
-    to the package's own (the bf16 bar of max(1, |ours|)), and time both in
-    turns (theirs, ours, ours, theirs; held) at GPT's training shape
-    (causal, dropout 0.1), GPT's without dropout and ERNIE's (non-causal),
-    beside SDPA's backward held and unheld."""
+    variant) with the package's nvcc flags and headers, hold its dq, dk and
+    dv to the package's own at the dtype's bar of max(1, |ours|), and time
+    both in turns (theirs, ours, ours, theirs; held) at the COMPARE_BWD
+    shapes, beside SDPA's backward held and unheld and the bounds (f32:
+    3xTF32 and the CUDA cores'); in f32 each side's dq, dk and dv from a
+    float64 backward of the same inputs, of max(1, |g|), there and at
+    phase flash-d32's BWD_F64_CASES on that phase's inputs (the parent's
+    readings there are F32_BWD_F64_TOL)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     entries = []
     for src, cdll in _build_compare(sources, "bwd"):
@@ -2181,12 +2352,12 @@ def compare_bwd(torch, sources):
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for tag, b, h, s, causal, dropout in (
-            ("gpt", 8, 16, 1024, True, 0.1), ("gpt-nodrop", 8, 16, 1024, True,
-                                               0.0),
-            ("ernie", 32, 12, 512, False, 0.0)):
-        q, k, v, do = (torch.randn(b * h, s, 64, generator=gen,
-                                   device="cuda").bfloat16() for _ in range(4))
+    for tag, b, h, sq, sk, d, causal, dropout, dtype in COMPARE_BWD:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn(b * h, sq, d, generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn(b * h, sk, d, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
         seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
         rest = (None, seed, causal, None, dropout)
         o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
@@ -2196,14 +2367,30 @@ def compare_bwd(torch, sources):
                     q, k, v, o, do, lse, *rest),
                 "dkv": lambda: kfa.flash_attention_bwd_dkv(
                     q, k, v, do, lse, delta, *rest)}
+        want = None
+        if dtype == "float32":
+            keep = (kfa.dropout_keep(seed, b * h, sq, sk, dropout, "cuda")
+                    if dropout else None)
+            want = _f64_bwd(torch, q, k, v, o, lse, do, causal, keep,
+                            dropout)
+            del keep
+            e64 = _from_f64((dq, dk, dv), want)
+            log(f"compare {tag}: ours from a float64 backward, of max(1, "
+                f"|g|): dq {e64[0]:.3e}, dk {e64[1]:.3e}, dv {e64[2]:.3e}")
         for src, (dq_fn, dkv_fn) in entries:
             run_dq, run_dkv = _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do,
                                         lse, seed, causal, dropout)
             (tq, tdelta), (tk, tv) = run_dq(), run_dkv(delta)
-            for n, a, w in (("dq", tq, dq), ("dk", tk, dk), ("dv", tv, dv)):
-                e = _err(a, w)[1]
-                check(e <= TOL["bfloat16"], f"compare {tag}: {src} {n} "
+            for n, x, w in (("dq", tq, dq), ("dk", tk, dk), ("dv", tv, dv)):
+                e = _err(x, w)[1]
+                check(e <= TOL[dtype], f"compare {tag}: {src} {n} "
                       f"differs from the package's by {e} of max(1, |ours|)")
+            if want is not None:
+                e64 = _from_f64((tq, tk, tv), want)
+                log(f"compare {tag}: {src} from a float64 backward, of "
+                    f"max(1, |g|): dq {e64[0]:.3e}, dk {e64[1]:.3e}, dv "
+                    f"{e64[2]:.3e}")
+            del tq, tdelta, tk, tv
             theirs = {"dq": run_dq, "dkv": lambda: run_dkv(delta)}
             ms = {}
             for who, fns in (("theirs", theirs), ("ours", ours),
@@ -2222,15 +2409,43 @@ def compare_bwd(torch, sources):
                 f", ours {runs[('ours', 'dkv')]}; pair theirs "
                 f"{pair['theirs']:.4f}, ours {pair['ours']:.4f}: theirs / "
                 f"ours = {pair['theirs'] / pair['ours']:.2f}")
-        qt, kt, vt = (x.view(b, h, s, 64).detach().requires_grad_()
+        del want
+        work = flash_work(b, h, sq, sk, d, q.element_size(), None, causal)
+        bounds = "; ".join(
+            f"{n} bound {flash_bound(dtype, n, *work[n])[0]:.4f} ms "
+            f"({flash_bound(dtype, n, *work[n])[1]})"
+            + ("" if dtype == "bfloat16" else
+               f", on the CUDA cores {bound(*work[n], peak=F32_FLOPS)[0]:.4f}")
+            for n in ("dq", "dkv"))
+        qt, kt, vt = (x.view(b, h, -1, d).detach().requires_grad_()
                       for x in (q, k, v))
         lib_out = sdpa(qt, kt, vt, is_causal=causal, dropout_p=dropout)
         lib = time_ms(torch, lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), do.view(b, h, s, 64), retain_graph=True),
+            lib_out, (qt, kt, vt), do.view(b, h, sq, d), retain_graph=True),
             flush=flush)
         log(f"compare {tag}: SDPA's backward (dq, dk, dv in one call) held "
-            f"{lib:.4f} ms, unheld {unheld(lib):.4f} ms")
-        del lib_out, qt, kt, vt
+            f"{lib:.4f} ms, unheld {unheld(lib):.4f} ms; {bounds}")
+        del lib_out, qt, kt, vt, q, k, v, do, o, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    # each side at phase flash-d32's float64 readings, on its inputs: what
+    # F32_BWD_F64_TOL holds the package's kernels to
+    for tag, b, h, s, d, causal, dropout, seed in BWD_F64_CASES:
+        (q, k, v, o, do, lse, seed_t, _, _), want = _f64_case(
+            torch, b, h, s, d, causal, dropout, seed)
+        rest = (None, seed_t, causal, None, dropout)
+        e64 = _from_f64(kfa.flash_attention_bwd(q, k, v, o, lse, do, *rest),
+                        want)
+        log(f"compare f64 {tag} dropout {dropout}: ours dq {e64[0]:.3e}, dk "
+            f"{e64[1]:.3e}, dv {e64[2]:.3e}")
+        for src, (dq_fn, dkv_fn) in entries:
+            run_dq, run_dkv = _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do,
+                                        lse, seed_t, causal, dropout)
+            tq, tdelta = run_dq()
+            e64 = _from_f64((tq, *run_dkv(tdelta)), want)
+            log(f"compare f64 {tag} dropout {dropout}: {src} dq "
+                f"{e64[0]:.3e}, dk {e64[1]:.3e}, dv {e64[2]:.3e}")
+        del q, k, v, o, do, lse, want
+        torch.cuda.empty_cache()
 
 
 def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
@@ -2993,6 +3208,7 @@ def phase_train(torch):
 # device-side names of the port's kernels, as the profiler lists them
 OWN_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+               "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel",
                "ln_fwd_kernel", "ln_bwd_kernel", "ln_fwd_wide_kernel",
                "ln_bwd_wide_kernel", "colsum_kernel")
@@ -5209,8 +5425,8 @@ def phase_ppyoloe_cpu(torch, state):
 # wins)
 DETECT_TRAIN_GROUPS = (
     ("#1 (flash_fwd_f32_kernel)", ("flash_fwd",)),
-    ("#3 (flash_bwd_dq_kernel)", ("flash_bwd_dq",)),
-    ("#4 (flash_bwd_dkv_kernel)", ("flash_bwd_dkv",)),
+    ("#3 (flash_bwd_dq_f32_kernel)", ("flash_bwd_dq",)),
+    ("#4 (flash_bwd_dkv_f32_kernel)", ("flash_bwd_dkv",)),
     ("#10 (adamw_kernel)", ("adamw_kernel",)),
     ("cuDNN convolutions, forward and backward (FFT and layout transposes "
      "included)",
@@ -5382,9 +5598,24 @@ def phase_detr_train(torch):
     model.prepare(_detr_adamw(net), DETRLoss(num_classes=80))
     syncs0 = port_detr.auction_match.host_syncs
     iters0 = port_detr.auction_match.iterations
-    launches, probe, wall, peak = _fit_detection(
-        torch, tag, model, ds, b, epochs, profile_after=warm - 2)
+    # the backward's calls by (sq, sk): each launches #3 and #4 once
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    bwd_shapes, bwd = {}, kfa.flash_attention_bwd
+
+    def counted_bwd(q, k, *args):
+        key = (q.shape[1], k.shape[1])
+        bwd_shapes[key] = bwd_shapes.get(key, 0) + 1
+        return bwd(q, k, *args)
+    kfa.flash_attention_bwd = counted_bwd
+    try:
+        launches, probe, wall, peak = _fit_detection(
+            torch, tag, model, ds, b, epochs, profile_after=warm - 2)
+    finally:
+        kfa.flash_attention_bwd = bwd
     steps = len(probe.losses)
+    want_shapes = {(sq, sk): 6 * steps for _, sq, sk in DETR_ATTENTION}
+    check(bwd_shapes == want_shapes, f"{tag}: the flash backward ran at "
+          f"{bwd_shapes} over {steps} steps, want {want_shapes}")
     want = {"flash_attention_fwd": 18 * steps,
             "flash_attention_bwd_dq": 18 * steps,
             "flash_attention_bwd_dkv": 18 * steps,
@@ -5394,8 +5625,9 @@ def phase_detr_train(torch):
               f"over {steps} steps, want {want.get(name, 0)}")
     syncs = port_detr.auction_match.host_syncs - syncs0
     iters = port_detr.auction_match.iterations - iters0
-    res = dict(launches=launches, steps=steps, losses=probe.losses,
-               peak_gib=peak, fit_wall_s=wall, adamw_leaves=leaves,
+    res = dict(launches=launches, bwd_shapes=bwd_shapes, steps=steps,
+               losses=probe.losses, peak_gib=peak, fit_wall_s=wall,
+               adamw_leaves=leaves,
                auction_syncs_per_step=syncs / steps,
                auction_iters_per_step=iters / steps,
                fit_profile=probe.busy(tag))
@@ -5992,29 +6224,39 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in d32["rows"]),
         ms=de["ms"], plain_ms=de["plain_ms"], bound_ms=de["bound_ms"],
         bound_by=de["bound_by"], library_ms=de["library_ms"]))
-    # detection training (phase detr-train): #1, #3 and #4 f32 at head_dim
-    # 32, timed at DETR's encoder at detr-train's batch (4 x 8 x 1050 x
-    # 1050; the backward's bound on the CUDA cores, the 3xTF32 one beside
-    # it), and #10 at DETR's feed-forward leaf; launches over its steps
-    db = d32["bwd"]["timed"]
-    for name, part, timing, replaces in (
-            ("flash_attention_fwd", "o", "fwd", fwd_tpu),
-            ("flash_attention_bwd_dq", "dq", "dq",
-             "paddle_tpu/ops/pallas/flash_attention.py:365"),
-            ("flash_attention_bwd_dkv", "dk", "dkv",
-             "paddle_tpu/ops/pallas/flash_attention.py:385")):
-        bms, by = db["bound"][timing]
-        row = dict(
-            name=name, dtype="float32", shape="4x8x1050x1050x32",
-            path="detr-train", route="cuda",
-            source=fwd_src if timing == "fwd" else bwd_src,
-            replaces=replaces, launches=dtr["launches"][name],
-            max_abs_err=max(r["err"][part] for r in d32["bwd"]["rows"]),
-            ms=db["ms"][timing], plain_ms=db["plain_ms"][timing],
-            bound_ms=bms, bound_by=by, library_ms=db["library_ms"][timing])
-        if timing != "fwd":
-            row["bound_tf32_ms"] = db["bound_tf32"][timing][0]
-        kernels.append(row)
+    # detection training (phase detr-train): #1 f32 at head_dim 32 timed
+    # at DETR's encoder at detr-train's batch (4 x 8 x 1050 x 1050), #3 and
+    # #4 at each of DETR's three attention shapes at that batch, all with
+    # dropout 0.1 as detr-train runs them (the backward's 3xTF32 bound,
+    # its CUDA-core one beside), launches over its steps (#3/#4: at that
+    # shape), and #10 at DETR's feed-forward leaf
+    dbw = d32["bwd"]
+    for name, parts, timing, replaces, shapes in (
+            ("flash_attention_fwd", ("o",), "fwd", fwd_tpu,
+             DETR_ATTENTION[:1]),
+            ("flash_attention_bwd_dq", ("dq",), "dq",
+             "paddle_tpu/ops/pallas/flash_attention.py:365", DETR_ATTENTION),
+            ("flash_attention_bwd_dkv", ("dk", "dv"), "dkv",
+             "paddle_tpu/ops/pallas/flash_attention.py:385",
+             DETR_ATTENTION)):
+        for where, sq, sk in shapes:
+            db = dbw["timed"][(where, 0.1)]
+            bms, by = db["bound"][timing]
+            row = dict(
+                name=name, dtype="float32", shape=f"4x8x{sq}x{sk}x32",
+                path="detr-train", route="cuda",
+                source=fwd_src if timing == "fwd" else bwd_src,
+                replaces=replaces,
+                launches=(dtr["launches"][name] if timing == "fwd" else
+                          dtr["bwd_shapes"][(sq, sk)]),
+                max_abs_err=max(r["err"][p] for r in dbw["rows"]
+                                for p in parts),
+                ms=db["ms"][timing], plain_ms=db["plain_ms"][timing],
+                bound_ms=bms, bound_by=by,
+                library_ms=db["library_ms"][timing])
+            if timing != "fwd":
+                row["bound_cores_ms"] = db["bound_cores"][timing][0]
+            kernels.append(row)
     ad = dtr["adamw"]
     kernels.append(dict(
         name="fused_adamw_update", shape="256x2048", path="detr-train",

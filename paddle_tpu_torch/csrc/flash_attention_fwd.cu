@@ -155,6 +155,7 @@ using flash::kNegInf;
 using flash_tc::align1024;
 using flash_tc::fence_async_smem;
 using flash_tc::kLog2e;
+using flash_tc::load_rows;
 using flash_tc::load_tile;
 using flash_tc::product_rs;
 using flash_tc::product_ss;
@@ -409,23 +410,6 @@ struct F32 {
   static constexpr int BLOCKS = D == 32 ? 3 : D == 64 ? 2 : 1;
   static_assert(BLOCKS * SMEM <= 232448, "f32 forward shared memory");
 };
-
-// rows [r0, r0 + R) of a [S, D] f32 array into R rows of pitch P floats
-// (16-byte cp.async); rows at or past `limit` are zero-filled
-template <int R, int D, int P, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int limit, int tid) {
-  constexpr int CPR = D / 4;  // 16-byte chunks a row
-  static_assert((R * CPR) % NT == 0, "tile chunks");
-#pragma unroll
-  for (int it = 0; it < R * CPR / NT; ++it) {
-    const int i = it * NT + tid;
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = r0 + r < limit;
-    tc::cp_async16(dst + r * P + 4 * c,
-                   src + (ok ? (size_t)(r0 + r) * D + 4 * c : 0), ok);
-  }
-}
 
 // The A fragment (rows g and g + 8 of a warp's 16) of contraction step kk
 // over the Q tile in shared memory, split into hi and lo. The contraction

@@ -2,7 +2,8 @@
 // cores (the forward, csrc/flash_attention_fwd.cu, and the backward,
 // csrc/flash_attention_bwd.cu): the block geometry at head dim D, 16-byte
 // cp.async loads of [R x D] row tiles into wgmma's 128-byte-swizzle layout
-// (zero fill past the edge), the two m64n64k16 products a tile takes
+// (zero fill past the edge; the f32 kernels' padded rows too), the two
+// m64n64k16 products a tile takes
 // (both operands from shared memory; A from registers with B read
 // MN-major), the accumulator as register A fragments, and the epilogue
 // that stages a bf16 result through shared memory for 16-byte stores.
@@ -69,6 +70,24 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
     const bool ok = r0 + r < limit;
     tc::cp_async16(dst + sw_offset<R>(r, c),
                    src + (ok ? (size_t)(r0 + r) * D + c * 8 : 0), ok);
+  }
+}
+
+// rows [r0, r0 + R) of a [S, D] f32 array into R rows of pitch P floats
+// (16-byte cp.async; the f32 kernels' padded tiles); rows at or past
+// `limit` are zero-filled
+template <int R, int D, int P, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int limit, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert((R * CPR) % NT == 0, "tile chunks");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NT; ++it) {
+    const int i = it * NT + tid;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < limit;
+    tc::cp_async16(dst + r * P + 4 * c,
+                   src + (ok ? (size_t)(r0 + r) * D + 4 * c : 0), ok);
   }
 }
 
