@@ -58,20 +58,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
              dropped entries must be exactly the twin's keep mask; times
              kernels, twins and torch SDPA (forward, and its backward for
              dq and dk/dv), with achieved TFLOP/s and share of the bound;
-6. adamw   — the one-pass AdamW kernel vs its plain twin on a 1024x4096
-             leaf and the 50304x1024 embedding, coupled and decoupled
-             decay, GPT-1.3B's 50304x2048 embedding and 2048x8192 MLP leaf,
-             plus an odd length and an unaligned view; times kernel, twin
-             and torch.optim.AdamW(fused=True); times the launch floor
-             (an add_ on one f32 value, held);
+6. adamw   — the one-pass AdamW kernel on one leaf vs its plain twin
+             on a 1024x4096 leaf and the 50304x1024 embedding, coupled and
+             decoupled decay, GPT-1.3B's 50304x2048 embedding and
+             2048x8192 MLP leaf, plus an odd length and an unaligned view;
+             times kernel, twin and torch.optim.AdamW(fused=True); times
+             the launch floor (an add_ on one f32 value, held); then the
+             multi-leaf launch over GPT-345M's 388 and DETR-R50's 422 leaf
+             shapes, each as is and with biases and norm weights kept from
+             decay under a clip scale, over an edge set (a 1-value leaf,
+             ragged float4 tails, views off a 16-byte boundary, coupled and
+             decoupled) and over 1100 leaves (three launches): each
+             against the multi-leaf twin at 1e-6 of max(1, |twin|), a
+             second launch bit for bit; the two sets timed (held) beside
+             the bound (28 bytes a value), torch.optim.AdamW(fused=True),
+             the route with the clip's coefficient, and (unheld) the twin
+             and the parent's route (its clip's scaled copies, then #10 a
+             leaf of at least 16384 values, alone, and the plain update on
+             the rest);
 7. train   — gpt3-345M at full width and depth, f32 params on cuda,
              dropout 0, through Engine(GPTPretrainingCriterion,
              AdamW(1e-4, weight_decay=0.01, fused_kernel=True), bf16 AMP):
              batch 8 x 1024 tokens from numpy seed 0, 3 warm-up steps and
              10 timed steps with one sync at the end; per step 24 launches
-             of each flash kernel and one AdamW launch per eligible leaf
-             (146); the loss must be finite and fall; one step under
-             torch.profiler for the busy share and the top kernels;
+             of each flash kernel and one multi-leaf AdamW launch over all
+             388 f32 leaves (none on the plain path); the loss must be
+             finite and fall; one step under torch.profiler for the busy
+             share, the host's launches and device time by kind;
 8. train-cpu — the same width cut to 2 layers, batch 1 x 256, f32 without
              AMP: one train_batch on cuda and on the CPU from the same
              weights (loss within 1e-4 relative; every gradient leaf within
@@ -112,8 +125,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              labelled, random NSP labels), 3 warm-up and 10 timed steps
              with one sync at the end; per step 24 launches each of the
              y-only fused LN forward and backward, 12 of each flash
-             kernel and 77 AdamW launches, and a falling loss; one step
-             profiled;
+             kernel and one multi-leaf AdamW launch over all 207 leaves,
+             and a falling loss; one step profiled; #10 timed over the
+             leaf set;
 12. gpt-fused-ln — gpt3-345M training with fused_ln=True at batch 8 x 1024
              (bf16 AMP), 3 steps: 24 launches each of kernels #6 and #7 a
              step and a finite, falling loss;
@@ -182,9 +196,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              gpt-1.3b stage without the TPU's recompute and bf16 moments):
              fused_ln off, 2 warm-up and 10 timed steps ending in one
              sync, and on, 2 + 5; per step 24 launches of each flash
-             kernel, 146 AdamW launches, 24 of #6 and #7 with fused_ln (0
-             without) and none of #8/#9; a finite, falling loss; ms a step,
-             tokens/s, peak memory and one profiled step each;
+             kernel, one multi-leaf AdamW launch over all 388 leaves, 24
+             of #6 and #7 with fused_ln (0 without) and none of #8/#9; a
+             finite, falling loss; ms a step, tokens/s, peak memory and one
+             profiled step each; then #10 timed over the leaf set;
 23. gpt-1.3b-cpu — gpt3-1.3B cut to 2 layers at hidden 2048, fused_ln,
              f32, batch 1 x 128: one step on cuda (kernels #6/#7 on rows of
              2048) and on the CPU from the same weights, held to phase 8's
@@ -242,9 +257,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 27. fit-lenet — the reference's smoke test through Model: LeNet,
              MNIST(mode="train") (6000 synthetic images), Adam(1e-3,
              fused_kernel=True), CrossEntropyLoss, Accuracy, 6 epochs at
-             batch 256: exactly 144 launches of #10 (one a step, on
-             fc.0.weight) and no other kernel; evaluate(MNIST(mode=
-             "test")) acc > 0.95; #10 at that 400 x 120 leaf held to its
+             batch 256: exactly 144 launches of #10 (one a step, over
+             all 10 leaves) and no other kernel; evaluate(MNIST(mode=
+             "test")) acc > 0.95; #10 over that leaf set held to its
              twin and timed; then 3 Model.train_batch calls on cuda and
              on the CPU from the same weights (each from the CPU's
              state), held to phase 8's bars;
@@ -306,8 +321,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (cxcywh normalised, w and h in [0.05, 0.5], 80 classes), batch
              4, 4 epochs of 4 steps: per step 18 launches of each of #1,
              #3 and #4 (f32, head_dim 32; #3/#4 6 at each of DETR's three
-             attention shapes) and one of #10 a leaf of at least
-             16384 values, no other kernel of the port; finite losses, the
+             attention shapes) and one of #10 over all 422 leaves, no
+             other kernel of the port; finite losses, the
              last epoch's below the first's; ms a step and images/s over
              steps 5-16 (and the median step, the loader's wait a batch,
              the host's time between steps), peak memory, the auction's
@@ -315,7 +330,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              iterations a step; one fit step and one Model.train_batch
              profiled (busy share, device time grouped: cuDNN, eager
              passes, GEMMs, #1, #3, #4, #10); the auction alone on one
-             batch's cost; #10 timed at a feed-forward leaf;
+             batch's cost;
 34. detr-train-cpu — a DETR with head_dim 32 (d_model 256, 8 heads) cut to
              2 + 2 layers on the tiny backbone, dropout 0, at 1 x 3 x 256 x
              256: the auction's matches on each device's outputs equal,
@@ -381,15 +396,17 @@ timed number of the kernel table is reported held (the value) and unheld
 (the same launches on a free device, as the host reaches them).
 
 Prints the kernel table as one JSON line (#1 and #2 a row per dtype a
-main path runs; #1, #3, #4, #6, #7 and #10 again at GPT-1.3B's shapes,
-with a "shape" key; #11 again on the training path, with a "path" key and
+main path runs; #1, #3, #4, #6 and #7 again at GPT-1.3B's shapes, with
+a "shape" key; #10 a row per path's leaf set (train, ernie, gpt-1.3b,
+fit-lenet, detr-train) with a "path" key, its launches a step and the
+parent's route; #11 again on the training path, with a "path" key and
 its 17 launches a forward; #11 on fit-resnet50's training and f32
-evaluate/predict forwards and #10 on fit-lenet, with a "path" key; #1
+evaluate/predict forwards, with a "path" key; #1
 f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve;
 #1 f32 at head_dim 32 on detr-train, timed at its encoder's shape, #3
 and #4 f32 at each of its three attention shapes with their launches
 there, the backward's 3xTF32 bound with its CUDA-core one beside in
-"bound_cores_ms", and #10 on detr-train at a feed-forward leaf),
+"bound_cores_ms"),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -429,6 +446,13 @@ cuBLAS's GEMM alone and the bound; the 32- and 17-launch sums). The forward
 mode first checks that cvt.rna.tf32.f32 rounds as the kernels' integer
 tf32 rounding does and times back-to-back mma.sync TF32 products, the
 ceiling the f32 kernel is read against.
+
+    python3 chip_smoke.py --adamw-geometry
+
+builds #10 (csrc/fused_adamw.cu) at six launch geometries (512 or 16
+leaves a launch, 1024 to 16384 values a chunk) and times each on LeNet's
+leaf set, a 256 x 2048 and a 1024 x 4096 leaf alone, and DETR-R50's and
+GPT-345M's leaf sets, each held to the twin.
 """
 from __future__ import annotations
 
@@ -531,7 +555,7 @@ def _windows(torch, fn, iters, flush, spin_ms):
     return sum(s.elapsed_time(e) for s, e in evs) / iters, queued_ms, pending
 
 
-def time_ms(torch, fn, iters=10, flush=None):
+def time_ms(torch, fn, iters=10, flush=None, held=True):
     """Mean device ms of fn() over iters launches, CUDA events around each
     launch only; ``flush`` (run between launches, untimed) evicts L2.
 
@@ -543,11 +567,18 @@ def time_ms(torch, fn, iters=10, flush=None):
     queue unheld; if the last event has already completed when the host is
     done, the spin ended too soon: it is tried once more 4x as long, then
     the function raises. ``.unheld`` is the reading without the spin,
-    with the events recorded as the host reaches them."""
+    with the events recorded as the host reaches them. ``held=False``
+    returns that reading alone, for a call of more launches than the
+    device's launch queue takes (thousands): the host then waits on the
+    queue, and no spin can hold the device until it has queued them."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     free_ms, queued_ms, _ = _windows(torch, fn, iters, flush, 0)
+    if not held:
+        out = Timing(free_ms)
+        out.unheld = free_ms
+        return out
     spin_ms = 10.0 + 3.0 * queued_ms
     for _ in range(2):
         held, _, pending = _windows(torch, fn, iters, flush, spin_ms)
@@ -833,6 +864,14 @@ def phase_build():
             log(f"build: flash_fwd_tc_kernel<64> SASS basic block of {n} "
                 f"instructions = {n / 32:.1f} a pair over 32 pairs a "
                 f"thread: {counts}")
+    # #10's leaf table is a __grid_constant__ parameter: copied into local
+    # memory (a stack frame of its size) every thread would read it from
+    # there
+    adamw = built.get("fused_adamw", (0, ""))[1]
+    frames = [int(x) for x in re.findall(r"(\d+) bytes stack frame", adamw)]
+    log(f"build: adamw_kernel stack frames {frames} bytes")
+    check(not adamw or (frames and max(frames) == 0),
+          f"build: adamw_kernel keeps a {frames} byte stack frame")
     _f32_fwd_sass(lib)
     _f32_bwd_sass(_build._lib_path("flash_attention_bwd")[1])
     _conv_f32_sass(_build._lib_path("conv_bn_act")[1])
@@ -2457,13 +2496,14 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
                              device="cuda")[offset:].view(shape)
     p, m, g = mk(), mk() * 0.1, mk()
     v = mk().abs() * 0.01
-    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
-              decoupled=decoupled)
+    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=decoupled)
     step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)  # lr, bc1, bc2 at step 3
     kern = [x.clone() if not offset else x for x in (p, m, v)]
     twin = [x.clone() for x in (p, m, v)]
-    ka.fused_adamw_update(*kern, g, *step, **hp)
-    ka.adamw_update_plain(*twin, g, *step, **hp)
+    # one leaf: the multi-leaf wrapper over a list of one
+    table = ka.fused_adamw_multi_update(*([x] for x in kern), [g], *step,
+                                        weight_decays=[0.01], **hp)
+    ka.adamw_update_plain(*twin, g, *step, weight_decay=0.01, **hp)
     torch.cuda.synchronize()
     err = max(_err(a, b)[0] for a, b in zip(kern, twin))
     check(math.isfinite(err) and err <= ADAMW_TOL,
@@ -2472,10 +2512,11 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
     row = dict(shape=shape, decoupled=decoupled, offset=offset,
                max_abs_err=err)
     if timed:
-        row["ms"] = time_ms(torch, lambda: ka.fused_adamw_update(
-            *kern, g, *step, **hp), flush=flush)
+        row["ms"] = time_ms(torch, lambda: ka.fused_adamw_multi_update(
+            *([x] for x in kern), [g], *step, weight_decays=[0.01],
+            table=table, **hp), flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: ka.adamw_update_plain(
-            *twin, g, *step, **hp), flush=flush)
+            *twin, g, *step, weight_decay=0.01, **hp), flush=flush)
         lp = torch.nn.Parameter(p.clone())
         lp.grad = g
         lib = torch.optim.AdamW([lp], lr=1e-4, weight_decay=0.01,
@@ -2483,6 +2524,175 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
         row["library_ms"] = time_ms(torch, lib.step, flush=flush)
         # read p, m, v, g once and write p, m, v once: 28 bytes a value
         row["bound_ms"], row["bound_by"] = bound(28 * n, 15 * n)
+    return row
+
+
+def _leaf_shapes(torch, build):
+    """(name, shape) of every trainable parameter of the model ``build()``
+    makes; the model is dropped before this returns."""
+    model = build()
+    shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()
+              if p.requires_grad]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _no_decay(name):
+    """Biases and norm weights: the leaves an apply_decay_param_fun
+    usually excludes from weight decay."""
+    return name.endswith("bias") or "norm" in name or ".ln" in name
+
+
+def _parent_clip(torch, gs, clip_norm):
+    """The parent's ClipGradByGlobalNorm.apply, for its route's time: the
+    norm from a sum of squares a leaf, then a scaled copy of every
+    gradient."""
+    total = torch.sqrt(sum(torch.sum(x.float() * x.float()) for x in gs))
+    coef = torch.clamp(clip_norm / total.clamp_min(1e-6), max=1.0)
+    return [(x * coef).to(x.dtype) for x in gs]
+
+
+def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
+                    wd=0.01, exclude=False, clip=None, offsets=None,
+                    timed=True):
+    """The multi-leaf kernel (#10) over one leaf set of ``shapes``: p, m, v,
+    g drawn on the card (each leaf its own buffer; ``offsets`` starts a
+    leaf's four arrays that many values into theirs, off a 16-byte
+    boundary), lr, bc1, bc2 of step 3. ``exclude``: biases and norm weights
+    take weight decay 0; ``clip``: the global-norm clip's coefficient at
+    that clip_norm (ClipGradByGlobalNorm.coefficient) scales every
+    gradient. Held to the multi-leaf twin at ADAMW_TOL, a second launch
+    from the same inputs bit for bit, and ceil(leaves / MAX_LEAVES)
+    launches. ``timed``: held ms of the kernel, the twin, the route (the
+    clip's coefficient, then the kernel), the parent's route (the parent's
+    clip, ``_parent_clip``, then #10 on each leaf of at least MIN_SIZE
+    values alone and the plain update on the others) and torch.optim.AdamW(fused=True) over
+    the same leaves, beside the bound (28 bytes a value)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+    names = [n for n, _ in shapes]
+    offsets = offsets or [0] * len(shapes)
+    total = sum(math.prod(s) for _, s in shapes)
+
+    def mk(scale=1.0, absolute=False):
+        out = []
+        for (_, s), off in zip(shapes, offsets):
+            x = torch.randn(math.prod(s) + off, generator=gen,
+                            device="cuda")[off:].view(s)
+            x = x.abs() if absolute else x
+            out.append(x.mul_(scale) if scale != 1.0 else x)
+        return out
+
+    p0, m0, v0, g = mk(), mk(0.1), mk(0.01, absolute=True), mk()
+    wds = [0.0 if exclude and _no_decay(n) else wd for n in names]
+    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=decoupled,
+              weight_decays=wds)
+    step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)
+    cl = None if clip is None else ClipGradByGlobalNorm(clip)
+    scale = None if cl is None else cl.coefficient(g)
+
+    def clones():
+        return [[x.clone() if not off else
+                 torch.empty(x.numel() + off, device="cuda")[off:]
+                 .view(x.shape).copy_(x) for x, off in zip(xs, offsets)]
+                for xs in (p0, m0, v0)]
+
+    kern = clones()
+    n0, l0 = (ka.fused_adamw_multi_update.launches,
+              ka.fused_adamw_multi_update.leaves)
+    table = ka.fused_adamw_multi_update(*kern, g, *step, scale=scale, **hp)
+    want_launches = -(-len(shapes) // ka.MAX_LEAVES)
+    check((ka.fused_adamw_multi_update.launches - n0,
+           ka.fused_adamw_multi_update.leaves - l0)
+          == (want_launches, len(shapes)),
+          f"adamw {tag}: {ka.fused_adamw_multi_update.launches - n0} "
+          f"launches over {ka.fused_adamw_multi_update.leaves - l0} leaves, "
+          f"want {want_launches} over {len(shapes)}")
+    twin = clones()
+    ka.adamw_multi_update_plain(*twin, g, *step, scale=scale, **hp)
+    torch.cuda.synchronize()
+    # of max(1, |twin|): under a clip's coefficient (~5e-6 here) the
+    # scaled gradient leaves v at its random start, and where that is near
+    # 0 a step reaches O(1000), whose ulp alone passes 1e-6 absolute (the
+    # twin divides by bc1 and bc2 as PyTorch does, by a reciprocal)
+    errs = [_err(a, b) for xs, ys in zip(kern, twin) for a, b in zip(xs, ys)]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    top = max(y.abs().max().item() for y in twin[0])
+    check(math.isfinite(err) and rel <= ADAMW_TOL,
+          f"adamw {tag}: {rel} of max(1, |twin|) > {ADAMW_TOL} (max_abs_err "
+          f"{err}, max |p| {top})")
+    del twin
+    again = clones()
+    ka.fused_adamw_multi_update(*again, g, *step, scale=scale, **hp)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for xs, ys in zip(kern, again)
+               for a, b in zip(xs, ys))
+    check(same, f"adamw {tag}: a second launch from the same inputs "
+          "differs")
+    del again
+    row = dict(tag=tag, leaves=len(shapes), values=total,
+               launches_per_step=want_launches, exclude=exclude, clip=clip,
+               max_abs_err=err, max_rel_err=rel, max_p=top,
+               small_leaves=sum(math.prod(s) < ka.MIN_SIZE
+                                for _, s in shapes))
+    if timed:
+        kp, km, kv = kern
+        run = lambda: ka.fused_adamw_multi_update(  # noqa: E731
+            kp, km, kv, g, *step, scale=scale, table=table, **hp)
+        row["ms"] = time_ms(torch, run, flush=flush)
+        # the twin and the parent's route issue ~19 launches a small leaf:
+        # more than the launch queue holds, so unheld (host-bound) times
+        row["plain_ms"] = time_ms(torch, lambda: ka.adamw_multi_update_plain(
+            kp, km, kv, g, *step, scale=scale, **hp), flush=flush,
+            held=False)
+
+        def route():
+            sc = None if cl is None else cl.coefficient(g)
+            ka.fused_adamw_multi_update(kp, km, kv, g, *step, scale=sc,
+                                        table=table, **hp)
+
+        one_leaf = {}  # a one-leaf table a leaf, as the parent's did
+
+        def parent():
+            gs = g if cl is None else _parent_clip(torch, g, clip)
+            for i, (p, m, v, gg, w) in enumerate(zip(kp, km, kv, gs, wds)):
+                if p.numel() >= ka.MIN_SIZE:
+                    one_leaf[i] = ka.fused_adamw_multi_update(
+                        [p], [m], [v], [gg], *step, beta1=0.9, beta2=0.999,
+                        eps=1e-8, weight_decays=[w], decoupled=decoupled,
+                        table=one_leaf.get(i))
+                else:
+                    ka.adamw_update_plain(
+                        p, m, v, gg, *step, beta1=0.9, beta2=0.999,
+                        eps=1e-8, weight_decay=w, decoupled=decoupled)
+        row["route_ms"] = time_ms(torch, route, flush=flush)
+        row["parent_route_ms"] = time_ms(torch, parent, flush=flush,
+                                         held=False)
+        lib_params = [torch.nn.Parameter(p) for p in kp]
+        for lp, gg in zip(lib_params, g):
+            lp.grad = gg
+        lib = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=wd,
+                                fused=True)
+        row["library_ms"] = time_ms(torch, lib.step, flush=flush)
+        del lib, lib_params
+        # read p, m, v, g once and write p, m, v once: 28 bytes a value
+        row["bound_ms"], row["bound_by"] = bound(28 * total, 15 * total)
+        log(f"adamw {tag}: {len(shapes)} leaves, {total} values "
+            f"({row['small_leaves']} below {ka.MIN_SIZE}), "
+            f"{want_launches} launch(es): held ms {row['ms']:.4f} (unheld "
+            f"{unheld(row['ms']):.4f}), bound {row['bound_ms']:.4f} "
+            f"({row['bound_ms'] / row['ms']:.3f} of it); the route "
+            f"(coefficient + kernel) held {row['route_ms']:.4f} (unheld "
+            f"{unheld(row['route_ms']):.4f}); unheld: the parent's route "
+            f"{row['parent_route_ms']:.4f}, the twin {row['plain_ms']:.4f}; "
+            f"torch.optim.AdamW(fused=True) {row['library_ms']:.4f} (unheld "
+            f"{unheld(row['library_ms']):.4f}); max_abs_err {err:.3e} "
+            f"({rel:.3e} of max(1, |twin|), max |p| {top:.3e})")
+    else:
+        log(f"adamw {tag}: {len(shapes)} leaves, {total} values: "
+            f"max_abs_err {err:.3e} ({rel:.3e} of max(1, |twin|), max |p| "
+            f"{top:.3e}), a second launch bit for bit")
     return row
 
 
@@ -2518,7 +2728,44 @@ def phase_adamw(torch, flush):
     floor = launch_floor(torch)
     log(f"adamw: the launch floor (an add_ on one f32 value) held "
         f"{floor:.4f} ms (unheld {unheld(floor):.4f})")
-    return dict(rows=rows, launch_floor_ms=floor)
+    # the multi-leaf launch over whole leaf sets: GPT-345M's 388 leaves and
+    # DETR-R50's 422, as their training paths give them, each as is and
+    # with biases and norm weights kept from decay under a clip scale
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+    from paddle_tpu_torch.vision.models import DETR
+    sets = {
+        "gpt3-345M": _leaf_shapes(torch, lambda: GPTForCausalLM(
+            _resolve_config("gpt3-345M"), device="cuda",
+            generator=seed(0, device="cuda"))),
+        "detr-r50": _leaf_shapes(torch, lambda: DETR(
+            device="cuda", generator=seed(0, device="cuda")))}
+    check((len(sets["gpt3-345M"]), len(sets["detr-r50"])) == (388, 422),
+          f"adamw: leaf sets of {[len(v) for v in sets.values()]} leaves, "
+          "want GPT-345M's 388 and DETR-R50's 422")
+    multi = {}
+    for name, shapes in sets.items():
+        for exclude, clip in ((False, None), (True, 0.1)):
+            multi[(name, exclude)] = _adamw_set_case(
+                torch, f"{name} exclude={exclude} clip={clip}", shapes, gen,
+                flush, exclude=exclude, clip=clip)
+            torch.cuda.empty_cache()
+    # a 1-value leaf, ragged float4 tails, chunk edges, views 1-3 values
+    # off a 16-byte boundary; and 1100 leaves: three launches
+    edge = [("one", (1,)), ("tail.weight", (16411,)), ("view", (20000,)),
+            ("edge", (16384,)), ("bias", (7,)), ("two_chunks", (3, 16389)),
+            ("one_off", (1,))]
+    for decoupled in (True, False):
+        for exclude, clip in ((False, None), (True, 0.1)):
+            _adamw_set_case(torch, f"edge decoupled={decoupled} exclude="
+                            f"{exclude} clip={clip}", edge, gen, flush,
+                            decoupled=decoupled, exclude=exclude, clip=clip,
+                            offsets=[0, 0, 1, 0, 2, 0, 3], timed=False)
+    many = [(f"l{i}", (1 + (i * 37) % 5000,)) for i in range(1100)]
+    _adamw_set_case(torch, "1100 leaves", many, gen, flush, exclude=True,
+                    clip=0.1, timed=False)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launch_floor_ms=floor, multi=multi)
 
 
 # -- fused residual-add + LayerNorm (#6-#9) -----------------------------------
@@ -3137,11 +3384,70 @@ def _batch(cfg, b, s, device):
             torch.from_numpy(labels).to(device))
 
 
+class _AdamWWatch:
+    """Over a run: the multi-leaf AdamW wrapper's leaves, and the calls of
+    the plain update on f32 leaves (the optimizer module's
+    adamw_update_plain wrapped for the run)."""
+
+    def __enter__(self):
+        import torch
+        from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+        from paddle_tpu_torch.optimizer import optimizer as om
+        self._om, self._orig = om, om.adamw_update_plain
+        ka.fused_adamw_multi_update.leaves = 0
+        self.plain_f32 = 0
+
+        def counted(p, *args, **kw):
+            self.plain_f32 += p.dtype == torch.float32
+            return self._orig(p, *args, **kw)
+        om.adamw_update_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+        self._om.adamw_update_plain = self._orig
+        self.leaves = ka.fused_adamw_multi_update.leaves
+
+
+def _check_adamw_route(tag, model, opt, watch, launches, steps):
+    """Every f32 leaf went through the multi-leaf kernel each step, in
+    ceil(leaves / MAX_LEAVES) launches, and the plain update ran on no f32
+    leaf. -> f32 leaves."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.fused_adamw import MAX_LEAVES
+    f32 = sum(p.dtype == opt._state[n]["m"].dtype == opt._state[n]["v"].dtype
+              == torch.float32 for n, p in model.named_parameters()
+              if p.requires_grad)
+    per_step = -(-f32 // MAX_LEAVES)
+    got = (launches["fused_adamw_multi_update"], watch.leaves,
+           watch.plain_f32)
+    want = (per_step * steps, f32 * steps, 0)
+    check(got == want, f"{tag}: AdamW (launches, leaves, plain updates of "
+          f"f32 leaves) over {steps} steps {got}, want {want}")
+    log(f"{tag}: AdamW: {f32} f32 leaves a step through the multi-leaf "
+        f"kernel in {per_step} launch(es); none on the plain path")
+    return f32
+
+
+# device kernels of a transformer training step, grouped by name (first
+# match wins)
+LM_TRAIN_GROUPS = (
+    ("#1 (flash forward)", ("flash_fwd",)),
+    ("#3/#4 (flash backward)", ("flash_bwd",)),
+    ("#6-#9 (fused LayerNorm)", ("ln_fwd", "ln_bwd", "colsum")),
+    ("#10 (adamw_kernel)", ("adamw_kernel",)),
+    ("GEMMs", ("gemm", "cutlass", "cublas", "sm90_xmma")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("foreach", ("multi_tensor_apply",)),
+    ("elementwise and reductions (casts, activations, the loss)",
+     ("elementwise", "reduce", "copy", "fill", "cat", "index", "softmax",
+      "nll", "gather", "scatter")),
+)
+
+
 def phase_train(torch):
     from paddle_tpu_torch.nlp.gpt import _resolve_config
     from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.ops.kernels.fused_adamw import \
-        fused_adamw_supported
     b, s, warm, steps = 8, 1024, 3, 10
     cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=0.0,
                           attention_probs_dropout_prob=0.0)
@@ -3162,24 +3468,14 @@ def phase_train(torch):
         log(f"train: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
             f"loss {losses[-1].item():.4f}")
     opt = eng.optimizer
-    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
-                                         opt._state[n]["v"])
-                   for n, p in model.named_parameters())
-    log(f"train: {eligible} of {len(opt._state)} leaves eligible for the "
-        "AdamW kernel")
-    # every weight matrix (6 a layer) and both embeddings: 146 at 24 layers;
-    # the biases and LayerNorm parameters stay on the plain path
-    want = 6 * cfg.num_hidden_layers + 2
-    check(eligible == want, f"train: {eligible} eligible AdamW leaves, want "
-          f"{want} (every weight matrix and both embeddings)")
-
     for w in WRAPPERS:
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(eng.train_batch([ids], [labels])[0])
-    torch.cuda.synchronize()
+    with _AdamWWatch() as watch:
+        for _ in range(steps):
+            losses.append(eng.train_batch([ids], [labels])[0])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in WRAPPERS}
     log(f"train: kernel launches over {steps} steps: {launches}")
@@ -3188,9 +3484,7 @@ def phase_train(torch):
                  "flash_attention_bwd_dkv"):
         check(launches[name] == per_layer, f"train: {name} launched "
               f"{launches[name]} times in {steps} steps, want {per_layer}")
-    check(launches["fused_adamw_update"] == eligible * steps,
-          f"train: fused_adamw_update launched "
-          f"{launches['fused_adamw_update']} times, want {eligible * steps}")
+    leaves = _check_adamw_route("train", model, opt, watch, launches, steps)
     vals = [x.item() for x in losses]
     check(all(math.isfinite(x) for x in vals), f"train: loss {vals}")
     check(vals[-1] < vals[0], f"train: loss did not fall: {vals}")
@@ -3199,65 +3493,12 @@ def phase_train(torch):
     log(f"train: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms"
         f"/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> {vals[-1]:.4f};"
         f" max_memory_allocated {peak_gb:.2f} GiB")
-    prof = profile_train(torch, eng, [ids], [labels])
-    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+    prof = profile_grouped(torch, "train", "one training step",
+                           lambda: eng.train_batch([ids], [labels]),
+                           LM_TRAIN_GROUPS)
+    return dict(launches=launches, adamw_leaves=leaves, tok_s=tok_s,
                 ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
                 losses=vals, **prof)
-
-
-# device-side names of the port's kernels, as the profiler lists them
-OWN_KERNELS = ("flash_fwd_tc_kernel", "flash_fwd_kernel",
-               "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
-               "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel",
-               "ln_fwd_kernel", "ln_bwd_kernel", "ln_fwd_wide_kernel",
-               "ln_bwd_wide_kernel", "colsum_kernel")
-
-
-def profile_train(torch, eng, inputs, labels):
-    """One training step under torch.profiler: the device's busy share of
-    the step's wall time, the kernels that take the device time, and the
-    share of the port's own kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.train_batch(inputs, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted((a for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA),
-                  key=lambda a: a.self_device_time_total, reverse=True)
-    busy = sum(a.self_device_time_total for a in rows) / 1e6
-    if busy <= 0:
-        log("profile: the profiler recorded no device time; training busy "
-            "share not measured")
-        return dict(busy_share=None, kernel_share=None)
-    own = dict.fromkeys(OWN_KERNELS, 0.0)
-    for a in rows:
-        for name in own:
-            if name in a.key:
-                own[name] += a.self_device_time_total / 1e6
-    log(f"profile: one training step: wall {wall * 1e3:.3f} ms under the "
-        f"profiler, device busy {busy * 1e3:.3f} ms = {busy / wall:.3f} "
-        "of it")
-    for name, t in own.items():
-        if t:
-            log(f"profile:   {name}: {t * 1e3:.3f} ms = {t / busy:.3f} of "
-                "the device time")
-    for a in rows[:10]:
-        log(f"profile:   {a.self_device_time_total / 1e3:9.3f} ms  "
-            f"x{a.count:<5d} {a.key[:90]}")
-    host = sorted((a for a in prof.key_averages()
-                   if a.device_type == DeviceType.CPU),
-                  key=lambda a: a.self_cpu_time_total, reverse=True)
-    log(f"profile: host time by op (self), of {wall * 1e3:.3f} ms:")
-    for a in host[:8]:
-        log(f"profile:   {a.self_cpu_time_total / 1e3:9.3f} ms  "
-            f"x{a.count:<5d} {a.key[:90]}")
-    return dict(busy_share=busy / wall,
-                kernel_share={n: t / busy for n, t in own.items()})
 
 
 def _cross_device_step(tag, what, models, engines, batches, crit,
@@ -3459,8 +3700,6 @@ def phase_ernie(torch):
     """ERNIE-3.0-base pretraining, bench.py's ernie stage on the card."""
     from paddle_tpu_torch.nlp.ernie import _resolve_config
     from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.ops.kernels.fused_adamw import \
-        fused_adamw_supported
     b, s, warm, steps = 32, 512, 3, 10
     cfg = _resolve_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
                           attention_probs_dropout_prob=0.0, fused_ln=True)
@@ -3483,22 +3722,14 @@ def phase_ernie(torch):
         log(f"ernie: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
             f"loss {losses[-1].item():.4f}")
     opt = eng.optimizer
-    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
-                                         opt._state[n]["v"])
-                   for n, p in model.named_parameters())
-    # 6 matrices a layer, the word and position embeddings, the pooler's
-    # dense weight, cls.transform.weight and cls.decoder_bias
-    want = 6 * cfg.num_hidden_layers + 5
-    check(eligible == want, f"ernie: {eligible} eligible AdamW leaves of "
-          f"{len(opt._state)}, want {want}")
-
     for w in WRAPPERS:
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(eng.train_batch(inputs, labels)[0])
-    torch.cuda.synchronize()
+    with _AdamWWatch() as watch:
+        for _ in range(steps):
+            losses.append(eng.train_batch(inputs, labels)[0])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in WRAPPERS}
     log(f"ernie: kernel launches over {steps} steps: {launches}")
@@ -3508,8 +3739,8 @@ def phase_ernie(torch):
         "fused_add_layer_norm_y_bwd": 2 * layers,
         "fused_add_layer_norm_fwd": 0, "fused_add_layer_norm_bwd": 0,
         "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
-        "flash_attention_bwd_dkv": layers,
-        "fused_adamw_update": eligible}, steps)
+        "flash_attention_bwd_dkv": layers}, steps)
+    leaves = _check_adamw_route("ernie", model, opt, watch, launches, steps)
     vals = [x.item() for x in losses]
     check(all(math.isfinite(x) for x in vals), f"ernie: loss {vals}")
     check(vals[-1] < vals[0], f"ernie: loss did not fall: {vals}")
@@ -3518,10 +3749,18 @@ def phase_ernie(torch):
     log(f"ernie: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms"
         f"/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> {vals[-1]:.4f};"
         f" max_memory_allocated {peak_gb:.2f} GiB")
-    prof = profile_train(torch, eng, inputs, labels)
-    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+    prof = profile_grouped(torch, "ernie", "one training step",
+                           lambda: eng.train_batch(inputs, labels),
+                           LM_TRAIN_GROUPS)
+    shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    del model, eng, opt
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    adamw = _adamw_set_case(torch, "ernie-3.0-base", shapes, gen, None)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, adamw_leaves=leaves, tok_s=tok_s,
                 ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
-                losses=vals, **prof)
+                losses=vals, adamw=adamw, **prof)
 
 
 def phase_gpt_fused_ln(torch):
@@ -3593,8 +3832,6 @@ def _gpt13b_run(torch, fused_ln, b, s, warm, steps):
     read over them, then one profiled step."""
     from paddle_tpu_torch.nlp.gpt import _resolve_config
     from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.ops.kernels.fused_adamw import \
-        fused_adamw_supported
     tag = "gpt-1.3b" + (" fused_ln" if fused_ln else "")
     cfg = _resolve_config("gpt3-1.3B", hidden_dropout_prob=0.0,
                           attention_probs_dropout_prob=0.0, fused_ln=fused_ln)
@@ -3616,18 +3853,14 @@ def _gpt13b_run(torch, fused_ln, b, s, warm, steps):
         log(f"{tag}: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
             f"loss {losses[-1].item():.4f}")
     opt = eng.optimizer
-    eligible = sum(fused_adamw_supported(p, opt._state[n]["m"],
-                                         opt._state[n]["v"])
-                   for n, p in model.named_parameters())
-    check(eligible == 6 * cfg.num_hidden_layers + 2,
-          f"{tag}: {eligible} eligible AdamW leaves")
     for w in WRAPPERS:
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(eng.train_batch([ids], [labels])[0])
-    torch.cuda.synchronize()
+    with _AdamWWatch() as watch:
+        for _ in range(steps):
+            losses.append(eng.train_batch([ids], [labels])[0])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in WRAPPERS}
     log(f"{tag}: kernel launches over {steps} steps: {launches}")
@@ -3637,8 +3870,9 @@ def _gpt13b_run(torch, fused_ln, b, s, warm, steps):
         "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
         "flash_attention_bwd_dkv": layers,
         "fused_add_layer_norm_fwd": ln, "fused_add_layer_norm_bwd": ln,
-        "fused_add_layer_norm_y_fwd": 0, "fused_add_layer_norm_y_bwd": 0,
-        "fused_adamw_update": eligible}, steps)
+        "fused_add_layer_norm_y_fwd": 0, "fused_add_layer_norm_y_bwd": 0},
+        steps)
+    leaves = _check_adamw_route(tag, model, opt, watch, launches, steps)
     vals = [x.item() for x in losses]
     check(all(math.isfinite(x) for x in vals), f"{tag}: loss {vals}")
     check(vals[-1] < vals[0], f"{tag}: loss did not fall: {vals}")
@@ -3647,12 +3881,15 @@ def _gpt13b_run(torch, fused_ln, b, s, warm, steps):
     log(f"{tag}: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} "
         f"ms/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> "
         f"{vals[-1]:.4f}; max_memory_allocated {peak_gb:.2f} GiB")
-    prof = profile_train(torch, eng, [ids], [labels])
+    prof = profile_grouped(torch, tag, "one training step",
+                           lambda: eng.train_batch([ids], [labels]),
+                           LM_TRAIN_GROUPS)
+    shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
     del model, eng, opt
     torch.cuda.empty_cache()
-    return dict(launches=launches, eligible=eligible, tok_s=tok_s,
+    return dict(launches=launches, adamw_leaves=leaves, tok_s=tok_s,
                 ms_per_step=wall / steps * 1e3, peak_gb=peak_gb,
-                losses=vals, steps=steps, **prof)
+                losses=vals, steps=steps, shapes=shapes, **prof)
 
 
 def phase_gpt13b(torch):
@@ -3661,8 +3898,14 @@ def phase_gpt13b(torch):
     random weights, dropout 0, batch 4 x 1024, bf16 AMP, fused AdamW
     through Engine; fused_ln off (2 warm-up + 10 timed steps) and on
     (2 + 5)."""
-    return {False: _gpt13b_run(torch, False, 4, 1024, 2, 10),
-            True: _gpt13b_run(torch, True, 4, 1024, 2, 5)}
+    res = {False: _gpt13b_run(torch, False, 4, 1024, 2, 10),
+           True: _gpt13b_run(torch, True, 4, 1024, 2, 5)}
+    # #10 over the whole leaf set, once the models are gone
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res["adamw"] = _adamw_set_case(torch, "gpt3-1.3B", res[False]["shapes"],
+                                   gen, None)
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_gpt13b_cpu(torch):
@@ -5093,8 +5336,9 @@ def phase_fit_lenet(torch):
     """The reference's smoke test through Model on the card: LeNet,
     MNIST(mode="train") (6000 synthetic images), Adam(1e-3,
     fused_kernel=True), 6 epochs at batch 256 (24 steps an epoch, one
-    launch of #10 a step, on fc.0.weight), evaluate(MNIST(mode="test"))
-    over 0.95; #10 at that leaf against its twin; then 3 train_batch calls
+    launch of #10 a step over all 10 leaves), evaluate(MNIST(mode="test"))
+    over 0.95; #10 over that leaf set against its twin, timed; then 3
+    train_batch calls
     on the card and on the CPU from the same weights, phase 8's bars."""
     import numpy as np
     from paddle_tpu_torch import Model, nn, seed
@@ -5117,27 +5361,30 @@ def phase_fit_lenet(torch):
     np.random.seed(0)  # the shuffle order
     _zero_launches()
     t0 = time.perf_counter()
-    model.fit(train, epochs=6, batch_size=256, verbose=0)
-    torch.cuda.synchronize()
+    with _AdamWWatch() as watch:
+        model.fit(train, epochs=6, batch_size=256, verbose=0)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
-    _only(tag, launches, "fused_adamw_update", 6 * 24)
+    _only(tag, launches, "fused_adamw_multi_update", 6 * 24)
+    leaves = _check_adamw_route(tag, model.network, model._optimizer, watch,
+                                launches, 6 * 24)
     res = model.evaluate(MNIST(mode="test"), batch_size=256, verbose=0)
     check(res["acc"] > 0.95, f"{tag}: evaluate {res}")
     loader = model._loaders["train"]
     log(f"{tag}: fit 6 epochs x 24 steps in {wall:.3f} s "
-        f"({6 * len(train) / wall:.1f} images/s; the loader's wait "
+        f"({wall / 6:.3f} s an epoch, {6 * len(train) / wall:.1f} images/s; "
+        f"the loader's wait "
         f"{loader.batch_wait_s / loader.batches * 1e3:.3f} ms a batch); "
-        f"#10 x {launches['fused_adamw_update']} (one a step, "
-        f"fc.0.weight's 48000 values), no other kernel; evaluate {res}")
+        f"#10 x {launches['fused_adamw_multi_update']} (one a step over "
+        f"all {leaves} leaves), no other kernel; evaluate {res}")
     gen = torch.Generator(device="cuda").manual_seed(27)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    adamw = _adamw_case(torch, (400, 120), False, gen, scratch.zero_, True)
+    adamw = _adamw_set_case(
+        torch, "lenet", [(n, tuple(p.shape)) for n, p in
+                         model.network.named_parameters()],
+        gen, scratch.zero_, decoupled=False, wd=0.0)
     del scratch
-    log(f"{tag}: #10 at fc.0.weight (400 x 120): max_abs_err "
-        f"{adamw['max_abs_err']:.3e} ms {adamw['ms']:.4f} plain_ms "
-        f"{adamw['plain_ms']:.4f} library_ms {adamw['library_ms']:.4f} "
-        f"bound_ms {adamw['bound_ms']:.4f} ({adamw['bound_by']})")
 
     gm, cm = build("cuda", 1), build("cpu", 2)
     cm.network.load_state_dict({k: v.cpu() for k, v in
@@ -5164,7 +5411,7 @@ def phase_fit_lenet(torch):
             for k, t in st.items():
                 gm._optimizer._state[n][k].copy_(t)
     return dict(launches=launches, wall_s=wall, evaluate=res, adamw=adamw,
-                cpu=worst)
+                adamw_leaves=leaves, cpu=worst)
 
 
 # -- detection serving: DETR-R50 and PP-YOLOE-l --------------------------------
@@ -5575,13 +5822,11 @@ def phase_detr_train(torch):
     DETRLoss(80)).fit over io.DataLoader (2 workers): 16 images of 800 x
     1333 with 1-20 gts each, batch 4, 4 epochs (16 steps; steps 5-16
     timed, each epoch's start included): 18 launches of each of #1, #3,
-    #4 a step and one of #10 a leaf of at least MIN_SIZE values, no other
-    kernel of the port; the loss falls; the auction's host reads and
-    iterations a step; peak memory; one Model.train_batch profiled; the
-    auction timed alone on one batch's cost; #10 at a feed-forward
-    leaf."""
+    #4 a step and one of #10 over every leaf, no other kernel of the
+    port; the loss falls; the auction's host reads and iterations a step;
+    peak memory; one Model.train_batch profiled; the auction timed alone
+    on one batch's cost."""
     from paddle_tpu_torch import Model, seed
-    from paddle_tpu_torch.ops.kernels.fused_adamw import MIN_SIZE
     from paddle_tpu_torch.vision.models import DETR, DETRLoss
     from paddle_tpu_torch.vision.models.detection import detr as port_detr
     tag, b, epochs, warm = "detr-train", 4, 4, 4
@@ -5593,7 +5838,6 @@ def phase_detr_train(torch):
           and len(net.transformer.decoder.layers) == 6
           and net.backbone._layout == "NHWC",
           f"{tag}: not DETR-R50's configuration")
-    leaves = sum(p.numel() >= MIN_SIZE for p in net.parameters())
     model = Model(net, inputs=["images"])  # one input, three labels
     model.prepare(_detr_adamw(net), DETRLoss(num_classes=80))
     syncs0 = port_detr.auction_match.host_syncs
@@ -5608,18 +5852,21 @@ def phase_detr_train(torch):
         return bwd(q, k, *args)
     kfa.flash_attention_bwd = counted_bwd
     try:
-        launches, probe, wall, peak = _fit_detection(
-            torch, tag, model, ds, b, epochs, profile_after=warm - 2)
+        with _AdamWWatch() as watch:
+            launches, probe, wall, peak = _fit_detection(
+                torch, tag, model, ds, b, epochs, profile_after=warm - 2)
     finally:
         kfa.flash_attention_bwd = bwd
     steps = len(probe.losses)
     want_shapes = {(sq, sk): 6 * steps for _, sq, sk in DETR_ATTENTION}
     check(bwd_shapes == want_shapes, f"{tag}: the flash backward ran at "
           f"{bwd_shapes} over {steps} steps, want {want_shapes}")
+    leaves = _check_adamw_route(tag, net, model._optimizer, watch, launches,
+                                steps)
     want = {"flash_attention_fwd": 18 * steps,
             "flash_attention_bwd_dq": 18 * steps,
             "flash_attention_bwd_dkv": 18 * steps,
-            "fused_adamw_update": leaves * steps}
+            "fused_adamw_multi_update": launches["fused_adamw_multi_update"]}
     for name, n in launches.items():
         check(n == want.get(name, 0), f"{tag}: {name} launched {n} times "
               f"over {steps} steps, want {want.get(name, 0)}")
@@ -5637,8 +5884,9 @@ def phase_detr_train(torch):
         f"epochs of {len(ds)} images) in {wall:.2f} s; steps {warm + 1}-"
         f"{steps}: {res['ms_per_step']:.3f} ms a step, "
         f"{res['images_per_s']:.2f} images/s; a step launches "
-        f"#1, #3 and #4 x 18 each and #10 x {leaves} (its leaves of >= "
-        f"{MIN_SIZE} values), no other kernel of the port; the auction "
+        f"#1, #3 and #4 x 18 each and #10 once over all {leaves} leaves "
+        f"(the clip's coefficient scaling each gradient), no other kernel "
+        f"of the port; the auction "
         f"{syncs / steps:.2f} host reads and {iters / steps:.1f} iterations "
         f"a step (B x Q x M = {b} x 100 x {DETECT_GT_SLOTS}); loss "
         f"{probe.losses[0]:.4f} -> {probe.losses[-1]:.4f} (every step "
@@ -5673,17 +5921,6 @@ def phase_detr_train(torch):
         f"{res['auction_one']['iterations']} iterations, "
         f"{res['auction_one']['syncs']} host reads")
     del model, net, x, cost
-    # #10 at a leaf of the path: a feed-forward weight (256 x 2048)
-    gen = torch.Generator(device="cuda").manual_seed(44)
-    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    res["adamw"] = _adamw_case(torch, (256, 2048), True, gen, scratch.zero_,
-                               True)
-    del scratch
-    a = res["adamw"]
-    log(f"{tag}: #10 at a feed-forward leaf (256 x 2048): max_abs_err "
-        f"{a['max_abs_err']:.3e} ms {a['ms']:.4f} plain_ms "
-        f"{a['plain_ms']:.4f} library_ms {a['library_ms']:.4f} bound_ms "
-        f"{a['bound_ms']:.4f} ({a['bound_by']})")
     torch.cuda.empty_cache()
     return res
 
@@ -5886,24 +6123,277 @@ def phase_ppyoloe_train_cpu(torch):
     return r
 
 
+# -- the training paths' steps, one package tree against another -------------
+
+def _lm_steps(torch, tag, eng, inputs, labels, warm, steps):
+    """``warm`` steps, ``steps`` timed ones ending in one sync, then one
+    profiled step: ms a step, the host's kernel launches and the busy
+    share of the profiled step."""
+    for _ in range(warm):
+        eng.train_batch(inputs, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = eng.train_batch(inputs, labels)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    check(math.isfinite(loss.item()), f"{tag}: loss {loss.item()}")
+    prof = profile_grouped(torch, tag, "one training step",
+                           lambda: eng.train_batch(inputs, labels),
+                           LM_TRAIN_GROUPS)
+    log(f"{tag}: {steps} steps, {ms:.3f} ms a step")
+    return dict(ms_per_step=ms, launch_calls=prof["launch_calls"],
+                busy_share=prof["busy_share"])
+
+
+def steps_of(torch):
+    """The training paths' step numbers with whatever paddle_tpu_torch is
+    first on sys.path (its kernels built from its own sources): gpt3-345M
+    (batch 8 x 1024) and ERNIE-3.0-base (32 x 512), 3 warm-up and 10
+    timed steps, GPT-1.3B (4 x 1024) 2 + 5, each with one profiled step;
+    DETR-R50 through Model.fit as phase detr-train runs it (16 steps,
+    steps 5-16 timed) and one Model.train_batch profiled; the LeNet
+    quickstart's 6 epochs. Every path with AdamW(fused_kernel=True), bf16
+    AMP for the language models, as the smoke's phases run them."""
+    import numpy as np
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nlp.ernie import _resolve_config as ernie_config
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import DETR, DETRLoss, LeNet
+    log(f"steps-of: paddle_tpu_torch from {os.path.dirname(_build.CSRC_DIR)}")
+    _build.build_all()
+    out = {}
+    for name, b, warm, steps in (("gpt3-345M", 8, 3, 10),
+                                 ("gpt3-1.3B", 4, 2, 5)):
+        cfg = _resolve_config(name, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+        model, eng = _train_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+        ids, labels = _batch(cfg, b, 1024, "cuda")
+        out[name] = _lm_steps(torch, name, eng, [ids], [labels], warm, steps)
+        del model, eng
+        torch.cuda.empty_cache()
+    cfg = ernie_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0, fused_ln=True)
+    model, eng = _ernie_engine(torch, cfg, "cuda", amp=torch.bfloat16)
+    inputs, labels = _ernie_batch(cfg.vocab_size, 32, 512, "cuda")
+    out["ernie-3.0-base"] = _lm_steps(torch, "ernie-3.0-base", eng, inputs,
+                                      labels, 3, 10)
+    del model, eng
+    torch.cuda.empty_cache()
+    tag, b, warm = "detr-r50", 4, 4
+    ds = _detection_set(4 * b, *DETR_HW, seed=40)
+    net = DETR(device="cuda", generator=seed(0))
+    model = Model(net, inputs=["images"])
+    model.prepare(_detr_adamw(net), DETRLoss(num_classes=80))
+    _, probe, _, _ = _fit_detection(torch, tag, model, ds, b, 4,
+                                    profile_after=warm - 2)
+    r = _step_rates(tag, model, probe, b, warm)
+    x, gb, gc, gm = ds.batch(torch, slice(0, b), "cuda")
+    prof = profile_grouped(torch, tag, "one Model.train_batch",
+                           lambda: model.train_batch([x], [gb, gc, gm]),
+                           DETECT_TRAIN_GROUPS)
+    out[tag] = dict(ms_per_step=r["ms_per_step"],
+                    launch_calls=prof["launch_calls"],
+                    busy_share=prof["busy_share"])
+    del model, net, x
+    torch.cuda.empty_cache()
+    net = LeNet(device="cuda", generator=seed(0, device="cuda"))
+    model = Model(net)
+    model.prepare(Adam(1e-3, parameters=net.parameters(), fused_kernel=True),
+                  nn.CrossEntropyLoss(), Accuracy())
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(MNIST(mode="train"), epochs=6, batch_size=256, verbose=0)
+    torch.cuda.synchronize()
+    out["lenet"] = dict(epoch_s=(time.perf_counter() - t0) / 6)
+    log(f"lenet: 6 epochs, {out['lenet']['epoch_s']:.3f} s an epoch")
+    return out
+
+
+def compare_steps(torch, trees):
+    """steps_of each tree in turn, in a process of its own, in the order
+    given (parent, change, change, parent puts drift on both sides), then
+    every path's numbers side by side."""
+    runs = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--steps-of", tree],
+            capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        check(proc.returncode == 0, f"--steps-of {tree} failed:\n"
+              f"{proc.stderr[-3000:]}")
+        runs.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for path in runs[0][1]:
+        for key in runs[0][1][path]:
+            vals = ", ".join(f"{tree} {r[path][key]}" for tree, r in runs)
+            log(f"compare-steps: {path} {key}: {vals}")
+
+
+# (leaves a launch takes, values a chunk) that --adamw-geometry builds #10
+# at; the first is the kernel's own
+ADAMW_GEOMETRIES = ((512, 4096), (16, 4096), (512, 16384), (16, 16384),
+                    (512, 2048), (512, 1024))
+
+
+def adamw_geometry(torch):
+    """#10's launch geometry measured: csrc/fused_adamw.cu built once a
+    (leaves a launch, values a chunk) pair of ADAMW_GEOMETRIES, all nvcc
+    processes started together. The parameter struct a launch carries
+    grows with the leaves it takes (26.7 KB at 512, 0.9 KB at 16); a set's
+    blocks, one a chunk, shrink as the chunk grows. Each build updates, in
+    the plan ``multi_plan`` makes for its geometry, LeNet's 10 leaves, a
+    256 x 2048 (DETR's) and a 1024 x 4096 leaf alone, and DETR-R50's 422
+    and GPT-345M's 388 leaf sets: once from the same start, held to the
+    twin at ADAMW_TOL of max(1, |twin|), then timed (held, L2 flushed)
+    beside the bound (28 bytes a value)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+    from paddle_tpu_torch.vision.models import DETR, LeNet
+    import numpy as np
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.CSRC_DIR, "fused_adamw.cu")
+    procs = {}
+    for cap, chunk in ADAMW_GEOMETRIES:
+        out = os.path.join(_build.BUILD_DIR,
+                           f"libfused_adamw-geometry-{cap}-{chunk}.so")
+        procs[(cap, chunk)] = out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS,
+             f"-DFUSED_ADAMW_MAX_LEAVES={cap}", f"-DFUSED_ADAMW_CHUNK={chunk}",
+             "-o", out, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for key, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"adamw-geometry: nvcc {key}:\n{text}")
+        lib = ctypes.CDLL(out)
+        got = (lib.fused_adamw_max_leaves(), lib.fused_adamw_chunk())
+        check(got == key, f"adamw-geometry: built {got}, asked {key}")
+        fn = lib.fused_adamw_multi_update
+        fn.restype, fn.argtypes = ctypes.c_int, ka._ARGTYPES
+        fns[key] = fn
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, device="cuda").zero_
+    step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)
+    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=True)
+    sets = {
+        "lenet": _leaf_shapes(torch, lambda: LeNet(
+            device="cuda", generator=seed(0, device="cuda"))),
+        "one 256x2048": [("w", (256, 2048))],
+        "one 1024x4096": [("w", (1024, 4096))],
+        "detr-r50": _leaf_shapes(torch, lambda: DETR(
+            device="cuda", generator=seed(0, device="cuda"))),
+        "gpt3-345M": _leaf_shapes(torch, lambda: GPTForCausalLM(
+            _resolve_config("gpt3-345M"), device="cuda",
+            generator=seed(0, device="cuda")))}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name, shapes in sets.items():
+        sizes = [math.prod(s) for _, s in shapes]
+        total = sum(sizes)
+
+        def mk(scale=1.0, absolute=False):
+            xs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+            return [(x.abs() if absolute else x).mul_(scale) for x in xs]
+        start = (mk(), mk(0.1), mk(0.01, absolute=True))
+        g = mk()
+        wds = [0.01] * len(sizes)
+        twin = [[x.clone() for x in xs] for xs in start]
+        ka.adamw_multi_update_plain(*twin, g, *step, weight_decays=wds, **hp)
+        kern = [[x.clone() for x in xs] for xs in start]
+        bound_ms, _ = bound(28 * total, 15 * total)
+        row = dict(leaves=len(sizes), values=total, bound_ms=bound_ms)
+        for (cap, chunk), fn in fns.items():
+            for xs, ys in zip(kern, start):
+                for x, y in zip(xs, ys):
+                    x.copy_(y)
+            launches = []
+            for lo, hi, first in ka.multi_plan(sizes, cap, chunk):
+                ptrs = np.asarray([[t.data_ptr() for t in (p, m, v, gg)]
+                                   for p, m, v, gg in zip(
+                                       *(xs[lo:hi] for xs in kern),
+                                       g[lo:hi])], np.int64)
+                launches.append((hi - lo, ptrs, np.asarray(
+                    sizes[lo:hi], np.int64), np.asarray(
+                    wds[lo:hi], np.float32), first))
+
+            def run():
+                for k, ptrs, n, wd, first in launches:
+                    err = fn(k, ptrs.ctypes.data, n.ctypes.data,
+                             wd.ctypes.data, first.ctypes.data, *step,
+                             0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 1,
+                             None, stream)
+                    check(err == 0, f"adamw-geometry: CUDA error {err}")
+            run()
+            torch.cuda.synchronize()
+            rel = max(_err(a, b)[1] for xs, ys in zip(kern, twin)
+                      for a, b in zip(xs, ys))
+            check(rel <= ADAMW_TOL, f"adamw-geometry {name} {cap}x{chunk}: "
+                  f"{rel} of max(1, |twin|) > {ADAMW_TOL}")
+            ms = time_ms(torch, run, flush=flush)
+            blocks = sum(int(first[-1]) for *_, first in launches)
+            row[f"{cap}x{chunk}"] = dict(ms=ms, unheld=unheld(ms),
+                                         launches=len(launches),
+                                         blocks=blocks, max_rel_err=rel)
+            log(f"adamw-geometry: {name} ({len(sizes)} leaves, {total} "
+                f"values), {cap} leaves a launch x {chunk} values a chunk: "
+                f"{len(launches)} launch(es), {blocks} blocks, held ms "
+                f"{ms:.4f} (unheld {unheld(ms):.4f}), bound {bound_ms:.4f} "
+                f"({bound_ms / ms:.3f} of it), max_rel_err {rel:.3e}")
+        out[name] = row
+        del start, g, twin, kern
+        torch.cuda.empty_cache()
+    floor = launch_floor(torch)
+    log(f"adamw-geometry: the launch floor held {floor:.4f} ms")
+    out["launch_floor_ms"] = floor
+    print(json.dumps(out), flush=True)
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
     ``--compare-decode SRC...``, ``--compare-paged SRC...``,
     ``--compare-ln SRC...`` or ``--compare-conv SRC...``, only that
-    comparison."""
+    comparison; with ``--compare-steps TREE...``, the training paths'
+    steps (``steps_of``) with each tree's package in turn; with
+    ``--adamw-geometry``, #10 built at other launch geometries
+    (``adamw_geometry``)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch", "csrc")):
-        print("chip_smoke: paddle_tpu_torch/ not found beside this script",
+    steps_tree = sys.argv[2] if sys.argv[1:2] == ["--steps-of"] else None
+    root = os.path.abspath(steps_tree or HERE)
+    if not os.path.isdir(os.path.join(root, "paddle_tpu_torch", "csrc")):
+        print(f"chip_smoke: paddle_tpu_torch/ not found in {root}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if steps_tree:
+        print(json.dumps(steps_of(torch)), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--adamw-geometry"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip())
+        adamw_geometry(torch)
+        return 0
+    if sys.argv[1:2] == ["--compare-steps"]:
+        check(len(sys.argv) > 2, "--compare-steps needs package trees")
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip())
+        compare_steps(torch, sys.argv[2:])
+        return 0
     modes = {"--compare-bwd": compare_bwd, "--compare-fwd": compare_fwd,
              "--compare-decode": compare_decode,
              "--compare-paged": compare_paged, "--compare-ln": compare_ln,
@@ -6029,8 +6519,23 @@ def main():
                  and r["dropout"] and r["d"] == 64)
     # ... and at GPT-1.3B's (B=4, H=16, S=1024, D=128)
     f13 = next(r for r in ftrain if "ms" in r and r["d"] == 128)
-    amain = next(r for r in adamw["rows"] if "ms" in r and r["decoupled"]
-                 and r["shape"] == (1024, 4096))
+
+    def adamw_row(path, case, launches):
+        """#10's row on one path: the multi-leaf launch over that path's
+        leaf set (timed in phase adamw or the path's phase), its
+        launches over the path's run."""
+        return dict(
+            name="fused_adamw_multi_update", path=path,
+            shape=f"{case['leaves']} leaves, {case['values']} values",
+            route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
+            replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+            launches=launches,
+            launches_per_step=case["launches_per_step"],
+            max_abs_err=case["max_abs_err"], ms=case["ms"],
+            plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+            bound_by=case["bound_by"], library_ms=case["library_ms"],
+            parent_route_ms=case["parent_route_ms"],
+            route_ms=case["route_ms"])
 
     def flash_row(name, part, timing, source, replaces, errs=(),
                   dtype="float32", fm=fmain, path=tr):
@@ -6077,14 +6582,10 @@ def main():
              ms=dmain["ms"], plain_ms=dmain["plain_ms"],
              bound_ms=dmain["bound_ms"], bound_by=dmain["bound_by"],
              library_ms=None),
-        dict(name="fused_adamw_update", route="cuda",
-             source="paddle_tpu_torch/csrc/fused_adamw.cu",
-             replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
-             launches=tr["launches"]["fused_adamw_update"],
-             max_abs_err=max(r["max_abs_err"] for r in adamw["rows"]),
-             ms=amain["ms"], plain_ms=amain["plain_ms"],
-             bound_ms=amain["bound_ms"], bound_by=amain["bound_by"],
-             library_ms=amain["library_ms"]),
+        adamw_row("train", adamw["multi"][("gpt3-345M", False)],
+                  tr["launches"]["fused_adamw_multi_update"]),
+        adamw_row("ernie", er["adamw"],
+                  er["launches"]["fused_adamw_multi_update"]),
     ]
 
     def ln_row(name, part, replaces, shape, path):
@@ -6129,10 +6630,8 @@ def main():
     ]
     # GPT-1.3B's training path (phase gpt-1.3b): #1, #3, #4 at its
     # attention shape, #6/#7 at its 4096 x 2048 rows (launches from the
-    # fused_ln run), #10 on its 50304 x 2048 embedding
+    # fused_ln run), #10 over its leaf set
     s13 = "4096x2048"
-    a13 = next(r for r in adamw["rows"] if "ms" in r
-               and r["shape"] == (50304, 2048))
     kernels += [
         dict(flash_row("flash_attention_fwd", "o", "fwd", fwd_src, fwd_tpu,
                        dtype="bfloat16", fm=f13, path=g13[False]),
@@ -6147,14 +6646,8 @@ def main():
                     "gpt-1.3b", g13[True]), shape=s13),
         dict(ln_row("fused_add_layer_norm_bwd", "bwd", f"{ln_src}:165",
                     "gpt-1.3b", g13[True]), shape=s13),
-        dict(name="fused_adamw_update", shape="50304x2048", route="cuda",
-             source="paddle_tpu_torch/csrc/fused_adamw.cu",
-             replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
-             launches=g13[False]["launches"]["fused_adamw_update"],
-             max_abs_err=max(r["max_abs_err"] for r in adamw["rows"]),
-             ms=a13["ms"], plain_ms=a13["plain_ms"],
-             bound_ms=a13["bound_ms"], bound_by=a13["bound_by"],
-             library_ms=a13["library_ms"]),
+        adamw_row("gpt-1.3b", g13["adamw"],
+                  g13[False]["launches"]["fused_adamw_multi_update"]),
     ]
     # the 32 launches of one bf16 ResNet-50 serve forward, summed by shape
     cb = conv["total"]
@@ -6182,8 +6675,8 @@ def main():
         bound_by=ct["bound_by"], library_ms=None))
     # the high-level path (phases fit-resnet50 and fit-lenet): #11 over
     # Model.fit's 13 training steps at the training route's 17 shapes, and
-    # over evaluate's and predict's f32 forwards (32 launches each); #10 at
-    # LeNet's fc.0.weight, one launch a step over 6 epochs
+    # over evaluate's and predict's f32 forwards (32 launches each); #10
+    # over LeNet's 10 leaves, one launch a step over 6 epochs
     kernels.append(dict(
         name="fused_conv1x1_bn_act", path="fit-resnet50", route="cuda",
         source="paddle_tpu_torch/csrc/conv_bn_act.cu",
@@ -6204,15 +6697,9 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in fr["conv_f32"]["rows"]),
         ms=ce["ms"], plain_ms=ce["plain_ms"], bound_ms=ce["bound_ms"],
         bound_by=ce["bound_by"], library_ms=None))
-    al = fl["adamw"]
     kernels.append(dict(
-        name="fused_adamw_update", shape="400x120", path="fit-lenet",
-        route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
-        replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
-        launches=fl["launches"]["fused_adamw_update"],
-        max_abs_err=al["max_abs_err"], ms=al["ms"],
-        plain_ms=al["plain_ms"], bound_ms=al["bound_ms"],
-        bound_by=al["bound_by"], library_ms=al["library_ms"],
+        adamw_row("fit-lenet", fl["adamw"],
+                  fl["launches"]["fused_adamw_multi_update"]),
         launch_floor_ms=adamw["launch_floor_ms"]))
     # #1 f32 at DETR's head_dim 32, timed at its encoder's shape; launches
     # over one detr-serve forward
@@ -6229,7 +6716,7 @@ def main():
     # #4 at each of DETR's three attention shapes at that batch, all with
     # dropout 0.1 as detr-train runs them (the backward's 3xTF32 bound,
     # its CUDA-core one beside), launches over its steps (#3/#4: at that
-    # shape), and #10 at DETR's feed-forward leaf
+    # shape), and #10 over DETR's leaf set under a clip scale (phase adamw)
     dbw = d32["bwd"]
     for name, parts, timing, replaces, shapes in (
             ("flash_attention_fwd", ("o",), "fwd", fwd_tpu,
@@ -6257,15 +6744,9 @@ def main():
             if timing != "fwd":
                 row["bound_cores_ms"] = db["bound_cores"][timing][0]
             kernels.append(row)
-    ad = dtr["adamw"]
-    kernels.append(dict(
-        name="fused_adamw_update", shape="256x2048", path="detr-train",
-        route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
-        replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
-        launches=dtr["launches"]["fused_adamw_update"],
-        max_abs_err=ad["max_abs_err"], ms=ad["ms"], plain_ms=ad["plain_ms"],
-        bound_ms=ad["bound_ms"], bound_by=ad["bound_by"],
-        library_ms=ad["library_ms"]))
+    kernels.append(adamw_row(
+        "detr-train", adamw["multi"][("detr-r50", True)],
+        dtr["launches"]["fused_adamw_multi_update"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -2,9 +2,12 @@
 ref: python/paddle/nn/clip.py): the global-norm clip LM training uses;
 the per-tensor and by-value clips are not ported yet.
 
-``apply(grads)`` takes a list of gradient tensors and returns the clipped
-list; the optimizer calls it over the grads of one step, eager and in the
-Engine alike. All arithmetic stays on the device: no host sync.
+``coefficient(grads)`` takes a list of gradient tensors and returns the
+factor every gradient is multiplied by; the optimizer asks for it over the
+grads of one step, eager and in the Engine alike, and its update
+multiplies each gradient by it (the AdamW kernel inside its one pass), so
+no scaled copy of a gradient is written. ``apply(grads)`` returns the
+clipped list. All arithmetic stays on the device: no host sync.
 """
 from __future__ import annotations
 
@@ -23,8 +26,14 @@ class ClipGradBase:
             out[i] = (params_grads[i][0], g)
         return out
 
-    def apply(self, grads):
+    def coefficient(self, grads):
         raise NotImplementedError
+
+    def apply(self, grads):
+        """The grads each multiplied by ``coefficient(grads)``, each kept in
+        its dtype."""
+        coef = self.coefficient(grads)
+        return [(g * coef).to(g.dtype) for g in grads]
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
@@ -36,10 +45,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    def apply(self, grads):
+    def coefficient(self, grads):
+        """min(clip_norm / norm, 1) as an f32 scalar tensor on the grads'
+        device (None for no grads): the norm from one multi-tensor
+        reduction (each gradient's L2 norm in f32 by ``torch._foreach_norm``,
+        then the norm of those), a few launches for the whole list."""
         if not grads:
-            return grads
-        total = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                               for g in grads))
-        coef = torch.clamp(self.clip_norm / total.clamp_min(1e-6), max=1.0)
-        return [(g * coef).to(g.dtype) for g in grads]
+            return None
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        total = torch.linalg.vector_norm(torch.stack(norms))
+        return torch.clamp(self.clip_norm / total.clamp_min(1e-6), max=1.0)

@@ -13,7 +13,8 @@ from .flash_attention import (flash_attention_bwd_dkv,  # noqa: F401
                               flash_attention_bwd_dq, flash_attention_fwd,
                               flash_attention_fwd_plain,
                               flash_decode_plain)
-from .fused_adamw import adamw_update_plain, fused_adamw_update  # noqa: F401
+from .fused_adamw import (adamw_multi_update_plain,  # noqa: F401
+                          adamw_update_plain, fused_adamw_multi_update)
 from .fused_ln import (fused_add_layer_norm,  # noqa: F401
                        fused_add_layer_norm_bwd, fused_add_layer_norm_fwd,
                        fused_add_layer_norm_y, fused_add_layer_norm_y_bwd,
@@ -26,6 +27,7 @@ flash_decode = _fa.flash_decode
 WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq,
             flash_attention_bwd_dkv, _fa.flash_decode,
             _paged.paged_flash_decode,
-            fused_adamw_update, fused_add_layer_norm_fwd,
+            fused_adamw_multi_update,
+            fused_add_layer_norm_fwd,
             fused_add_layer_norm_bwd, fused_add_layer_norm_y_fwd,
             fused_add_layer_norm_y_bwd, fused_conv1x1_bn_act)

@@ -14,10 +14,19 @@ are what ``apply_decay_param_fun`` sees, as the reference's structured
 parameter names.
 
 ``Adam(fused_kernel=True)`` / ``AdamW(fused_kernel=True)``: every leaf
-that ``ops.kernels.fused_adamw.fused_adamw_supported`` admits (f32 p, m
-and v, at least 16384 elements) goes through the one-pass update kernel
-— the reference's documented per-leaf rule; the others, and every leaf
-under ``amsgrad``, take the plain path. Not ported (each raises
+with f32 p, m and v goes through the one-pass update kernel, all of them in
+one launch (``ops.kernels.fused_adamw.fused_adamw_multi_update``; one
+launch a ``MAX_LEAVES`` leaves), at any size. The reference sends only
+leaves of at least 16384 elements to its kernel (``fused_adamw_supported``:
+on the TPU a leaf is a launch, and a small leaf's launch costs more than
+it saves); on the card one launch takes the whole set, so the small leaves
+cost nothing more there, while each of them on the plain path costs some
+20 launches. The same formula either way. With ``ClipGradByGlobalNorm``
+the kernel multiplies each gradient by the clip's coefficient (a device
+scalar) instead of the clip writing a scaled copy of every gradient.
+Leaves of another dtype, every leaf under ``amsgrad`` and every leaf of
+``fused_kernel=False`` take the plain path leaf by leaf, as the
+reference's jnp path; the CPU runs the plain twin. Not ported (each raises
 NotImplementedError, see ROADMAP.md): ``moment_dtype="bfloat16"`` (the
 reference's stochastically rounded moments), ``multi_precision`` master
 weights and parameter groups.
@@ -29,11 +38,15 @@ import torch
 from ..framework import later
 from ..nn.clip import ClipGradBase
 from ..ops.kernels.fused_adamw import (adamw_update_plain,
-                                       fused_adamw_supported,
-                                       fused_adamw_update)
+                                       fused_adamw_multi_update)
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+
+
+def _scaled(g, scale):
+    """g times the clip's coefficient ``scale`` (None: g), in g's dtype."""
+    return g if scale is None else (g * scale).to(g.dtype)
 
 
 class Optimizer:
@@ -75,18 +88,22 @@ class Optimizer:
         ``_state[name]``, and of the reference's optimizer state)."""
         return ()
 
-    def update(self, names, params, grads, lr, step):
+    def update(self, names, params, grads, lr, step, scale=None):
         """Update ``params`` in place from ``grads`` at optimizer step
-        ``step`` (1-based) with learning rate ``lr``."""
+        ``step`` (1-based) with learning rate ``lr``; ``scale`` (None or
+        the clip's coefficient, an f32 scalar tensor) multiplies every
+        gradient first, as ``ClipGradBase.apply`` does."""
         raise NotImplementedError
 
     def _apply(self, names, params, grads, lr, step):
         """Clip (if set) and update: the one path of eager and Engine
-        steps."""
+        steps. The clip gives its coefficient, and the update scales the
+        gradients by it."""
+        grads, scale = list(grads), None
         if isinstance(self._grad_clip, ClipGradBase):
-            grads = self._grad_clip.apply(list(grads))
+            scale = self._grad_clip.coefficient(grads)
         with torch.no_grad():
-            self.update(list(names), list(params), list(grads), lr, step)
+            self.update(list(names), list(params), grads, lr, step, scale)
 
     def _decays(self, name):
         fn = self._apply_decay_param_fun
@@ -154,9 +171,9 @@ class Momentum(Optimizer):
             self._state[name] = st
         return st["velocity"]
 
-    def update(self, names, params, grads, lr, step):
+    def update(self, names, params, grads, lr, step, scale=None):
         vel = [self._velocity(n, p) for n, p in zip(names, params)]
-        g = [t.float() for t in grads]
+        g = [_scaled(t, scale).float() for t in grads]
         if self._weight_decay:
             g = torch._foreach_add(g, [p.float() for p in params],
                                    alpha=self._weight_decay)
@@ -184,6 +201,9 @@ class Adam(Optimizer):
         self._epsilon = epsilon
         self._amsgrad = amsgrad
         self._fused_kernel = bool(fused_kernel)
+        # the kernel's launch table of the fused leaves (built at the first
+        # CUDA step, rebuilt when the leaves or their state change)
+        self._leaf_table = None
         if moment_dtype not in (None, "float32", torch.float32):
             if moment_dtype in ("bfloat16", torch.bfloat16):
                 raise NotImplementedError(
@@ -204,26 +224,34 @@ class Adam(Optimizer):
             self._state[name] = st
         return st
 
-    def update(self, names, params, grads, lr, step):
+    def update(self, names, params, grads, lr, step, scale=None):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         bc1 = 1.0 - b1 ** step
         bc2 = 1.0 - b2 ** step
         hyper = dict(beta1=b1, beta2=b2, eps=eps,
                      decoupled=self._decoupled)
+        fused = ([], [], [], [], [])  # p, m, v, g, wd
         for name, p, g in zip(names, params, grads):
             st = self._slots(name, p)
             wd = self._weight_decay if self._decays(name) else 0.0
             if self._amsgrad:
-                self._amsgrad_update(p, st, g, lr, bc1, bc2, wd)
-            elif self._fused_kernel and fused_adamw_supported(
-                    p, st["m"], st["v"]):
-                # the kernel reads g flat: a channels-last convolution's
-                # weight gradient comes back strided from cuDNN
-                fused_adamw_update(p, st["m"], st["v"], g.contiguous(), lr,
-                                   bc1, bc2, weight_decay=wd, **hyper)
+                self._amsgrad_update(p, st, _scaled(g, scale), lr, bc1, bc2,
+                                     wd)
+            elif self._fused_kernel and (p.dtype == st["m"].dtype
+                                         == st["v"].dtype == torch.float32):
+                for lst, x in zip(fused, (p, st["m"], st["v"], g, wd)):
+                    lst.append(x)
             else:
-                adamw_update_plain(p, st["m"], st["v"], g, lr, bc1, bc2,
-                                   weight_decay=wd, **hyper)
+                adamw_update_plain(p, st["m"], st["v"], _scaled(g, scale),
+                                   lr, bc1, bc2, weight_decay=wd, **hyper)
+        if fused[0]:
+            ps, ms, vs, gs, wds = fused
+            table = self._leaf_table
+            if table is not None and not table.fits(ps, ms, vs):
+                table = None
+            self._leaf_table = fused_adamw_multi_update(
+                ps, ms, vs, gs, lr, bc1, bc2, weight_decays=wds,
+                scale=scale, table=table, **hyper)
 
     def _amsgrad_update(self, p, st, g, lr, bc1, bc2, wd):
         b1, b2 = self._beta1, self._beta2

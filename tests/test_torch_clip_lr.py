@@ -15,6 +15,7 @@ from paddle_tpu.nn import clip as jax_clip
 from paddle_tpu.optimizer import lr as jax_lr
 from paddle_tpu_torch.nn import clip as port_clip
 from paddle_tpu_torch.optimizer import lr as port_lr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("clip_norm", [1.0, 100.0])

@@ -28,6 +28,7 @@ import torch
 from paddle_tpu.ops.pallas import conv_bn_act as pallas_cba
 from paddle_tpu_torch.ops.kernels import WRAPPERS
 from paddle_tpu_torch.ops.kernels import conv_bn_act as port_cba
+from torch_threads import one_torch_thread  # noqa: F401
 
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}

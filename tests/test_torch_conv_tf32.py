@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import torch
 
 from test_torch_tf32_split import split
+from torch_threads import one_torch_thread  # noqa: F401
 
 pallas_cba = importlib.import_module("paddle_tpu.ops.pallas.conv_bn_act")
 port_cba = importlib.import_module("paddle_tpu_torch.ops.kernels.conv_bn_act")

@@ -13,18 +13,17 @@ inputs. Checked on the CPU:
   ``F.hardsigmoid``, ``F.interpolate`` (nearest, integer factors, NCHW
   and NHWC) and the ``Silu``/``Sigmoid``/``Hardsigmoid`` layers within
   1e-6;
-- PP-YOLOE at tests/test_detection.py's size (``channels=(8, 16, 24, 32,
-  40)``, 4 classes, 64 px) in eval (boxes, scores) and train mode (the raw
-  outputs and the BatchNorms' updated running statistics), and DETR with
-  the ``tiny`` and ``resnet18`` backbones at d_model 64 over 2 heads
-  (head_dim 32, DETR's own) in eval and in train mode (dropout 0): whole
-  models within 1e-4 of max(1, |reference|);
+- DETR with the ``tiny`` and ``resnet18`` backbones at d_model 64 over 2
+  heads (head_dim 32, DETR's own) in eval and in train mode (dropout 0),
+  each backbone's reference built once for both: whole models within 1e-4
+  of max(1, |reference|);
 - ``multiclass_nms``: the same detections, in the same order, bit for
   bit.
 
 The training losses, the assigner and the matcher are held in
-test_torch_detection_train.py, the training steps in
-test_torch_detection_steps.py.
+test_torch_detection_train.py; PP-YOLOE's forwards and the training steps
+in test_torch_detection_steps.py, beside the other tests of its
+reference (whose eager build takes most of a minute).
 """
 import numpy as np
 import pytest
@@ -43,6 +42,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.vision.models import detection as port_det
 from tests.conftest import jit_forward
 from tests.test_torch_resnet import _randomized_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODEL_TOL = 1e-4
 
@@ -59,13 +59,6 @@ def _close(got, want, tol, what=""):
     assert got.shape == want.shape, (what, got.shape, want.shape)
     scaled = np.abs(got - want) / np.maximum(1.0, np.abs(want))
     assert scaled.max() <= tol, (what, scaled.max())
-
-
-def _pair(jm, pm, train):
-    load_numpy_state(pm, _randomized_state(jm, 0))
-    for m in (jm, pm):
-        m.train() if train else m.eval()
-    return jm, pm
 
 
 def _images(b=2, hw=64, seed=1):
@@ -134,57 +127,46 @@ def test_activations_and_interpolate_match(case):
     _close(got, want, 1e-6, case)
 
 
-# -- PP-YOLOE ------------------------------------------------------------------
-
-def _ppyoloe(train):
-    paddle.seed(0)
-    cfg = dict(num_classes=4, channels=(8, 16, 24, 32, 40))
-    return _pair(jax_det.PPYOLOE(**cfg),
-                 port_det.PPYOLOE(**cfg, device="cpu",
-                                  generator=seed(0, device="cpu")), train)
-
-
-def test_ppyoloe_eval_matches():
-    jm, pm = _ppyoloe(train=False)
-    x = _images()
-    jb, js = jit_forward(jm, jnp.asarray(x))
-    with torch.no_grad():
-        pb, ps = pm(torch.from_numpy(x))
-    assert tuple(pb.shape) == (2, 8 * 8 + 4 * 4 + 2 * 2, 4)
-    _close(pb, jb, MODEL_TOL, "boxes")
-    _close(ps, js, MODEL_TOL, "scores")
-
-
-def test_ppyoloe_train_matches():
-    jm, pm = _ppyoloe(train=True)
-    x = _images()
-    jout = jm(paddle.to_tensor(x))
-    pout = pm(torch.from_numpy(x))
-    for name, got, want in zip(("cls_logits", "reg_dist", "boxes"), pout,
-                               jout):
-        _close(got, want, MODEL_TOL, name)
-    jstate = jm.state_dict()
-    for k, v in pm.state_dict().items():
-        if k.endswith(("_mean", "_variance")):
-            _close(v, jstate[k], MODEL_TOL, k)
-
-
 # -- DETR ----------------------------------------------------------------------
 
-def _detr(backbone, train):
-    paddle.seed(0)
-    cfg = dict(num_classes=4, num_queries=10, d_model=64, nhead=2,
-               num_encoder_layers=2, num_decoder_layers=2,
-               dim_feedforward=96, backbone=backbone, dropout=0.0)
-    return _pair(jax_det.DETR(**cfg),
-                 port_det.DETR(**cfg, device="cpu",
-                               generator=seed(0, device="cpu")), train)
+def _detr_cfg(backbone):
+    return dict(num_classes=4, num_queries=10, d_model=64, nhead=2,
+                num_encoder_layers=2, num_decoder_layers=2,
+                dim_feedforward=96, backbone=backbone, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def detr_refs():
+    """backbone -> (the reference DETR, its randomised state), each built
+    once for the eval and the train case."""
+    refs = {}
+
+    def get(backbone):
+        if backbone not in refs:
+            paddle.seed(0)
+            jm = jax_det.DETR(**_detr_cfg(backbone))
+            refs[backbone] = jm, _randomized_state(jm, 0)
+        return refs[backbone]
+    return get
+
+
+def _detr(ref, backbone, train):
+    """(the reference DETR, reset to its randomised state; a port DETR
+    carrying that state), both in train or eval mode."""
+    jm, state = ref
+    jm.set_state_dict(state)
+    pm = port_det.DETR(**_detr_cfg(backbone), device="cpu",
+                       generator=seed(0, device="cpu"))
+    load_numpy_state(pm, state)
+    for m in (jm, pm):
+        m.train() if train else m.eval()
+    return jm, pm
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("backbone", ["tiny", "resnet18"])
-def test_detr_matches(backbone, train):
-    jm, pm = _detr(backbone, train)
+def test_detr_matches(detr_refs, backbone, train):
+    jm, pm = _detr(detr_refs(backbone), backbone, train)
     assert pm.transformer.encoder.layers[0].self_attn.head_dim == 32
     x = _images()
     jout = (jm(paddle.to_tensor(x)) if train

@@ -3,6 +3,9 @@ models, on the CPU: tests/test_detection.py's tiny DETR and PP-YOLOE with
 the reference's weights (crossed through ``nlp.convert.load_numpy_state``,
 every BatchNorm statistic, bias and LayerNorm parameter drawn at random).
 
+- PP-YOLOE in eval (boxes, scores) and train mode (the raw outputs and
+  the BatchNorms' updated running statistics): within 1e-4 of max(1,
+  |reference|), as test_torch_detection.py holds DETR;
 - ``PPYOLOE.forward`` leaves its anchors in ``_last_anchors``, and
   ``PPYOLOECriterion`` over the model's outputs is the reference's loss
   over the same outputs (1e-5);
@@ -12,7 +15,8 @@ every BatchNorm statistic, bias and LayerNorm parameter drawn at random).
   three labels), its loss falling.
 
 The losses, the assigner and the matcher alone are held in
-test_torch_detection_train.py. Whole models run with dropout 0: the
+test_torch_detection_train.py. Every PP-YOLOE test of the port against the
+reference model is here, over one reference built once a module. Whole models run with dropout 0: the
 reference's attention at head_dim 16 or 32 takes its jnp path, whose
 dropout draws with ``jax.random``.
 """
@@ -35,6 +39,8 @@ from paddle_tpu_torch.io import Dataset
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.vision.models import detection as port_det
+from tests.conftest import jit_forward
+from tests.test_torch_detection import MODEL_TOL, _close, _images
 from tests.test_torch_detection_train import LOSS_TOL, PPYOLOE_TINY, _np
 from tests.test_torch_resnet import _randomized_state
 
@@ -75,6 +81,35 @@ def _ref_gt(b=1):
     gc = np.tile(np.array([[1, 2, 0]], np.int64), (b, 1))
     gm = np.tile(np.array([[1, 1, 0]], np.float32), (b, 1))
     return gb, gc, gm
+
+
+def test_ppyoloe_eval_matches(ppyoloe_ref):
+    jm, pm = _ppyoloe_pair(ppyoloe_ref)
+    jm.eval()
+    pm.eval()
+    x = _images()
+    jb, js = jit_forward(jm, jnp.asarray(x))
+    with torch.no_grad():
+        pb, ps = pm(torch.from_numpy(x))
+    assert tuple(pb.shape) == (2, 8 * 8 + 4 * 4 + 2 * 2, 4)
+    _close(pb, jb, MODEL_TOL, "boxes")
+    _close(ps, js, MODEL_TOL, "scores")
+
+
+def test_ppyoloe_train_matches(ppyoloe_ref):
+    jm, pm = _ppyoloe_pair(ppyoloe_ref)
+    jm.train()
+    pm.train()
+    x = _images()
+    jout = jm(paddle.to_tensor(x))
+    pout = pm(torch.from_numpy(x))
+    for name, got, want in zip(("cls_logits", "reg_dist", "boxes"), pout,
+                               jout):
+        _close(got, want, MODEL_TOL, name)
+    jstate = jm.state_dict()
+    for k, v in pm.state_dict().items():
+        if k.endswith(("_mean", "_variance")):
+            _close(v, jstate[k], MODEL_TOL, k)
 
 
 def test_ppyoloe_criterion_reads_the_forwards_anchors(ppyoloe_ref):

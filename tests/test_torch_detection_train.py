@@ -33,6 +33,7 @@ from paddle_tpu_torch import seed
 from paddle_tpu_torch.vision.models import detection as port_det
 from paddle_tpu_torch.vision.models.detection import detr as port_detr
 from paddle_tpu_torch.vision.models.detection import ppyoloe as port_pp
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 1e-5
 

@@ -32,6 +32,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.ops.kernels import fused_ln as port_ln
 from paddle_tpu_torch.ops.kernels.fused_adamw import fused_adamw_supported
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import one_torch_thread  # noqa: F401
 
 _OVR = dict(hidden_size=128, num_attention_heads=2)  # head_dim 64
 _B, _S, _STEPS = 2, 64, 3

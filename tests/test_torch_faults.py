@@ -43,6 +43,7 @@ from paddle_tpu_torch.nlp.modeling_utils import coerce_config
 from paddle_tpu_torch.nlp.serving import ServingEngine
 from paddle_tpu_torch.nn import Dropout, Transformer
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_bf16_reference_state_loads_bit_for_bit():

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu_torch.ops import _build, attention as port_attn
+from torch_threads import one_torch_thread  # noqa: F401
 
 # both packages export a function named like the kernel module
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import torch
 
 from paddle_tpu_torch.ops import attention as port_attn
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 port_fa = importlib.import_module(

@@ -20,6 +20,7 @@ import torch
 from paddle_tpu.ops.attention import reference_attention as jax_ref
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention as port_attn
+from torch_threads import one_torch_thread  # noqa: F401
 
 # both packages export a function named like the kernel module
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")

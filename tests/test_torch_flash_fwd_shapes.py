@@ -25,6 +25,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 port_fa = importlib.import_module(

@@ -17,6 +17,8 @@ rsqrt(1 + eps) and would hide a wrong one). Checked on the CPU:
   its convolutions now carry a bias;
 - training mode raises.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -38,6 +40,7 @@ from paddle_tpu_torch.vision.models import detection as port_det
 from paddle_tpu_torch.vision.models import resnet as port_resnet
 from tests.conftest import jit_forward
 from tests.test_torch_resnet import _randomized_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(t):
@@ -61,6 +64,9 @@ def _sequential(nn_mod, **kw):
         nn_mod.Conv2D(8, 4, 1, **kw), nn_mod.BatchNorm2D(4, **kw))
 
 
+_PPYOLOE = dict(num_classes=4, channels=(8, 16, 24, 32, 40))
+
+
 def _build(kind):
     """(reference, port) of ``kind``, the port carrying the reference's
     randomized state, both in eval mode, NCHW."""
@@ -74,20 +80,36 @@ def _build(kind):
                                         generator=seed(0, device="cpu"),
                                         **cpu)
     else:
-        cfg = dict(num_classes=4, channels=(8, 16, 24, 32, 40))
-        jm = jax_det.PPYOLOE(**cfg)
-        pm = port_det.PPYOLOE(**cfg, generator=seed(0, device="cpu"), **cpu)
+        jm = jax_det.PPYOLOE(**_PPYOLOE)
+        pm = port_det.PPYOLOE(**_PPYOLOE, generator=seed(0, device="cpu"),
+                              **cpu)
     load_numpy_state(pm, _randomized_state(jm, 0))
     jm.eval()
     pm.eval()
     return jm, pm
 
 
+@pytest.fixture(scope="module")
+def folded_refs():
+    """kind -> (the reference folded in NCHW, its count of folded pairs,
+    an unfolded port model carrying the same state): each reference is
+    built and folded once, for its count and its NCHW outputs."""
+    refs = {}
+
+    def get(kind):
+        if kind not in refs:
+            jm, pm = _build(kind)
+            _, n = jax_fuse(jm)
+            refs[kind] = jm, n, copy.deepcopy(pm)
+        jm, n, pm = refs[kind]
+        return jm, n, copy.deepcopy(pm)
+    return get
+
+
 @pytest.mark.parametrize("kind,want", [("sequential", 2), ("resnet18", 20),
                                        ("resnet50", 53), ("ppyoloe", 65)])
-def test_fold_counts_match_the_reference(kind, want):
-    jm, pm = _build(kind)
-    _, jn = jax_fuse(jm)
+def test_fold_counts_match_the_reference(folded_refs, kind, want):
+    _, jn, pm = folded_refs(kind)
     _, pn = fuse_conv_bn(pm)
     assert pn == jn == want
     assert not any(isinstance(m, port_nn.BatchNorm2D) for m in pm.modules())
@@ -96,8 +118,11 @@ def test_fold_counts_match_the_reference(kind, want):
 @pytest.mark.parametrize("kind,layout", [
     ("sequential", "NCHW"), ("sequential", "NHWC"), ("resnet18", "NCHW"),
     ("resnet18", "NHWC"), ("ppyoloe", "NCHW")])
-def test_folded_outputs_match(kind, layout):
-    jm, pm = _build(kind)
+def test_folded_outputs_match(folded_refs, kind, layout):
+    if layout == "NCHW":
+        jm, _, pm = folded_refs(kind)
+    else:  # converted to NHWC before the fold: a reference of its own
+        jm, pm = _build(kind)
     hw = 32 if kind == "resnet18" else 16 if kind == "sequential" else 64
     x = np.random.default_rng(1).standard_normal((2, 3, hw, hw)).astype(
         np.float32)
@@ -115,7 +140,8 @@ def test_folded_outputs_match(kind, layout):
         unfolded = pm(torch.from_numpy(x))
         fuse_conv_bn(pm)
         folded = pm(torch.from_numpy(x))
-    jax_fuse(jm)
+    if layout == "NHWC":
+        jax_fuse(jm)
     want = jit_forward(jm, jnp.asarray(x))
     outs = [o if isinstance(o, (tuple, list)) else (o,)
             for o in (folded, want, unfolded)]

@@ -31,6 +31,7 @@ from paddle_tpu_torch.nlp.modeling_utils import fused_residual_ln
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.ops.kernels import WRAPPERS
 from paddle_tpu_torch.ops.kernels import fused_ln as port_ln
+from torch_threads import one_torch_thread  # noqa: F401
 
 _H = 64
 _BLOCK_ROWS = 32  # the Pallas grid: 4 steps over 128 rows

@@ -42,6 +42,7 @@ from paddle_tpu_torch.nlp import modeling_utils
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.gpt import GPTForCausalLM
 from paddle_tpu_torch.nlp.gpt import _resolve_config as port_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the package exports a function named like the kernel module
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")

@@ -19,6 +19,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nlp.gpt import _resolve_config as port_config
 from paddle_tpu_torch.nn import functional as port_F
+from torch_threads import one_torch_thread  # noqa: F401
 
 _OVR = dict(num_attention_heads=1)  # gpt-tiny widths, head_dim 64
 

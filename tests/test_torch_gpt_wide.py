@@ -32,6 +32,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, GPTPretrainingCriterion
 from paddle_tpu_torch.nlp.gpt import _resolve_config as port_config
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import one_torch_thread  # noqa: F401
 
 _OVR = dict(num_hidden_layers=1, vocab_size=256, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)

@@ -25,8 +25,9 @@ data is the same numpy arrays. On the CPU:
   ``save_freq``, the LR scheduler steps once a batch as the reference's,
   ReduceLROnPlateau cuts the rate, ProgBarLogger prints, and the item-8
   callbacks raise naming their item;
-- ``summary`` and ``flops`` totals for LeNet and resnet50 equal the
-  reference's;
+- ``summary`` and ``flops`` totals for LeNet equal the reference's
+  (resnet50's are held in tests/test_torch_resnet.py, beside the other
+  tests of the reference resnet50);
 - the parts not ported raise naming their ROADMAP.md items.
 """
 import os
@@ -45,13 +46,13 @@ import paddle_tpu_torch.hapi.callbacks as pcb
 import paddle_tpu_torch.metric as pmetric
 from paddle_tpu.vision.datasets import MNIST as JaxMNIST
 from paddle_tpu.vision.models import LeNet as JaxLeNet
-from paddle_tpu.vision.models import resnet50 as jax_resnet50
 from paddle_tpu_torch.hapi import Engine
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.optimizer import Adam, Momentum
 from paddle_tpu_torch.vision.datasets import MNIST
-from paddle_tpu_torch.vision.models import LeNet, resnet50
+from paddle_tpu_torch.vision.models import LeNet
 from paddle_tpu_torch.vision.models.resnet import BottleneckBlock, ResNet
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
 
@@ -622,19 +623,6 @@ def test_summary_and_flops_lenet(capsys):
     assert pt.flops(pnet, [4, 1, 28, 28]) == paddle.flops(jnet,
                                                           [4, 1, 28, 28])
     assert pt.Model(pnet).summary((1, 1, 28, 28)) == want
-
-
-def test_summary_and_flops_resnet50(capsys):
-    paddle.seed(0)
-    jnet = jax_resnet50()
-    pnet = resnet50(device="cpu", generator=pt.seed(0, device="cpu"))
-    size = (1, 3, 64, 64)
-    want = paddle.summary(jnet, size)
-    got = pt.summary(pnet, size)
-    capsys.readouterr()
-    assert got == want
-    assert got["total_params"] == 25557032
-    assert pt.flops(pnet, list(size)) == paddle.flops(jnet, list(size))
 
 
 # -- what is not ported ----------------------------------------------------------

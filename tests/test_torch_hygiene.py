@@ -9,7 +9,8 @@
   never falls back to its plain twin. On the card head_dim 32 goes to the
   f32 forward only: a bf16 forward or a backward there raises, naming
   ROADMAP.md queue 2. ``ops.kernels.WRAPPERS`` holds all
-  eleven wrappers, the fused 1x1-conv + BatchNorm one included.
+  eleven wrappers, the fused 1x1-conv + BatchNorm one and the multi-leaf
+  AdamW one (which replaced the one-leaf AdamW wrapper) included.
 - Importing the port builds nothing.
 """
 import ast
@@ -33,6 +34,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as kfa
 from paddle_tpu_torch.ops.kernels import fused_adamw as kadam
 from paddle_tpu_torch.ops.kernels import fused_ln as kln
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
@@ -158,6 +160,7 @@ def test_wrappers_are_the_kernel_wrappers():
         assert isinstance(w.launches, int), w
     assert len({w.__name__ for w in kernels.WRAPPERS}) == 11
     assert kernels.flash_decode is kfa.flash_decode
+    assert kadam.fused_adamw_multi_update in kernels.WRAPPERS
     assert kcba.fused_conv1x1_bn_act in kernels.WRAPPERS
     assert kpaged.paged_flash_decode in kernels.WRAPPERS
 
@@ -201,9 +204,9 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         lambda: kfa.flash_attention_fwd(t, t, t),
         lambda: kfa.flash_attention_bwd_dq(t, t, t, t, t, st),
         lambda: kfa.flash_attention_bwd_dkv(t, t, t, t, st, st),
-        lambda: kadam.fused_adamw_update(
-            t, t, t, t, 1e-3, 0.1, 0.001, beta1=0.9, beta2=0.999, eps=1e-8,
-            weight_decay=0.0, decoupled=True),
+        lambda: kadam.fused_adamw_multi_update(
+            [t], [t], [t], [t], 1e-3, 0.1, 0.001, weight_decays=[0.0],
+            beta1=0.9, beta2=0.999, eps=1e-8, decoupled=True),
         lambda: kln.fused_add_layer_norm_fwd(rows, rows, vec, vec),
         lambda: kln.fused_add_layer_norm_bwd(rows, rows, rows, stat, stat,
                                              vec),

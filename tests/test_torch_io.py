@@ -26,6 +26,7 @@ import torch
 import paddle_tpu.io as rio
 import paddle_tpu_torch.io as pio
 from paddle_tpu_torch.io import dataloader as pdl
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(x):

@@ -33,6 +33,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.paged_cache import PagedLayerCache
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn import functional as port_F
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 

@@ -32,6 +32,7 @@ import torch
 from paddle_tpu.ops.pallas import fused_ln as pallas_ln
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.kernels import fused_ln as kln
+from torch_threads import one_torch_thread  # noqa: F401
 
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}

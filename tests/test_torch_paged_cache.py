@@ -18,6 +18,7 @@ from paddle_tpu.ops.pallas.flash_decode import \
 from paddle_tpu_torch.nlp import paged_cache as ppc
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.kernels.flash_decode import paged_flash_decode
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = {"float32": 1e-5, "bfloat16": 1e-2, "int8": 1e-5}
 

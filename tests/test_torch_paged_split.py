@@ -24,6 +24,7 @@ from paddle_tpu.nlp import paged_cache as jpc
 from paddle_tpu.ops.pallas.flash_decode import \
     paged_flash_decode as jax_paged_flash_decode
 from paddle_tpu_torch.ops import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 kpd = importlib.import_module("paddle_tpu_torch.ops.kernels.flash_decode")
 

@@ -22,18 +22,13 @@ would hide). Inputs are numpy arrays from a seed. Checked on the CPU:
   |reference|), and the gradients of ``conv1.weight``, ``conv3.weight``,
   ``bn1.weight``, ``bn3.weight`` and ``bn3.bias`` within as much of
   max(1, their max-abs);
-- ``resnet50`` fused NHWC in training at 2 x 3 x 48 x 48: logits within
-  1e-3 and running statistics within 1e-4 (BatchNorm over 8 rows at
-  layer4; see the test), and the 17 fused chains of a training forward
-  against the reference's 7 ``_fwd_call`` launches;
-- three ``Engine.train_batch`` steps of ``ResNet(BottleneckBlock, 18)``,
-  fused NHWC, Momentum(0.1, 0.9), in f32 and under bf16 AMP, each from the
-  reference's state: losses, running statistics (f32 under bf16) and the
-  classifier element by element, the other leaves' updates by their
-  relative L2 norm (ReLU kinks; see ``_UPDATE_TOL``);
 - ``s2d_stem``: ``s2d_weights_from_7x7`` equal to the reference's, the
   stem equal to the 7x7/2 conv in both layouts and to the reference's
   stem, resnet50 with it in NHWC equal to NCHW, odd sizes raising.
+
+``resnet50`` in training is held in tests/test_torch_resnet.py, beside the
+other tests of the reference resnet50 (whose eager build takes most of a
+minute), and the Engine steps in tests/test_torch_resnet_steps.py.
 """
 import numpy as np
 import pytest
@@ -44,18 +39,16 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import nn as jax_nn
-from paddle_tpu.hapi.engine import Engine as JaxEngine
 from paddle_tpu.nn.layer import functional_call as jax_functional_call
 from paddle_tpu.nn.layers_conv import to_channels_last as jax_channels_last
 from paddle_tpu.ops.pallas import conv_bn_act as pallas_cba
 from paddle_tpu.optimizer import Momentum as JaxMomentum
 from paddle_tpu.vision.models import resnet as jax_resnet
 from paddle_tpu_torch import nn as port_nn
-from paddle_tpu_torch.hapi import Engine
 from paddle_tpu_torch.nlp.convert import load_numpy_state
-from paddle_tpu_torch.ops.kernels import conv_bn_act as port_cba
 from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision.models import resnet as port_resnet
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(t):
@@ -281,185 +274,6 @@ def test_train_fused_bottleneck_matches_the_reference(case, dtype, tol,
         g = state[k].grad
         assert g is not None and g.dtype == xt.dtype, k
         _grad_close(g, want_grads[k], tol, what=f"grad {k}")
-
-
-# -- resnet50 in training -----------------------------------------------------
-
-def test_resnet50_train_forward_matches_the_reference(monkeypatch):
-    """Fused NHWC resnet50 (8 classes) at 2 x 3 x 48 x 48, training: 48 px
-    keeps layer4 at 2 x 2 so the batch statistics are well conditioned."""
-    paddle.seed(0)
-    jm = jax_resnet.resnet50(num_classes=8, layout="NHWC",
-                             fused_bottleneck=True)
-    state = _randomized_state(jm, seed=5)
-    pm = port_resnet.resnet50(num_classes=8, layout="NHWC",
-                              fused_bottleneck=True, device="cpu")
-    load_numpy_state(pm, state)
-    jm.train()
-    pm.train()
-    reached = []
-    real = pallas_cba._fwd_call
-    monkeypatch.setattr(pallas_cba, "_fwd_call",
-                        lambda *a: reached.append(1) or real(*a))
-    x = _x((2, 3, 48, 48), seed=6)
-    want = jm(paddle.to_tensor(x))
-    port_cba.fused_conv1x1_bn_act.launches = 0
-    calls = []
-    real_port = port_resnet.fused_conv1x1_bn_act
-    monkeypatch.setattr(port_resnet, "fused_conv1x1_bn_act",
-                        lambda *a: calls.append(1) or real_port(*a))
-    with torch.no_grad():
-        got = pm(torch.from_numpy(x))
-    # layer1.0's conv1 (64 -> 64) and the sixteen conv3s. The reference
-    # sends 10 of them to jnp (its _supported and _pick_block_m): layer1's
-    # four (Cin = 64) and layer3's six (M = 2 x 3 x 3 = 18 rows, not a
-    # multiple of 8)
-    assert len(calls) == 17 and len(reached) == 7
-    assert port_cba.fused_conv1x1_bn_act.launches == 0  # the CPU twin
-    # BatchNorm over 8 rows at layer4 magnifies f32 reduction order: at
-    # this input each package's logits sit 3e-4 to 7e-4 of max(1, |x|) from
-    # a float64 run (measured: the reference fused 6.3e-4, the port fused
-    # 3.4e-4, both unfused ~1.7e-4), and the reference's own test holds its
-    # two layouts to 2e-3 of the max-abs here; the running statistics take
-    # the training-step bar of 1e-4 (layer4.2.bn3's variance: 1.3e-5)
-    _close(got, want, tol=1e-3, what="logits")
-    for k in ("bn1", "layer2.0.bn3", "layer4.2.bn3"):
-        for stat in ("_mean", "_variance"):
-            mod_p, mod_j = pm, jm
-            for part in k.split("."):
-                mod_p = getattr(mod_p, part) if not part.isdigit() \
-                    else mod_p[int(part)]
-                mod_j = getattr(mod_j, part) if not part.isdigit() \
-                    else mod_j[int(part)]
-            _close(getattr(mod_p, stat), getattr(mod_j, stat), tol=1e-4,
-                   what=f"{k}.{stat}")
-
-
-# -- Engine steps -------------------------------------------------------------
-
-_LR, _STEPS = 0.1, 3
-
-
-@pytest.fixture(scope="module")
-def resnet18_bottleneck():
-    """ResNet(BottleneckBlock, 18, num_classes=10) fused NHWC from the
-    reference (seed 0, random BatchNorm statistics), its state and one
-    batch of 4 x 3 x 64 x 64 with labels."""
-    paddle.seed(0)
-    jm = jax_resnet.ResNet(jax_resnet.BottleneckBlock, 18, num_classes=10,
-                           layout="NHWC", fused_bottleneck=True)
-    state = _randomized_state(jm, seed=9)
-    rng = np.random.default_rng(10)
-    x = rng.standard_normal((4, 3, 64, 64)).astype(np.float32)
-    y = rng.integers(0, 10, (4,)).astype(np.int64)
-    return state, x, y
-
-
-def _engines(state, amp):
-    """The reference Engine and the port's, each over its package's
-    ResNet(BottleneckBlock, 18) loaded from ``state``, with
-    Momentum(0.1, 0.9) and cross entropy."""
-    jm = jax_resnet.ResNet(jax_resnet.BottleneckBlock, 18, num_classes=10,
-                           layout="NHWC", fused_bottleneck=True)
-    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
-    jm.train()
-    jeng = JaxEngine(jm, loss=jax_nn.CrossEntropyLoss(),
-                     optimizer=JaxMomentum(_LR, momentum=0.9,
-                                           parameters=jm.parameters()),
-                     amp_dtype=jnp.bfloat16 if amp else None)
-    pm = port_resnet.ResNet(port_resnet.BottleneckBlock, 18, num_classes=10,
-                            layout="NHWC", fused_bottleneck=True,
-                            device="cpu")
-    load_numpy_state(pm, state)
-    opt = Momentum(_LR, momentum=0.9, parameters=pm.named_parameters())
-    peng = Engine(pm, loss=port_nn.CrossEntropyLoss(), optimizer=opt,
-                  amp_dtype="bfloat16" if amp else None)
-    return jm, jeng, pm, opt, peng
-
-
-def _rel_l2(got, want):
-    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
-                                                     1e-30))
-
-
-# A ReLU input within the f32 forward's error of 0 (~1e-4 at layer4 here,
-# against float64) lands on the other side of the kink in the other
-# package, and the gradient of its (row, channel) changes, with it every
-# gradient upstream of it. Measured at this seed on step 1: the reference's
-# own fused and unfused models differ by up to 1.9e-2 (relative L2, layer
-# 2's BatchNorm weights), the reference against a float64 run by 1.65e-2,
-# the port's fused model against float64 by 2.9e-5. So the update of a
-# leaf below a ReLU is held by its relative L2 norm, the loss, the running
-# statistics and the classifier (no ReLU after it) element by element,
-# and in f32 the first step's gradients against a float64 step of the
-# unfused model: the port's worst leaf no farther from it than the
-# reference's (or 1e-4).
-#
-# Under bf16 AMP both packages are far from float64 (median relative L2 of
-# a leaf's gradient 0.83 in each, the port against the reference 0.54):
-# the batch statistics' backward over 16 to 1024 rows of bf16 values
-# cancels most of its input. The loss and the classifier stay within
-# 1e-2; a running variance over 16 rows whose mean^2 is ~20x the variance
-# loses ~16 % of the batch variance to bf16 rounding (1.8e-2 of the
-# running value, measured), so the statistics are held to 5e-2; an
-# update to a relative L2 of 0.9 (a zero or reversed update scores 1 or
-# 2).
-_UPDATE_TOL = {False: 5e-2, True: 0.9}
-_STATS_TOL = {False: 1e-5, True: 5e-2}
-
-
-@pytest.mark.parametrize("amp,tol", [(False, 1e-5), (True, 1e-2)])
-def test_engine_steps_match_the_reference(resnet18_bottleneck, amp, tol):
-    """Three Engine steps, each from the reference's state (parameters,
-    running statistics and velocity carried across before the next): with
-    lr 0.1 the first step takes the loss from 3.3 to ~33, and from there
-    BatchNorm over 4 images makes the two trajectories part."""
-    state, x, y = resnet18_bottleneck
-    jm, jeng, pm, opt, peng = _engines(state, amp)
-    if not amp:
-        exact = port_resnet.ResNet(port_resnet.BottleneckBlock, 18,
-                                   num_classes=10, layout="NHWC",
-                                   device="cpu", dtype=torch.float64)
-        load_numpy_state(exact, state)
-        port_nn.CrossEntropyLoss()(exact(torch.from_numpy(x).double()),
-                                   torch.from_numpy(y)).backward()
-        g64 = {k: p.grad.numpy() for k, p in exact.named_parameters()}
-    for step in range(1, _STEPS + 1):
-        before = {k: v.detach().float().numpy().copy()
-                  for k, v in pm.state_dict().items()}
-        jl = float(jeng.train_batch([jnp.asarray(x)], [jnp.asarray(y)])[0])
-        pl = float(peng.train_batch([x], [y])[0])
-        assert abs(pl - jl) <= tol * abs(jl), (step, pl, jl)
-        jstate = {k: np.asarray(v._value, np.float32)
-                  for k, v in jm.state_dict().items()}
-        pstate = pm.state_dict()
-        assert set(pstate) == set(jstate)
-        for k, v in pstate.items():
-            what = f"step {step} {k}"
-            if k.endswith(("_mean", "_variance")):
-                assert v.dtype == torch.float32, what
-                assert not np.array_equal(v.numpy(), before[k]), what
-                _close(v, jstate[k], tol=_STATS_TOL[amp], what=what)
-            elif k.startswith("fc."):
-                _close(v, jstate[k], tol=tol, what=what)
-            else:
-                err = _rel_l2(v.detach().numpy() - before[k],
-                              jstate[k] - before[k])
-                assert err <= _UPDATE_TOL[amp], (what, err)
-        if step == 1 and not amp:
-            # the velocity after the first step is the gradient: the
-            # port's sits as close to float64's as the reference's does
-            far = {side: max(_rel_l2(np.asarray(v, np.float64), g64[k])
-                             for k, v in vel.items())
-                   for side, vel in (
-                       ("port", {k: s["velocity"].numpy()
-                                 for k, s in opt._state.items()}),
-                       ("reference", jeng._opt_state["velocity"]))}
-            assert far["port"] <= max(far["reference"], 1e-4), far
-        load_numpy_state(pm, jstate)
-        for k, vel in jeng._opt_state["velocity"].items():
-            opt._state[k]["velocity"].copy_(
-                torch.tensor(np.asarray(vel, np.float32)))
 
 
 # -- s2d_stem -----------------------------------------------------------------

@@ -22,6 +22,7 @@ from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.nlp.gpt import GPTForCausalLM
 from paddle_tpu_torch.nlp.gpt import _resolve_config as port_config
 from paddle_tpu_torch.nlp.serving import ServingEngine, row_uniforms
+from torch_threads import one_torch_thread  # noqa: F401
 
 _OVR = dict(num_attention_heads=1)
 # lengths straddle the 16-token page and the pow2 buckets

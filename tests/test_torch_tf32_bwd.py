@@ -46,6 +46,7 @@ import jax.numpy as jnp
 import torch
 
 from test_torch_tf32_split import split
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_fa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 port_fa = importlib.import_module(

@@ -31,6 +31,7 @@ from paddle_tpu.ops.attention import reference_attention
 from paddle_tpu_torch import nn as port_nn
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

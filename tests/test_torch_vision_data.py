@@ -35,6 +35,7 @@ import paddle_tpu_torch.vision.transforms as ptf
 from paddle_tpu.vision.models import LeNet as JaxLeNet
 from paddle_tpu_torch.nlp.convert import load_numpy_state
 from paddle_tpu_torch.vision.models import LeNet
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _same(a, b):
