@@ -58,7 +58,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              dropped entries must be exactly the twin's keep mask; times
              kernels, twins and torch SDPA (forward, and its backward for
              dq and dk/dv), with achieved TFLOP/s and share of the bound;
-6. adamw   — the one-pass AdamW kernel on one leaf vs its plain twin
+6. adamw   — the one-pass AdamW kernel (lr, bc1 and bc2 read from a
+             3-value array on the card) on one leaf vs its plain twin
              on a 1024x4096 leaf and the 50304x1024 embedding, coupled and
              decoupled decay, GPT-1.3B's 50304x2048 embedding and
              2048x8192 MLP leaf, plus an odd length and an unaligned view;
@@ -355,6 +356,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the loss and the gradients, and each leaf's parameters after
              the step within 1e-5 + lr x 1e-3 x its gradient max-abs (the
              gradient bar carried through a step linear in the gradient).
+37. train-graph — each training path's step recorded by the Engine as one
+             CUDA graph (its first step eager, its second recorded and
+             replayed, every later one replayed) against the eager step
+             from the same weights, batch and generator state, 5 steps
+             each: gpt3-345M (8 x 1024, bf16 AMP, fused AdamW; dropout 0
+             under a linear warm-up that moves lr between the replays,
+             then dropout 0.1), ERNIE-3.0-base (32 x 512, fused_ln),
+             GPT-1.3B (4 x 1024; eager first, then captured, each alone:
+             two would not fit beside the graph's pool) and ResNet-50
+             fused (256 x 224, Momentum); losses and parameters bit for
+             bit, or within PERF.md §2's bars with the reason logged; the
+             recording launches each path's kernels as an eager step does
+             (24 of each flash kernel and one #10 a GPT step, #8/#9 24 and
+             #11 17 a step) and no plain twin; GPT-345M's graph holds
+             exactly 24 of each flash kernel and one #10 (its nodes read
+             from the CUDA driver), one replay raises nothing under the
+             sync debug mode "error", and train_batch_multi with K = 10
+             matches 10 train_batch calls; 4-way accumulation (4 x 2 x
+             1024 against one 8 x 1024 step, f32, two windows, the apply
+             step's graph holding #10 once) at §2's bars; LeNet through
+             Model.fit (2 epochs at batch 256, the tail batch recorded
+             apart); for each, eager against captured in turns within the
+             call: ms a step, busy share, host launches a step
+             (cudaLaunchKernel against cudaGraphLaunch) and peak memory.
+             DETR-R50's Engine (phase 33) runs eagerly: its loss declares
+             a host read, which the phase logs.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -385,8 +412,12 @@ generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
 each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
 Model.fit, evaluate and predict (phase 26), LeNet's fit (phase 27),
 one DETR forward and one PP-YOLOE forward and their 10 timed
-forwards (phases 29 and 31), and each detection Model.fit (phases 33 and
-35).
+forwards (phases 29 and 31), each detection Model.fit (phases 33 and
+35), and each captured Engine's steps in phase 37 (a replay launches the
+recorded kernels from the graph, past the wrappers: its counts are the
+Engine's eager first step and its recording). Phases 7-27 and 33 run
+their Engines eagerly (capture=False), as before phase 37 existed;
+PP-YOLOE-l's Model.fit (phase 35) records its step, the Engine's default.
 
 Timing (time_ms): CUDA events around each of 10 launches, L2 flushed
 between them; a spin kernel queued first holds the device until the host
@@ -407,6 +438,9 @@ f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve;
 and #4 f32 at each of its three attention shapes with their launches
 there, the backward's 3xTF32 bound with its CUDA-core one beside in
 "bound_cores_ms"),
+and again on phase 37's captured paths (a "path" key "train-graph ...",
+its "launches" the captured Engine's counts, "launches_recorded" a
+replay's),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -446,6 +480,15 @@ cuBLAS's GEMM alone and the bound; the 32- and 17-launch sums). The forward
 mode first checks that cvt.rna.tf32.f32 rounds as the kernels' integer
 tf32 rounding does and times back-to-back mma.sync TF32 products, the
 ceiling the f32 kernel is read against.
+
+    python3 chip_smoke.py --train-graph
+
+phase 37 alone (every kernel built first), its results as one JSON line.
+
+    python3 chip_smoke.py --compare-steps TREE...
+
+the training paths' steps (``steps_of``) with each tree's package in
+turn, eager and, where its Engine takes ``capture``, captured.
 
     python3 chip_smoke.py --adamw-geometry
 
@@ -2498,10 +2541,12 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
     v = mk().abs() * 0.01
     hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=decoupled)
     step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)  # lr, bc1, bc2 at step 3
+    # the device array the kernel reads them from
+    step_t = ka.step_scalars(*step, device="cuda")
     kern = [x.clone() if not offset else x for x in (p, m, v)]
     twin = [x.clone() for x in (p, m, v)]
     # one leaf: the multi-leaf wrapper over a list of one
-    table = ka.fused_adamw_multi_update(*([x] for x in kern), [g], *step,
+    table = ka.fused_adamw_multi_update(*([x] for x in kern), [g], step_t,
                                         weight_decays=[0.01], **hp)
     ka.adamw_update_plain(*twin, g, *step, weight_decay=0.01, **hp)
     torch.cuda.synchronize()
@@ -2513,7 +2558,7 @@ def _adamw_case(torch, n_or_shape, decoupled, gen, flush, timed,
                max_abs_err=err)
     if timed:
         row["ms"] = time_ms(torch, lambda: ka.fused_adamw_multi_update(
-            *([x] for x in kern), [g], *step, weight_decays=[0.01],
+            *([x] for x in kern), [g], step_t, weight_decays=[0.01],
             table=table, **hp), flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: ka.adamw_update_plain(
             *twin, g, *step, weight_decay=0.01, **hp), flush=flush)
@@ -2589,6 +2634,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
     hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=decoupled,
               weight_decays=wds)
     step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)
+    step_t = ka.step_scalars(*step, device="cuda")
     cl = None if clip is None else ClipGradByGlobalNorm(clip)
     scale = None if cl is None else cl.coefficient(g)
 
@@ -2601,7 +2647,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
     kern = clones()
     n0, l0 = (ka.fused_adamw_multi_update.launches,
               ka.fused_adamw_multi_update.leaves)
-    table = ka.fused_adamw_multi_update(*kern, g, *step, scale=scale, **hp)
+    table = ka.fused_adamw_multi_update(*kern, g, step_t, scale=scale, **hp)
     want_launches = -(-len(shapes) // ka.MAX_LEAVES)
     check((ka.fused_adamw_multi_update.launches - n0,
            ka.fused_adamw_multi_update.leaves - l0)
@@ -2624,7 +2670,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
           f"{err}, max |p| {top})")
     del twin
     again = clones()
-    ka.fused_adamw_multi_update(*again, g, *step, scale=scale, **hp)
+    ka.fused_adamw_multi_update(*again, g, step_t, scale=scale, **hp)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for xs, ys in zip(kern, again)
                for a, b in zip(xs, ys))
@@ -2639,7 +2685,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
     if timed:
         kp, km, kv = kern
         run = lambda: ka.fused_adamw_multi_update(  # noqa: E731
-            kp, km, kv, g, *step, scale=scale, table=table, **hp)
+            kp, km, kv, g, step_t, scale=scale, table=table, **hp)
         row["ms"] = time_ms(torch, run, flush=flush)
         # the twin and the parent's route issue ~19 launches a small leaf:
         # more than the launch queue holds, so unheld (host-bound) times
@@ -2649,7 +2695,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
 
         def route():
             sc = None if cl is None else cl.coefficient(g)
-            ka.fused_adamw_multi_update(kp, km, kv, g, *step, scale=sc,
+            ka.fused_adamw_multi_update(kp, km, kv, g, step_t, scale=sc,
                                         table=table, **hp)
 
         one_leaf = {}  # a one-leaf table a leaf, as the parent's did
@@ -2659,7 +2705,7 @@ def _adamw_set_case(torch, tag, shapes, gen, flush, *, decoupled=True,
             for i, (p, m, v, gg, w) in enumerate(zip(kp, km, kv, gs, wds)):
                 if p.numel() >= ka.MIN_SIZE:
                     one_leaf[i] = ka.fused_adamw_multi_update(
-                        [p], [m], [v], [gg], *step, beta1=0.9, beta2=0.999,
+                        [p], [m], [v], [gg], step_t, beta1=0.9, beta2=0.999,
                         eps=1e-8, weight_decays=[w], decoupled=decoupled,
                         table=one_leaf.get(i))
                 else:
@@ -3360,7 +3406,12 @@ def compare_conv(torch, sources):
                     f"alone {tot['gemm']:.4f} ms")
 
 
-def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
+def _train_engine(torch, cfg, device, amp=None, weight_seed=0,
+                  capture=False):
+    """gpt through Engine(GPTPretrainingCriterion, AdamW(1e-4, weight_decay
+    0.01, fused_kernel=True)); eager unless ``capture`` (None: the
+    package's Engine as it comes, for a tree whose Engine has no
+    ``capture``)."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.nlp.gpt import (GPTForCausalLM,
@@ -3370,7 +3421,8 @@ def _train_engine(torch, cfg, device, amp=None, weight_seed=0):
                            generator=seed(weight_seed, device=device)).train()
     eng = Engine(model, loss=GPTPretrainingCriterion(),
                  optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
-                                 fused_kernel=True), amp_dtype=amp)
+                                 fused_kernel=True), amp_dtype=amp,
+                 **({} if capture is None else dict(capture=capture)))
     return model, eng
 
 
@@ -3676,7 +3728,8 @@ def _ernie_batch(vocab, b, s, device):
              torch.from_numpy(nsp).to(device)])
 
 
-def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0):
+def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0,
+                  capture=False):
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.nlp.ernie import (ErnieForPretraining,
@@ -3686,7 +3739,8 @@ def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0):
         weight_seed, device=device)).train()
     eng = Engine(model, loss=ErniePretrainingCriterion(),
                  optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
-                                 fused_kernel=True), amp_dtype=amp)
+                                 fused_kernel=True), amp_dtype=amp,
+                 **({} if capture is None else dict(capture=capture)))
     return model, eng
 
 
@@ -4746,10 +4800,11 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 
 
 def _resnet_train_engine(torch, device, fused=True, s2d=False, amp=None,
-                         weight_seed=0):
+                         weight_seed=0, capture=False):
     """bench.py's build_resnet_engine on the port: resnet50(num_classes=
     1000, NHWC, fused_bottleneck, s2d_stem).train(), Momentum(0.1, 0.9),
-    Engine(model, CrossEntropyLoss(), opt, amp_dtype)."""
+    Engine(model, CrossEntropyLoss(), opt, amp_dtype), eager unless
+    ``capture``."""
     from paddle_tpu_torch import nn, seed
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.optimizer import Momentum
@@ -4758,7 +4813,8 @@ def _resnet_train_engine(torch, device, fused=True, s2d=False, amp=None,
                      s2d_stem=s2d, device=device,
                      generator=seed(weight_seed, device=device)).train()
     opt = Momentum(0.1, momentum=0.9, parameters=model.named_parameters())
-    return model, Engine(model, nn.CrossEntropyLoss(), opt, amp_dtype=amp)
+    return model, Engine(model, nn.CrossEntropyLoss(), opt, amp_dtype=amp,
+                         capture=capture)
 
 
 def _resnet_train_batch(torch, b, hw, device="cuda", seed=0):
@@ -4811,11 +4867,13 @@ def profile_grouped(torch, tag, what, run, groups_spec):
     rows = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=lambda a: a.self_device_time_total, reverse=True)
     launches = sum(a.count for a in avgs if a.key in LAUNCH_CALLS)
+    graphs = sum(a.count for a in avgs if a.key in GRAPH_LAUNCH_CALLS)
     busy = sum(a.self_device_time_total for a in rows) / 1e6
     if busy <= 0:
         log(f"{tag}: the profiler recorded no device time; busy share not "
             "measured")
-        return dict(busy_share=None, launch_calls=launches)
+        return dict(busy_share=None, launch_calls=launches,
+                    graph_launches=graphs)
     groups = {name: [0.0, 0] for name, _ in groups_spec}
     groups["other"] = [0.0, 0]
     for a in rows:
@@ -4829,8 +4887,8 @@ def profile_grouped(torch, tag, what, run, groups_spec):
     log(f"{tag}: {what} profiled: wall {wall * 1e3:.3f} ms "
         f"under the profiler, device busy {busy * 1e3:.3f} ms = "
         f"{busy / wall:.3f} of it (kernel times summed {summed * 1e3:.3f} "
-        f"ms); {launches} kernel launches by the host, "
-        f"{sum(a.count for a in rows)} device kernels")
+        f"ms); {launches} kernel launches by the host, {graphs} graph "
+        f"launches, {sum(a.count for a in rows)} device kernels")
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         if n:
             log(f"{tag}:   {ms:9.3f} ms = {ms / (summed * 1e3):.3f}  "
@@ -4840,6 +4898,7 @@ def profile_grouped(torch, tag, what, run, groups_spec):
             f"x{a.count:<5d} {a.key[:90]}")
     return dict(busy_share=busy / wall, device_ms=busy * 1e3,
                 summed_ms=summed * 1e3, launch_calls=launches,
+                graph_launches=graphs,
                 groups={n: g[0] for n, g in groups.items()})
 
 
@@ -5145,7 +5204,7 @@ def _resnet_fit_model(torch, weight_seed):
                    device="cuda", generator=seed(weight_seed, device="cuda"))
     model = Model(net)
     model.prepare(Momentum(0.1, momentum=0.9), nn.CrossEntropyLoss(),
-                  Accuracy(topk=(1, 5)), amp_configs="O1")
+                  Accuracy(topk=(1, 5)), amp_configs="O1", capture=False)
     return model
 
 
@@ -5353,7 +5412,7 @@ def phase_fit_lenet(torch):
                                                   device=device))
         m = Model(net)
         m.prepare(Adam(1e-3, parameters=net.parameters(), fused_kernel=True),
-                  nn.CrossEntropyLoss(), Accuracy())
+                  nn.CrossEntropyLoss(), Accuracy(), capture=False)
         return m
 
     model = build("cuda")
@@ -5840,6 +5899,13 @@ def phase_detr_train(torch):
           f"{tag}: not DETR-R50's configuration")
     model = Model(net, inputs=["images"])  # one input, three labels
     model.prepare(_detr_adamw(net), DETRLoss(num_classes=80))
+    # the loss reads the device from the host: the Engine runs DETR's
+    # steps eagerly, and says why
+    check(not model._engine.captures and "auction_match" in str(
+        model._engine.eager_reason), f"{tag}: the Engine captures DETR's "
+        f"step ({model._engine.eager_reason})")
+    log(f"{tag}: the Engine runs DETR's steps eagerly: "
+        f"{model._engine.eager_reason}")
     syncs0 = port_detr.auction_match.host_syncs
     iters0 = port_detr.auction_match.iterations
     # the backward's calls by (sq, sk): each launches #3 and #4 once
@@ -6123,6 +6189,691 @@ def phase_ppyoloe_train_cpu(torch):
     return r
 
 
+# -- the captured training step (phase train-graph) ----------------------------
+
+# what a profile counts as the host launching a CUDA graph
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+# kernel-node name fragments of a GPT step's graph: each flash kernel once a
+# layer, #10 once a step
+GPT_GRAPH_KERNELS = (("flash_attention_fwd", "flash_fwd_tc_kernel"),
+                     ("flash_attention_bwd_dq", "flash_bwd_dq_tc_kernel"),
+                     ("flash_attention_bwd_dkv", "flash_bwd_dkv_tc_kernel"))
+
+
+class _TwinWatch:
+    """Over a run: the calls of every plain twin of the kernel modules
+    (each public function whose name ends in ``_plain``, and the optimizer
+    module's imported ``adamw_update_plain``), patched for the run."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.kernels import (conv_bn_act,
+                                                  flash_attention,
+                                                  flash_decode, fused_adamw,
+                                                  fused_ln)
+        from paddle_tpu_torch.optimizer import optimizer as om
+        self.calls, self._saved = {}, []
+        for mod in (conv_bn_act, flash_attention, flash_decode, fused_adamw,
+                    fused_ln, om):
+            for name in dir(mod):
+                fn = getattr(mod, name)
+                if name.endswith("_plain") and not name.startswith("_") \
+                        and callable(fn):
+                    self._saved.append((mod, name, fn))
+                    setattr(mod, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(*args, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _graph_node_names(torch, g):
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True``, as ``_graph_nodes`` reads them."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(err, what):
+        check(err == 0, f"CUDA driver {what} returned error {err}")
+
+    graph = vp(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2",
+                         cu.cuGraphKernelNodeGetParams)
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append(f"<node type {kind.value}>")
+            continue
+        params = (vp * 16)()
+        ok(get_params(vp(node), params), "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(params[0])),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(params[7])),
+               "cuKernelGetName")
+        out.append(name.value.decode())
+    return out
+
+
+def _recording(eng, kind):
+    """The Engine's recording of ``kind`` ("train", "grad", "apply")."""
+    recs = [r for k, r in eng._recorded.items()
+            if (k[0][0] if isinstance(k[0], tuple) else k[0]) == kind]
+    check(len(recs) == 1 and recs[0].graph is not None,
+          f"train-graph: the Engine holds {len(recs)} recorded {kind} steps")
+    return recs[0]
+
+
+def _snapshot(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _compare_states(tag, what, eager, captured, start,
+                    zero_grads=("k_proj.bias",), noise_bar=None):
+    """Parameters (and buffers) of the eager model against the captured
+    one's: bit for bit, else PERF.md §2's training-step bar with the
+    reason logged: each leaf's update since ``start`` within 5e-2
+    relative L2 of the eager one's (or within 1e-5 absolute). A leaf
+    named with a suffix of ``zero_grads`` (the key bias: zero in exact
+    arithmetic, its gradient rounding noise, which Adam still turns into
+    steps of up to lr) is held to ``noise_bar`` absolute instead, where
+    given. -> "bit for bit" or the worst relative update difference."""
+    pc = list(captured.parameters())
+    same = all(torch_equal(a, b) for a, b in zip(eager.parameters(), pc))
+    bufs_same = all(torch_equal(a, b) for a, b in zip(eager.buffers(),
+                                                      captured.buffers()))
+    if same and bufs_same:
+        return "bit for bit"
+    worst, differ = 0.0, []
+    for (n, a), b, p0 in zip(eager.named_parameters(), pc, start):
+        diff = (a - b).abs().max().item()
+        if diff:
+            differ.append(n)
+        if noise_bar is not None and n.endswith(tuple(zero_grads)):
+            check(diff <= noise_bar, f"{tag}: {what}: {n} (its gradient "
+                  f"zero in exact arithmetic) differs by {diff} > "
+                  f"{noise_bar}")
+            continue
+        rel = (a - b).float().norm().item() / max(
+            (a - p0).float().norm().item(), 1e-30)
+        check(rel <= 5e-2 or diff <= 1e-5,
+              f"{tag}: {what}: {n}'s update differs by {rel} relative L2 "
+              f"between the eager and the captured step")
+        worst = max(worst, rel if diff > 1e-5 else 0.0)
+    log(f"{tag}: {what}: not bit for bit: {len(differ)} leaves differ "
+        f"({differ[:4]}{' ...' if len(differ) > 4 else ''}; PyTorch's and "
+        f"cuDNN's kernels that add with atomics, an embedding's backward or "
+        f"a convolution's weight gradient, sum in another order each run); "
+        f"within PERF.md §2's bar: the worst leaf's update differs by "
+        f"{worst:.3e} relative L2 (leaves within 1e-5 absolute count 0); "
+        f"buffers {'equal' if bufs_same else 'not equal'} bit for bit")
+    return worst
+
+
+def _resync(me, ee, mc, ce):
+    """The captured model and optimizer state set to the eager one's, in
+    place (a recorded step reads them where they are)."""
+    import torch
+    with torch.no_grad():
+        for a, b in zip(mc.parameters(), me.parameters()):
+            a.copy_(b)
+        for a, b in zip(mc.buffers(), me.buffers()):
+            a.copy_(b)
+        for name, slots in ee.optimizer._state.items():
+            for k, t in slots.items():
+                ce.optimizer._state[name][k].copy_(t)
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _turns(torch, engines, inputs, labels, steps=10):
+    """ms a step of each engine, timed in turns (eager, captured,
+    captured, eager), ``steps`` steps a turn ending in one sync."""
+    import statistics
+    out = {k: [] for k in engines}
+    for key in ("eager", "captured", "captured", "eager"):
+        eng = engines[key]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.train_batch(inputs, labels)
+        torch.cuda.synchronize()
+        out[key].append((time.perf_counter() - t0) / steps * 1e3)
+    return {k: dict(turns=v, ms=statistics.mean(v)) for k, v in out.items()}
+
+
+def _mode_profile(torch, tag, eng, inputs, labels, groups):
+    prof = profile_grouped(torch, tag, "one training step",
+                           lambda: eng.train_batch(inputs, labels), groups)
+    return dict(busy_share=prof["busy_share"],
+                launch_calls=prof["launch_calls"],
+                graph_launches=prof.get("graph_launches", 0))
+
+
+def _graph_pair(torch, tag, make, inputs, labels, groups, steps=5,
+                linear=False, schedule=None, lockstep=True, expect=None):
+    # linear: a Momentum step (lr times the gradient), not Adam's
+    """The eager and the captured Engine of one path from the same
+    weights, batch and generator state: ``steps`` steps each, the
+    captured one's first eager, its second recorded then replayed, the
+    rest replayed; every step's loss and the parameters after it held
+    eager against captured (``_compare_states``); ``schedule``: a
+    function of the step giving both optimizers that lr. ``lockstep``:
+    both Engines live at once, compared after every step, then timed in
+    turns; else (GPT-1.3B: two would not fit the card with the graph's
+    pool) the eager run first, its losses and parameters kept, then the
+    captured one, each timed alone. ``expect``: {wrapper: launches a
+    step} the recording must make, and no plain twin. Peak memory of each
+    (max_memory_allocated over its first steps, above what was allocated
+    before it was built, the other Engine's resident state taken out) and
+    reserved memory; one profiled step each (busy share, host launches,
+    graph launches)."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    res = {}
+    gib = 2 ** 30
+
+    def set_lr(eng, i):
+        if schedule is not None:
+            eng.optimizer._lr = schedule(i)
+
+    def noise_bar(n):
+        """2 * lr an Adam update over ``n`` steps (None for Momentum)."""
+        if linear:
+            return None
+        return 2 * sum(schedule(i) if schedule else ee_lr
+                       for i in range(n))
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    me, ee = make(False)
+    ee_lr = ee.optimizer.get_lr()
+    start = _snapshot(me)
+    e_loss, c_loss = [], []
+    set_lr(ee, 0)
+    e_loss.append(ee.train_batch(inputs, labels)[0].item())
+    res["eager_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / gib
+    e_res = torch.cuda.memory_allocated() - base
+    if not lockstep:
+        for i in range(1, steps):
+            set_lr(ee, i)
+            e_loss.append(ee.train_batch(inputs, labels)[0].item())
+        want = _snapshot(me)
+        timed = {}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                ee.train_batch(inputs, labels)
+            torch.cuda.synchronize()
+            timed.setdefault("eager", []).append(
+                (time.perf_counter() - t0) / 10 * 1e3)
+        res["eager_profile"] = _mode_profile(torch, f"{tag} eager", ee,
+                                             inputs, labels, groups)
+        del me, ee
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        e_res = 0
+    torch.cuda.reset_peak_memory_stats()
+    mc, ce = make(True)
+    check(ce.captures, f"{tag}: the Engine does not capture "
+          f"({ce.eager_reason})")
+    for a, b in zip(start, mc.parameters()):
+        check(torch_equal(a, b), f"{tag}: the two builds' weights differ")
+    c_launches = dict.fromkeys(_read_launches(), 0)
+    for i in range(steps):
+        set_lr(ce, i)
+        n0 = _read_launches()
+        if i == 1:
+            with _TwinWatch() as twins:
+                c_loss.append(ce.train_batch(inputs, labels)[0].item())
+            rec = {n: c - n0[n] for n, c in _read_launches().items() if
+                   c - n0[n]}
+            check(not twins.calls, f"{tag}: the recording ran plain twins "
+                  f"{twins.calls}")
+            if expect is not None:
+                check(rec == expect, f"{tag}: the recorded step launched "
+                      f"{rec}, want {expect}")
+            res["recorded_launches"] = rec
+            res["captured_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                        - base - e_res) / gib
+        else:
+            c_loss.append(ce.train_batch(inputs, labels)[0].item())
+        for n, c in _read_launches().items():
+            c_launches[n] += c - n0[n]
+        if lockstep and i:
+            set_lr(ee, i)
+            e_loss.append(ee.train_batch(inputs, labels)[0].item())
+        if lockstep:
+            state = _compare_states(
+                tag, f"step {i + 1}" + (f" at lr {schedule(i):.3e}"
+                                        if schedule else ""), me, mc, start,
+                noise_bar=noise_bar(i + 1))
+            res.setdefault("states", []).append(state)
+            if state != "bit for bit":
+                # the next step from the eager state on both: each step is
+                # held to the bar alone, as §2 holds one step
+                _resync(me, ee, mc, ce)
+                start = _snapshot(me)
+    # the wrappers' counts over the captured Engine's steps: its eager
+    # first step and its recording (a replay launches through the graph)
+    res["launches"] = c_launches
+    check(all(c_launches[n] == 2 * k for n, k in (expect or {}).items()),
+          f"{tag}: the captured Engine's wrappers counted {c_launches}")
+    res["reserved_gib"] = torch.cuda.memory_reserved() / gib
+    if not lockstep:
+        for a, b in zip(want, mc.parameters()):
+            if not torch_equal(a, b):
+                break
+        else:
+            res["states"] = ["bit for bit"]
+        if "states" not in res:
+            class _Snap(torch.nn.Module):
+                def __init__(self, ps):
+                    super().__init__()
+                    self.ps = torch.nn.ParameterList(
+                        [torch.nn.Parameter(p, requires_grad=False)
+                         for p in ps])
+            res["states"] = [_compare_states(tag, f"after {steps} steps",
+                                             _Snap(want), mc, start,
+                                             noise_bar=noise_bar(steps))]
+        del want
+    bitwise = e_loss == c_loss
+    rel = max(abs(a - b) / abs(a) for a, b in zip(e_loss, c_loss))
+    check(all(math.isfinite(x) for x in e_loss + c_loss),
+          f"{tag}: losses eager {e_loss} captured {c_loss}")
+    check(bitwise or rel <= 1e-4, f"{tag}: losses eager {e_loss} captured "
+          f"{c_loss} ({rel} relative)")
+    res.update(eager_losses=e_loss, captured_losses=c_loss,
+               losses_bitwise=bitwise, loss_rel=rel)
+    if lockstep:
+        res["ms"] = _turns(torch, {"eager": ee, "captured": ce}, inputs,
+                           labels)
+        res["eager_profile"] = _mode_profile(torch, f"{tag} eager", ee,
+                                             inputs, labels, groups)
+    else:
+        tc = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                ce.train_batch(inputs, labels)
+            torch.cuda.synchronize()
+            tc.append((time.perf_counter() - t0) / 10 * 1e3)
+        res["ms"] = {"eager": dict(turns=timed["eager"],
+                                   ms=sum(timed["eager"]) / 2),
+                     "captured": dict(turns=tc, ms=sum(tc) / 2)}
+    res["captured_profile"] = _mode_profile(torch, f"{tag} captured", ce,
+                                            inputs, labels, groups)
+    ep, cp = res["eager_profile"], res["captured_profile"]
+    log(f"{tag}: eager vs captured, {steps} steps from the same start: "
+        f"losses {'bit for bit' if bitwise else f'within {rel:.2e}'} "
+        f"({c_loss[0]:.6f} -> {c_loss[-1]:.6f}), parameters "
+        f"{res['states'][-1] if isinstance(res['states'][-1], str) else 'within the bars'}; "
+        f"ms a step {res['ms']['eager']['ms']:.3f} vs "
+        f"{res['ms']['captured']['ms']:.3f} (turns "
+        f"{[round(x, 3) for x in res['ms']['eager']['turns']]} vs "
+        f"{[round(x, 3) for x in res['ms']['captured']['turns']]}"
+        f"{'' if lockstep else ', each alone'}); busy share "
+        f"{ep['busy_share']} vs {cp['busy_share']}; host launches a step "
+        f"{ep['launch_calls']} cudaLaunchKernel vs {cp['launch_calls']} + "
+        f"{cp['graph_launches']} cudaGraphLaunch; peak memory "
+        f"{res['eager_peak_gib']:.2f} vs {res['captured_peak_gib']:.2f} "
+        f"GiB, reserved {res['reserved_gib']:.2f} GiB; the recording "
+        f"launched {res['recorded_launches']}, no twin")
+    res["engines"] = (me, ee, mc, ce) if lockstep else (mc, ce)
+    return res
+
+
+def _gpt_graph_check(torch, tag, ce, ee, inputs, labels, layers):
+    """The GPT step's graph: each flash kernel once a layer, #10 once, and
+    one replay (train_batch on the captured Engine) raises nothing under
+    the sync debug mode "error" (the eager Engine then takes the same
+    step, so the two stay in step)."""
+    nodes = _graph_node_names(torch, _recording(ce, "train").graph)
+    counts = {w: sum(frag in n for n in nodes)
+              for w, frag in GPT_GRAPH_KERNELS}
+    counts["fused_adamw_multi_update"] = sum("adamw_kernel" in n
+                                             for n in nodes)
+    want = {w: layers for w, _ in GPT_GRAPH_KERNELS}
+    want["fused_adamw_multi_update"] = 1
+    check(counts == want, f"{tag}: the graph holds {counts}, want {want}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ce.train_batch(inputs, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ee.train_batch(inputs, labels)
+    torch.cuda.synchronize()
+    kinds = {}
+    for n in nodes:
+        k = n if n.startswith("<") else "kernel"
+        kinds[k] = kinds.get(k, 0) + 1
+    log(f"{tag}: the recorded step's graph: {len(nodes)} nodes {kinds}; "
+        f"{counts} of the port's kernels; one replay under the sync debug "
+        f"mode 'error' raised nothing")
+    return dict(nodes=len(nodes), kinds=kinds, kernels=counts)
+
+
+def _lm_batches(vocab, k, b, s, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, vocab, (k, b, s))).cuda(),
+            torch.from_numpy(rng.integers(0, vocab, (k, b, s))).cuda())
+
+
+def _graph_multi(torch, tag, me, ee, mc, ce, cfg):
+    """train_batch_multi with K = 10 on the captured Engine against 10
+    train_batch calls on the eager one, both from the same state: losses
+    and parameters, and the multi call's ms a step."""
+    ids, labels = _lm_batches(cfg.vocab_size, 10, 8, 1024, seed=1)
+    start = _snapshot(me)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, outs = ce.train_batch_multi([ids], [labels])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    check(outs is None and tuple(losses.shape) == (10,),
+          f"{tag}: train_batch_multi returned {tuple(losses.shape)}, {outs}")
+    got = losses.tolist()
+    want = [ee.train_batch([ids[i]], [labels[i]])[0].item()
+            for i in range(10)]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    check(got == want or rel <= 1e-4, f"{tag}: multi losses {got} vs "
+          f"{want}")
+    state = _compare_states(tag, "K = 10 multi vs 10 train_batch calls",
+                            me, mc, start)
+    check(ce._step == ee._step and ce._opt_step == ee._opt_step,
+          f"{tag}: counters {ce._step}/{ce._opt_step} vs "
+          f"{ee._step}/{ee._opt_step}")
+    log(f"{tag}: train_batch_multi K = 10 vs 10 train_batch calls: losses "
+        f"{'bit for bit' if got == want else f'within {rel:.2e}'}, "
+        f"parameters {state if isinstance(state, str) else 'within bars'};"
+        f" {ms:.3f} ms a step in the multi call (no host sync in it)")
+    return dict(ms=ms, losses_bitwise=got == want, state=state)
+
+
+def _graph_accum(torch, tag, cfg):
+    """Accumulation on GPT-345M in f32: 4 micro-batches of 2 x 1024 on a
+    captured Engine against one 8 x 1024 step on an eager one, two
+    windows (the second's apply step replayed), held to PERF.md §2's
+    training-step bars: each window's mean loss within 1e-4 relative;
+    after the first update every element within 1e-5, or 2 * lr where
+    Adam's second moment says every gradient of the element stayed below
+    1e-6 (a step function of g near eps); the second update, where Adam's
+    m can cancel between the two gradients and magnify their rounding,
+    within 5e-2 relative L2 of the full step's update, leaf by leaf. The
+    apply step's graph holds #10 once, and its replay launched it once."""
+    ids, labels = _lm_batches(cfg.vocab_size, 2, 8, 1024, seed=2)
+    mf, ef = _train_engine(torch, cfg, "cuda", capture=False)
+    ma, ea = _train_engine(torch, cfg, "cuda", capture=True)
+    worst, steep_worst, upd_worst, rels = 0.0, 0.0, 0.0, []
+    for w in range(2):
+        before = _snapshot(mf)
+        full = ef.train_batch([ids[w]], [labels[w]])[0].item()
+        micro = []
+        for j in range(4):
+            sl = slice(2 * j, 2 * j + 2)
+            if w == 1 and j == 3:
+                n0 = _read_launches()["fused_adamw_multi_update"]
+            loss, _, applied = ea.train_batch_accum(
+                [ids[w][sl]], [labels[w][sl]], apply_update=j == 3)
+            micro.append(loss.item())
+            check(applied == (j == 3), f"{tag}: applied {applied}")
+        if w == 1:
+            launched = _read_launches()["fused_adamw_multi_update"] - n0
+            check(launched == 1, f"{tag}: the recorded apply step launched "
+                  f"#10 {launched} times")
+        rel = abs(sum(micro) / 4 - full) / abs(full)
+        rels.append(rel)
+        check(rel <= 1e-4, f"{tag}: window {w}: mean micro loss "
+              f"{sum(micro) / 4} vs {full}")
+        opt = ef.optimizer
+        bc2 = 1.0 - opt._beta2 ** ef._opt_step
+        lr = opt.get_lr()
+        for (n, a), b, p0 in zip(mf.named_parameters(), ma.parameters(),
+                                 before):
+            if w == 1 and n.endswith("k_proj.bias"):
+                # zero in exact arithmetic: rounding noise that Adam turns
+                # into steps of up to lr
+                check((a - b).abs().max().item() <= 4 * lr,
+                      f"{tag}: window 1: {n} differs by more than 2 * lr "
+                      f"an update")
+                continue
+            if w == 1:
+                upd = (a - b).norm().item() / max((a - p0).norm().item(),
+                                                  1e-30)
+                check(upd <= 5e-2, f"{tag}: window 1: {n}'s update differs "
+                      f"by {upd} relative L2")
+                upd_worst = max(upd_worst, upd)
+                continue
+            diff = (a - b).abs()
+            steep = (opt._state[n]["v"] / bc2).sqrt() < 1e-6
+            flat = diff[~steep].max().item() if (~steep).any() else 0.0
+            sharp = diff[steep].max().item() if steep.any() else 0.0
+            check(flat <= 1e-5 and sharp <= 2 * lr,
+                  f"{tag}: window 0: {n} differs by {flat} ({sharp} where "
+                  f"|g| < 1e-6)")
+            worst, steep_worst = max(worst, flat), max(steep_worst, sharp)
+        del before
+    nodes = _graph_node_names(torch, _recording(ea, "apply").graph)
+    n_adamw = sum("adamw_kernel" in n for n in nodes)
+    check(n_adamw == 1, f"{tag}: the apply step's graph holds #10 "
+          f"{n_adamw} times")
+    check(_recording(ea, "grad").graph is not None, f"{tag}: no grad graph")
+    log(f"{tag}: 4 x (2 x 1024) accumulated vs one 8 x 1024 step, f32, two "
+        f"windows: mean loss within {max(rels):.2e} relative; after the "
+        f"first update parameters within {worst:.2e} ({steep_worst:.2e} "
+        f"where Adam's v says |g| < 1e-6), the second update within "
+        f"{upd_worst:.2e} relative L2 at worst; the apply step's graph "
+        f"({len(nodes)} nodes) holds #10 once and its replay launched it "
+        f"once")
+    del mf, ef, ma, ea
+    torch.cuda.empty_cache()
+    return dict(loss_rel=max(rels), param_err=worst, update_rel=upd_worst)
+
+
+def _lenet_fit(torch, tag, train, capture):
+    """One LeNet Model.fit (2 epochs at batch 256, no shuffle) from seed
+    0's weights -> (Model, per-batch losses, s an epoch, peak GiB)."""
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    net = LeNet(device="cuda", generator=seed(0, device="cuda"))
+    m = Model(net)
+    m.prepare(Adam(1e-3, parameters=net.parameters(), fused_kernel=True),
+              nn.CrossEntropyLoss(), capture=capture)
+    losses = []
+
+    class Rec(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"][0])
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.fit(train, epochs=2, batch_size=256, shuffle=False, verbose=0,
+          callbacks=[Rec()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(m._engine.captures == capture, f"{tag}: Engine(capture="
+          f"{capture}) captures {m._engine.captures}")
+    return m, losses, wall / 2, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _graph_lenet(torch, tag):
+    """LeNet through Model.fit, eager against captured from the same
+    weights: 2 epochs of MNIST(mode="train") at batch 256, no shuffle
+    (23 full batches and a tail of 112 an epoch: the tail's own recording
+    in the second epoch), Adam(1e-3, fused_kernel=True): every batch's
+    loss, the parameters after, the seconds an epoch, then one
+    Model.train_batch of each profiled. cuDNN runs its deterministic
+    algorithms in both fits (its default weight gradient adds with
+    atomics in another order each run, and 48 steps would carry that
+    apart), so the two can agree bit for bit."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    train = MNIST(mode="train")
+    out, models = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode, capture in (("eager", False), ("captured", True)):
+            models[mode], losses, epoch_s, peak = _lenet_fit(
+                torch, tag, train, capture)
+            out[mode] = dict(losses=losses, epoch_s=epoch_s, peak_gib=peak)
+        start = _snapshot(LeNet(device="cuda",
+                                generator=seed(0, device="cuda")))
+        state = _compare_states(tag, "after 2 epochs",
+                                models["eager"].network,
+                                models["captured"].network, start)
+        el, cl = out["eager"]["losses"], out["captured"]["losses"]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(el, cl))
+        check(len(el) == len(cl) == 48 and (el == cl or rel <= 1e-4),
+              f"{tag}: losses eager {el} captured {cl}")
+        xb, yb = (t.cuda() for t in next(iter(
+            models["eager"]._loaders["train"]))[:2])
+        for mode in ("eager", "captured"):
+            mm = models[mode]
+            prof = profile_grouped(
+                torch, f"{tag} {mode}", "one Model.train_batch",
+                lambda: mm.train_batch([xb], [yb]), LM_TRAIN_GROUPS)
+            out[mode].update(busy_share=prof["busy_share"],
+                             launch_calls=prof["launch_calls"],
+                             graph_launches=prof["graph_launches"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"{tag}: Model.fit 2 epochs eager vs captured (cuDNN "
+        f"deterministic): 48 losses "
+        f"{'bit for bit' if el == cl else f'within {rel:.2e}'}, parameters "
+        f"{state if isinstance(state, str) else 'within the bars'}; s an "
+        f"epoch {out['eager']['epoch_s']:.3f} vs "
+        f"{out['captured']['epoch_s']:.3f}; busy {out['eager']['busy_share']}"
+        f" vs {out['captured']['busy_share']}; host launches a train_batch "
+        f"{out['eager']['launch_calls']} vs "
+        f"{out['captured']['launch_calls']} + "
+        f"{out['captured']['graph_launches']} graph; peak "
+        f"{out['eager']['peak_gib']:.3f} vs "
+        f"{out['captured']['peak_gib']:.3f} GiB")
+    out["state"] = state
+    return out
+
+
+def phase_train_graph(torch):
+    """Phase train-graph: each training path's step recorded as a CUDA
+    graph by the Engine, against the eager step from the same weights,
+    batch and generator state (see the module docstring)."""
+    from paddle_tpu_torch.nlp.ernie import _resolve_config as ernie_config
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+    out = {}
+    flash3 = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+              "flash_attention_bwd_dkv": 24}
+    for tag, drop in (("gpt3-345M", 0.0), ("gpt3-345M dropout 0.1", 0.1)):
+        cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=drop,
+                              attention_probs_dropout_prob=drop)
+        ids, labels = _batch(cfg, 8, 1024, "cuda")
+        sched = None
+        if not drop:
+            # a warm-up: lr moves between the replays
+            warm = LinearWarmup(1e-4, warmup_steps=5, start_lr=0.0,
+                                end_lr=1e-4)
+            lrs = []
+            for _ in range(5):
+                lrs.append(float(warm()))
+                warm.step()
+            sched = lambda i: lrs[i]  # noqa: E731
+        r = _graph_pair(
+            torch, f"train-graph {tag}",
+            lambda cap, cfg=cfg: _train_engine(torch, cfg, "cuda",
+                                               amp=torch.bfloat16,
+                                               capture=cap),
+            [ids], [labels], LM_TRAIN_GROUPS, schedule=sched,
+            expect=dict(flash3, fused_adamw_multi_update=1))
+        me, ee, mc, ce = r.pop("engines")
+        if not drop:
+            check(len(set(lrs)) == 5, f"train-graph: lrs {lrs}")
+            r["graph"] = _gpt_graph_check(torch, f"train-graph {tag}", ce,
+                                          ee, [ids], [labels],
+                                          cfg.num_hidden_layers)
+            r["multi"] = _graph_multi(torch, f"train-graph {tag}", me, ee,
+                                      mc, ce, cfg)
+            r["lrs"] = lrs
+            log(f"train-graph {tag}: the 5 steps ran at lr {lrs} (a linear "
+                f"warm-up), each replay's parameters bit for bit or within "
+                f"the bars of the eager step's: {r['states']}")
+        out[tag] = r
+        del me, ee, mc, ce
+        torch.cuda.empty_cache()
+    cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    out["accum"] = _graph_accum(torch, "train-graph gpt3-345M accumulation",
+                                cfg)
+    ecfg = ernie_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0, fused_ln=True)
+    inputs, labels = _ernie_batch(ecfg.vocab_size, 32, 512, "cuda")
+    r = _graph_pair(
+        torch, "train-graph ernie-3.0-base",
+        lambda cap: _ernie_engine(torch, ecfg, "cuda", amp=torch.bfloat16,
+                                  capture=cap),
+        inputs, labels, LM_TRAIN_GROUPS,
+        expect={"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                "flash_attention_bwd_dkv": 12, "fused_adamw_multi_update": 1,
+                "fused_add_layer_norm_y_fwd": 24,
+                "fused_add_layer_norm_y_bwd": 24})
+    r.pop("engines")
+    out["ernie-3.0-base"] = r
+    torch.cuda.empty_cache()
+    cfg13 = _resolve_config("gpt3-1.3B", hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    ids, labels = _batch(cfg13, 4, 1024, "cuda")
+    r = _graph_pair(
+        torch, "train-graph gpt3-1.3B",
+        lambda cap: _train_engine(torch, cfg13, "cuda", amp=torch.bfloat16,
+                                  capture=cap),
+        [ids], [labels], LM_TRAIN_GROUPS, lockstep=False,
+        expect=dict(flash3, fused_adamw_multi_update=1))
+    r.pop("engines")
+    out["gpt3-1.3B"] = r
+    torch.cuda.empty_cache()
+    x, y = _resnet_train_batch(torch, 256, 224)
+    r = _graph_pair(
+        torch, "train-graph resnet50",
+        lambda cap: _resnet_train_engine(torch, "cuda", amp="bfloat16",
+                                         capture=cap),
+        [x], [y], TRAIN_GROUPS, linear=True,
+        expect={"fused_conv1x1_bn_act": 17})
+    r.pop("engines")
+    out["resnet50"] = r
+    del x, y
+    torch.cuda.empty_cache()
+    out["lenet"] = _graph_lenet(torch, "train-graph lenet")
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- the training paths' steps, one package tree against another -------------
 
 def _lm_steps(torch, tag, eng, inputs, labels, warm, steps):
@@ -6150,13 +6901,19 @@ def steps_of(torch):
     """The training paths' step numbers with whatever paddle_tpu_torch is
     first on sys.path (its kernels built from its own sources): gpt3-345M
     (batch 8 x 1024) and ERNIE-3.0-base (32 x 512), 3 warm-up and 10
-    timed steps, GPT-1.3B (4 x 1024) 2 + 5, each with one profiled step;
-    DETR-R50 through Model.fit as phase detr-train runs it (16 steps,
-    steps 5-16 timed) and one Model.train_batch profiled; the LeNet
-    quickstart's 6 epochs. Every path with AdamW(fused_kernel=True), bf16
-    AMP for the language models, as the smoke's phases run them."""
+    timed steps, GPT-1.3B (4 x 1024) 2 + 5, each with one profiled step,
+    eager and, where the tree's Engine records a step as a CUDA graph
+    (``capture``), captured ("... captured"); DETR-R50 through Model.fit
+    as phase detr-train runs it (16 steps, steps 5-16 timed, eager: its
+    loss reads the host) and one Model.train_batch profiled; the LeNet
+    quickstart's 6 epochs, eager and captured. Every path with
+    AdamW(fused_kernel=True), bf16 AMP for the language models, as the
+    smoke's phases run them."""
+    import inspect
+
     import numpy as np
     from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.metric import Accuracy
     from paddle_tpu_torch.nlp.ernie import _resolve_config as ernie_config
     from paddle_tpu_torch.nlp.gpt import _resolve_config
@@ -6166,24 +6923,31 @@ def steps_of(torch):
     from paddle_tpu_torch.vision.models import DETR, DETRLoss, LeNet
     log(f"steps-of: paddle_tpu_torch from {os.path.dirname(_build.CSRC_DIR)}")
     _build.build_all()
+    modes = ((None, ""),)
+    if "capture" in inspect.signature(Engine).parameters:
+        modes = ((False, ""), (True, " captured"))
     out = {}
-    for name, b, warm, steps in (("gpt3-345M", 8, 3, 10),
-                                 ("gpt3-1.3B", 4, 2, 5)):
-        cfg = _resolve_config(name, hidden_dropout_prob=0.0,
-                              attention_probs_dropout_prob=0.0)
-        model, eng = _train_engine(torch, cfg, "cuda", amp=torch.bfloat16)
-        ids, labels = _batch(cfg, b, 1024, "cuda")
-        out[name] = _lm_steps(torch, name, eng, [ids], [labels], warm, steps)
+    for capture, suffix in modes:
+        for name, b, warm, steps in (("gpt3-345M", 8, 3, 10),
+                                     ("gpt3-1.3B", 4, 2, 5)):
+            cfg = _resolve_config(name, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+            model, eng = _train_engine(torch, cfg, "cuda",
+                                       amp=torch.bfloat16, capture=capture)
+            ids, labels = _batch(cfg, b, 1024, "cuda")
+            out[name + suffix] = _lm_steps(torch, name + suffix, eng, [ids],
+                                           [labels], warm, steps)
+            del model, eng
+            torch.cuda.empty_cache()
+        cfg = ernie_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                           attention_probs_dropout_prob=0.0, fused_ln=True)
+        model, eng = _ernie_engine(torch, cfg, "cuda", amp=torch.bfloat16,
+                                   capture=capture)
+        inputs, labels = _ernie_batch(cfg.vocab_size, 32, 512, "cuda")
+        out["ernie-3.0-base" + suffix] = _lm_steps(
+            torch, "ernie-3.0-base" + suffix, eng, inputs, labels, 3, 10)
         del model, eng
         torch.cuda.empty_cache()
-    cfg = ernie_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
-                       attention_probs_dropout_prob=0.0, fused_ln=True)
-    model, eng = _ernie_engine(torch, cfg, "cuda", amp=torch.bfloat16)
-    inputs, labels = _ernie_batch(cfg.vocab_size, 32, 512, "cuda")
-    out["ernie-3.0-base"] = _lm_steps(torch, "ernie-3.0-base", eng, inputs,
-                                      labels, 3, 10)
-    del model, eng
-    torch.cuda.empty_cache()
     tag, b, warm = "detr-r50", 4, 4
     ds = _detection_set(4 * b, *DETR_HW, seed=40)
     net = DETR(device="cuda", generator=seed(0))
@@ -6201,17 +6965,21 @@ def steps_of(torch):
                     busy_share=prof["busy_share"])
     del model, net, x
     torch.cuda.empty_cache()
-    net = LeNet(device="cuda", generator=seed(0, device="cuda"))
-    model = Model(net)
-    model.prepare(Adam(1e-3, parameters=net.parameters(), fused_kernel=True),
-                  nn.CrossEntropyLoss(), Accuracy())
-    np.random.seed(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.fit(MNIST(mode="train"), epochs=6, batch_size=256, verbose=0)
-    torch.cuda.synchronize()
-    out["lenet"] = dict(epoch_s=(time.perf_counter() - t0) / 6)
-    log(f"lenet: 6 epochs, {out['lenet']['epoch_s']:.3f} s an epoch")
+    for capture, suffix in modes:
+        net = LeNet(device="cuda", generator=seed(0, device="cuda"))
+        model = Model(net)
+        model.prepare(Adam(1e-3, parameters=net.parameters(),
+                           fused_kernel=True),
+                      nn.CrossEntropyLoss(), Accuracy(),
+                      **({} if capture is None else dict(capture=capture)))
+        np.random.seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(MNIST(mode="train"), epochs=6, batch_size=256, verbose=0)
+        torch.cuda.synchronize()
+        out["lenet" + suffix] = dict(epoch_s=(time.perf_counter() - t0) / 6)
+        log(f"lenet{suffix}: 6 epochs, "
+            f"{out['lenet' + suffix]['epoch_s']:.3f} s an epoch")
     return out
 
 
@@ -6228,9 +6996,12 @@ def compare_steps(torch, trees):
         check(proc.returncode == 0, f"--steps-of {tree} failed:\n"
               f"{proc.stderr[-3000:]}")
         runs.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
-    for path in runs[0][1]:
-        for key in runs[0][1][path]:
-            vals = ", ".join(f"{tree} {r[path][key]}" for tree, r in runs)
+    paths = [p for _, r in runs for p in r]
+    for path in dict.fromkeys(paths):
+        keys = dict.fromkeys(k for _, r in runs for k in r.get(path, {}))
+        for key in keys:
+            vals = ", ".join(f"{tree} {r[path][key]}" for tree, r in runs
+                             if path in r)
             log(f"compare-steps: {path} {key}: {vals}")
 
 
@@ -6281,6 +7052,7 @@ def adamw_geometry(torch):
     gen = torch.Generator(device="cuda").manual_seed(8)
     flush = torch.empty(64 * 2 ** 20, device="cuda").zero_
     step = (1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3)
+    step_t = ka.step_scalars(*step, device="cuda")
     hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=True)
     sets = {
         "lenet": _leaf_shapes(torch, lambda: LeNet(
@@ -6326,7 +7098,8 @@ def adamw_geometry(torch):
             def run():
                 for k, ptrs, n, wd, first in launches:
                     err = fn(k, ptrs.ctypes.data, n.ctypes.data,
-                             wd.ctypes.data, first.ctypes.data, *step,
+                             wd.ctypes.data, first.ctypes.data,
+                             step_t.data_ptr(),
                              0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 1,
                              None, stream)
                     check(err == 0, f"adamw-geometry: CUDA error {err}")
@@ -6355,6 +7128,15 @@ def adamw_geometry(torch):
     print(json.dumps(out), flush=True)
 
 
+def _jsonable(x):
+    """``x`` with every dict key a string and every tuple a list."""
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x
+
+
 def main():
     """Every phase, then the kernel table and the result line; with
     ``--compare-bwd SRC...``, ``--compare-fwd SRC...``,
@@ -6380,6 +7162,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if steps_tree:
         print(json.dumps(steps_of(torch)), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--train-graph"]:
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip())
+        from paddle_tpu_torch.ops import _build
+        _build.build_all()
+        print(json.dumps(_jsonable(phase_train_graph(torch))), flush=True)
         return 0
     if sys.argv[1:2] == ["--adamw-geometry"]:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6510,6 +7300,9 @@ def main():
     stamp("ppyoloe_train")
     phase_ppyoloe_train_cpu(torch)
     stamp("ppyoloe_train_cpu")
+    torch.cuda.empty_cache()
+    tg = phase_train_graph(torch)
+    stamp("train_graph")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -6747,6 +7540,37 @@ def main():
     kernels.append(adamw_row(
         "detr-train", adamw["multi"][("detr-r50", True)],
         dtr["launches"]["fused_adamw_multi_update"]))
+    # the captured training steps (phase train-graph): the same kernels,
+    # replayed from each path's CUDA graph. "launches" counts the wrappers
+    # over the captured Engine's steps (its eager first step and its
+    # recording), "launches_recorded" what one replay launches again
+    def pick(name, **match):
+        return next(r for r in kernels if r["name"] == name and all(
+            r.get(k) == v for k, v in match.items()))
+
+    graph_rows = [
+        (pick("flash_attention_fwd", dtype="bfloat16", shape=None),
+         "gpt3-345M"),
+        (pick("flash_attention_bwd_dq", shape=None, path=None), "gpt3-345M"),
+        (pick("flash_attention_bwd_dkv", shape=None, path=None), "gpt3-345M"),
+        (pick("fused_adamw_multi_update", path="train"), "gpt3-345M"),
+        (pick("fused_adamw_multi_update", path="ernie"), "ernie-3.0-base"),
+        (pick("fused_add_layer_norm_y_fwd"), "ernie-3.0-base"),
+        (pick("fused_add_layer_norm_y_bwd"), "ernie-3.0-base"),
+        (pick("flash_attention_fwd", shape="4x16x1024x128"), "gpt3-1.3B"),
+        (pick("flash_attention_bwd_dq", shape="4x16x1024x128"),
+         "gpt3-1.3B"),
+        (pick("flash_attention_bwd_dkv", shape="4x16x1024x128"),
+         "gpt3-1.3B"),
+        (pick("fused_adamw_multi_update", path="gpt-1.3b"), "gpt3-1.3B"),
+        (pick("fused_conv1x1_bn_act", path="resnet-train"), "resnet50"),
+    ]
+    for row, path in graph_rows:
+        res = tg[path]
+        kernels.append(dict(
+            row, path=f"train-graph {path}",
+            launches=res["launches"][row["name"]],
+            launches_recorded=res["recorded_launches"][row["name"]]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -13,8 +13,10 @@
 //     step = step + lr * wd * p          (decoupled decay: AdamW)
 //     p  = p - step
 // p, m, v and g are f32. lr and the bias corrections bc1, bc2 change per
-// step and come in as arguments; the betas and eps are the optimizer's; wd
-// is the leaf's own. The TPU kernel's 512-lane
+// step: the kernel reads them from a 3-value f32 array on the device, as the
+// TPU kernel reads its SMEM operand, so a launch captured in a CUDA graph
+// takes each replay's values; the betas and eps are the optimizer's; wd is
+// the leaf's own. The TPU kernel's 512-lane
 // flattening and its size % 4096 rule exist for Mosaic's tiling and are
 // dropped.
 //
@@ -72,7 +74,8 @@ struct Leaf {
 };
 
 struct Table {
-  float lr, bc1, bc2, b1, omb1, b2, omb2, eps;
+  const float* hyper;  // device [lr, bc1, bc2]
+  float b1, omb1, b2, omb2, eps;
   int decoupled;
   int leaves;
   const float* scale;  // device scalar multiplying every g, or null
@@ -84,26 +87,33 @@ static_assert(kChunk % (4 * kThreads) == 0, "a chunk is whole float4 rows");
 static_assert(sizeof(Table) <= 32764,
               "the leaf table exceeds the kernel parameter limit");
 
+// lr, bc1 and bc2 as the block read them from the table's device array
+struct Step {
+  float lr, bc1, bc2;
+};
+
 __device__ __forceinline__ void update(float& p, float& m, float& v, float g,
-                                       float s, float lr, float wd,
+                                       float s, const Step& h, float wd,
                                        const Table& t) {
+  const float lr = h.lr;
   g = g * s;
   if (wd != 0.f && !t.decoupled) g = g + wd * p;
   m = t.b1 * m + t.omb1 * g;
   v = t.b2 * v + t.omb2 * g * g;
-  const float denom = sqrtf(v / t.bc2) + t.eps;
-  float step = lr * (m / t.bc1) / denom;
+  const float denom = sqrtf(v / h.bc2) + t.eps;
+  float step = lr * (m / h.bc1) / denom;
   if (wd != 0.f && t.decoupled) step = step + lr * wd * p;
   p = p - step;
 }
 
 __device__ __forceinline__ void update4(float4& p, float4& m, float4& v,
-                                        const float4 g, float s, float lr,
-                                        float wd, const Table& t) {
-  update(p.x, m.x, v.x, g.x, s, lr, wd, t);
-  update(p.y, m.y, v.y, g.y, s, lr, wd, t);
-  update(p.z, m.z, v.z, g.z, s, lr, wd, t);
-  update(p.w, m.w, v.w, g.w, s, lr, wd, t);
+                                        const float4 g, float s,
+                                        const Step& h, float wd,
+                                        const Table& t) {
+  update(p.x, m.x, v.x, g.x, s, h, wd, t);
+  update(p.y, m.y, v.y, g.y, s, h, wd, t);
+  update(p.z, m.z, v.z, g.z, s, h, wd, t);
+  update(p.w, m.w, v.w, g.w, s, h, wd, t);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -119,7 +129,8 @@ adamw_kernel(const __grid_constant__ Table t) {
   const long long begin = (long long)(chunk - t.first_chunk[lo]) * kChunk;
   const long long end = min(L.n, begin + kChunk);
   const float s = t.scale ? *t.scale : 1.f;
-  const float lr = t.lr, wd = L.wd;
+  const Step h{t.hyper[0], t.hyper[1], t.hyper[2]};
+  const float wd = L.wd;
   float* __restrict__ p = L.p;
   float* __restrict__ m = L.m;
   float* __restrict__ v = L.v;
@@ -150,7 +161,7 @@ adamw_kernel(const __grid_constant__ Table t) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long j = i + u * kThreads;
-        update4(pp[u], mm[u], vv[u], gg[u], s, lr, wd, t);
+        update4(pp[u], mm[u], vv[u], gg[u], s, h, wd, t);
         p4[j] = pp[u];
         m4[j] = mm[u];
         v4[j] = vv[u];
@@ -158,7 +169,7 @@ adamw_kernel(const __grid_constant__ Table t) {
     }
     for (; i < q1; i += kThreads) {
       float4 pp = p4[i], mm = m4[i], vv = v4[i];
-      update4(pp, mm, vv, g4[i], s, lr, wd, t);
+      update4(pp, mm, vv, g4[i], s, h, wd, t);
       p4[i] = pp;
       m4[i] = mm;
       v4[i] = vv;
@@ -167,7 +178,7 @@ adamw_kernel(const __grid_constant__ Table t) {
   }
   for (long long i = scalar_from + threadIdx.x; i < end; i += kThreads) {
     float pp = p[i], mm = m[i], vv = v[i];
-    update(pp, mm, vv, g[i], s, lr, wd, t);
+    update(pp, mm, vv, g[i], s, h, wd, t);
     p[i] = pp;
     m[i] = mm;
     v[i] = vv;
@@ -185,22 +196,21 @@ extern "C" int fused_adamw_chunk() { return (int)kChunk; }
 // addresses, leaf-major (p, m, v, g of leaf 0, then of leaf 1, ...); n, wd:
 // per leaf; first_chunk: leaves + 1 entries, the prefix sum of
 // each leaf's ceil(n / kChunk) chunks from 0 (the grid is its last entry).
-// All host arrays, read before this returns. scale: a device f32 scalar
-// multiplying every gradient, or null. omb1 = 1 - beta1 and omb2 =
+// All host arrays, read before this returns. hyper: the device f32 array
+// [lr, bc1, bc2] the kernel reads. scale: a device f32 scalar multiplying
+// every gradient, or null. omb1 = 1 - beta1 and omb2 =
 // 1 - beta2 as the caller rounds them. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int fused_adamw_multi_update(
     int leaves, const long long* ptrs, const long long* n, const float* wd,
-    const int* first_chunk, float lr, float bc1, float bc2, float beta1,
+    const int* first_chunk, const float* hyper, float beta1,
     float omb1, float beta2, float omb2, float eps, int decoupled,
     const float* scale, void* stream) {
   if (leaves < 1 || leaves > kMaxLeaves || first_chunk[0] != 0 ||
-      first_chunk[leaves] <= 0)
+      first_chunk[leaves] <= 0 || hyper == nullptr)
     return (int)cudaErrorInvalidValue;
   Table t;
-  t.lr = lr;
-  t.bc1 = bc1;
-  t.bc2 = bc2;
+  t.hyper = hyper;
   t.b1 = beta1;
   t.omb1 = omb1;
   t.b2 = beta2;

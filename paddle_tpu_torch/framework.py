@@ -5,7 +5,10 @@ PRNG key stream (``next_rng_key``); here randomness is an explicit
 ``torch.Generator`` that the caller creates (``seed``) and passes to
 whatever draws from it. A model holds one generator on its device, from
 which hidden dropout and the attention-dropout seed both draw;
-``bind_generator`` points a model at another one (an Engine's).
+``bind_generator`` points a model at another one (an Engine's), and
+``generators`` lists the ones a model draws from, which a CUDA graph that
+records its step must know (``hapi.Engine`` registers each with the
+graph, so every replay draws new dropout masks and flash seeds).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype", "seed",
-           "bind_generator", "later"]
+           "bind_generator", "generators", "later"]
 
 _DTYPE_ALIASES = {
     "float16": torch.float16, "fp16": torch.float16,
@@ -68,6 +71,19 @@ def bind_generator(module, generator):
         if hasattr(m, "generator"):
             m.generator = generator
     return module
+
+
+def generators(*modules):
+    """The distinct ``torch.Generator`` objects that the submodules of
+    ``modules`` draw from (their ``generator`` attributes), in the order
+    first met."""
+    found = {}
+    for mod in modules:
+        for m in mod.modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator):
+                found.setdefault(id(g), g)
+    return list(found.values())
 
 
 def later(item):

@@ -1,22 +1,44 @@
-"""Engine of the port: one training step of (model, loss, optimizer)
+"""Engine of the port: the training step of (model, loss, optimizer)
 (counterpart of ``paddle_tpu/hapi/engine.py``).
 
 The reference compiles forward, loss, backward, clip and the optimizer
-update into one jitted step; the port runs the same sequence eagerly on
-the model's device: the forward through ``torch.func.functional_call``
-(with every floating parameter and input cast to ``amp_dtype`` inside the
-loss function, as the reference casts its pytree), ``torch.autograd.grad``
-onto the f32 parameters, then the optimizer's update core with the
-Engine's own update counter. The loss comes back as a device tensor:
-``train_batch`` never waits for the device (no host sync), so the caller
-synchronises when it reads the loss.
+update into one jitted step with donated buffers. Here the step is one
+function over tensors on the model's device: the forward through
+``torch.func.functional_call`` (with every floating parameter and input
+cast to ``amp_dtype`` inside it, as the reference casts its pytree),
+``torch.autograd.grad`` onto the f32 parameters, then the clip and the
+optimizer's update, which read the step's learning rate and bias
+corrections from the optimizer's device array (``Optimizer.fill_scalars``
+writes them before each step; the schedule stays on the host).
+
+On CUDA that function is recorded as a CUDA graph over static buffers
+(the inputs and labels; the loss, outputs and grad norm it returns): a
+step signature's first call runs it eagerly, a real step that also makes
+the optimizer's slots and #10's leaf table; its second call records it
+(``torch.cuda.graph``, with every generator the model draws from
+registered, so each replay draws new dropout masks and flash seeds) and
+replays it; every later call copies its batch into the static inputs and
+replays. A failed capture raises: there is no quiet way back to eager.
+On the CPU, or with ``capture=False``, the same function runs each time
+without recording. A loss or module that reads the device from the host
+declares it in a ``host_reads`` attribute (``DETRLoss``): its steps run
+eagerly (``eager_reason`` says why), and ``capture=True`` with it raises
+``ValueError``.
 
 ``step`` counts calls and ``opt_step`` counts optimizer updates (Adam's
-bias correction reads ``opt_step``), as in the reference.
+bias correction reads ``opt_step``), as in the reference. The loss comes
+back as a device tensor: no step waits for the device.
+
+``train_batch_multi`` runs K steps over stacked inputs with no host sync
+between them; ``train_batch_accum`` / ``flush_accum`` /
+``reset_accum_window`` accumulate gradients in f32 over micro-batches as
+two recorded functions (the micro-batch's gradient step, and the apply
+step that averages, clips and updates, the 1/n folded into the update's
+gradient scale); ``enable_grad_norm`` puts the global gradient norm
+(``last_grad_norm``) into the step.
 
 Not ported (each raises NotImplementedError, see ROADMAP.md): ``guard``
-(TrainGuard), ``mesh``, gradient accumulation (``train_batch_accum``),
-``train_batch_multi`` and grad-norm telemetry (``collect_grad_norm``).
+(TrainGuard, which waits on item 1.4's GradScaler) and ``mesh``.
 """
 from __future__ import annotations
 
@@ -24,7 +46,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..framework import bind_generator, convert_dtype, later
+from ..framework import bind_generator, convert_dtype, generators, later
+from ..nn.clip import global_norm
 
 __all__ = ["Engine"]
 
@@ -39,21 +62,78 @@ def _detach(x):
     return x
 
 
+def _host_reads(*parts):
+    """The first ``host_reads`` declaration among ``parts`` (losses,
+    modules and their submodules), or None: why a step that runs them
+    cannot be recorded as a CUDA graph."""
+    for part in parts:
+        if part is None:
+            continue
+        mods = part.modules() if isinstance(part, torch.nn.Module) \
+            else [part]
+        for m in mods:
+            why = getattr(m, "host_reads", None)
+            if why:
+                return why
+    return None
+
+
+def _signature(xs):
+    return tuple((tuple(x.shape), x.dtype) if torch.is_tensor(x)
+                 else ("value", repr(x)) for x in xs)
+
+
+class _Recorded:
+    """One step function ``fn(engine, *static)`` over static buffers, as a
+    CUDA graph: run eagerly at its first call, recorded at its second
+    (then replayed), replayed from then on. ``static`` holds its argument
+    lists; what the recording returned is rewritten in place by every
+    replay. It keeps no reference to its Engine, so an Engine and its
+    graphs (and their memory pools) go as soon as the Engine does."""
+
+    def __init__(self, fn, static):
+        self.fn, self.static = fn, static
+        self.runs = 0
+        self.graph = None
+        self.out = None
+
+    def load(self, args):
+        """Copy a new batch into the static buffers."""
+        for dst, src in zip(self.static, args):
+            for d, s in zip(dst, src):
+                if torch.is_tensor(d) and d is not s:
+                    d.copy_(s)
+
+    def __call__(self, engine):
+        self.runs += 1
+        if self.runs == 1:
+            return self.fn(engine, *self.static)
+        if self.graph is None:
+            self.graph, self.out = engine._record(
+                lambda: self.fn(engine, *self.static))
+        self.graph.replay()
+        return self.out
+
+
 class Engine:
-    """``Engine(network, loss, optimizer, amp_dtype)``. Runs where the
-    network's parameters live and creates nothing elsewhere; inputs that
-    are numpy arrays or tensors on another device are moved there.
-    ``generator`` (a torch.Generator on that device), when given, becomes
-    the one every dropout of the network draws from
-    (``framework.bind_generator``)."""
+    """``Engine(network, loss, optimizer, amp_dtype, capture=None)``. Runs
+    where the network's parameters live and creates nothing elsewhere;
+    inputs that are numpy arrays or tensors on another device are moved
+    there. ``generator`` (a torch.Generator on that device), when given,
+    becomes the one every dropout of the network draws from
+    (``framework.bind_generator``). ``capture``: None records each step as
+    a CUDA graph on CUDA unless the loss or a module declares
+    ``host_reads``; True records it and raises ``ValueError`` on such a
+    declaration; False runs every step eagerly."""
 
     def __init__(self, network, loss=None, optimizer=None, amp_dtype=None,
-                 mesh=None, guard=None, generator=None):
+                 mesh=None, guard=None, generator=None, capture=None):
         if mesh is not None:
-            raise NotImplementedError(f"Engine(mesh=...) {later('1.3')}")
+            raise NotImplementedError(f"Engine(mesh=...) {later('10')}")
         if guard is not None:
-            raise NotImplementedError(f"Engine(guard=...) (TrainGuard) "
-                                      f"{later('1.3')}")
+            raise NotImplementedError(
+                f"Engine(guard=...) (TrainGuard, which waits on item 1.4's "
+                f"GradScaler) {later('1.3')}")
         self.network = network
         self.loss = loss
         self.optimizer = optimizer
@@ -61,9 +141,38 @@ class Engine:
         self.device = next(network.parameters()).device
         if generator is not None:
             bind_generator(network, generator)
+        why = _host_reads(loss, network)
+        if capture and why:
+            raise ValueError(f"Engine(capture=True): the training step "
+                             f"cannot be recorded as a CUDA graph: {why}")
+        # None, or why steps on CUDA run eagerly
+        self.eager_reason = "capture=False" if capture is False else why
+        self._graphs = (self.device.type == "cuda" and capture is not False
+                        and why is None)
+        self._recorded = {}
+        self._state_seen = None
         self._step = 0
         self._opt_step = 0
         self.collect_grad_norm = False
+        self.last_grad_norm = None
+        # gradient accumulation: f32 sums, kept across windows (the
+        # recorded steps read them at fixed addresses), and 1/n on the
+        # device for the apply step
+        self._acc = None
+        self._inv_n = None
+        self._micro_count = 0
+
+    @property
+    def captures(self):
+        """Whether training steps are recorded as CUDA graphs."""
+        return self._graphs
+
+    def enable_grad_norm(self):
+        """Put the global gradient L2 norm (f32, over every trainable
+        leaf, before the clip) into the training step: ``last_grad_norm``
+        after each ``train_batch``, a device scalar (None after
+        accumulation and multi steps, as in the reference)."""
+        self.collect_grad_norm = True
 
     def _to_device(self, x):
         if isinstance(x, np.ndarray):
@@ -78,35 +187,213 @@ class Engine:
             return x.to(amp)
         return x
 
-    def train_batch(self, inputs, labels):
-        """One optimizer step -> (loss, outs): loss an f32 scalar tensor on
-        the device, outs the network's outputs (detached)."""
-        if self.collect_grad_norm:
-            raise NotImplementedError(f"grad-norm telemetry {later('1.3')}")
-        net = self.network
-        if not net.training:
-            net.train()
-        live = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
-        names = [n for n, _ in live]
-        params = [p for _, p in live]
-        ins = [self._cast(self._to_device(x)) for x in inputs]
-        labs = [self._to_device(x) for x in labels]
+    def _live(self):
+        live = [(n, p) for n, p in self.network.named_parameters()
+                if p.requires_grad]
+        return [n for n, _ in live], [p for _, p in live]
+
+    def _train_mode(self):
+        if self.optimizer is None:
+            raise ValueError("Engine: training needs an optimizer")
+        if not self.network.training:
+            self.network.train()
+
+    # -- the step functions (what a CUDA graph records) ---------------------
+    def _loss_grads(self, names, params, ins, labs):
+        """Forward, loss and gradients -> (loss, outs, grads): loss an f32
+        scalar, outs detached, a zero gradient for an unused leaf."""
         # the cast happens inside the differentiated function: grads land
         # on the f32 parameters, and a tied weight is cast once, so its
         # grad sums every use of the one low-precision copy
-        outs = functional_call(net, {n: self._cast(p) for n, p in live},
-                               tuple(ins))
+        outs = functional_call(
+            self.network, {n: self._cast(p) for n, p in zip(names, params)},
+            tuple(self._cast(x) for x in ins))
         outs_t = outs if isinstance(outs, (list, tuple)) else [outs]
         loss = (self.loss(*outs_t, *labs) if self.loss is not None
                 else outs_t[0]).float()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        return loss.detach(), _detach(outs), grads
+
+    def _train_step(self, ins, labs, collect):
+        names, params = self._live()
+        loss, outs, grads = self._loss_grads(names, params, ins, labs)
+        norm = global_norm(grads) if collect else None
+        self.optimizer._clip_update(names, params, grads, norm=norm)
+        return loss, outs, norm
+
+    def _grad_step(self, ins, labs):
+        names, params = self._live()
+        loss, outs, grads = self._loss_grads(names, params, ins, labs)
+        torch._foreach_add_(self._acc, [g.float() for g in grads])
+        return loss, outs
+
+    def _apply_step(self):
+        names, params = self._live()
+        self.optimizer._clip_update(names, params, self._acc,
+                                    scale=self._inv_n)
+        torch._foreach_zero_(self._acc)
+
+    # -- running them -------------------------------------------------------
+    def _record(self, fn):
+        """(graph, what fn returned) with fn recorded into a new CUDA
+        graph, every generator the model draws from registered."""
+        # the graph's nodes stay readable (raw_cuda_graph) beside its
+        # executable: what chip_smoke.py counts the step's kernels from
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        gens = [g for g in generators(self.network, *(
+            [self.loss] if isinstance(self.loss, torch.nn.Module) else []))
+            if g.device.type == "cuda"]
+        if gens and not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"Engine: torch {torch.__version__} cannot register a "
+                "torch.Generator with a CUDA graph, and the model draws "
+                "from one; capture=False runs its steps eagerly")
+        for g in gens:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.instantiate()
+        return graph, out
+
+    def _run(self, kind, fn, *args):
+        """fn(self, *args) eagerly, or through the step's recording (one
+        per kind and argument signature) on CUDA."""
+        if not self._graphs:
+            return fn(self, *args)
+        if self.optimizer._state is not self._state_seen:
+            # the optimizer's slots were replaced (a loaded checkpoint):
+            # recordings that read the old ones are stale
+            self._recorded.clear()
+            self._state_seen = self.optimizer._state
+        key = (kind,) + tuple(_signature(a) for a in args)
+        rec = self._recorded.get(key)
+        if rec is None:
+            static = [[x.clone() if torch.is_tensor(x) else x for x in a]
+                      for a in args]
+            rec = self._recorded[key] = _Recorded(fn, static)
+        else:
+            rec.load(args)
+        return rec(self)
+
+    def _fill(self, lr=None):
+        self.optimizer.fill_scalars(
+            self.optimizer.get_lr() if lr is None else lr, self._opt_step,
+            self.device)
+
+    def train_batch(self, inputs, labels):
+        """One optimizer step -> (loss, outs): loss an f32 scalar tensor on
+        the device, outs the network's outputs (detached). From a
+        recorded step (on CUDA, from a signature's second call) both are
+        the graph's own tensors: valid until the next step, which
+        rewrites them."""
+        self._train_mode()
+        if self._micro_count:
+            # a pending accumulation window must not leak into a fused step
+            self.flush_accum()
+        ins = [self._to_device(x) for x in inputs]
+        labs = [self._to_device(x) for x in labels]
         self._step += 1
         self._opt_step += 1
-        self.optimizer._apply(names, params, grads, self.optimizer.get_lr(),
-                              self._opt_step)
-        return loss.detach(), _detach(outs)
+        self._fill()
+        collect = self.collect_grad_norm
+        loss, outs, norm = self._run(
+            ("train", collect),
+            lambda eng, i, l: eng._train_step(i, l, collect), ins, labs)
+        self.last_grad_norm = norm
+        return loss, outs
+
+    def train_batch_multi(self, inputs, labels, lr_values=None):
+        """K optimizer steps over stacked inputs and labels ([K, batch,
+        ...] each), the same as K ``train_batch`` calls (the same
+        counters, generator draws and updates), with no host sync between
+        them: each step copies its slice into the static inputs and
+        replays. The learning rate is the optimizer's, constant over the
+        K steps, unless ``lr_values`` ([K]) gives one a step; the caller
+        steps its LR scheduler as usual. A pending accumulation window is
+        applied first. Returns (losses [K] on the device, None)."""
+        self._train_mode()
+        ins = [self._to_device(x) for x in inputs]
+        labs = [self._to_device(x) for x in labels]
+        lead = {x.shape[0] for x in ins + labs
+                if torch.is_tensor(x) and x.dim() >= 1}
+        if len(lead) != 1:
+            # before any counter moves: a failed call must not skew the
+            # generator draws or Adam's bias correction
+            raise ValueError(
+                f"stacked inputs/labels disagree on K: {sorted(lead)}")
+        k = lead.pop()
+        if lr_values is None:
+            lrs = [self.optimizer.get_lr()] * k
+        else:
+            lrs = np.asarray(lr_values, np.float32)
+            if lrs.shape != (k,):
+                raise ValueError(f"lr_values must have shape ({k},)")
+            lrs = [float(x) for x in lrs]
+        if self._micro_count:
+            self.flush_accum()
+        collect = self.collect_grad_norm
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        for i in range(k):
+            self._step += 1
+            self._opt_step += 1
+            self._fill(lrs[i])
+            loss, _, _ = self._run(
+                ("train", collect),
+                lambda eng, a, b: eng._train_step(a, b, collect),
+                [x[i] if torch.is_tensor(x) else x for x in ins],
+                [y[i] if torch.is_tensor(y) else y for y in labs])
+            losses[i].copy_(loss)
+        self.last_grad_norm = None
+        return losses, None
+
+    def train_batch_accum(self, inputs, labels, apply_update):
+        """One micro-batch of gradient accumulation: its f32 gradients
+        are added to the window's sums; with ``apply_update`` the window
+        is applied (averaged, clipped, one optimizer update). Returns
+        (loss, outs, applied), graph-owned as ``train_batch``'s."""
+        self._train_mode()
+        ins = [self._to_device(x) for x in inputs]
+        labs = [self._to_device(x) for x in labels]
+        if self._acc is None:
+            _, params = self._live()
+            self._acc = [torch.zeros_like(p, dtype=torch.float32)
+                         for p in params]
+            self._inv_n = torch.ones((), dtype=torch.float32,
+                                     device=self.device)
+        self._step += 1
+        loss, outs = self._run("grad", Engine._grad_step, ins, labs)
+        # this path computes no global grad norm
+        self.last_grad_norm = None
+        self._micro_count += 1
+        applied = self._apply_accum() if apply_update else False
+        return loss, outs, applied
+
+    def _apply_accum(self):
+        if not self._micro_count or self._acc is None:
+            return False
+        self._opt_step += 1
+        self._fill()
+        self._inv_n.fill_(1.0 / self._micro_count)
+        self._run("apply", Engine._apply_step)
+        self._micro_count = 0
+        return True
+
+    def flush_accum(self):
+        """Apply a partly accumulated window (epoch end, early stop,
+        ``num_iters``) so its gradients are neither dropped nor leaked
+        into the next fit. Returns True if an update ran. The zeroed sums
+        are kept: the recorded steps read them in place."""
+        return self._apply_accum()
+
+    def reset_accum_window(self):
+        """Drop a half-accumulated window without applying it (after a
+        checkpoint restore: gradients of the old parameters must not
+        reach the first update after it)."""
+        if self._acc is not None:
+            torch._foreach_zero_(self._acc)
+        self._micro_count = 0
 
     @torch.no_grad()
     def eval_batch(self, inputs, labels=()):
@@ -125,9 +412,3 @@ class Engine:
 
     def predict_batch(self, inputs):
         return self.eval_batch(inputs, ())[1]
-
-    def train_batch_accum(self, inputs, labels, apply_update):
-        raise NotImplementedError(f"gradient accumulation {later('1.3')}")
-
-    def train_batch_multi(self, inputs, labels):
-        raise NotImplementedError(f"Engine.train_batch_multi {later('1.3')}")

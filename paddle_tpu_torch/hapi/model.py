@@ -11,7 +11,13 @@ memory and its batches reach the card through ``io.device_prefetch``
 (batch N+1's copy runs under step N); on the CPU nothing is copied.
 ``train_batch`` and ``eval_batch`` return Python floats, as the
 reference's do, so a step reads its loss back once (and each metric its
-``[B, k]`` hits).
+``[B, k]`` hits). On CUDA the Engine records each training step as a CUDA
+graph (``prepare(capture=...)`` chooses, see ``hapi.Engine``); its loss
+and outputs are the graph's own until the next step, so a step's metrics
+and loss are read before the next step runs. ``fit(accumulate_grad_batches
+=k)`` applies the accumulated window on every k-th batch and flushes a
+tail window at epoch end, early stop or ``num_iters``; the LR scheduler
+steps only on real updates, as in the reference.
 
 ``save`` writes the reference's files: ``path.pdparams`` (the state dict)
 and ``path.pdopt`` with ``engine_step``, ``opt_step``, ``LR_Scheduler``
@@ -21,7 +27,7 @@ name order, the slots in name order). Both packages read each other's
 files for Momentum, Adam and AdamW.
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-``accumulate_grad_batches > 1`` and ``prepare(guard=...)`` (1.3),
+``prepare(guard=...)`` (1.3),
 ``save(training=False)`` (``jit.save``, 8) and ``serve_metrics`` (8). An
 exception in ``fit`` propagates without the reference's flight-recorder
 dump (8).
@@ -85,7 +91,10 @@ class Model:
 
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
-                amp_configs=None, guard=None):
+                amp_configs=None, guard=None, capture=None):
+        """ref: Model.prepare; ``capture`` (a port extension) is the
+        Engine's: None records each training step as a CUDA graph on CUDA
+        where the loss allows, True insists, False runs eagerly."""
         self._optimizer = optimizer
         self._loss = loss
         ms = _to_list(metrics)
@@ -104,7 +113,8 @@ class Model:
                 self._amp_dtype = dtype if level != "O0" else None
         self._engine = Engine(self.network, loss=self._loss,
                               optimizer=self._optimizer,
-                              amp_dtype=self._amp_dtype, guard=guard)
+                              amp_dtype=self._amp_dtype, guard=guard,
+                              capture=capture)
 
     def _ensure_engine(self):
         if self._engine is None:
@@ -118,6 +128,19 @@ class Model:
         loss_v, outs = eng.train_batch(_to_list(inputs), _to_list(labels))
         metrics_out = self._update_metrics(outs, labels)
         self._lr_step_after_update()
+        loss = float(loss_v)
+        return ([loss], metrics_out) if metrics_out else [loss]
+
+    def _train_batch_accum(self, inputs, labels, apply):
+        """A gradient-accumulation micro-batch (fit's
+        ``accumulate_grad_batches`` path): the LR scheduler steps only on
+        a real optimizer update."""
+        eng = self._ensure_engine()
+        loss_v, outs, applied = eng.train_batch_accum(
+            _to_list(inputs), _to_list(labels), apply_update=apply)
+        if applied:
+            self._lr_step_after_update()
+        metrics_out = self._update_metrics(outs, labels)
         loss = float(loss_v)
         return ([loss], metrics_out) if metrics_out else [loss]
 
@@ -169,10 +192,7 @@ class Model:
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None):
         assert train_data is not None
-        if accumulate_grad_batches > 1:
-            raise NotImplementedError(f"fit(accumulate_grad_batches > 1) "
-                                      f"{later('1.3')}")
-        self._ensure_engine()
+        eng = self._ensure_engine()
         train_loader = self._loader(train_data, "train",
                                     batch_size=batch_size,
                                     shuffle=shuffle, drop_last=drop_last,
@@ -204,7 +224,13 @@ class Model:
                     break
                 cbks.on_batch_begin("train", step, logs)
                 ins, labs = self._split_batch(batch)
-                logs = self._make_logs(self.train_batch(ins, labs))
+                if accumulate_grad_batches > 1:
+                    out = self._train_batch_accum(
+                        ins, labs,
+                        apply=(step + 1) % accumulate_grad_batches == 0)
+                else:
+                    out = self.train_batch(ins, labs)
+                logs = self._make_logs(out)
                 logs["batch_size"] = len(ins[0]) if torch.is_tensor(ins[0]) \
                     else batch_size
                 cbks.on_batch_end("train", step, logs)
@@ -212,6 +238,11 @@ class Model:
                     self.stop_training = True
                 if self.stop_training:
                     break
+            if accumulate_grad_batches > 1 and eng.flush_accum():
+                # the tail micro-batches (epoch end, early stop,
+                # num_iters): applied, neither dropped nor leaked into the
+                # next epoch
+                self._lr_step_after_update()
             cbks.on_epoch_end(epoch, logs)
             if preemption.requested():
                 break

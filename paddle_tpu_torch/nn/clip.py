@@ -7,13 +7,23 @@ factor every gradient is multiplied by; the optimizer asks for it over the
 grads of one step, eager and in the Engine alike, and its update
 multiplies each gradient by it (the AdamW kernel inside its one pass), so
 no scaled copy of a gradient is written. ``apply(grads)`` returns the
-clipped list. All arithmetic stays on the device: no host sync.
+clipped list. All arithmetic stays on the device: no host sync, so a
+CUDA graph can record it. ``global_norm`` is the one reduction, which the
+Engine's grad-norm telemetry shares.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClipGradBase", "ClipGradByGlobalNorm"]
+__all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "global_norm"]
+
+
+def global_norm(grads):
+    """The L2 norm over every gradient of a list, f32, as a device scalar:
+    each gradient's norm in f32 by one ``torch._foreach_norm``, then the
+    norm of those."""
+    norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 class ClipGradBase:
@@ -26,7 +36,7 @@ class ClipGradBase:
             out[i] = (params_grads[i][0], g)
         return out
 
-    def coefficient(self, grads):
+    def coefficient(self, grads, norm=None):
         raise NotImplementedError
 
     def apply(self, grads):
@@ -45,13 +55,12 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    def coefficient(self, grads):
+    def coefficient(self, grads, norm=None):
         """min(clip_norm / norm, 1) as an f32 scalar tensor on the grads'
-        device (None for no grads): the norm from one multi-tensor
-        reduction (each gradient's L2 norm in f32 by ``torch._foreach_norm``,
-        then the norm of those), a few launches for the whole list."""
+        device (None for no grads): ``norm`` the grads' global norm when
+        the caller has it, else ``global_norm(grads)``, one multi-tensor
+        reduction, a few launches for the whole list. Reads nothing back."""
         if not grads:
             return None
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-        total = torch.linalg.vector_norm(torch.stack(norms))
+        total = global_norm(grads) if norm is None else norm
         return torch.clamp(self.clip_norm / total.clamp_min(1e-6), max=1.0)

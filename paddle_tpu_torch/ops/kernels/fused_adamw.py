@@ -7,12 +7,15 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_adamw.py``
   of leaves (one leaf is a list of one): CPU tensors run
   ``adamw_multi_update_plain``; CUDA tensors launch ``csrc/fused_adamw.cu``
   once for every ``MAX_LEAVES`` leaves or raise. Its ``launches`` counts
-  kernel launches and ``leaves`` the leaves they updated. An optional
+  kernel launches and ``leaves`` the leaves they updated. The kernel reads
+  the step's lr and bias corrections from a 3-value f32 array on the
+  device (``step_scalars``), as the TPU kernel reads its SMEM operand, so a
+  launch captured in a CUDA graph takes each replay's values. An optional
   device scalar ``scale`` multiplies every gradient inside the kernel (the
-  global-norm clip's coefficient).
+  global-norm clip's coefficient, times 1/n over an accumulated window).
 - ``adamw_update_plain`` / ``adamw_multi_update_plain`` — the same update
-  in plain PyTorch, f32 throughout, written back in place: the
-  optimizer's own math (``optimizer.Adam`` runs it for every leaf the
+  in plain PyTorch, f32 throughout, written back in place, on host floats
+  or on the device array alike: the optimizer's own math (``optimizer.Adam`` runs it for every leaf the
   kernel does not take, and on the CPU).
 - ``fused_adamw_supported`` — the reference's per-leaf rule: f32 p, m and
   v of at least ``MIN_SIZE`` elements ("smaller leaves: kernel launch
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 __all__ = ["MIN_SIZE", "MAX_LEAVES", "CHUNK", "fused_adamw_supported",
-           "fused_adamw_multi_update", "multi_plan",
+           "fused_adamw_multi_update", "multi_plan", "step_scalars",
            "LeafTable", "adamw_update_plain", "adamw_multi_update_plain"]
 
 MIN_SIZE = 1 << 14  # the reference's floor: smaller leaves stay plain there
@@ -45,10 +48,10 @@ MIN_SIZE = 1 << 14  # the reference's floor: smaller leaves stay plain there
 # the wrapper checks the library agrees)
 MAX_LEAVES = 512
 CHUNK = 4096
-# leaves; ptrs, n, wd, first_chunk (host arrays); lr, bc1, bc2, beta1,
-# 1 - beta1, beta2, 1 - beta2, eps; decoupled; scale; stream
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-    ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+# leaves; ptrs, n, wd, first_chunk (host arrays); [lr, bc1, bc2] (device);
+# beta1, 1 - beta1, beta2, 1 - beta2, eps; decoupled; scale; stream
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def fused_adamw_supported(p, m, v):
@@ -58,12 +61,29 @@ def fused_adamw_supported(p, m, v):
             and v.dtype == torch.float32 and p.numel() >= MIN_SIZE)
 
 
+def step_scalars(lr, bc1=None, bc2=None, device="cpu"):
+    """The f32 array [lr, bc1, bc2] that an update reads: ``lr`` itself
+    when it is one (three f32 values; bc1 and bc2 then None), else a new
+    one on ``device`` from three host floats (on CUDA a copy from the host,
+    which waits for it: a step keeps its own array and fills it instead)."""
+    if torch.is_tensor(lr):
+        if bc1 is not None or bc2 is not None or lr.numel() != 3 \
+                or lr.dtype != torch.float32:
+            raise ValueError("step_scalars: a tensor lr is the f32 array "
+                             "[lr, bc1, bc2] (bc1 and bc2 then None)")
+        return lr
+    return torch.tensor([float(lr), float(bc1), float(bc2)],
+                        dtype=torch.float32, device=device)
+
+
 @torch.no_grad()
 def adamw_update_plain(p, m, v, g, lr, bc1, bc2, *, beta1, beta2, eps,
                        weight_decay, decoupled):
     """One Adam (``decoupled=False``: L2 decay added to the gradient) or
     AdamW (decoupled decay) step in plain PyTorch, f32 math, written back
-    into p, m and v in place (each keeps its dtype). Returns (p, m, v)."""
+    into p, m and v in place (each keeps its dtype). lr, bc1 and bc2 are
+    host floats or f32 scalar tensors on p's device (the same values give
+    the same bits either way). Returns (p, m, v)."""
     g32 = g.float()
     p32 = p.float()
     if weight_decay and not decoupled:
@@ -80,11 +100,16 @@ def adamw_update_plain(p, m, v, g, lr, bc1, bc2, *, beta1, beta2, eps,
 
 
 @torch.no_grad()
-def adamw_multi_update_plain(ps, ms, vs, gs, lr, bc1, bc2, *, weight_decays,
-                             beta1, beta2, eps, decoupled, scale=None):
+def adamw_multi_update_plain(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
+                             weight_decays, beta1, beta2, eps, decoupled,
+                             scale=None):
     """``adamw_update_plain`` over a list of leaves, leaf by leaf, each
-    with its own weight decay; ``scale`` (an f32 scalar tensor or None)
-    multiplies every gradient first, in f32, as the kernel does."""
+    with its own weight decay. lr, bc1, bc2: host floats, or ``lr`` the
+    device array [lr, bc1, bc2] as the kernel takes it (bc1, bc2 None);
+    ``scale`` (an f32 scalar tensor or None) multiplies every gradient
+    first, in f32, as the kernel does."""
+    if torch.is_tensor(lr):
+        lr, bc1, bc2 = step_scalars(lr).unbind()
     for p, m, v, g, wd in zip(ps, ms, vs, gs, weight_decays):
         if scale is not None:
             g = g.float() * scale
@@ -187,17 +212,20 @@ def _check_grads(table, gs, device):
 
 
 @torch.no_grad()
-def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1, bc2, *, weight_decays,
-                             beta1, beta2, eps, decoupled, scale=None,
-                             table=None):
-    """In-place one-pass update of every leaf of a list. lr, bc1 and bc2
-    are this step's host floats (no device sync); ``weight_decays`` one
-    float a leaf; ``scale`` None or an f32 scalar tensor on the leaves'
-    device that multiplies every gradient (the clip's coefficient, read
-    by the kernel: no host sync). CPU tensors run the plain version leaf
-    by leaf; CUDA tensors launch the kernel, ceil(len(ps) / MAX_LEAVES)
-    times, or raise. ``table``: a ``LeafTable`` of these p, m and v (the
-    optimizer keeps one; built here when None). Returns the table."""
+def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
+                             weight_decays, beta1, beta2, eps, decoupled,
+                             scale=None, table=None):
+    """In-place one-pass update of every leaf of a list. ``lr``: the step's
+    f32 array [lr, bc1, bc2] on the leaves' device, which the kernel reads
+    (no host sync; what an optimizer passes), or this step's lr with bc1
+    and bc2 as host floats (``step_scalars`` copies them over);
+    ``weight_decays`` one float a leaf; ``scale`` None or an f32 scalar
+    tensor on the leaves' device that multiplies every gradient (the
+    clip's coefficient, read by the kernel: no host sync). CPU tensors run
+    the plain version leaf by leaf; CUDA tensors launch the kernel,
+    ceil(len(ps) / MAX_LEAVES) times, or raise. ``table``: a ``LeafTable``
+    of these p, m and v (the optimizer keeps one; built here when None).
+    Returns the table."""
     if not ps:
         return table
     dev = ps[0].device
@@ -207,6 +235,7 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1, bc2, *, weight_decays,
                                  weight_decays=weight_decays, scale=scale,
                                  **kw)
         return table
+    hyper = step_scalars(lr, bc1, bc2, dev)
     if dev.type != "cuda":
         raise ValueError(f"fused_adamw_multi_update: unsupported device "
                          f"{dev}")
@@ -222,6 +251,9 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1, bc2, *, weight_decays,
                               or scale.numel() != 1 or scale.device != dev):
         raise ValueError(f"fused_adamw_multi_update: scale must be one "
                          f"float32 value on {dev}")
+    if hyper.device != dev or not hyper.is_contiguous():
+        raise ValueError(f"fused_adamw_multi_update: [lr, bc1, bc2] must "
+                         f"be contiguous on {dev}")
     fn = _load()
     scale_ptr = None if scale is None else scale.data_ptr()
     with torch.cuda.device(dev):
@@ -230,8 +262,7 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1, bc2, *, weight_decays,
             lt["ptrs"][:, 3] = [g.data_ptr() for g in gs[lt["lo"]:lt["hi"]]]
             err = fn(lt["hi"] - lt["lo"], lt["ptrs"].ctypes.data,
                      lt["n"].ctypes.data, lt["wd"].ctypes.data,
-                     lt["first"].ctypes.data,
-                     float(lr), float(bc1), float(bc2), float(beta1),
+                     lt["first"].ctypes.data, hyper.data_ptr(), float(beta1),
                      1.0 - beta1, float(beta2), 1.0 - beta2, float(eps),
                      int(bool(decoupled)), scale_ptr, stream)
             if err:

@@ -4,9 +4,16 @@ python/paddle/optimizer/optimizer.py, momentum.py, adam.py, adamw.py).
 
 One update core serves both ways of training, as in the reference:
 ``step()`` reads ``param.grad`` (eager ``loss.backward(); opt.step()``),
-and ``hapi.Engine.train_batch`` hands its grads to ``_apply`` with its own
-update counter. Updates are in place under ``torch.no_grad()``; state is
-kept per parameter name.
+and ``hapi.Engine``'s step hands its grads to ``_clip_update``. Updates are
+in place under ``torch.no_grad()``; state is kept per parameter name.
+
+The step's scalars (lr, and Adam's bias corrections 1 - beta ** step) live
+in a small f32 array on the parameters' device that the optimizer keeps:
+``fill_scalars`` writes the host's values into it with
+``fill_`` (no sync, no copy from pageable memory) and the update reads
+them there, as the TPU kernel reads its SMEM operand. A step that a CUDA
+graph recorded thus takes each replay's learning rate and bias
+corrections; the schedule stays on the host.
 
 ``parameters`` is an iterable of tensors (named ``param_<i>``) or of
 ``(name, tensor)`` pairs such as ``model.named_parameters()``; the names
@@ -36,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from ..framework import later
-from ..nn.clip import ClipGradBase
+from ..nn.clip import ClipGradBase, global_norm
 from ..ops.kernels.fused_adamw import (adamw_update_plain,
                                        fused_adamw_multi_update)
 from .lr import LRScheduler
@@ -63,6 +70,7 @@ class Optimizer:
         self._apply_decay_param_fun = apply_decay_param_fun
         self._step_count = 0
         self._state = {}  # parameter name -> {slot: tensor}
+        self._scalars = None  # the step's scalars on the device
 
     @staticmethod
     def _normalize_params(parameters):
@@ -82,28 +90,66 @@ class Optimizer:
             return float(self._lr())
         return float(self._lr)
 
+    # -- the step's scalars on the device -----------------------------------
+    def _scalar_values(self, lr, step):
+        """This step's scalars as host floats: [lr] (Adam adds its bias
+        corrections)."""
+        return (float(lr),)
+
+    def fill_scalars(self, lr, step, device):
+        """Write the scalars of optimizer step ``step`` (1-based) at
+        learning rate ``lr`` into the f32 array on ``device`` that the
+        update reads, one ``fill_`` each, and return the array. The array
+        is made once and kept, so a recorded step reads it at one
+        address."""
+        values = self._scalar_values(lr, step)
+        t = self._scalars
+        if t is None or t.device != torch.device(device):
+            t = self._scalars = torch.zeros(len(values), dtype=torch.float32,
+                                            device=device)
+        for i, x in enumerate(values):
+            t[i].fill_(x)
+        return t
+
     # -- the update core (override per optimizer) ---------------------------
     def _slot_names(self):
         """The names of the state slots kept per parameter (the keys of
         ``_state[name]``, and of the reference's optimizer state)."""
         return ()
 
-    def update(self, names, params, grads, lr, step, scale=None):
-        """Update ``params`` in place from ``grads`` at optimizer step
-        ``step`` (1-based) with learning rate ``lr``; ``scale`` (None or
-        the clip's coefficient, an f32 scalar tensor) multiplies every
-        gradient first, as ``ClipGradBase.apply`` does."""
+    def update(self, names, params, grads, scalars, scale=None):
+        """Update ``params`` in place from ``grads``, reading the step's
+        scalars from the device array ``scalars`` (``fill_scalars``);
+        ``scale`` (None or an f32 scalar tensor: the clip's coefficient,
+        times 1/n over an accumulated window) multiplies every gradient
+        first, as ``ClipGradBase.apply`` does."""
         raise NotImplementedError
 
-    def _apply(self, names, params, grads, lr, step):
-        """Clip (if set) and update: the one path of eager and Engine
-        steps. The clip gives its coefficient, and the update scales the
-        gradients by it."""
-        grads, scale = list(grads), None
-        if isinstance(self._grad_clip, ClipGradBase):
-            scale = self._grad_clip.coefficient(grads)
+    def _clip_update(self, names, params, grads, scale=None, norm=None):
+        """Clip (if set) and update from the scalars already filled in:
+        the part of a step that a CUDA graph can record. ``scale``: None
+        or a device scalar every gradient is multiplied by before the clip
+        sees it (1/n of an accumulated window); ``norm``: the global norm
+        of the gradients the clip sees, when the caller has it (the
+        grad-norm telemetry). The clip gives its coefficient, and the
+        update scales the gradients by it."""
+        grads = list(grads)
+        if isinstance(self._grad_clip, ClipGradBase) and grads:
+            if norm is None and scale is not None:
+                norm = global_norm(grads) * scale
+            coef = self._grad_clip.coefficient(grads, norm=norm)
+            scale = coef if scale is None else coef * scale
         with torch.no_grad():
-            self.update(list(names), list(params), grads, lr, step, scale)
+            self.update(list(names), list(params), grads,
+                        self._scalars, scale)
+
+    def _apply(self, names, params, grads, lr, step):
+        """Fill the scalars of step ``step`` at ``lr``, then clip and
+        update: the eager step."""
+        params = list(params)
+        if params:
+            self.fill_scalars(lr, step, params[0].device)
+            self._clip_update(names, params, grads)
 
     def _decays(self, name):
         fn = self._apply_decay_param_fun
@@ -151,7 +197,8 @@ class Momentum(Optimizer):
         (Nesterov: p -= lr * (g + mu * v))
 
     The velocity is f32, one per parameter name. Each step is a handful of
-    ``torch._foreach_*`` calls over all the leaves."""
+    ``torch._foreach_*`` calls over all the leaves, lr read on the
+    device."""
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -171,7 +218,7 @@ class Momentum(Optimizer):
             self._state[name] = st
         return st["velocity"]
 
-    def update(self, names, params, grads, lr, step, scale=None):
+    def update(self, names, params, grads, scalars, scale=None):
         vel = [self._velocity(n, p) for n, p in zip(names, params)]
         g = [_scaled(t, scale).float() for t in grads]
         if self._weight_decay:
@@ -181,7 +228,8 @@ class Momentum(Optimizer):
         torch._foreach_add_(vel, g)
         upd = (torch._foreach_add(g, vel, alpha=self._momentum)
                if self._nesterov else vel)
-        torch._foreach_add_(params, upd, alpha=-lr)
+        # lr is the device scalar: p -= lr * upd
+        torch._foreach_sub_(params, torch._foreach_mul(upd, scalars[0]))
 
 
 class Adam(Optimizer):
@@ -224,10 +272,13 @@ class Adam(Optimizer):
             self._state[name] = st
         return st
 
-    def update(self, names, params, grads, lr, step, scale=None):
+    def _scalar_values(self, lr, step):
+        return (float(lr), 1.0 - self._beta1 ** step,
+                1.0 - self._beta2 ** step)
+
+    def update(self, names, params, grads, scalars, scale=None):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        bc1 = 1.0 - b1 ** step
-        bc2 = 1.0 - b2 ** step
+        lr, bc1, bc2 = scalars.unbind()
         hyper = dict(beta1=b1, beta2=b2, eps=eps,
                      decoupled=self._decoupled)
         fused = ([], [], [], [], [])  # p, m, v, g, wd
@@ -250,7 +301,7 @@ class Adam(Optimizer):
             if table is not None and not table.fits(ps, ms, vs):
                 table = None
             self._leaf_table = fused_adamw_multi_update(
-                ps, ms, vs, gs, lr, bc1, bc2, weight_decays=wds,
+                ps, ms, vs, gs, scalars, weight_decays=wds,
                 scale=scale, table=table, **hyper)
 
     def _amsgrad_update(self, p, st, g, lr, bc1, bc2, wd):

@@ -245,7 +245,14 @@ class DETRLoss(nn.Module):
     is matched by ``auction_match`` on a detached copy (no gradient through
     the matching, as the reference stops it), the batch in one auction on
     the inputs' device. Padded gts never clobber a real match: only valid
-    gts write their class into the queries' targets."""
+    gts write their class into the queries' targets.
+
+    ``host_reads`` declares that the loss reads the device from the host
+    (the auction's convergence check): a CUDA graph cannot record it, so
+    an ``Engine`` runs this loss's steps eagerly and says why."""
+
+    host_reads = ("DETRLoss: auction_match reads its convergence check back "
+                  "to the host every AUCTION_CHECK_EVERY iterations")
 
     def __init__(self, num_classes, eos_coef=0.1, w_class=1.0, w_l1=5.0,
                  w_giou=2.0, cost_class=1.0, cost_l1=5.0, cost_giou=2.0):

@@ -630,8 +630,6 @@ def test_summary_and_flops_lenet(capsys):
 def test_not_ported_parts_name_their_items(tmp_path):
     m = _tiny_model()
     with pytest.raises(NotImplementedError, match="item 1.3"):
-        m.fit(_tiny(), batch_size=16, verbose=0, accumulate_grad_batches=2)
-    with pytest.raises(NotImplementedError, match="item 1.3"):
         m.prepare(Adam(LR), pt.nn.CrossEntropyLoss(), guard=object())
     with pytest.raises(NotImplementedError, match="item 8"):
         m.save(str(tmp_path / "x"), training=False)
