@@ -382,6 +382,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (cudaLaunchKernel against cudaGraphLaunch) and peak memory.
              DETR-R50's Engine (phase 33) runs eagerly: its loss declares
              a host read, which the phase logs.
+38. zoo-serve — the classification zoo at 1000 classes, weights from seed
+             0 with random BatchNorm statistics, eval, f32 NCHW, batch 64:
+             vgg16, alexnet, squeezenet1_1, mobilenet_v1, mobilenet_v2,
+             mobilenet_v3_large, densenet121, shufflenet_v2_x1_0 and
+             googlenet at 224 x 224, inception_v3 at 299 x 299; no kernel
+             of the port (cuDNN's convolutions); images/s and ms a forward
+             over 10 forwards ending in one sync, peak memory, one forward
+             profiled (busy share, device time by kind); each model's
+             first 2 images on the card and on the CPU from the same
+             weights (logits 1e-3 of their max-abs, top-1 equal away from
+             a tie); mobilenet_v2 through Model.evaluate and
+             Model.predict over io.DataLoader (512 images), predict equal
+             to a direct forward;
+39. zoo-train — mobilenet_v2 (scale 1.0, dropout 0.2), weights from seed
+             0, f32, batch 256 x 224, through Model.fit with AdamW(1e-3,
+             weight_decay=1e-4, fused_kernel=True) for 12 captured steps:
+             #10 launched by the eager first step and the recording, once
+             each, held once in the step's graph, no plain twin; the loss
+             falls; ms a step, images/s, peak memory, a profiled step;
+             the eager and the captured Engine from the same weights,
+             batch and generator state, 5 steps in lockstep (bit for bit,
+             else each parameter within 2 * lr and all but 5e-4 of the
+             elements within 1e-5: Adam moves an element whose gradient
+             lies within rounding of 0 by +-lr) and timed in turns; one
+             step on the card against the CPU at batch 8 x 224 (dropout
+             off; the gradients read against a float64 step, as
+             resnet-train-cpu reads ResNet-50's; parameters 1e-5 where
+             the devices' gradients agree in sign, else 2 * lr); #10 at
+             MobileNetV2's 158 leaves against its twin, timed beside its
+             bound and torch.optim.AdamW(fused=True);
+40. vision-ops — each op of vision.ops on the card against the CPU at a
+             detector's sizes: nms over 2000 boxes of 80 categories with
+             and without top_k (indices equal), roi_align and roi_pool
+             over 512 RoIs on [2, 256, 200, 336] at 7 x 7, PSRoIPool on
+             [2, 490, 50, 84], deform_conv2d v2 on [2, 256, 100, 168] (3 x
+             3, 256 out), box_coder on 2000 priors, yolo_box on [8, 255,
+             20, 20], distribute_fpn_proposals of 2000 RoIs (levels
+             equal); f32 1e-4 of max(1, |cpu|); ms on the card and the
+             synchronizing calls a call.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -413,9 +452,10 @@ each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
 Model.fit, evaluate and predict (phase 26), LeNet's fit (phase 27),
 one DETR forward and one PP-YOLOE forward and their 10 timed
 forwards (phases 29 and 31), each detection Model.fit (phases 33 and
-35), and each captured Engine's steps in phase 37 (a replay launches the
+35), each captured Engine's steps in phase 37 (a replay launches the
 recorded kernels from the graph, past the wrappers: its counts are the
-Engine's eager first step and its recording). Phases 7-27 and 33 run
+Engine's eager first step and its recording), each zoo forward (phase
+38, none) and MobileNetV2's Model.fit (phase 39). Phases 7-27 and 33 run
 their Engines eagerly (capture=False), as before phase 37 existed;
 PP-YOLOE-l's Model.fit (phase 35) records its step, the Engine's default.
 
@@ -440,7 +480,7 @@ there, the backward's 3xTF32 bound with its CUDA-core one beside in
 "bound_cores_ms"),
 and again on phase 37's captured paths (a "path" key "train-graph ...",
 its "launches" the captured Engine's counts, "launches_recorded" a
-replay's),
+replay's) and #10 on zoo-train's captured Model.fit of MobileNetV2,
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -482,8 +522,12 @@ tf32 rounding does and times back-to-back mma.sync TF32 products, the
 ceiling the f32 kernel is read against.
 
     python3 chip_smoke.py --train-graph
+    python3 chip_smoke.py --zoo-serve
+    python3 chip_smoke.py --zoo-train
+    python3 chip_smoke.py --vision-ops
 
-phase 37 alone (every kernel built first), its results as one JSON line.
+phase 37, 38, 39 or 40 alone (every kernel built first), its results as
+one JSON line.
 
     python3 chip_smoke.py --compare-steps TREE...
 
@@ -500,6 +544,7 @@ GPT-345M's leaf sets, each held to the twin.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import os
@@ -5545,11 +5590,11 @@ def _close_rel(tag, got, want, tol):
     return err / max(scale, 1e-30)
 
 
-def _inference_profile(torch, tag, model, x):
+def _inference_profile(torch, tag, model, x, groups=DETECT_GROUPS):
     def run():
         with torch.inference_mode():
             model(x)
-    return profile_grouped(torch, tag, "one forward", run, DETECT_GROUPS)
+    return profile_grouped(torch, tag, "one forward", run, groups)
 
 
 def phase_detr_serve(torch):
@@ -5685,6 +5730,22 @@ def phase_ppyoloe_serve(torch):
                 nms_ms=nms_s * 1e3)
 
 
+def _top1_clear(tag, got, want):
+    """The top class of every row of ``got`` (the card's scores) equal to
+    ``want``'s (the CPU's) wherever the CPU's top two lie further apart
+    than twice the devices' largest difference -> (rows clear of a tie,
+    rows whose top class differs, that difference)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    check(bool(same[clear].all()), f"{tag}: the top class differs at "
+          f"{int((~same & clear).sum())} rows whose top two lie further "
+          "apart than twice the devices' difference")
+    return int(clear.sum()), int((~same).sum()), err
+
+
 def phase_ppyoloe_cpu(torch, state):
     """PP-YOLOE-l with the ppyoloe-serve weights on the card and on the
     CPU, one 640 x 640 image: boxes and scores within 1e-3 of their
@@ -5708,20 +5769,13 @@ def phase_ppyoloe_cpu(torch, state):
         bc, sc = cm(x.cpu())
     eb = _close_rel(f"{tag} boxes", bg, bc, 1e-3)
     es = _close_rel(f"{tag} scores", sg, sc, 1e-3)
-    sg, sc = sg[0].float().cpu(), sc[0]
-    serr = (sg - sc).abs().max().item()
-    top2 = sc.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 2 * serr
-    same = sg.argmax(-1) == sc.argmax(-1)
-    check(bool(same[clear].all()),
-          f"{tag}: the top class differs at {int((~same & clear).sum())} "
-          "anchors whose top two scores are further apart than twice the "
-          "devices' difference")
+    clear, differ, serr = _top1_clear(tag, sg[0], sc[0])
+    n = sc.shape[1]
     log(f"{tag}: PP-YOLOE-l f32, 1 x 640 x 640, cuda vs cpu: boxes "
         f"{eb:.3e}, scores {es:.3e} of their max-abs (max_abs_err "
-        f"{serr:.3e}); the top class equal at {int(clear.sum())} of "
-        f"{len(clear)} anchors clear of a tie, {int((~clear).sum())} "
-        f"within 2 x {serr:.1e} of one ({int((~same).sum())} differ)")
+        f"{serr:.3e}); the top class equal at {clear} of {n} anchors clear "
+        f"of a tie, {n - clear} within 2 x {serr:.1e} of one ({differ} "
+        "differ)")
     return dict(boxes=eb, scores=es)
 
 
@@ -6369,7 +6423,8 @@ def _mode_profile(torch, tag, eng, inputs, labels, groups):
 
 
 def _graph_pair(torch, tag, make, inputs, labels, groups, steps=5,
-                linear=False, schedule=None, lockstep=True, expect=None):
+                linear=False, schedule=None, lockstep=True, expect=None,
+                compare=None):
     # linear: a Momentum step (lr times the gradient), not Adam's
     """The eager and the captured Engine of one path from the same
     weights, batch and generator state: ``steps`` steps each, the
@@ -6381,11 +6436,12 @@ def _graph_pair(torch, tag, make, inputs, labels, groups, steps=5,
     turns; else (GPT-1.3B: two would not fit the card with the graph's
     pool) the eager run first, its losses and parameters kept, then the
     captured one, each timed alone. ``expect``: {wrapper: launches a
-    step} the recording must make, and no plain twin. Peak memory of each
-    (max_memory_allocated over its first steps, above what was allocated
-    before it was built, the other Engine's resident state taken out) and
-    reserved memory; one profiled step each (busy share, host launches,
-    graph launches)."""
+    step} the recording must make, and no plain twin. ``compare``: the
+    lockstep comparison in ``_compare_states``'s place (its arguments, its
+    result). Peak memory of each (max_memory_allocated over its first
+    steps, above what was allocated before it was built, the other
+    Engine's resident state taken out) and reserved memory; one profiled
+    step each (busy share, host launches, graph launches)."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
     res = {}
     gib = 2 ** 30
@@ -6463,7 +6519,7 @@ def _graph_pair(torch, tag, make, inputs, labels, groups, steps=5,
             set_lr(ee, i)
             e_loss.append(ee.train_batch(inputs, labels)[0].item())
         if lockstep:
-            state = _compare_states(
+            state = (compare or _compare_states)(
                 tag, f"step {i + 1}" + (f" at lr {schedule(i):.3e}"
                                         if schedule else ""), me, mc, start,
                 noise_bar=noise_bar(i + 1))
@@ -6874,6 +6930,568 @@ def phase_train_graph(torch):
     return out
 
 
+# -- the classification zoo and vision.ops ------------------------------------
+
+# the served zoo: (factory, input size); every model at its published
+# width with 1000 classes
+ZOO_SERVE = (("vgg16", 224), ("alexnet", 224), ("squeezenet1_1", 224),
+             ("mobilenet_v1", 224), ("mobilenet_v2", 224),
+             ("mobilenet_v3_large", 224), ("densenet121", 224),
+             ("shufflenet_v2_x1_0", 224), ("googlenet", 224),
+             ("inception_v3", 299))
+# device kernels of a zoo forward or step, grouped by name (first match
+# wins)
+ZOO_GROUPS = (
+    ("#10 (adamw_kernel)", ("adamw_kernel",)),
+    ("cuDNN and depthwise convolutions",
+     ("fprop", "dgrad", "wgrad", "implicit", "conv", "winograd", "cudnn",
+      "nhwc", "nchw", "fft", "dse::", "pointwise_mult_and_sum")),
+    ("GEMMs (classifiers)", ("gemm", "cutlass", "cublas", "sm90_xmma")),
+    ("elementwise and BatchNorm (eager BatchNorm, activations, pools, "
+     "concatenation, copies, the loss)",
+     ("elementwise", "reduce", "copy", "fill", "cat", "index", "softmax",
+      "pool", "batch_norm", "nll", "gather", "scatter")),
+)
+# the leaves of train-mode MobileNetV2 whose gradient is zero in exact
+# arithmetic: each projection's BatchNorm bias only shifts the input of a
+# convolution whose own train-mode BatchNorm removes the shift again
+MOBILENET_ZERO_GRADS = ("conv.2.bn.bias", "features.1.conv.1.bn.bias")
+# the share of elements (outside MOBILENET_ZERO_GRADS) an Adam step may
+# put more than 1e-5 (and at most 2 * lr) apart: Adam moves an element by
+# lr times the sign of its gradient, which at a ReLU6 kink can lie within
+# rounding of 0; tests/test_torch_zoo.py measured 1.1e-4 against the JAX
+# package over two steps
+ZOO_APART = 5e-4
+
+
+def _zoo_model(torch, name, device, weight_seed, **kw):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision import models
+    return getattr(models, name)(
+        device=device, generator=seed(weight_seed, device=device), **kw)
+
+
+def phase_zoo_serve(torch):
+    """Phase zoo-serve: each model of ZOO_SERVE at 1000 classes, weights
+    from seed 0 with random BatchNorm statistics, eval, f32 NCHW, batch 64
+    from numpy seed i under inference_mode: no kernel of the port launched
+    (its convolutions are cuDNN's); images/s and ms a forward over 10
+    forwards ending in one sync, peak memory above the model's weights,
+    one forward profiled (busy share, device time by kind); then the
+    model's first 2 images on the card and on the CPU from the same
+    weights: logits within 1e-3 of their max-abs, top-1 equal where the
+    CPU's top two lie further apart than twice the devices' difference.
+    Then mobilenet_v2 through Model.evaluate and Model.predict over
+    io.DataLoader (SyntheticImageNet, 512 images, batch 64, 2 workers):
+    predict's logits equal a direct forward's on the same images."""
+    b = 64
+    out = {}
+    gib = 2 ** 30
+    for i, (name, hw) in enumerate(ZOO_SERVE):
+        tag = f"zoo-serve {name}"
+        torch.cuda.empty_cache()
+        model = _zoo_model(torch, name, "cuda", 0).eval()
+        _randomize_bn(torch, model, 30 + i)
+        x = _images(torch, b, hw, hw, seed=i)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits, _, ips, ms = _serve(torch, tag, model, x, {})
+        peak = (torch.cuda.max_memory_allocated() - base) / gib
+        check(tuple(logits.shape) == (b, 1000)
+              and bool(torch.isfinite(logits).all()),
+              f"{tag}: logits {tuple(logits.shape)} not finite [{b}, 1000]")
+        prof = _inference_profile(torch, tag, model, x, ZOO_GROUPS)
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        cm = _zoo_model(torch, name, "cpu", 1).eval()
+        cm.load_state_dict(state)
+        with torch.inference_mode():
+            got, want = model(x[:2]), cm(x[:2].cpu())
+        err = _close_rel(f"{tag} cuda vs cpu", got, want, 1e-3)
+        clear, differ, _ = _top1_clear(f"{tag} cuda vs cpu", got, want)
+        params = sum(p.numel() for p in model.parameters())
+        log(f"{tag}: {params / 1e6:.2f} M parameters, f32, batch {b} x "
+            f"{hw} x {hw}: {ips:.1f} images/s, {ms:.3f} ms a forward (10 "
+            f"forwards, one sync), no kernel of the port; peak "
+            f"{peak:.2f} GiB above the weights; cuda vs cpu on 2 images: "
+            f"logits {err:.3e} of their max-abs, top-1 equal ({clear} of 2 "
+            f"clear of a tie, {differ} differ)")
+        out[name] = dict(hw=hw, batch=b, params=params, images_per_s=ips,
+                         ms_per_forward=ms, peak_gib=peak,
+                         busy_share=prof["busy_share"],
+                         groups=prof.get("groups"), cpu_err=err)
+        del model, cm, x, logits, state
+    out["mobilenet_v2 evaluate"] = _zoo_evaluate(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_evaluate(torch):
+    """mobilenet_v2 through Model.evaluate and Model.predict over
+    io.DataLoader."""
+    import numpy as np
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.vision.datasets import SyntheticImageNet
+    tag, b, n = "zoo-serve mobilenet_v2 evaluate", 64, 512
+    net = _zoo_model(torch, "mobilenet_v2", "cuda", 0)
+    _randomize_bn(torch, net, 34)
+    model = Model(net)
+    model.prepare(loss=nn.CrossEntropyLoss(), metrics=Accuracy(topk=(1, 5)))
+    ds = SyntheticImageNet(n=n, image_size=224)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = model.evaluate(ds, batch_size=b, num_workers=2, verbose=0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = model.predict(ds, batch_size=b, num_workers=2,
+                         stack_outputs=True)
+    pred_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_launches().items() if v}
+    check(not launches, f"{tag}: kernels of the port launched {launches}")
+    check(math.isfinite(ev["loss"][0])
+          and 0.0 <= ev["acc_top1"] <= ev["acc_top5"] <= 1.0,
+          f"{tag}: evaluate {ev}")
+    check(pred[0].shape == (n, 1000) and bool(np.isfinite(pred[0]).all()),
+          f"{tag}: predict gave {pred[0].shape}")
+    x = torch.from_numpy(np.stack([ds[i][0] for i in range(b)])).cuda()
+    with torch.inference_mode():
+        direct = net(x).cpu()
+    err = _close_rel(f"{tag} predict vs a direct forward",
+                     torch.from_numpy(pred[0][:b]), direct, 1e-5)
+    log(f"{tag}: evaluate over {n} images {ev} in {eval_s:.3f} s "
+        f"({n / eval_s:.1f} images/s, the loader included); predict "
+        f"{pred[0].shape} in {pred_s:.3f} s ({n / pred_s:.1f} images/s), "
+        f"its first batch {err:.3e} of its max-abs from a direct forward")
+    return dict(evaluate=ev, eval_images_per_s=n / eval_s,
+                predict_images_per_s=n / pred_s, predict_err=err)
+
+
+def _mobilenet_adamw(net):
+    """AdamW(1e-3, weight_decay=1e-4) on #10: one launch a step over every
+    f32 leaf."""
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(1e-3, parameters=net.named_parameters(), weight_decay=1e-4,
+                 fused_kernel=True)
+
+
+def _mobilenet_engine(torch, device, capture, weight_seed=0):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.hapi import Engine
+    net = _zoo_model(torch, "mobilenet_v2", device, weight_seed)
+    return net, Engine(net, nn.CrossEntropyLoss(), _mobilenet_adamw(net),
+                       capture=capture)
+
+
+def _apart_compare(tag, what, eager, captured, start, zero_grads=(),
+                   noise_bar=None):
+    """A captured Adam step against the eager one from the same state:
+    bit for bit, else each parameter within ``noise_bar``, all
+    but ZOO_APART of the elements outside ``zero_grads`` within 1e-5, and
+    the buffers (BatchNorm's running statistics) within 1e-5 of max(1,
+    |eager|). -> "bit for bit" or the elements apart."""
+    pairs = list(zip(eager.named_parameters(), captured.parameters()))
+    same = all(torch_equal(a, b) for (_, a), b in pairs) and all(
+        torch_equal(a, b) for a, b in zip(eager.buffers(),
+                                          captured.buffers()))
+    if same:
+        return "bit for bit"
+    n_apart, n_held, worst = 0, 0, 0.0
+    for (n, a), b in pairs:
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        check(diff.max().item() <= noise_bar, f"{tag}: {what}: {n} differs "
+              f"by {diff.max().item()} > {noise_bar}")
+        if not n.endswith(tuple(zero_grads)):
+            n_apart += int((diff > 1e-5).sum().item())
+            n_held += diff.numel()
+    check(n_apart <= ZOO_APART * n_held, f"{tag}: {what}: {n_apart} of "
+          f"{n_held} elements differ by more than 1e-5")
+    for a, b in zip(eager.buffers(), captured.buffers()):
+        rel = ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+        check(rel <= 1e-5, f"{tag}: {what}: a running statistic differs by "
+              f"{rel} of max(1, |eager|)")
+    log(f"{tag}: {what}: not bit for bit (cuDNN's weight gradients add with "
+        f"atomics in another order each run, and Adam moves an element "
+        f"whose gradient is within that of 0 by +-lr): {n_apart} of "
+        f"{n_held} elements over 1e-5 apart, the worst {worst:.3e}; the "
+        f"running statistics within 1e-5")
+    return n_apart
+
+
+def phase_zoo_train(torch):
+    """Phase zoo-train: mobilenet_v2 (scale 1.0, 1000 classes, dropout
+    0.2), weights from seed 0, f32 NCHW, batch 256 x 224: Model.fit with
+    AdamW(1e-3, weight_decay=1e-4, fused_kernel=True) over 12 steps of
+    SyntheticImageNet (1024 images, 3 epochs, 2 workers), each step
+    recorded by the Engine as one CUDA graph (its first eager, its second
+    recorded, the rest replayed): #10 launched through its wrapper by the
+    eager step and the recording alone, once each, no other kernel of the
+    port and no plain twin; the graph holds #10 once; the losses fall;
+    ms a step and images/s over steps 5-12, peak memory, one step
+    profiled. Then the eager and the captured Engine from the same
+    weights, batch and generator state (_graph_pair: 5 steps in lockstep,
+    each step from the same state, then timed in turns eager, captured,
+    captured, eager), and one step on the card against the CPU at batch 8
+    x 224 with dropout off (the two devices' generators differ). #10 at
+    MobileNetV2's leaf set against its twin, timed beside its bound and
+    torch.optim.AdamW(fused=True)."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import SyntheticImageNet
+    tag, b, epochs, warm = "zoo-train", 256, 3, 4
+    out = {}
+    torch.cuda.empty_cache()
+    ds = SyntheticImageNet(n=4 * b, image_size=224)
+    net = _zoo_model(torch, "mobilenet_v2", "cuda", 0)
+    opt = _mobilenet_adamw(net)
+    model = Model(net)
+    model.prepare(opt, nn.CrossEntropyLoss())
+    check(model._engine.captures, f"{tag}: the Engine does not capture "
+          f"({model._engine.eager_reason})")
+    # the profiled step comes ahead of the timed ones: starting the
+    # profiler costs the host seconds
+    probe = _FitProbe(torch, profile_after=warm - 2)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _TwinWatch() as twins, _AdamWWatch() as watch:
+        model.fit(ds, batch_size=b, epochs=epochs, shuffle=False,
+                  num_workers=2, verbose=0, callbacks=[probe.callback])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = epochs * len(ds) // b
+    check(not twins.calls, f"{tag}: plain twins ran {twins.calls}")
+    # the wrappers count the Engine's eager first step and its recording;
+    # a replay launches #10 from the graph
+    _only(tag, launches, "fused_adamw_multi_update", 2)
+    leaves = _check_adamw_route(tag, net, opt, watch, launches, 2)
+    nodes = _graph_node_names(torch, _recording(model._engine, "train").graph)
+    n_adamw = sum("adamw_kernel" in n for n in nodes)
+    check(n_adamw == 1, f"{tag}: the step's graph holds #10 {n_adamw} times")
+    losses = probe.losses
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{tag}: losses {losses}")
+    first, last = sum(losses[:4]), sum(losses[-4:])
+    check(last < first, f"{tag}: the loss did not fall: {losses}")
+    out.update(launches=launches, leaves=leaves, graph_nodes=len(nodes),
+               losses=losses, peak_gib=peak, fit_wall_s=wall,
+               fit_profile=probe.busy(tag),
+               recorded_launches={"fused_adamw_multi_update": 1})
+    out.update(_step_rates(tag, model, probe, b, warm))
+    log(f"{tag}: mobilenet_v2 f32, batch {b} x 224, AdamW fused, Model.fit "
+        f"over {steps} captured steps in {wall:.2f} s: "
+        f"{out['ms_per_step']:.3f} ms a step, {out['images_per_s']:.1f} "
+        f"images/s over steps {warm + 1}-{steps}; #10 once in the step's "
+        f"graph of {len(nodes)} nodes over {leaves} leaves, no twin; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak:.2f} GiB")
+    # the fit's callbacks and the Model refer to each other: collect the
+    # cycle, so that its graph's pool is freed before two Engines run
+    del model, net, opt, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    x, y = (t.cuda() for t in next(iter(DataLoader(ds, batch_size=b))))
+    lr = 1e-3
+
+    def compare(tag, what, eager, captured, start, noise_bar=None):
+        # each step from the same state: 2 * lr a step, not over steps
+        return _apart_compare(tag, what, eager, captured, start,
+                              zero_grads=MOBILENET_ZERO_GRADS,
+                              noise_bar=2 * lr + 1e-5)
+    r = _graph_pair(
+        torch, f"{tag} eager vs captured",
+        lambda cap: _mobilenet_engine(torch, "cuda", cap), [x], [y],
+        ZOO_GROUPS, expect={"fused_adamw_multi_update": 1},
+        compare=compare)
+    me, ee, mc, ce = r.pop("engines")
+    nodes = _graph_node_names(torch, _recording(ce, "train").graph)
+    check(sum("adamw_kernel" in n for n in nodes) == 1,
+          f"{tag}: the captured Engine's graph holds #10 "
+          f"{sum('adamw_kernel' in n for n in nodes)} times")
+    out["graph_pair"] = r
+    del me, ee, mc, ce, x, y
+    torch.cuda.empty_cache()
+
+    out["cpu"] = _zoo_train_cpu(torch)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    shapes = _leaf_shapes(torch, lambda: _zoo_model(torch, "mobilenet_v2",
+                                                   "cuda", 0))
+    out["adamw"] = _adamw_set_case(torch, "mobilenet_v2", shapes, gen,
+                                   scratch.zero_, wd=1e-4)
+    del scratch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_train_cpu(torch):
+    """One AdamW step of mobilenet_v2 on the card and on the CPU from the
+    same weights (BatchNorm statistics and affine parameters drawn at
+    random) at batch 8 x 224, dropout off (the devices' generators
+    differ), as resnet-train-cpu holds ResNet-50: a ReLU6 input within the
+    f32 forward's error of a kink (0 or 6) takes the other branch on one
+    device, and every gradient upstream of it moves, so the gradients are
+    read against a float64 step on the CPU (Adam's m / (1 - beta1) after
+    the step, leaf by leaf in relative L2: the card's median and worst
+    leaf at most 1.5x as far as the CPU's; the projections' BatchNorm
+    biases, zero in exact arithmetic, left out). Then section 2's bars:
+    the loss 1e-4 relative, the running statistics 1e-4 of their max-abs,
+    the parameters within 1e-5 where both devices' gradients (Adam's m)
+    agree in sign and pass 1e-6 (m 1e-7), else within 2 * lr + 1e-5:
+    Adam's first step is lr times the sign of g."""
+    import numpy as np
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.hapi import Engine
+    tag, lr = "zoo-train-cpu", 1e-3
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((8, 3, 224, 224)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, (8,)).astype(np.int64))
+    models, opts, loss = {}, {}, {}
+    state = None
+    for dev, dtype in (("cuda", None), ("cpu", None),
+                       ("f64", torch.float64)):
+        net = _zoo_model(torch, "mobilenet_v2", "cuda" if dev == "cuda"
+                         else "cpu", 5, dtype=dtype)
+        for m in net.modules():
+            if isinstance(m, nn.Dropout):
+                m.p = 0.0
+        if state is None:
+            _randomize_bn(torch, net, 35)
+            state = {k: v.detach().cpu().clone()
+                     for k, v in net.state_dict().items()}
+        else:
+            net.load_state_dict(state)
+        net.train()
+        models[dev] = net
+        xd, yd = x.to(next(net.parameters()).device), y
+        if dev == "f64":
+            nn.CrossEntropyLoss()(net(xd.double()), yd).backward()
+            continue
+        opts[dev] = _mobilenet_adamw(net)
+        eng = Engine(net, nn.CrossEntropyLoss(), opts[dev])
+        loss[dev] = eng.train_batch([xd], [yd.to(xd.device)])[0].item()
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    check(rel <= 1e-4, f"{tag}: loss cuda {loss['cuda']} vs cpu "
+          f"{loss['cpu']} ({rel} relative)")
+    g64 = {n: p.grad for n, p in models["f64"].named_parameters()
+           if not n.endswith(MOBILENET_ZERO_GRADS)}
+    far = {dev: sorted((opts[dev]._state[n]["m"].cpu().double() / 0.1
+                        - g).norm().item() / g.norm().item()
+                       for n, g in g64.items()) for dev in opts}
+    for at in (len(g64) // 2, -1):
+        check(far["cuda"][at] <= 1.5 * far["cpu"][at], f"{tag}: the card's "
+              f"gradients sit {far['cuda'][at]} from float64, the CPU's "
+              f"{far['cpu'][at]}")
+    gstate = {k: v.cpu() for k, v in models["cuda"].state_dict().items()}
+    stats, n_flip, n_held, worst, worst_flip = 0.0, 0, 0, 0.0, 0.0
+    for k, c in models["cpu"].state_dict().items():
+        diff = (gstate[k] - c).abs()
+        if k.endswith(("_mean", "_variance")):
+            e = diff.max().item() / c.abs().max().item()
+            check(e <= 1e-4, f"{tag}: {k} differs by {e} of its max-abs")
+            stats = max(stats, e)
+            continue
+        # Adam's first step is lr * g / (|g| + eps): where the devices'
+        # gradients agree in sign and pass 1e-6 the parameters agree to
+        # 1e-5; elsewhere (a gradient within the devices' f32 error of 0,
+        # which the float64 reading above bounds) they lie 2 * lr apart
+        gg, gc = (opts[d]._state[k]["m"].cpu() for d in ("cuda", "cpu"))
+        flip = ((gg.sign() != gc.sign()) | (gg.abs() < 1e-7)
+                | (gc.abs() < 1e-7))
+        if (~flip).any():
+            worst = max(worst, diff[~flip].max().item())
+        if flip.any():
+            worst_flip = max(worst_flip, diff[flip].max().item())
+        if not k.endswith(MOBILENET_ZERO_GRADS):
+            n_flip += int(flip.sum().item())
+            n_held += diff.numel()
+    check(worst <= 1e-5 and worst_flip <= 2 * lr + 1e-5, f"{tag}: after the "
+          f"step parameters differ by {worst} where the devices' gradients "
+          f"agree in sign and pass 1e-6, by {worst_flip} elsewhere")
+    log(f"{tag}: mobilenet_v2 f32, 8 x 224, AdamW fused, one step cuda vs "
+        f"cpu from the same weights: loss cuda {loss['cuda']:.6f} cpu "
+        f"{loss['cpu']:.6f} ({rel:.2e} relative); the gradients against a "
+        f"float64 step, relative L2 (median, worst leaf): "
+        + "; ".join(f"{dev} {v[len(v) // 2]:.2e}, {v[-1]:.2e}"
+                    for dev, v in far.items())
+        + f"; running statistics {stats:.2e} of their max-abs; parameters "
+        f"within {worst:.2e} where the gradients agree in sign and pass "
+        f"1e-6, {worst_flip:.2e} at the {n_flip} of {n_held} elements "
+        f"(outside the zero-gradient biases) where they do not")
+    del models, opts
+    return dict(loss_rel=rel, f64=far, stats=stats, param_err=worst,
+                sign_differs=n_flip)
+
+
+def _host_ms(torch, fn, reps=5):
+    """Host wall ms of fn() ending in a sync, the median of ``reps`` after
+    one warm-up: for calls that read the device back themselves."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _syncs(torch, fn):
+    """The synchronizing CUDA calls fn() makes (PyTorch's sync debug mode
+    warns at each)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_vision_ops(torch):
+    """Phase vision-ops: each op of vision.ops on the card against the CPU
+    on the same inputs at the sizes of the detectors that use it: nms over
+    2000 boxes of 80 categories with top_k 100 and without (indices
+    equal); roi_align and roi_pool over 512 RoIs on an FPN P2 level [2,
+    256, 200, 336] at 7 x 7 (scale 1/4); PSRoIPool on [2, 490, 50, 84] at
+    7 x 7 (scale 1/16); deform_conv2d v2 (mask) on [2, 256, 100, 168], 3 x
+    3, 256 out; box_coder encoding 64 boxes against 2000 priors and
+    decoding [8, 2000, 4]; yolo_box on [8, 255, 20, 20] (3 anchors, 80
+    classes); distribute_fpn_proposals of 2000 RoIs over levels 2-5
+    (levels and masks equal). f32 within 1e-4 of max(1, |cpu|). Each op's
+    ms on the card (held by time_ms; nms, which reads back, by the host
+    clock over calls ending in a sync) and its synchronizing calls a call
+    (PyTorch's sync debug mode)."""
+    import numpy as np
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.default_rng(50)
+    out = {}
+
+    def boxes(n, lo, hi, wmin, wmax):
+        xy = rng.uniform(lo, hi, (n, 2))
+        wh = rng.uniform(wmin, wmax, (n, 2))
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+    def both(a):
+        t = torch.from_numpy(a)
+        return t.cuda(), t
+
+    def close(name, got, want):
+        got, want = got.float().cpu(), want.float()
+        err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        check(math.isfinite(err) and err <= 1e-4,
+              f"vision-ops {name}: {err} of max(1, |cpu|) > 1e-4")
+        return err
+
+    def report(name, fn, err, held=True):
+        syncs = _syncs(torch, fn)
+        ms = time_ms(torch, fn) if held else _host_ms(torch, fn)
+        out[name] = dict(ms=float(ms), held=held, syncs_per_call=syncs,
+                         err=err)
+        log(f"vision-ops {name}: {float(ms):.4f} ms on the card "
+            f"({'held' if held else 'host clock, ending in a sync'}), "
+            f"{syncs} synchronizing calls a call; "
+            + (f"{err:.3e} of max(1, |cpu|) from the CPU" if err is not None
+               else "equal to the CPU's"))
+
+    # nms: 2000 scored boxes of 80 categories
+    bx, sc = both(boxes(2000, 0, 600, 8, 160))
+    sg, scpu = both(rng.uniform(0, 1, 2000).astype(np.float32))
+    cg, ccpu = both(rng.integers(0, 80, 2000).astype(np.int64))
+    for top_k in (100, None):
+        name = f"nms top_k={top_k}"
+        n0 = ops.nms.host_reads
+        got = ops.nms(bx, 0.5, scores=sg, category_idxs=cg,
+                      categories=list(range(80)), top_k=top_k)
+        reads = ops.nms.host_reads - n0
+        want = ops.nms(sc, 0.5, scores=scpu, category_idxs=ccpu,
+                       categories=list(range(80)), top_k=top_k)
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+              f"vision-ops {name}: indices differ from the CPU's")
+        report(name, lambda k=top_k: ops.nms(
+            bx, 0.5, scores=sg, category_idxs=cg,
+            categories=list(range(80)), top_k=k), None, held=False)
+        out[name].update(kept=int((want >= 0).sum()), host_reads=reads)
+    # RoI ops on an FPN P2 level
+    xg, xc = both(rng.standard_normal((2, 256, 200, 336)).astype(np.float32))
+    rg, rc = both(boxes(512, 0, 1200, 16, 300))
+    ng, nc = both(np.array([256, 256], np.int64))
+    for name, fn in (("roi_align", lambda x, r, n: ops.roi_align(
+            x, r, n, 7, spatial_scale=0.25, sampling_ratio=2)),
+            ("roi_pool", lambda x, r, n: ops.roi_pool(
+                x, r, n, 7, spatial_scale=0.25))):
+        err = close(name, fn(xg, rg, ng), fn(xc, rc, nc))
+        report(name, lambda fn=fn: fn(xg, rg, ng), err)
+    del xg, xc
+    pg, pc = both(rng.standard_normal((2, 490, 50, 84)).astype(np.float32))
+    ps = ops.PSRoIPool(7, spatial_scale=1 / 16)
+    err = close("PSRoIPool", ps(pg, rg, ng), ps(pc, rc, nc))
+    report("PSRoIPool", lambda: ps(pg, rg, ng), err)
+    del pg, pc
+    # deformable convolution v2 at a DCN stage's size
+    xg, xc = both(rng.standard_normal((2, 256, 100, 168)).astype(np.float32))
+    og, oc = both((rng.standard_normal((2, 18, 100, 168)) * 2).astype(
+        np.float32))
+    mg, mc = both(rng.uniform(0, 1, (2, 9, 100, 168)).astype(np.float32))
+    wg, wc = both((rng.standard_normal((256, 256, 3, 3)) * 0.02).astype(
+        np.float32))
+    bg, bc = both(rng.standard_normal(256).astype(np.float32))
+    err = close("deform_conv2d", ops.deform_conv2d(
+        xg, og, wg, bg, padding=1, mask=mg), ops.deform_conv2d(
+        xc, oc, wc, bc, padding=1, mask=mc))
+    report("deform_conv2d", lambda: ops.deform_conv2d(
+        xg, og, wg, bg, padding=1, mask=mg), err)
+    del xg, xc, og, oc, mg, mc
+    # box_coder against 2000 priors, both ways
+    prg, prc = both(boxes(2000, 0, 1, 0.05, 0.4))
+    var = [0.1, 0.1, 0.2, 0.2]
+    tg, tc = both(boxes(64, 0, 1, 0.05, 0.4))
+    err = close("box_coder encode", ops.box_coder(prg, var, tg),
+                ops.box_coder(prc, var, tc))
+    report("box_coder encode", lambda: ops.box_coder(prg, var, tg), err)
+    dg, dc = both((rng.standard_normal((8, 2000, 4)) * 0.3).astype(
+        np.float32))
+    kw = dict(code_type="decode_center_size")
+    err = close("box_coder decode", ops.box_coder(prg, var, dg, **kw),
+                ops.box_coder(prc, var, dc, **kw))
+    report("box_coder decode", lambda: ops.box_coder(prg, var, dg, **kw),
+           err)
+    # yolo_box on a YOLOv3 head at 640 / 32
+    yg, yc = both((rng.standard_normal((8, 255, 20, 20)) * 2).astype(
+        np.float32))
+    ig, ic = both(np.full((8, 2), 640, np.int32))
+    kw = dict(anchors=[116, 90, 156, 198, 373, 326], class_num=80,
+              conf_thresh=0.01, downsample_ratio=32)
+    (b1, s1), (b2, s2) = ops.yolo_box(yg, ig, **kw), ops.yolo_box(yc, ic,
+                                                                  **kw)
+    err = max(close("yolo_box boxes", b1, b2), close("yolo_box scores", s1,
+                                                     s2))
+    report("yolo_box", lambda: ops.yolo_box(yg, ig, **kw), err)
+    # FPN level assignment
+    fg, fc = both(boxes(2000, 0, 800, 4, 700))
+    (lg, mgk), (lc, mck) = (ops.distribute_fpn_proposals(
+        r, 2, 5, 4, 224) for r in (fg, fc))
+    check(torch.equal(lg.cpu(), lc) and torch.equal(mgk.cpu(), mck),
+          "vision-ops distribute_fpn_proposals: levels differ from the "
+          "CPU's")
+    report("distribute_fpn_proposals", lambda: ops.distribute_fpn_proposals(
+        fg, 2, 5, 4, 224), None)
+    out["distribute_fpn_proposals"]["levels"] = {
+        int(k): int(v) for k, v in zip(*np.unique(lc.numpy(),
+                                                  return_counts=True))}
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- the training paths' steps, one package tree against another -------------
 
 def _lm_steps(torch, tag, eng, inputs, labels, warm, steps):
@@ -7163,13 +7781,16 @@ def main():
     if steps_tree:
         print(json.dumps(steps_of(torch)), flush=True)
         return 0
-    if sys.argv[1:2] == ["--train-graph"]:
+    alone = {"--train-graph": phase_train_graph,
+             "--zoo-serve": phase_zoo_serve, "--zoo-train": phase_zoo_train,
+             "--vision-ops": phase_vision_ops}
+    if sys.argv[1:2] and sys.argv[1] in alone:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
                            text=True).stdout.strip())
         from paddle_tpu_torch.ops import _build
         _build.build_all()
-        print(json.dumps(_jsonable(phase_train_graph(torch))), flush=True)
+        print(json.dumps(_jsonable(alone[sys.argv[1]](torch))), flush=True)
         return 0
     if sys.argv[1:2] == ["--adamw-geometry"]:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7303,6 +7924,12 @@ def main():
     torch.cuda.empty_cache()
     tg = phase_train_graph(torch)
     stamp("train_graph")
+    phase_zoo_serve(torch)
+    stamp("zoo_serve")
+    zt = phase_zoo_train(torch)
+    stamp("zoo_train")
+    phase_vision_ops(torch)
+    stamp("vision_ops")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -7571,6 +8198,14 @@ def main():
             row, path=f"train-graph {path}",
             launches=res["launches"][row["name"]],
             launches_recorded=res["recorded_launches"][row["name"]]))
+    # MobileNetV2 through Model.fit (phase zoo-train): #10 over its 158
+    # leaves, the captured Engine's counts (its eager first step and its
+    # recording) and a replay's
+    kernels.append(dict(
+        adamw_row("zoo-train mobilenet_v2", zt["adamw"],
+                  zt["launches"]["fused_adamw_multi_update"]),
+        launches_recorded=zt["recorded_launches"][
+            "fused_adamw_multi_update"]))
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

@@ -15,8 +15,11 @@ and ResNet; ResNet serving; and the high-level API, ``Model(net).prepare(
 ``metric``, the callbacks, ``summary``/``flops``, ``save``/``load`` in the
 reference's file format, and ``vision`` (datasets, transforms, LeNet,
 ResNet); detection serving (``vision.models`` PP-YOLOE and DETR, over
-``nn``'s transformer layers) and ``incubate.fuse_conv_bn``. ROADMAP.md
-lists what is still to come.
+``nn``'s transformer layers) and ``incubate.fuse_conv_bn``; detection
+training; the classification zoo (VGG, AlexNet, SqueezeNet, MobileNet
+v1/v2/v3, DenseNet, ShuffleNetV2, GoogLeNet, Inception v3; every
+factory takes ``pretrained=<a checkpoint path>``) and ``vision.ops``.
+ROADMAP.md lists what is still to come.
 """
 from .framework import (bind_generator, convert_dtype,  # noqa: F401
                         get_default_dtype, seed, set_default_dtype)

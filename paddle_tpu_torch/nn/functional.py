@@ -1,7 +1,7 @@
 """paddle.nn.functional subset of the port (counterpart of
 ``paddle_tpu/nn/functional.py``): what GPT serving and training,
 BERT/ERNIE pretraining, Llama's decode, ResNet and the detection models
-need.
+need, and the classification zoo's activations and average pool.
 
 Weights keep the Paddle layout: ``linear`` takes ``[in, out]``, ``conv2d``
 an OIHW kernel or, with ``weight_format="HWIO"``, the channels-last one.
@@ -23,9 +23,10 @@ from ..framework import later
 from ..ops import attention as _attn
 
 __all__ = ["linear", "embedding", "layer_norm", "rms_norm", "gelu", "silu",
-           "sigmoid", "hardsigmoid", "tanh", "relu", "softmax", "dropout",
-           "cross_entropy", "scaled_dot_product_attention", "conv2d",
-           "batch_norm", "max_pool2d", "adaptive_avg_pool2d", "interpolate"]
+           "swish", "sigmoid", "hardsigmoid", "hardswish", "tanh", "relu",
+           "relu6", "softmax", "dropout", "cross_entropy",
+           "scaled_dot_product_attention", "conv2d", "batch_norm",
+           "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d", "interpolate"]
 
 
 def linear(x, weight, bias=None):
@@ -63,6 +64,11 @@ def silu(x):
     return _F.silu(x)
 
 
+def swish(x):
+    """ref: F.swish, which is ``silu``."""
+    return _F.silu(x)
+
+
 def sigmoid(x):
     return torch.sigmoid(x)
 
@@ -72,6 +78,11 @@ def hardsigmoid(x, slope=1.0 / 6, offset=0.5):
     return torch.clamp(slope * x + offset, 0.0, 1.0)
 
 
+def hardswish(x):
+    """ref: F.hardswish — x * relu6(x + 3) / 6 (MobileNetV3)."""
+    return _F.hardswish(x)
+
+
 def tanh(x):
     """The BERT/ERNIE pooler's activation (``pool_act="tanh"``)."""
     return torch.tanh(x)
@@ -79,6 +90,11 @@ def tanh(x):
 
 def relu(x):
     return torch.relu(x)
+
+
+def relu6(x):
+    """ref: F.relu6 — min(max(x, 0), 6) (MobileNetV2)."""
+    return _F.relu6(x)
 
 
 def softmax(x, axis=-1, dtype=None):
@@ -300,11 +316,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     xn = _nchw(x, data_format)
     pads = _pads(padding, 2, k, s, (1, 1), tuple(xn.shape[2:]))
     if ceil_mode and not isinstance(padding, str):
-        for d in range(2):
-            size = xn.shape[2 + d] + pads[d][0] + pads[d][1]
-            rem = (size - k[d]) % s[d]
-            if rem:
-                pads[d] = (pads[d][0], pads[d][1] + s[d] - rem)
+        pads = _ceil_pads(pads, tuple(xn.shape[2:]), k, s)
     if any(lo != hi or 2 * lo > k[d] for d, (lo, hi) in enumerate(pads)):
         flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
         xn, pad = _F.pad(xn, flat, value=-math.inf), (0, 0)
@@ -313,9 +325,53 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     return _back(_F.max_pool2d(xn, k, s, pad), data_format)
 
 
+def _ceil_pads(pads, size, k, s):
+    """``pads`` with each high pad extended so the last partial window is
+    kept (``ceil_mode``), as the reference extends it."""
+    pads = list(pads)
+    for d in range(len(pads)):
+        rem = (size[d] + pads[d][0] + pads[d][1] - k[d]) % s[d]
+        if rem:
+            pads[d] = (pads[d][0], pads[d][1] + s[d] - rem)
+    return pads
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    """ref: F.avg_pool2d: window sums over zero padding, divided by the
+    window's area or, with ``exclusive`` (the default, torch's
+    ``count_include_pad=False``), by the number of its cells inside the
+    input. ``ceil_mode`` extends the high pad as ``max_pool2d`` does, and
+    those cells are padding too. ``divisor_override`` is taken and
+    ignored, as the reference ignores it."""
+    k = _norm_tuple(kernel_size, 2)
+    s = _norm_tuple(stride if stride is not None else kernel_size, 2)
+    xn = _nchw(x, data_format)
+    pads = _pads(padding, 2, k, s, (1, 1), tuple(xn.shape[2:]))
+    if ceil_mode and not isinstance(padding, str):
+        pads = _ceil_pads(pads, tuple(xn.shape[2:]), k, s)
+    if all(lo == hi and 2 * lo <= k[d] for d, (lo, hi) in enumerate(pads)):
+        out = _F.avg_pool2d(xn, k, s, tuple(lo for lo, _ in pads),
+                            count_include_pad=not exclusive)
+        return _back(out, data_format)
+    # uneven or wide padding: pad with zeros, sum every window, divide by
+    # the area or by the count of real cells
+    flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
+    area = float(k[0] * k[1])
+    out = _F.avg_pool2d(_F.pad(xn, flat), k, s) * area
+    if exclusive:
+        ones = torch.ones((1, 1) + tuple(xn.shape[2:]), dtype=xn.dtype,
+                          device=xn.device)
+        out = out / (_F.avg_pool2d(_F.pad(ones, flat), k, s) * area)
+    else:
+        out = out / area
+    return _back(out, data_format)
+
+
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     """ref: F.adaptive_avg_pool2d: window i of n over a length L spans
-    [floor(i L / n), ceil((i + 1) L / n)); None keeps that axis."""
+    [floor(i L / n), ceil((i + 1) L / n)), also where n > L (VGG's 7 x 7
+    over a smaller map repeats cells); None keeps that axis."""
     xn = _nchw(x, data_format)
     size = output_size if isinstance(output_size, int) else tuple(
         output_size)

@@ -1,5 +1,5 @@
 """Pooling layers of the port (counterpart of
-``paddle_tpu/nn/layers_pooling.py``): ``MaxPool2D`` and
+``paddle_tpu/nn/layers_pooling.py``): ``MaxPool2D``, ``AvgPool2D`` and
 ``AdaptiveAvgPool2D``, with the reference's ``_kw["data_format"]`` and
 ``_data_format`` that ``layers_conv.to_channels_last`` rewrites."""
 from __future__ import annotations
@@ -8,7 +8,7 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D"]
 
 
 class _Pool(nn.Module):
@@ -35,6 +35,17 @@ class MaxPool2D(_Pool):
                  ceil_mode=False, data_format="NCHW"):
         super().__init__("max_pool2d", kernel_size, stride, padding,
                          return_mask=return_mask, ceil_mode=ceil_mode,
+                         data_format=data_format)
+
+
+class AvgPool2D(_Pool):
+    """ref: nn.AvgPool2D (``exclusive`` by default: padding is not
+    counted)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW"):
+        super().__init__("avg_pool2d", kernel_size, stride, padding,
+                         exclusive=exclusive, ceil_mode=ceil_mode,
                          data_format=data_format)
 
 

@@ -31,8 +31,10 @@ are the reference's, so a reference ``state_dict`` (conv kernels OIHW, or
 HWIO in NHWC, and BatchNorm's ``_mean``/``_variance``) loads key for key
 through ``nlp.convert.load_numpy_state``.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-``pretrained`` weights.
+``pretrained`` takes the path of a checkpoint in the reference's NCHW
+layout (``_utils.load_pretrained``); the model is built NCHW, loaded, then
+converted to the layout asked for. ``pretrained=True`` raises, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...framework import later
+from ...device import resolve_device
 from ...nlp.modeling_utils import model_kw
 from ...nn.layers_activation import ReLU
 from ...nn.layers_common import Linear, Sequential
@@ -51,6 +53,7 @@ from ...nn.layers_norm import BatchNorm2D
 from ...nn.layers_pooling import AdaptiveAvgPool2D, MaxPool2D
 from ...ops.kernels.conv_bn_act import (conv1x1_batch_stats,
                                         fused_conv1x1_bn_act)
+from ._utils import load_pretrained
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "wide_resnet50_2",
@@ -380,11 +383,24 @@ class ResNet(nn.Module):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(f"pretrained ResNet weights {later('6')}; "
-                                  "load a state with "
-                                  "nlp.convert.load_numpy_state")
-    return ResNet(block, depth, **kwargs)
+    if pretrained and not isinstance(pretrained, bool):
+        # checkpoints hold the reference's NCHW/OIHW state: build NCHW,
+        # load, then convert (the kernels transpose losslessly)
+        device = resolve_device(kwargs.get("device"))
+        layout = _resolve_layout(kwargs.pop("layout", "auto"), device)
+        fused = kwargs.pop("fused_bottleneck", False)
+        if fused and layout != "NHWC":
+            raise ValueError("fused_bottleneck requires the NHWC layout")
+        model = load_pretrained(
+            lambda: ResNet(block, depth, layout="NCHW", **kwargs),
+            pretrained, arch=f"resnet{depth}")
+        if layout == "NHWC":
+            model.convert_to_nhwc()
+            if fused:
+                model._arm_fused_bottleneck()
+        return model
+    return load_pretrained(lambda: ResNet(block, depth, **kwargs),
+                           pretrained, arch=f"resnet{depth}")
 
 
 def resnet18(pretrained=False, **kwargs):
