@@ -420,7 +420,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
              3, 256 out), box_coder on 2000 priors, yolo_box on [8, 255,
              20, 20], distribute_fpn_proposals of 2000 RoIs (levels
              equal); f32 1e-4 of max(1, |cpu|); ms on the card and the
-             synchronizing calls a call.
+             synchronizing calls a call;
+41. llama-flash — #1, #3 and #4 at llama-1b's training attention shape
+             (B=4, H=16, S=1024, D=128, causal, bf16, no dropout), k and
+             v drawn with 4 heads and expanded to 16 as the model hands
+             them over, vs their twins, timed beside SDPA on the same
+             inputs; a ragged GQA case with kv_lens and dropout 0.1;
+             runs after phase 28;
+42. gpt-1.3b-options — bench.py's gpt-1.3b stage with --recompute
+             --fused-qkv --chunked-ce 1024 --scan-layers against the plain
+             configuration (phase 22's), both eager and resident, the
+             options model from the plain one's weights (layers stacked,
+             q/k/v fused by load_numpy_state): first-step losses within
+             1e-2 relative, ms a step in turns, a step's peak memory above
+             the resident state; the forward twice a layer a step, #10
+             over every stacked f32 leaf; runs after phase 23;
+43. llama-train — bench.py's llama worker: llama-1b (hidden 2048, 22
+             layers, 16 heads of 128 over 4 kv heads, FFN 5632, vocab
+             32000) at full width and depth, seeded random weights, batch
+             4 x 1024, bf16 AMP, recompute, AdamW(1e-4, weight_decay=0.01,
+             moment_dtype="bfloat16") through the Engine: captured, 2
+             warm-up + 10 timed steps (tokens/s, ms a step, peak memory,
+             a profiled step by kind; #1 44 and #3/#4 22 launches a step,
+             counted by the wrappers over the eager and recorded steps
+             and as the recording's graph nodes; no #10 launch, the
+             rounding twice a leaf a step); eager with recompute on and
+             off (peak memory); the eager and the captured Engine from
+             the same weights, 3 steps in lockstep held to each other,
+             then timed in turns (busy share, host launches a step);
+44. llama-train-cpu — llama-1b cut to 2 layers, f32, recompute, bf16
+             moments, batch 1 x 128, one step on the card against the CPU
+             to phase 8's bars; the bf16-moment update at step 5 over
+             llama-1b's q, k, gate, down and norm shapes on the card
+             against the CPU from the same numpy noise bits: parameters
+             within 1e-6 of max(1, |p|), m and v within one bf16 ulp with
+             at most 1e-4 of them not bit for bit;
+45. recompute-dropout — gpt3-345M at dropout 0.1, batch 8 x 1024, bf16
+             AMP: the eager Engine without recompute against the
+             captured one with it, same weights and generator seed, 3
+             steps in lockstep (bit for bit or the bars a step), the
+             recording launching #1 48 times (twice a layer), #3/#4 24,
+             #10 once; runs after phase 42.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -478,6 +518,9 @@ f32 at DETR's head_dim 32, timed at its encoder's shape, on detr-serve;
 and #4 f32 at each of its three attention shapes with their launches
 there, the backward's 3xTF32 bound with its CUDA-core one beside in
 "bound_cores_ms"),
+#1, #3, #4 and #10 on phase 42's path ("path" gpt-1.3b-options), #1,
+#3 and #4 at llama-1b's shape on phase 43's captured run ("path"
+llama-train, "launches_recorded" a replay's),
 and again on phase 37's captured paths (a "path" key "train-graph ...",
 its "launches" the captured Engine's counts, "launches_recorded" a
 replay's) and #10 on zoo-train's captured Model.fit of MobileNetV2,
@@ -1527,16 +1570,22 @@ def _check_grad(name, dtype, a, b, where):
 
 
 def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
-                      flush, timed, causal=True):
+                      flush, timed, causal=True, kv_heads=None):
     """The three flash kernels vs their twins on one input; the backward
     twins take the kernels' own forward outputs (o, lse) and the dq
     kernel's delta, so each kernel is held against its twin on the same
-    inputs."""
+    inputs. ``kv_heads``: k and v drawn with that many heads and expanded
+    to ``h`` (query head i reads kv head i // (h / kv_heads)), contiguous,
+    as a GQA model's attention hands them to the kernels."""
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
     dt = getattr(torch, dtype)
-    mk = lambda s: torch.randn(b * h, s, d, generator=gen,  # noqa: E731
-                               device="cuda").to(dt)
-    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    mk = lambda s, n=h: torch.randn(b * n, s, d,  # noqa: E731
+                                    generator=gen, device="cuda").to(dt)
+    q, k, v, do = mk(sq), mk(sk, kv_heads or h), mk(sk, kv_heads or h), \
+        mk(sq)
+    if kv_heads:
+        k, v = (x.view(b, kv_heads, sk, d).repeat_interleave(
+            h // kv_heads, dim=1).reshape(b * h, sk, d) for x in (k, v))
     lens_t = None if lens is None else torch.tensor(
         [x for x in lens for _ in range(h)], dtype=torch.int32,
         device="cuda")
@@ -1547,14 +1596,15 @@ def _flash_train_case(torch, b, h, sq, sk, d, dtype, lens, dropout, gen,
     dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
     torch.cuda.synchronize()
     where = (f"{dtype} b{b} h{h} sq{sq} sk{sk} d{d} lens{lens} "
-             f"dropout{dropout} causal={causal}")
+             f"dropout{dropout} causal={causal}"
+             + (f" kv_heads{kv_heads}" if kv_heads else ""))
     po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest)
     pdq, pdelta = kfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
                                                    *rest)
     pdk, pdv = kfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                  *rest)
     row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, lens=lens,
-               dropout=dropout, causal=causal)
+               dropout=dropout, causal=causal, kv_heads=kv_heads)
     row["err"] = {n: _check_grad(n, dtype, a, p, where) for n, a, p in (
         ("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
     # lse as phase 2 holds it; delta, a sum of D products, to 1e-4 of
@@ -3533,7 +3583,7 @@ LM_TRAIN_GROUPS = (
     ("#3/#4 (flash backward)", ("flash_bwd",)),
     ("#6-#9 (fused LayerNorm)", ("ln_fwd", "ln_bwd", "colsum")),
     ("#10 (adamw_kernel)", ("adamw_kernel",)),
-    ("GEMMs", ("gemm", "cutlass", "cublas", "sm90_xmma")),
+    ("GEMMs", ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")),
     ("LayerNorm", ("layer_norm", "layernorm")),
     ("foreach", ("multi_tensor_apply",)),
     ("elementwise and reductions (casts, activations, the loss)",
@@ -4038,6 +4088,454 @@ def phase_gpt13b_cpu(torch):
     del gm, geng, cm, ceng
     torch.cuda.empty_cache()
     return res
+
+
+# -- GPT-1.3B with bench's memory options ------------------------------------
+
+def phase_gpt13b_options(torch):
+    """bench.py's gpt-1.3b stage with ``--recompute --fused-qkv
+    --chunked-ce 1024 --scan-layers`` against the plain configuration:
+    gpt3-1.3B at full width and depth, dropout 0, batch 4 x 1024, bf16 AMP,
+    AdamW(1e-4, weight_decay=0.01, fused_kernel=True) (f32 moments: #10
+    over every leaf, the scanned model's stacked ones included), both
+    Engines eager and resident, the options model from the plain one's
+    weights (``load_numpy_state`` stacks the layers and fuses q/k/v). The
+    first step's losses from the same weights, then ms a step in turns
+    (plain, options, options, plain; 3 steps a turn), each step's peak
+    memory above the resident state, and the options run's launches."""
+    from paddle_tpu_torch.nlp.convert import load_numpy_state
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    tag = "gpt-1.3b-options"
+    b, s, steps = 4, 1024, 3
+    base = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfgs = {"plain": _resolve_config("gpt3-1.3B", **base),
+            "options": _resolve_config("gpt3-1.3B", recompute=True,
+                                       fused_qkv=True, chunked_ce=1024,
+                                       scan_layers=True, **base)}
+    torch.cuda.empty_cache()
+    res, engines, models, resident = {}, {}, {}, {}
+    for key, cfg in cfgs.items():
+        before = torch.cuda.memory_allocated()
+        models[key], engines[key] = _train_engine(torch, cfg, "cuda",
+                                                  amp=torch.bfloat16)
+        resident[key] = torch.cuda.memory_allocated() - before
+    t0 = time.perf_counter()
+    load_numpy_state(models["options"], {
+        k: v.detach().cpu().numpy()
+        for k, v in models["plain"].state_dict().items()})
+    log(f"{tag}: the options model takes the plain one's weights "
+        f"(layers stacked, q/k/v fused) in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{len(list(models['plain'].parameters()))} leaves plain, "
+        f"{len(list(models['options'].parameters()))} scanned")
+    ids, labels = _batch(cfgs["plain"], b, s, "cuda")
+    first = {key: eng.train_batch([ids], [labels])[0].item()
+             for key, eng in engines.items()}
+    for key in engines:
+        res[key] = dict(resident_gib=resident[key] / 2 ** 30)
+    rel = abs(first["options"] - first["plain"]) / abs(first["plain"])
+    check(all(math.isfinite(x) for x in first.values()) and rel <= 1e-2,
+          f"{tag}: first-step losses from the same weights {first}")
+    # optimizer state made by the first steps
+    for key in engines:
+        res[key]["resident_gib"] += sum(
+            t.numel() * t.element_size()
+            for st in engines[key].optimizer._state.values()
+            for t in st.values()) / 2 ** 30
+    turns = {k: [] for k in engines}
+    launches = None
+    for key in ("plain", "options", "options", "plain"):
+        eng = engines[key]
+        watch = None
+        if key == "options" and launches is None:
+            _zero_launches()
+            watch = _AdamWWatch().__enter__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses = [eng.train_batch([ids], [labels])[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        turns[key].append((time.perf_counter() - t0) / steps * 1e3)
+        # a step's peak above the resident weights and optimizer state
+        res[key].setdefault("step_peak_gib", (
+            torch.cuda.max_memory_allocated() - at) / 2 ** 30)
+        vals = [x.item() for x in losses]
+        check(all(math.isfinite(x) for x in vals)
+              and vals[-1] < first[key], f"{tag}: {key}'s losses {vals} "
+              f"after {first[key]}")
+        if watch is not None:
+            watch.__exit__(None, None, None)
+            launches = _read_launches()
+            layers = cfgs["options"].num_hidden_layers
+            _check_launches(tag, launches, {
+                "flash_attention_fwd": 2 * layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers,
+                "fused_add_layer_norm_fwd": 0,
+                "fused_add_layer_norm_bwd": 0}, steps)
+            res["adamw_leaves"] = _check_adamw_route(
+                tag, models["options"], eng.optimizer, watch, launches,
+                steps)
+    for key in engines:
+        res[key]["ms"] = sum(turns[key]) / len(turns[key])
+        res[key]["turns"] = turns[key]
+        res[key]["first_loss"] = first[key]
+        res[key]["tok_s"] = b * s / res[key]["ms"] * 1e3
+    res["launches"] = launches
+    res["steps"] = steps
+    res["shapes"] = [(n, tuple(p.shape))
+                     for n, p in models["options"].named_parameters()]
+    log(f"{tag}: first-step loss from the same weights plain "
+        f"{first['plain']:.6f}, options {first['options']:.6f} ({rel:.2e} "
+        f"relative); ms a step in turns plain {res['plain']['ms']:.3f} "
+        f"{[round(x, 3) for x in turns['plain']]} vs options "
+        f"{res['options']['ms']:.3f} "
+        f"{[round(x, 3) for x in turns['options']]}; a step's peak above "
+        f"what was allocated before it plain "
+        f"{res['plain']['step_peak_gib']:.2f} GiB, options "
+        f"{res['options']['step_peak_gib']:.2f} GiB; resident weights and "
+        f"optimizer state plain {res['plain']['resident_gib']:.2f} GiB, "
+        f"options {res['options']['resident_gib']:.2f} GiB; the options' "
+        f"launches over {steps} steps {launches}")
+    del models, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    res["adamw"] = _adamw_set_case(torch, "gpt3-1.3B scanned",
+                                   res["shapes"], gen, None)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_recompute_dropout(torch):
+    """Recompute with dropout inside a CUDA graph: gpt3-345M at dropout
+    0.1 (hidden and attention), batch 8 x 1024, bf16 AMP; the eager Engine
+    without recompute against the captured one with it, from the same
+    weights and generator seed, 3 steps in lockstep (``_graph_pair``: bit
+    for bit, else the bars one step at a time). The rerun blocks must see
+    the forward's dropout masks and flash seeds: the recording launches
+    #1 twice a layer, #3/#4 once, #10 once."""
+    from paddle_tpu_torch.nlp.gpt import _resolve_config
+    cfgs = {cap: _resolve_config("gpt3-345M", hidden_dropout_prob=0.1,
+                                 attention_probs_dropout_prob=0.1,
+                                 recompute=cap) for cap in (False, True)}
+    ids, labels = _batch(cfgs[False], 8, 1024, "cuda")
+    layers = cfgs[False].num_hidden_layers
+    r = _graph_pair(
+        torch, "recompute-dropout",
+        lambda cap: _train_engine(torch, cfgs[cap], "cuda",
+                                  amp=torch.bfloat16, capture=cap),
+        [ids], [labels], LM_TRAIN_GROUPS, steps=3,
+        expect={"flash_attention_fwd": 2 * layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers,
+                "fused_adamw_multi_update": 1})
+    r.pop("engines")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+# -- Llama-1B pretraining: bench.py's llama worker ----------------------------
+
+# llama-1b's attention on the training path: B, H, S, D, kv heads
+LLAMA_ATTENTION = (4, 16, 1024, 128, 4)
+LLAMA_LAYERS = 22
+
+
+def phase_llama_flash(torch, flush):
+    """#1, #3 and #4 at llama-1b's training attention shape (batch 4, 16
+    heads of 128, S = 1024, causal, no dropout), k and v drawn with 4
+    heads and expanded to 16 as the model hands them over, held to their
+    twins and timed beside SDPA on the same inputs; and a ragged GQA case
+    (kv_lens, dropout 0.1)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, h, s, d, kvh = LLAMA_ATTENTION
+    rows = [_flash_train_case(torch, b, h, s, s, d, "bfloat16", None, 0.0,
+                              gen, flush, timed=True, kv_heads=kvh),
+            _flash_train_case(torch, 2, h, 300, 300, d, "bfloat16",
+                              [300, 129], 0.1, gen, flush, False,
+                              kv_heads=kvh)]
+    _log_flash_rows("llama-flash", rows)
+    return rows
+
+
+def _llama_engine(torch, cfg, device, capture=False, weight_seed=0,
+                  amp=None):
+    """llama through Engine(LlamaPretrainingCriterion, AdamW(1e-4,
+    weight_decay=0.01, moment_dtype="bfloat16")), bench.py's llama
+    worker's optimizer."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.llama import (LlamaForCausalLM,
+                                            LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(cfg, device=device,
+                             generator=seed(weight_seed, device=device))
+    eng = Engine(model.train(), loss=LlamaPretrainingCriterion(),
+                 optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 moment_dtype="bfloat16"),
+                 amp_dtype=amp, capture=capture)
+    return model, eng
+
+
+class _RoundWatch:
+    """Over a run: the calls of the stochastic bf16 rounding (two a leaf
+    a step on the bf16-moment path), the optimizer module's
+    ``sround_bf16`` wrapped for the run."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.optimizer import optimizer as om
+        self._om, self._orig = om, om.sround_bf16
+        self.calls = 0
+
+        def counted(*args):
+            self.calls += 1
+            return self._orig(*args)
+        om.sround_bf16 = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._om.sround_bf16 = self._orig
+
+
+def _llama_run(torch, tag, recompute, capture, warm, steps):
+    """llama-1b training on the card, one configuration: ``warm`` warm-up
+    steps, then ``steps`` timed steps ending in one sync. The kernel
+    counts are zeroed before the warm-up and read after the timed steps:
+    a captured Engine's wrappers count its first (eager) step and its
+    recording, and a replay launches the recorded kernels from the graph
+    (counted as its nodes). Then one profiled step."""
+    from paddle_tpu_torch.nlp.llama import _resolve_config
+    cfg = _resolve_config("llama-1b", recompute=recompute)
+    b, s = LLAMA_ATTENTION[0], LLAMA_ATTENTION[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, eng = _llama_engine(torch, cfg, "cuda", capture=capture,
+                               amp=torch.bfloat16)
+    ids, labels = _batch(cfg, b, s, "cuda")
+    torch.cuda.synchronize()
+    leaves = len(list(model.parameters()))
+    log(f"{tag}: llama-1b built on cuda in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters in "
+        f"{leaves} leaves, {cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads of "
+        f"{cfg.head_dim} over {cfg.num_key_value_heads} kv heads, FFN "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}); batch {b} x {s}, "
+        f"bf16 AMP, recompute={recompute}, AdamW(1e-4, weight_decay=0.01, "
+        f"moment_dtype='bfloat16'), "
+        f"{'captured' if eng.captures else 'eager'}")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    losses = []
+    with _RoundWatch() as rw:
+        for i in range(warm):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch([ids], [labels])[0].clone())
+            torch.cuda.synchronize()
+            log(f"{tag}: warm-up step {i}: {time.perf_counter() - t0:.3f} s, "
+                f"loss {losses[-1].item():.4f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(eng.train_batch([ids], [labels])[0].clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _read_launches()
+    counted = 2 if eng.captures else warm + steps
+    layers = cfg.num_hidden_layers
+    fwd = 2 * layers if recompute else layers
+    want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers}
+    _check_launches(tag, launches, want, counted)
+    others = {n: c for n, c in launches.items() if c and n not in want}
+    check(not others, f"{tag}: other kernels of the port launched {others} "
+          "(bf16 moments take the plain update, as in the reference)")
+    check(rw.calls == 2 * leaves * counted, f"{tag}: the bf16 rounding ran "
+          f"{rw.calls} times, want 2 x {leaves} leaves x {counted} steps")
+    recorded = None
+    if eng.captures:
+        nodes = _graph_node_names(torch, _recording(eng, "train").graph)
+        recorded = {w: sum(frag in n for n in nodes)
+                    for w, frag in GPT_GRAPH_KERNELS}
+        recorded["fused_adamw_multi_update"] = sum("adamw_kernel" in n
+                                                   for n in nodes)
+        check(recorded == dict(want, fused_adamw_multi_update=0),
+              f"{tag}: a replay launches {recorded}, want {want}")
+    vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in vals), f"{tag}: loss {vals}")
+    check(vals[-1] < vals[0], f"{tag}: loss did not fall: {vals}")
+    tok_s = b * s * steps / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag}: {steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} "
+        f"ms/step, {tok_s:.1f} tokens/s; loss {vals[0]:.4f} -> "
+        f"{vals[-1]:.4f}; max_memory_allocated {peak_gb:.2f} GiB; the "
+        f"wrappers counted {launches} over {counted} steps that ran them"
+        + (f", a replay launches {recorded}" if recorded else "")
+        + f"; the bf16 rounding ran {rw.calls} times ({leaves} leaves, "
+        f"m and v)")
+    prof = profile_grouped(torch, tag, "one training step",
+                           lambda: eng.train_batch([ids], [labels]),
+                           LM_TRAIN_GROUPS)
+    update = None
+    if eng.captures:
+        # the plain bf16-moment update alone, eagerly over every leaf (zero
+        # gradients; the step's scalars as the last step filled them)
+        names, params = eng._live()
+        grads = [torch.zeros_like(p) for p in params]
+        update = profile_grouped(
+            torch, f"{tag} update", "the bf16-moment AdamW update alone",
+            lambda: eng.optimizer._clip_update(names, params, grads),
+            LM_TRAIN_GROUPS)
+        del grads
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, counted=counted, recorded=recorded,
+                leaves=leaves, tok_s=tok_s, ms_per_step=wall / steps * 1e3,
+                peak_gb=peak_gb, losses=vals, steps=steps, update=update,
+                **prof)
+
+
+def phase_llama_train(torch):
+    """bench.py's llama worker on the card: llama-1b at full width and
+    depth, seeded random weights, batch 4 x 1024, bf16 AMP, recompute,
+    AdamW with bf16 moments, through the Engine: the main run captured (2
+    warm-up steps, 10 timed), then eager runs with recompute on and off
+    for their peak memory, then the eager and the captured Engine from the
+    same weights in lockstep (3 steps held to each other) and in turns."""
+    from paddle_tpu_torch.nlp.llama import _resolve_config
+    res = {"captured": _llama_run(torch, "llama-train", True, None, 2, 10)}
+    check(res["captured"]["recorded"] is not None,
+          "llama-train: the Engine did not capture")
+    res["eager"] = _llama_run(torch, "llama-train eager", True, False, 1, 2)
+    res["no_recompute"] = _llama_run(torch, "llama-train recompute off",
+                                     False, False, 1, 2)
+    log(f"llama-train: peak memory, eager, 3 steps each: recompute on "
+        f"{res['eager']['peak_gb']:.2f} GiB, off "
+        f"{res['no_recompute']['peak_gb']:.2f} GiB; ms a step "
+        f"{res['eager']['ms_per_step']:.2f} vs "
+        f"{res['no_recompute']['ms_per_step']:.2f}")
+    cfg = _resolve_config("llama-1b", recompute=True)
+    ids, labels = _batch(cfg, LLAMA_ATTENTION[0], LLAMA_ATTENTION[2],
+                         "cuda")
+    layers = cfg.num_hidden_layers
+    r = _graph_pair(
+        torch, "llama-train graph",
+        lambda cap: _llama_engine(torch, cfg, "cuda", capture=cap,
+                                  amp=torch.bfloat16),
+        [ids], [labels], LM_TRAIN_GROUPS, steps=3,
+        expect={"flash_attention_fwd": 2 * layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers})
+    r.pop("engines")
+    res["graph"] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_llama_train_cpu(torch):
+    """One llama-1b-wide training step on the card vs on the CPU, same
+    weights: llama-1b cut to 2 layers (hidden 2048, 16 heads of 128 over
+    4 kv heads, FFN 5632, vocab 32000), f32, recompute, bf16 moments,
+    batch 1 x 128, held to phase 8's bars; then the bf16-moment update on
+    the card against the CPU from the same noise bits at llama-1b's leaf
+    shapes."""
+    from paddle_tpu_torch.nlp.llama import (LlamaPretrainingCriterion,
+                                            _resolve_config)
+    cfg = _resolve_config("llama-1b", num_hidden_layers=2, recompute=True)
+    gm, geng = _llama_engine(torch, cfg, "cuda", weight_seed=1)
+    cm, ceng = _llama_engine(torch, cfg, "cpu")
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    batches = {dev: _batch(cfg, 1, 128, dev) for dev in ("cuda", "cpu")}
+    res = _cross_device_step(
+        "llama-train-cpu", "2 layers of llama-1b (hidden 2048, GQA 16:4, "
+        "D=128), f32, recompute, bf16 moments, batch 1 x 128",
+        {"cuda": gm, "cpu": cm}, {"cuda": geng, "cpu": ceng},
+        {d: ([b[0]], [b[1]]) for d, b in batches.items()},
+        LlamaPretrainingCriterion(), zero_grads=())
+    del gm, geng, cm, ceng
+    torch.cuda.empty_cache()
+    res["update"] = _bf16_update_cpu(torch)
+    return res
+
+
+# the bf16-moment update on the card against the CPU: parameters within
+# this of max(1, |p|); m and v within one bf16 ulp, at most this share of
+# them not bit for bit
+BF16_UPDATE_TOL = 1e-6
+BF16_UPDATE_ULP_SHARE = 1e-4
+
+
+def _bf16_update_cpu(torch):
+    """AdamW(moment_dtype="bfloat16") at step 5 on llama-1b's leaf shapes
+    (q, k, gate, down and a norm weight) on the card and on the
+    CPU from the same p, g, m, v and rounding noise (drawn with numpy):
+    the f32 math is the same ops on both devices and the rounding exact
+    integer arithmetic, held to BF16_UPDATE_TOL / BF16_UPDATE_ULP_SHARE."""
+    import numpy as np
+    from paddle_tpu_torch.optimizer import AdamW
+    shapes = {"self_attn.q_proj.weight": (2048, 2048),
+              "self_attn.k_proj.weight": (2048, 512),
+              "mlp.gate_proj.weight": (2048, 5632),
+              "mlp.down_proj.weight": (5632, 2048),
+              "input_layernorm.weight": (2048,)}
+    rng = np.random.default_rng(5)
+    host = {n: dict(p=rng.standard_normal(sh, np.float32),
+                    g=rng.standard_normal(sh, np.float32) * 1e-3,
+                    m=rng.standard_normal(sh, np.float32) * 1e-3,
+                    v=np.abs(rng.standard_normal(sh, np.float32)) * 1e-6,
+                    nm=rng.integers(0, 2 ** 16, sh, dtype=np.int32),
+                    nv=rng.integers(0, 2 ** 16, sh, dtype=np.int32))
+            for n, sh in shapes.items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = [(n, torch.nn.Parameter(torch.from_numpy(h["p"]).to(dev)))
+                  for n, h in host.items()]
+        opt = AdamW(1e-4, parameters=params, weight_decay=0.01,
+                    moment_dtype="bfloat16")
+        for n, p in params:
+            h = host[n]
+            opt._state[n] = {
+                "m": torch.from_numpy(h["m"]).to(dev, torch.bfloat16),
+                "v": torch.from_numpy(h["v"]).to(dev, torch.bfloat16)}
+            p.grad = torch.from_numpy(h["g"]).to(dev)
+        noise = [(torch.from_numpy(host[n]["nm"]).to(dev),
+                  torch.from_numpy(host[n]["nv"]).to(dev))
+                 for n, _ in params]
+        opt.rounding_noise = lambda names, ps, noise=noise: noise
+        opt._step_count = 4
+        opt.step()
+        out[dev] = {n: (p.detach().cpu(), opt._state[n]["m"].cpu(),
+                        opt._state[n]["v"].cpu()) for n, p in params}
+    perr, not_equal, total, ulps = 0.0, 0, 0, 0
+    for n in shapes:
+        (pg, mg, vg), (pc, mc, vc) = out["cuda"][n], out["cpu"][n]
+        perr = max(perr, ((pg - pc).abs() / pc.abs().clamp_min(1.0))
+                   .max().item())
+        for a, w in ((mg, mc), (vg, vc)):
+            bits = (a.view(torch.int16).int() - w.view(torch.int16).int())
+            not_equal += int((bits != 0).sum().item())
+            ulps = max(ulps, int(bits.abs().max().item()))
+            total += a.numel()
+    share = not_equal / total
+    check(perr <= BF16_UPDATE_TOL and ulps <= 1
+          and share <= BF16_UPDATE_ULP_SHARE,
+          f"llama-train-cpu: bf16-moment update cuda vs cpu: params "
+          f"{perr} of max(1, |p|), moments {not_equal} of {total} not "
+          f"bit for bit, at most {ulps} bf16 ulp apart")
+    log(f"llama-train-cpu: the bf16-moment update (step 5, "
+        f"{sum(math.prod(s) for s in shapes.values())} values over "
+        f"{len(shapes)} leaves of llama-1b's shapes) on the card vs the "
+        f"CPU from the same noise bits: params {perr:.2e} of max(1, |p|) "
+        f"(bar {BF16_UPDATE_TOL}); m and v {not_equal} of {total} values "
+        f"not bit for bit, at most {ulps} bf16 ulp apart (bar: one ulp, a "
+        f"share of {BF16_UPDATE_ULP_SHARE})")
+    return dict(param_err=perr, moments_not_equal=not_equal,
+                moments=total, max_ulps=ulps)
 
 
 # -- generate(): the dense decode kernel #2, GPT and Llama -------------------
@@ -7848,6 +8346,8 @@ def main():
     stamp("flash_noncausal")
     d32 = phase_flash_d32(torch, flush)
     stamp("flash_d32")
+    lflash = phase_llama_flash(torch, flush)
+    stamp("llama_flash")
     ddec = phase_dense_decode(torch, flush)
     stamp("dense_decode")
     conv = phase_conv_bn_act(torch, flush)
@@ -7873,6 +8373,15 @@ def main():
     stamp("gpt_1_3b")
     phase_gpt13b_cpu(torch)
     stamp("gpt_1_3b_cpu")
+    torch.cuda.empty_cache()
+    g13o = phase_gpt13b_options(torch)
+    stamp("gpt_1_3b_options")
+    phase_recompute_dropout(torch)
+    stamp("recompute_dropout")
+    lt = phase_llama_train(torch)
+    stamp("llama_train")
+    phase_llama_train_cpu(torch)
+    stamp("llama_train_cpu")
     torch.cuda.empty_cache()
     gg = phase_generate_gpt(torch)
     stamp("generate_gpt")
@@ -8069,6 +8578,49 @@ def main():
         adamw_row("gpt-1.3b", g13["adamw"],
                   g13[False]["launches"]["fused_adamw_multi_update"]),
     ]
+    # GPT-1.3B with bench's --recompute --fused-qkv --chunked-ce
+    # --scan-layers (phase gpt-1.3b-options): #1, #3, #4 at its attention
+    # shape (the forward twice a layer), launches over its 3 counted steps,
+    # and #10 over the scanned model's leaf set
+    kernels += [
+        dict(flash_row("flash_attention_fwd", "o", "fwd", fwd_src, fwd_tpu,
+                       dtype="bfloat16", fm=f13, path=g13o),
+             dtype="bfloat16", shape="4x16x1024x128",
+             path="gpt-1.3b-options"),
+        dict(flash_row("flash_attention_bwd_dq", "dq", "dq", bwd_src,
+                       "paddle_tpu/ops/pallas/flash_attention.py:365",
+                       fm=f13, path=g13o), shape="4x16x1024x128",
+             path="gpt-1.3b-options"),
+        dict(flash_row("flash_attention_bwd_dkv", "dk", "dkv", bwd_src,
+                       "paddle_tpu/ops/pallas/flash_attention.py:385",
+                       fm=f13, path=g13o), shape="4x16x1024x128",
+             path="gpt-1.3b-options"),
+        adamw_row("gpt-1.3b-options", g13o["adamw"],
+                  g13o["launches"]["fused_adamw_multi_update"]),
+    ]
+    # Llama-1B pretraining (phase llama-train, captured): #1, #3, #4 at
+    # its attention shape with k/v expanded from 4 heads, dropout 0 (phase
+    # llama-flash); "launches" the wrappers' counts over the main run (its
+    # eager first step and its recording: the forward twice a layer with
+    # recompute), "launches_recorded" what one replay launches
+    lmain = next(r for r in lflash if "ms" in r)
+    lrun = lt["captured"]
+    for name, parts, timing, source, replaces in (
+            ("flash_attention_fwd", ("o",), "fwd", fwd_src, fwd_tpu),
+            ("flash_attention_bwd_dq", ("dq",), "dq", bwd_src,
+             "paddle_tpu/ops/pallas/flash_attention.py:365"),
+            ("flash_attention_bwd_dkv", ("dk", "dv"), "dkv", bwd_src,
+             "paddle_tpu/ops/pallas/flash_attention.py:385")):
+        bms, by = lmain["bound"][timing]
+        kernels.append(dict(
+            name=name, dtype="bfloat16", shape="4x16x1024x128 kv_heads 4",
+            path="llama-train", route="cuda", source=source,
+            replaces=replaces, launches=lrun["launches"][name],
+            launches_recorded=lrun["recorded"][name],
+            max_abs_err=max(r["err"][p] for r in lflash for p in parts),
+            ms=lmain["ms"][timing], plain_ms=lmain["plain_ms"][timing],
+            bound_ms=bms, bound_by=by,
+            library_ms=lmain["library_ms"][timing]))
     # the 32 launches of one bf16 ResNet-50 serve forward, summed by shape
     cb = conv["total"]
     kernels.append(dict(

@@ -20,12 +20,22 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "parallel_matmul"]
 
 
-class ColumnParallelLinear(Linear):
+class _ParallelLinear(Linear):
+    """``Linear`` under the reference's ``(in_features, out_features,
+    weight_attr, has_bias)``."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, **kw):
+        super().__init__(in_features, out_features, weight_attr,
+                         None if has_bias else False, **kw)
+
+
+class ColumnParallelLinear(_ParallelLinear):
     """Linear whose output dim the reference splits over 'mp'; dense on
     one device."""
 
 
-class RowParallelLinear(Linear):
+class RowParallelLinear(_ParallelLinear):
     """Linear whose input dim the reference splits over 'mp'; dense on
     one device."""
 

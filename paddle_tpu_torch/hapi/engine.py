@@ -16,9 +16,10 @@ On CUDA that function is recorded as a CUDA graph over static buffers
 step signature's first call runs it eagerly, a real step that also makes
 the optimizer's slots and #10's leaf table; its second call records it
 (``torch.cuda.graph``, with every generator the model draws from
-registered, so each replay draws new dropout masks and flash seeds) and
-replays it; every later call copies its batch into the static inputs and
-replays. A failed capture raises: there is no quiet way back to eager.
+registered, the optimizer's too, so each replay draws new dropout masks,
+flash seeds and rounding noise) and replays it; every later call copies
+its batch into the static inputs and replays. A failed capture raises:
+there is no quiet way back to eager.
 On the CPU, or with ``capture=False``, the same function runs each time
 without recording. A loss or module that reads the device from the host
 declares it in a ``host_reads`` attribute (``DETRLoss``): its steps run
@@ -116,7 +117,11 @@ class _Recorded:
 
 
 class Engine:
-    """``Engine(network, loss, optimizer, amp_dtype, capture=None)``. Runs
+    """``Engine(network, loss, optimizer, metrics, amp_dtype, mesh,
+    donate_params, guard, *, generator=None, capture=None)``, the
+    reference's parameters in its order (``metrics`` kept as the
+    reference keeps it, ``donate_params`` taken and ignored: the step
+    updates the parameters in place). Runs
     where the network's parameters live and creates nothing elsewhere;
     inputs that are numpy arrays or tensors on another device are moved
     there. ``generator`` (a torch.Generator on that device), when given,
@@ -124,10 +129,13 @@ class Engine:
     (``framework.bind_generator``). ``capture``: None records each step as
     a CUDA graph on CUDA unless the loss or a module declares
     ``host_reads``; True records it and raises ``ValueError`` on such a
-    declaration; False runs every step eagerly."""
+    declaration; False runs every step eagerly. A network output that is
+    a dict marked ``_loss_only_aux`` (``chunked_ce``) goes to the loss
+    only: the step returns no outputs for it, as the reference's."""
 
-    def __init__(self, network, loss=None, optimizer=None, amp_dtype=None,
-                 mesh=None, guard=None, generator=None, capture=None):
+    def __init__(self, network, loss=None, optimizer=None, metrics=None,
+                 amp_dtype=None, mesh=None, donate_params=True, guard=None,
+                 *, generator=None, capture=None):
         if mesh is not None:
             raise NotImplementedError(f"Engine(mesh=...) {later('10')}")
         if guard is not None:
@@ -137,6 +145,7 @@ class Engine:
         self.network = network
         self.loss = loss
         self.optimizer = optimizer
+        self.metrics = metrics or []
         self.amp_dtype = convert_dtype(amp_dtype)
         self.device = next(network.parameters()).device
         if generator is not None:
@@ -211,6 +220,11 @@ class Engine:
         outs_t = outs if isinstance(outs, (list, tuple)) else [outs]
         loss = (self.loss(*outs_t, *labs) if self.loss is not None
                 else outs_t[0]).float()
+        if isinstance(outs, dict) and outs.get("_loss_only_aux"):
+            # the reference's convention: such a dict (a fused head's
+            # hidden states and tied weight) feeds only the loss, and is
+            # neither returned nor seen by metrics
+            outs = ()
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -236,15 +250,24 @@ class Engine:
         torch._foreach_zero_(self._acc)
 
     # -- running them -------------------------------------------------------
+    def generators(self):
+        """Every torch.Generator a training step draws from: the network's
+        and the loss's (dropout, flash seeds) and the optimizer's (bf16
+        moments' rounding noise, made at its first update)."""
+        gens = generators(self.network, *(
+            [self.loss] if isinstance(self.loss, torch.nn.Module) else []))
+        opt_gen = getattr(self.optimizer, "generator", None)
+        if opt_gen is not None and all(g is not opt_gen for g in gens):
+            gens.append(opt_gen)
+        return gens
+
     def _record(self, fn):
         """(graph, what fn returned) with fn recorded into a new CUDA
         graph, every generator the model draws from registered."""
         # the graph's nodes stay readable (raw_cuda_graph) beside its
         # executable: what chip_smoke.py counts the step's kernels from
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        gens = [g for g in generators(self.network, *(
-            [self.loss] if isinstance(self.loss, torch.nn.Module) else []))
-            if g.device.type == "cuda"]
+        gens = [g for g in self.generators() if g.device.type == "cuda"]
         if gens and not hasattr(graph, "register_generator_state"):
             raise RuntimeError(
                 f"Engine: torch {torch.__version__} cannot register a "

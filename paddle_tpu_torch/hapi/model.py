@@ -390,8 +390,9 @@ class Model:
                 if tuple(t.shape) != tuple(p.shape):
                     raise ValueError(f"optimizer slot {s} of {n}: shape "
                                      f"{tuple(t.shape)} vs {tuple(p.shape)}")
-                dt = torch.float32 if s == "vhat" else p.dtype
-                state[n][s] = t.to(device=p.device, dtype=dt).clone()
+                state[n][s] = t.to(device=p.device,
+                                   dtype=self._optimizer._slot_dtype(
+                                       s, p)).clone()
         self._optimizer._state = state
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):

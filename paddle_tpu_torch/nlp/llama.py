@@ -11,7 +11,19 @@ does, once per forward for all layers (``rope_tables``).
 
 Attention: with no cache, kv heads are repeated to the query heads and
 ``F.scaled_dot_product_attention`` runs the flash-attention forward
-(causal; the CUDA kernel on the card). ``generate()`` runs
+(causal; the CUDA kernel on the card), differentiable in training (the
+backward kernels on the card; each kv head's gradient sums its repeats
+through autograd).
+
+Training options, as the reference's: ``recompute`` checkpoints each
+decoder layer in training (``nn.scan_stack.checkpoint_block``);
+``scan_layers`` keeps the layers as stacked ``[L, ...]`` parameters
+(``nn.scan_stack.ScannedLayerStack``) under the reference's names, the
+RoPE tables handed to every layer as the ``rope=`` invariant;
+``chunked_ce`` makes the training forward return the ``_loss_only_aux``
+dict for ``LlamaPretrainingCriterion`` (GPT's chunked head), with the
+embedding (tied) or the transpose of the ``[in, out]`` ``lm_head`` weight
+(untied) as the head's ``[vocab, hidden]`` weight. ``generate()`` runs
 ``nlp.generation.generate`` over the static cache
 (``LlamaAttention._forward_static_cache``): with one kv head per query
 head (MHA, e.g. Llama-2-7B) a single-token step attends through the dense
@@ -22,8 +34,9 @@ never repeats the ``[B, S_max, Hkv, D]`` buffers per query head.
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
 item): the paged serving cache (the RoPE branch of
 ``paged_layer_forward``), cached dense decode (``cache=`` without
-``cache_index``), ``scan_layers``, ``recompute``, ``sequence_parallel``,
-``chunked_ce``, ``use_flash_attention=False`` and ``from_pretrained``.
+``cache_index``), ``sequence_parallel``, ``use_flash_attention=False``
+and ``from_pretrained``. A ``scan_layers`` model serves no cached decode,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear, RowParallelLinear,
 from ..nn import functional as F
 from ..nn.layers_common import LayerList
 from ..nn.layers_norm import RMSNorm
+from ..nn.scan_stack import ScannedLayerStack, checkpoint_block
 from .bert import refuse_from_pretrained
 from .generation import generate as _generate
 from .gpt import GPTPretrainingCriterion
@@ -83,12 +97,9 @@ class LlamaConfig:
         if self.sequence_parallel not in ("", "ring", "ulysses"):
             raise ValueError(
                 f"sequence_parallel={self.sequence_parallel!r}")
-        for flag, item in (("recompute", "1.2"), ("scan_layers", "1.2"),
-                           ("chunked_ce", "1.2"),
-                           ("sequence_parallel", "10")):
-            if getattr(self, flag):
-                raise NotImplementedError(f"LlamaConfig.{flag} "
-                                          f"{later(item)}")
+        if self.sequence_parallel:
+            raise NotImplementedError(f"LlamaConfig.sequence_parallel "
+                                      f"{later('10')}")
         if not self.use_flash_attention:
             raise NotImplementedError(
                 "LlamaConfig.use_flash_attention=False: the port has no "
@@ -179,13 +190,11 @@ class LlamaAttention(nn.Module):
         h = config.hidden_size
         kvh = config.num_key_value_heads * config.head_dim
         std = config.initializer_range
-        self.q_proj = ColumnParallelLinear(h, h, bias=False, init_std=std,
-                                           **kw)
-        self.k_proj = ColumnParallelLinear(h, kvh, bias=False, init_std=std,
-                                           **kw)
-        self.v_proj = ColumnParallelLinear(h, kvh, bias=False, init_std=std,
-                                           **kw)
-        self.o_proj = RowParallelLinear(h, h, bias=False, init_std=std, **kw)
+        lin = dict(has_bias=False, init_std=std, **kw)
+        self.q_proj = ColumnParallelLinear(h, h, **lin)
+        self.k_proj = ColumnParallelLinear(h, kvh, **lin)
+        self.v_proj = ColumnParallelLinear(h, kvh, **lin)
+        self.o_proj = RowParallelLinear(h, h, **lin)
 
     def _shaped_qkv(self, x):
         b, s, d = x.shape[0], x.shape[1], self.cfg.head_dim
@@ -230,12 +239,10 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
         std = config.initializer_range
-        self.gate_proj = ColumnParallelLinear(h, i, bias=False, init_std=std,
-                                              **kw)
-        self.up_proj = ColumnParallelLinear(h, i, bias=False, init_std=std,
-                                            **kw)
-        self.down_proj = RowParallelLinear(i, h, bias=False, init_std=std,
-                                           **kw)
+        lin = dict(has_bias=False, init_std=std, **kw)
+        self.gate_proj = ColumnParallelLinear(h, i, **lin)
+        self.up_proj = ColumnParallelLinear(h, i, **lin)
+        self.down_proj = RowParallelLinear(i, h, **lin)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -281,8 +288,10 @@ class LlamaModel(nn.Module):
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size,
             init_std=config.initializer_range, **kw)
-        self.layers = LayerList([LlamaDecoderLayer(config, **kw)
-                                 for _ in range(config.num_hidden_layers)])
+        blocks = [LlamaDecoderLayer(config, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        self.layers = (ScannedLayerStack(blocks, recompute=config.recompute)
+                       if config.scan_layers else LayerList(blocks))
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
 
@@ -311,6 +320,11 @@ class LlamaModel(nn.Module):
                 f"paged_layer_forward) {later('3')}")
         if cache is not None and cache_index is None:
             raise NotImplementedError(f"cached dense decode {later('2.1')}")
+        if self.config.scan_layers and (use_cache or cache is not None):
+            raise NotImplementedError(
+                "scan_layers=True serves the training/no-cache forward only; "
+                "build with scan_layers=False for cached decode "
+                "(unstack_layer_state converts a state)")
         idx = None if cache_index is None else static_index(cache_index)
         mask = normalize_attention_mask(attention_mask)
         if mask is not None:
@@ -318,13 +332,19 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         pos = torch.arange(input_ids.shape[1], device=x.device) + (idx or 0)
         rope = rope_tables(pos, self.config.head_dim, self.config.rope_theta)
+        if self.config.scan_layers:
+            return self.norm(self.layers(x, mask, rope=rope))
         new_caches = [] if (use_cache or cache is not None) else None
+        recompute = (self.config.recompute and self.training
+                     and torch.is_grad_enabled())
         for i, blk in enumerate(self.layers):
             if new_caches is not None:
                 # () asks a layer for its fresh (k, v)
                 layer_cache = cache[i] if cache is not None else ()
                 x, c = blk(x, mask, layer_cache, cache_index=idx, rope=rope)
                 new_caches.append(c)
+            elif recompute:
+                x = checkpoint_block(blk, x, mask, rope=rope)
             else:
                 x = blk(x, mask, rope=rope)
         x = self.norm(x)
@@ -339,7 +359,9 @@ class LlamaPretrainingCriterion(GPTPretrainingCriterion):
 class LlamaForCausalLM(nn.Module):
     """ref: llama/modeling.py LlamaForCausalLM: an untied ``lm_head``
     ([hidden, vocab], the Linear layout) by default;
-    ``tie_word_embeddings=True`` reuses the embedding."""
+    ``tie_word_embeddings=True`` reuses the embedding. With
+    ``chunked_ce`` a training forward without a cache returns the
+    ``_loss_only_aux`` dict, as GPT's."""
 
     def __init__(self, config=None, *, device=None, dtype=None,
                  generator=None, **kwargs):
@@ -350,7 +372,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         if not config.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(
-                config.hidden_size, config.vocab_size, bias=False,
+                config.hidden_size, config.vocab_size, has_bias=False,
                 init_std=config.initializer_range, **kw)
 
     @classmethod
@@ -366,6 +388,16 @@ class LlamaForCausalLM(nn.Module):
         out = self.llama(input_ids, attention_mask, use_cache=use_cache,
                          cache=cache, cache_index=cache_index)
         hidden, new_cache = out if isinstance(out, tuple) else (out, None)
+        if self.config.chunked_ce and self.training and new_cache is None:
+            # the criterion's head weight is [vocab, hidden]; the untied
+            # lm_head keeps the Linear [in, out] layout: its transpose (a
+            # view; the chunks' products read it in place)
+            weight = (self.llama.embed_tokens.weight
+                      if self.config.tie_word_embeddings
+                      else self.lm_head.weight.t())
+            return {"_loss_only_aux": True, "hidden": hidden,
+                    "lm_weight": weight,
+                    "chunked_ce": int(self.config.chunked_ce)}
         if self.config.tie_word_embeddings:
             logits = parallel_matmul(hidden, self.llama.embed_tokens.weight,
                                      transpose_y=True)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework import later
 from ..ops.kernels.flash_decode import paged_decode_plain
 
 __all__ = ["PagedLayerCache", "alloc_pages", "quantize_rows",
@@ -42,7 +43,12 @@ class PagedLayerCache:
                  "page_table", "positions")
 
     def __init__(self, k_pages, v_pages, page_table, positions,
-                 k_scale=None, v_scale=None):
+                 k_scale=None, v_scale=None, use_flash=True):
+        if not use_flash:
+            raise NotImplementedError(
+                "PagedLayerCache(use_flash=False): the port has no plain "
+                "attention path on the card (ROADMAP.md, ground rules: no "
+                "fallback)")
         self.k_pages = k_pages          # [Hkv, P, ps, D]
         self.v_pages = v_pages          # [Hkv, P, ps, D]
         self.k_scale = k_scale          # [Hkv, P, ps, 1] f32 | None
@@ -145,16 +151,19 @@ def write_prompt_kv(k_pages, v_pages, k_scale, v_scale, k_full, v_full,
 paged_attention_ref = paged_decode_plain
 
 
-def paged_layer_forward(q, k, v, cache, out_proj, groups=1):
+def paged_layer_forward(q, k, v, cache, out_proj, groups=1,
+                        rope_theta=None):
     """The per-layer serving branch of GPTAttention: write + attend, then
     the output projection. Returns (projected out, cache). The
-    reference's RoPE branch comes with the Llama slice (ROADMAP.md)."""
-    out = paged_update_and_attend(q, k, v, cache, groups=groups)
+    reference's RoPE branch (``rope_theta``) raises NotImplementedError
+    naming item 3."""
+    out = paged_update_and_attend(q, k, v, cache, groups=groups,
+                                  rope_theta=rope_theta)
     b, s = out.shape[0], out.shape[1]
     return out_proj(out.reshape(b, s, -1)), cache
 
 
-def paged_update_and_attend(q, k, v, cache, groups=1):
+def paged_update_and_attend(q, k, v, cache, groups=1, rope_theta=None):
     """The per-layer serving step: write the new token's K/V into the
     pages first, then attend the single query row against the slot's
     paged history with lens = positions + 1 (the token attends itself).
@@ -162,6 +171,9 @@ def paged_update_and_attend(q, k, v, cache, groups=1):
     q [B, 1, H, D]; k/v [B, 1, Hkv, D]. Returns out [B, 1, H, D]. Slots
     whose table row is all trash write and read the trash page; the
     engine discards their tokens."""
+    if rope_theta is not None:
+        raise NotImplementedError(f"the paged cache's RoPE branch (Llama "
+                                  f"serving) {later('3')}")
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("paged decode is the single-token path")

@@ -10,7 +10,10 @@ views, as the reference leaves them to XLA outside Pallas; an NHWC tensor
 stays NHWC in memory from op to op. Whatever
 draws random numbers (``dropout``, attention dropout in
 ``scaled_dot_product_attention``) takes an explicit ``torch.Generator``
-and raises without one: the port keeps no global RNG state.
+and raises without one: the port keeps no global RNG state. Every
+function takes the reference's parameters in the reference's order,
+``name`` taken and ignored; the port's own (``generator``, ``kv_lens``)
+are keyword-only and ``weight_format`` trails.
 """
 from __future__ import annotations
 
@@ -29,23 +32,38 @@ __all__ = ["linear", "embedding", "layer_norm", "rms_norm", "gelu", "silu",
            "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d", "interpolate"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """x @ weight (+ bias), weight [in_features, out_features]."""
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
 
-def embedding(x, weight):
-    return _F.embedding(x, weight)
+def _refuse_sparse(sparse):
+    if sparse:
+        raise NotImplementedError(f"embedding(sparse=True) (a sparse "
+                                  f"gradient) {later('1.6')}")
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """ref: F.embedding: rows of ``weight`` at ``x``; where x ==
+    ``padding_idx`` the row reads zero and passes no gradient."""
+    _refuse_sparse(sparse)
+    out = _F.embedding(x, weight)
+    if padding_idx is None:
+        return out
+    return torch.where((x == padding_idx)[..., None],
+                       torch.zeros((), dtype=out.dtype, device=out.device),
+                       out)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     return _F.layer_norm(x, tuple(normalized_shape), weight, bias, epsilon)
 
 
-def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
+def rms_norm(x, weight=None, epsilon=1e-6, axis=-1, name=None):
     """ref: F.rms_norm — x * rsqrt(mean(x^2) + epsilon) with the statistics
     in f32, cast back to x's dtype, then times ``weight``."""
     xf = x.float()
@@ -54,53 +72,65 @@ def rms_norm(x, weight=None, epsilon=1e-6, axis=-1):
     return out if weight is None else out * weight
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """Exact erf GELU by default, as the reference."""
     return _F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def silu(x):
+def silu(x, name=None):
     """x * sigmoid(x): Llama's SwiGLU gate."""
     return _F.silu(x)
 
 
-def swish(x):
+def swish(x, name=None):
     """ref: F.swish, which is ``silu``."""
     return _F.silu(x)
 
 
-def sigmoid(x):
+def sigmoid(x, name=None):
     return torch.sigmoid(x)
 
 
-def hardsigmoid(x, slope=1.0 / 6, offset=0.5):
+def hardsigmoid(x, slope=1.0 / 6, offset=0.5, name=None):
     """ref: F.hardsigmoid — clip(slope * x + offset, 0, 1)."""
     return torch.clamp(slope * x + offset, 0.0, 1.0)
 
 
-def hardswish(x):
+def hardswish(x, name=None):
     """ref: F.hardswish — x * relu6(x + 3) / 6 (MobileNetV3)."""
     return _F.hardswish(x)
 
 
-def tanh(x):
+def tanh(x, name=None):
     """The BERT/ERNIE pooler's activation (``pool_act="tanh"``)."""
     return torch.tanh(x)
 
 
-def relu(x):
+def relu(x, name=None):
     return torch.relu(x)
 
 
-def relu6(x):
+def relu6(x, name=None):
     """ref: F.relu6 — min(max(x, 0), 6) (MobileNetV2)."""
     return _F.relu6(x)
 
 
-def softmax(x, axis=-1, dtype=None):
+def softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
         x = x.to(dtype)
     return torch.softmax(x, dim=axis)
+
+
+def _refuse_loss_options(fn, weight, soft_label, use_softmax,
+                         label_smoothing):
+    """Raise NotImplementedError naming item 1.6 for a loss option the
+    port does not compute."""
+    for what, off in (("weight", weight is None),
+                      ("soft_label=True", not soft_label),
+                      ("use_softmax=False", use_softmax),
+                      ("label_smoothing", not label_smoothing)):
+        if not off:
+            raise NotImplementedError(f"{fn}({what}) {later('1.6')}")
 
 
 def _need_generator(fn, generator):
@@ -111,23 +141,42 @@ def _need_generator(fn, generator):
             "own) — the port draws nothing from torch's global RNG")
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Upscale-in-train dropout; identity when not training or p == 0.
-    The keep mask draws from ``generator`` (on x's device), which training
-    with p > 0 requires."""
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """ref: F.dropout. ``mode`` "upscale_in_train" (kept values over
+    1 - p in training, identity otherwise) or "downscale_in_infer" (kept
+    values as they are in training, x * (1 - p) otherwise); ``axis`` (an
+    int or a list) draws one keep decision along the named axes, shared
+    over the others. The keep mask draws from ``generator`` (on x's
+    device), which training with p > 0 requires."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: unknown mode {mode!r}")
     if not training or not p:
+        if p and mode == "downscale_in_infer":
+            return x * (1.0 - p)
         return x
     _need_generator("dropout", generator)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    shape = x.shape
+    if axis is not None:
+        axes = [a % x.dim() for a in (axis if isinstance(axis, (list, tuple))
+                                      else [axis])]
+        shape = [n if i in axes else 1 for i, n in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x))
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean",
-                  axis=-1):
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """ref: F.cross_entropy with integer labels: log-softmax in f32 over
     ``axis``, the label's negative log-probability per position, 0 where
     label == ignore_index. reduction 'mean' divides by the number of
-    positions not ignored; 'sum' and 'none' as named."""
+    positions not ignored; 'sum' and 'none' as named. ``weight``,
+    ``soft_label=True``, ``use_softmax=False`` and ``label_smoothing``
+    raise NotImplementedError naming item 1.6."""
+    _refuse_loss_options("cross_entropy", weight, soft_label, use_softmax,
+                         label_smoothing)
     logp = torch.log_softmax(input.float(), dim=axis)
     lab = label.long()
     if lab.dim() == logp.dim() and lab.shape[axis] == 1:
@@ -147,8 +196,8 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean",
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, kv_lens=None,
-                                 generator=None):
+                                 training=True, use_flash=True, name=None,
+                                 *, kv_lens=None, generator=None):
     """ref: F.scaled_dot_product_attention, [B, S, H, D] layout.
 
     With no dense mask, attention runs through the differentiable
@@ -162,7 +211,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     (bool keep-mask or additive bias) takes the plain dense path, as it
     takes the jnp path in the reference, and only on the CPU: no kernel of
     this port takes a dense mask yet, so on the card it raises (express
-    padding as ``kv_lens``)."""
+    padding as ``kv_lens``). ``use_flash=False`` (the reference's plain
+    jnp path) raises: the port has no plain attention path on the card."""
+    if not use_flash:
+        raise NotImplementedError(
+            "scaled_dot_product_attention(use_flash=False): the port has no "
+            "plain attention path on the card (ROADMAP.md, ground rules: "
+            "no fallback)")
     eff_drop = float(dropout_p) if (dropout_p and training) else 0.0
     if attn_mask is None:
         seed = 0
@@ -246,7 +301,7 @@ def _back(out, data_format):
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW", weight_format="OIHW"):
+           data_format="NCHW", name=None, weight_format="OIHW"):
     """ref: F.conv2d. ``data_format`` NCHW or NHWC; ``weight_format`` OIHW
     ([out, in/groups, kh, kw]) or HWIO ([kh, kw, in/groups, out]). An NHWC
     input goes to ``torch.nn.functional.conv2d`` as a channels-last view
@@ -269,7 +324,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """ref: F.batch_norm over the channel axis that ``data_format`` names
     (1 for NC*, the last for N*C). In training without
     ``use_global_stats`` it normalises by the batch statistics and updates
@@ -304,7 +359,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
+               ceil_mode=False, data_format="NCHW", name=None):
     """ref: F.max_pool2d: windows padded with -inf (the reference's
     reduce_window), ``ceil_mode`` extending the high pad so the last partial
     window is kept, as the reference does."""
@@ -337,7 +392,8 @@ def _ceil_pads(pads, size, k, s):
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
     """ref: F.avg_pool2d: window sums over zero padding, divided by the
     window's area or, with ``exclusive`` (the default, torch's
     ``count_include_pad=False``), by the number of its cells inside the
@@ -368,7 +424,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return _back(out, data_format)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """ref: F.adaptive_avg_pool2d: window i of n over a length L spans
     [floor(i L / n), ceil((i + 1) L / n)), also where n > L (VGG's 7 x 7
     over a smaller map repeats cells); None keeps that axis."""
@@ -379,7 +435,8 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
 
 
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
-                align_corners=False, align_mode=0, data_format="NCHW"):
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
     """ref: F.interpolate in ``nearest`` mode with an integer
     ``scale_factor`` (what the detection necks upsample with): output
     pixel i of an axis reads input pixel i // f, the reference's sampling

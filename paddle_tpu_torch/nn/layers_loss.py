@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from torch import nn
 
-from ..framework import later
 from . import functional as F
 
 __all__ = ["CrossEntropyLoss"]
@@ -21,13 +20,8 @@ class CrossEntropyLoss(nn.Module):
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
         super().__init__()
-        for what, off in (("weight", weight is None),
-                          ("soft_label=True", not soft_label),
-                          ("use_softmax=False", use_softmax),
-                          ("label_smoothing", not label_smoothing)):
-            if not off:
-                raise NotImplementedError(f"CrossEntropyLoss({what}) "
-                                          f"{later('1.6')}")
+        F._refuse_loss_options("CrossEntropyLoss", weight, soft_label,
+                               use_softmax, label_smoothing)
         self.ignore_index = ignore_index
         self.reduction = reduction
         self.axis = axis

@@ -8,7 +8,7 @@ from torch import nn
 
 from ..framework import convert_dtype, get_default_dtype
 from . import functional as F
-from .layers_common import make_param
+from .layers_common import make_param, refuse_attr
 
 __all__ = ["LayerNorm", "RMSNorm", "BatchNorm2D"]
 
@@ -17,19 +17,22 @@ _CHANNELS_LAST_BN = {"NCL": "NLC", "NCHW": "NHWC", "NCDHW": "NDHWC"}
 
 class LayerNorm(nn.Module):
     """ref: nn.LayerNorm — weight ones, bias zeros, over the trailing
-    ``normalized_shape``."""
+    ``normalized_shape``; ``weight_attr``/``bias_attr`` False drops
+    one. ``name`` is taken and ignored."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, *, device=None,
-                 dtype=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
+        refuse_attr("LayerNorm", weight_attr=weight_attr,
+                    bias_attr=bias_attr)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self._normalized_shape = tuple(normalized_shape)
         self._epsilon = epsilon
-        self.weight = make_param(self._normalized_shape, device=device,
-                                 dtype=dtype, init="ones")
-        self.bias = make_param(self._normalized_shape, device=device,
-                               dtype=dtype)
+        self.weight = None if weight_attr is False else make_param(
+            self._normalized_shape, device=device, dtype=dtype, init="ones")
+        self.bias = None if bias_attr is False else make_param(
+            self._normalized_shape, device=device, dtype=dtype)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -40,7 +43,7 @@ class RMSNorm(nn.Module):
     """ref: nn.RMSNorm — weight ones over the last dim, f32 statistics
     (``F.rms_norm``)."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
+    def __init__(self, hidden_size, epsilon=1e-6, name=None, *, device=None,
                  dtype=None):
         super().__init__()
         self._epsilon = epsilon
@@ -61,8 +64,11 @@ class _BatchNormBase(nn.Module):
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, *, device=None, dtype=None):
+                 use_global_stats=None, name=None, *, device=None,
+                 dtype=None):
         super().__init__()
+        refuse_attr(type(self).__name__, weight_attr=weight_attr,
+                    bias_attr=bias_attr)
         if not (data_format.startswith("NC") or data_format.endswith("C")):
             raise ValueError(
                 f"unsupported BatchNorm data_format {data_format!r}: "

@@ -8,6 +8,8 @@ from torch import nn
 
 from . import functional as F
 
+# ``name`` is taken and ignored, as in the reference
+
 __all__ = ["MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D"]
 
 
@@ -32,7 +34,7 @@ class MaxPool2D(_Pool):
     """ref: nn.MaxPool2D."""
 
     def __init__(self, kernel_size, stride=None, padding=0, return_mask=False,
-                 ceil_mode=False, data_format="NCHW"):
+                 ceil_mode=False, data_format="NCHW", name=None):
         super().__init__("max_pool2d", kernel_size, stride, padding,
                          return_mask=return_mask, ceil_mode=ceil_mode,
                          data_format=data_format)
@@ -43,7 +45,8 @@ class AvgPool2D(_Pool):
     counted)."""
 
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW"):
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
         super().__init__("avg_pool2d", kernel_size, stride, padding,
                          exclusive=exclusive, ceil_mode=ceil_mode,
                          data_format=data_format)
@@ -52,7 +55,7 @@ class AvgPool2D(_Pool):
 class AdaptiveAvgPool2D(nn.Module):
     """ref: nn.AdaptiveAvgPool2D."""
 
-    def __init__(self, output_size, data_format="NCHW"):
+    def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self._output_size = output_size
         self._data_format = data_format

@@ -25,7 +25,6 @@ import copy
 import torch
 from torch import nn
 
-from ..framework import later
 from . import functional as F
 from .layers_common import Dropout, LayerList, Linear
 from .layers_norm import LayerNorm
@@ -36,11 +35,7 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
 
 
 def _linear(in_features, out_features, weight_attr, bias_attr, kw):
-    if weight_attr is not None:
-        raise NotImplementedError(f"Linear weight_attr (nn/initializer.py) "
-                                  f"{later('1.6')}")
-    return Linear(in_features, out_features, bias=bias_attr is not False,
-                  **kw)
+    return Linear(in_features, out_features, weight_attr, bias_attr, **kw)
 
 
 class MultiHeadAttention(nn.Module):

@@ -31,12 +31,26 @@ cost nothing more there, while each of them on the plain path costs some
 20 launches. The same formula either way. With ``ClipGradByGlobalNorm``
 the kernel multiplies each gradient by the clip's coefficient (a device
 scalar) instead of the clip writing a scaled copy of every gradient.
-Leaves of another dtype, every leaf under ``amsgrad`` and every leaf of
-``fused_kernel=False`` take the plain path leaf by leaf, as the
-reference's jnp path; the CPU runs the plain twin. Not ported (each raises
-NotImplementedError, see ROADMAP.md): ``moment_dtype="bfloat16"`` (the
-reference's stochastically rounded moments), ``multi_precision`` master
-weights and parameter groups.
+Leaves of another dtype, every leaf under ``amsgrad``, with bf16 moments
+or with master weights, and every leaf of ``fused_kernel=False`` take the
+plain path leaf by leaf, as the reference's jnp path (its kernel takes f32
+moments only); the CPU runs the plain twin.
+
+``moment_dtype="bfloat16"`` keeps Adam's m and v in bf16 with the
+reference's unbiased stochastic rounding: the update's math is f32, and
+each store adds 16 bits of uniform noise below bf16's mantissa cut, then
+truncates (``sround_bf16``; non-finite values bypass the noise; AMSGrad's
+``vhat`` stays f32). The noise comes from the optimizer's ``generator``
+(made at the first update on the parameters' device, seeded 0xAD04,
+unless the caller set one), one draw a step for each moment over every
+leaf
+(``rounding_noise``); the reference's keys are JAX PRNG, which the port
+cannot reproduce, so the tests feed it the reference's own bits.
+``multi_precision=True`` keeps an f32 master copy of every parameter
+(slot ``master``): the update reads and writes the master and rounds the
+result to the parameter's dtype, and m and v are f32 unless
+``moment_dtype`` says bf16. Not ported (NotImplementedError, see
+ROADMAP.md): parameter groups.
 """
 from __future__ import annotations
 
@@ -48,7 +62,26 @@ from ..ops.kernels.fused_adamw import (adamw_update_plain,
                                        fused_adamw_multi_update)
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "sround_bf16"]
+
+# the reference's key for the rounding noise (PRNGKey(0xAD04)), here the
+# seed of the optimizer's generator
+NOISE_SEED = 0xAD04
+
+
+def sround_bf16(x32, noise):
+    """Unbiased stochastic rounding f32 -> bf16 (the reference's
+    ``_sround_bf16``): ``noise`` (integers whose low 16 bits are uniform,
+    x32's shape) is added to x32's bit pattern below the bf16 mantissa
+    cut, then the low 16 bits are dropped, so E[result] == x32. Non-finite
+    values bypass the noise (inf plus noise would truncate to NaN)."""
+    x32 = x32.float()
+    bits = x32.view(torch.int32) + (noise.to(torch.int32) & 0xFFFF)
+    # a finite pattern plus < 2^16 stays in int32, and its arithmetic shift
+    # by 16 fits int16: the high half of the unsigned sum, as a bf16
+    rounded = (bits >> 16).to(torch.int16).view(torch.bfloat16)
+    return torch.where(torch.isfinite(x32), rounded,
+                       x32.to(torch.bfloat16))
 
 
 def _scaled(g, scale):
@@ -60,10 +93,10 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None, apply_decay_param_fun=None):
-        if multi_precision:
-            raise NotImplementedError(f"multi_precision master weights "
-                                      f"{later('1.1')}")
         self._lr = learning_rate
+        # Adam keeps f32 master weights with it; Momentum takes it and
+        # keeps none, as the reference's
+        self._multi_precision = bool(multi_precision)
         self._parameter_list = self._normalize_params(parameters)
         self._weight_decay = float(weight_decay or 0.0)
         self._grad_clip = grad_clip
@@ -116,6 +149,10 @@ class Optimizer:
         """The names of the state slots kept per parameter (the keys of
         ``_state[name]``, and of the reference's optimizer state)."""
         return ()
+
+    def _slot_dtype(self, slot, p):
+        """The dtype slot ``slot`` of parameter ``p`` is kept in."""
+        return torch.float32
 
     def update(self, names, params, grads, scalars, scale=None):
         """Update ``params`` in place from ``grads``, reading the step's
@@ -211,6 +248,9 @@ class Momentum(Optimizer):
     def _slot_names(self):
         return ("velocity",)
 
+    def _slot_dtype(self, slot, p):
+        return torch.float32
+
     def _velocity(self, name, p):
         st = self._state.get(name)
         if st is None:
@@ -252,25 +292,62 @@ class Adam(Optimizer):
         # the kernel's launch table of the fused leaves (built at the first
         # CUDA step, rebuilt when the leaves or their state change)
         self._leaf_table = None
-        if moment_dtype not in (None, "float32", torch.float32):
-            if moment_dtype in ("bfloat16", torch.bfloat16):
-                raise NotImplementedError(
-                    f"moment_dtype=bfloat16 (stochastically rounded "
-                    f"moments) {later('1.1')}")
+        if moment_dtype not in (None, "float32", torch.float32,
+                                "bfloat16", torch.bfloat16):
             raise ValueError(f"moment_dtype={moment_dtype}: only bfloat16 "
-                             "or float32 are supported")
+                             "(stochastic rounding) or float32 are "
+                             "supported")
+        self._rounded = moment_dtype in ("bfloat16", torch.bfloat16)
+        # the rounding noise's generator (made at the first update; a caller
+        # may set its own), and its two draw buffers
+        self.generator = None
+        self._noise = None
 
     def _slot_names(self):
-        return ("m", "v", "vhat") if self._amsgrad else ("m", "v")
+        names = ("m", "v", "vhat") if self._amsgrad else ("m", "v")
+        return names + ("master",) if self._multi_precision else names
+
+    def _slot_dtype(self, slot, p):
+        if slot in ("vhat", "master"):
+            return torch.float32
+        if self._rounded:
+            return torch.bfloat16
+        return torch.float32 if self._multi_precision else p.dtype
 
     def _slots(self, name, p):
         st = self._state.get(name)
         if st is None:
-            st = {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
-            if self._amsgrad:
-                st["vhat"] = torch.zeros_like(p, dtype=torch.float32)
+            st = {s: torch.zeros_like(p, dtype=self._slot_dtype(s, p))
+                  for s in self._slot_names() if s != "master"}
+            if self._multi_precision:
+                st["master"] = p.detach().float().clone()
             self._state[name] = st
         return st
+
+    def rounding_noise(self, names, params):
+        """The rounding noise of this step: for each leaf, (noise of m,
+        noise of v), int16 tensors of its shape whose bits are uniform.
+        Two draws from ``generator`` a step, each over every leaf at once,
+        into buffers kept across steps (a recorded step fills them in
+        place)."""
+        total = sum(p.numel() for p in params)
+        dev = params[0].device
+        if self.generator is None:
+            self.generator = torch.Generator(device=dev).manual_seed(
+                NOISE_SEED)
+        if self._noise is None or self._noise[0].numel() != total \
+                or self._noise[0].device != dev:
+            self._noise = [torch.empty(total, dtype=torch.int16, device=dev)
+                           for _ in range(2)]
+        for buf in self._noise:
+            buf.random_(-2 ** 15, 2 ** 15, generator=self.generator)
+        out, at = [], 0
+        for p in params:
+            n = p.numel()
+            out.append(tuple(buf[at:at + n].view(p.shape)
+                             for buf in self._noise))
+            at += n
+        return out
 
     def _scalar_values(self, lr, step):
         return (float(lr), 1.0 - self._beta1 ** step,
@@ -282,12 +359,15 @@ class Adam(Optimizer):
         hyper = dict(beta1=b1, beta2=b2, eps=eps,
                      decoupled=self._decoupled)
         fused = ([], [], [], [], [])  # p, m, v, g, wd
-        for name, p, g in zip(names, params, grads):
+        noise = (self.rounding_noise(names, params) if self._rounded
+                 else [(None, None)] * len(params))
+        for name, p, g, (nm, nv) in zip(names, params, grads, noise):
             st = self._slots(name, p)
             wd = self._weight_decay if self._decays(name) else 0.0
-            if self._amsgrad:
-                self._amsgrad_update(p, st, _scaled(g, scale), lr, bc1, bc2,
-                                     wd)
+            if self._amsgrad or self._rounded or self._multi_precision:
+                # the reference's kernel takes none of these
+                self._general_update(p, st, _scaled(g, scale), lr, bc1,
+                                     bc2, wd, nm, nv)
             elif self._fused_kernel and (p.dtype == st["m"].dtype
                                          == st["v"].dtype == torch.float32):
                 for lst, x in zip(fused, (p, st["m"], st["v"], g, wd)):
@@ -304,23 +384,35 @@ class Adam(Optimizer):
                 ps, ms, vs, gs, scalars, weight_decays=wds,
                 scale=scale, table=table, **hyper)
 
-    def _amsgrad_update(self, p, st, g, lr, bc1, bc2, wd):
+    def _general_update(self, p, st, g, lr, bc1, bc2, wd, noise_m=None,
+                        noise_v=None):
+        """One leaf's update in plain PyTorch, the reference's jnp path:
+        f32 math from the master (``multi_precision``) or p; m and v stored
+        in their dtype, stochastically rounded with ``noise_m``/``noise_v``
+        when they are bf16; AMSGrad's vhat in f32."""
         b1, b2 = self._beta1, self._beta2
         g32 = g.float()
-        p32 = p.float()
+        p32 = st["master"] if "master" in st else p.float()
         if wd and not self._decoupled:
             g32 = g32 + wd * p32
         m = b1 * st["m"].float() + (1.0 - b1) * g32
-        v = b2 * st["v"].float() + (1.0 - b2) * g32 * g32
-        # vhat stays f32: the monotone max would ratchet rounding noise
-        vh = torch.maximum(st["vhat"], v)
+        v = b2 * st["v"].float() + (1.0 - b2) * (g32 * g32)
+        vh = v
+        if self._amsgrad:
+            # vhat stays f32: the monotone max would ratchet rounding noise
+            vh = torch.maximum(st["vhat"], v)
+            st["vhat"].copy_(vh)
         step = lr * (m / bc1) / (torch.sqrt(vh / bc2) + self._epsilon)
         if wd and self._decoupled:
             step = step + lr * wd * p32
-        p.copy_(p32 - step)
+        p_new = p32 - step
+        if "master" in st:
+            st["master"].copy_(p_new)
+        p.copy_(p_new)
+        if noise_m is not None:
+            m, v = sround_bf16(m, noise_m), sround_bf16(v, noise_v)
         st["m"].copy_(m)
         st["v"].copy_(v)
-        st["vhat"].copy_(vh)
 
 
 class AdamW(Adam):

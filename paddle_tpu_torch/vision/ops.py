@@ -54,7 +54,7 @@ def _f32(x, device=None):
 
 # -- box ops -------------------------------------------------------------------
 
-def box_iou(boxes1, boxes2):
+def box_iou(boxes1, boxes2, name=None):
     """ref: box_iou — [N, 4] x [M, 4] xyxy -> IoU [N, M]."""
     return pairwise_iou(_f32(boxes1), _f32(boxes2))[0]
 
@@ -78,7 +78,7 @@ def _greedy_keep(tri):
 
 
 def nms(boxes, iou_threshold=0.3, scores=None, category_idxs=None,
-        categories=None, top_k=None):
+        categories=None, top_k=None, name=None):
     """ref: nms — greedy NMS: the highest-scored surviving box is kept and
     every box whose IoU with it passes ``iou_threshold`` is suppressed.
     ``scores`` None ranks the boxes in input order. With
@@ -126,7 +126,8 @@ nms.host_reads = 0
 
 
 def box_coder(prior_box, prior_box_var, target_box,
-              code_type="encode_center_size", box_normalized=True, axis=0):
+              code_type="encode_center_size", box_normalized=True, axis=0,
+              name=None):
     """ref: box_coder — center-size encoding of ``target_box`` [N, 4]
     against every prior [M, 4] (-> [N, M, 4]), or decoding of offsets
     [N, M, 4] (priors along ``axis``). ``prior_box_var`` is one variance
@@ -168,7 +169,7 @@ def box_coder(prior_box, prior_box_var, target_box,
 
 def yolo_box(x, img_size, anchors, class_num, conf_thresh, downsample_ratio,
              clip_bbox=True, scale_x_y=1.0, iou_aware=False,
-             iou_aware_factor=0.5):
+             iou_aware_factor=0.5, name=None):
     """ref: yolo_box — decode a YOLO head [B, na * (5 + C), H, W] (with
     ``iou_aware``, na IoU channels first) against ``img_size`` [B, 2]
     (h, w) -> (boxes [B, H * W * na, 4] in pixels, scores [B, H * W * na,
@@ -272,7 +273,7 @@ def _roi_grid(bx, oh, ow, sr, min_size):
 
 
 def roi_align(x, boxes, boxes_num, output_size, spatial_scale=1.0,
-              sampling_ratio=-1, aligned=True):
+              sampling_ratio=-1, aligned=True, name=None):
     """ref: roi_align — x [B, C, H, W]; boxes [R, 4] xyxy over the batch
     (``boxes_num[i]`` RoIs of image i, in order) -> [R, C, oh, ow]: each
     bin the mean of sr x sr bilinear samples at the centres of its
@@ -292,7 +293,8 @@ def roi_align(x, boxes, boxes_num, output_size, spatial_scale=1.0,
     return s.permute(0, 3, 1, 2)
 
 
-def roi_pool(x, boxes, boxes_num, output_size, spatial_scale=1.0):
+def roi_pool(x, boxes, boxes_num, output_size, spatial_scale=1.0,
+             name=None):
     """ref: roi_pool — the max of each bin over an 8 x 8 sample grid
     snapped down to pixels (exact where a bin spans at most 8 pixels a
     side, a subsampled max beyond; the reference's static-shape form)."""
@@ -312,7 +314,8 @@ def roi_pool(x, boxes, boxes_num, output_size, spatial_scale=1.0):
 
 
 def distribute_fpn_proposals(fpn_rois, min_level, max_level, refer_level,
-                             refer_scale, pixel_offset=False, rois_num=None):
+                             refer_scale, pixel_offset=False, rois_num=None,
+                             name=None):
     """ref: distribute_fpn_proposals — the FPN level of each RoI, floor(
     log2(sqrt(area) / refer_scale)) + refer_level clipped to [min_level,
     max_level], as (level [R] int32, masks [L, R] f32 one-hot). The
@@ -334,7 +337,8 @@ def distribute_fpn_proposals(fpn_rois, min_level, max_level, refer_level,
 # -- deformable convolution ------------------------------------------------------
 
 def deform_conv2d(x, offset, weight, bias=None, stride=1, padding=0,
-                  dilation=1, deformable_groups=1, groups=1, mask=None):
+                  dilation=1, deformable_groups=1, groups=1, mask=None,
+                  name=None):
     """ref: deform_conv2d (v1; v2 with ``mask``): bilinear samples of the
     kh * kw deformed taps at every output position, then one contraction
     with the kernel. x [B, Cin, H, W]; offset [B, 2 * dg * kh * kw, Ho,

@@ -147,10 +147,12 @@ def test_eligibility_rule():
 
 def test_unported_options_raise():
     p = [torch.nn.Parameter(torch.zeros(4))]
+    # bf16 moments and master weights are ported (item 1.1); parameter
+    # groups are not, and float16 moments are no option of the reference
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(parameters=p, moment_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(parameters=p, multi_precision=True)
+        AdamW(parameters=[{"params": p}])
+    with pytest.raises(ValueError, match="float16"):
+        AdamW(parameters=p, moment_dtype="float16")
 
 
 def test_amsgrad_matches_reference():

@@ -216,6 +216,14 @@ def test_beam_and_eos_match_jax(models, ids):
     dict(scan_layers=True), dict(recompute=True), dict(chunked_ce=64),
     dict(sequence_parallel="ring"), dict(use_flash_attention=False)])
 def test_unported_options_raise(flag):
+    """sequence_parallel and use_flash_attention=False still raise; the
+    training options of item 1.2 are ported
+    (tests/test_torch_llama_train.py) and construct."""
+    if "scan_layers" in flag or "recompute" in flag or "chunked_ce" in flag:
+        cfg = port_llama.LlamaConfig(**flag)
+        (key, value), = flag.items()
+        assert getattr(cfg, key) == value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_llama.LlamaConfig(**flag)
 
