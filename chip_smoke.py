@@ -461,6 +461,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              steps in lockstep (bit for bit or the bars a step), the
              recording launching #1 48 times (twice a layer), #3/#4 24,
              #10 once; runs after phase 42.
+46. fp16-guard — #1/#3/#4 in float16 against their twins (GPT's
+             training shape and D = 128 timed beside SDPA in float16,
+             ragged and kv_lens cases, the keep mask, an overflow case
+             whose infs must sit in the twins' places); every other
+             kernel refusing float16; #10 with the guarded step's finite
+             flag; gpt3-345M float16 AMP through Model.fit under
+             TrainGuard and a GradScaler (14 captured steps, a nan_grads
+             storm over steps 6-8, one rollback in place, the scale
+             replayed on the host); eager against captured bit for bit;
+             the eager O2 API; a 2-layer step against the CPU holding
+             the loss, the unscaled gradients leaf by leaf and their
+             norm; runs after phase 37 (alone: --fp16-guard).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -468,6 +480,8 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               lo.hi of operands split into two TF32 parts, ~2^-21
               relative), measured near 1e-6, and so are the f32
               backward's at D = 32 and 64;
+  float16 5e-3 — float16 rounds at 11 bits of mantissa: 5e-3 of
+              max(1, |twin|), a few ulps of a value in [1, 2);
   bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
               the backward's grads, whose magnitudes pass 1, 2e-2 of
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
@@ -608,7 +622,7 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 
-TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3, "int8": 1e-4}
 # #11's f32 output from the float64 product of the same operands, of
 # max(1, |y|): the f32 bar the CPU tests hold the port to
 F32_EXACT_TOL = 1e-5
@@ -750,8 +764,8 @@ def visible_pairs(b, sq, sk, lens, causal=True):
 _PTXAS_ENTRY = re.compile(r"entry function '([^']+)'.*?(\d+) bytes spill "
                           r"stores.*?Used (\d+) registers", re.S)
 _TEMPLATE_ARG = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16",
-                 "Lb0E": "false", "Lb1E": "true"}
-_TEMPLATE_TOKEN = r"f|a|13__nv_bfloat16|Li\d+E|Lb[01]E"
+                 "6__half": "f16", "Lb0E": "false", "Lb1E": "true"}
+_TEMPLATE_TOKEN = r"f|a|13__nv_bfloat16|6__half|Li\d+E|Lb[01]E"
 
 
 def _kernel_name(mangled):
@@ -986,14 +1000,14 @@ def phase_build():
     # the forward's CUDA-core work: a tile's softmax is straight-line code
     # between its two products, over 32 (q, k) pairs a thread
     lib = _build._lib_path("flash_attention_fwd")[1]
-    blocks = sass_blocks(lib, "flash_fwd_tc_kernelILi64E")
+    blocks = sass_blocks(lib, "flash_fwd_tc_kernelILi64E13__nv_bfloat16E")
     if blocks is None:
         log("build: cuobjdump or the kernel not found; the forward's SASS "
             "count not measured")
     else:
         for n, counts in blocks:
-            log(f"build: flash_fwd_tc_kernel<64> SASS basic block of {n} "
-                f"instructions = {n / 32:.1f} a pair over 32 pairs a "
+            log(f"build: flash_fwd_tc_kernel<64,bf16> SASS basic block of "
+                f"{n} instructions = {n / 32:.1f} a pair over 32 pairs a "
                 f"thread: {counts}")
     # #10's leaf table is a __grid_constant__ parameter: copied into local
     # memory (a stack frame of its size) every thread would read it from
@@ -1690,10 +1704,10 @@ def flash_work(b, h, sq, sk, d, esz, lens, causal):
 
 
 def flash_bound(dtype, kernel, bytes_moved, flops):
-    """(bound ms, what bounds it) of a flash kernel: bf16 at the bf16
-    tensor-core peak, f32 in 3xTF32 (three times the FLOPs at the TF32
-    peak)."""
-    if dtype == "bfloat16":
+    """(bound ms, what bounds it) of a flash kernel: bf16 and f16 at the
+    16-bit tensor-core peak (989 TFLOP/s both), f32 in 3xTF32 (three times
+    the FLOPs at the TF32 peak)."""
+    if dtype in ("bfloat16", "float16"):
         return bound(bytes_moved, flops, peak=BF16_FLOPS)
     return bound(bytes_moved, 3 * flops, peak=TF32_FLOPS)
 
@@ -1816,8 +1830,8 @@ def _log_flash_rows(tag, rows):
         for n in r.get("ms", {}):
             bms, by = r["bound"][n]
             ms = r["ms"][n]
-            peak = "bf16 tensor-core" if r["dtype"] == "bfloat16" else \
-                "3xTF32"
+            peak = {"bfloat16": "bf16 tensor-core",
+                    "float16": "f16 tensor-core"}.get(r["dtype"], "3xTF32")
             cores = r.get("bound_cores", {}).get(n)
             log(f"{tag}:   {n:4s} ms {ms:.4f} (unheld {unheld(ms):.4f}) "
                 f"plain_ms {r['plain_ms'][n]:.4f} library_ms "
@@ -8217,7 +8231,7 @@ def adamw_geometry(torch):
                              wd.ctypes.data, first.ctypes.data,
                              step_t.data_ptr(),
                              0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 1,
-                             None, stream)
+                             None, None, stream)
                     check(err == 0, f"adamw-geometry: CUDA error {err}")
             run()
             torch.cuda.synchronize()
@@ -8242,6 +8256,793 @@ def adamw_geometry(torch):
     log(f"adamw-geometry: the launch floor held {floor:.4f} ms")
     out["launch_floor_ms"] = floor
     print(json.dumps(out), flush=True)
+
+
+# -- float16 AMP training under TrainGuard (phase fp16-guard) -----------------
+
+# the main run: gpt3-345M through Model.fit, 14 steps at 8 x 1024, a
+# nan_grads storm over steps 6-8, the guard snapshotting every 4 good steps
+# into a ring of one and rolling back after 3 bad ones
+FP16_STEPS = 14
+FP16_STORM = (6, 3)
+FP16_GUARD = dict(snapshot_every=4, ring_size=1, rollback_after=3)
+FP16_SCALER = dict(init_loss_scaling=65536.0, incr_every_n_steps=4)
+# the f16 flash kernels' graph-node names carry their template argument
+F16_MANGLED = "6__half"
+
+
+def _f16_overflow_case(torch, gen):
+    """#3/#4 in float16 with dO scaled up (|dO| to 6e4) so that ds passes
+    float16's 65504: the kernels' dq, dk and dv hold +inf, -inf and NaN at
+    exactly the twins' places (the twins round with ``.to(float16)``, as the
+    reference's astype: no saturation). Their finite values are held in
+    relative L2 at the float16 bar, not elementwise: the kernel's exp
+    (ex2.approx) and the twin's can round a p, and so a ds, to neighbouring
+    float16 values. For dq and dk a float16 ulp of ds near 6e4 is 32; dv =
+    P^T.dO uses no ds, but a float16 ulp of p (up to 2^-11) times |dO| up
+    to 6e4 is ~30. Summed with cancellation over the keys (dq) or the
+    queries (dk, dv), such terms move single elements by units against
+    values near 0: up to 0.66 (dq) and 1.56 (dv) of max(1, |twin|)
+    measured on the H100.
+    -> {name: non-finite count and the finite part's errors}."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    bh, s, d = 32, 256, 64
+    mk = lambda: torch.randn(bh, s, d, generator=gen,  # noqa: E731
+                             device="cuda")
+    q, k, v = (mk().half() for _ in range(3))
+    do = (mk().clamp_(-4.0, 4.0) * 1.5e4).half()
+    rest = (None, None, True, None, 0.0)
+    o, lse = kfa.flash_attention_fwd(q, k, v, *rest)
+    dq, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest)
+    dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest)
+    pdq, _ = kfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, *rest)
+    pdk, pdv = kfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                 *rest)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(pdq).all()), "fp16-guard: the overflow "
+          "case's twin dq is finite: nothing to hold")
+    out = {}
+    for name, a, p in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        for what, f in (("+inf", torch.isposinf), ("-inf", torch.isneginf),
+                        ("NaN", torch.isnan)):
+            n_diff = int((f(a) != f(p)).sum())
+            check(n_diff == 0, f"fp16-guard: overflow case: {name}'s {what} "
+                  f"differs from the twin's at {n_diff} places")
+        ok = torch.isfinite(p)
+        fa, fp = a[ok].float(), p[ok].float()
+        err, rel = _err(fa, fp)
+        l2 = ((fa - fp).norm() / fp.norm().clamp_min(1e-30)).item()
+        check(l2 <= TOL["float16"], f"fp16-guard: overflow case: {name}'s "
+              f"finite values {l2} relative L2 from the twin's")
+        out[name] = dict(nonfinite=int((~ok).sum()), max_abs_err=err,
+                         rel=rel, l2=l2)
+    log(f"fp16-guard: #3/#4 float16 overflow case ({bh} x {s} x {d}, |dO| "
+        f"to 6e4): non-finite values (kernel == twin, place by place, "
+        f"+inf/-inf/NaN) "
+        + ", ".join(f"{n} {r['nonfinite']} (finite part {r['l2']:.2e} "
+                    f"relative L2, {r['rel']:.2e} of max(1, |twin|) at "
+                    f"worst)" for n, r in out.items()))
+    return out
+
+
+def _f16_refusals(torch, gen):
+    """Every float16 call outside #1/#3/#4 raises TypeError naming
+    ROADMAP.md queue 2 on the card, and #1 at head_dim 32 ValueError naming
+    it: no kernel launches and no plain twin runs in its place."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    kpd = _paged_module()
+    h, dev = torch.float16, "cuda"
+    q = torch.zeros(2, 1, 4, 64, dtype=h, device=dev)
+    cache = torch.zeros(2, 16, 4, 64, dtype=h, device=dev)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    pq, kp, vp, pt, plens, _, _ = _decode_inputs(
+        torch, 2, 2, 1, 64, 16, 4, "float32", [20, 5], gen)
+    x = torch.zeros(8, 256, dtype=h, device=dev)
+    g32 = torch.ones(256, device=dev)
+    mu = torch.zeros(8, device=dev)
+    w = torch.zeros(256, 128, dtype=h, device=dev)
+    sc = torch.ones(128, device=dev)
+    q32 = torch.zeros(4, 64, 32, dtype=h, device=dev)
+    calls = (
+        ("#2 flash_decode", TypeError,
+         lambda: kfa.flash_decode(q, cache, cache, lens)),
+        ("#5 paged_flash_decode", TypeError,
+         lambda: kpd.paged_flash_decode(pq.half(), kp.half(), vp.half(), pt,
+                                        plens)),
+        ("#6 fused_add_layer_norm_fwd", TypeError,
+         lambda: kln.fused_add_layer_norm_fwd(x, x, g32, g32)),
+        ("#7 fused_add_layer_norm_bwd", TypeError,
+         lambda: kln.fused_add_layer_norm_bwd(x, x, x, mu, mu, g32)),
+        ("#8 fused_add_layer_norm_y_fwd", TypeError,
+         lambda: kln.fused_add_layer_norm_y_fwd(x, x, g32, g32)),
+        ("#9 fused_add_layer_norm_y_bwd", TypeError,
+         lambda: kln.fused_add_layer_norm_y_bwd(x, x, x, mu, mu, g32)),
+        ("#11 fused_conv1x1_bn_act", TypeError,
+         lambda: kcb.fused_conv1x1_bn_act(x, w, sc, sc)),
+        ("#1 flash_attention_fwd at head_dim 32", ValueError,
+         lambda: kfa.flash_attention_fwd(q32, q32, q32)),
+    )
+    before = {fn.__name__: fn.launches for fn in WRAPPERS}
+    with _TwinWatch() as tw:
+        for name, err, call in calls:
+            try:
+                call()
+            except err as e:
+                check("ROADMAP.md queue 2" in str(e), f"fp16-guard: {name} "
+                      f"refused float16 without naming queue 2: {e}")
+            else:
+                check(False, f"fp16-guard: {name} took float16 on the card")
+    torch.cuda.synchronize()
+    after = {fn.__name__: fn.launches for fn in WRAPPERS}
+    check(after == before and not tw.calls, f"fp16-guard: a refused float16 "
+          f"call launched {after} (before {before}) or ran a twin "
+          f"{tw.calls}")
+    log(f"fp16-guard: float16 refused on the card by {len(calls)} calls "
+        "(#2, #5, #6-#9, #11: TypeError; #1 at head_dim 32: ValueError), "
+        "each naming ROADMAP.md queue 2; no launch, no twin ran")
+
+
+def _adamw_guarded_case(torch, shapes, gen, flush):
+    """#10 over GPT-345M's leaf set as the guarded step launches it: the
+    GradScaler's 1/scale as the gradient scale and the skip flag. Flag
+    clear: held to the twin at ADAMW_TOL; flag set: p, m and v unchanged
+    bit for bit (kernel and twin). Held ms with the flag clear and set, the
+    twin (unheld) and ``torch._fused_adamw_`` with ``grad_scale`` and
+    ``found_inf`` (the same function in one PyTorch call), beside the
+    bound (28 bytes a value)."""
+    from paddle_tpu_torch.ops.kernels import fused_adamw as ka
+    sizes = [math.prod(s) for _, s in shapes]
+    total = sum(sizes)
+
+    def mk(scale=1.0, absolute=False):
+        xs = [torch.randn(s, generator=gen, device="cuda") for _, s in shapes]
+        return [(x.abs() if absolute else x).mul_(scale) for x in xs]
+    start = (mk(), mk(0.1), mk(0.01, absolute=True))
+    g = mk(65536.0)
+    wds = [0.0 if _no_decay(n) else 0.01 for n, _ in shapes]
+    hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=True,
+              weight_decays=wds)
+    step_t = ka.step_scalars(1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3,
+                             device="cuda")
+    inv = torch.tensor(1.0 / 65536.0, device="cuda")
+    clear = torch.zeros((), dtype=torch.bool, device="cuda")
+    flagged = torch.ones((), dtype=torch.bool, device="cuda")
+    clones = lambda: [[x.clone() for x in xs]  # noqa: E731
+                      for xs in start]
+    kern, twin = clones(), clones()
+    table = ka.fused_adamw_multi_update(*kern, g, step_t, scale=inv,
+                                        skip=clear, **hp)
+    ka.adamw_multi_update_plain(*twin, g, step_t, scale=inv, skip=clear,
+                                **hp)
+    torch.cuda.synchronize()
+    errs = [_err(a, b) for xs, ys in zip(kern, twin) for a, b in zip(xs, ys)]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(rel <= ADAMW_TOL, f"fp16-guard: #10 guarded (flag clear) {rel} of "
+          f"max(1, |twin|) > {ADAMW_TOL}")
+    skipped, skipped_twin = clones(), clones()
+    ka.fused_adamw_multi_update(*skipped, g, step_t, scale=inv,
+                                skip=flagged, **hp)
+    ka.adamw_multi_update_plain(*skipped_twin, g, step_t, scale=inv,
+                                skip=flagged, **hp)
+    torch.cuda.synchronize()
+    for got in (skipped, skipped_twin):
+        check(all(torch.equal(a, b) for xs, ys in zip(got, start)
+                  for a, b in zip(xs, ys)), "fp16-guard: #10 with the skip "
+              "flag set wrote a leaf")
+    del twin, skipped, skipped_twin
+    kp, km, kv = kern
+    run = lambda flag: (lambda: ka.fused_adamw_multi_update(  # noqa: E731
+        kp, km, kv, g, step_t, scale=inv, table=table, skip=flag, **hp))
+    row = dict(leaves=len(shapes), values=total, launches_per_step=1,
+               max_abs_err=err, max_rel_err=rel)
+    row["ms"] = time_ms(torch, run(clear), flush=flush)
+    row["skipped_ms"] = time_ms(torch, run(flagged), flush=flush)
+    row["plain_ms"] = time_ms(torch, lambda: ka.adamw_multi_update_plain(
+        kp, km, kv, g, step_t, scale=inv, skip=clear, **hp), flush=flush,
+        held=False)
+    row["library_ms"] = None
+    try:
+        steps = [torch.full((), 3.0, device="cuda") for _ in kp]
+        scale_t = torch.tensor(65536.0, device="cuda")
+        found = torch.zeros((), device="cuda")
+
+        def lib():
+            torch._fused_adamw_(kp, g, km, kv, [], steps, lr=1e-4,
+                                beta1=0.9, beta2=0.999, weight_decay=0.01,
+                                eps=1e-8, amsgrad=False, maximize=False,
+                                grad_scale=scale_t, found_inf=found)
+        row["library_ms"] = time_ms(torch, lib, flush=flush)
+    except (TypeError, RuntimeError) as e:
+        log(f"fp16-guard: torch._fused_adamw_ with grad_scale/found_inf not "
+            f"timed on this torch: {e}")
+    row["bound_ms"], row["bound_by"] = bound(28 * total, 15 * total)
+    lib_ms = row["library_ms"]
+    log(f"fp16-guard: #10 guarded over {len(shapes)} leaves ({total} "
+        f"values, 1/scale as the gradient scale): held ms flag clear "
+        f"{row['ms']:.4f} (unheld {unheld(row['ms']):.4f}), flag set "
+        f"{row['skipped_ms']:.4f}; bound {row['bound_ms']:.4f} "
+        f"({row['bound_ms'] / row['ms']:.3f} of it); the twin (unheld) "
+        f"{row['plain_ms']:.4f}; torch._fused_adamw_(grad_scale, found_inf) "
+        + ("not timed" if lib_ms is None else
+           f"{lib_ms:.4f} (unheld {unheld(lib_ms):.4f})")
+        + f"; max_abs_err {err:.3e} ({rel:.3e} of max(1, |twin|)); the "
+        "flag set leaves every leaf bit for bit (kernel and twin)")
+    del kern, g, start
+    torch.cuda.empty_cache()
+    return row
+
+
+def _lm_dataset(cfg, n, b, s, seed):
+    """A Dataset of ``n`` (ids, labels) int64 samples of ``s`` tokens,
+    sample i the (i mod b)-th of ``b`` drawn: every batch of ``b`` in
+    order is the same batch, so that a few steps' losses fall."""
+    import numpy as np
+    from paddle_tpu_torch.io import Dataset
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = rng.integers(0, cfg.vocab_size, (b, s))
+
+    class _Set(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i % b], labels[i % b]
+    return _Set()
+
+
+def _fp16_gpt(torch, device, weight_seed=0, **ovr):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+    cfg = _resolve_config("gpt3-345M", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, **ovr)
+    model = GPTForCausalLM(cfg, device=device,
+                           generator=seed(weight_seed, device=device))
+    return model.train(), cfg
+
+
+def _guard_replay(outcomes, init_scale, incr_every, snapshot_every,
+                  rollback_after):
+    """GradScaler's rules and TrainGuard's ring on the host over the
+    steps' read flags (ok = an outcome of "ok"): [(outcome, scale, good,
+    bad)] a step, the scaler's state restored from the snapshot on a
+    rollback, as the reference restores it."""
+    scale, good, bad = float(init_scale), 0, 0
+    snap = (scale, good, bad)  # before the first step
+    since = consecutive = 0
+    out = []
+    for seen in outcomes:
+        ok = seen == "ok"
+        if ok:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * 2.0, 0
+        else:
+            good, bad = 0, bad + 1
+            if bad >= 1:
+                scale, bad = max(scale * 0.5, 1.0), 0
+        if ok:
+            consecutive, since = 0, since + 1
+            if since >= snapshot_every:
+                snap, since = (scale, good, bad), 0
+            outcome = "ok"
+        else:
+            consecutive += 1
+            outcome = "skipped"
+            if consecutive >= rollback_after:
+                (scale, good, bad), consecutive = snap, 0
+                outcome = "rolled_back"
+        out.append((outcome, scale, good, bad))
+    return out
+
+
+class _GuardProbe:
+    """A fit callback reading, after each step (which has already read its
+    flag back), the guard's outcome, the scaler's state, the loss, copies
+    of a few leaves and, on a rollback, every live tensor against the
+    guard's snapshot; the wall clock at each batch end."""
+
+    def __init__(self, torch, eng, watch):
+        from paddle_tpu_torch.hapi.callbacks import Callback
+        probe = self
+        self.torch, self.eng, self.watch = torch, eng, watch
+        self.rows, self.ends, self.ptrs = [], [], None
+        self.graph_id = None
+
+        class _CB(Callback):
+            def on_train_batch_end(self, step, logs=None):
+                probe.batch_end(logs)
+        self.callback = _CB()
+
+    def batch_end(self, logs):
+        torch, eng = self.torch, self.eng
+        self.ends.append(time.perf_counter())
+        g = eng.guard
+        st = eng._scaler_state
+        row = dict(step=eng._step, outcome=g.last_outcome,
+                   loss=logs["loss"][0], scale=st["scale"].item(),
+                   good=int(st["good"].item()), bad=int(st["bad"].item()),
+                   opt_step=eng._opt_step,
+                   leaves=[p.detach().clone() for p in self.watch])
+        live = eng._guard_tensors()
+        ptrs = {k: t.data_ptr() for k, t in live.items()}
+        if self.ptrs is None:
+            self.ptrs = ptrs
+        row["same_ptrs"] = ptrs == self.ptrs
+        if g.last_outcome == "rolled_back":
+            host = g.ring[-1]["tensors"]
+            row["equals_snapshot"] = all(
+                torch.equal(t.cpu(), host[k]) for k, t in live.items())
+        rec = [r for k, r in eng._recorded.items() if k[0][0] == "guarded"]
+        row["recordings"] = len(rec)
+        if rec and rec[0].graph is not None:
+            self.graph_id = self.graph_id or id(rec[0].graph)
+            row["same_graph"] = id(rec[0].graph) == self.graph_id
+        self.rows.append(row)
+
+
+def _fp16_main_run(torch, gen):
+    """gpt3-345M through Model.fit under the guard; see FP16_*."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import TrainGuard, faults
+    b, s = 8, 1024
+    t0 = time.perf_counter()
+    model, cfg = _fp16_gpt(torch, "cuda")
+    guard = TrainGuard(**FP16_GUARD, scaler=GradScaler(**FP16_SCALER))
+    m = Model(model)
+    m.prepare(AdamW(1e-4, weight_decay=0.01, fused_kernel=True,
+                    parameters=model.named_parameters()),
+              GPTPretrainingCriterion(),
+              amp_configs={"level": "O1", "dtype": "float16"}, guard=guard)
+    eng = m._engine
+    ds = _lm_dataset(cfg, b * FP16_STEPS, b, s, seed=1)
+    torch.cuda.synchronize()
+    log(f"fp16-guard: gpt3-345M built in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads); Model.fit at {b} x {s}, "
+        f"float16 O1, AdamW(1e-4, weight_decay=0.01, fused_kernel=True), "
+        f"TrainGuard({FP16_GUARD}, GradScaler({FP16_SCALER})), nan_grads at "
+        f"steps {FP16_STORM[0]}-{sum(FP16_STORM) - 1}")
+    named = list(model.named_parameters())
+    watch = [named[i][1] for i in (0, len(named) // 2, len(named) - 1)]
+    probe = _GuardProbe(torch, eng, watch)
+    times = {"snapshot": [], "rollback": []}
+    for name in times:
+        orig = getattr(guard, name)
+
+        def timed(engine, _orig=orig, _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _orig(engine)
+            torch.cuda.synchronize()
+            times[_name].append(((time.perf_counter() - t) * 1e3,
+                                 engine._step))
+            return out
+        setattr(guard, name, timed)
+    for w in WRAPPERS:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    with faults.scenario(("nan_grads", {"step": FP16_STORM[0],
+                                        "count": FP16_STORM[1]})):
+        m.fit(ds, batch_size=b, epochs=1, shuffle=False, verbose=0,
+              callbacks=[probe.callback])
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = probe.rows
+    check(len(rows) == FP16_STEPS, f"fp16-guard: fit ran {len(rows)} steps")
+    outcomes = [r["outcome"] for r in rows]
+    for r in rows:
+        log(f"fp16-guard: step {r['step']}: {r['outcome']}, loss "
+            f"{r['loss']:.4f}, scale {r['scale']:g} (good {r['good']}, bad "
+            f"{r['bad']}), opt_step {r['opt_step']}")
+    storm = set(range(FP16_STORM[0], sum(FP16_STORM)))
+    natural = [r for r in rows if r["outcome"] != "ok"
+               and r["step"] not in storm]
+    for r in natural:
+        log(f"fp16-guard: step {r['step']} overflowed naturally (the flag "
+            f"was set with no fault injected) at loss scale "
+            f"{rows[r['step'] - 2]['scale'] if r['step'] > 1 else 65536.0:g}")
+    check(all(r["outcome"] != "ok" for r in rows if r["step"] in storm),
+          f"fp16-guard: a storm step was applied: {outcomes}")
+    replay = _guard_replay(outcomes, FP16_SCALER["init_loss_scaling"],
+                           FP16_SCALER["incr_every_n_steps"],
+                           FP16_GUARD["snapshot_every"],
+                           FP16_GUARD["rollback_after"])
+    got = [(r["outcome"], r["scale"], r["good"], r["bad"]) for r in rows]
+    check(got == replay, f"fp16-guard: (outcome, scale, good, bad) a step "
+          f"{got} against GradScaler's rules replayed on the host over the "
+          f"read flags {replay}")
+    rolled = [r["step"] for r in rows if r["outcome"] == "rolled_back"]
+    check(guard.rollbacks == 1 and len(rolled) == 1,
+          f"fp16-guard: {guard.rollbacks} rollbacks at steps {rolled}, "
+          "want 1")
+    check(guard.skipped_steps == len(storm) + len(natural),
+          f"fp16-guard: skipped_steps {guard.skipped_steps}, want "
+          f"{len(storm)} + {len(natural)} natural")
+    r_step = rolled[0]
+    snaps = [st for _, st in times["snapshot"]]
+    snap_step = max(st for st in snaps if st < r_step)
+    by_step = {r["step"]: r for r in rows}
+    leaves_eq = lambda a, b: all(  # noqa: E731
+        torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"]))
+    for r in rows:
+        if r["outcome"] == "skipped":
+            check(leaves_eq(r, by_step[r["step"] - 1]),
+                  f"fp16-guard: skipped step {r['step']} changed the "
+                  "parameters")
+    rb = by_step[r_step]
+    check(rb.get("equals_snapshot") is True and leaves_eq(
+        rb, by_step[snap_step]), f"fp16-guard: after the rollback at step "
+        f"{r_step} the state is not step {snap_step}'s snapshot bit for bit")
+    after = by_step.get(r_step + 1)
+    check(after is not None and after["outcome"] == "ok"
+          and not leaves_eq(after, rb),
+          f"fp16-guard: step {r_step + 1} did not update the restored "
+          "parameters")
+    check(all(r["same_ptrs"] for r in rows), "fp16-guard: a parameter's, a "
+          "slot's or the scaler's data_ptr changed over the run")
+    check(all(r.get("same_graph", True) for r in rows)
+          and rows[-1]["recordings"] == 1 and probe.graph_id is not None,
+          "fp16-guard: not exactly one graph recorded over the run (a "
+          "rollback must not record again)")
+    good = [r["loss"] for r in rows if r["outcome"] == "ok"]
+    check(all(math.isfinite(x) for x in good) and good[-1] < good[0],
+          f"fp16-guard: the good steps' losses {good}")
+    # #1/#3/#4 in float16 a layer and #10 once in the recorded step's graph
+    rec = next((r for k, r in eng._recorded.items()
+                if k[0][0] == "guarded"), None)
+    check(rec is not None and rec.graph is not None,
+          "fp16-guard: the Engine holds no recorded guarded step")
+    nodes = _graph_node_names(torch, None if rec is None else rec.graph)
+    recorded = {w: sum(frag in n and F16_MANGLED in n for n in nodes)
+                for w, frag in GPT_GRAPH_KERNELS}
+    recorded["fused_adamw_multi_update"] = sum("adamw_kernel" in n
+                                               for n in nodes)
+    layers = cfg.num_hidden_layers
+    want = {w: layers for w, _ in GPT_GRAPH_KERNELS}
+    want["fused_adamw_multi_update"] = 1
+    check(recorded == want, f"fp16-guard: the recorded step holds "
+          f"{recorded} (float16 flash kernels), want {want}")
+    # the wrappers ran at the eager first step and at the recording
+    want_calls = {w: 2 * layers for w, _ in GPT_GRAPH_KERNELS}
+    want_calls["fused_adamw_multi_update"] = 2
+    check({k: launches[k] for k in want_calls} == want_calls,
+          f"fp16-guard: wrapper launches {launches}, want {want_calls} (the "
+          "eager first step and the recording)")
+    # ms a step without the probe's reads: 8 more guarded steps through
+    # Model.train_batch on one prefetched batch (captured replays, each
+    # ended by the flag's and the loss's reads; the guard snapshots at
+    # every 4th good step, 2 of the 8)
+    import statistics
+    skipped = guard.skipped_steps
+    batch = next(iter(m._feed(m._loaders["train"])))
+    step_ms = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.train_batch(*batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    ms_step = statistics.median(step_ms)
+    mean_ms = statistics.mean(step_ms)
+    tok_s = b * s / (ms_step / 1e3)
+    snap_ms = [t for t, _ in times["snapshot"]]
+    roll_ms = [t for t, _ in times["rollback"]]
+    log(f"fp16-guard: {FP16_STEPS} steps through fit (the probe's checks "
+        f"in them) in {time.perf_counter() - t_fit:.2f} s; 8 more guarded "
+        f"steps: median {ms_step:.3f} ms a step, {tok_s:.1f} tokens/s; mean "
+        f"{mean_ms:.3f} ms with 2 snapshots in them "
+        f"({b * s / (mean_ms / 1e3):.1f} tokens/s); steps "
+        f"{['%.3f' % x for x in step_ms]}; peak {peak_gb:.2f} GiB; "
+        f"snapshots "
+        f"{['%.1f ms at step %d' % x for x in times['snapshot']]} (the first "
+        f"allocates the pinned ring), rollback "
+        f"{['%.1f ms at step %d' % x for x in times['rollback']]}; "
+        f"rolled back at step {r_step} to step {snap_step}'s snapshot, bit "
+        f"for bit in the same tensors; skipped {skipped} of the fit's "
+        f"{FP16_STEPS} ({len(natural)} natural); one graph; recorded "
+        f"{recorded}")
+    prof = profile_grouped(torch, "fp16-guard", "one guarded float16 step",
+                           lambda: m.train_batch(*next(iter(
+                               m._feed(m._loaders["train"])))),
+                           LM_TRAIN_GROUPS)
+    out = dict(launches=launches, recorded=recorded, ms_per_step=ms_step,
+               mean_ms=mean_ms, step_ms=step_ms,
+               tok_s=tok_s, peak_gb=peak_gb, snapshot_ms=snap_ms,
+               rollback_ms=roll_ms, rolled_back_at=r_step,
+               snapshot_step=snap_step, natural_overflows=[
+                   r["step"] for r in natural],
+               outcomes=outcomes, scales=[r["scale"] for r in rows],
+               losses=[r["loss"] for r in rows],
+               busy_share=prof.get("busy_share"),
+               leaf_shapes=[(n, tuple(p.shape)) for n, p in named])
+    del m, eng, model, probe, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fp16_eager_vs_captured(torch):
+    """Two Engines from one seed, float16 O1 under a guard with a
+    GradScaler, eager (capture=False) and captured: 3 steps without faults,
+    losses and every parameter, slot and the scale bit for bit."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import TrainGuard
+    engines, models = {}, {}
+    for mode, capture in (("eager", False), ("captured", None)):
+        model, cfg = _fp16_gpt(torch, "cuda")
+        models[mode] = model
+        engines[mode] = Engine(
+            model, loss=GPTPretrainingCriterion(),
+            optimizer=AdamW(1e-4, weight_decay=0.01, fused_kernel=True),
+            amp_dtype=torch.float16, capture=capture,
+            guard=TrainGuard(**FP16_GUARD, scaler=GradScaler(**FP16_SCALER)))
+    ids, labels = _batch(cfg, 8, 1024, "cuda")
+    for step in range(3):
+        losses = {k: e.train_batch([ids], [labels])[0].clone()
+                  for k, e in engines.items()}
+        torch.cuda.synchronize()
+        check(torch.equal(losses["eager"], losses["captured"]),
+              f"fp16-guard: eager vs captured step {step + 1}: loss "
+              f"{losses}")
+        ee, ce = engines["eager"], engines["captured"]
+        same = all(torch.equal(a, b) for a, b in zip(
+            models["eager"].parameters(), models["captured"].parameters()))
+        slots = all(torch.equal(t, ce.optimizer._state[n][k])
+                    for n, st in ee.optimizer._state.items()
+                    for k, t in st.items())
+        scale = torch.equal(ee._scaler_state["scale"],
+                            ce._scaler_state["scale"])
+        check(same and slots and scale and ee.guard.last_outcome == "ok",
+              f"fp16-guard: eager vs captured after step {step + 1}: "
+              f"parameters {same}, slots {slots}, scale {scale}, outcome "
+              f"{ee.guard.last_outcome}")
+    check(engines["captured"].captures and not engines["eager"].captures,
+          "fp16-guard: the captured Engine does not record")
+    log("fp16-guard: eager vs captured, 3 guarded float16 steps without "
+        "faults: losses, every parameter, every slot and the scale bit for "
+        "bit")
+    del engines, models
+    torch.cuda.empty_cache()
+
+
+def _fp16_eager_o2(torch):
+    """amp.decorate(O2, float16) and the eager GradScaler API, 3 steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.optimizer import AdamW
+    model, cfg = _fp16_gpt(torch, "cuda")
+    opt = AdamW(1e-4, weight_decay=0.01, fused_kernel=True,
+                parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    check(all(p.dtype == torch.float16 for p in model.parameters())
+          and opt._multi_precision, "fp16-guard: decorate(O2) left a "
+          "parameter in another dtype or no master weights")
+    scaler = amp.GradScaler(**FP16_SCALER)
+    crit = GPTPretrainingCriterion()
+    ids, labels = _batch(cfg, 8, 1024, "cuda")
+    for w in WRAPPERS:
+        w.launches = 0
+    out = []
+    for _ in range(3):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = crit(model(ids), labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        out.append((loss.detach().item(), scaler._scale,
+                    scaler._found_inf))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    layers = cfg.num_hidden_layers
+    for w, _ in GPT_GRAPH_KERNELS:
+        check(launches[w] == 3 * layers, f"fp16-guard: eager O2 {w} "
+              f"launched {launches[w]} times in 3 steps, want {3 * layers}")
+    masters = [st["master"] for st in opt._state.values()]
+    check(len(masters) == len(list(model.parameters())) and all(
+        t.dtype == torch.float32 for t in masters), "fp16-guard: eager O2 "
+        "keeps no f32 master for every parameter")
+    good = [x for x, _, inf in out if not inf]
+    check(good and all(math.isfinite(x) for x in good),
+          f"fp16-guard: eager O2 losses {out}")
+    log(f"fp16-guard: eager O2 (decorate float16, f32 masters), 3 steps of "
+        f"scale(loss).backward(), step, update: (loss, scale, found_inf) "
+        f"{out}; #1/#3/#4 float16 {3 * layers} launches each; #10 "
+        f"{launches['fused_adamw_multi_update']} (master weights take the "
+        "plain update)")
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fp16_cpu_check(torch):
+    """A 2-layer gpt3-345M (hidden 1024, 16 heads) step at 1 x 128, float16
+    under the guard, on the card and on the CPU from the same weights and
+    batch; then a step with nan_grads on the card. What the update is made
+    of is held: each leaf's unscaled gradient (what the optimizer receives
+    times the GradScaler's 1/scale, read from the first, eager, step) in
+    relative L2, and the gradient-norm telemetry, both at the float16 bar
+    of 1e-2. The key projection's bias is held apart: its gradient is zero
+    in exact arithmetic (it shifts each query's scores by the same q.b,
+    which softmax cancels), so on each device its norm must stay under
+    1e-2 of the query projection's bias's. Besides: the loss 1e-3
+    relative; each parameter within 1e-3 of max(1, |cpu|) after the step
+    (Adam's first step moves an element by about lr whatever its gradient,
+    so this bar only catches a gross fault); the skipped step leaves the
+    card's parameters unchanged and halves the scale. The vocabulary is cut
+    to 4096: the host's float16 matrix products run at ~1 GFLOP/s
+    (PyTorch's CPU fallback where the CPU has no float16 instructions: one
+    [128 x 1024] x [1024 x 50304] product took 9.2 s, a 2-layer step with
+    the full vocabulary 71 s), and the LM head is the largest of them."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import TrainGuard, faults
+    lr = 1e-4
+    cut = dict(num_hidden_layers=2, vocab_size=4096)
+    cpu, cfg = _fp16_gpt(torch, "cpu", **cut)
+    cuda, _ = _fp16_gpt(torch, "cuda", **cut)
+    with torch.no_grad():
+        for a, b in zip(cuda.parameters(), cpu.parameters()):
+            a.copy_(b)
+    ids, labels = _batch(cfg, 1, 128, "cpu")
+    engs = {dev: Engine(model, loss=GPTPretrainingCriterion(),
+                        optimizer=AdamW(lr, weight_decay=0.01,
+                                        fused_kernel=True),
+                        amp_dtype=torch.float16,
+                        guard=TrainGuard(snapshot_every=1, scaler=GradScaler(
+                            init_loss_scaling=1024.0, incr_every_n_steps=2)))
+            for dev, model in (("cpu", cpu), ("cuda", cuda))}
+    grads = {}
+    t_cpu = time.perf_counter()
+    losses = {}
+    for dev, e in engs.items():
+        e.enable_grad_norm()
+        opt = e.optimizer
+        inner = opt._clip_update
+
+        def spy(names, params, gs, scale=None, norm=None, skip=None,
+                dev=dev, inner=inner):
+            grads[dev] = {n: (g.float() * scale).cpu()
+                          for n, g in zip(names, gs)}
+            return inner(names, params, gs, scale=scale, norm=norm,
+                         skip=skip)
+        opt._clip_update = spy
+        try:
+            losses[dev] = float(e.train_batch([ids], [labels])[0])
+        finally:
+            del opt._clip_update
+    t_cpu = time.perf_counter() - t_cpu
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    check(rel <= 1e-3, f"fp16-guard: cpu check: loss {losses} ({rel})")
+    norms = {d: float(e.last_grad_norm) for d, e in engs.items()}
+    norm_rel = abs(norms["cuda"] - norms["cpu"]) / norms["cpu"]
+    check(norm_rel <= 1e-2, f"fp16-guard: cpu check: the unscaled "
+          f"gradients' norms {norms} ({norm_rel})")
+    check(set(grads["cuda"]) == set(grads["cpu"]) == {
+        n for n, _ in cpu.named_parameters()},
+        "fp16-guard: cpu check: the optimizer did not see every leaf")
+    grad_l2, zero_ratio = {}, {}
+    for n, want in grads["cpu"].items():
+        got = grads["cuda"][n]
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"fp16-guard: cpu check: {n}'s gradient is not finite")
+        if n.endswith("attn.k_proj.bias"):
+            q = n.replace("k_proj", "q_proj")
+            for dev in grads:
+                r = (grads[dev][n].norm() / grads[dev][q].norm()).item()
+                zero_ratio[f"{dev} {n}"] = r
+                check(r <= 1e-2, f"fp16-guard: cpu check: {dev} {n}'s "
+                      f"gradient is {r} of {q}'s, not rounding noise")
+            continue
+        grad_l2[n] = ((got - want).norm() / want.norm()).item()
+        check(grad_l2[n] <= 1e-2, f"fp16-guard: cpu check: {n}'s unscaled "
+              f"gradient {grad_l2[n]} relative L2 from the CPU's")
+    worst = 0.0
+    for (n, a), b in zip(cuda.named_parameters(), cpu.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        scaled = (diff / b.detach().abs().clamp_min(1.0)).max().item()
+        check(scaled <= 1e-3, f"fp16-guard: cpu check: {n} differs by "
+              f"{scaled} of max(1, |cpu|) after the step")
+        worst = max(worst, scaled)
+    before = [p.detach().clone() for p in cuda.parameters()]
+    with faults.scenario(("nan_grads", {"step": 2})):
+        engs["cuda"].train_batch([ids], [labels])
+    check(engs["cuda"].guard.last_outcome == "skipped" and all(
+        torch.equal(a, b) for a, b in zip(cuda.parameters(), before)),
+        "fp16-guard: cpu check: the step with nan_grads was not a no-op")
+    scale = float(engs["cuda"]._scaler_state["scale"])
+    check(scale == 512.0, f"fp16-guard: cpu check: scale {scale}")
+    top = sorted(grad_l2.items(), key=lambda kv: -kv[1])[:3]
+    log(f"fp16-guard: 2-layer float16 step (vocabulary 4096) cuda vs CPU: "
+        f"loss {rel:.3e} relative; the unscaled gradients' norm {norm_rel:.3e}"
+        f" relative ({norms['cuda']:.6g} vs {norms['cpu']:.6g}); each leaf's "
+        f"unscaled gradient in relative L2, the worst "
+        + ", ".join(f"{n} {v:.3e}" for n, v in top)
+        + "; the key biases' gradients (zero in exact arithmetic) at "
+        + ", ".join(f"{k} {v:.2e}" for k, v in zero_ratio.items())
+        + f" of the query biases'; parameters within {worst:.3e} of max(1, "
+        f"|cpu|); the two steps took {t_cpu:.1f} s; a nan_grads step on the "
+        f"card skipped, scale 1024 -> 512")
+    return dict(loss_rel=rel, norm_rel=norm_rel, grad_l2_worst=top[0][1],
+                zero_ratio=max(zero_ratio.values()), worst=worst)
+
+
+def phase_fp16_guard(torch, flush):
+    """Phase fp16-guard: #1/#3/#4 in float16 held to their twins (GPT's
+    training shape and D = 128, timed beside SDPA in float16; ragged,
+    kv_lens and head-dim cases; the keep mask; an overflow case), the
+    float16 refusals of every other kernel, #10 guarded, then gpt3-345M
+    float16 AMP training under TrainGuard with a GradScaler through
+    Model.fit (FP16_*), eager vs captured, the eager O2 API and a cut
+    check against the CPU."""
+    from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
+    from paddle_tpu_torch import seed
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    t0 = time.perf_counter()
+
+    def part(name):
+        log(f"fp16-guard: {name} done at {time.perf_counter() - t0:.1f} s "
+            "into the phase")
+    _check_keep_mask(torch, 128, 128, "float16", gen)
+    rows = [_flash_train_case(torch, 8, 16, 1024, 1024, 64, "float16", None,
+                              0.1, gen, flush, timed=True),
+            _flash_train_case(torch, 4, 16, 1024, 1024, 128, "float16",
+                              None, 0.1, gen, flush, timed=True),
+            _flash_train_case(torch, 2, 4, 256, 256, 64, "float16",
+                              [200, 256], 0.1, gen, flush, False),
+            _flash_train_case(torch, 1, 8, 256, 256, 128, "float16", [0],
+                              0.1, gen, flush, False),
+            _flash_train_case(torch, 1, 2, 64, 64, 256, "float16", [50],
+                              0.1, gen, flush, False),
+            _flash_train_case(torch, 1, 4, 320, 96, 64, "float16", None,
+                              0.0, gen, flush, False, causal=False)]
+    for sq, sk, causal in RAGGED_SHAPES[:6]:
+        rows.append(_flash_train_case(torch, 3, 2, sq, sk, 64, "float16",
+                                      [0, sk // 2 + 1, sk], 0.1, gen, flush,
+                                      False, causal=causal))
+    _log_flash_rows("fp16-guard", rows)
+    part("the flash cases")
+    overflow = _f16_overflow_case(torch, gen)
+    _f16_refusals(torch, gen)
+    shapes = _leaf_shapes(torch, lambda: GPTForCausalLM(
+        _resolve_config("gpt3-345M"), device="cuda",
+        generator=seed(0, device="cuda")))
+    adamw = _adamw_guarded_case(torch, shapes, gen, flush)
+    torch.cuda.empty_cache()
+    part("#10 guarded")
+    main = _fp16_main_run(torch, gen)
+    part("the main run")
+    _fp16_eager_vs_captured(torch)
+    part("eager vs captured")
+    o2 = _fp16_eager_o2(torch)
+    part("eager O2")
+    cpu = _fp16_cpu_check(torch)
+    part("the cpu check")
+    return dict(rows=rows, overflow=overflow, adamw=adamw, main=main,
+                o2=o2, cpu=cpu)
+
+
+def _l2_flush(torch):
+    """A write of 256 MB, which evicts the 50 MB L2 between timed
+    launches."""
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return scratch.zero_
 
 
 def _jsonable(x):
@@ -8281,7 +9082,8 @@ def main():
         return 0
     alone = {"--train-graph": phase_train_graph,
              "--zoo-serve": phase_zoo_serve, "--zoo-train": phase_zoo_train,
-             "--vision-ops": phase_vision_ops}
+             "--vision-ops": phase_vision_ops,
+             "--fp16-guard": lambda t: phase_fp16_guard(t, _l2_flush(t))}
     if sys.argv[1:2] and sys.argv[1] in alone:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -8433,6 +9235,10 @@ def main():
     torch.cuda.empty_cache()
     tg = phase_train_graph(torch)
     stamp("train_graph")
+    torch.cuda.empty_cache()
+    fg = phase_fp16_guard(torch, _l2_flush(torch))
+    stamp("fp16_guard")
+    torch.cuda.empty_cache()
     phase_zoo_serve(torch)
     stamp("zoo_serve")
     zt = phase_zoo_train(torch)
@@ -8750,6 +9556,46 @@ def main():
             row, path=f"train-graph {path}",
             launches=res["launches"][row["name"]],
             launches_recorded=res["recorded_launches"][row["name"]]))
+    # float16 AMP training under TrainGuard (phase fp16-guard): #1, #3, #4
+    # in float16 timed at GPT's training shape (dropout 0.1) and at D = 128
+    # (4 x 16 x 1024), beside SDPA in float16; "launches" the wrappers'
+    # counts over the main run (its eager first step and its recording),
+    # "launches_recorded" the float16 nodes of its one graph; and #10 as
+    # the guarded step launches it (1/scale as the gradient scale, the skip
+    # flag read), over GPT-345M's leaf set
+    fmain16, f128_16 = fg["rows"][0], fg["rows"][1]
+    fgm = fg["main"]
+    for name, parts, timing, source, replaces in (
+            ("flash_attention_fwd", ("o",), "fwd", fwd_src, fwd_tpu),
+            ("flash_attention_bwd_dq", ("dq",), "dq", bwd_src,
+             "paddle_tpu/ops/pallas/flash_attention.py:365"),
+            ("flash_attention_bwd_dkv", ("dk", "dv"), "dkv", bwd_src,
+             "paddle_tpu/ops/pallas/flash_attention.py:385")):
+        for fm, shape in ((fmain16, "8x16x1024x64"),
+                          (f128_16, "4x16x1024x128")):
+            bms, by = fm["bound"][timing]
+            kernels.append(dict(
+                name=name, dtype="float16", shape=shape, path="fp16-guard",
+                route="cuda", source=source, replaces=replaces,
+                launches=fgm["launches"][name],
+                launches_recorded=fgm["recorded"][name],
+                max_abs_err=max(r["err"][p] for r in fg["rows"]
+                                for p in parts),
+                ms=fm["ms"][timing], plain_ms=fm["plain_ms"][timing],
+                bound_ms=bms, bound_by=by,
+                library_ms=fm["library_ms"][timing]))
+    ga = fg["adamw"]
+    kernels.append(dict(
+        name="fused_adamw_multi_update", path="fp16-guard",
+        shape=f"{ga['leaves']} leaves, {ga['values']} values, guarded",
+        route="cuda", source="paddle_tpu_torch/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:68",
+        launches=fgm["launches"]["fused_adamw_multi_update"],
+        launches_recorded=fgm["recorded"]["fused_adamw_multi_update"],
+        max_abs_err=ga["max_abs_err"], ms=ga["ms"],
+        skipped_ms=ga["skipped_ms"], plain_ms=ga["plain_ms"],
+        bound_ms=ga["bound_ms"], bound_by=ga["bound_by"],
+        library_ms=ga["library_ms"]))
     # MobileNetV2 through Model.fit (phase zoo-train): #10 over its 158
     # leaves, the captured Engine's counts (its eager first step and its
     # recording) and a replay's

@@ -18,7 +18,9 @@ ResNet); detection serving (``vision.models`` PP-YOLOE and DETR, over
 ``nn``'s transformer layers) and ``incubate.fuse_conv_bn``; detection
 training; the classification zoo (VGG, AlexNet, SqueezeNet, MobileNet
 v1/v2/v3, DenseNet, ShuffleNetV2, GoogLeNet, Inception v3; every
-factory takes ``pretrained=<a checkpoint path>``) and ``vision.ops``.
+factory takes ``pretrained=<a checkpoint path>``) and ``vision.ops``;
+float16 AMP training with ``amp.GradScaler`` and ``resilience.TrainGuard``
+(skip, snapshot and rollback), and ``amp.decorate``'s O2.
 ROADMAP.md lists what is still to come.
 """
 from .framework import (bind_generator, convert_dtype,  # noqa: F401
@@ -30,6 +32,9 @@ from . import metric  # noqa: E402,F401
 from . import io  # noqa: E402,F401
 from . import vision  # noqa: E402,F401
 from . import incubate  # noqa: E402,F401
+from . import amp  # noqa: E402,F401
+from . import resilience  # noqa: E402,F401
+from . import observability  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 from .hapi.summary import summary, flops  # noqa: E402,F401
 from .serialization import save, load  # noqa: E402,F401

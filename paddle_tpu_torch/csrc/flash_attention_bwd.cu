@@ -890,16 +890,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bf16: tensor cores (wgmma) ---------------------------------------------
+// -- bf16 and f16: tensor cores (wgmma) -------------------------------------
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::DQ_BLOCKS)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
-                       const bf16* __restrict__ dout,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout,
                        const float* __restrict__ lse,
                        const int* __restrict__ lens,
-                       const int* __restrict__ seed, bf16* __restrict__ dq,
+                       const int* __restrict__ seed, T* __restrict__ dq,
                        float* __restrict__ delta, int sq, int sk, int causal,
                        float sm_scale, uint32_t thresh, float keep_prob) {
   using G = Tc<D>;
@@ -952,8 +952,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (row < sq) {
         const size_t at = q_base + (size_t)row * D + (i % CPR) * 8;
         float ov[8], dov[8];
-        flash::load_row<bf16, 8>(o + at, ov);
-        flash::load_row<bf16, 8>(dout + at, dov);
+        flash::load_row<T, 8>(o + at, ov);
+        flash::load_row<T, 8>(dout + at, dov);
 #pragma unroll
         for (int e = 0; e < 8; ++e) part[it] += dov[e] * ov[e];
       }
@@ -1017,9 +1017,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (wg_live && key0 < wkend) {
       float s[32], dp[32];
       tc::wgmma_fence();
-      product_ss<D>(s, qs, wrow, kst);
+      product_ss<D, T>(s, qs, wrow, kst);
       tc::wgmma_commit();
-      product_ss<D>(dp, dos, wrow, kst + G::STREAM);
+      product_ss<D, T>(dp, dos, wrow, kst + G::STREAM);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
       fence_acc(s);
@@ -1030,11 +1030,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               key0 + 2 * (lane % 4), scale_log2, stat, sq,
                               sk, kv_len, causal, mix, thresh, inv_keep);
       uint32_t ds[16];
-      to_frags(dp, ds);
+      to_frags<T>(dp, ds);  // ds rounded to T; in f16 past 65504: inf
 #pragma unroll
       for (int c = 0; c < G::NB; ++c) fence_acc(acc[c]);
       tc::wgmma_fence();
-      product_rs<D>(acc, ds, kst, col0);
+      product_rs<D, T>(acc, ds, kst, col0);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
 #pragma unroll
@@ -1045,22 +1045,22 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   tc::cp_async_wait<0>();
   __syncthreads();
-  stage_out<D>(qs, acc, sm_scale, row);
+  stage_out<D, T>(qs, acc, sm_scale, row);
   __syncthreads();
   store_out<D>(dq + q_base, qs, q0, sq, col0);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(Tc<D>::NT, 1)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
+                        const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int* __restrict__ lens,
-                        const int* __restrict__ seed, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int sq, int sk, int causal,
+                        const int* __restrict__ seed, T* __restrict__ dk,
+                        T* __restrict__ dv, int sq, int sk, int causal,
                         float sm_scale, uint32_t thresh, float keep_prob) {
   using G = Tc<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -1144,9 +1144,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
       };
       float s[32], dp[32];
       tc::wgmma_fence();
-      product_ss<D>(s, ks, wrow, st);
+      product_ss<D, T>(s, ks, wrow, st);
       tc::wgmma_commit();
-      product_ss<D>(dp, vs, wrow, st + G::STREAM);
+      product_ss<D, T>(dp, vs, wrow, st + G::STREAM);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
       fence_acc(s);
@@ -1157,16 +1157,16 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
                              scale_log2, stat, sq, sk, kv_len, causal, mix,
                              thresh, inv_keep);
       uint32_t pa[16], dsa[16];
-      to_frags(s, pa);
-      to_frags(dp, dsa);
+      to_frags<T>(s, pa);
+      to_frags<T>(dp, dsa);
 #pragma unroll
       for (int c = 0; c < G::NB; ++c) {
         fence_acc(dk_acc[c]);
         fence_acc(dv_acc[c]);
       }
       tc::wgmma_fence();
-      product_rs<D>(dv_acc, pa, st + G::STREAM, col0);
-      product_rs<D>(dk_acc, dsa, st, col0);
+      product_rs<D, T>(dv_acc, pa, st + G::STREAM, col0);
+      product_rs<D, T>(dk_acc, dsa, st, col0);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
 #pragma unroll
@@ -1180,8 +1180,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
 
   tc::cp_async_wait<0>();
   __syncthreads();
-  stage_out<D>(ks, dk_acc, sm_scale, row);
-  stage_out<D>(vs, dv_acc, 1.f, row);
+  stage_out<D, T>(ks, dk_acc, sm_scale, row);
+  stage_out<D, T>(vs, dv_acc, 1.f, row);
   __syncthreads();
   store_out<D>(dk + kv_base, ks, key0, sk, col0);
   store_out<D>(dv + kv_base, vs, key0, sk, col0);
@@ -1294,64 +1294,70 @@ bool tc_grid(int rows, int bh, dim3* grid) {
   return tiles <= 65535;
 }
 
-template <int D>
-int launch_dq_bf16(const Args& a) {
+template <int D, typename T>
+int launch_dq_tc(const Args& a) {
   using G = Tc<D>;
   dim3 grid;
   if (!tc_grid<D>(a.sq, a.bh, &grid)) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory needs the opt-in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<D>,
+      flash_bwd_dq_tc_kernel<D, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_bwd_dq_tc_kernel<D><<<grid, G::NT, G::SMEM, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
-      static_cast<const bf16*>(a.dout), a.lse, a.lens, a.seed,
-      static_cast<bf16*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
+  flash_bwd_dq_tc_kernel<D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), a.lse, a.lens, a.seed,
+      static_cast<T*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
       a.sm_scale, a.thresh, a.keep_prob);
   return 0;
 }
 
-template <int D>
-int launch_dkv_bf16(const Args& a) {
+template <int D, typename T>
+int launch_dkv_tc(const Args& a) {
   using G = Tc<D>;
   dim3 grid;
   if (!tc_grid<D>(a.sk, a.bh, &grid)) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<D>,
+      flash_bwd_dkv_tc_kernel<D, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_bwd_dkv_tc_kernel<D><<<grid, G::NT, G::SMEM, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      a.lse, a.delta_in, a.lens, a.seed, static_cast<bf16*>(a.out0),
-      static_cast<bf16*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
+  flash_bwd_dkv_tc_kernel<D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      a.lse, a.delta_in, a.lens, a.seed, static_cast<T*>(a.out0),
+      static_cast<T*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
       a.thresh, a.keep_prob);
   return 0;
 }
 
+// dtype: 0 f32, 1 bf16, 2 f16
 template <bool DQ, int D>
-int launch(const Args& a, int is_bf16) {
-  if (is_bf16) return DQ ? launch_dq_bf16<D>(a) : launch_dkv_bf16<D>(a);
-  return DQ ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
+int launch(const Args& a, int dtype) {
+  switch (dtype) {
+    case 0: return DQ ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
+    case 1: return DQ ? launch_dq_tc<D, bf16>(a) : launch_dkv_tc<D, bf16>(a);
+    case 2:
+      return DQ ? launch_dq_tc<D, __half>(a) : launch_dkv_tc<D, __half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool DQ>
-int run(const Args& a, int d, int is_bf16) {
+int run(const Args& a, int d, int dtype) {
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || a.bh > 65535)
     return (int)cudaErrorInvalidValue;
   int err;
   switch (d) {
-    // head_dim 32 (DETR's): the f32 kernel only; bf16 tiles at 32 would
+    // head_dim 32 (DETR's): the f32 kernel only; 16-bit tiles at 32 would
     // need wgmma's 64-byte swizzle
     case 32:
-      if (is_bf16) return (int)cudaErrorInvalidValue;
+      if (dtype) return (int)cudaErrorInvalidValue;
       err = DQ ? launch_dq_f32<32>(a) : launch_dkv_f32<32>(a);
       break;
-    case 64: err = launch<DQ, 64>(a, is_bf16); break;
-    case 128: err = launch<DQ, 128>(a, is_bf16); break;
-    case 256: err = launch<DQ, 256>(a, is_bf16); break;
+    case 64: err = launch<DQ, 64>(a, dtype); break;
+    case 128: err = launch<DQ, 128>(a, dtype); break;
+    case 256: err = launch<DQ, 256>(a, dtype); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1361,7 +1367,8 @@ int run(const Args& a, int d, int is_bf16) {
 }  // namespace
 
 // Common arguments: q, o, dout [bh, sq, d] and k, v [bh, sk, d] contiguous,
-// all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); lse [bh, sq] f32 from the
+// all f32 (dtype = 0), all bf16 (dtype = 1) or all f16 (dtype = 2); lse
+// [bh, sq] f32 from the
 // forward; lens [bh] int32 or null; seed one int32 on the device, or null
 // for no dropout; thresh = int(rate * 2^24), keep_prob = 1 - rate. Each
 // launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -1374,12 +1381,12 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, float* delta, int bh, int sq,
                                       int sk, int d, int causal,
                                       float sm_scale, unsigned thresh,
-                                      float keep_prob, int is_bf16,
+                                      float keep_prob, int dtype,
                                       void* stream) {
   const Args a{q, k, v, o, dout, lse, nullptr, lens, seed, dq, nullptr,
                delta, bh, sq, sk, causal, sm_scale, thresh, keep_prob,
                static_cast<cudaStream_t>(stream)};
-  return run<true>(a, d, is_bf16);
+  return run<true>(a, d, dtype);
 }
 
 // Reads delta [bh, sq] f32 as flash_attention_bwd_dq wrote it; writes dk and
@@ -1391,10 +1398,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int bh, int sq,
                                        int sk, int d, int causal,
                                        float sm_scale, unsigned thresh,
-                                       float keep_prob, int is_bf16,
+                                       float keep_prob, int dtype,
                                        void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, delta, lens, seed, dk, dv,
                nullptr, bh, sq, sk, causal, sm_scale, thresh, keep_prob,
                static_cast<cudaStream_t>(stream)};
-  return run<false>(a, d, is_bf16);
+  return run<false>(a, d, dtype);
 }

@@ -53,6 +53,15 @@
 //     output columns over two blocks (each recomputes S), as the backward
 //     does, so O fits in registers; D = 64 fits two blocks an SM.
 //
+// f16 (float16 AMP training, under a GradScaler): the bf16 kernel itself,
+// instantiated for __half (flash_fwd_tc_kernel<D, T>): the same tiles,
+// swizzle and geometry (both types are 2 bytes), wgmma.mma_async
+// m64n64k16.f32.f16.f16, and p packed to f16 (cvt.rn.f16x2.f32) before
+// P.V and o on store, as the reference rounds them to its input dtype.
+// The rounding does not saturate: a value past 65504 becomes inf, as the
+// reference's astype gives, which the step's finite check then sees. The
+// bound is the bf16 one (the same bytes, the same 989 TFLOP/s peak).
+//
 // f32 (the serving prefill; not the training path): the tensor cores at
 // the f32 bar, in 3xTF32 (mma.sync m16n8k8, tf32 in, f32 accumulate;
 // tensor_core.cuh). Every f32 operand x is split as hi = tf32(x), lo =
@@ -238,13 +247,13 @@ __device__ __forceinline__ void online_softmax_drop(
                                 sk, kv_len, causal, mix, thresh, inv_keep);
 }
 
-// -- bf16: tensor cores (wgmma) ---------------------------------------------
+// -- bf16 and f16: tensor cores (wgmma) -------------------------------------
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::FWD_BLOCKS)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ lens,
-                    bf16* __restrict__ o, float* __restrict__ lse, int sq,
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lens,
+                    T* __restrict__ o, float* __restrict__ lse, int sq,
                     int sk, int causal, float sm_scale,
                     const int* __restrict__ seed, uint32_t thresh,
                     float keep_prob) {
@@ -318,7 +327,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (wg_live && key0 < wkend) {
       float s[32];
       tc::wgmma_fence();
-      product_ss<D>(s, qs, wrow, kst);
+      product_ss<D, T>(s, qs, wrow, kst);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
       fence_acc(s);
@@ -335,7 +344,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    scale_log2, sq, sk, kv_len, causal, mix,
                                    thresh, inv_keep);
       uint32_t pf[16];
-      to_frags(s, pf);  // p rounded to bf16, as the reference rounds it
+      to_frags<T>(s, pf);  // p rounded to T, as the reference rounds it
 #pragma unroll
       for (int c = 0; c < G::NB; ++c) {
 #pragma unroll
@@ -343,7 +352,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         fence_acc(acc[c]);
       }
       tc::wgmma_fence();
-      product_rs<D>(acc, pf, kst + G::STREAM, col0);
+      product_rs<D, T>(acc, pf, kst + G::STREAM, col0);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
 #pragma unroll
@@ -370,7 +379,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 32; ++i) acc[c][i] *= inv_l[(i >> 1) & 1];
   tc::cp_async_wait<0>();
   __syncthreads();  // every product has read Q: its tile stages o
-  stage_out<D>(qs, acc, 1.f, row);
+  stage_out<D, T>(qs, acc, 1.f, row);
   __syncthreads();
   store_out<D>(o + q_base, qs, q0, sq, col0);
 }
@@ -655,34 +664,40 @@ int launch_f32(const Args& a) {
   return 0;
 }
 
-template <int D>
-int launch_bf16(const Args& a) {
+template <int D, typename T>
+int launch_tc(const Args& a) {
   using G = Tc<D>;
   const long long tiles =
       (long long)(a.sq + G::ROWS - 1) / G::ROWS * G::SPLIT;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory needs the opt-in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::FWD_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_fwd_tc_kernel<D><<<dim3(a.bh, (unsigned)tiles), G::NT, G::FWD_SMEM,
-                           a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.lens, static_cast<bf16*>(a.o), a.lse,
+  flash_fwd_tc_kernel<D, T><<<dim3(a.bh, (unsigned)tiles), G::NT,
+                              G::FWD_SMEM, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.lse,
       a.sq, a.sk, a.causal, a.sm_scale, a.seed, a.thresh, a.keep_prob);
   return 0;
 }
 
+// dtype: 0 f32, 1 bf16, 2 f16
 template <int D>
-int launch(const Args& a, int is_bf16) {
-  return is_bf16 ? launch_bf16<D>(a) : launch_f32<D>(a);
+int launch(const Args& a, int dtype) {
+  switch (dtype) {
+    case 0: return launch_f32<D>(a);
+    case 1: return launch_tc<D, bf16>(a);
+    case 2: return launch_tc<D, __half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q, k, v, o: [bh, s, d] contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// d is 64, 128 or 256, and also 32 in f32;
+// q, k, v, o: [bh, s, d] contiguous, f32 (dtype = 0), bf16 (dtype = 1) or
+// f16 (dtype = 2); d is 64, 128 or 256, and also 32 in f32;
 // lens: [bh] int32 or null; lse: [bh, sq] f32; seed: one int32 on the
 // device, or null for no dropout; thresh = int(rate * 2^24) and
 // keep_prob = 1 - rate. Launches on `stream` and returns cudaGetLastError()
@@ -692,7 +707,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int sq, int sk, int d, int causal,
                                    float sm_scale, const int* seed,
                                    unsigned thresh, float keep_prob,
-                                   int is_bf16, void* stream) {
+                                   int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, seed,
                thresh, keep_prob, static_cast<cudaStream_t>(stream)};
@@ -700,11 +715,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   switch (d) {
     // head_dim 32 (DETR's): the f32 forward only
     case 32:
-      err = is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<32>(a);
+      err = dtype ? (int)cudaErrorInvalidValue : launch_f32<32>(a);
       break;
-    case 64: err = launch<64>(a, is_bf16); break;
-    case 128: err = launch<128>(a, is_bf16); break;
-    case 256: err = launch<256>(a, is_bf16); break;
+    case 64: err = launch<64>(a, dtype); break;
+    case 128: err = launch<128>(a, dtype); break;
+    case 256: err = launch<256>(a, dtype); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;

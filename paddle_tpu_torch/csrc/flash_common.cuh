@@ -1,10 +1,11 @@
 // Shared device helpers of the attention kernels (flash forward and
 // backward, dense and paged decode): f32/bf16 vector loads and stores, the
-// decode kernels' warp geometry and 16-byte unpacking, row loads, and the
-// attention-dropout keep mask.
+// decode kernels' warp geometry and 16-byte unpacking, row loads (f32,
+// bf16, f16, int8), and the attention-dropout keep mask.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +47,7 @@ template <> struct Vec<16> { using type = uint4; };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>

@@ -1,12 +1,15 @@
-// The bf16 tile machinery of the flash-attention kernels on Hopper's tensor
-// cores (the forward, csrc/flash_attention_fwd.cu, and the backward,
-// csrc/flash_attention_bwd.cu): the block geometry at head dim D, 16-byte
+// The 16-bit tile machinery of the flash-attention kernels on Hopper's
+// tensor cores (the forward, csrc/flash_attention_fwd.cu, and the backward,
+// csrc/flash_attention_bwd.cu), for bf16 and f16 alike (the element type T
+// a template parameter; both are 2 bytes, so every tile, layout and
+// geometry is the same): the block geometry at head dim D, 16-byte
 // cp.async loads of [R x D] row tiles into wgmma's 128-byte-swizzle layout
 // (zero fill past the edge; the f32 kernels' padded rows too), the two
-// m64n64k16 products a tile takes
-// (both operands from shared memory; A from registers with B read
-// MN-major), the accumulator as register A fragments, and the epilogue
-// that stages a bf16 result through shared memory for 16-byte stores.
+// m64n64k16 products a tile takes (both operands from shared memory; A
+// from registers with B read MN-major), the accumulator as register A
+// fragments, and the epilogue that stages a T result through shared memory
+// for 16-byte stores. Each rounding to T is round to nearest even with no
+// saturation: in f16 a value past 65504 becomes inf.
 #pragma once
 
 #include "tensor_core.cuh"
@@ -14,7 +17,8 @@
 namespace flash_tc {
 
 using bf16 = __nv_bfloat16;
-using tc::pack_bf16;
+using f16 = __half;
+using tc::pack2;
 using tc::sw128_desc;
 using tc::sw_offset;
 using tc::wgmma_rs;
@@ -22,7 +26,7 @@ using tc::wgmma_ss;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// tile geometry of the bf16 kernels at head dim D
+// tile geometry of the 16-bit (bf16, f16) kernels at head dim D
 template <int D>
 struct Tc {
   static constexpr int NWG = D == 256 ? 1 : 2;  // warpgroups a block
@@ -56,11 +60,12 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024u - (tc::smem_u32(p) & 1023u)) & 1023u);
 }
 
-// rows [r0, r0 + R) of a [S, D] bf16 array into a swizzled tile of R rows;
-// rows at or past `limit` are zero-filled
-template <int R, int D, int NT>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
+// rows [r0, r0 + R) of a [S, D] array of a 16-bit T into a swizzled tile of
+// R rows; rows at or past `limit` are zero-filled
+template <int R, int D, int NT, typename T>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
                                           int r0, int limit, int tid) {
+  static_assert(sizeof(T) == 2, "a 16-bit element type");
   constexpr int CPR = D / 8;  // 16-byte chunks a row
   static_assert((R * CPR) % NT == 0, "tile chunks");
 #pragma unroll
@@ -97,8 +102,8 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // acc (+)= the [64 x 64] product of rows [a_row, a_row + 64) of the
 // resident tile `a` (ROWS rows) with the streamed tile `b` (BS rows),
-// contracting over D: both K-major
-template <int D>
+// contracting over D: both K-major, elements of T
+template <int D, typename T>
 __device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* a,
                                            int a_row, const uint8_t* b) {
   using G = Tc<D>;
@@ -108,14 +113,14 @@ __device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* a,
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t oa = (kk >> 2) * (G::ROWS * 128) + (kk & 3) * 32;
     const uint32_t ob = (kk >> 2) * (G::BS * 128) + (kk & 3) * 32;
-    wgmma_ss(acc, da + (oa >> 4), db + (ob >> 4), kk > 0);
+    wgmma_ss<T>(acc, da + (oa >> 4), db + (ob >> 4), kk > 0);
   }
 }
 
 // acc[c] += A . B[:, col0 + 64 c ..] for the NB output blocks: A [64 x 64]
-// as register fragments (4 k16 steps of 4 registers), B the streamed tile
-// (BS = 64 rows, contracted over) read MN-major
-template <int D>
+// as register fragments of T (4 k16 steps of 4 registers), B the streamed
+// tile (BS = 64 rows, contracted over) read MN-major
+template <int D, typename T>
 __device__ __forceinline__ void product_rs(float (&acc)[Tc<D>::NB][32],
                                            const uint32_t (&a)[16],
                                            const uint8_t* b, int col0) {
@@ -126,21 +131,22 @@ __device__ __forceinline__ void product_rs(float (&acc)[Tc<D>::NB][32],
 #pragma unroll
     for (int c = 0; c < G::NB; ++c) {
       const uint32_t ob = (col0 / 64 + c) * (G::BS * 128) + kk * 2048;
-      wgmma_rs(acc[c], a + 4 * kk, db + (ob >> 4));
+      wgmma_rs<T>(acc[c], a + 4 * kk, db + (ob >> 4));
     }
   }
 }
 
-// the accumulator as four k16 A fragments (bf16, rounded to nearest even)
+// the accumulator as four k16 A fragments of T (rounded to nearest even)
+template <typename T>
 __device__ __forceinline__ void to_frags(const float (&x)[32],
                                          uint32_t (&a)[16]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+  for (int i = 0; i < 16; ++i) a[i] = pack2<T>(x[2 * i], x[2 * i + 1]);
 }
 
-// the epilogue: acc * scale as bf16 into a swizzled [ROWS x DO] tile at
-// `st` (this thread's two rows of each 8-column group)
-template <int D>
+// the epilogue: acc * scale as T into a swizzled [ROWS x DO] tile at `st`
+// (this thread's two rows of each 8-column group)
+template <int D, typename T>
 __device__ __forceinline__ void stage_out(uint8_t* st,
                                           const float (&acc)[Tc<D>::NB][32],
                                           float scale, int row) {
@@ -155,8 +161,8 @@ __device__ __forceinline__ void stage_out(uint8_t* st,
         const int i = 4 * j + 2 * h;
         *reinterpret_cast<uint32_t*>(
             st + sw_offset<G::ROWS>(row + 8 * h, c * 8 + j) +
-            (lane % 4) * 4) = pack_bf16(acc[c][i] * scale,
-                                        acc[c][i + 1] * scale);
+            (lane % 4) * 4) = pack2<T>(acc[c][i] * scale,
+                                       acc[c][i + 1] * scale);
       }
     }
   }
@@ -164,8 +170,8 @@ __device__ __forceinline__ void stage_out(uint8_t* st,
 
 // 16-byte chunks of the staged [ROWS x DO] tile to rows [r0, min(r0 +
 // ROWS, limit)) of a [S, D] array, columns [col0, col0 + DO)
-template <int D>
-__device__ __forceinline__ void store_out(bf16* dst, const uint8_t* st,
+template <int D, typename T>
+__device__ __forceinline__ void store_out(T* dst, const uint8_t* st,
                                           int r0, int limit, int col0) {
   using G = Tc<D>;
   constexpr int CPR = G::DO / 8;

@@ -12,6 +12,12 @@
 //     step = lr * (m / bc1) / (sqrt(v / bc2) + eps)
 //     step = step + lr * wd * p          (decoupled decay: AdamW)
 //     p  = p - step
+// A guarded step (TrainGuard) passes `skip`, a one-byte device flag that
+// is set when the step's loss or a gradient was not finite: every block
+// reads it first and returns without writing, so a skipped step leaves p,
+// m and v as they were, bit for bit (the reference masks its kernel's
+// result with jnp.where, paddle_tpu/hapi/engine.py:297-307, to the same
+// effect). Unguarded launches pass null.
 // p, m, v and g are f32. lr and the bias corrections bc1, bc2 change per
 // step: the kernel reads them from a 3-value f32 array on the device, as the
 // TPU kernel reads its SMEM operand, so a launch captured in a CUDA graph
@@ -79,6 +85,7 @@ struct Table {
   int decoupled;
   int leaves;
   const float* scale;  // device scalar multiplying every g, or null
+  const bool* skip;    // device flag: when set, no block writes; or null
   int first_chunk[kMaxLeaves + 1];  // leaf i owns chunks [first[i], first[i+1])
   Leaf leaf[kMaxLeaves];
 };
@@ -118,6 +125,7 @@ __device__ __forceinline__ void update4(float4& p, float4& m, float4& v,
 
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(const __grid_constant__ Table t) {
+  if (t.skip != nullptr && *t.skip) return;
   const int chunk = blockIdx.x;
   // the last leaf whose first chunk is at or before this one
   int lo = 0, hi = t.leaves - 1;
@@ -198,14 +206,15 @@ extern "C" int fused_adamw_chunk() { return (int)kChunk; }
 // each leaf's ceil(n / kChunk) chunks from 0 (the grid is its last entry).
 // All host arrays, read before this returns. hyper: the device f32 array
 // [lr, bc1, bc2] the kernel reads. scale: a device f32 scalar multiplying
-// every gradient, or null. omb1 = 1 - beta1 and omb2 =
-// 1 - beta2 as the caller rounds them. Launches on `stream` and returns
+// every gradient, or null. skip: a one-byte device flag (a bool tensor)
+// that, when set, makes the launch write nothing, or null. omb1 = 1 - beta1
+// and omb2 = 1 - beta2 as the caller rounds them. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int fused_adamw_multi_update(
     int leaves, const long long* ptrs, const long long* n, const float* wd,
     const int* first_chunk, const float* hyper, float beta1,
     float omb1, float beta2, float omb2, float eps, int decoupled,
-    const float* scale, void* stream) {
+    const float* scale, const bool* skip, void* stream) {
   if (leaves < 1 || leaves > kMaxLeaves || first_chunk[0] != 0 ||
       first_chunk[leaves] <= 0 || hyper == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -218,6 +227,7 @@ extern "C" int fused_adamw_multi_update(
   t.eps = eps;
   t.decoupled = decoupled;
   t.scale = scale;
+  t.skip = skip;
   t.leaves = leaves;
   for (int i = 0; i < leaves; ++i) {
     if (n[i] <= 0 || first_chunk[i + 1] - first_chunk[i] !=

@@ -2,11 +2,13 @@
 // the flash-attention kernels): cp.async copies into shared memory,
 // ldmatrix and mma.sync m16n8k16 (sm_80 style, one warp), the 3xTF32
 // split and mma.sync m16n8k8 tf32 (the f32 flash forward), and Hopper's
-// warpgroup products wgmma.mma_async m64n64k16 (bf16) and m64nNk8 (tf32,
+// warpgroup products wgmma.mma_async m64n64k16 (bf16 or f16 operands, f32
+// accumulate; the element type a template parameter) and m64nNk8 (tf32,
 // the f32 fused 1x1 conv) over 128-byte-swizzled shared-memory tiles.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,9 +130,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the same in f16 (cvt.rn.f16x2.f32, round to nearest even): a value past
+// f16's largest finite 65504 becomes inf, as the reference's astype makes
+// it. No satfinite: saturating would hide the overflow a loss scaler
+// exists to catch.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// pack_bf16 or pack_f16 by the 16-bit element type T
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  return pack_f16(lo, hi);
+}
+
 // -- wgmma (one warpgroup, sm_90a) ------------------------------------------
 //
-// Shared-memory tiles are bf16 [R rows x C cols] with C a multiple of 64,
+// Shared-memory tiles are 16-bit (bf16 or f16) [R rows x C cols] with C a
+// multiple of 64,
 // stored as C/64 column blocks of R rows x 128 bytes, each 1024-byte
 // aligned, the 16-byte chunk c of row r at chunk c ^ (r % 8): the layout
 // the 128-byte swizzle mode of wgmma (and TMA) reads. The same tile serves
@@ -182,52 +206,79 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the 32 accumulator operands of an m64n64 product, and their names
+#define TC_ACC32(d)                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+      "+f"(d[30]), "+f"(d[31])
+#define TC_D32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
+// m64n64k16 for the element type TY ("bf16" or "f16"): both operands in
+// shared memory (SS), or A from registers (RS)
+#define TC_WGMMA_SS(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY \
+               " {" TC_D32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"          \
+               : TC_ACC32(d)                                           \
+               : "l"(da), "l"(db), "r"(accumulate))
+#define TC_WGMMA_RS(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY \
+               " {" TC_D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, "   \
+               "1;\n}\n"                                               \
+               : TC_ACC32(d)                                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                 "r"(1))
+
 // d (+)= A . B, m64n64k16, A [64 x 16] and B^T [64 x 16] both K-major in
-// shared memory; accumulate = 0 overwrites d
+// shared memory, elements of T (bf16 or f16), f32 accumulate;
+// accumulate = 0 overwrites d
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+                                         uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<__nv_bfloat16>(float (&d)[32],
+                                                        uint64_t da,
+                                                        uint64_t db,
+                                                        int accumulate) {
+  TC_WGMMA_SS("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<__half>(float (&d)[32], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate) {
+  TC_WGMMA_SS("f16");
 }
 
-// d += A . B, m64n64k16, A [64 x 16] from registers (four bf16 pairs, the
+// d += A . B, m64n64k16, A [64 x 16] from registers (four pairs of T, the
 // fragment above), B [16 x 64] MN-major in shared memory (its rows are the
 // contraction)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<__nv_bfloat16>(float (&d)[32],
+                                                        const uint32_t* a,
+                                                        uint64_t db) {
+  TC_WGMMA_RS("bf16");
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<__half>(float (&d)[32],
+                                                 const uint32_t* a,
+                                                 uint64_t db) {
+  TC_WGMMA_RS("f16");
+}
+
+#undef TC_WGMMA_SS
+#undef TC_WGMMA_RS
+#undef TC_D32
+#undef TC_ACC32
 
 // d += A . B, m64nNk8 in tf32 (N = 64 or 128): A [64 x 8] from registers,
 // the m16n8k8 A fragment of each warp's 16 rows (g = lane / 4, t = lane %

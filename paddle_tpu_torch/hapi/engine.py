@@ -38,8 +38,26 @@ step that averages, clips and updates, the 1/n folded into the update's
 gradient scale); ``enable_grad_norm`` puts the global gradient norm
 (``last_grad_norm``) into the step.
 
-Not ported (each raises NotImplementedError, see ROADMAP.md): ``guard``
-(TrainGuard, which waits on item 1.4's GradScaler) and ``mesh``.
+``guard`` (a ``resilience.TrainGuard``; ``attach_guard``, or assign
+``engine.guard``) makes ``train_batch`` run the guarded step, the
+reference's ``_build_guarded_fn`` as one step function that a CUDA graph
+records like the plain one: the loss times the fault seam's scalar and
+the GradScaler's scale (both device scalars) before autograd; the finite
+flag over the loss and every gradient (from the gradients' global norm,
+a read of each gradient that the grad-norm telemetry shares: a non-finite
+value makes it non-finite); the clip and the update with the scaler's
+1/scale folded into the update's gradient scale and masked by the flag
+(#10 reads it; buffers such as BatchNorm statistics are selected back
+with ``torch.where``); the scaler's state updated from the flag. Around
+it, as the reference's ``_train_batch_guarded``: the fault seams
+(``nan_grads``, ``slow_step``, ``dispatch_error`` under
+``call_with_retries``), the step's scalars for ``opt_step + 1``, and one
+host read of the flag after the step, which commits ``opt_step`` only on
+a good step and hands the outcome to the guard (snapshot, skip,
+rollback). Gradient accumulation and ``train_batch_multi`` refuse a
+guard (``ValueError``), as the reference's do.
+
+Not ported (raises NotImplementedError, see ROADMAP.md): ``mesh``.
 """
 from __future__ import annotations
 
@@ -47,8 +65,11 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..amp import GradScaler
 from ..framework import bind_generator, convert_dtype, generators, later
 from ..nn.clip import global_norm
+from ..resilience import faults
+from ..resilience.retry import call_with_retries, retryable_for
 
 __all__ = ["Engine"]
 
@@ -138,10 +159,6 @@ class Engine:
                  *, generator=None, capture=None):
         if mesh is not None:
             raise NotImplementedError(f"Engine(mesh=...) {later('10')}")
-        if guard is not None:
-            raise NotImplementedError(
-                f"Engine(guard=...) (TrainGuard, which waits on item 1.4's "
-                f"GradScaler) {later('1.3')}")
         self.network = network
         self.loss = loss
         self.optimizer = optimizer
@@ -170,6 +187,32 @@ class Engine:
         self._acc = None
         self._inv_n = None
         self._micro_count = 0
+        # the guarded step's device state: the fault seam's loss factor,
+        # the found-inf flag and the GradScaler's {scale, good, bad}
+        self._guard = guard
+        self._fault = None
+        self._found = None
+        self._scaler_state = None
+
+    @property
+    def guard(self):
+        return self._guard
+
+    @guard.setter
+    def guard(self, g):
+        # the scaler state belongs to the outgoing guard's scaler: a new
+        # guard's scaler starts from its own init scale, and the guarded
+        # recordings that read the old state go with it
+        self._guard = g
+        self._scaler_state = None
+        self._recorded = {k: r for k, r in self._recorded.items()
+                          if k[0][0] != "guarded"}
+
+    def attach_guard(self, guard):
+        """Attach (or with None, detach) a resilience.TrainGuard: the next
+        train_batch runs the matching step."""
+        self.guard = guard
+        return guard
 
     @property
     def captures(self):
@@ -208,9 +251,13 @@ class Engine:
             self.network.train()
 
     # -- the step functions (what a CUDA graph records) ---------------------
-    def _loss_grads(self, names, params, ins, labs):
+    def _loss_grads(self, names, params, ins, labs, fault=None,
+                    factor=None):
         """Forward, loss and gradients -> (loss, outs, grads): loss an f32
-        scalar, outs detached, a zero gradient for an unused leaf."""
+        scalar, outs detached, a zero gradient for an unused leaf.
+        ``fault``: None or a device scalar the loss is multiplied by (the
+        fault seam's, 1 or NaN); ``factor``: None or one that only the
+        differentiated loss is multiplied by (the GradScaler's scale)."""
         # the cast happens inside the differentiated function: grads land
         # on the f32 parameters, and a tied weight is cast once, so its
         # grad sums every use of the one low-precision copy
@@ -225,7 +272,10 @@ class Engine:
             # hidden states and tied weight) feeds only the loss, and is
             # neither returned nor seen by metrics
             outs = ()
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if fault is not None:
+            loss = loss * fault
+        target = loss if factor is None else loss * factor
+        grads = torch.autograd.grad(target, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return loss.detach(), _detach(outs), grads
@@ -236,6 +286,43 @@ class Engine:
         norm = global_norm(grads) if collect else None
         self.optimizer._clip_update(names, params, grads, norm=norm)
         return loss, outs, norm
+
+    def _guarded_step(self, ins, labs, collect):
+        """The guarded step (the reference's ``_build_guarded_fn``): the
+        loss scaled by the GradScaler's scale, the finite flag into
+        ``_found``, the update masked by it, the scaler's state updated
+        from it. Buffers the forward writes (BatchNorm statistics) are
+        selected back on a bad step. -> (loss, outs, norm)."""
+        names, params = self._live()
+        bufs = [b for _, b in self.network.named_buffers()]
+        saved = [b.clone() for b in bufs]
+        st = self._scaler_state
+        loss, outs, grads = self._loss_grads(
+            names, params, ins, labs, fault=self._fault,
+            factor=None if st is None else st["scale"])
+        inv = None if st is None else 1.0 / st["scale"]
+        # the scaled gradients' global norm: non-finite where any value
+        # is (an f32 overflow of the sum of squares would need values
+        # near 1e19), and, times 1/scale, the unscaled norm the clip and
+        # the telemetry read
+        total = global_norm(grads)
+        bad = ~(torch.isfinite(loss) & torch.isfinite(total))
+        self._found.copy_(bad)
+        norm = total if inv is None else total * inv
+        self.optimizer._clip_update(names, params, grads, scale=inv,
+                                    norm=norm, skip=self._found)
+        with torch.no_grad():
+            for b, old in zip(bufs, saved):
+                b.copy_(torch.where(self._found, old, b))
+        if st is not None:
+            sc = self._guard.scaler
+            new = GradScaler.functional_update(
+                st, self._found, incr_ratio=sc._incr_ratio,
+                decr_ratio=sc._decr_ratio, incr_every=sc._incr_every,
+                decr_every=sc._decr_every)
+            for k, t in st.items():
+                t.copy_(new[k])
+        return loss, outs, norm if collect else None
 
     def _grad_step(self, ins, labs):
         names, params = self._live()
@@ -300,10 +387,39 @@ class Engine:
             rec.load(args)
         return rec(self)
 
-    def _fill(self, lr=None):
+    def _fill(self, lr=None, opt_step=None):
         self.optimizer.fill_scalars(
-            self.optimizer.get_lr() if lr is None else lr, self._opt_step,
-            self.device)
+            self.optimizer.get_lr() if lr is None else lr,
+            self._opt_step if opt_step is None else opt_step, self.device)
+
+    def _guard_tensors(self):
+        """{key: live tensor} of the state a TrainGuard snapshot holds and
+        a rollback copies back in place: every parameter and buffer of the
+        network, every optimizer slot, the GradScaler's device state."""
+        out = {f"param:{n}": p for n, p in self.network.named_parameters()}
+        out.update((f"buffer:{n}", b)
+                   for n, b in self.network.named_buffers())
+        for n in sorted(self.optimizer._state):
+            for s, t in sorted(self.optimizer._state[n].items()):
+                out[f"slot:{n}:{s}"] = t
+        for k, t in (self._scaler_state or {}).items():
+            out[f"scaler:{k}"] = t
+        return out
+
+    def _guard_state(self):
+        """Make the guarded step's device state, once: the fault factor,
+        the found-inf flag, the scaler's state, and every optimizer slot
+        (so that the first snapshot holds them)."""
+        if self._fault is None:
+            self._fault = torch.ones((), dtype=torch.float32,
+                                     device=self.device)
+            self._found = torch.zeros((), dtype=torch.bool,
+                                      device=self.device)
+        scaler = self._guard.scaler
+        if scaler is not None and self._scaler_state is None:
+            self._scaler_state = GradScaler.functional_init(scaler._scale,
+                                                            self.device)
+        self.optimizer.init_state(*self._live())
 
     def train_batch(self, inputs, labels):
         """One optimizer step -> (loss, outs): loss an f32 scalar tensor on
@@ -311,6 +427,8 @@ class Engine:
         recorded step (on CUDA, from a signature's second call) both are
         the graph's own tensors: valid until the next step, which
         rewrites them."""
+        if self._guard is not None:
+            return self._train_batch_guarded(inputs, labels)
         self._train_mode()
         if self._micro_count:
             # a pending accumulation window must not leak into a fused step
@@ -327,6 +445,50 @@ class Engine:
         self.last_grad_norm = norm
         return loss, outs
 
+    def _train_batch_guarded(self, inputs, labels):
+        """train_batch through the TrainGuard (the reference's
+        ``_train_batch_guarded``): the fault seams, the guarded step with
+        injected transient errors retried before it runs, one host read
+        of the finite flag, then the guard's bookkeeping. Returns (loss,
+        outs) as train_batch; on a skipped step the loss is the
+        (non-finite) observed value and the model is unchanged."""
+        guard = self._guard
+        self._train_mode()
+        if self._micro_count:
+            self.flush_accum()
+        ins = [self._to_device(x) for x in inputs]
+        labs = [self._to_device(x) for x in labels]
+        self._guard_state()
+        guard.before_first_step(self)
+        self._step += 1
+        step = self._step
+        fault = faults.nan_scale(step)
+        faults.maybe_sleep("slow_step", step)
+        collect = self.collect_grad_norm
+
+        def dispatch():
+            # an injected transient fires before the step runs: the
+            # update is in place, so only such an error is retried
+            faults.maybe_raise("dispatch_error", step)
+            self._fill(opt_step=self._opt_step + 1)
+            self._fault.fill_(fault)
+            return self._run(
+                ("guarded", collect),
+                lambda eng, i, l: eng._guarded_step(i, l, collect),
+                ins, labs)
+
+        loss, outs, norm = call_with_retries(
+            dispatch, retries=guard.retries, retryable=retryable_for(True),
+            base_delay=guard.retry_base_delay, stats=guard.retry_stats)
+        self.last_grad_norm = norm
+        # the one host read the guard adds: the step's finite flag; the
+        # opt_step + 1 the step used is committed only on a good step
+        ok = not bool(self._found)
+        if ok:
+            self._opt_step += 1
+        guard.after_step(self, ok)
+        return loss, outs
+
     def train_batch_multi(self, inputs, labels, lr_values=None):
         """K optimizer steps over stacked inputs and labels ([K, batch,
         ...] each), the same as K ``train_batch`` calls (the same
@@ -336,6 +498,12 @@ class Engine:
         K steps, unless ``lr_values`` ([K]) gives one a step; the caller
         steps its LR scheduler as usual. A pending accumulation window is
         applied first. Returns (losses [K] on the device, None)."""
+        if self._guard is not None:
+            raise ValueError(
+                "TrainGuard and train_batch_multi are mutually exclusive: "
+                "the guarded step reads its finite flag back after every "
+                "step. Use train_batch, or detach the guard "
+                "(engine.guard = None).")
         self._train_mode()
         ins = [self._to_device(x) for x in inputs]
         labs = [self._to_device(x) for x in labels]
@@ -376,6 +544,12 @@ class Engine:
         are added to the window's sums; with ``apply_update`` the window
         is applied (averaged, clipped, one optimizer update). Returns
         (loss, outs, applied), graph-owned as ``train_batch``'s."""
+        if self._guard is not None:
+            raise ValueError(
+                "TrainGuard covers the fused train_batch path only: a "
+                "half-guarded accumulation window would mask the update "
+                "but not the accumulated sums. Detach (engine.guard = "
+                "None) or use accumulate_grad_batches=1.")
         self._train_mode()
         ins = [self._to_device(x) for x in inputs]
         labs = [self._to_device(x) for x in labels]

@@ -26,8 +26,15 @@ package flattens ``{slot: {name: array}}`` with sorted keys: every slot in
 name order, the slots in name order). Both packages read each other's
 files for Momentum, Adam and AdamW.
 
+``prepare(guard=TrainGuard(...))`` runs every training step through the
+Engine's guarded step: the LR scheduler steps only after a good step
+(and the guard re-captures a snapshot's schedule position then),
+``fit``'s batch logs carry ``guard.log_scalars()`` (skipped, rollbacks,
+found_inf), and ``load`` empties the guard's ring, whose snapshots are no
+longer the last good state. ``fit`` consults the ``sigterm`` fault seam at
+each batch boundary, as the reference does.
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-``prepare(guard=...)`` (1.3),
 ``save(training=False)`` (``jit.save``, 8) and ``serve_metrics`` (8). An
 exception in ``fit`` propagates without the reference's flight-recorder
 dump (8).
@@ -44,7 +51,7 @@ from ..framework import later
 from ..io import DataLoader, Dataset, device_prefetch
 from ..metric import Metric
 from ..optimizer.lr import LRScheduler, ReduceOnPlateau
-from ..resilience import preemption
+from ..resilience import faults, preemption
 from ..serialization import load as _load
 from ..serialization import save as _save
 from ..serialization import set_state_dict
@@ -92,9 +99,11 @@ class Model:
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, guard=None, capture=None):
-        """ref: Model.prepare; ``capture`` (a port extension) is the
-        Engine's: None records each training step as a CUDA graph on CUDA
-        where the loss allows, True insists, False runs eagerly."""
+        """ref: Model.prepare; ``guard``: a resilience.TrainGuard, which
+        makes every training step the guarded one; ``capture`` (a port
+        extension) is the Engine's: None records each training step as a
+        CUDA graph on CUDA where the loss allows, True insists, False runs
+        eagerly."""
         self._optimizer = optimizer
         self._loss = loss
         ms = _to_list(metrics)
@@ -127,7 +136,12 @@ class Model:
         eng = self._ensure_engine()
         loss_v, outs = eng.train_batch(_to_list(inputs), _to_list(labels))
         metrics_out = self._update_metrics(outs, labels)
-        self._lr_step_after_update()
+        # a guard-skipped step applied no update: the schedule position
+        # tracks opt_step
+        if eng.guard is None or eng.guard.last_outcome == "ok":
+            self._lr_step_after_update()
+            if eng.guard is not None:
+                eng.guard.note_lr_stepped(eng)
         loss = float(loss_v)
         return ([loss], metrics_out) if metrics_out else [loss]
 
@@ -231,8 +245,13 @@ class Model:
                 else:
                     out = self.train_batch(ins, labs)
                 logs = self._make_logs(out)
+                if eng.guard is not None:
+                    logs.update(eng.guard.log_scalars())
                 logs["batch_size"] = len(ins[0]) if torch.is_tensor(ins[0]) \
                     else batch_size
+                # the preemption seam at the step boundary, before the
+                # callbacks, as the reference's
+                faults.maybe_sigterm(eng._step)
                 cbks.on_batch_end("train", step, logs)
                 if preemption.requested():
                     self.stop_training = True
@@ -411,6 +430,10 @@ class Model:
             blob = _load(opt_path)
             eng._step = blob.get("engine_step", 0)
             eng._opt_step = blob.get("opt_step", eng._step)
+            if eng.guard is not None:
+                # snapshots taken before the restore are no longer the
+                # last good state: the ring reseeds at the next step
+                eng.guard.ring.clear()
             if "leaves" in blob:
                 self._set_opt_leaves(blob["leaves"])
             if "LR_Scheduler" in blob and isinstance(self._optimizer._lr,

@@ -33,13 +33,20 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Head dims on the card: 64, 128 and 256 for every kernel (``HEAD_DIMS``);
-the f32 forward and the f32 backward also take 32 (``F32_HEAD_DIMS``:
-DETR's d_model 256 over 8 heads). A bf16 call at 32 on CUDA raises,
-naming ROADMAP.md queue 2; the plain twins take any head dim on the CPU.
+Dtypes on the card: the forward and the backward take float32, bfloat16
+and float16 (``_DTYPES``); the dense decode takes float32 and bfloat16
+(``_DECODE_DTYPES``), and a float16 decode raises ``TypeError`` naming
+ROADMAP.md queue 2. Head dims on the card: 64, 128 and 256 for every
+kernel (``HEAD_DIMS``); the f32 forward and the f32 backward also take 32
+(``F32_HEAD_DIMS``: DETR's d_model 256 over 8 heads). A bf16 or f16 call
+at 32 on CUDA raises, naming ROADMAP.md queue 2; the plain twins take any
+head dim and any of these dtypes on the CPU, rounding p, ds and the
+dropped p to the input dtype before each product as the kernels do (in
+float16 a value past 65504 becomes inf, as the reference's astype gives).
 
 Kernel notes (details in the .cu files): the forward and the two backward
-kernels run every bf16 product on the tensor cores (wgmma, tiles streamed
+kernels run every bf16 and f16 product on the tensor cores (one kernel
+template over both 16-bit types: wgmma, tiles streamed
 through shared memory by cp.async, the probabilities kept in registers as
 the second product's operand). The f32 forward and, at head dims 32 and
 64, the f32 backward run on the tensor cores too, in 3xTF32 (mma.sync
@@ -69,19 +76,23 @@ __all__ = ["HEAD_DIMS", "F32_HEAD_DIMS", "head_dims",
            "flash_attention_bwd", "flash_attention_bhsd", "flash_decode",
            "flash_decode_plain", "decode_split"]
 
-# head dims of the bf16 forward and backward kernels and the decode
+# head dims of the bf16/f16 forward and backward kernels and the decode
 HEAD_DIMS = (64, 128, 256)
 # the f32 forward and backward also take DETR's head_dim 32 (d_model 256,
 # 8 heads)
 F32_HEAD_DIMS = (32,) + HEAD_DIMS
 NEG_INF = -1e30  # the TPU kernel's masked-score sentinel
-_DTYPES = (torch.float32, torch.bfloat16)
+# the forward's and the backward's dtypes on CUDA, and the kernels' codes
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the dense decode's (a float16 cache is still to port: ROADMAP.md queue 2)
+_DECODE_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # q, k, v, lens, o, lse; bh, sq, sk, d, causal; sm_scale; seed; thresh;
-# keep_prob; is_bf16; stream
+# keep_prob; dtype code (0 f32, 1 bf16, 2 f16); stream
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 5 + [_F, _P, _U, _F, _I, _P]
 # q, k, v, o, dout, lse, lens, seed, dq, delta; bh, sq, sk, d, causal;
-# sm_scale; thresh; keep_prob; is_bf16; stream
+# sm_scale; thresh; keep_prob; dtype code; stream
 _DQ_ARGTYPES = [_P] * 10 + [_I] * 5 + [_F, _U, _F, _I, _P]
 # q, k, v, dout, lse, delta, lens, seed, dk, dv; then as above
 _DKV_ARGTYPES = _DQ_ARGTYPES
@@ -259,8 +270,8 @@ def check_head_dim(fn, d, dims):
     """Raise ValueError unless the CUDA kernel of ``fn`` takes head_dim
     ``d`` (one of ``dims``)."""
     if d not in dims:
-        note = (" (the bf16 forward and backward kernels at head_dim 32 "
-                "are still to port: ROADMAP.md queue 2)"
+        note = (" (the bf16 and f16 forward and backward kernels at "
+                "head_dim 32 are still to port: ROADMAP.md queue 2)"
                 if d in F32_HEAD_DIMS else "")
         raise ValueError(f"{fn}: head_dim {d} not in {dims} for the CUDA "
                          f"kernel{note}")
@@ -354,7 +365,7 @@ def flash_attention_fwd(q, k, v, lens=None, seed=None, causal=False,
             None if lens is None else lens.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, sq, k.shape[1], d, int(causal),
             float(sm_scale), *_drop_args(seed, dropout_p),
-            int(q.dtype == torch.bfloat16))
+            _DTYPE_CODES[q.dtype])
     return o, lse
 
 
@@ -381,7 +392,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, lens=None, seed=None,
             None if lens is None else lens.data_ptr(), seed_ptr,
             dq.data_ptr(), delta.data_ptr(), bh, sq, k.shape[1], d,
             int(causal), float(sm_scale), thresh, keep_prob,
-            int(q.dtype == torch.bfloat16))
+            _DTYPE_CODES[q.dtype])
     return dq, delta
 
 
@@ -409,7 +420,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens=None, seed=None,
             None if lens is None else lens.data_ptr(), seed_ptr,
             dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
             int(causal), float(sm_scale), thresh, keep_prob,
-            int(q.dtype == torch.bfloat16))
+            _DTYPE_CODES[q.dtype])
     return dk, dv
 
 
@@ -510,8 +521,11 @@ def _check_decode(q, k, v, lens):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{fn}: q must be [B, 1, H, D], got "
                          f"{tuple(q.shape)}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"{fn}: dtype {q.dtype} not in {_DTYPES}")
+    if q.dtype not in _DECODE_DTYPES:
+        note = (" (the float16 decode kernel is still to port: ROADMAP.md "
+                "queue 2)" if q.dtype == torch.float16 else "")
+        raise TypeError(f"{fn}: dtype {q.dtype} not in {_DECODE_DTYPES}"
+                        f"{note}")
     b, _, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")

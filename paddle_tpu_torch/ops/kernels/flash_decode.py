@@ -88,6 +88,10 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lens, k_scale=None,
 
 def _check(q, k_pages, v_pages, page_table, lens, k_scale, v_scale):
     dev = q.device
+    if torch.float16 in (q.dtype, k_pages.dtype, v_pages.dtype):
+        raise TypeError(f"paged_flash_decode: float16 q or pools ({q.dtype},"
+                        f" {k_pages.dtype}/{v_pages.dtype}): the float16 "
+                        "kernel is still to port: ROADMAP.md queue 2")
     if q.dim() != 4 or q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"paged_flash_decode: q must be [B, Hkv, G, D] "
                          f"f32/bf16, got {tuple(q.shape)} {q.dtype}")

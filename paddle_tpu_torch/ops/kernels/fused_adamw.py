@@ -12,7 +12,10 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_adamw.py``
   device (``step_scalars``), as the TPU kernel reads its SMEM operand, so a
   launch captured in a CUDA graph takes each replay's values. An optional
   device scalar ``scale`` multiplies every gradient inside the kernel (the
-  global-norm clip's coefficient, times 1/n over an accumulated window).
+  global-norm clip's coefficient, times 1/n over an accumulated window,
+  times a GradScaler's 1/scale). An optional device flag ``skip`` (one
+  bool, the guarded step's found-inf) makes every block return without
+  writing, so a skipped step leaves p, m and v as they were, bit for bit.
 - ``adamw_update_plain`` / ``adamw_multi_update_plain`` — the same update
   in plain PyTorch, f32 throughout, written back in place, on host floats
   or on the device array alike: the optimizer's own math (``optimizer.Adam`` runs it for every leaf the
@@ -49,9 +52,9 @@ MIN_SIZE = 1 << 14  # the reference's floor: smaller leaves stay plain there
 MAX_LEAVES = 512
 CHUNK = 4096
 # leaves; ptrs, n, wd, first_chunk (host arrays); [lr, bc1, bc2] (device);
-# beta1, 1 - beta1, beta2, 1 - beta2, eps; decoupled; scale; stream
+# beta1, 1 - beta1, beta2, 1 - beta2, eps; decoupled; scale; skip; stream
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-    ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_float] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 
 
 def fused_adamw_supported(p, m, v):
@@ -78,12 +81,14 @@ def step_scalars(lr, bc1=None, bc2=None, device="cpu"):
 
 @torch.no_grad()
 def adamw_update_plain(p, m, v, g, lr, bc1, bc2, *, beta1, beta2, eps,
-                       weight_decay, decoupled):
+                       weight_decay, decoupled, skip=None):
     """One Adam (``decoupled=False``: L2 decay added to the gradient) or
     AdamW (decoupled decay) step in plain PyTorch, f32 math, written back
     into p, m and v in place (each keeps its dtype). lr, bc1 and bc2 are
     host floats or f32 scalar tensors on p's device (the same values give
-    the same bits either way). Returns (p, m, v)."""
+    the same bits either way). ``skip``: None or a bool scalar tensor;
+    where set, p, m and v keep their values (``torch.where``, as the
+    reference masks its kernel's result). Returns (p, m, v)."""
     g32 = g.float()
     p32 = p.float()
     if weight_decay and not decoupled:
@@ -93,7 +98,12 @@ def adamw_update_plain(p, m, v, g, lr, bc1, bc2, *, beta1, beta2, eps,
     step = lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
     if weight_decay and decoupled:
         step = step + lr * weight_decay * p32
-    p.copy_(p32 - step)
+    p_new = p32 - step
+    if skip is not None:
+        p_new = torch.where(skip, p32, p_new)
+        m32 = torch.where(skip, m.float(), m32)
+        v32 = torch.where(skip, v.float(), v32)
+    p.copy_(p_new)
     m.copy_(m32)
     v.copy_(v32)
     return p, m, v
@@ -102,12 +112,13 @@ def adamw_update_plain(p, m, v, g, lr, bc1, bc2, *, beta1, beta2, eps,
 @torch.no_grad()
 def adamw_multi_update_plain(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
                              weight_decays, beta1, beta2, eps, decoupled,
-                             scale=None):
+                             scale=None, skip=None):
     """``adamw_update_plain`` over a list of leaves, leaf by leaf, each
     with its own weight decay. lr, bc1, bc2: host floats, or ``lr`` the
     device array [lr, bc1, bc2] as the kernel takes it (bc1, bc2 None);
     ``scale`` (an f32 scalar tensor or None) multiplies every gradient
-    first, in f32, as the kernel does."""
+    first, in f32, as the kernel does; ``skip`` (a bool scalar tensor or
+    None) leaves every leaf as it was where set, as the kernel does."""
     if torch.is_tensor(lr):
         lr, bc1, bc2 = step_scalars(lr).unbind()
     for p, m, v, g, wd in zip(ps, ms, vs, gs, weight_decays):
@@ -115,7 +126,7 @@ def adamw_multi_update_plain(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
             g = g.float() * scale
         adamw_update_plain(p, m, v, g, lr, bc1, bc2, beta1=beta1,
                            beta2=beta2, eps=eps, weight_decay=wd,
-                           decoupled=decoupled)
+                           decoupled=decoupled, skip=skip)
 
 
 def multi_plan(sizes, max_leaves=MAX_LEAVES, chunk=CHUNK):
@@ -214,7 +225,7 @@ def _check_grads(table, gs, device):
 @torch.no_grad()
 def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
                              weight_decays, beta1, beta2, eps, decoupled,
-                             scale=None, table=None):
+                             scale=None, table=None, skip=None):
     """In-place one-pass update of every leaf of a list. ``lr``: the step's
     f32 array [lr, bc1, bc2] on the leaves' device, which the kernel reads
     (no host sync; what an optimizer passes), or this step's lr with bc1
@@ -225,7 +236,9 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
     the plain version leaf by leaf; CUDA tensors launch the kernel,
     ceil(len(ps) / MAX_LEAVES) times, or raise. ``table``: a ``LeafTable``
     of these p, m and v (the optimizer keeps one; built here when None).
-    Returns the table."""
+    ``skip``: None or a one-element bool tensor on the leaves' device (the
+    guarded step's found-inf), read by the kernel: where set, no block
+    writes. Returns the table."""
     if not ps:
         return table
     dev = ps[0].device
@@ -233,7 +246,7 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
     if dev.type == "cpu":
         adamw_multi_update_plain(ps, ms, vs, gs, lr, bc1, bc2,
                                  weight_decays=weight_decays, scale=scale,
-                                 **kw)
+                                 skip=skip, **kw)
         return table
     hyper = step_scalars(lr, bc1, bc2, dev)
     if dev.type != "cuda":
@@ -251,11 +264,16 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
                               or scale.numel() != 1 or scale.device != dev):
         raise ValueError(f"fused_adamw_multi_update: scale must be one "
                          f"float32 value on {dev}")
+    if skip is not None and (skip.dtype != torch.bool or skip.numel() != 1
+                             or skip.device != dev):
+        raise ValueError(f"fused_adamw_multi_update: skip must be one bool "
+                         f"on {dev}")
     if hyper.device != dev or not hyper.is_contiguous():
         raise ValueError(f"fused_adamw_multi_update: [lr, bc1, bc2] must "
                          f"be contiguous on {dev}")
     fn = _load()
     scale_ptr = None if scale is None else scale.data_ptr()
+    skip_ptr = None if skip is None else skip.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lt in table.launches:
@@ -264,7 +282,7 @@ def fused_adamw_multi_update(ps, ms, vs, gs, lr, bc1=None, bc2=None, *,
                      lt["n"].ctypes.data, lt["wd"].ctypes.data,
                      lt["first"].ctypes.data, hyper.data_ptr(), float(beta1),
                      1.0 - beta1, float(beta2), 1.0 - beta2, float(eps),
-                     int(bool(decoupled)), scale_ptr, stream)
+                     int(bool(decoupled)), scale_ptr, skip_ptr, stream)
             if err:
                 raise RuntimeError(f"fused_adamw_multi_update kernel launch "
                                    f"failed: CUDA error {err}")

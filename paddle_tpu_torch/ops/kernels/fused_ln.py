@@ -230,7 +230,10 @@ def _check(fn, rows, gamma, beta=None):
     first = rows[0][1]
     _on_cuda(fn, first)
     if first.dtype not in _DTYPES:
-        raise TypeError(f"{fn}: dtype {first.dtype} not in {_DTYPES}")
+        note = (" (the float16 kernels are still to port: ROADMAP.md queue "
+                "2)" if first.dtype == torch.float16 else "")
+        raise TypeError(f"{fn}: dtype {first.dtype} not in {_DTYPES}"
+                        f"{note}")
     if first.dim() != 2 or first.shape[0] < 1 or first.shape[1] < 1:
         raise ValueError(f"{fn}: rows must be a non-empty [N, H] tensor, got "
                          f"{tuple(first.shape)}")

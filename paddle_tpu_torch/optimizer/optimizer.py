@@ -51,6 +51,16 @@ cannot reproduce, so the tests feed it the reference's own bits.
 result to the parameter's dtype, and m and v are f32 unless
 ``moment_dtype`` says bf16. Not ported (NotImplementedError, see
 ROADMAP.md): parameter groups.
+
+The guarded step (``resilience.TrainGuard``) hands ``_clip_update`` a
+``skip`` flag, a bool scalar on the device that is true when the step's
+loss or a gradient was not finite: the update then leaves every parameter
+and slot as it was, bit for bit, with no host read. #10 reads the flag
+and its blocks write nothing; every plain path (Momentum, bf16 moments,
+master weights, AMSGrad, leaves the kernel does not take) selects old
+against new with ``torch.where``, as the reference's ``jnp.where``. The
+GradScaler's 1/scale rides in ``scale``, as 1/n of an accumulated window
+does, so no unscaled copy of a gradient is written.
 """
 from __future__ import annotations
 
@@ -87,6 +97,13 @@ def sround_bf16(x32, noise):
 def _scaled(g, scale):
     """g times the clip's coefficient ``scale`` (None: g), in g's dtype."""
     return g if scale is None else (g * scale).to(g.dtype)
+
+
+def _keep_if(skip, old, new):
+    """``new``, or ``old`` where the bool device flag ``skip`` is set (None:
+    ``new``): the masked update's select, which the caller copies into
+    ``old``."""
+    return new if skip is None else torch.where(skip, old, new)
 
 
 class Optimizer:
@@ -154,22 +171,32 @@ class Optimizer:
         """The dtype slot ``slot`` of parameter ``p`` is kept in."""
         return torch.float32
 
-    def update(self, names, params, grads, scalars, scale=None):
+    def init_state(self, names, params):
+        """Make every slot of these parameters that is not there yet (the
+        update makes them at its first call otherwise): a snapshot taken
+        before the first step then holds them too. An optimizer without
+        slots has none to make."""
+
+    def update(self, names, params, grads, scalars, scale=None, skip=None):
         """Update ``params`` in place from ``grads``, reading the step's
         scalars from the device array ``scalars`` (``fill_scalars``);
         ``scale`` (None or an f32 scalar tensor: the clip's coefficient,
-        times 1/n over an accumulated window) multiplies every gradient
-        first, as ``ClipGradBase.apply`` does."""
+        times 1/n over an accumulated window, times the GradScaler's
+        1/scale) multiplies every gradient first, as
+        ``ClipGradBase.apply`` does; ``skip`` (None or a bool scalar
+        tensor) leaves every parameter and slot as it was where set."""
         raise NotImplementedError
 
-    def _clip_update(self, names, params, grads, scale=None, norm=None):
+    def _clip_update(self, names, params, grads, scale=None, norm=None,
+                     skip=None):
         """Clip (if set) and update from the scalars already filled in:
         the part of a step that a CUDA graph can record. ``scale``: None
         or a device scalar every gradient is multiplied by before the clip
-        sees it (1/n of an accumulated window); ``norm``: the global norm
-        of the gradients the clip sees, when the caller has it (the
-        grad-norm telemetry). The clip gives its coefficient, and the
-        update scales the gradients by it."""
+        sees it (1/n of an accumulated window, a GradScaler's 1/scale);
+        ``norm``: the global norm of the gradients the clip sees, when the
+        caller has it (the grad-norm telemetry); ``skip``: None or the
+        guarded step's bool flag, which masks the update. The clip gives
+        its coefficient, and the update scales the gradients by it."""
         grads = list(grads)
         if isinstance(self._grad_clip, ClipGradBase) and grads:
             if norm is None and scale is not None:
@@ -178,7 +205,7 @@ class Optimizer:
             scale = coef if scale is None else coef * scale
         with torch.no_grad():
             self.update(list(names), list(params), grads,
-                        self._scalars, scale)
+                        self._scalars, scale, skip)
 
     def _apply(self, names, params, grads, lr, step):
         """Fill the scalars of step ``step`` at ``lr``, then clip and
@@ -258,8 +285,15 @@ class Momentum(Optimizer):
             self._state[name] = st
         return st["velocity"]
 
-    def update(self, names, params, grads, scalars, scale=None):
+    def init_state(self, names, params):
+        for n, p in zip(names, params):
+            self._velocity(n, p)
+
+    def update(self, names, params, grads, scalars, scale=None, skip=None):
         vel = [self._velocity(n, p) for n, p in zip(names, params)]
+        # the masked update's copies: the foreach calls below write in
+        # place
+        old = None if skip is None else [t.clone() for t in vel + params]
         g = [_scaled(t, scale).float() for t in grads]
         if self._weight_decay:
             g = torch._foreach_add(g, [p.float() for p in params],
@@ -270,6 +304,9 @@ class Momentum(Optimizer):
                if self._nesterov else vel)
         # lr is the device scalar: p -= lr * upd
         torch._foreach_sub_(params, torch._foreach_mul(upd, scalars[0]))
+        if old is not None:
+            for t, o in zip(vel + params, old):
+                t.copy_(torch.where(skip, o, t))
 
 
 class Adam(Optimizer):
@@ -324,6 +361,10 @@ class Adam(Optimizer):
             self._state[name] = st
         return st
 
+    def init_state(self, names, params):
+        for n, p in zip(names, params):
+            self._slots(n, p)
+
     def rounding_noise(self, names, params):
         """The rounding noise of this step: for each leaf, (noise of m,
         noise of v), int16 tensors of its shape whose bits are uniform.
@@ -353,7 +394,7 @@ class Adam(Optimizer):
         return (float(lr), 1.0 - self._beta1 ** step,
                 1.0 - self._beta2 ** step)
 
-    def update(self, names, params, grads, scalars, scale=None):
+    def update(self, names, params, grads, scalars, scale=None, skip=None):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         lr, bc1, bc2 = scalars.unbind()
         hyper = dict(beta1=b1, beta2=b2, eps=eps,
@@ -367,14 +408,15 @@ class Adam(Optimizer):
             if self._amsgrad or self._rounded or self._multi_precision:
                 # the reference's kernel takes none of these
                 self._general_update(p, st, _scaled(g, scale), lr, bc1,
-                                     bc2, wd, nm, nv)
+                                     bc2, wd, nm, nv, skip)
             elif self._fused_kernel and (p.dtype == st["m"].dtype
                                          == st["v"].dtype == torch.float32):
                 for lst, x in zip(fused, (p, st["m"], st["v"], g, wd)):
                     lst.append(x)
             else:
                 adamw_update_plain(p, st["m"], st["v"], _scaled(g, scale),
-                                   lr, bc1, bc2, weight_decay=wd, **hyper)
+                                   lr, bc1, bc2, weight_decay=wd,
+                                   skip=skip, **hyper)
         if fused[0]:
             ps, ms, vs, gs, wds = fused
             table = self._leaf_table
@@ -382,14 +424,15 @@ class Adam(Optimizer):
                 table = None
             self._leaf_table = fused_adamw_multi_update(
                 ps, ms, vs, gs, scalars, weight_decays=wds,
-                scale=scale, table=table, **hyper)
+                scale=scale, table=table, skip=skip, **hyper)
 
     def _general_update(self, p, st, g, lr, bc1, bc2, wd, noise_m=None,
-                        noise_v=None):
+                        noise_v=None, skip=None):
         """One leaf's update in plain PyTorch, the reference's jnp path:
         f32 math from the master (``multi_precision``) or p; m and v stored
         in their dtype, stochastically rounded with ``noise_m``/``noise_v``
-        when they are bf16; AMSGrad's vhat in f32."""
+        when they are bf16; AMSGrad's vhat in f32. Where ``skip`` is set,
+        every tensor keeps its old value."""
         b1, b2 = self._beta1, self._beta2
         g32 = g.float()
         p32 = st["master"] if "master" in st else p.float()
@@ -401,18 +444,18 @@ class Adam(Optimizer):
         if self._amsgrad:
             # vhat stays f32: the monotone max would ratchet rounding noise
             vh = torch.maximum(st["vhat"], v)
-            st["vhat"].copy_(vh)
+            st["vhat"].copy_(_keep_if(skip, st["vhat"], vh))
         step = lr * (m / bc1) / (torch.sqrt(vh / bc2) + self._epsilon)
         if wd and self._decoupled:
             step = step + lr * wd * p32
         p_new = p32 - step
         if "master" in st:
-            st["master"].copy_(p_new)
-        p.copy_(p_new)
+            st["master"].copy_(_keep_if(skip, st["master"], p_new))
+        p.copy_(_keep_if(skip, p, p_new))
         if noise_m is not None:
             m, v = sround_bf16(m, noise_m), sround_bf16(v, noise_v)
-        st["m"].copy_(m)
-        st["v"].copy_(v)
+        st["m"].copy_(_keep_if(skip, st["m"], m))
+        st["v"].copy_(_keep_if(skip, st["v"], v))
 
 
 class AdamW(Adam):

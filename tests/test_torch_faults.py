@@ -140,8 +140,10 @@ def test_optimizer_and_engine_name_their_items():
     net = torch.nn.Linear(2, 2)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         Engine(net, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.3"):
-        Engine(net, guard=object())
+    # item 1.3 (TrainGuard) is ported: an Engine takes a guard
+    from paddle_tpu_torch.resilience import TrainGuard
+    guard = TrainGuard()
+    assert Engine(net, guard=guard).guard is guard
 
 
 def test_dense_mask_refusals_name_their_item():

@@ -629,8 +629,10 @@ def test_summary_and_flops_lenet(capsys):
 
 def test_not_ported_parts_name_their_items(tmp_path):
     m = _tiny_model()
-    with pytest.raises(NotImplementedError, match="item 1.3"):
-        m.prepare(Adam(LR), pt.nn.CrossEntropyLoss(), guard=object())
+    # item 1.3 (TrainGuard) is ported: prepare takes a guard
+    guard = pt.resilience.TrainGuard()
+    m.prepare(Adam(LR), pt.nn.CrossEntropyLoss(), guard=guard)
+    assert m._engine.guard is guard
     with pytest.raises(NotImplementedError, match="item 8"):
         m.save(str(tmp_path / "x"), training=False)
     with pytest.raises(NotImplementedError, match="item 8"):

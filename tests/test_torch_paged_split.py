@@ -121,7 +121,7 @@ def test_cuda_branch_checks_raise(monkeypatch):
         ((_meta(2, 4, 1, 96), _meta(4, 9, 16, 96), _meta(4, 9, 16, 96), pt,
           lens), {}, ValueError, "head_dim"),
         ((_meta(2, 4, 1, 64, dtype=torch.float16), pool, pool, pt, lens), {},
-         ValueError, "f32/bf16"),
+         TypeError, "queue 2"),
         ((q, _meta(4, 9, 16, 64, dtype=torch.float16),
           _meta(4, 9, 16, 64, dtype=torch.float16), pt, lens), {}, TypeError,
          "pools"),

@@ -2,10 +2,10 @@
 
 Every name that both packages export from ``nn``, ``nn.functional``,
 ``vision.ops``, ``vision.models``, ``optimizer``, ``metric``, ``io``,
-``hapi``, ``nlp`` and ``incubate`` (each module's own names, and those in
-the ``__all__`` of its submodules that both packages have) takes the
-reference's parameters under the reference's names, the positional ones in
-the reference's order: a reference call binds each argument to the same
+``hapi``, ``nlp``, ``incubate``, ``amp`` and ``resilience`` (each
+module's own names, and those in the ``__all__`` of its submodules that
+both packages have) takes the reference's parameters under the
+reference's names, the positional ones in the reference's order: a reference call binds each argument to the same
 parameter in the port, or raises NotImplementedError naming its item. The
 port's own parameters come after them or are keyword-only. A port callable
 that takes only ``*args, **kwargs`` where the reference names parameters
@@ -25,7 +25,8 @@ import torch
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MODULES = ("nn", "nn.functional", "vision.ops", "vision.models",
-           "optimizer", "metric", "io", "hapi", "nlp", "incubate")
+           "optimizer", "metric", "io", "hapi", "nlp", "incubate", "amp",
+           "resilience")
 
 _SHARDING = ("one card: the port prefetches onto a torch device, and has "
              "no JAX sharding to place batches by")
