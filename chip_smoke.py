@@ -464,15 +464,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
 46. fp16-guard — #1/#3/#4 in float16 against their twins (GPT's
              training shape and D = 128 timed beside SDPA in float16,
              ragged and kv_lens cases, the keep mask, an overflow case
-             whose infs must sit in the twins' places); every other
-             kernel refusing float16; #10 with the guarded step's finite
-             flag; gpt3-345M float16 AMP through Model.fit under
-             TrainGuard and a GradScaler (14 captured steps, a nan_grads
-             storm over steps 6-8, one rollback in place, the scale
-             replayed on the host); eager against captured bit for bit;
-             the eager O2 API; a 2-layer step against the CPU holding
-             the loss, the unscaled gradients leaf by leaf and their
-             norm; runs after phase 37 (alone: --fp16-guard).
+             whose infs must sit in the twins' places); the float16
+             calls still to port (#2, #5, #1 at head_dim 32) refusing;
+             #10 with the guarded step's finite flag; gpt3-345M float16
+             AMP through Model.fit under TrainGuard and a GradScaler (14
+             captured steps, a nan_grads storm over steps 6-8, one
+             rollback in place, the scale replayed on the host);
+             gpt3-345M with fused_ln under the same guard, captured (24
+             float16 nodes each of #6 and #7 in its graph); eager against
+             captured bit for bit; the eager O2 API; a 2-layer step
+             against the CPU holding the loss, the unscaled gradients
+             leaf by leaf and their norm; runs after phase 37 (alone:
+             --fp16-guard).
+47. fp16-kernels — #6-#9 in float16 against their twins within 2
+             float16 ulps of max(1, |twin|) (ERNIE's 16384 x 768 and
+             GPT's 8192 x 1024 rows, ragged and wide widths, rows off a
+             16-byte boundary, gamma/beta float16 and f32; an overflow
+             case: x + r past 65504 stored as inf at the twin's places),
+             the float16 backward residing as bf16's plan counts on;
+             #11 in float16 at the 12 shapes of a ResNet-50 forward and
+             ragged ones within 2 float16 ulps of max(1, |twin|), and an
+             overflow case; each timed beside its bf16 instantiation and its
+             bound (alone: --fp16-kernels).
+48. fp16-ernie — ERNIE-3.0-base pretraining (fused_ln, batch 32 x 512,
+             AdamW fused) in float16 O1 under TrainGuard and a
+             GradScaler(65536, incr_every_n_steps=4), captured: 14 steps
+             with a nan_grads storm over steps 6-8 rolled back in place,
+             the outcomes and scale replayed on the host; the graph
+             holding 24 float16 nodes each of #8 and #9, 12 of each of
+             #1/#3/#4 and one #10; eager against captured (bit for bit
+             or the training-step bar: the embedding backward adds with
+             atomics); a 2-layer step against the CPU, each leaf's
+             unscaled gradient within 1e-2 relative L2 (alone:
+             --fp16-ernie).
+49. fp16-resnet — resnet50 (NHWC, fused_bottleneck, batch 256 x 224)
+             trained through Model.fit in float16 O1 with Momentum under
+             the same guard but rollback_after=4 (its first three steps
+             overflow at scales 65536-16384, RESNET_F16_GUARD), captured:
+             a 4-step storm rolled back in place,
+             17 float16 nodes of #11 in the graph and no other kernel of
+             the port, f32 running statistics that moved and stood
+             still on each skipped step; eager against captured; a step
+             of a cut ResNet (stem, layer1, layer2) at 16 x 64 x 64 on
+             the card against the CPU: the loss, the gradient norm, the
+             classifier's gradients and updates at 1e-2, the leaves
+             behind a ReLU, where a rounding flips one on one device,
+             at RESNET_CUT_LEAF_BAR and RESNET_CUT_RATIO_BAR (alone:
+             --fp16-resnet).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -481,7 +519,9 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               relative), measured near 1e-6, and so are the f32
               backward's at D = 32 and 64;
   float16 5e-3 — float16 rounds at 11 bits of mantissa: 5e-3 of
-              max(1, |twin|), a few ulps of a value in [1, 2);
+              max(1, |twin|), a few ulps of a value in [1, 2); the fused
+              LN kernels #6-#9 and #11 to 2 float16 ulps of max(1,
+              |twin|);
   bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
               the backward's grads, whose magnitudes pass 1, 2e-2 of
               max(1, |twin|), since one bf16 ulp of a value in [4, 8) is
@@ -509,7 +549,9 @@ forwards (phases 29 and 31), each detection Model.fit (phases 33 and
 35), each captured Engine's steps in phase 37 (a replay launches the
 recorded kernels from the graph, past the wrappers: its counts are the
 Engine's eager first step and its recording), each zoo forward (phase
-38, none) and MobileNetV2's Model.fit (phase 39). Phases 7-27 and 33 run
+38, none), MobileNetV2's Model.fit (phase 39), and the float16 runs of
+phases 46, 48 and 49 (each its eager first step and its recording; the
+graph's float16 nodes are counted beside). Phases 7-27 and 33 run
 their Engines eagerly (capture=False), as before phase 37 existed;
 PP-YOLOE-l's Model.fit (phase 35) records its step, the Engine's default.
 
@@ -538,6 +580,9 @@ llama-train, "launches_recorded" a replay's),
 and again on phase 37's captured paths (a "path" key "train-graph ...",
 its "launches" the captured Engine's counts, "launches_recorded" a
 replay's) and #10 on zoo-train's captured Model.fit of MobileNetV2,
+#6-#9 and #11 in float16 on the fp16-guard, fp16-ernie and fp16-resnet
+runs ("dtype" float16, the bf16 instantiation's time in "bf16_ms"),
+every row with its kernel's float16 status ("float16"),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is present or when the package is not beside
@@ -582,9 +627,13 @@ ceiling the f32 kernel is read against.
     python3 chip_smoke.py --zoo-serve
     python3 chip_smoke.py --zoo-train
     python3 chip_smoke.py --vision-ops
+    python3 chip_smoke.py --fp16-guard
+    python3 chip_smoke.py --fp16-kernels
+    python3 chip_smoke.py --fp16-ernie
+    python3 chip_smoke.py --fp16-resnet
 
-phase 37, 38, 39 or 40 alone (every kernel built first), its results as
-one JSON line.
+phase 37, 38, 39, 40, 46, 47, 48 or 49 alone (every kernel built first),
+its results as one JSON line.
 
     python3 chip_smoke.py --compare-steps TREE...
 
@@ -638,6 +687,10 @@ F32_BWD_F64_TOL = {("detr-encoder", 0.0): 1.240e-6,
                    ("detr-encoder", 0.1): 9.785e-7,
                    ("gpt-f32", 0.0): 3.428e-6}
 ADAMW_TOL = 1e-6
+# #6-#9 and #11 in float16 against their twins: within this many float16
+# ulps of max(1, |twin|) (the rounding of the same f32 value computed in
+# another order, and once more where a sum is stored and read back)
+F16_ULPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1572,6 +1625,21 @@ def _err(a, b):
     diff = (a.float() - b.float()).abs()
     return (diff.max().item(),
             (diff / b.float().abs().clamp_min(1.0)).max().item())
+
+
+def f16_ulps(a, b):
+    """The largest |a - b| in float16 ulps of max(1, |b|) over b's finite
+    places (inf where a and b are not non-finite at the same places)."""
+    af, bf = a.float(), b.float()
+    fin = bf.isfinite()
+    if not (bool((af.isfinite() == fin).all())
+            and bool((af.isposinf() == bf.isposinf()).all())):
+        return math.inf
+    if not bool(fin.any()):
+        return 0.0
+    # float16's ulp at max(1, |b|): 2^(e - 10) for e = floor(log2)
+    ulp = (bf[fin].abs().clamp_min(1.0).log2().floor() - 10).exp2()
+    return ((af[fin] - bf[fin]).abs() / ulp).max().item()
 
 
 def _check_grad(name, dtype, a, b, where):
@@ -2972,9 +3040,13 @@ def _ln_case(torch, n, h, dtype, w_dtype, eps, gen, offset=False):
                              ("bwd", "dx", dx, t7[0]),
                              ("y_fwd", "y", y8, t8[0]),
                              ("y_bwd", "dx", dx9, t9[0])):
-        # f32 absolute, bf16 of max(1, |twin|)
+        # f32 absolute, bf16 of max(1, |twin|), float16 in ulps
         err, scaled = _err(a, p)
         ok = (err if dtype == "float32" else scaled) <= TOL[dtype]
+        if dtype == "float16":
+            ulps = f16_ulps(a, p)
+            ok = ulps <= F16_ULPS
+            errs[f"{kern}_{name}_ulps"] = ulps
         check(math.isfinite(err) and ok and a.dtype == p.dtype,
               f"fused-ln {where}: {kern} {name} max_abs_err {err} over the "
               f"{dtype} bar")
@@ -3045,12 +3117,13 @@ def _ln_library(torch, x, r, dy, g, b, h, flush):
     return out
 
 
-def _ln_timing(torch, n, h, gen, flush):
-    """ms of the four kernels and their twins at one slice shape (bf16 rows
-    and parameters, as the Engine's AMP gives them), the bound of each,
-    and PyTorch's calls beside them (_ln_library)."""
+def _ln_timing(torch, n, h, gen, flush, dtype="bfloat16"):
+    """ms of the four kernels and their twins at one slice shape (rows and
+    parameters in ``dtype``, bf16 or float16, as the Engine's AMP gives
+    them), the bound of each (the same bytes in either), and PyTorch's
+    calls beside them (_ln_library)."""
     from paddle_tpu_torch.ops.kernels import fused_ln as kln
-    bf = torch.bfloat16
+    bf = getattr(torch, dtype)
     x, r, dy, ds = (torch.randn(n, h, generator=gen, device="cuda").to(bf)
                     for _ in range(4))
     g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(bf)
@@ -3838,7 +3911,7 @@ def _ernie_batch(vocab, b, s, device):
 
 
 def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0,
-                  capture=False):
+                  capture=False, guard=None):
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.nlp.ernie import (ErnieForPretraining,
@@ -3849,7 +3922,8 @@ def _ernie_engine(torch, cfg, device, amp=None, weight_seed=0,
     eng = Engine(model, loss=ErniePretrainingCriterion(),
                  optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
                                  fused_kernel=True), amp_dtype=amp,
-                 **({} if capture is None else dict(capture=capture)))
+                 **({} if capture is None else dict(capture=capture)),
+                 **({} if guard is None else dict(guard=guard)))
     return model, eng
 
 
@@ -4993,11 +5067,18 @@ def _conv_case(torch, m, cin, cout, res, relu, dtype, gen, flush, timed,
     scaled = (diff / ref.float().abs().clamp_min(1.0)).max().item()
     check(out.dtype == dt and out.shape == (m, cout),
           f"conv-bn-act: output {out.dtype} {tuple(out.shape)}")
-    check(math.isfinite(scaled) and scaled <= TOL[dtype],
-          f"conv-bn-act {dtype} m{m} {cin}->{cout} res={res} relu={relu}: "
-          f"error {scaled} of max(1, |twin|) > {TOL[dtype]}")
     row = dict(dtype=dtype, m=m, cin=cin, cout=cout, res=res, relu=relu,
                offset=offset, max_abs_err=err, scaled_err=scaled)
+    if dtype == "float16":
+        row["ulps"] = f16_ulps(out, ref)
+        check(row["ulps"] <= F16_ULPS, f"conv-bn-act float16 m{m} "
+              f"{cin}->{cout} res={res} relu={relu}: {row['ulps']} float16 "
+              f"ulps of max(1, |twin|) > {F16_ULPS}")
+    else:
+        check(math.isfinite(scaled) and scaled <= TOL[dtype],
+              f"conv-bn-act {dtype} m{m} {cin}->{cout} res={res} "
+              f"relu={relu}: error {scaled} of max(1, |twin|) > "
+              f"{TOL[dtype]}")
     del ref, diff
     if dtype == "float32":
         exact = _conv_exact(x2, w, scale, shift, r2, relu)
@@ -5032,13 +5113,14 @@ def conv_bound(m, cin, cout, res, dtype):
     once, y written once; the product's 2 M Cin Cout FLOPs at the bf16
     tensor-core peak, or in f32 at the f32 bar as fwd_bound reckons it
     (3xTF32: three TF32 products at the TF32 peak), with the CUDA cores'
-    f32 bound beside it (``cuda_core_bound_ms``)."""
-    esz = 2 if dtype == "bfloat16" else 4
+    f32 bound beside it (``cuda_core_bound_ms``). float16 moves bf16's
+    bytes at bf16's dense tensor-core peak."""
+    esz = 4 if dtype == "float32" else 2
     bytes_moved = ((m * cin + cin * cout + m * cout * (2 if res else 1))
                    * esz + 2 * cout * 4)
     flops = 2 * m * cin * cout
     out = dict(bound_bytes_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
-    if dtype == "bfloat16":
+    if dtype != "float32":
         out["bound_ops_ms"] = flops / BF16_FLOPS * 1e3
         out["bound_ms"], out["bound_by"] = bound(bytes_moved, flops,
                                                  BF16_FLOPS)
@@ -5357,21 +5439,23 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 
 
 def _resnet_train_engine(torch, device, fused=True, s2d=False, amp=None,
-                         weight_seed=0, capture=False):
+                         weight_seed=0, capture=False, guard=None,
+                         model=None):
     """bench.py's build_resnet_engine on the port: resnet50(num_classes=
-    1000, NHWC, fused_bottleneck, s2d_stem).train(), Momentum(0.1, 0.9),
-    Engine(model, CrossEntropyLoss(), opt, amp_dtype), eager unless
-    ``capture``."""
+    1000, NHWC, fused_bottleneck, s2d_stem).train() (or ``model``),
+    Momentum(0.1, 0.9), Engine(model, CrossEntropyLoss(), opt, amp_dtype,
+    guard), eager unless ``capture``."""
     from paddle_tpu_torch import nn, seed
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
-    model = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=fused,
-                     s2d_stem=s2d, device=device,
-                     generator=seed(weight_seed, device=device)).train()
+    if model is None:
+        model = resnet50(num_classes=1000, layout="NHWC",
+                         fused_bottleneck=fused, s2d_stem=s2d, device=device,
+                         generator=seed(weight_seed, device=device)).train()
     opt = Momentum(0.1, momentum=0.9, parameters=model.named_parameters())
     return model, Engine(model, nn.CrossEntropyLoss(), opt, amp_dtype=amp,
-                         capture=capture)
+                         guard=guard, capture=capture)
 
 
 def _resnet_train_batch(torch, b, hw, device="cuda", seed=0):
@@ -8267,6 +8351,19 @@ FP16_STEPS = 14
 FP16_STORM = (6, 3)
 FP16_GUARD = dict(snapshot_every=4, ring_size=1, rollback_after=3)
 FP16_SCALER = dict(init_loss_scaling=65536.0, incr_every_n_steps=4)
+# resnet50's guard and storm (phase fp16-resnet): at its seeded init the
+# stem's unscaled weight gradient reaches 4.3-4.5 (bf16 and f32 steps on
+# the card), past 65504 / 16384, so float16 steps at scales 65536, 32768
+# and 16384 all overflow; with rollback_after 3 the third skip rolls back
+# to the first snapshot, taken at 65536, and no step is ever applied. Four
+# lets the scaler reach 8192; the storm is four steps, so it rolls back
+RESNET_F16_GUARD = dict(FP16_GUARD, rollback_after=4)
+RESNET_F16_STORM = (9, 4)
+# the bars of fp16-resnet's cut check for the leaves behind a ReLU or the
+# max-pool, whose float16 gradients differ where a rounding flips a ReLU or
+# a pool's winner (see _fp16_resnet_cpu)
+RESNET_CUT_LEAF_BAR = 0.3
+RESNET_CUT_RATIO_BAR = 0.1
 # the f16 flash kernels' graph-node names carry their template argument
 F16_MANGLED = "6__half"
 
@@ -8326,13 +8423,12 @@ def _f16_overflow_case(torch, gen):
 
 
 def _f16_refusals(torch, gen):
-    """Every float16 call outside #1/#3/#4 raises TypeError naming
-    ROADMAP.md queue 2 on the card, and #1 at head_dim 32 ValueError naming
-    it: no kernel launches and no plain twin runs in its place."""
+    """The float16 calls still to port raise on the card naming ROADMAP.md
+    queue 2: #2 and #5 (TypeError) and #1 at head_dim 32 (ValueError). No
+    kernel launches and no plain twin runs in their place.
+    -> {wrapper: ["raises <error>[ at ...]"]}."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
-    from paddle_tpu_torch.ops.kernels import fused_ln as kln
     kpd = _paged_module()
     h, dev = torch.float16, "cuda"
     q = torch.zeros(2, 1, 4, 64, dtype=h, device=dev)
@@ -8340,49 +8436,40 @@ def _f16_refusals(torch, gen):
     lens = torch.full((2,), 8, dtype=torch.int32, device=dev)
     pq, kp, vp, pt, plens, _, _ = _decode_inputs(
         torch, 2, 2, 1, 64, 16, 4, "float32", [20, 5], gen)
-    x = torch.zeros(8, 256, dtype=h, device=dev)
-    g32 = torch.ones(256, device=dev)
-    mu = torch.zeros(8, device=dev)
-    w = torch.zeros(256, 128, dtype=h, device=dev)
-    sc = torch.ones(128, device=dev)
     q32 = torch.zeros(4, 64, 32, dtype=h, device=dev)
     calls = (
-        ("#2 flash_decode", TypeError,
+        ("#2", "flash_decode", "", TypeError,
          lambda: kfa.flash_decode(q, cache, cache, lens)),
-        ("#5 paged_flash_decode", TypeError,
+        ("#5", "paged_flash_decode", "", TypeError,
          lambda: kpd.paged_flash_decode(pq.half(), kp.half(), vp.half(), pt,
                                         plens)),
-        ("#6 fused_add_layer_norm_fwd", TypeError,
-         lambda: kln.fused_add_layer_norm_fwd(x, x, g32, g32)),
-        ("#7 fused_add_layer_norm_bwd", TypeError,
-         lambda: kln.fused_add_layer_norm_bwd(x, x, x, mu, mu, g32)),
-        ("#8 fused_add_layer_norm_y_fwd", TypeError,
-         lambda: kln.fused_add_layer_norm_y_fwd(x, x, g32, g32)),
-        ("#9 fused_add_layer_norm_y_bwd", TypeError,
-         lambda: kln.fused_add_layer_norm_y_bwd(x, x, x, mu, mu, g32)),
-        ("#11 fused_conv1x1_bn_act", TypeError,
-         lambda: kcb.fused_conv1x1_bn_act(x, w, sc, sc)),
-        ("#1 flash_attention_fwd at head_dim 32", ValueError,
+        ("#1", "flash_attention_fwd", " at head_dim 32", ValueError,
          lambda: kfa.flash_attention_fwd(q32, q32, q32)),
     )
+    refused = {}
     before = {fn.__name__: fn.launches for fn in WRAPPERS}
     with _TwinWatch() as tw:
-        for name, err, call in calls:
+        for num, name, where, err, call in calls:
             try:
                 call()
             except err as e:
-                check("ROADMAP.md queue 2" in str(e), f"fp16-guard: {name} "
-                      f"refused float16 without naming queue 2: {e}")
+                check("ROADMAP.md queue 2" in str(e), f"fp16-guard: {num} "
+                      f"{name}{where} refused float16 without naming queue "
+                      f"2: {e}")
+                refused.setdefault(name, []).append(
+                    f"raises {type(e).__name__}{where}")
             else:
-                check(False, f"fp16-guard: {name} took float16 on the card")
+                check(False, f"fp16-guard: {num} {name}{where} took float16 "
+                      "on the card")
     torch.cuda.synchronize()
     after = {fn.__name__: fn.launches for fn in WRAPPERS}
     check(after == before and not tw.calls, f"fp16-guard: a refused float16 "
           f"call launched {after} (before {before}) or ran a twin "
           f"{tw.calls}")
     log(f"fp16-guard: float16 refused on the card by {len(calls)} calls "
-        "(#2, #5, #6-#9, #11: TypeError; #1 at head_dim 32: ValueError), "
-        "each naming ROADMAP.md queue 2; no launch, no twin ran")
+        "(#2, #5: TypeError; #1 at head_dim 32: ValueError), each naming "
+        "ROADMAP.md queue 2; no launch, no twin ran")
+    return refused
 
 
 def _adamw_guarded_case(torch, shapes, gen, flush):
@@ -8475,23 +8562,29 @@ def _adamw_guarded_case(torch, shapes, gen, flush):
     return row
 
 
-def _lm_dataset(cfg, n, b, s, seed):
-    """A Dataset of ``n`` (ids, labels) int64 samples of ``s`` tokens,
-    sample i the (i mod b)-th of ``b`` drawn: every batch of ``b`` in
-    order is the same batch, so that a few steps' losses fall."""
-    import numpy as np
+def _repeated_set(n, *columns):
+    """A Dataset of ``n`` samples, sample i the (i mod b)-th row of each of
+    ``columns`` (b rows each): every batch of b in order is the same
+    batch, so that a few steps' losses fall."""
     from paddle_tpu_torch.io import Dataset
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(0, cfg.vocab_size, (b, s))
-    labels = rng.integers(0, cfg.vocab_size, (b, s))
+    b = len(columns[0])
 
     class _Set(Dataset):
         def __len__(self):
             return n
 
         def __getitem__(self, i):
-            return ids[i % b], labels[i % b]
+            return tuple(c[i % b] for c in columns)
     return _Set()
+
+
+def _lm_dataset(cfg, n, b, s, seed):
+    """_repeated_set of ``n`` (ids, labels) int64 samples of ``s`` tokens,
+    ``b`` of them drawn."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    return _repeated_set(n, ids, rng.integers(0, cfg.vocab_size, (b, s)))
 
 
 def _fp16_gpt(torch, device, weight_seed=0, **ovr):
@@ -8549,6 +8642,7 @@ class _GuardProbe:
         from paddle_tpu_torch.hapi.callbacks import Callback
         probe = self
         self.torch, self.eng, self.watch = torch, eng, watch
+        self.start = [p.detach().clone() for p in watch]
         self.rows, self.ends, self.ptrs = [], [], None
         self.graph_id = None
 
@@ -8584,6 +8678,112 @@ class _GuardProbe:
         self.rows.append(row)
 
 
+def _timed_guard(torch, guard):
+    """The guard's snapshot and rollback timed (synchronized) where the
+    Engine calls them: {"snapshot"|"rollback": [(ms, engine step)]}."""
+    times = {"snapshot": [], "rollback": []}
+    for name in times:
+        orig = getattr(guard, name)
+
+        def timed(engine, _orig=orig, _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _orig(engine)
+            torch.cuda.synchronize()
+            times[_name].append(((time.perf_counter() - t) * 1e3,
+                                 engine._step))
+            return out
+        setattr(guard, name, timed)
+    return times
+
+
+def _check_guarded(tag, probe, guard, times, guard_kw=None, storm=None,
+                   overflow_after_rollback=False):
+    """A guarded run of FP16_STEPS steps with nan_grads over ``storm``
+    (FP16_STORM: first step, count) under ``guard_kw`` (FP16_GUARD) and
+    FP16_SCALER, read by a _GuardProbe: every storm step skipped, each
+    step's (outcome, scale, good, bad) equal to GradScaler's rules and
+    the guard's ring replayed on the host over the read flags, one
+    rollback, to the snapshot before it bit for bit in the same tensors,
+    a skipped step leaving the watched tensors unchanged, the step right
+    after the rollback good and moving them (with
+    ``overflow_after_rollback``, where natural overflows may follow the
+    restored scale: the first good step after it), one graph recorded,
+    the good steps' losses finite and falling.
+    -> {natural, r_step, snap_step, outcomes}."""
+    steps = FP16_STEPS
+    guard_kw = guard_kw or FP16_GUARD
+    storm_at, storm_n = storm or FP16_STORM
+    rows = probe.rows
+    check(len(rows) == steps, f"{tag}: {len(rows)} steps ran, want {steps}")
+    outcomes = [r["outcome"] for r in rows]
+    for r in rows:
+        log(f"{tag}: step {r['step']}: {r['outcome']}, loss "
+            f"{r['loss']:.4f}, scale {r['scale']:g} (good {r['good']}, bad "
+            f"{r['bad']}), opt_step {r['opt_step']}")
+    storm_steps = set(range(storm_at, storm_at + storm_n))
+    natural = [r for r in rows if r["outcome"] != "ok"
+               and r["step"] not in storm_steps]
+    init = FP16_SCALER["init_loss_scaling"]
+    for r in natural:
+        log(f"{tag}: step {r['step']} overflowed naturally (the flag was "
+            f"set with no fault injected) at loss scale "
+            f"{rows[r['step'] - 2]['scale'] if r['step'] > 1 else init:g}")
+    check(all(r["outcome"] != "ok" for r in rows
+              if r["step"] in storm_steps),
+          f"{tag}: a storm step was applied: {outcomes}")
+    replay = _guard_replay(outcomes, init, FP16_SCALER["incr_every_n_steps"],
+                           guard_kw["snapshot_every"],
+                           guard_kw["rollback_after"])
+    got = [(r["outcome"], r["scale"], r["good"], r["bad"]) for r in rows]
+    check(got == replay, f"{tag}: (outcome, scale, good, bad) a step {got} "
+          f"against GradScaler's rules replayed on the host over the read "
+          f"flags {replay}")
+    rolled = [r["step"] for r in rows if r["outcome"] == "rolled_back"]
+    check(guard.rollbacks == 1 and len(rolled) == 1,
+          f"{tag}: {guard.rollbacks} rollbacks at steps {rolled}, want 1")
+    check(guard.skipped_steps == len(storm_steps) + len(natural),
+          f"{tag}: skipped_steps {guard.skipped_steps}, want "
+          f"{len(storm_steps)} + {len(natural)} natural")
+    r_step = rolled[0]
+    snaps = [st for _, st in times["snapshot"]]
+    snap_step = max(st for st in snaps if st < r_step)
+    by_step = {r["step"]: r for r in rows}
+    by_step[0] = {"leaves": probe.start}  # before the first step
+    leaves_eq = lambda a, b: all(  # noqa: E731
+        torch_equal(x, y) for x, y in zip(a["leaves"], b["leaves"]))
+    for r in rows:
+        if r["outcome"] == "skipped":
+            check(leaves_eq(r, by_step[r["step"] - 1]),
+                  f"{tag}: skipped step {r['step']} changed the watched "
+                  "tensors")
+    rb = by_step[r_step]
+    check(rb.get("equals_snapshot") is True and leaves_eq(
+        rb, by_step[snap_step]), f"{tag}: after the rollback at step "
+        f"{r_step} the state is not step {snap_step}'s snapshot bit for bit")
+    if overflow_after_rollback:
+        after = next((r for r in rows if r["step"] > r_step
+                      and r["outcome"] == "ok"), None)
+    else:
+        after = by_step.get(r_step + 1)
+    check(after is not None and after["outcome"] == "ok"
+          and not leaves_eq(after, rb),
+          f"{tag}: the good step after the rollback at step {r_step} "
+          + ("" if overflow_after_rollback else f"(step {r_step + 1}) ")
+          + "did not update the restored state")
+    check(all(r["same_ptrs"] for r in rows), f"{tag}: a parameter's, a "
+          "buffer's, a slot's or the scaler's data_ptr changed over the run")
+    check(all(r.get("same_graph", True) for r in rows)
+          and rows[-1]["recordings"] == 1 and probe.graph_id is not None,
+          f"{tag}: not exactly one graph recorded over the run (a rollback "
+          "must not record again)")
+    good = [r["loss"] for r in rows if r["outcome"] == "ok"]
+    check(all(math.isfinite(x) for x in good) and good[-1] < good[0],
+          f"{tag}: the good steps' losses {good}")
+    return dict(natural=natural, r_step=r_step, snap_step=snap_step,
+                outcomes=outcomes)
+
+
 def _fp16_main_run(torch, gen):
     """gpt3-345M through Model.fit under the guard; see FP16_*."""
     from paddle_tpu_torch import Model
@@ -8614,19 +8814,7 @@ def _fp16_main_run(torch, gen):
     named = list(model.named_parameters())
     watch = [named[i][1] for i in (0, len(named) // 2, len(named) - 1)]
     probe = _GuardProbe(torch, eng, watch)
-    times = {"snapshot": [], "rollback": []}
-    for name in times:
-        orig = getattr(guard, name)
-
-        def timed(engine, _orig=orig, _name=name):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = _orig(engine)
-            torch.cuda.synchronize()
-            times[_name].append(((time.perf_counter() - t) * 1e3,
-                                 engine._step))
-            return out
-        setattr(guard, name, timed)
+    times = _timed_guard(torch, guard)
     for w in WRAPPERS:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -8638,66 +8826,9 @@ def _fp16_main_run(torch, gen):
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in WRAPPERS}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    rows = probe.rows
-    check(len(rows) == FP16_STEPS, f"fp16-guard: fit ran {len(rows)} steps")
-    outcomes = [r["outcome"] for r in rows]
-    for r in rows:
-        log(f"fp16-guard: step {r['step']}: {r['outcome']}, loss "
-            f"{r['loss']:.4f}, scale {r['scale']:g} (good {r['good']}, bad "
-            f"{r['bad']}), opt_step {r['opt_step']}")
-    storm = set(range(FP16_STORM[0], sum(FP16_STORM)))
-    natural = [r for r in rows if r["outcome"] != "ok"
-               and r["step"] not in storm]
-    for r in natural:
-        log(f"fp16-guard: step {r['step']} overflowed naturally (the flag "
-            f"was set with no fault injected) at loss scale "
-            f"{rows[r['step'] - 2]['scale'] if r['step'] > 1 else 65536.0:g}")
-    check(all(r["outcome"] != "ok" for r in rows if r["step"] in storm),
-          f"fp16-guard: a storm step was applied: {outcomes}")
-    replay = _guard_replay(outcomes, FP16_SCALER["init_loss_scaling"],
-                           FP16_SCALER["incr_every_n_steps"],
-                           FP16_GUARD["snapshot_every"],
-                           FP16_GUARD["rollback_after"])
-    got = [(r["outcome"], r["scale"], r["good"], r["bad"]) for r in rows]
-    check(got == replay, f"fp16-guard: (outcome, scale, good, bad) a step "
-          f"{got} against GradScaler's rules replayed on the host over the "
-          f"read flags {replay}")
-    rolled = [r["step"] for r in rows if r["outcome"] == "rolled_back"]
-    check(guard.rollbacks == 1 and len(rolled) == 1,
-          f"fp16-guard: {guard.rollbacks} rollbacks at steps {rolled}, "
-          "want 1")
-    check(guard.skipped_steps == len(storm) + len(natural),
-          f"fp16-guard: skipped_steps {guard.skipped_steps}, want "
-          f"{len(storm)} + {len(natural)} natural")
-    r_step = rolled[0]
-    snaps = [st for _, st in times["snapshot"]]
-    snap_step = max(st for st in snaps if st < r_step)
-    by_step = {r["step"]: r for r in rows}
-    leaves_eq = lambda a, b: all(  # noqa: E731
-        torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"]))
-    for r in rows:
-        if r["outcome"] == "skipped":
-            check(leaves_eq(r, by_step[r["step"] - 1]),
-                  f"fp16-guard: skipped step {r['step']} changed the "
-                  "parameters")
-    rb = by_step[r_step]
-    check(rb.get("equals_snapshot") is True and leaves_eq(
-        rb, by_step[snap_step]), f"fp16-guard: after the rollback at step "
-        f"{r_step} the state is not step {snap_step}'s snapshot bit for bit")
-    after = by_step.get(r_step + 1)
-    check(after is not None and after["outcome"] == "ok"
-          and not leaves_eq(after, rb),
-          f"fp16-guard: step {r_step + 1} did not update the restored "
-          "parameters")
-    check(all(r["same_ptrs"] for r in rows), "fp16-guard: a parameter's, a "
-          "slot's or the scaler's data_ptr changed over the run")
-    check(all(r.get("same_graph", True) for r in rows)
-          and rows[-1]["recordings"] == 1 and probe.graph_id is not None,
-          "fp16-guard: not exactly one graph recorded over the run (a "
-          "rollback must not record again)")
-    good = [r["loss"] for r in rows if r["outcome"] == "ok"]
-    check(all(math.isfinite(x) for x in good) and good[-1] < good[0],
-          f"fp16-guard: the good steps' losses {good}")
+    g = _check_guarded("fp16-guard", probe, guard, times)
+    rows, natural = probe.rows, g["natural"]
+    r_step, snap_step, outcomes = g["r_step"], g["snap_step"], g["outcomes"]
     # #1/#3/#4 in float16 a layer and #10 once in the recorded step's graph
     rec = next((r for k, r in eng._recorded.items()
                 if k[0][0] == "guarded"), None)
@@ -8872,125 +9003,43 @@ def _fp16_eager_o2(torch):
 def _fp16_cpu_check(torch):
     """A 2-layer gpt3-345M (hidden 1024, 16 heads) step at 1 x 128, float16
     under the guard, on the card and on the CPU from the same weights and
-    batch; then a step with nan_grads on the card. What the update is made
-    of is held: each leaf's unscaled gradient (what the optimizer receives
-    times the GradScaler's 1/scale, read from the first, eager, step) in
-    relative L2, and the gradient-norm telemetry, both at the float16 bar
-    of 1e-2. The key projection's bias is held apart: its gradient is zero
-    in exact arithmetic (it shifts each query's scores by the same q.b,
-    which softmax cancels), so on each device its norm must stay under
-    1e-2 of the query projection's bias's. Besides: the loss 1e-3
-    relative; each parameter within 1e-3 of max(1, |cpu|) after the step
-    (Adam's first step moves an element by about lr whatever its gradient,
-    so this bar only catches a gross fault); the skipped step leaves the
-    card's parameters unchanged and halves the scale. The vocabulary is cut
-    to 4096: the host's float16 matrix products run at ~1 GFLOP/s
-    (PyTorch's CPU fallback where the CPU has no float16 instructions: one
-    [128 x 1024] x [1024 x 50304] product took 9.2 s, a 2-layer step with
-    the full vocabulary 71 s), and the LM head is the largest of them."""
-    from paddle_tpu_torch.amp import GradScaler
+    batch (_fp16_cross_device); the key projection's bias, whose gradient
+    is zero in exact arithmetic (it shifts each query's scores by the same
+    q.b, which softmax cancels), held to 1e-2 of the query projection's
+    bias's on each device. The vocabulary is cut to 4096: the host's
+    float16 matrix products run at ~1 GFLOP/s (PyTorch's CPU fallback
+    where the CPU has no float16 instructions: one [128 x 1024] x [1024 x
+    50304] product took 9.2 s, a 2-layer step with the full vocabulary 71
+    s), and the LM head is the largest of them."""
     from paddle_tpu_torch.hapi import Engine
     from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.resilience import TrainGuard, faults
-    lr = 1e-4
     cut = dict(num_hidden_layers=2, vocab_size=4096)
-    cpu, cfg = _fp16_gpt(torch, "cpu", **cut)
-    cuda, _ = _fp16_gpt(torch, "cuda", **cut)
-    with torch.no_grad():
-        for a, b in zip(cuda.parameters(), cpu.parameters()):
-            a.copy_(b)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev], cfg = _fp16_gpt(torch, dev, **cut)
     ids, labels = _batch(cfg, 1, 128, "cpu")
-    engs = {dev: Engine(model, loss=GPTPretrainingCriterion(),
-                        optimizer=AdamW(lr, weight_decay=0.01,
-                                        fused_kernel=True),
-                        amp_dtype=torch.float16,
-                        guard=TrainGuard(snapshot_every=1, scaler=GradScaler(
-                            init_loss_scaling=1024.0, incr_every_n_steps=2)))
-            for dev, model in (("cpu", cpu), ("cuda", cuda))}
-    grads = {}
-    t_cpu = time.perf_counter()
-    losses = {}
-    for dev, e in engs.items():
-        e.enable_grad_norm()
-        opt = e.optimizer
-        inner = opt._clip_update
 
-        def spy(names, params, gs, scale=None, norm=None, skip=None,
-                dev=dev, inner=inner):
-            grads[dev] = {n: (g.float() * scale).cpu()
-                          for n, g in zip(names, gs)}
-            return inner(names, params, gs, scale=scale, norm=norm,
-                         skip=skip)
-        opt._clip_update = spy
-        try:
-            losses[dev] = float(e.train_batch([ids], [labels])[0])
-        finally:
-            del opt._clip_update
-    t_cpu = time.perf_counter() - t_cpu
-    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    check(rel <= 1e-3, f"fp16-guard: cpu check: loss {losses} ({rel})")
-    norms = {d: float(e.last_grad_norm) for d, e in engs.items()}
-    norm_rel = abs(norms["cuda"] - norms["cpu"]) / norms["cpu"]
-    check(norm_rel <= 1e-2, f"fp16-guard: cpu check: the unscaled "
-          f"gradients' norms {norms} ({norm_rel})")
-    check(set(grads["cuda"]) == set(grads["cpu"]) == {
-        n for n, _ in cpu.named_parameters()},
-        "fp16-guard: cpu check: the optimizer did not see every leaf")
-    grad_l2, zero_ratio = {}, {}
-    for n, want in grads["cpu"].items():
-        got = grads["cuda"][n]
-        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
-              f"fp16-guard: cpu check: {n}'s gradient is not finite")
-        if n.endswith("attn.k_proj.bias"):
-            q = n.replace("k_proj", "q_proj")
-            for dev in grads:
-                r = (grads[dev][n].norm() / grads[dev][q].norm()).item()
-                zero_ratio[f"{dev} {n}"] = r
-                check(r <= 1e-2, f"fp16-guard: cpu check: {dev} {n}'s "
-                      f"gradient is {r} of {q}'s, not rounding noise")
-            continue
-        grad_l2[n] = ((got - want).norm() / want.norm()).item()
-        check(grad_l2[n] <= 1e-2, f"fp16-guard: cpu check: {n}'s unscaled "
-              f"gradient {grad_l2[n]} relative L2 from the CPU's")
-    worst = 0.0
-    for (n, a), b in zip(cuda.named_parameters(), cpu.parameters()):
-        diff = (a.detach().cpu() - b.detach()).abs()
-        scaled = (diff / b.detach().abs().clamp_min(1.0)).max().item()
-        check(scaled <= 1e-3, f"fp16-guard: cpu check: {n} differs by "
-              f"{scaled} of max(1, |cpu|) after the step")
-        worst = max(worst, scaled)
-    before = [p.detach().clone() for p in cuda.parameters()]
-    with faults.scenario(("nan_grads", {"step": 2})):
-        engs["cuda"].train_batch([ids], [labels])
-    check(engs["cuda"].guard.last_outcome == "skipped" and all(
-        torch.equal(a, b) for a, b in zip(cuda.parameters(), before)),
-        "fp16-guard: cpu check: the step with nan_grads was not a no-op")
-    scale = float(engs["cuda"]._scaler_state["scale"])
-    check(scale == 512.0, f"fp16-guard: cpu check: scale {scale}")
-    top = sorted(grad_l2.items(), key=lambda kv: -kv[1])[:3]
-    log(f"fp16-guard: 2-layer float16 step (vocabulary 4096) cuda vs CPU: "
-        f"loss {rel:.3e} relative; the unscaled gradients' norm {norm_rel:.3e}"
-        f" relative ({norms['cuda']:.6g} vs {norms['cpu']:.6g}); each leaf's "
-        f"unscaled gradient in relative L2, the worst "
-        + ", ".join(f"{n} {v:.3e}" for n, v in top)
-        + "; the key biases' gradients (zero in exact arithmetic) at "
-        + ", ".join(f"{k} {v:.2e}" for k, v in zero_ratio.items())
-        + f" of the query biases'; parameters within {worst:.3e} of max(1, "
-        f"|cpu|); the two steps took {t_cpu:.1f} s; a nan_grads step on the "
-        f"card skipped, scale 1024 -> 512")
-    return dict(loss_rel=rel, norm_rel=norm_rel, grad_l2_worst=top[0][1],
-                zero_ratio=max(zero_ratio.values()), worst=worst)
+    def make(model):
+        return _fp16_guard_engine(lambda guard: Engine(
+            model, loss=GPTPretrainingCriterion(),
+            optimizer=AdamW(1e-4, weight_decay=0.01, fused_kernel=True),
+            amp_dtype=torch.float16, guard=guard))
+    return _fp16_cross_device(
+        torch, "fp16-guard", "2-layer float16 step (vocabulary 4096)",
+        models, make, [ids], [labels],
+        zero=("attn.k_proj.bias", ("k_proj", "q_proj")))
 
 
 def phase_fp16_guard(torch, flush):
     """Phase fp16-guard: #1/#3/#4 in float16 held to their twins (GPT's
     training shape and D = 128, timed beside SDPA in float16; ragged,
     kv_lens and head-dim cases; the keep mask; an overflow case), the
-    float16 refusals of every other kernel, #10 guarded, then gpt3-345M
-    float16 AMP training under TrainGuard with a GradScaler through
-    Model.fit (FP16_*), eager vs captured, the eager O2 API and a cut
-    check against the CPU."""
+    float16 refusals still standing (#2, #5, #1 at head_dim 32), #10
+    guarded, then gpt3-345M float16 AMP training under TrainGuard with a
+    GradScaler through Model.fit (FP16_*), its fused_ln block (#6/#7) in
+    float16 under the same guard, eager vs captured, the eager O2 API and
+    a cut check against the CPU."""
     from paddle_tpu_torch.nlp.gpt import GPTForCausalLM, _resolve_config
     from paddle_tpu_torch import seed
     gen = torch.Generator(device="cuda").manual_seed(22)
@@ -9019,7 +9068,7 @@ def phase_fp16_guard(torch, flush):
     _log_flash_rows("fp16-guard", rows)
     part("the flash cases")
     overflow = _f16_overflow_case(torch, gen)
-    _f16_refusals(torch, gen)
+    refused = _f16_refusals(torch, gen)
     shapes = _leaf_shapes(torch, lambda: GPTForCausalLM(
         _resolve_config("gpt3-345M"), device="cuda",
         generator=seed(0, device="cuda")))
@@ -9028,14 +9077,816 @@ def phase_fp16_guard(torch, flush):
     part("#10 guarded")
     main = _fp16_main_run(torch, gen)
     part("the main run")
+    gpt_ln = _fp16_gpt_fused_ln(torch)
+    part("gpt fused_ln")
     _fp16_eager_vs_captured(torch)
     part("eager vs captured")
     o2 = _fp16_eager_o2(torch)
     part("eager O2")
     cpu = _fp16_cpu_check(torch)
     part("the cpu check")
-    return dict(rows=rows, overflow=overflow, adamw=adamw, main=main,
-                o2=o2, cpu=cpu)
+    return dict(rows=rows, overflow=overflow, refused=refused, adamw=adamw,
+                main=main, gpt_fused_ln=gpt_ln, o2=o2, cpu=cpu)
+
+
+# -- float16 #6-#9 and #11 (phase fp16-kernels) -------------------------------
+
+# #6-#9 in float16: (n, h) at ERNIE's and GPT's rows, ragged widths (100:
+# rows of 200 bytes; 1000: 125 chunks a row), a wide row (2048, GPT-1.3B's)
+# and one that is not a 16-byte multiple (3000)
+LN_F16 = ((16384, 768), (8192, 1024), (7, 100), (16384, 1000), (4096, 2048),
+          (7, 3000))
+# ... the backward's residency against its plan at these widths
+LN_F16_RESIDENCY = (100, 768, 1000, 1024, 2048, 3000, 8192)
+
+
+def _ln_f16_overflow(torch, gen):
+    """#6-#9 in float16 with x and r near 3.3e4, so that x + r passes
+    65504 in about half the places: #6 stores s as +inf at the twin's
+    places and y stays finite (the statistics are taken on the f32 sum);
+    #9, which adds x + r again in f32, gives a finite dx; #7, reading the
+    stored s back, is non-finite at exactly the twin's places (+inf, -inf
+    and NaN apart). Every finite value within F16_ULPS of the twin's."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    n, h, f16 = 4096, 768, torch.float16
+
+    def mk(scale=1.0, shift=0.0, shape=(n, h)):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                + shift).to(f16)
+    x, r = mk(1e3, 3.3e4), mk(1e3, 3.3e4)
+    dy, ds = mk(), mk()
+    g, b = mk(0.1, 1.0, (h,)), mk(0.1, 0.0, (h,))
+    y, s, mu, rstd = kln.fused_add_layer_norm_fwd(x, r, g, b, 1e-5)
+    dx, _, _ = kln.fused_add_layer_norm_bwd(dy, ds, s, mu, rstd, g)
+    y8, mu8, rstd8 = kln.fused_add_layer_norm_y_fwd(x, r, g, b, 1e-5)
+    dx9, _, _ = kln.fused_add_layer_norm_y_bwd(dy, x, r, mu8, rstd8, g)
+    torch.cuda.synchronize()
+    t6 = kln.fused_add_layer_norm_fwd_plain(x, r, g, b, 1e-5)
+    t7 = kln.fused_add_layer_norm_bwd_plain(dy, ds, s, mu, rstd, g)
+    t8 = kln.fused_add_layer_norm_y_fwd_plain(x, r, g, b, 1e-5)
+    t9 = kln.fused_add_layer_norm_y_bwd_plain(dy, x, r, mu8, rstd8, g)
+    n_inf = int(torch.isposinf(t6[1]).sum())
+    check(0 < n_inf < n * h, f"fp16-kernels: the LN overflow case has "
+          f"{n_inf} infinite sums: nothing to hold")
+    out = dict(s_inf=n_inf)
+    for name, a, p in (("#6 y", y, t6[0]), ("#6 s", s, t6[1]),
+                       ("#8 y", y8, t8[0]), ("#9 dx", dx9, t9[0])):
+        out[name] = f16_ulps(a, p)
+        check(out[name] <= F16_ULPS, f"fp16-kernels: LN overflow case: "
+              f"{name} {out[name]} float16 ulps from the twin's (or at "
+              f"other non-finite places)")
+    check(bool(torch.isfinite(y).all() and torch.isfinite(y8).all()
+               and torch.isfinite(dx9).all()), "fp16-kernels: LN overflow "
+          "case: y or #9's dx is not finite")
+    for what, f in (("+inf", torch.isposinf), ("-inf", torch.isneginf),
+                    ("NaN", torch.isnan)):
+        n_diff = int((f(dx) != f(t7[0])).sum())
+        check(n_diff == 0, f"fp16-kernels: LN overflow case: #7's dx {what} "
+              f"differs from the twin's at {n_diff} places")
+    fin = torch.isfinite(t7[0])
+    out["#7 dx non-finite"] = int((~fin).sum())
+    out["#7 dx"] = f16_ulps(dx[fin], t7[0][fin])
+    check(out["#7 dx"] <= F16_ULPS, f"fp16-kernels: LN overflow case: #7's "
+          f"finite dx {out['#7 dx']} ulps from the twin's")
+    log(f"fp16-kernels: #6-#9 float16 overflow case ({n} x {h}, x and r "
+        f"near 3.3e4): {n_inf} sums stored as +inf at the twin's places, y "
+        f"finite; #9's dx finite; #7's dx non-finite at "
+        f"{out['#7 dx non-finite']} places, each as the twin's; "
+        + ", ".join(f"{k} {v:.2f} ulps" for k, v in out.items()
+                    if k.startswith("#") and "non-finite" not in k))
+    return out
+
+
+def _conv_f16_overflow(torch, gen):
+    """#11 in float16 with scale 1e4 and shift 6e4, so that part of y
+    passes 65504: +inf at the twin's places (the epilogue's store rounds
+    to nearest without saturation: 65520 and up become inf), except where
+    the f32 value lies within F16_ULPS float16 ulps (32 each there) of
+    that threshold, where the two sums' orders may round either way; no
+    NaN; the finite rest within F16_ULPS of the twin's."""
+    from paddle_tpu_torch.ops.kernels import conv_bn_act as kcb
+    m, cin, cout, f16 = 12544, 512, 2048, torch.float16
+    x2 = torch.randn(m, cin, generator=gen, device="cuda").to(f16)
+    w = (torch.randn(cin, cout, generator=gen, device="cuda")
+         / math.sqrt(cin)).to(f16)
+    scale = 1e4 * (1.0 + 0.1 * torch.randn(cout, generator=gen,
+                                           device="cuda"))
+    shift = 6e4 + 0.1 * torch.randn(cout, generator=gen, device="cuda")
+    r2 = torch.randn(m, cout, generator=gen, device="cuda").to(f16)
+    y = kcb.fused_conv1x1_bn_act(x2, w, scale, shift, r2, True)
+    torch.cuda.synchronize()
+    t = kcb.conv_bn_act_plain(x2, w, scale, shift, r2, True)
+    y32 = kcb.conv_bn_act_plain(x2.float(), w.float(), scale, shift,
+                                r2.float(), True)
+    n_inf = int(torch.isposinf(t).sum())
+    check(0 < n_inf < m * cout, f"fp16-kernels: #11's overflow case has "
+          f"{n_inf} infinite outputs: nothing to hold")
+    edge = (y32 - 65520.0).abs() <= F16_ULPS * 32.0
+    n_diff = int(((torch.isposinf(y) != torch.isposinf(t)) & ~edge).sum())
+    n_edge = int(((torch.isposinf(y) != torch.isposinf(t)) & edge).sum())
+    check(n_diff == 0 and not bool(torch.isnan(y).any()),
+          f"fp16-kernels: #11's overflow case: +inf differs from the twin's "
+          f"at {n_diff} places away from the threshold")
+    fin = torch.isfinite(t) & torch.isfinite(y)
+    err, scaled = _err(y[fin], t[fin])
+    ulps = f16_ulps(y[fin], t[fin])
+    check(ulps <= F16_ULPS, f"fp16-kernels: #11's overflow case: finite "
+          f"values {ulps} float16 ulps of max(1, |twin|) from the twin's")
+    log(f"fp16-kernels: #11 float16 overflow case (M={m} {cin}->{cout}, "
+        f"scale 1e4, shift 6e4): {n_inf} outputs +inf at the twin's places "
+        f"but {n_edge} of the {int(edge.sum())} whose f32 value lies within "
+        f"{F16_ULPS} float16 ulps of 65520, none NaN; the finite ones within "
+        f"{ulps:.2f} ulps ({scaled:.3e} of max(1, |twin|))")
+    return dict(inf=n_inf, edge_flips=n_edge, scaled_err=scaled, ulps=ulps,
+                max_abs_err=err)
+
+
+def phase_fp16_kernels(torch, flush):
+    """#6-#9 and #11 in float16 against their twins: the LN kernels at
+    LN_F16 (gamma/beta float16 and f32, eps 1e-12 and 1e-5; rows off a
+    16-byte boundary), their backward's residency against its plan, an
+    overflow case; #11 at the 12 shapes of a ResNet-50 forward at batch
+    256 x 224 px, ragged shapes and an overflow case. Each timed beside its
+    bf16 instantiation (the same call) and its bound: the LN kernels at
+    ERNIE's and GPT's rows, #11 at the 12 shapes summed over a forward's
+    32 and a training forward's 17 launches."""
+    from paddle_tpu_torch.ops.kernels import fused_ln as kln
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for k, (n, h) in enumerate(LN_F16):
+        for j, eps in enumerate((1e-12, 1e-5)):
+            w_dtype = "float16" if (k + j) % 2 else "float32"
+            rows.append(_ln_case(torch, n, h, "float16", w_dtype, eps, gen))
+    for n, h in ((8192, 1023), (4096, 3000)):
+        rows.append(_ln_case(torch, n, h, "float16", "float16", 1e-5, gen,
+                             offset=True))
+    for r in rows:
+        errs = " ".join(f"{k} {v:.2e}" for k, v in r["err"].items())
+        log(f"fp16-kernels: #6-#9 float16 n{r['n']} h{r['h']} gamma "
+            f"{r['w_dtype']} eps {r['eps']}"
+            + (" offset" if r["offset"] else "") + f": {errs}")
+    worst_ulps = max(v for r in rows for k, v in r["err"].items()
+                     if k.endswith("_ulps"))
+    for h in LN_F16_RESIDENCY:
+        for with_sum in (True, False):
+            plan = kln.bwd_plan(16384, h, torch.float16)
+            res = kln.bwd_residency(h, torch.float16, with_sum)
+            check(plan == kln.bwd_plan(16384, h, torch.bfloat16)
+                  and (res["blocks_per_sm"] == plan.blocks_per_sm
+                       if h > 1024 else
+                       res["blocks_per_sm"] >= plan.blocks_per_sm)
+                  and res["smem"] == plan.smem and res["spill_bytes"] == 0,
+                  f"fp16-kernels: the float16 backward at h {h} resides "
+                  f"{res} against its plan {plan}")
+    log(f"fp16-kernels: #6-#9 float16 against their twins in {len(rows)} "
+        f"cases, the worst {worst_ulps:.2f} float16 ulps of max(1, |twin|) "
+        f"(bar {F16_ULPS}); a second backward bit for bit in each; the "
+        f"backward resides as bf16's plan counts on at h "
+        f"{LN_F16_RESIDENCY}")
+    overflow = _ln_f16_overflow(torch, gen)
+    timing = {}
+    for shape, (n, h) in (("ernie", (16384, 768)), ("gpt", (8192, 1024))):
+        timing[shape] = {dt: _ln_timing(torch, n, h, gen, flush, dt)
+                         for dt in ("bfloat16", "float16")}
+        for k in timing[shape]["float16"]["ms"]:
+            f16, bf = timing[shape]["float16"], timing[shape]["bfloat16"]
+            bms, by = f16["bound"][k]
+            log(f"fp16-kernels: {shape} shape {k}: float16 ms "
+                f"{f16['ms'][k]:.4f} (bf16 {bf['ms'][k]:.4f}, "
+                f"{f16['ms'][k] / bf['ms'][k]:.3f}x) plain_ms "
+                f"{f16['plain_ms'][k]:.4f} bound_ms {bms:.4f} ({by})")
+        log(f"fp16-kernels: {shape} shape native_layer_norm_backward in "
+            f"float16 ms {timing[shape]['float16']['native_bwd_ms']:.4f}")
+    # #11
+    crows = []
+    for m, cin, cout, res, _ in SERVE_SHAPES:
+        crows.append(_conv_case(torch, m, cin, cout, res, True, "float16",
+                                gen, flush, True))
+        crows[-1]["bf16_ms"] = _conv_case(torch, m, cin, cout, res, True,
+                                          "bfloat16", gen, flush, True)["ms"]
+    ragged = []
+    for m, cin, cout, res, off in ((1000, 100, 70, True, 0),
+                                   (129, 8, 9, False, 0), (7, 3, 1, True, 0),
+                                   (12545, 512, 2048, True, 0),
+                                   (1000, 64, 70, True, 1)):
+        ragged.append(_conv_case(torch, m, cin, cout, res, True, "float16",
+                                 gen, flush, False, offset=off))
+    for r in crows + ragged:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} (bf16 {r['bf16_ms']:.4f}) bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+            f"{r['plain_ms']:.4f} GEMM alone {r['gemm_ms']:.4f}")
+        log(f"fp16-kernels: #11 float16 M={r['m']} {r['cin']}->{r['cout']} "
+            f"res={r['res']} offset={r['offset']} max_abs_err "
+            f"{r['max_abs_err']:.3e} ({r['ulps']:.2f} float16 ulps of max(1, "
+            f"|twin|))" + extra)
+    total = _shape_sum(crows, [n for *_, n in SERVE_SHAPES])
+    train = _shape_sum(crows, [TRAIN_SHAPES.get(i, 0)
+                               for i in range(len(SERVE_SHAPES))])
+    for t, counts in ((total, [n for *_, n in SERVE_SHAPES]),
+                      (train, [TRAIN_SHAPES.get(i, 0)
+                               for i in range(len(SERVE_SHAPES))])):
+        t["bf16_ms"] = sum(r["bf16_ms"] * n for r, n in zip(crows, counts))
+    for what, t in (("the 32 launches of one ResNet-50 forward", total),
+                    ("the 17 launches of one training forward", train)):
+        log(f"fp16-kernels: #11 float16, {what} (batch 256, 224 px): "
+            f"{t['ms']:.4f} ms (bf16 {t['bf16_ms']:.4f}, "
+            f"{t['ms'] / t['bf16_ms']:.3f}x) against a bound of "
+            f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of it); "
+            f"twin {t['plain_ms']:.4f} ms; GEMM alone {t['gemm_ms']:.4f} ms")
+    coverflow = _conv_f16_overflow(torch, gen)
+    return dict(ln_rows=rows, ln_ulps=worst_ulps, ln_overflow=overflow,
+                ln_timing=timing, conv_rows=crows + ragged,
+                conv_total=total, conv_train_total=train,
+                conv_overflow=coverflow)
+
+
+# -- float16 AMP training of ERNIE-3.0-base and ResNet-50 ---------------------
+
+# kernel-node name fragments of a float16 ERNIE step's graph (with the
+# mangled __half): #8/#9 twice a layer, #1/#3/#4 once, #10 once a step
+ERNIE_GRAPH_KERNELS = (("fused_add_layer_norm_y_fwd", "ln_fwd_kernel"),
+                       ("fused_add_layer_norm_y_bwd", "ln_bwd_kernel")
+                       ) + GPT_GRAPH_KERNELS
+# ... and of GPT's fused_ln block: #6/#7 once a layer
+GPT_LN_GRAPH_KERNELS = (("fused_add_layer_norm_fwd", "ln_fwd_kernel"),
+                        ("fused_add_layer_norm_bwd", "ln_bwd_kernel"))
+
+
+def _f16_nodes(torch, eng, frags):
+    """{wrapper: float16 kernel nodes of the Engine's one guarded
+    recording whose name holds its fragment}, #10's adamw_kernel nodes
+    beside."""
+    rec = next((r for k, r in eng._recorded.items()
+                if k[0][0] == "guarded"), None)
+    check(rec is not None and rec.graph is not None,
+          "the Engine holds no recorded guarded step")
+    nodes = _graph_node_names(torch, rec.graph)
+    out = {w: sum(frag in n and F16_MANGLED in n for n in nodes)
+           for w, frag in frags}
+    out["adamw_kernel"] = sum("adamw_kernel" in n for n in nodes)
+    return out
+
+
+def _collect(torch):
+    """Free what earlier phases left in reference cycles (an Engine and
+    its graph's pool wait for the cycle collector), so that a peak read
+    after it counts this run's tensors: GiB collected."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (before - torch.cuda.memory_allocated()) / 2 ** 30
+
+
+def _guarded_steps_ms(torch, step, n=8):
+    """ms of ``n`` more guarded steps, each synchronized: (median, mean,
+    all)."""
+    import statistics
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out), statistics.mean(out), out
+
+
+def _fp16_ernie_run(torch):
+    """ERNIE-3.0-base pretraining, float16 O1, captured, under
+    TrainGuard(FP16_GUARD, GradScaler(FP16_SCALER)) with nan_grads over
+    FP16_STORM, through the Engine at batch 32 x 512 (phase ernie's
+    model, batch and optimizer)."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nlp.ernie import _resolve_config
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.resilience import TrainGuard, faults
+    tag, b, s = "fp16-ernie", 32, 512
+    cfg = _resolve_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    guard = TrainGuard(**FP16_GUARD, scaler=GradScaler(**FP16_SCALER))
+    collected = _collect(torch)
+    t0 = time.perf_counter()
+    model, eng = _ernie_engine(torch, cfg, "cuda", amp=torch.float16,
+                               capture=None, guard=guard)
+    inputs, labels = _ernie_batch(cfg.vocab_size, b, s, "cuda")
+    torch.cuda.synchronize()
+    log(f"{tag}: ernie-3.0-base-zh built in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{cfg.num_hidden_layers} layers, fused_ln); batch {b} x {s}, "
+        f"float16 O1, AdamW(1e-4, weight_decay=0.01, fused_kernel=True), "
+        f"TrainGuard({FP16_GUARD}, GradScaler({FP16_SCALER})), captured, "
+        f"nan_grads at steps {FP16_STORM[0]}-{sum(FP16_STORM) - 1}; "
+        f"{collected:.2f} GiB of earlier phases' garbage collected first")
+    named = list(model.named_parameters())
+    probe = _GuardProbe(torch, eng, [named[i][1] for i in
+                                     (0, len(named) // 2, len(named) - 1)])
+    times = _timed_guard(torch, guard)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    with faults.scenario(("nan_grads", {"step": FP16_STORM[0],
+                                        "count": FP16_STORM[1]})):
+        for _ in range(FP16_STEPS):
+            loss = eng.train_batch(inputs, labels)[0]
+            probe.batch_end({"loss": [loss.item()]})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    g = _check_guarded(tag, probe, guard, times)
+    layers = cfg.num_hidden_layers
+    recorded = _f16_nodes(torch, eng, ERNIE_GRAPH_KERNELS)
+    want = {"fused_add_layer_norm_y_fwd": 2 * layers,
+            "fused_add_layer_norm_y_bwd": 2 * layers,
+            "flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "adamw_kernel": 1}
+    check(recorded == want, f"{tag}: the recorded step holds {recorded} "
+          f"(float16 nodes), want {want}")
+    # the wrappers ran at the eager first step and at the recording
+    calls = {("fused_adamw_multi_update" if k == "adamw_kernel" else k):
+             2 * v for k, v in want.items()}
+    others = {k: c for k, c in launches.items() if c and k not in calls}
+    check({k: launches[k] for k in calls} == calls and not others,
+          f"{tag}: wrapper launches {launches}, want {calls} and no other")
+    ms, mean_ms, step_ms = _guarded_steps_ms(
+        torch, lambda: eng.train_batch(inputs, labels))
+    prof = profile_grouped(torch, tag, "one guarded float16 step",
+                           lambda: eng.train_batch(inputs, labels),
+                           LM_TRAIN_GROUPS)
+    snap_ms = [t for t, _ in times["snapshot"]]
+    roll_ms = [t for t, _ in times["rollback"]]
+    log(f"{tag}: {FP16_STEPS} guarded steps (each read by the probe) in "
+        f"{run_s:.2f} s; 8 more: median {ms:.3f} ms a step = "
+        f"{b * s / (ms / 1e3):.1f} tokens/s, mean {mean_ms:.3f} ms with "
+        f"snapshots in them; steps {['%.3f' % x for x in step_ms]}; peak "
+        f"{peak:.2f} GiB; snapshots "
+        f"{['%.1f ms at step %d' % x for x in times['snapshot']]}, rollback "
+        f"{['%.1f ms at step %d' % x for x in times['rollback']]}; rolled "
+        f"back at step {g['r_step']} to step {g['snap_step']}'s snapshot; "
+        f"{len(g['natural'])} natural overflows; one graph holding "
+        f"{recorded}")
+    out = dict(launches=launches, recorded=recorded, ms_per_step=ms,
+               mean_ms=mean_ms, step_ms=step_ms, tok_s=b * s / (ms / 1e3),
+               peak_gb=peak, snapshot_ms=snap_ms, rollback_ms=roll_ms,
+               rolled_back_at=g["r_step"], snapshot_step=g["snap_step"],
+               natural_overflows=[r["step"] for r in g["natural"]],
+               outcomes=g["outcomes"],
+               scales=[r["scale"] for r in probe.rows],
+               losses=[r["loss"] for r in probe.rows], **prof)
+    del model, eng, probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fp16_cross_device(torch, tag, what, models, make_engine, inputs,
+                       labels, zero=None, leaf_bar=None, ratio_bar=None,
+                       kernels=(), updates=False):
+    """One guarded float16 step of ``make_engine(model)`` (scaler init
+    1024, incr_every 2) on the card and on the CPU from the CPU model's
+    weights and the same batch, then a nan_grads step on the card. Held:
+    each leaf's unscaled gradient (what the optimizer receives times the
+    GradScaler's 1/scale) in relative L2 and the gradient-norm telemetry
+    at the float16 bar of 1e-2; the loss 1e-3 relative; each parameter
+    within 1e-3 of max(1, |cpu|) after the step (Adam's first step moves
+    an element by about lr whatever its gradient: a gross fault only); the
+    skipped step leaves the card's parameters unchanged and halves the
+    scale. ``zero``: (name suffix, (from, to)) of leaves whose gradient is
+    zero in exact arithmetic, held to 1e-2 of the partner leaf named by
+    replacing ``from`` with ``to``, on each device. ``leaf_bar``: name ->
+    the relative L2 bar of that leaf, in place of 1e-2; ``ratio_bar``:
+    each leaf's gradient norm, card over CPU, within it of 1.
+    ``kernels``: wrappers that the card's step must launch. ``updates``:
+    each leaf's update p_t - p_(t-1) held as its gradient is, in place of
+    the parameters (Momentum's first update is lr times the gradient)."""
+    from paddle_tpu_torch.resilience import faults
+    leaf_bar = leaf_bar or (lambda n: 1e-2)
+    with torch.no_grad():
+        for a, b in zip(models["cuda"].parameters(),
+                        models["cpu"].parameters()):
+            a.copy_(b)
+    engs = {dev: make_engine(m) for dev, m in models.items()}
+    start = [p.detach().clone() for p in models["cpu"].parameters()]
+    grads, losses = {}, {}
+    t0 = time.perf_counter()
+    for dev, e in engs.items():
+        e.enable_grad_norm()
+        if dev == "cuda":
+            _zero_launches()
+        opt = e.optimizer
+        inner = opt._clip_update
+
+        def spy(names, params, gs, scale=None, norm=None, skip=None,
+                dev=dev, inner=inner):
+            grads[dev] = {n: (g.float() * scale).cpu()
+                          for n, g in zip(names, gs)}
+            return inner(names, params, gs, scale=scale, norm=norm,
+                         skip=skip)
+        opt._clip_update = spy
+        try:
+            losses[dev] = float(e.train_batch(inputs, labels)[0])
+        finally:
+            del opt._clip_update
+        if dev == "cuda":
+            launched = _read_launches()
+            check(all(launched[k] for k in kernels), f"{tag}: cpu check: "
+                  f"the card's step launched {launched}, want each of "
+                  f"{kernels}")
+    secs = time.perf_counter() - t0
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    check(rel <= 1e-3, f"{tag}: cpu check: loss {losses} ({rel})")
+    norms = {d: float(e.last_grad_norm) for d, e in engs.items()}
+    norm_rel = abs(norms["cuda"] - norms["cpu"]) / norms["cpu"]
+    check(norm_rel <= 1e-2, f"{tag}: cpu check: the unscaled gradients' "
+          f"norms {norms} ({norm_rel})")
+    check(set(grads["cuda"]) == set(grads["cpu"]) == {
+        n for n, _ in models["cpu"].named_parameters()},
+        f"{tag}: cpu check: the optimizer did not see every leaf")
+    grad_l2, zero_ratio, norm_ratio = {}, {}, {}
+    for n, want in grads["cpu"].items():
+        got = grads["cuda"][n]
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"{tag}: cpu check: {n}'s gradient is not finite")
+        if zero is not None and n.endswith(zero[0]):
+            partner = n.replace(*zero[1])
+            for dev in grads:
+                r = (grads[dev][n].norm() / grads[dev][partner].norm()).item()
+                zero_ratio[f"{dev} {n}"] = r
+                check(r <= 1e-2, f"{tag}: cpu check: {dev} {n}'s gradient is "
+                      f"{r} of {partner}'s, not rounding noise")
+            continue
+        grad_l2[n] = ((got - want).norm() / want.norm()).item()
+        check(grad_l2[n] <= leaf_bar(n), f"{tag}: cpu check: {n}'s unscaled "
+              f"gradient {grad_l2[n]} relative L2 from the CPU's (bar "
+              f"{leaf_bar(n)})")
+        if ratio_bar is not None:
+            norm_ratio[n] = (got.norm() / want.norm()).item() - 1.0
+            check(abs(norm_ratio[n]) <= ratio_bar, f"{tag}: cpu check: "
+                  f"{n}'s unscaled gradient norm {norm_ratio[n]:+} from the "
+                  f"CPU's, over {ratio_bar}")
+    worst = 0.0
+    for (n, a), b, p0 in zip(models["cuda"].named_parameters(),
+                             models["cpu"].parameters(), start):
+        if updates:
+            got, want = a.detach().cpu() - p0, b.detach() - p0
+            scaled = ((got - want).norm() / want.norm()).item()
+            check(scaled <= leaf_bar(n), f"{tag}: cpu check: {n}'s update "
+                  f"{scaled} relative L2 from the CPU's")
+        else:
+            diff = (a.detach().cpu() - b.detach()).abs()
+            scaled = (diff / b.detach().abs().clamp_min(1.0)).max().item()
+            check(scaled <= 1e-3, f"{tag}: cpu check: {n} differs by "
+                  f"{scaled} of max(1, |cpu|) after the step")
+        worst = max(worst, scaled)
+    before = [p.detach().clone() for p in models["cuda"].parameters()]
+    with faults.scenario(("nan_grads", {"step": 2})):
+        engs["cuda"].train_batch(inputs, labels)
+    check(engs["cuda"].guard.last_outcome == "skipped" and all(
+        torch.equal(a, b) for a, b in zip(models["cuda"].parameters(),
+                                          before)),
+        f"{tag}: cpu check: the step with nan_grads was not a no-op")
+    scale = float(engs["cuda"]._scaler_state["scale"])
+    check(scale == 512.0, f"{tag}: cpu check: scale {scale}")
+    top = sorted(grad_l2.items(), key=lambda kv: -kv[1])[:3]
+    l2 = sorted(grad_l2.values())
+    ratio_worst = max(norm_ratio.items(), key=lambda kv: abs(kv[1]),
+                      default=None)
+    log(f"{tag}: {what} cuda vs CPU: loss {rel:.3e} relative; the unscaled "
+        f"gradients' norm {norm_rel:.3e} relative ({norms['cuda']:.6g} vs "
+        f"{norms['cpu']:.6g}); each leaf's unscaled gradient in relative "
+        f"L2, the median {l2[len(l2) // 2]:.3e}, the worst "
+        + ", ".join(f"{n} {v:.3e}" for n, v in top)
+        + ("" if ratio_worst is None else
+           f"; each leaf's gradient norm, card over CPU, within "
+           f"{abs(ratio_worst[1]):.3e} of 1 ({ratio_worst[0]})")
+        + ("" if not zero_ratio else "; the leaves zero in exact "
+           "arithmetic at " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                        zero_ratio.items())
+           + " of their partners'")
+        + (f"; each leaf's update within {worst:.3e} relative L2" if updates
+           else f"; parameters within {worst:.3e} of max(1, |cpu|)")
+        + "; the two steps "
+        f"took {secs:.1f} s; a nan_grads step on the card skipped, scale "
+        "1024 -> 512")
+    return dict(loss_rel=rel, norm_rel=norm_rel, grad_l2_worst=top[0][1],
+                grad_l2_median=l2[len(l2) // 2], grad_l2=grad_l2,
+                norm_ratio=norm_ratio,
+                zero_ratio=max(zero_ratio.values(), default=None),
+                worst=worst)
+
+
+def _fp16_guard_engine(make, init=1024.0):
+    """``make(guard)`` with the cut checks' guard: snapshot_every 1,
+    GradScaler(init_loss_scaling=init, incr_every_n_steps=2)."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import TrainGuard
+    return make(TrainGuard(snapshot_every=1, scaler=GradScaler(
+        init_loss_scaling=init, incr_every_n_steps=2)))
+
+
+def _fp16_ernie_cpu(torch):
+    """A 2-layer ERNIE-3.0-base (hidden 768, 12 heads, fused_ln, the
+    vocabulary cut to 4096 as fp16-guard's cut check cuts GPT's) step at
+    1 x 128, float16 under the guard, card against CPU
+    (_fp16_cross_device)."""
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.ernie import (ErniePretrainingCriterion,
+                                            _resolve_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = _resolve_config("ernie-3.0-base-zh", num_hidden_layers=2,
+                          vocab_size=4096, hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    models = {dev: _ernie_engine(torch, cfg, dev, weight_seed=1)[0]
+              for dev in ("cpu", "cuda")}
+    inputs, labels = _ernie_batch(cfg.vocab_size, 1, 128, "cpu")
+
+    def make(model):
+        return _fp16_guard_engine(lambda guard: Engine(
+            model, loss=ErniePretrainingCriterion(),
+            optimizer=AdamW(1e-4, weight_decay=0.01, fused_kernel=True),
+            amp_dtype=torch.float16, guard=guard))
+    return _fp16_cross_device(
+        torch, "fp16-ernie", "2-layer float16 step (vocabulary 4096)",
+        models, make, inputs, labels,
+        zero=("attn.k_proj.bias", ("k_proj", "q_proj")))
+
+
+def phase_fp16_ernie(torch):
+    """Phase fp16-ernie: ERNIE-3.0-base float16 AMP pretraining under the
+    guard (_fp16_ernie_run), eager against captured, and a cut step
+    against the CPU."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nlp.ernie import _resolve_config
+    from paddle_tpu_torch.resilience import TrainGuard
+    t0 = time.perf_counter()
+    main = _fp16_ernie_run(torch)
+    log(f"fp16-ernie: the main run done at {time.perf_counter() - t0:.1f} s "
+        "into the phase")
+    cfg = _resolve_config("ernie-3.0-base-zh", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0, fused_ln=True)
+    inputs, labels = _ernie_batch(cfg.vocab_size, 32, 512, "cuda")
+    pair = _graph_pair(
+        torch, "fp16-ernie eager vs captured",
+        lambda cap: _ernie_engine(
+            torch, cfg, "cuda", amp=torch.float16, capture=cap,
+            guard=TrainGuard(**FP16_GUARD, scaler=GradScaler(
+                **FP16_SCALER))),
+        inputs, labels, LM_TRAIN_GROUPS, steps=3,
+        expect={"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                "flash_attention_bwd_dkv": 12, "fused_adamw_multi_update": 1,
+                "fused_add_layer_norm_y_fwd": 24,
+                "fused_add_layer_norm_y_bwd": 24})
+    pair.pop("engines")
+    torch.cuda.empty_cache()
+    log(f"fp16-ernie: eager vs captured done at "
+        f"{time.perf_counter() - t0:.1f} s into the phase")
+    cpu = _fp16_ernie_cpu(torch)
+    log(f"fp16-ernie: the cpu check done at {time.perf_counter() - t0:.1f} "
+        "s into the phase")
+    torch.cuda.empty_cache()
+    return dict(main=main, pair=pair, cpu=cpu)
+
+
+def _fp16_resnet_run(torch):
+    """resnet50 (NHWC, fused_bottleneck) trained through Model.fit at batch
+    256 x 224 px, float16 O1, Momentum(0.1, 0.9), captured, under
+    TrainGuard(RESNET_F16_GUARD, GradScaler(FP16_SCALER)) with nan_grads
+    over RESNET_F16_STORM (the first steps overflow naturally: see
+    RESNET_F16_GUARD)."""
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.resilience import TrainGuard, faults
+    from paddle_tpu_torch.vision.models import resnet50
+    tag, b, hw = "fp16-resnet", 256, 224
+    collected = _collect(torch)
+    t0 = time.perf_counter()
+    net = resnet50(num_classes=1000, layout="NHWC", fused_bottleneck=True,
+                   device="cuda", generator=seed(0, device="cuda"))
+    guard = TrainGuard(**RESNET_F16_GUARD,
+                       scaler=GradScaler(**FP16_SCALER))
+    m = Model(net)
+    m.prepare(Momentum(0.1, momentum=0.9), nn.CrossEntropyLoss(),
+              amp_configs={"level": "O1", "dtype": "float16"}, guard=guard)
+    eng = m._engine
+    x, y = _resnet_train_batch(torch, b, hw, "cpu", seed=1)
+    ds = _repeated_set(b * FP16_STEPS, x.numpy(), y.numpy())
+    del x, y
+    bufs = dict(net.named_buffers())
+    stats0 = {n: t.clone() for n, t in bufs.items()}
+    torch.cuda.synchronize()
+    log(f"{tag}: resnet50 built in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in net.parameters())} parameters, "
+        f"{len(bufs)} running statistics; NHWC, fused_bottleneck); "
+        f"Model.fit at {b} x 3 x {hw} x {hw}, float16 O1, Momentum(0.1, "
+        f"0.9), TrainGuard({RESNET_F16_GUARD}, GradScaler({FP16_SCALER})), "
+        f"captured, nan_grads at steps {RESNET_F16_STORM[0]}-"
+        f"{sum(RESNET_F16_STORM) - 1}; {collected:.2f} GiB of earlier "
+        "phases' garbage collected first")
+    named = list(net.named_parameters())
+    watch = [named[i][1] for i in (0, len(named) // 2, len(named) - 1)]
+    watch += [bufs["bn1._mean"], bufs["layer4.2.bn3._variance"]]
+    probe = _GuardProbe(torch, eng, watch)
+    times = _timed_guard(torch, guard)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    with faults.scenario(("nan_grads", {"step": RESNET_F16_STORM[0],
+                                        "count": RESNET_F16_STORM[1]})):
+        m.fit(ds, batch_size=b, epochs=1, shuffle=False, verbose=0,
+              callbacks=[probe.callback])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    g = _check_guarded(tag, probe, guard, times, RESNET_F16_GUARD,
+                       RESNET_F16_STORM, overflow_after_rollback=True)
+    recorded = _f16_nodes(torch, eng, (("fused_conv1x1_bn_act",
+                                        "conv_bn_act_tc16_kernel"),))
+    check(recorded == {"fused_conv1x1_bn_act": 17, "adamw_kernel": 0},
+          f"{tag}: the recorded step holds {recorded} (float16 nodes), want "
+          "17 of #11 and no #10")
+    _only(tag, launches, "fused_conv1x1_bn_act", 2 * 17)
+    check(all(t.dtype == torch.float32 for t in bufs.values()),
+          f"{tag}: running statistics not f32")
+    moved = sum(not torch.equal(bufs[n], t) for n, t in stats0.items())
+    check(moved == len(stats0), f"{tag}: {len(stats0) - moved} running "
+          "statistics did not move")
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          f"{tag}: parameters not f32")
+    batch = next(iter(m._feed(m._loaders["train"])))
+    ms, mean_ms, step_ms = _guarded_steps_ms(torch,
+                                             lambda: m.train_batch(*batch))
+    prof = profile_grouped(torch, tag, "one guarded float16 step",
+                           lambda: m.train_batch(*batch), TRAIN_GROUPS)
+    snap_ms = [t for t, _ in times["snapshot"]]
+    roll_ms = [t for t, _ in times["rollback"]]
+    log(f"{tag}: {FP16_STEPS} steps through fit (the probe's reads in them) "
+        f"in {fit_s:.2f} s; 8 more guarded steps: median {ms:.3f} ms a "
+        f"step = {b / (ms / 1e3):.1f} images/s, mean {mean_ms:.3f} ms with "
+        f"snapshots in them; steps {['%.3f' % x for x in step_ms]}; peak "
+        f"{peak:.2f} GiB; snapshots "
+        f"{['%.1f ms at step %d' % x for x in times['snapshot']]}, rollback "
+        f"{['%.1f ms at step %d' % x for x in times['rollback']]}; rolled "
+        f"back at step {g['r_step']} to step {g['snap_step']}'s snapshot; "
+        f"{len(g['natural'])} natural overflows; #11 float16 x 17 a step "
+        f"in one graph, no other kernel of the port; {moved} f32 running "
+        "statistics moved, unchanged on each skipped step")
+    out = dict(launches=launches, recorded=recorded, ms_per_step=ms,
+               mean_ms=mean_ms, step_ms=step_ms, images_per_s=b / (ms / 1e3),
+               peak_gb=peak, snapshot_ms=snap_ms, rollback_ms=roll_ms,
+               rolled_back_at=g["r_step"], snapshot_step=g["snap_step"],
+               natural_overflows=[r["step"] for r in g["natural"]],
+               outcomes=g["outcomes"],
+               scales=[r["scale"] for r in probe.rows],
+               losses=[r["loss"] for r in probe.rows], **prof)
+    del m, eng, net, probe, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_resnet(torch, device, generator):
+    """ResNet(BottleneckBlock, 18, num_classes=10, NHWC, fused_bottleneck)
+    cut after layer2 as tests/test_torch_fp16_resnet.py cuts it (layer3
+    and layer4 identities, the classifier a 512 -> 10 Linear): the stem
+    and four bottleneck blocks, whose 64 -> 256 and 128 -> 512 1x1 convs
+    run through #11."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models.resnet import BottleneckBlock, ResNet
+    m = ResNet(BottleneckBlock, 18, num_classes=10, layout="NHWC",
+               fused_bottleneck=True, device=device, generator=generator)
+    m.layer3 = nn.Identity()
+    m.layer4 = nn.Identity()
+    m.fc = nn.Linear(512, 10, device=device, generator=generator)
+    return m.train()
+
+
+def _fp16_resnet_cpu(torch):
+    """The cut ResNet (_cut_resnet) at batch 16 x 3 x 64 x 64 (layer2's
+    BatchNorms over 1024 values a channel; labels mod 10), one guarded
+    float16 Momentum(0.1, 0.9) step on the card and on the CPU from the
+    same weights and batch (_fp16_cross_device: the loss at 1e-3, the
+    gradient norm at 1e-2, the skip), with #11 launched on the card. The
+    classifier's leaves, gradient and update, are held at 1e-2. Every
+    other leaf's gradient passes back through a ReLU or the max-pool, and
+    there a float16 step's gradient is not a continuous function of the
+    weights: a ReLU whose input lies within rounding of zero, or a pool
+    window whose two largest values do, passes or stops its element's
+    gradient on one device and not on the other. In float64 on the CPU,
+    this network's gradient moves linearly (8.5 times the perturbation on
+    the median leaf) while its weights move by up to 1e-8 of themselves;
+    at 5e-7 one ReLU of the 32768 at layer2's output flips, and the median
+    leaf jumps by 1.1e-2 (the gradient there is spread over the 21278
+    open ones, so one carries about 1/sqrt(21278) = 6.9e-3 of it, in
+    relative L2); at 5e-4, about float16's rounding, it moves
+    1.1e-1 at 4 x 32 px and 1.2e-1 at 16 x 64 px. The jump counts a
+    fraction of the elements, so a larger batch does not shrink it. Two
+    float16 steps on the CPU (#11's twin against aten's 1x1 convs) sat
+    9.3e-2 apart on the median leaf and 1.28e-1 at worst, their norms
+    1.9e-2 apart at worst. So each such leaf's gradient and update are
+    held at RESNET_CUT_LEAF_BAR in relative L2, and its gradient norm,
+    card over CPU, within RESNET_CUT_RATIO_BAR of 1: a leaf whose gradient
+    is zeroed or doubled reads 1 on both (the same CPU comparison with
+    one leaf's gradient zeroed or doubled failed both). The running
+    statistics stay f32."""
+    from paddle_tpu_torch import seed
+    b, hw = 16, 64
+    models = {dev: _cut_resnet(torch, dev, seed(3, device=dev))
+              for dev in ("cpu", "cuda")}
+    x, y = _resnet_train_batch(torch, b, hw, "cpu", seed=4)
+
+    def make(model):
+        return _fp16_guard_engine(lambda guard: _resnet_train_engine(
+            torch, None, amp="float16", guard=guard, model=model)[1])
+    out = _fp16_cross_device(
+        torch, "fp16-resnet", f"cut ResNet float16 step at {b} x 3 x {hw} "
+        f"x {hw}", models, make, [x], [y % 10],
+        leaf_bar=lambda n: 1e-2 if n.startswith("fc.") else
+        RESNET_CUT_LEAF_BAR, ratio_bar=RESNET_CUT_RATIO_BAR,
+        kernels=("fused_conv1x1_bn_act",), updates=True)
+    check(all(t.dtype == torch.float32 for m in models.values()
+              for t in m.buffers()),
+          "fp16-resnet: cpu check: running statistics not f32")
+    return out
+
+
+def phase_fp16_resnet(torch):
+    """Phase fp16-resnet: resnet50 float16 AMP training through Model.fit
+    under the guard (_fp16_resnet_run), eager against captured, and a cut
+    step against the CPU."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.resilience import TrainGuard
+    t0 = time.perf_counter()
+    main = _fp16_resnet_run(torch)
+    log(f"fp16-resnet: the main run done at {time.perf_counter() - t0:.1f} "
+        "s into the phase")
+    x, y = _resnet_train_batch(torch, 256, 224)
+    pair = _graph_pair(
+        torch, "fp16-resnet eager vs captured",
+        lambda cap: _resnet_train_engine(
+            torch, "cuda", amp="float16", capture=cap,
+            guard=TrainGuard(**RESNET_F16_GUARD, scaler=GradScaler(
+                **FP16_SCALER))),
+        [x], [y], TRAIN_GROUPS, steps=5, linear=True,
+        expect={"fused_conv1x1_bn_act": 17})
+    pair.pop("engines")
+    del x, y
+    torch.cuda.empty_cache()
+    log(f"fp16-resnet: eager vs captured done at "
+        f"{time.perf_counter() - t0:.1f} s into the phase")
+    cpu = _fp16_resnet_cpu(torch)
+    log(f"fp16-resnet: the cpu check done at {time.perf_counter() - t0:.1f} "
+        "s into the phase")
+    torch.cuda.empty_cache()
+    return dict(main=main, pair=pair, cpu=cpu)
+
+
+def _fp16_gpt_fused_ln(torch):
+    """gpt3-345M with fused_ln (#6/#7) in float16 O1 under the guard,
+    captured: 3 steps at 8 x 1024 (the eager first step, the recording, a
+    replay): 24 float16 nodes each of #6 and #7 in the graph, 2 x 24
+    wrapper launches, every step good and finite."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.hapi import Engine
+    from paddle_tpu_torch.nlp.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import TrainGuard
+    model, cfg = _fp16_gpt(torch, "cuda", fused_ln=True)
+    eng = Engine(model, loss=GPTPretrainingCriterion(),
+                 optimizer=AdamW(1e-4, weight_decay=0.01, fused_kernel=True),
+                 amp_dtype=torch.float16,
+                 guard=TrainGuard(**FP16_GUARD,
+                                  scaler=GradScaler(**FP16_SCALER)))
+    ids, labels = _batch(cfg, 8, 1024, "cuda")
+    _zero_launches()
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = eng.train_batch([ids], [labels])[0].item()
+        torch.cuda.synchronize()
+        out.append((loss, eng.guard.last_outcome,
+                    (time.perf_counter() - t0) * 1e3))
+    launches = _read_launches()
+    layers = cfg.num_hidden_layers
+    recorded = _f16_nodes(torch, eng, GPT_LN_GRAPH_KERNELS
+                          + GPT_GRAPH_KERNELS)
+    want = {w: layers for w, _ in GPT_LN_GRAPH_KERNELS + GPT_GRAPH_KERNELS}
+    want["adamw_kernel"] = 1
+    check(recorded == want, f"fp16-guard: gpt fused_ln: the recorded step "
+          f"holds {recorded} (float16 nodes), want {want}")
+    for w, _ in GPT_LN_GRAPH_KERNELS:
+        check(launches[w] == 2 * layers, f"fp16-guard: gpt fused_ln: {w} "
+              f"launched {launches[w]} times, want {2 * layers} (the eager "
+              "first step and the recording)")
+    check(all(math.isfinite(v) and o == "ok" for v, o, _ in out),
+          f"fp16-guard: gpt fused_ln: steps {out}")
+    log(f"fp16-guard: gpt3-345M fused_ln, float16 O1 under the guard, "
+        f"captured: (loss, outcome, ms) {out}; the graph holds {recorded} "
+        f"float16 nodes")
+    del model, eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, recorded=recorded, steps=out)
 
 
 def _l2_flush(torch):
@@ -9083,7 +9934,10 @@ def main():
     alone = {"--train-graph": phase_train_graph,
              "--zoo-serve": phase_zoo_serve, "--zoo-train": phase_zoo_train,
              "--vision-ops": phase_vision_ops,
-             "--fp16-guard": lambda t: phase_fp16_guard(t, _l2_flush(t))}
+             "--fp16-guard": lambda t: phase_fp16_guard(t, _l2_flush(t)),
+             "--fp16-kernels": lambda t: phase_fp16_kernels(t, _l2_flush(t)),
+             "--fp16-ernie": phase_fp16_ernie,
+             "--fp16-resnet": phase_fp16_resnet}
     if sys.argv[1:2] and sys.argv[1] in alone:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -9238,6 +10092,15 @@ def main():
     torch.cuda.empty_cache()
     fg = phase_fp16_guard(torch, _l2_flush(torch))
     stamp("fp16_guard")
+    torch.cuda.empty_cache()
+    fk = phase_fp16_kernels(torch, _l2_flush(torch))
+    stamp("fp16_kernels")
+    torch.cuda.empty_cache()
+    fe = phase_fp16_ernie(torch)
+    stamp("fp16_ernie")
+    torch.cuda.empty_cache()
+    fres = phase_fp16_resnet(torch)
+    stamp("fp16_resnet")
     torch.cuda.empty_cache()
     phase_zoo_serve(torch)
     stamp("zoo_serve")
@@ -9596,6 +10459,46 @@ def main():
         skipped_ms=ga["skipped_ms"], plain_ms=ga["plain_ms"],
         bound_ms=ga["bound_ms"], bound_by=ga["bound_by"],
         library_ms=ga["library_ms"]))
+    # float16 #6-#9 and #11 (phase fp16-kernels, timed beside their bf16
+    # instantiations in "bf16_ms"): #6/#7 at GPT's rows, launched on
+    # fp16-guard's gpt3-345M fused_ln run; #8/#9 at ERNIE's, launched on
+    # fp16-ernie's main run; #11 summed over a training forward's 17
+    # launches, launched on fp16-resnet's Model.fit. "launches" counts the
+    # wrappers over the run (its eager first step and its recording),
+    # "launches_recorded" the float16 nodes of its one graph
+    ln_f16 = fg["gpt_fused_ln"], fe["main"]
+    for name, part, line, shape, run in (
+            ("fused_add_layer_norm_fwd", "fwd", 134, "gpt", ln_f16[0]),
+            ("fused_add_layer_norm_bwd", "bwd", 165, "gpt", ln_f16[0]),
+            ("fused_add_layer_norm_y_fwd", "y_fwd", 267, "ernie", ln_f16[1]),
+            ("fused_add_layer_norm_y_bwd", "y_bwd", 294, "ernie",
+             ln_f16[1])):
+        tm = fk["ln_timing"][shape]["float16"]
+        bms, by = tm["bound"][name]
+        kernels.append(dict(
+            name=name, dtype="float16",
+            shape="8192x1024" if shape == "gpt" else "16384x768",
+            path="fp16-guard" if shape == "gpt" else "fp16-ernie",
+            route="cuda", source="paddle_tpu_torch/csrc/fused_ln.cu",
+            replaces=f"{ln_src}:{line}", launches=run["launches"][name],
+            launches_recorded=run["recorded"][name],
+            max_abs_err=max(r["err"][part] for r in fk["ln_rows"]),
+            max_ulps=fk["ln_ulps"], ms=tm["ms"][name],
+            bf16_ms=fk["ln_timing"][shape]["bfloat16"]["ms"][name],
+            plain_ms=tm["plain_ms"][name], bound_ms=bms, bound_by=by,
+            library_ms=tm["native_bwd_ms"] if "bwd" in name else None))
+    c16 = fk["conv_train_total"]
+    kernels.append(dict(
+        name="fused_conv1x1_bn_act", dtype="float16", path="fp16-resnet",
+        route="cuda", source="paddle_tpu_torch/csrc/conv_bn_act.cu",
+        replaces="paddle_tpu/ops/pallas/conv_bn_act.py:101",
+        launches=fres["main"]["launches"]["fused_conv1x1_bn_act"],
+        launches_recorded=fres["main"]["recorded"]["fused_conv1x1_bn_act"],
+        launches_per_forward=17,
+        max_abs_err=max(r["max_abs_err"] for r in fk["conv_rows"]),
+        ms=c16["ms"], bf16_ms=c16["bf16_ms"], plain_ms=c16["plain_ms"],
+        bound_ms=c16["bound_ms"], bound_by=c16["bound_by"],
+        library_ms=None))
     # MobileNetV2 through Model.fit (phase zoo-train): #10 over its 158
     # leaves, the captured Engine's counts (its eager first step and its
     # recording) and a replay's
@@ -9604,6 +10507,14 @@ def main():
                   zt["launches"]["fused_adamw_multi_update"]),
         launches_recorded=zt["recorded_launches"][
             "fused_adamw_multi_update"]))
+    # each kernel's float16 status on the card: ported where a float16 row
+    # was held above, what fp16-guard saw raise (still to port: ROADMAP.md
+    # queue 2), else no float16 operand (#10's leaves stay f32 under O1)
+    f16_rows = {kr["name"] for kr in kernels if kr.get("dtype") == "float16"}
+    for kr in kernels:
+        kr["float16"] = "; ".join(
+            (["ported"] if kr["name"] in f16_rows else [])
+            + fg["refused"].get(kr["name"], [])) or "takes f32 only"
     # every timed number of the table held (the values) and unheld
     for kr in kernels:
         kr["unheld"] = {key: unheld(kr[key])

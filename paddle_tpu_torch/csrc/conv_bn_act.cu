@@ -32,12 +32,15 @@
 //   - one block of 8 warps per output tile of 128 rows x 128 columns (64
 //     when Cout <= 64), so each x row is read once per column tile and the
 //     weight tile, shared by all 128 rows, comes from L2;
-//   - bf16: a loop over Cin in chunks of 32 staged through shared memory,
+//   - bf16 and f16 (conv_bn_act_tc16_kernel<T, ...>: one kernel, the
+//     element type a template parameter; f16 for float16 AMP training
+//     under a GradScaler, with bf16's bytes and tensor-core peak, so its
+//     bound): a loop over Cin in chunks of 32 staged through shared memory,
 //     two stages, 16-byte cp.async copies (with zero fill past the edge)
 //     where Cin or Cout is a multiple of 8 and scalar loads otherwise;
-//     ldmatrix and tensor-core mma.sync m16n8k16 with f32 accumulators,
-//     each warp a 64 x 32 (or 32 x 32) sub-tile; rows padded by 16 bytes so
-//     the ldmatrix reads are free of bank conflicts;
+//     ldmatrix and tensor-core mma.sync m16n8k16 (bf16 or f16) with f32
+//     accumulators, each warp a 64 x 32 (or 32 x 32) sub-tile; rows padded
+//     by 16 bytes so the ldmatrix reads are free of bank conflicts;
 //   - f32: the tile computed transposed, y^T = w^T . x^T, so that x is the
 //     K-major shared-memory operand a tf32 wgmma takes (it reads no
 //     MN-major tf32 operand, and x's rows hold Cin) and w^T comes from
@@ -59,7 +62,9 @@
 //     max(1, |y|) from a float64 product at Cin = 2048. The residual tile
 //     is copied into the output tile at the start, while the product runs;
 //   - the epilogue: scale and shift in f32, the residual read once, ReLU
-//     (NaN gives 0, as jnp.where), one store in x's dtype. Where Cout is a
+//     (NaN gives 0, as jnp.where), one store in x's dtype (rounded to
+//     nearest even; in f16 a value past 65504 is stored as inf, never
+//     saturated, as the reference's astype). Where Cout is a
 //     multiple of 8 (4 in f32; every ResNet shape) acc * scale + shift is
 //     staged in f32 through shared memory (bf16: 64 rows at a time) and
 //     each thread then finishes 8 (f32: 4) consecutive columns of a row
@@ -104,15 +109,34 @@ using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::ldsm_x4;
 using tc::ldsm_x4_t;
-using tc::mma_bf16;
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 128;       // rows of a block tile
-constexpr int kBK = 32;        // bf16: Cin a stage
-constexpr int kPad = 8;        // bf16 of padding a shared row (16 bytes)
+constexpr int kBK = 32;        // bf16/f16: Cin a stage
+constexpr int kPad = 8;        // 16-bit values of padding a shared row
+                               // (16 bytes)
 constexpr int kHalf = 64;      // rows a staged epilogue pass takes
+
+// dtype codes of the C entry
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
+// a 16-bit value (bf16 or f16) <-> f32; to T rounds to nearest even, and
+// in f16 a value past 65504 becomes inf (no saturation), as the
+// reference's astype
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 // ReLU as the reference's jnp.where(y > 0, y, 0): NaN gives 0
 __device__ __forceinline__ float act(float v, int relu) {
@@ -134,33 +158,37 @@ struct Shape {
   // Cin and Cout multiples of 8 values (bf16) or 4 (f32): 16 bytes
   int vec_a;  // x rows 16-byte copyable: Cin % 8 (4), x 16-byte aligned
   int vec_b;  // w rows 16-byte copyable: Cout % 8 (4), w 16-byte aligned
-  int pair;   // bf16, two outputs at a time: Cout even, y and res 4-byte
+  int pair;   // 16-bit, two outputs at a time: Cout even, y and res 4-byte
               // aligned
   int stage;  // 16-byte epilogue: Cout % 8 (4), y and res 16-byte aligned
 };
 
-// -- bf16: tensor cores -----------------------------------------------------
+// -- bf16 and f16: tensor cores -----------------------------------------
+//
+// One kernel for both 16-bit types T (bf16, f16): the same tiles, copies
+// and fragments; mma.sync m16n8k16 of T with f32 accumulators; only the
+// conversions at the edges differ.
 
 // dynamic shared memory of a block: the two stages, then (with a residual
 // and the staged epilogue) the residual tile [kBM][BN + kPad]; after the
 // loop the stages hold the staged f32 rows [kHalf][BN + 4]
-template <int BN>
-struct Bf16Smem {
-  bf16 a[2][kBM][kBK + kPad];
-  bf16 b[2][kBK][BN + kPad];
+template <typename T, int BN>
+struct Smem16 {
+  T a[2][kBM][kBK + kPad];
+  T b[2][kBK][BN + kPad];
 };
 
 template <int BN>
 constexpr int res_tile_bytes() {
-  return kBM * (BN + kPad) * (int)sizeof(bf16);
+  return kBM * (BN + kPad) * 2;
 }
 
-template <int BN>
-__device__ __forceinline__ void load_tile_bf16(Bf16Smem<BN>& sm, int buf,
-                                               const bf16* __restrict__ x,
-                                               const bf16* __restrict__ w,
-                                               long long m0, int n0, int k0,
-                                               const Shape& sh, int tid) {
+template <typename T, int BN>
+__device__ __forceinline__ void load_tile16(Smem16<T, BN>& sm, int buf,
+                                            const T* __restrict__ x,
+                                            const T* __restrict__ w,
+                                            long long m0, int n0, int k0,
+                                            const Shape& sh, int tid) {
   // x rows m0..m0+127, columns k0..k0+31 -> a[buf]
   if (sh.vec_a) {
 #pragma unroll
@@ -179,9 +207,8 @@ __device__ __forceinline__ void load_tile_bf16(Bf16Smem<BN>& sm, int buf,
       const int row = e / kBK, kk = e % kBK;
       const long long gm = m0 + row;
       const int gk = k0 + kk;
-      sm.a[buf][row][kk] = (gm < sh.m && gk < sh.k)
-                               ? x[gm * sh.k + gk]
-                               : __float2bfloat16(0.f);
+      sm.a[buf][row][kk] = (gm < sh.m && gk < sh.k) ? x[gm * sh.k + gk]
+                                                    : from_f<T>(0.f);
     }
   }
   // w rows k0..k0+31, columns n0..n0+BN-1 -> b[buf]
@@ -203,18 +230,18 @@ __device__ __forceinline__ void load_tile_bf16(Bf16Smem<BN>& sm, int buf,
       const int gk = k0 + kr, gn = n0 + nn;
       sm.b[buf][kr][nn] = (gk < sh.k && gn < sh.n)
                               ? w[(long long)gk * sh.n + gn]
-                              : __float2bfloat16(0.f);
+                              : from_f<T>(0.f);
     }
   }
 }
 
 // WARPS_M x WARPS_N warps over a kBM x BN tile
-template <int BN, int WARPS_M, int WARPS_N>
+template <typename T, int BN, int WARPS_M, int WARPS_N>
 __global__ void __launch_bounds__(kThreads)
-conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+conv_bn_act_tc16_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const float* __restrict__ scale,
                         const float* __restrict__ shift,
-                        const bf16* __restrict__ res, bf16* __restrict__ y,
+                        const T* __restrict__ res, T* __restrict__ y,
                         Shape sh) {
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "8 warps");
   constexpr int WM = kBM / WARPS_M;  // rows a warp
@@ -222,11 +249,11 @@ conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   constexpr int MI = WM / 16, NI = WN / 8;
   static_assert(NI % 2 == 0, "B fragments load two n-tiles at a time");
   static_assert(WM <= kHalf && kHalf % WM == 0, "a warp's rows in one half");
-  static_assert(kHalf * (BN + 4) * sizeof(float) <= sizeof(Bf16Smem<BN>),
+  static_assert(kHalf * (BN + 4) * sizeof(float) <= sizeof(Smem16<T, BN>),
                 "the staged rows fit in the stages");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Bf16Smem<BN>& sm = *reinterpret_cast<Bf16Smem<BN>*>(smem_raw);
-  bf16* rs = reinterpret_cast<bf16*>(smem_raw + sizeof(Bf16Smem<BN>));
+  Smem16<T, BN>& sm = *reinterpret_cast<Smem16<T, BN>*>(smem_raw);
+  T* rs = reinterpret_cast<T*>(smem_raw + sizeof(Smem16<T, BN>));
   constexpr int RLD = BN + kPad;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -260,12 +287,13 @@ conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cp_async_commit();
 
   const int kt_n = (sh.k + kBK - 1) / kBK;
-  load_tile_bf16<BN>(sm, 0, x, w, m0, n0, 0, sh, tid);
+  load_tile16<T, BN>(sm, 0, x, w, m0, n0, 0, sh, tid);
   cp_async_commit();
   for (int kt = 0; kt < kt_n; ++kt) {
     const int buf = kt & 1;
     if (kt + 1 < kt_n) {
-      load_tile_bf16<BN>(sm, buf ^ 1, x, w, m0, n0, (kt + 1) * kBK, sh, tid);
+      load_tile16<T, BN>(sm, buf ^ 1, x, w, m0, n0, (kt + 1) * kBK, sh,
+                         tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -293,7 +321,7 @@ conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < NI; ++j) tc::mma16<T>(acc[i][j], a[i], b[j]);
     }
     __syncthreads();
   }
@@ -344,21 +372,20 @@ conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         if (res_smem) {
           const uint4 rr =
               *reinterpret_cast<const uint4*>(rs + rt * RLD + cl);
-          const __nv_bfloat162* rp =
-              reinterpret_cast<const __nv_bfloat162*>(&rr);
+          const uint32_t* rp = reinterpret_cast<const uint32_t*>(&rr);
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
-            const float2 f = __bfloat1622float2(rp[t]);
+            const float2 f = tc::unpack2<T>(rp[t]);
             v[2 * t] += f.x;
             v[2 * t + 1] += f.y;
           }
         }
         uint4 out;
-        __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+        uint32_t* op = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          op[t] = __floats2bfloat162_rn(act(v[2 * t], sh.relu),
-                                        act(v[2 * t + 1], sh.relu));
+          op[t] = tc::pack2<T>(act(v[2 * t], sh.relu),
+                               act(v[2 * t + 1], sh.relu));
         *reinterpret_cast<uint4*>(y + off) = out;
       }
       __syncthreads();
@@ -385,18 +412,16 @@ conv_bn_act_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         if (sh.pair) {  // Cout even: col + 1 < Cout, 4-byte aligned pair
           float2 r = make_float2(0.f, 0.f);
           if (res != nullptr)
-            r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(res + off));
-          *reinterpret_cast<__nv_bfloat162*>(y + off) = __floats2bfloat162_rn(
+            r = tc::unpack2<T>(*reinterpret_cast<const uint32_t*>(res + off));
+          *reinterpret_cast<uint32_t*>(y + off) = tc::pack2<T>(
               epilogue(acc[i][j][2 * h], s0, b0, r.x, sh.relu),
               epilogue(acc[i][j][2 * h + 1], s1, b1, r.y, sh.relu));
         } else {
-          const float r0 = res ? __bfloat162float(res[off]) : 0.f;
-          y[off] = __float2bfloat16(
-              epilogue(acc[i][j][2 * h], s0, b0, r0, sh.relu));
+          const float r0 = res ? to_f(res[off]) : 0.f;
+          y[off] = from_f<T>(epilogue(acc[i][j][2 * h], s0, b0, r0, sh.relu));
           if (two) {
-            const float r1 = res ? __bfloat162float(res[off + 1]) : 0.f;
-            y[off + 1] = __float2bfloat16(
+            const float r1 = res ? to_f(res[off + 1]) : 0.f;
+            y[off + 1] = from_f<T>(
                 epilogue(acc[i][j][2 * h + 1], s1, b1, r1, sh.relu));
           }
         }
@@ -686,12 +711,12 @@ bool aligned(const void* p, uintptr_t a) {
 
 // with the residual tile a block takes more than the 48 KB of static shared
 // memory: opt in to its dynamic size first
-template <int BN, int WARPS_M, int WARPS_N>
-void launch_bf16(const bf16* x, const bf16* w, const float* scale,
-                 const float* shift, const bf16* res, bf16* y, Shape sh,
-                 long long m_tiles, cudaStream_t st) {
-  auto kernel = conv_bn_act_bf16_kernel<BN, WARPS_M, WARPS_N>;
-  const int bytes = (int)sizeof(Bf16Smem<BN>) +
+template <typename T, int BN, int WARPS_M, int WARPS_N>
+void launch16(const T* x, const T* w, const float* scale, const float* shift,
+              const T* res, T* y, Shape sh, long long m_tiles,
+              cudaStream_t st) {
+  auto kernel = conv_bn_act_tc16_kernel<T, BN, WARPS_M, WARPS_N>;
+  const int bytes = (int)sizeof(Smem16<T, BN>) +
                     (res != nullptr && sh.stage ? res_tile_bytes<BN>() : 0);
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes) != cudaSuccess)
@@ -713,21 +738,42 @@ void launch_tf32(const float* x, const float* w, const float* scale,
       x, w, scale, shift, res, y, sh);
 }
 
+// the 16-bit path at element type T: 64-column tiles where Cout <= 64,
+// else 128
+template <typename T>
+void launch16_for(const void* x, const void* w, const float* scale,
+                  const float* shift, const void* res, void* y, Shape sh,
+                  long long m_tiles, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* rt = static_cast<const T*>(res);
+  T* yt = static_cast<T*>(y);
+  if (sh.n <= 64) {
+    sh.n_tiles = (sh.n + 63) / 64;
+    launch16<T, 64, 4, 2>(xt, wt, scale, shift, rt, yt, sh, m_tiles, st);
+  } else {
+    sh.n_tiles = (sh.n + 127) / 128;
+    launch16<T, 128, 2, 4>(xt, wt, scale, shift, rt, yt, sh, m_tiles, st);
+  }
+}
+
 }  // namespace
 
-// x [m, k] and w [k, n] row-major (contiguous) in bf16 (is_bf16) or f32;
-// scale, shift [n] f32; res [m, n] in x's dtype or null; y [m, n] in x's
-// dtype, written. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// x [m, k] and w [k, n] row-major (contiguous) in one dtype, by its code:
+// 0 f32, 1 bf16, 2 f16; scale, shift [n] f32; res [m, n] in x's dtype or
+// null; y [m, n] in x's dtype, written. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int conv_bn_act(const void* x, const void* w, const float* scale,
                            const float* shift, const void* res, void* y,
-                           long long m, int k, int n, int is_bf16, int relu,
+                           long long m, int k, int n, int dtype, int relu,
                            void* stream) {
-  if (m <= 0 || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || k <= 0 || n <= 0 ||
+      (dtype != kF32 && dtype != kBF16 && dtype != kF16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape sh{m, k, n, 0, relu, 0, 0, 0, 0};
   const long long m_tiles = (m + kBM - 1) / kBM;
-  if (!is_bf16) {
+  if (dtype == kF32) {
     sh.vec_a = k % 4 == 0 && aligned(x, 16);
     sh.vec_b = n % 4 == 0 && aligned(w, 16);
     sh.stage =
@@ -748,18 +794,11 @@ extern "C" int conv_bn_act(const void* x, const void* w, const float* scale,
   sh.vec_a = k % 8 == 0 && aligned(x, 16);
   sh.vec_b = n % 8 == 0 && aligned(w, 16);
   sh.pair = n % 2 == 0 && aligned(y, 4) && (res == nullptr || aligned(res, 4));
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  const bf16* rb = static_cast<const bf16*>(res);
-  bf16* yb = static_cast<bf16*>(y);
   sh.stage =
       n % 8 == 0 && aligned(y, 16) && (res == nullptr || aligned(res, 16));
-  if (n <= 64) {
-    sh.n_tiles = (n + 63) / 64;
-    launch_bf16<64, 4, 2>(xb, wb, scale, shift, rb, yb, sh, m_tiles, st);
-  } else {
-    sh.n_tiles = (n + 127) / 128;
-    launch_bf16<128, 2, 4>(xb, wb, scale, shift, rb, yb, sh, m_tiles, st);
-  }
+  if (dtype == kBF16)
+    launch16_for<bf16>(x, w, scale, shift, res, y, sh, m_tiles, st);
+  else
+    launch16_for<__half>(x, w, scale, shift, res, y, sh, m_tiles, st);
   return (int)cudaGetLastError();
 }

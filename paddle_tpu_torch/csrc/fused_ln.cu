@@ -10,12 +10,17 @@
 //                     dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
 //                     xhat)) + ds, dg = sum_rows(dy * xhat), db = sum_rows(dy)
 //   _bwd_call_y (#9)  the same with s = x + r recomputed in f32 and no ds
-// x, r, dy, ds, s, y, dx are [n, h] in f32 or bf16 (one dtype per call);
-// gamma and beta are [h] in f32 or bf16; mu and rstd are [n] f32; dg and db
-// come out f32. Every value is computed in f32 and rounded to the storage
-// dtype only where it is stored, as the Pallas bodies do: s is stored
-// rounded by #6 and read back rounded by #7, while #8/#9 keep it in f32.
+// x, r, dy, ds, s, y, dx are [n, h] in f32, bf16 or f16 (one dtype per
+// call); gamma and beta are [h] in f32 or the rows' dtype; mu and rstd are
+// [n] f32; dg and db come out f32. Every value is computed in f32 and
+// rounded to the storage dtype only where it is stored, as the Pallas
+// bodies do: s is stored rounded by #6 and read back rounded by #7, while
+// #8/#9 keep it in f32.
 // The variance is the two-pass mean((s - mu)^2), as the reference.
+// float16 (float16 AMP, under a GradScaler) runs the bf16 instantiations'
+// code at __half: the same 2-byte chunks, chunk counts, residency and
+// grids; only the conversions differ, and a sum or an output past f16's
+// 65504 is stored as inf, as the reference's astype stores it.
 //
 // What the TPU tiling needed and this drops: the [n, 128] lane-replicated
 // row statistics (_STAT_LANES) are [n] here, and the block-row picker is
@@ -33,13 +38,13 @@
 // once; the row sums are warp shuffles.
 //
 // The backward (#7, #9): one warp a row, lane l owning the 16-byte chunks
-// l + 32 j of it (8 bf16 or 4 f32 values each), so one warp instruction
-// moves 512 bytes; and
+// l + 32 j of it (8 bf16 or f16, or 4 f32 values each), so one warp
+// instruction moves 512 bytes; and
 // - one wave: __launch_bounds__(128, 4) holds a thread to 128 registers,
-//   so four blocks reside on an SM where shared memory allows (every bf16
-//   row; f32 rows past 512 values fit three or two); the caller's grid is
-//   two blocks an SM of the card's 132 (measured faster than four), all
-//   resident at once: no tail wave;
+//   so four blocks reside on an SM where shared memory allows (every
+//   16-bit row; f32 rows past 512 values fit three or two); the caller's
+//   grid is two blocks an SM of the card's 132 (measured faster than
+//   four), all resident at once: no tail wave;
 // - the next row in flight: each warp streams its rows through two stages
 //   of shared memory. Row i + 1's dy and two row tensors go out as 16-byte
 //   cp.async copies, its mu and rstd as register loads, before row i is
@@ -78,6 +83,7 @@
 // where the mean is 15.5).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,6 +104,10 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_f<__half>(__half v) {
+  return __half2float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -109,11 +119,25 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
+// round to nearest even; past f16's largest finite 65504 the value becomes
+// inf, as torch's .to() and the reference's astype make it (no saturation:
+// an overflow is what a loss scaler looks for)
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
 
-// gamma / beta in f32 or bf16 (a uniform branch)
-__device__ __forceinline__ float load_w(const void* p, int c, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c])
-              : static_cast<const float*>(p)[c];
+// dtype codes of the C entries: the rows' and gamma/beta's
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
+// gamma / beta in f32, or in the rows' 16-bit type T (w_low): a uniform
+// two-way branch. (A three-way one on the dtype code, tried first, cost
+// #6 1.66x at 8192 x 1024 on the H100: ptxas gave the forward other
+// registers and, without the row sum, spills.)
+template <typename T>
+__device__ __forceinline__ float load_w(const void* p, int c, bool w_low) {
+  return w_low ? to_f(static_cast<const T*>(p)[c])
+               : static_cast<const float*>(p)[c];
 }
 
 // butterfly sum: every lane ends with the same bits
@@ -128,7 +152,7 @@ template <typename T, int VPT, bool kSum>
 __global__ void __launch_bounds__(kThreads)
 ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
               const void* __restrict__ gamma, const void* __restrict__ beta,
-              bool w_bf16, T* __restrict__ y, T* __restrict__ s_out,
+              bool w_low, T* __restrict__ y, T* __restrict__ s_out,
               float* __restrict__ mu_out, float* __restrict__ rstd_out,
               long long n, int h, float eps) {
   const int lane = threadIdx.x & 31;
@@ -158,8 +182,8 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
       const int c = lane + 32 * j;
       if (c < h) {
         const float xhat = (s[j] - mu) * rstd;
-        y[base + c] = from_f<T>(xhat * load_w(gamma, c, w_bf16) +
-                                load_w(beta, c, w_bf16));
+        y[base + c] = from_f<T>(xhat * load_w<T>(gamma, c, w_low) +
+                                load_w<T>(beta, c, w_low));
         if constexpr (kSum) s_out[base + c] = from_f<T>(s[j]);
       }
     }
@@ -239,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
               const T* __restrict__ a, const T* __restrict__ b,
               const float* __restrict__ mu, const float* __restrict__ rstd,
-              const void* __restrict__ gamma, bool w_bf16,
+              const void* __restrict__ gamma, bool w_low,
               T* __restrict__ dx, float* __restrict__ part_g,
               float* __restrict__ part_b, long long n, int h, bool vec) {
   using G = Bwd<T, C>;
@@ -314,7 +338,7 @@ ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
   for (int i = threadIdx.x; i < 32 * G::V; i += kThreads) {
     const int t = i & 3, l = (i >> 2) & 31, jq = i >> 7;
     const int c = (l + 32 * (jq / (E / 4))) * E + 4 * (jq % (E / 4)) + t;
-    gs[i] = c < h ? load_w(gamma, c, w_bf16) : 0.f;
+    gs[i] = c < h ? load_w<T>(gamma, c, w_low) : 0.f;
   }
   __syncthreads();
   for (int s = 0; row < n; row += stride, s ^= 1) {
@@ -503,7 +527,7 @@ template <typename T, int VPT, bool kSum>
 __global__ void __launch_bounds__(kWideThreads, 2)
 ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const void* __restrict__ gamma,
-                   const void* __restrict__ beta, bool w_bf16,
+                   const void* __restrict__ beta, bool w_low,
                    T* __restrict__ y, T* __restrict__ s_out,
                    float* __restrict__ mu_out, float* __restrict__ rstd_out,
                    long long n, int h, float eps) {
@@ -545,8 +569,8 @@ ln_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
       const int c = lane + 32 * j;
       if (c < width) {
         const float xhat = (s[j] - mu) * rstd;
-        y[base + c] = from_f<T>(xhat * load_w(gamma, col0 + c, w_bf16) +
-                                load_w(beta, col0 + c, w_bf16));
+        y[base + c] = from_f<T>(xhat * load_w<T>(gamma, col0 + c, w_low) +
+                                load_w<T>(beta, col0 + c, w_low));
         if constexpr (kSum) s_out[base + c] = from_f<T>(s[j]);
       }
     }
@@ -578,7 +602,7 @@ ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
                    const T* __restrict__ a, const T* __restrict__ b,
                    const float* __restrict__ mu,
                    const float* __restrict__ rstd,
-                   const void* __restrict__ gamma, bool w_bf16,
+                   const void* __restrict__ gamma, bool w_low,
                    T* __restrict__ dx, float* __restrict__ part_g,
                    float* __restrict__ part_b, long long n, int h,
                    bool vec) {
@@ -664,7 +688,7 @@ ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ ds,
     const int cl = (l + 32 * (jq / (E / 4))) * E + 4 * (jq % (E / 4)) + t;
     const int c = ws * geo.sw + cl;
     reinterpret_cast<float*>(smem)[i] =
-        cl < geo.sw && c < h ? load_w(gamma, c, w_bf16) : 0.f;
+        cl < geo.sw && c < h ? load_w<T>(gamma, c, w_low) : 0.f;
   }
   __syncthreads();
   int buf = 0;
@@ -790,7 +814,7 @@ int pick_vpt(int h) {
 
 template <typename T, bool kSum>
 int launch_fwd(const void* x, const void* r, const void* gamma,
-               const void* beta, bool w_bf16, void* y, void* s, float* mu,
+               const void* beta, bool w_low, void* y, void* s, float* mu,
                float* rstd, long long n, int h, float eps,
                cudaStream_t stream) {
   const int vpt = pick_vpt(h);
@@ -799,14 +823,14 @@ int launch_fwd(const void* x, const void* r, const void* gamma,
 #define FLN_FWD(V)                                                          \
   ln_fwd_kernel<T, V, kSum><<<grid, kThreads, 0, stream>>>(                 \
       static_cast<const T*>(x), static_cast<const T*>(r), gamma, beta,      \
-      w_bf16, static_cast<T*>(y), static_cast<T*>(s), mu, rstd, n, h, eps)
+      w_low, static_cast<T*>(y), static_cast<T*>(s), mu, rstd, n, h, eps)
   FLN_DISPATCH(vpt, FLN_FWD)
 #undef FLN_FWD
   return (int)cudaGetLastError();
 }
 
 // C: chunks a lane for a row of h values of `es` bytes, rounded up to an
-// instantiated count (bf16 rows take 1-4, f32 rows 1-4, 6 or 8); 0 above
+// instantiated count (16-bit rows take 1-4, f32 rows 1-4, 6 or 8); 0 above
 // h = 1024
 int pick_chunks(int h, int es) {
   if (h > 1024) return 0;
@@ -850,7 +874,7 @@ cudaError_t bwd_attrs() {
 template <typename T, int C, bool kSum>
 int launch_rows_c(const void* dy, const void* ds, const void* a,
                   const void* b, const float* mu, const float* rstd,
-                  const void* gamma, bool w_bf16, void* dx, float* part_g,
+                  const void* gamma, bool w_low, void* dx, float* part_g,
                   float* part_b, long long n, int h, int blocks,
                   cudaStream_t stream) {
   const cudaError_t err = bwd_attrs<T, C, kSum>();
@@ -862,17 +886,17 @@ int launch_rows_c(const void* dy, const void* ds, const void* a,
       <<<blocks, kThreads, Bwd<T, C>::SMEM, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(ds),
       static_cast<const T*>(a), static_cast<const T*>(b), mu, rstd, gamma,
-      w_bf16, static_cast<T*>(dx), part_g, part_b, n, h, vec);
+      w_low, static_cast<T*>(dx), part_g, part_b, n, h, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kSum>
 int launch_rows(const void* dy, const void* ds, const void* a, const void* b,
                 const float* mu, const float* rstd, const void* gamma,
-                bool w_bf16, void* dx, float* part_g, float* part_b,
+                bool w_low, void* dx, float* part_g, float* part_b,
                 long long n, int h, int blocks, cudaStream_t stream) {
 #define FLN_ROWS(CC)                                                      \
-  launch_rows_c<T, CC, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,  \
+  launch_rows_c<T, CC, kSum>(dy, ds, a, b, mu, rstd, gamma, w_low, dx,  \
                              part_g, part_b, n, h, blocks, stream)
   FLN_CHUNKS(FLN_ROWS)
 #undef FLN_ROWS
@@ -882,7 +906,7 @@ int launch_rows(const void* dy, const void* ds, const void* a, const void* b,
 
 template <typename T, bool kSum>
 int launch_fwd_wide(const void* x, const void* r, const void* gamma,
-                    const void* beta, bool w_bf16, void* y, void* s,
+                    const void* beta, bool w_low, void* y, void* s,
                     float* mu, float* rstd, long long n, int h, float eps,
                     cudaStream_t stream) {
   const Wide geo = wide_geometry(h, (int)sizeof(T));
@@ -891,13 +915,13 @@ int launch_fwd_wide(const void* x, const void* r, const void* gamma,
   ln_fwd_wide_kernel<T, kWideSlice / 32, kSum>
       <<<grid, kWideThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), gamma, beta,
-      w_bf16, static_cast<T*>(y), static_cast<T*>(s), mu, rstd, n, h, eps);
+      w_low, static_cast<T*>(y), static_cast<T*>(s), mu, rstd, n, h, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kSum>
 struct WideBwd {
-  // chunks a lane for a slice of up to 512 values (2 bf16, 4 f32)
+  // chunks a lane for a slice of up to 512 values (2 bf16 or f16, 4 f32)
   static constexpr int C = kWideSlice / (32 * Bwd<T, 1>::E);
   static int smem(const Wide& geo) {
     return wide_bwd_smem<T, C>(geo.warps, geo.rows);
@@ -928,7 +952,7 @@ struct WideBwd {
 template <typename T, bool kSum>
 int launch_wide(const void* dy, const void* ds, const void* a, const void* b,
                 const float* mu, const float* rstd, const void* gamma,
-                bool w_bf16, void* dx, float* part_g, float* part_b,
+                bool w_low, void* dx, float* part_g, float* part_b,
                 long long n, int h, int blocks, cudaStream_t stream) {
   using K = WideBwd<T, kSum>;
   const cudaError_t err = K::attrs();
@@ -941,7 +965,7 @@ int launch_wide(const void* dy, const void* ds, const void* a, const void* b,
       <<<blocks, kWideThreads, K::smem(geo), stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(ds),
       static_cast<const T*>(a), static_cast<const T*>(b), mu, rstd, gamma,
-      w_bf16, static_cast<T*>(dx), part_g, part_b, n, h, vec);
+      w_low, static_cast<T*>(dx), part_g, part_b, n, h, vec);
   return (int)cudaGetLastError();
 }
 
@@ -972,14 +996,14 @@ bool width_ok(int h) {
 template <typename T, bool kSum>
 int launch_bwd(const void* dy, const void* ds, const void* a, const void* b,
                const float* mu, const float* rstd, const void* gamma,
-               bool w_bf16, void* dx, float* part_g, float* part_b,
+               bool w_low, void* dx, float* part_g, float* part_b,
                float* dg, float* db, long long n, int h, int blocks,
                cudaStream_t stream) {
   const int err =
       h > kWarpRow
-          ? launch_wide<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,
+          ? launch_wide<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_low, dx,
                                  part_g, part_b, n, h, blocks, stream)
-          : launch_rows<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_bf16, dx,
+          : launch_rows<T, kSum>(dy, ds, a, b, mu, rstd, gamma, w_low, dx,
                                  part_g, part_b, n, h, blocks, stream);
   if (err) return err;
   colsum_kernel<<<(h + kColX - 1) / kColX, dim3(kColX, kColY), 0, stream>>>(
@@ -1013,97 +1037,91 @@ int residency(int h, int* out) {
 }
 
 
+// f(T{}) for the row type of dtype code `dt`; an unknown code is
+// cudaErrorInvalidValue
+template <typename F>
+int by_dtype(int dt, F f) {
+  switch (dt) {
+    case kF32: return f(float{});
+    case kBF16: return f(__nv_bfloat16{});
+    case kF16: return f(__half{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// gamma/beta in f32 or the rows' dtype
+bool w_ok(int dt, int wdt) { return wdt == kF32 || wdt == dt; }
+
 }  // namespace
 
 // Forward, #6 (s != NULL: s is written) or #8 (s == NULL). x, r, y, s: n x h
-// contiguous values of one dtype (is_bf16), gamma/beta: h values (w_bf16),
-// mu/rstd: n floats. Launches on `stream` and returns cudaGetLastError().
+// contiguous values of one dtype (code dt: 0 f32, 1 bf16, 2 f16),
+// gamma/beta: h values (code wdt: f32 or dt), mu/rstd: n floats. Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int fused_ln_fwd(const void* x, const void* r, const void* gamma,
                             const void* beta, void* y, void* s, float* mu,
                             float* rstd, long long n, int h, float eps,
-                            int is_bf16, int w_bf16, void* stream) {
-  if (n <= 0 || h <= 0 || !width_ok(h))
+                            int dt, int wdt, void* stream) {
+  if (n <= 0 || h <= 0 || !width_ok(h) || !w_ok(dt, wdt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wb = w_bf16 != 0;
-  if (h > kWarpRow) {
-    if (is_bf16)
-      return s ? launch_fwd_wide<__nv_bfloat16, true>(x, r, gamma, beta, wb,
-                                                      y, s, mu, rstd, n, h,
-                                                      eps, st)
-               : launch_fwd_wide<__nv_bfloat16, false>(
-                     x, r, gamma, beta, wb, y, nullptr, mu, rstd, n, h, eps,
-                     st);
-    return s ? launch_fwd_wide<float, true>(x, r, gamma, beta, wb, y, s, mu,
-                                            rstd, n, h, eps, st)
-             : launch_fwd_wide<float, false>(x, r, gamma, beta, wb, y,
-                                             nullptr, mu, rstd, n, h, eps,
-                                             st);
-  }
-  if (is_bf16)
-    return s ? launch_fwd<__nv_bfloat16, true>(x, r, gamma, beta, wb, y, s,
-                                               mu, rstd, n, h, eps, st)
-             : launch_fwd<__nv_bfloat16, false>(x, r, gamma, beta, wb, y,
-                                                nullptr, mu, rstd, n, h, eps,
-                                                st);
-  return s ? launch_fwd<float, true>(x, r, gamma, beta, wb, y, s, mu, rstd, n,
-                                     h, eps, st)
-           : launch_fwd<float, false>(x, r, gamma, beta, wb, y, nullptr, mu,
-                                      rstd, n, h, eps, st);
+  const bool w_low = wdt != kF32;
+  return by_dtype(dt, [&](auto tag) {
+    using T = decltype(tag);
+    if (h > kWarpRow)
+      return s ? launch_fwd_wide<T, true>(x, r, gamma, beta, w_low, y, s, mu,
+                                          rstd, n, h, eps, st)
+               : launch_fwd_wide<T, false>(x, r, gamma, beta, w_low, y,
+                                           nullptr, mu, rstd, n, h, eps, st);
+    return s ? launch_fwd<T, true>(x, r, gamma, beta, w_low, y, s, mu, rstd,
+                                   n, h, eps, st)
+             : launch_fwd<T, false>(x, r, gamma, beta, w_low, y, nullptr, mu,
+                                    rstd, n, h, eps, st);
+  });
 }
 
 // Backward, #7 (ds != NULL: a is the saved s, b unused) or #9 (ds == NULL:
-// a = x, b = r). dy, ds, a, b, dx: n x h of one dtype; mu/rstd: n floats;
-// gamma: h values (w_bf16); part_g/part_b: blocks x h float scratch;
-// dg/db: h floats. `blocks` is the grid of the row kernel (the caller's
-// choice, a function of n, h and the dtype, so a run repeats bit for bit;
-// one wave where it is at most 132 SMs x the resident blocks). Two kernels
-// on `stream`; returns cudaGetLastError().
+// a = x, b = r). dy, ds, a, b, dx: n x h of one dtype (code dt); mu/rstd:
+// n floats; gamma: h values (code wdt); part_g/part_b: blocks x h float
+// scratch; dg/db: h floats. `blocks` is the grid of the row kernel (the
+// caller's choice, a function of n, h and the dtype, so a run repeats bit
+// for bit; one wave where it is at most 132 SMs x the resident blocks). Two
+// kernels on `stream`; returns cudaGetLastError().
 extern "C" int fused_ln_bwd(const void* dy, const void* ds, const void* a,
                             const void* b, const float* mu, const float* rstd,
                             const void* gamma, void* dx, float* part_g,
                             float* part_b, float* dg, float* db, long long n,
-                            int h, int blocks, int is_bf16, int w_bf16,
+                            int h, int blocks, int dt, int wdt,
                             void* stream) {
   if (n <= 0 || h <= 0 || blocks <= 0 || !width_ok(h) ||
-      (!ds && !b))
+      (!ds && !b) || !w_ok(dt, wdt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wb = w_bf16 != 0;
-  if (is_bf16)
-    return ds ? launch_bwd<__nv_bfloat16, true>(dy, ds, a, b, mu, rstd, gamma,
-                                                wb, dx, part_g, part_b, dg,
-                                                db, n, h, blocks, st)
-              : launch_bwd<__nv_bfloat16, false>(dy, ds, a, b, mu, rstd,
-                                                 gamma, wb, dx, part_g,
-                                                 part_b, dg, db, n, h,
-                                                 blocks, st);
-  return ds ? launch_bwd<float, true>(dy, ds, a, b, mu, rstd, gamma, wb, dx,
-                                      part_g, part_b, dg, db, n, h, blocks,
-                                      st)
-            : launch_bwd<float, false>(dy, ds, a, b, mu, rstd, gamma, wb, dx,
-                                       part_g, part_b, dg, db, n, h, blocks,
-                                       st);
+  const bool w_low = wdt != kF32;
+  return by_dtype(dt, [&](auto tag) {
+    using T = decltype(tag);
+    return ds ? launch_bwd<T, true>(dy, ds, a, b, mu, rstd, gamma, w_low, dx,
+                                    part_g, part_b, dg, db, n, h, blocks, st)
+              : launch_bwd<T, false>(dy, ds, a, b, mu, rstd, gamma, w_low, dx,
+                                     part_g, part_b, dg, db, n, h, blocks,
+                                     st);
+  });
 }
 
-// The backward row kernel's residency for rows of h values (is_bf16), #7
+// The backward row kernel's residency for rows of h values (code dt), #7
 // (with_sum) or #9: out[0] blocks an SM (cudaOccupancy...), out[1] its
 // dynamic shared memory bytes, out[2] registers a thread, out[3] local
 // (spill) bytes a thread. Launches nothing; returns a CUDA error or 0.
-extern "C" int fused_ln_bwd_residency(int h, int is_bf16, int with_sum,
+extern "C" int fused_ln_bwd_residency(int h, int dt, int with_sum,
                                       int* out) {
   if (h <= 0 || !width_ok(h))
     return (int)cudaErrorInvalidValue;
-  if (h > kWarpRow) {
-    if (is_bf16)
-      return with_sum ? wide_residency<__nv_bfloat16, true>(h, out)
-                      : wide_residency<__nv_bfloat16, false>(h, out);
-    return with_sum ? wide_residency<float, true>(h, out)
-                    : wide_residency<float, false>(h, out);
-  }
-  if (is_bf16)
-    return with_sum ? residency<__nv_bfloat16, true>(h, out)
-                    : residency<__nv_bfloat16, false>(h, out);
-  return with_sum ? residency<float, true>(h, out)
-                  : residency<float, false>(h, out);
+  return by_dtype(dt, [&](auto tag) {
+    using T = decltype(tag);
+    if (h > kWarpRow)
+      return with_sum ? wide_residency<T, true>(h, out)
+                      : wide_residency<T, false>(h, out);
+    return with_sum ? residency<T, true>(h, out)
+                    : residency<T, false>(h, out);
+  });
 }

@@ -1,10 +1,11 @@
 // Shared device helpers of the tensor-core kernels (the fused 1x1 conv and
 // the flash-attention kernels): cp.async copies into shared memory,
-// ldmatrix and mma.sync m16n8k16 (sm_80 style, one warp), the 3xTF32
-// split and mma.sync m16n8k8 tf32 (the f32 flash forward), and Hopper's
-// warpgroup products wgmma.mma_async m64n64k16 (bf16 or f16 operands, f32
-// accumulate; the element type a template parameter) and m64nNk8 (tf32,
-// the f32 fused 1x1 conv) over 128-byte-swizzled shared-memory tiles.
+// ldmatrix and mma.sync m16n8k16 in bf16 or f16 (sm_80 style, one warp),
+// the 3xTF32 split and mma.sync m16n8k8 tf32 (the f32 flash forward), and
+// Hopper's warpgroup products wgmma.mma_async m64n64k16 (bf16 or f16
+// operands, f32 accumulate; the element type a template parameter) and
+// m64nNk8 (tf32, the f32 fused 1x1 conv) over 128-byte-swizzled
+// shared-memory tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +75,33 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the same in f16 (mma_bf16's fragments, f32 accumulate)
+__device__ __forceinline__ void mma_f16(float* d, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_bf16 or mma_f16 by the 16-bit element type T
+template <typename T>
+__device__ __forceinline__ void mma16(float* d, const uint32_t* a,
+                                      const uint32_t* b);
+template <>
+__device__ __forceinline__ void mma16<__nv_bfloat16>(float* d,
+                                                     const uint32_t* a,
+                                                     const uint32_t* b) {
+  mma_bf16(d, a, b);
+}
+template <>
+__device__ __forceinline__ void mma16<__half>(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  mma_f16(d, a, b);
 }
 
 // -- 3xTF32: f32 products on the tensor cores --------------------------------
@@ -149,6 +177,18 @@ __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
 template <>
 __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return pack_f16(lo, hi);
+}
+
+// pack2's inverse: a register of two T, lo in the low half, as two f32
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<__half2*>(&v));
 }
 
 // -- wgmma (one warpgroup, sm_90a) ------------------------------------------

@@ -27,15 +27,17 @@ product summed in f32 and y in x2's dtype.
 
 The reference's TPU tiling rules are gone, and with them its quiet jnp
 fallback: ``_supported``'s Cin and Cout multiples of 128 and 4 MiB weight
-cap, and ``_pick_block_m``. The kernel takes any M, Cin and Cout, in f32 or
-bf16; what it does not take (another dtype, a mismatched or non-contiguous
-operand) raises on every device.
+cap, and ``_pick_block_m``. The kernel takes any M, Cin and Cout, in f32,
+bf16 or float16; what it does not take (another dtype, a mismatched or
+non-contiguous operand) raises on every device.
 
 Kernel note (details in the .cu): bound by bytes at most of ResNet-50's
-shapes; one block of 8 warps per 128 x 128 output tile, bf16 through
-tensor-core mma.sync with f32 accumulators; f32 on the tensor cores in
-3xTF32 (each operand split into two TF32 parts, three wgmma products a
-step, at the f32 bar), the block's tile computed transposed so that x is
+shapes; one block of 8 warps per 128 x 128 output tile, bf16 and float16
+through tensor-core mma.sync with f32 accumulators (one kernel, the element
+type a template parameter; a float16 output past 65504 is inf, as the
+reference's astype makes it); f32 on the tensor cores in 3xTF32 (each
+operand split into two TF32 parts, three wgmma products a step, at the f32
+bar), the block's tile computed transposed so that x is
 the K-major shared-memory operand; the epilogue staged through shared
 memory for 16-byte stores.
 """
@@ -48,9 +50,11 @@ import torch
 __all__ = ["fused_conv1x1_bn_act", "conv_bn_act_plain", "FusedConv1x1BnAct",
            "conv1x1_batch_stats"]
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the C entry's dtype codes (kF32, kBF16, kF16)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
-# x, w, scale, shift, res, y; m; k; n; is_bf16; relu; stream
+# x, w, scale, shift, res, y; m; k; n; the dtype code; relu; stream
 _ARGTYPES = [_P] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]
 
 
@@ -69,10 +73,8 @@ def _check(x2, w, scale, shift, res2):
     """Raise on anything the kernel does not take."""
     fn = "fused_conv1x1_bn_act"
     if x2.dtype not in _DTYPES:
-        note = (" (the float16 kernel is still to port: ROADMAP.md queue 2)"
-                if x2.dtype == torch.float16 else "")
         raise TypeError(f"{fn}: x2 is {x2.dtype}; the kernel takes "
-                        f"{_DTYPES}{note}")
+                        f"{_DTYPES}")
     if x2.dim() != 2 or w.dim() != 2 or w.shape[0] != x2.shape[1]:
         raise ValueError(f"{fn}: x2 {tuple(x2.shape)} and w "
                          f"{tuple(w.shape)} are not [M, Cin] and [Cin, Cout]")
@@ -114,8 +116,8 @@ def _launch(x2, w, scale, shift, res2, relu):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(), 0 if res2 is None else res2.data_ptr(),
-                 y.data_ptr(), m, k, n, int(x2.dtype == torch.bfloat16),
-                 int(bool(relu)), stream)
+                 y.data_ptr(), m, k, n, _CODES[x2.dtype], int(bool(relu)),
+                 stream)
     if err:
         raise RuntimeError(f"fused_conv1x1_bn_act kernel launch failed: "
                            f"CUDA error {err}")
@@ -157,9 +159,10 @@ class FusedConv1x1BnAct(torch.autograd.Function):
 def fused_conv1x1_bn_act(x2, w, scale, shift, res2=None, relu=True):
     """y = relu((x2 @ w) * scale + shift [+ res2]) in one pass.
 
-    x2 [M, Cin] (NHWC flattened over N*H*W) and w [Cin, Cout] in f32 or
-    bf16 alike; scale, shift [Cout] f32 (the folded BatchNorm); res2 an
-    optional [M, Cout] residual in x2's dtype, added before the ReLU. All
+    x2 [M, Cin] (NHWC flattened over N*H*W) and w [Cin, Cout] in f32,
+    bf16 or float16 alike; scale, shift [Cout] f32 (the folded BatchNorm);
+    res2 an optional [M, Cout] residual in x2's dtype, added before the
+    ReLU. All
     contiguous. Returns [M, Cout] in x2's dtype, differentiable in every
     tensor argument."""
     args = (x2, w, scale, shift) + (() if res2 is None else (res2,))

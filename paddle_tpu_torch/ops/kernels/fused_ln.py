@@ -21,13 +21,15 @@ the autograd functions take ``[..., H]`` and fold.
 
 A CPU tensor runs the twin; a CUDA tensor launches ``csrc/fused_ln.cu`` or
 raises (an unsupported dtype, width or layout, or a failed build or
-launch): there is no third branch. Each wrapper counts its launches in
-``<wrapper>.launches``.
+launch): there is no third branch. The rows are f32, bf16 or float16
+(one dtype a call), gamma and beta f32 or the rows' dtype. Each wrapper
+counts its launches in ``<wrapper>.launches``.
 
 Rounding, as the Pallas bodies: everything is computed in f32 from the
-inputs; y, s and dx are rounded to the input dtype where they are stored;
-the #7 backward reads s back rounded, while #9 recomputes it in f32 from x
-and res. mu and rstd are [N] f32 (the TPU's 128-lane replication is
+inputs; y, s and dx are rounded to the input dtype where they are stored
+(in float16 a value past 65504 becomes inf, as the reference's astype
+makes it); the #7 backward reads s back rounded, while #9 recomputes it
+in f32 from x and res. mu and rstd are [N] f32 (the TPU's 128-lane replication is
 dropped); dgamma and dbeta are f32 sums over the rows.
 
 Kernel note (details in the .cu): bound by bytes, every element read and
@@ -57,7 +59,9 @@ __all__ = ["MAX_H", "RowSplit", "row_split", "BwdPlan", "bwd_plan",
            "fused_add_layer_norm_y"]
 
 MAX_H = 8192  # the widest row: 16 warps of 512 values (kWideMaxH)
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the C entries' dtype codes (kF32, kBF16, kF16)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _WARPS = 4               # rows a block works on at once (kWarps in the .cu)
 # rows wider than 1024 values (kWarpRow, kWideSlice, kWideWarps)
 _WARP_ROW = 1024         # rows up to this run one warp a row
@@ -74,12 +78,13 @@ _SMEM_PER_SM = 233472    # 228 KB of shared memory an SM
 _SMEM_RESERVED = 1024    # ... of which the runtime keeps 1 KB a block
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-# x, r, gamma, beta, y, s, mu, rstd; n; h; eps; is_bf16; w_bf16; stream
+# x, r, gamma, beta, y, s, mu, rstd; n; h; eps; the rows' dtype code;
+# gamma/beta's; stream
 _FWD_ARGTYPES = [_P] * 8 + [_L, _I, _F, _I, _I, _P]
 # dy, ds, a, b, mu, rstd, gamma, dx, part_g, part_b, dg, db; n; h; blocks;
-# is_bf16; w_bf16; stream
+# the rows' dtype code; gamma's; stream
 _BWD_ARGTYPES = [_P] * 12 + [_L, _I, _I, _I, _I, _P]
-# h; is_bf16; with_sum; out (4 ints)
+# h; the rows' dtype code; with_sum; out (4 ints)
 _RESIDENCY_ARGTYPES = [_I, _I, _I, _P]
 
 
@@ -157,7 +162,7 @@ def row_split(h, dtype):
         raise ValueError(f"row_split: no split for rows of {h} values")
     if h <= _WARP_ROW:
         return RowSplit(1, _WARPS, h)
-    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
+    per = _CHUNK // dtype.itemsize                 # values a chunk
     warps = -(-h // _WIDE_SLICE)
     share = -(-h // warps)
     return RowSplit(warps, _WIDE_WARPS // warps, -(-share // per) * per)
@@ -187,14 +192,14 @@ def bwd_plan(n, h, dtype):
     rows.
 
     A row wider than 1024 values runs on ``row_split``'s W warps, each
-    with the chunks (2 bf16, 4 f32: room for 512 values), ring and
+    with the chunks (2 bf16 or f16, 4 f32: room for 512 values), ring and
     accumulators of a 512-value row, in blocks of 16 warps that keep
     gamma's W slices, the W * R rings and the row sums' exchange in
     shared memory. At 128 registers a thread or fewer (and more than 64)
     one such block resides an SM; the grid is one an SM."""
     if n < 1 or h < 1 or h > MAX_H:
         raise ValueError(f"bwd_plan: no plan for [{n}, {h}] rows")
-    per = _CHUNK // (2 if dtype == torch.bfloat16 else 4)  # values a chunk
+    per = _CHUNK // dtype.itemsize                 # values a chunk
     split = row_split(h, dtype)
     if split.warps == 1:
         nch = -(-h // per)                                  # chunks a row
@@ -230,10 +235,7 @@ def _check(fn, rows, gamma, beta=None):
     first = rows[0][1]
     _on_cuda(fn, first)
     if first.dtype not in _DTYPES:
-        note = (" (the float16 kernels are still to port: ROADMAP.md queue "
-                "2)" if first.dtype == torch.float16 else "")
-        raise TypeError(f"{fn}: dtype {first.dtype} not in {_DTYPES}"
-                        f"{note}")
+        raise TypeError(f"{fn}: dtype {first.dtype} not in {_DTYPES}")
     if first.dim() != 2 or first.shape[0] < 1 or first.shape[1] < 1:
         raise ValueError(f"{fn}: rows must be a non-empty [N, H] tensor, got "
                          f"{tuple(first.shape)}")
@@ -293,8 +295,8 @@ def _fwd_cuda(fn, x, res, gamma, beta, eps, with_sum):
     _launch(fn, "fused_ln_fwd", _FWD_ARGTYPES, x, x.data_ptr(),
             res.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             None if s is None else s.data_ptr(), mu.data_ptr(),
-            rstd.data_ptr(), n, h, float(eps), int(x.dtype == torch.bfloat16),
-            int(gamma.dtype == torch.bfloat16))
+            rstd.data_ptr(), n, h, float(eps), _CODES[x.dtype],
+            _CODES[gamma.dtype])
     return y, s, mu, rstd
 
 
@@ -313,8 +315,8 @@ def _bwd_cuda(fn, dy, ds, a, b, mu, rstd, gamma):
             None if b is None else b.data_ptr(), mu.data_ptr(),
             rstd.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), dgb[0].data_ptr(),
-            dgb[1].data_ptr(), n, h, blocks, int(dy.dtype == torch.bfloat16),
-            int(gamma.dtype == torch.bfloat16))
+            dgb[1].data_ptr(), n, h, blocks, _CODES[dy.dtype],
+            _CODES[gamma.dtype])
     return dx, dgb[0], dgb[1]
 
 
@@ -328,7 +330,7 @@ def bwd_residency(h, dtype, with_sum, device="cuda"):
                         "fused_ln_bwd_residency")
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(torch.device(device)):
-        err = entry(h, int(dtype == torch.bfloat16), int(with_sum), out)
+        err = entry(h, _CODES[dtype], int(with_sum), out)
     if err:
         raise RuntimeError(f"bwd_residency: CUDA error {err}")
     return dict(zip(("blocks_per_sm", "smem", "registers", "spill_bytes"),

@@ -231,7 +231,7 @@ def test_cuda_branch_checks_raise(monkeypatch):
     mu = _meta(n, dtype=torch.float32)
     wide = _meta(n, kln.MAX_H + 8)
     bad = [
-        ((_meta(n, h, dtype=torch.float16),) * 3, g, mu, TypeError, "dtype"),
+        ((_meta(n, h, dtype=torch.float64),) * 3, g, mu, TypeError, "dtype"),
         ((wide, wide, wide), _meta(kln.MAX_H + 8), mu, ValueError, "wider"),
         ((rows, _meta(n + 1, h), rows), g, mu, ValueError, "does not match"),
         ((rows, rows, _meta(n, h, dtype=torch.float32)), g, mu, ValueError,
