@@ -465,7 +465,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              training shape and D = 128 timed beside SDPA in float16,
              ragged and kv_lens cases, the keep mask, an overflow case
              whose infs must sit in the twins' places); the float16
-             calls still to port (#2, #5, #1 at head_dim 32) refusing;
+             call still to port (#1 at head_dim 32) refusing;
              #10 with the guarded step's finite flag; gpt3-345M float16
              AMP through Model.fit under TrainGuard and a GradScaler (14
              captured steps, a nan_grads storm over steps 6-8, one
@@ -511,6 +511,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
              behind a ReLU, where a rounding flips one on one device,
              at RESNET_CUT_LEAF_BAR and RESNET_CUT_RATIO_BAR (alone:
              --fp16-resnet).
+50. fp16-decode — #5 in float16 at llama-1b's serving decode shape (B=32,
+             Hkv=4, G=4, D=128, pages of 128, 2 a slot): float16 q over
+             f32, bf16 and int8 pools and over float16 pools, beside f32
+             q over f32 pools, timed (held, L2 flushed) beside the twin
+             and the bound; float16 q over each pool at G 1, 4 and 6 (lens
+             0, 1, a page edge, the full table) and at D 64 and 256; the
+             split at llama-1b's shape one wave for every pool
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs);
+             #2 with a float16 cache at llama2-7b's (B=4, H=32, D=128)
+             and GPT's (B=8, H=16, D=64) decode shapes over 576 keys,
+             ragged and full (timed beside SDPA in float16), at D=256 and
+             over 4096 keys; each held to its twin within 5e-3 of max(1,
+             |twin|) and repeated bit for bit; runs after phase 14;
+51. generate-fp16 — llama2-7b generate() with float16 weights drawn on the
+             card from seed 0 and a float16 cache, batch 4 x 512, 64 new
+             tokens, greedy: 32 x 64 launches of #2 in float16, no other
+             kernel of the port and no twin; first tokens equal to an f32
+             cache's; tokens/s, ms a step, peak memory, 8 steps profiled;
+             runs after phase 16 (alone with phase 50: --fp16-decode);
+52. llama-serve — bench.py --serve --serve-model llama off smoke on the
+             port: llama-1b (vocab 32000, hidden 2048, 22 layers, 16 heads
+             of 128 over 4 kv heads, FFN 5632) at full width and depth, f32
+             weights from seed 0, ServingEngine(page_size=128,
+             max_seq_len=256, steps_per_dispatch=16) at batch 1, 8 and 32
+             over f32, bf16 and int8 caches: prompts 96/120/64/100 from
+             numpy seed 0, 128 new tokens, a warm-up wave of batch requests
+             (one dispatch), then a timed wave of 2 x batch; #5 22 launches
+             a decode step and #1 22 a prefill, no other kernel and no
+             twin, every page back; with the f32 cache, requests' greedy
+             tokens equal the model's generate() on the card (GREEDY_TIE
+             excepted); then the model cast to float16 at batch 32 over
+             each cache (#5 with float16 q); decode tokens/s, ms a step,
+             TTFT p50, peak memory, a batch-32 dispatch profiled in f32
+             and float16;
+53. llama-serve-cpu — llama-1b cut to 2 layers at full width, f32, the same
+             weights on the card and the CPU: the prefill's last-row
+             logits (bucket 128, kv_lens) within 1e-3 and 2 requests' 16
+             greedy tokens equal (GREEDY_TIE excepted); runs after phase
+             18 (alone with phase 52: --llama-serve).
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -519,8 +558,9 @@ Tolerances on the card (kernel vs plain twin, same inputs):
               relative), measured near 1e-6, and so are the f32
               backward's at D = 32 and 64;
   float16 5e-3 — float16 rounds at 11 bits of mantissa: 5e-3 of
-              max(1, |twin|), a few ulps of a value in [1, 2); the fused
-              LN kernels #6-#9 and #11 to 2 float16 ulps of max(1,
+              max(1, |twin|), a few ulps of a value in [1, 2) (#1/#3/#4,
+              #2 and #5: f32 sums in another order, rounded once); the
+              fused LN kernels #6-#9 and #11 to 2 float16 ulps of max(1,
               |twin|);
   bf16 2e-2 — bf16 inputs and outputs round at 8 bits of mantissa; for
               the backward's grads, whose magnitudes pass 1, 2e-2 of
@@ -541,7 +581,8 @@ model's projections compute in full f32.
 Each path's launch counts are set to 0 just before it is driven and read
 just after: the serving slice (phase 4), the training slice (phase 7),
 the ERNIE slice (phase 11), GPT's fused block (phase 12), each
-generate() call (phases 15-17), one ResNet-50 serve forward (phase 20),
+generate() call (phases 15-17, 51), each serving rung's timed wave
+(phase 52), one ResNet-50 serve forward (phase 20),
 each GPT-1.3B run (phase 22), each ResNet-50 training run (phase 24),
 Model.fit, evaluate and predict (phase 26), LeNet's fit (phase 27),
 one DETR forward and one PP-YOLOE forward and their 10 timed
@@ -582,6 +623,10 @@ its "launches" the captured Engine's counts, "launches_recorded" a
 replay's) and #10 on zoo-train's captured Model.fit of MobileNetV2,
 #6-#9 and #11 in float16 on the fp16-guard, fp16-ernie and fp16-resnet
 runs ("dtype" float16, the bf16 instantiation's time in "bf16_ms"),
+#2 in float16 on generate-fp16 (timed at llama2-7b's shape, GPT's in
+"gpt_shape"), #5 at llama-1b's shape on llama-serve, f32 for the f32
+model's rungs and float16 q for the float16 model's (each pool's time in
+"pools_ms"),
 every row with its kernel's float16 status ("float16"),
 the card's name and power limit (nvidia-smi),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero without
@@ -631,9 +676,11 @@ ceiling the f32 kernel is read against.
     python3 chip_smoke.py --fp16-kernels
     python3 chip_smoke.py --fp16-ernie
     python3 chip_smoke.py --fp16-resnet
+    python3 chip_smoke.py --fp16-decode
+    python3 chip_smoke.py --llama-serve
 
-phase 37, 38, 39, 40, 46, 47, 48 or 49 alone (every kernel built first),
-its results as one JSON line.
+phase 37, 38, 39, 40, 46, 47, 48 or 49, phases 50 and 51, or phases 52
+and 53 alone (every kernel built first), the results as one JSON line.
 
     python3 chip_smoke.py --compare-steps TREE...
 
@@ -1234,13 +1281,15 @@ def _paged_module():
     return importlib.import_module("paddle_tpu_torch.ops.kernels.flash_decode")
 
 
-def _decode_inputs(torch, b, hkv, g, d, ps, mp, dtype, lens, gen):
+def _decode_inputs(torch, b, hkv, g, d, ps, mp, dtype, lens, gen,
+                   q_dtype="float32"):
     """(q, k pool, v pool, page table, lens, k scales, v scales) of a paged
     decode call: each slot owns its own pages, entries past its pages are
     the trash page 0."""
     from paddle_tpu_torch.nlp.paged_cache import quantize_rows
     num_pages = b * mp + 1
-    q = torch.randn(b, hkv, g, d, generator=gen, device="cuda")
+    q = torch.randn(b, hkv, g, d, generator=gen, device="cuda").to(
+        getattr(torch, q_dtype))
     kf = torch.randn(hkv, num_pages, ps, d, generator=gen, device="cuda")
     vf = torch.randn(hkv, num_pages, ps, d, generator=gen, device="cuda")
     ks = vs = None
@@ -1259,29 +1308,40 @@ def _decode_inputs(torch, b, hkv, g, d, ps, mp, dtype, lens, gen):
     return q, kp, vp, pt, lens_t, ks, vs
 
 
-def _decode_bytes(b, hkv, g, d, lens, kp, pt, quant):
-    """Bytes a paged decode call must move: q read and out written (f32),
-    the live K and V rows (and their int8 scales), the table and lens."""
+def _decode_bytes(b, hkv, g, d, lens, kp, pt, quant, q_size=4):
+    """Bytes a paged decode call must move: q read and out written (in q's
+    dtype, of ``q_size`` bytes), the live K and V rows (and their int8
+    scales), the table and lens."""
     keys = int(sum(lens))
-    return (2 * b * hkv * g * d * 4 + 2 * hkv * keys * d * kp.element_size()
+    return (2 * b * hkv * g * d * q_size
+            + 2 * hkv * keys * d * kp.element_size()
             + (2 * hkv * keys * 4 if quant else 0) + pt.numel() * 4 + b * 4)
 
 
 def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
-                 timed):
+                 timed, q_dtype="float32"):
+    """#5 vs its twin on one input of ``dtype`` pools and ``q_dtype`` q
+    (and out): the pools' bar for f32 q, float16's (of max(1, |twin|))
+    for float16 q."""
     from paddle_tpu_torch.nlp.paged_cache import paged_attention_ref
     kpd = _paged_module()
     q, kp, vp, pt, lens_t, ks, vs = _decode_inputs(torch, b, hkv, g, d, ps,
-                                                   mp, dtype, lens, gen)
+                                                   mp, dtype, lens, gen,
+                                                   q_dtype)
     call = lambda: kpd.paged_flash_decode(  # noqa: E731
         q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
     out = call()
     torch.cuda.synchronize()
     ref = paged_attention_ref(q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs)
-    err = (out - ref).abs().max().item()
-    where = f"decode {dtype} b{b} hkv{hkv} g{g} d{d} ps{ps} mp{mp}"
-    check(math.isfinite(err) and err <= TOL[dtype],
-          f"{where}: max_abs_err {err} > {TOL[dtype]}")
+    err, scaled = _err(out, ref)
+    where = (f"decode {dtype} pools, {q_dtype} q, b{b} hkv{hkv} g{g} d{d} "
+             f"ps{ps} mp{mp}")
+    half = q_dtype == "float16"
+    tol = TOL["float16" if half else dtype]
+    check(out.dtype == q.dtype and math.isfinite(err)
+          and (scaled if half else err) <= tol,
+          f"{where}: {out.dtype} out, max_abs_err {err} (of max(1, |twin|):"
+          f" {scaled}) over {tol}")
     zero = [i for i, n in enumerate(lens) if n == 0]
     check(not out[zero].any().item() if zero else True,
           f"{where}: a lens-0 slot gave a nonzero row")
@@ -1290,15 +1350,16 @@ def _decode_case(torch, b, hkv, g, d, ps, mp, dtype, lens, gen, flush,
     torch.cuda.synchronize()
     check(torch.equal(out, out2), f"{where}: a second call gave another "
           "output")
-    row = dict(dtype=dtype, b=b, hkv=hkv, g=g, d=d, ps=ps, mp=mp,
-               max_abs_err=err, split=kpd.paged_decode_split(b, hkv, g, mp,
-                                                             ps))
+    row = dict(dtype=dtype, q_dtype=q_dtype, b=b, hkv=hkv, g=g, d=d, ps=ps,
+               mp=mp, max_abs_err=err, scaled_err=scaled,
+               split=kpd.paged_decode_split(b, hkv, g, mp, ps))
     if timed:
         row["ms"] = time_ms(torch, call, flush=flush)
         row["plain_ms"] = time_ms(torch, lambda: paged_attention_ref(
             q, kp, vp, pt, lens_t, k_scale=ks, v_scale=vs), flush=flush)
         row["bound_ms"], row["bound_by"] = bound(
-            _decode_bytes(b, hkv, g, d, lens, kp, pt, ks is not None),
+            _decode_bytes(b, hkv, g, d, lens, kp, pt, ks is not None,
+                          q.element_size()),
             4 * hkv * g * d * int(sum(lens)))
     return row
 
@@ -4643,12 +4704,15 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
     out = kfa.flash_decode(q, k, v, lens_t)
     torch.cuda.synchronize()
     ref = kfa.flash_decode_plain(q, k, v, lens_t)
-    err = (out.float() - ref.float()).abs().max().item()
+    err, scaled = _err(out, ref)
     check(out.dtype == dt and out.shape == (b, 1, h, d),
           f"dense-decode: output {out.dtype} {tuple(out.shape)}")
-    check(math.isfinite(err) and err <= TOL[dtype],
+    # float16 to 5e-3 of max(1, |twin|); f32 and bf16 absolute, as before
+    got = scaled if dtype == "float16" else err
+    check(math.isfinite(err) and got <= TOL[dtype],
           f"dense-decode {dtype} b{b} h{h} s{s} d{d} lens{lens}: "
-          f"max_abs_err {err} > {TOL[dtype]}")
+          f"max_abs_err {err} (of max(1, |twin|): {scaled}) over "
+          f"{TOL[dtype]}")
     zero = [i for i, n in enumerate(lens) if n == 0]
     check(not out[zero].any().item() if zero else True,
           "dense-decode: a kv_lens-0 row gave a nonzero output")
@@ -4658,7 +4722,7 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
     check(torch.equal(out, out2), f"dense-decode {dtype} b{b} h{h} s{s} "
           f"d{d}: a second call gave another output")
     row = dict(dtype=dtype, b=b, h=h, s=s, d=d, lens=lens, max_abs_err=err,
-               splits=kfa.decode_split(b, h, s))
+               scaled_err=scaled, splits=kfa.decode_split(b, h, s))
     if timed:
         row["ms"] = time_ms(torch, lambda: kfa.flash_decode(q, k, v, lens_t),
                             flush=flush)
@@ -4677,7 +4741,7 @@ def _dense_decode_case(torch, b, h, s, d, dtype, lens, gen, flush, timed):
                        + b * 4)                       # kv_lens
         row["bound_ms"], row["bound_by"] = bound(
             bytes_moved, 4 * h * d * keys,
-            BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS)
+            F32_FLOPS if dtype == "float32" else BF16_FLOPS)
     return row
 
 
@@ -4732,6 +4796,100 @@ def phase_dense_decode(torch, flush):
             f"d{r['d']} lens{r['lens']} (splits, chunk) {r['splits']} "
             f"max_abs_err {r['max_abs_err']:.3e}{extra}")
     return rows
+
+
+# llama-1b's serving decode shape (bench.py's worker_serve off smoke, batch
+# 32): hkv 4, G 4, D 128, pages of 128 keys, 2 pages a slot (max_seq 256)
+LLAMA1B_DECODE = dict(b=32, hkv=4, g=4, d=128, ps=128, mp=2)
+# the ladder's prompt lengths (bench.py:652)
+SERVE_PROMPTS = (96, 120, 64, 100)
+
+
+def phase_fp16_decode(torch, flush):
+    """#5 and #2 in float16. #5 at llama-1b's serving decode shape (B=32,
+    Hkv=4, G=4, D=128, ps=128, MP=2; the ladder's prompts 64 tokens into
+    decode): float16 q over f32, bf16 and int8 pools and over float16
+    pools, beside f32 q over f32 pools (the f32 rungs' call), timed; then
+    float16 q over each pool at G 1, 4 and 6 with lens 0, one key, a page
+    edge and the full table, and at D 64 and 256; the split at llama-1b's
+    shape must be one wave of blocks for every pool type (blocks a call
+    against cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs). #2
+    with a float16 cache at llama2-7b's (B=4, H=32, D=128) and GPT's
+    (B=8, H=16, D=64) decode shapes over 576 keys, ragged and timed where
+    every row has all 576, at D=256 and over a 4096-key cache. Each case
+    is held against its twin within 5e-3 of max(1, |twin|) and repeats
+    bit for bit; timed cases report held ms, the twin's, the bound and
+    (#2) SDPA in float16."""
+    kpd = _paged_module()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    ld = LLAMA1B_DECODE
+    b, hkv, g, d, ps, mp = (ld[k] for k in ("b", "hkv", "g", "d", "ps",
+                                            "mp"))
+    lens = [n + 64 for n in SERVE_PROMPTS] * (b // len(SERVE_PROMPTS))
+    paged = []
+    for pool, qd in (("float32", "float32"), ("float32", "float16"),
+                     ("bfloat16", "float16"), ("int8", "float16"),
+                     ("float16", "float16")):
+        paged.append(_decode_case(torch, b, hkv, g, d, ps, mp, pool, lens,
+                                  gen, flush, timed=True, q_dtype=qd))
+    edge = [0, 256, 1, 128, 129, 255, 0, 17]
+    for pool in ("float32", "bfloat16", "int8", "float16"):
+        for gg in (1, 4, 6):
+            paged.append(_decode_case(torch, 8, hkv, gg, d, ps, mp, pool,
+                                      edge, gen, flush, False,
+                                      q_dtype="float16"))
+        for dd, gg in ((64, 6), (256, 1)):
+            paged.append(_decode_case(torch, 4, 2, gg, dd, 16, 32, pool,
+                                      [512, 0, 77, 300], gen, flush, False,
+                                      q_dtype="float16"))
+    splits, ppc = kpd.paged_decode_split(b, hkv, g, mp, ps)
+    blocks = splits * hkv * -(-g // 4) * b
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    residency = {}
+    for pool in ("float32", "bfloat16", "int8", "float16"):
+        r = kpd.paged_decode_residency(getattr(torch, pool), d, g, ppc)
+        residency[pool] = r
+        check(blocks <= r["blocks_per_sm"] * sms,
+              f"fp16-decode: {blocks} blocks a call at llama-1b's shape "
+              f"over {pool} pools outgrow one wave ({r})")
+        log(f"fp16-decode: #5 at llama-1b's shape, {pool} pools: (splits, "
+            f"pages a chunk) ({splits}, {ppc}), {blocks} blocks a call; "
+            f"{r['blocks_per_sm']} resident an SM x {sms} SMs (registers "
+            f"{r['registers']}, shared memory {r['smem']} B, spill "
+            f"{r['spill_bytes']} B): one wave")
+    dense = []
+    for bb, h, dd, ragged in ((4, 32, 128, [576, 1, 0, 333]),
+                              (8, 16, 64, [1, 576, 300, 0, 513, 128, 64,
+                                           575])):
+        dense.append(_dense_decode_case(torch, bb, h, 576, dd, "float16",
+                                        ragged, gen, flush, False))
+        dense.append(_dense_decode_case(torch, bb, h, 576, dd, "float16",
+                                        [576] * bb, gen, flush, True))
+    dense.append(_dense_decode_case(torch, 2, 4, 200, 256, "float16",
+                                    [200, 77], gen, flush, False))
+    dense.append(_dense_decode_case(torch, 2, 32, 4096, 128, "float16",
+                                    [4001, 1111], gen, flush, False))
+    for r in paged:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} (unheld {unheld(r['ms']):.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}): {r['bound_ms'] / r['ms']:.3f} of the bound")
+        log(f"fp16-decode: #5 {r['q_dtype']} q, {r['dtype']} pools, b{r['b']}"
+            f" hkv{r['hkv']} g{r['g']} d{r['d']} ps{r['ps']} mp{r['mp']} "
+            f"(splits, pages a chunk) {r['split']} max_abs_err "
+            f"{r['max_abs_err']:.3e} (of max(1, |twin|) "
+            f"{r['scaled_err']:.3e}){extra}")
+    for r in dense:
+        extra = "" if "ms" not in r else (
+            f" ms {r['ms']:.4f} (unheld {unheld(r['ms']):.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} sdpa_ms {r['library_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        log(f"fp16-decode: #2 float16 b{r['b']} h{r['h']} s{r['s']} "
+            f"d{r['d']} lens{r['lens']} (splits, chunk) {r['splits']} "
+            f"max_abs_err {r['max_abs_err']:.3e} (of max(1, |twin|) "
+            f"{r['scaled_err']:.3e}){extra}")
+    return dict(paged=paged, dense=dense, residency=residency,
+                blocks=blocks)
 
 
 def _prompts(vocab, b, s, seed=0):
@@ -5027,6 +5185,316 @@ def phase_generate_cpu(torch):
         del gm, cm
     return res
 
+
+
+# bench.py's worker_serve off smoke: pages of 128 keys, 256 keys a slot, 128
+# new tokens, 16 decode steps a dispatch
+LLAMA_ENGINE = dict(page_size=128, max_seq_len=256, steps_per_dispatch=16)
+LLAMA_NEW = 128
+# a top-two logit gap at or below this is a tie that f32 round-off may
+# break either way (the f32 paths agree to ~1e-5 on these logits)
+GREEDY_TIE = 1e-4
+
+
+def _first_split(a, b):
+    """The first index where two token lists differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _greedy_equal(torch, tag, model, prompt, got, want):
+    """Greedy streams ``got`` and ``want`` of ``prompt`` equal, or equal up
+    to a step whose top-two logits (``model`` teacher-forced over the
+    prompt and the shared tokens, no cache) lie within GREEDY_TIE: a tie.
+    Returns the step of a tie, or None."""
+    at = _first_split(got, want)
+    if at is None:
+        return None
+    ids = torch.tensor([list(prompt) + list(want[:at])], device=next(
+        model.parameters()).device)
+    with torch.no_grad():
+        top = model(ids)[0, -1].float().topk(2).values
+    gap = float(top[0] - top[1])
+    check(gap <= GREEDY_TIE, f"{tag}: greedy tokens differ at step {at} "
+          f"({got[at]} vs {want[at]}) where the top two logits lie "
+          f"{gap:.3e} apart")
+    log(f"{tag}: greedy tokens differ at step {at} ({got[at]} vs "
+        f"{want[at]}), a tie: the top two logits {gap:.3e} apart")
+    return at
+
+
+class _QDtypes:
+    """Over a run: the q dtype of every call of ops.attention's paged
+    decode (what the serving step hands the kernel's wrapper)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention
+        self.seen, self._mod = {}, attention
+        self._fn = fn = attention.paged_flash_decode
+
+        def spy(q, *args, **kw):
+            self.seen[str(q.dtype)] = self.seen.get(str(q.dtype), 0) + 1
+            return fn(q, *args, **kw)
+        attention.paged_flash_decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.paged_flash_decode = self._fn
+
+
+def _serve_rung(torch, tag, model, batch, cache, rng):
+    """One rung of the ladder as bench.py's worker_serve runs it: an engine
+    of ``batch`` slots over a ``cache`` pool, a warm-up wave of ``batch``
+    requests, then, with the counts set to 0, a timed wave of 2 x
+    ``batch`` (prompts drawn from ``rng`` in turn). The warm-up wave stops
+    after one dispatch (``steps_per_dispatch`` tokens, not 128): the port
+    compiles nothing, and one dispatch meets every first use a wave has
+    (each prefill bucket, the decode step at the rung's batch). #5 must launch once a
+    layer a decode step and #1 once a layer a prefill, no other kernel and
+    no twin; every page comes back. -> (row, prompts, token lists,
+    engine)."""
+    import numpy as np
+    from paddle_tpu_torch.nlp.serving import ServingEngine
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    vocab, layers = model.config.vocab_size, model.config.num_hidden_layers
+    eng = ServingEngine(model, device="cuda", max_slots=batch,
+                        cache_dtype=cache, **LLAMA_ENGINE)
+
+    def wave(n, new=LLAMA_NEW):
+        prompts = [rng.integers(0, vocab, (SERVE_PROMPTS[i % 4],))
+                   for i in range(n)]
+        ids = [eng.submit(p, new) for p in prompts]
+        res = {r["id"]: r for r in eng.run_to_completion()}
+        return prompts, [res[i] for i in ids]
+
+    wave(batch, eng.steps_per_dispatch)
+    eng.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in WRAPPERS:
+        w.launches = 0
+    with _TwinWatch() as tw, _QDtypes() as qd:
+        t0 = time.perf_counter()
+        prompts, res = wave(2 * batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = eng.decode_dispatches * eng.steps_per_dispatch
+    check(launches["paged_flash_decode"] == layers * steps,
+          f"{tag}: #5 launched {launches['paged_flash_decode']} times over "
+          f"{steps} decode steps of {layers} layers")
+    check(launches["flash_attention_fwd"] == layers * 2 * batch,
+          f"{tag}: #1 launched {launches['flash_attention_fwd']} times over "
+          f"{2 * batch} prefills of {layers} layers")
+    others = {n: c for n, c in launches.items() if c and n not in (
+        "paged_flash_decode", "flash_attention_fwd")}
+    check(not others and not tw.calls, f"{tag}: other kernels {others} or "
+          f"twins {tw.calls} on the serving path")
+    check(sum(qd.seen.values()) == launches["paged_flash_decode"],
+          f"{tag}: paged decode calls {qd.seen} vs launches")
+    check(eng.free_page_count == eng.num_pages - 1,
+          f"{tag}: free pages {eng.free_page_count} != {eng.num_pages - 1}")
+    toks = [r["tokens"] for r in res]
+    for t in toks:
+        check(len(t) == LLAMA_NEW and all(0 <= x < vocab for x in t),
+              f"{tag}: bad token stream {t[:8]}...")
+    ttft = sorted(r["ttft_s"] for r in res)
+    row = dict(batch=batch, cache_dtype=cache,
+               model_dtype=str(next(model.parameters()).dtype)[6:],
+               q_dtypes=qd.seen, launches=launches,
+               decode_steps=steps, dispatches=eng.decode_dispatches,
+               tok_s=eng.decode_tokens / eng.decode_seconds,
+               step_ms=eng.decode_seconds / steps * 1e3,
+               wall_tok_s=sum(len(t) for t in toks) / wall, wall_s=wall,
+               ttft_p50_ms=float(np.percentile(ttft, 50)) * 1e3,
+               ttft_max_ms=ttft[-1] * 1e3, peak_gb=peak,
+               pool_gb=sum(t.numel() * t.element_size()
+                           for layer in eng._pages for t in layer
+                           if t is not None) / 2 ** 30)
+    log(f"{tag}: {2 * batch} requests x {LLAMA_NEW} tokens in {wall:.3f} s "
+        f"({row['wall_tok_s']:.1f} tokens/s wall); decode "
+        f"{eng.decode_tokens} tokens in {eng.decode_seconds:.3f} s over "
+        f"{steps} steps = {row['tok_s']:.1f} tokens/s, {row['step_ms']:.3f}"
+        f" ms a step; TTFT p50 {row['ttft_p50_ms']:.2f} ms (max "
+        f"{row['ttft_max_ms']:.2f}); #5 x {launches['paged_flash_decode']} "
+        f"(q {qd.seen}), #1 x {launches['flash_attention_fwd']}; peak "
+        f"{peak:.2f} GiB, pools {row['pool_gb']:.3f} GiB")
+    return row, prompts, toks, eng
+
+
+def phase_llama_serve(torch):
+    """bench.py --serve --serve-model llama off smoke, on the port: llama-1b
+    (vocab 32000, hidden 2048, 22 layers, 16 heads of 128 over 4 kv heads,
+    FFN 5632) at full width and depth, f32 weights from seed 0 on the card,
+    through ServingEngine(page_size=128, max_seq_len=256,
+    steps_per_dispatch=16) at batch 1, 8 and 32 over f32, bf16 and int8
+    caches (bench's flash rungs; prompts 96/120/64/100 drawn from numpy
+    seed 0 in turn, 128 new tokens, a warm-up wave of batch requests, then
+    a timed wave of 2 x batch): #5 22 launches a decode step, #1 22 a
+    prefill. With the f32 cache, the first requests' greedy tokens equal
+    the same model's generate() on the card (a tie excepted). Then the
+    model cast to float16 at batch 32 over each cache (#5 with float16 q;
+    #1 in float16). One batch-32 dispatch profiled in f32 and in
+    float16 (f32 caches)."""
+    import numpy as np
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, _resolve_config
+    cfg = _resolve_config("llama-1b")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", generator=seed(0)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"llama-serve: llama-1b built on cuda in "
+        f"{time.perf_counter() - t0:.2f} s ({n_params} parameters, f32, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+    rng = np.random.default_rng(0)
+    rows, ties = [], []
+    # the f32 rungs' requests held against generate(): the first at batch
+    # 1 and 8; at 32 the first and the third (prompts of 96 and 64 keys:
+    # prefill buckets 128 and 64)
+    vs_generate = {1: (0,), 8: (0,), 32: (0, 2)}
+    for batch in (1, 8, 32):
+        for cache in ("float32", "bfloat16", "int8"):
+            tag = f"llama-serve b{batch}/{cache}"
+            row, prompts, toks, eng = _serve_rung(torch, tag, model, batch,
+                                                  cache, rng)
+            rows.append(row)
+            if cache == "float32":
+                for i in vs_generate[batch]:
+                    ids = torch.from_numpy(prompts[i][None]).to("cuda")
+                    want = model.generate(ids, max_new_tokens=LLAMA_NEW)[
+                        0, len(prompts[i]):].tolist()
+                    at = _greedy_equal(torch, f"{tag} request {i}", model,
+                                       prompts[i], toks[i], want)
+                    ties.append((tag, i, at))
+                log(f"{tag}: greedy tokens of request(s) "
+                    f"{vs_generate[batch]} equal generate()'s on the card "
+                    f"({sum(t[2] is not None for t in ties)} ties so far)")
+            if batch == 32 and cache == "float32":
+                busy = {"float32": profile_decode(torch, eng, prompts)}
+            del eng
+            torch.cuda.empty_cache()
+    model.half()
+    for cache in ("float32", "bfloat16", "int8"):
+        row, prompts, _, eng = _serve_rung(
+            torch, f"llama-serve f16 b32/{cache}", model, 32, cache, rng)
+        check(set(row["q_dtypes"]) == {"torch.float16"},
+              f"llama-serve f16: #5 took q of {row['q_dtypes']}")
+        rows.append(row)
+        if cache == "float32":
+            busy["float16"] = profile_decode(torch, eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+    f16_launches = sum(r["launches"]["paged_flash_decode"] for r in rows
+                       if r["model_dtype"] == "float16")
+    f32_launches = sum(r["launches"]["paged_flash_decode"] for r in rows
+                       if r["model_dtype"] == "float32")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rows=rows, busy_share=busy, ties=ties,
+                launches={"paged_flash_decode": f32_launches},
+                f16_launches={"paged_flash_decode": f16_launches})
+
+
+def phase_llama_serve_cpu(torch):
+    """llama-1b cut to 2 layers at full width, f32, the same weights on the
+    card and on the CPU: the engine's prefill (bucket 128, kv_lens) last-row
+    logits within 1e-3, then 2 requests (prompts 96 and 64) served with 16
+    greedy tokens each on both devices: tokens equal (a tie excepted)."""
+    import numpy as np
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, _resolve_config
+    from paddle_tpu_torch.nlp.serving import ServingEngine
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    cfg = _resolve_config("llama-1b", num_hidden_layers=2)
+    gm = LlamaForCausalLM(cfg, device="cuda", generator=seed(2)).eval()
+    cm = LlamaForCausalLM(cfg, device="cpu",
+                          generator=seed(2, device="cpu")).eval()
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (96, 64)]
+    errs = []
+    with torch.no_grad():
+        for p in prompts:
+            x = np.zeros((1, 128), np.int64)
+            x[0, :len(p)] = p
+            rows = [m(torch.from_numpy(x).to(dev), kv_lens=torch.tensor(
+                [len(p)], dtype=torch.int32, device=dev))[0, len(p) - 1]
+                .float().cpu() for m, dev in ((gm, "cuda"), (cm, "cpu"))]
+            err = (rows[0] - rows[1]).abs().max().item()
+            check(math.isfinite(err) and err <= 1e-3,
+                  f"llama-serve-cpu: prefill last-row logits cuda vs cpu "
+                  f"max_abs_err {err}")
+            errs.append(err)
+    kw = dict(LLAMA_ENGINE, max_slots=2)
+    for w in WRAPPERS:
+        w.launches = 0
+    got = ServingEngine(gm, device="cuda", **kw).generate(prompts, 16)
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    check(launches["paged_flash_decode"] > 0
+          and launches["flash_attention_fwd"] == 2 * 2,
+          f"llama-serve-cpu: the card's engine launched {launches}")
+    want = ServingEngine(cm, device="cpu", **kw).generate(prompts, 16)
+    ties = [_greedy_equal(torch, f"llama-serve-cpu request {i}", cm, p, g, w)
+            for i, (p, g, w) in enumerate(zip(prompts, got, want))]
+    log(f"llama-serve-cpu: llama-1b, 2 layers at full width, f32: prefill "
+        f"last-row logits cuda vs cpu max_abs_err {max(errs):.3e}; greedy "
+        f"tokens equal (ties at {ties}); #5 x "
+        f"{launches['paged_flash_decode']} on the card")
+    del gm, cm
+    return dict(prefill_err=max(errs), ties=ties)
+
+
+def phase_generate_fp16(torch):
+    """llama2-7b generate() with a float16 cache: weights drawn in float16
+    on the card from seed 0, batch 4 x 512, 64 new tokens, greedy: every
+    decode step of every layer runs #2 in float16 (32 x 64 launches, no
+    other kernel of the port); against the same model with an f32 cache
+    (#2 in f32) the first tokens equal and the agreement logged; tokens/s,
+    ms a step, peak memory and 8 profiled steps."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.llama import LlamaForCausalLM, _resolve_config
+    cfg = _resolve_config("llama2-7b")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float16,
+                             generator=seed(0)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"generate-fp16: llama2-7b built on cuda in "
+        f"{time.perf_counter() - t0:.2f} s ({n_params} parameters, float16)")
+    new, layers = 64, cfg.num_hidden_layers
+    ids = _prompts(cfg.vocab_size, 4, 512)
+    model.generate(ids, max_new_tokens=2, cache_dtype="float16")
+    torch.cuda.reset_peak_memory_stats()
+    with _TwinWatch() as tw:
+        out, wall, pre, launches = _timed_generate(
+            torch, model, ids, new, cache_dtype="float16")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_stream("generate-fp16", out, ids, new, cfg.vocab_size)
+    check(launches["flash_decode"] == layers * new,
+          f"generate-fp16: flash_decode launched {launches['flash_decode']}"
+          f" times, want {layers} x {new}")
+    others = {n: c for n, c in launches.items() if c and n != "flash_decode"}
+    check(not others and not tw.calls, f"generate-fp16: other kernels "
+          f"{others} or twins {tw.calls}")
+    res = _report_generate("generate-fp16", f"llama2-7b float16 greedy, "
+                           f"float16 cache, flash_decode x "
+                           f"{launches['flash_decode']}", ids, new, wall, pre)
+    ref = model.generate(ids, max_new_tokens=new, cache_dtype="float32")
+    agree = (out[:, 512:] == ref[:, 512:]).float()
+    check(bool(agree[:, 0].all()), f"generate-fp16: first tokens "
+          f"{out[:, 512].tolist()} vs the f32 cache's {ref[:, 512].tolist()}")
+    log(f"generate-fp16: greedy tokens of the float16 cache equal the f32 "
+        f"cache's at {agree.mean().item():.3f} of positions (first tokens "
+        f"equal); max_memory_allocated {peak:.2f} GiB")
+    res.update(launches=launches, peak_gb=peak, agree=agree.mean().item(),
+               profile=profile_decode_steps(torch, "generate-fp16", model,
+                                            ids, "float16"))
+    del model
+    return res
 
 
 # -- ResNet-50 serving: the fused 1x1-conv + BN + ReLU kernel #11 ------------
@@ -6858,12 +7326,13 @@ class _TwinWatch:
     def __enter__(self):
         from paddle_tpu_torch.ops.kernels import (conv_bn_act,
                                                   flash_attention,
-                                                  flash_decode, fused_adamw,
-                                                  fused_ln)
+                                                  fused_adamw, fused_ln)
         from paddle_tpu_torch.optimizer import optimizer as om
         self.calls, self._saved = {}, []
-        for mod in (conv_bn_act, flash_attention, flash_decode, fused_adamw,
-                    fused_ln, om):
+        # the paged decode's module by path: the package attribute named
+        # flash_decode is the dense decode's wrapper
+        for mod in (conv_bn_act, flash_attention, _paged_module(),
+                    fused_adamw, fused_ln, om):
             for name in dir(mod):
                 fn = getattr(mod, name)
                 if name.endswith("_plain") and not name.startswith("_") \
@@ -8423,26 +8892,14 @@ def _f16_overflow_case(torch, gen):
 
 
 def _f16_refusals(torch, gen):
-    """The float16 calls still to port raise on the card naming ROADMAP.md
-    queue 2: #2 and #5 (TypeError) and #1 at head_dim 32 (ValueError). No
-    kernel launches and no plain twin runs in their place.
-    -> {wrapper: ["raises <error>[ at ...]"]}."""
+    """The float16 call still to port raises on the card naming ROADMAP.md
+    queue 2: #1 at head_dim 32 (ValueError). No kernel launches and no
+    plain twin runs in its place. (#2 and #5 take float16: phase
+    fp16-decode.) -> {wrapper: ["raises <error>[ at ...]"]}."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
     from paddle_tpu_torch.ops.kernels import flash_attention as kfa
-    kpd = _paged_module()
-    h, dev = torch.float16, "cuda"
-    q = torch.zeros(2, 1, 4, 64, dtype=h, device=dev)
-    cache = torch.zeros(2, 16, 4, 64, dtype=h, device=dev)
-    lens = torch.full((2,), 8, dtype=torch.int32, device=dev)
-    pq, kp, vp, pt, plens, _, _ = _decode_inputs(
-        torch, 2, 2, 1, 64, 16, 4, "float32", [20, 5], gen)
-    q32 = torch.zeros(4, 64, 32, dtype=h, device=dev)
+    q32 = torch.zeros(4, 64, 32, dtype=torch.float16, device="cuda")
     calls = (
-        ("#2", "flash_decode", "", TypeError,
-         lambda: kfa.flash_decode(q, cache, cache, lens)),
-        ("#5", "paged_flash_decode", "", TypeError,
-         lambda: kpd.paged_flash_decode(pq.half(), kp.half(), vp.half(), pt,
-                                        plens)),
         ("#1", "flash_attention_fwd", " at head_dim 32", ValueError,
          lambda: kfa.flash_attention_fwd(q32, q32, q32)),
     )
@@ -8466,9 +8923,9 @@ def _f16_refusals(torch, gen):
     check(after == before and not tw.calls, f"fp16-guard: a refused float16 "
           f"call launched {after} (before {before}) or ran a twin "
           f"{tw.calls}")
-    log(f"fp16-guard: float16 refused on the card by {len(calls)} calls "
-        "(#2, #5: TypeError; #1 at head_dim 32: ValueError), each naming "
-        "ROADMAP.md queue 2; no launch, no twin ran")
+    log(f"fp16-guard: float16 refused on the card by {len(calls)} call "
+        "(#1 at head_dim 32: ValueError), naming ROADMAP.md queue 2; no "
+        "launch, no twin ran")
     return refused
 
 
@@ -9937,7 +10394,12 @@ def main():
              "--fp16-guard": lambda t: phase_fp16_guard(t, _l2_flush(t)),
              "--fp16-kernels": lambda t: phase_fp16_kernels(t, _l2_flush(t)),
              "--fp16-ernie": phase_fp16_ernie,
-             "--fp16-resnet": phase_fp16_resnet}
+             "--fp16-resnet": phase_fp16_resnet,
+             "--llama-serve": lambda t: dict(
+                 serve=phase_llama_serve(t), cpu=phase_llama_serve_cpu(t)),
+             "--fp16-decode": lambda t: dict(
+                 kernels=phase_fp16_decode(t, _l2_flush(t)),
+                 generate=phase_generate_fp16(t))}
     if sys.argv[1:2] and sys.argv[1] in alone:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -10006,6 +10468,8 @@ def main():
     stamp("llama_flash")
     ddec = phase_dense_decode(torch, flush)
     stamp("dense_decode")
+    f16dec = phase_fp16_decode(torch, flush)
+    stamp("fp16_decode")
     conv = phase_conv_bn_act(torch, flush)
     stamp("conv_bn_act")
     del scratch
@@ -10045,11 +10509,20 @@ def main():
     gl = phase_generate_llama(torch)
     stamp("generate_llama")
     torch.cuda.empty_cache()
+    gf16 = phase_generate_fp16(torch)
+    stamp("generate_fp16")
+    torch.cuda.empty_cache()
     phase_generate_llama_gqa(torch)
     stamp("generate_llama_gqa")
     torch.cuda.empty_cache()
     phase_generate_cpu(torch)
     stamp("generate_cpu")
+    torch.cuda.empty_cache()
+    lsv = phase_llama_serve(torch)
+    stamp("llama_serve")
+    torch.cuda.empty_cache()
+    phase_llama_serve_cpu(torch)
+    stamp("llama_serve_cpu")
     torch.cuda.empty_cache()
     rs = phase_resnet_serve(torch)
     stamp("resnet_serve")
@@ -10216,6 +10689,50 @@ def main():
                             if r["dtype"] == dtype),
             ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
             bound_by=dd["bound_by"], library_ms=dd["library_ms"]))
+
+    # #2 with a float16 cache (phase fp16-decode, timed at llama2-7b's
+    # shape, GPT's beside), launched by generate-fp16's llama2-7b
+    d16 = next(r for r in f16dec["dense"] if "ms" in r and r["d"] == 128)
+    d16_gpt = next(r for r in f16dec["dense"] if "ms" in r and r["d"] == 64)
+    kernels.append(dict(
+        name="flash_decode", dtype="float16", shape="4x32x576x128",
+        path="generate-fp16", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:485",
+        launches=gf16["launches"]["flash_decode"],
+        max_abs_err=max(r["max_abs_err"] for r in f16dec["dense"]),
+        ms=d16["ms"], plain_ms=d16["plain_ms"], bound_ms=d16["bound_ms"],
+        bound_by=d16["bound_by"], library_ms=d16["library_ms"],
+        gpt_shape={k: d16_gpt[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")}))
+    # #5 on the Llama serving path (phase llama-serve): at llama-1b's batch
+    # 32 shape (phase fp16-decode), f32 q over f32 pools for the f32
+    # model's rungs, float16 q over f32 pools for the float16 model's
+    # (its other pools' held ms beside)
+    p32 = next(r for r in f16dec["paged"] if "ms" in r
+               and r["q_dtype"] == "float32")
+    p16 = {r["dtype"]: r for r in f16dec["paged"] if "ms" in r
+           and r["q_dtype"] == "float16"}
+    llama_shape = "32x4x4x128 ps128 mp2"
+    for dtype, case, launches, errs in (
+            ("float32", p32, lsv["launches"]["paged_flash_decode"],
+             [p32["max_abs_err"]]),
+            ("float16", p16["float32"],
+             lsv["f16_launches"]["paged_flash_decode"],
+             [r["max_abs_err"] for r in f16dec["paged"]
+              if r["q_dtype"] == "float16"])):
+        row = dict(
+            name="paged_flash_decode", dtype=dtype, shape=llama_shape,
+            path="llama-serve", route="cuda",
+            source="paddle_tpu_torch/csrc/paged_flash_decode.cu",
+            replaces="paddle_tpu/ops/pallas/flash_decode.py:99",
+            launches=launches, max_abs_err=max(errs), ms=case["ms"],
+            plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+            bound_by=case["bound_by"], library_ms=None)
+        if dtype == "float16":
+            row["pools_ms"] = {k: r["ms"] for k, r in p16.items()}
+            row["pools_bound_ms"] = {k: r["bound_ms"] for k, r in p16.items()}
+        kernels.append(row)
 
     ln_src = "paddle_tpu/ops/pallas/fused_ln.py"
     kernels += [

@@ -282,7 +282,8 @@ def is_bfloat16_supported(device=None):
 
 
 def is_float16_supported(device=None):
-    """ref: paddle.amp.is_float16_supported — float16 training runs the
-    flash kernels (#1, #3, #4) in float16 on the card; the other kernels
-    refuse float16 (ROADMAP.md queue 2)."""
+    """ref: paddle.amp.is_float16_supported — every kernel of the port that
+    takes a float16 operand on the card runs in float16 there (the flash
+    kernels, the decodes, the fused LayerNorms and #11); the flash
+    kernels at head_dim 32 refuse it (ROADMAP.md queue 2)."""
     return True

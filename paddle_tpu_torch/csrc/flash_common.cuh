@@ -1,7 +1,8 @@
 // Shared device helpers of the attention kernels (flash forward and
 // backward, dense and paged decode): f32/bf16 vector loads and stores, the
-// decode kernels' warp geometry and 16-byte unpacking, row loads (f32,
-// bf16, f16, int8), and the attention-dropout keep mask.
+// decode kernels' warp geometry and 16-byte unpacking (f32, bf16, f16,
+// int8), row loads (f32, bf16, f16, int8), and the attention-dropout keep
+// mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,10 +51,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
+// round to nearest even, as torch's .to() and the reference's astype
 template <typename T>
 __device__ __forceinline__ T from_float(float x) {
   if constexpr (std::is_same<T, float>::value) {
     return x;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __float2half_rn(x);
   } else {
     return __float2bfloat16(x);
   }
@@ -76,7 +80,8 @@ __device__ __forceinline__ void load_row(const T* p, float* out) {
   }
 }
 
-// The decode kernels' warp geometry at element type T (f32, bf16 or int8)
+// The decode kernels' warp geometry at element type T (f32, bf16, f16 or
+// int8)
 // and head dim D: a key row is taken by a lane group of LPR lanes, each
 // loading 16 bytes (VEC values) NCH times; a warp-wide load covers RPW
 // rows, a lane group takes U rows a step.
@@ -107,6 +112,14 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* out) {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  } else if constexpr (std::is_same<T, __half>::value) {
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
   } else {
     const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
@@ -121,6 +134,8 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   if constexpr (std::is_same<T, float>::value) {
     return x;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(x));
   } else {
     return __bfloat162float(__float2bfloat16(x));
   }

@@ -6,7 +6,8 @@
 // kv_lens). Same function: one query row per (batch b, head h) attends the
 // first lens[b] keys of a dense padded cache, s = (q . k) * sm_scale in f32,
 // an online softmax in f32, p rounded to the cache dtype before its product
-// with V (as the TPU kernel rounds it), o = acc / l in q's dtype; a row with
+// with V (as the TPU kernel rounds it), o = acc / l in q's dtype (f32, bf16
+// or f16, the cache's; one instantiation each); a row with
 // lens[b] = 0 gives 0. q is [B, 1, H, D], k and v [B, S, H, D], all read in
 // place through their strides: no folded [B*H, S, D] copy of the cache is
 // made. The TPU kernel's 8-row query padding and its S % block_k rule exist
@@ -28,9 +29,9 @@
 //     per row: __threadfence, then atomicAdd) combines the row's partial
 //     states in chunk order, writes o and resets the counter. The fixed
 //     order makes two calls bit-equal whichever block finishes last;
-//   - 16-byte loads: a lane owns 8 bf16 or 4 f32 consecutive dims of a key
-//     row (two such chunks for f32 at D=256), so a warp-wide load covers
-//     32 / (D / 8) bf16 rows, or 32 / (D / 4) f32 rows, at once;
+//   - 16-byte loads: a lane owns 8 bf16 or f16, or 4 f32, consecutive dims
+//     of a key row (two such chunks for f32 at D=256), so a warp-wide load
+//     covers 32 / (D / 8) 16-bit rows, or 32 / (D / 4) f32 rows, at once;
 //   - loads ahead of the math: a warp's next step of keys (two key rows a
 //     lane group, of K and of V) is issued into a second register buffer
 //     before this step's dot products, exp and p.v. Steps of two rows (four
@@ -301,22 +302,23 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q: [b, 1, heads, d]; k, v: [b, s_max, heads, d]; all f32 (is_bf16 = 0) or
-// bf16 (1), the last dim contiguous, every other stride given in elements
-// (q_sb, q_sh; k_sb, k_ss, k_sh; v_sb, v_ss, v_sh) and a multiple of 16
-// bytes. lens: [b] int32. out: [b, 1, heads, d] contiguous, q's dtype.
-// Key chunk c covers [c * chunk, (c + 1) * chunk) and splits * chunk >=
-// s_max. part: f32 scratch of b * heads * splits * (d + 2) values (the
-// partial states); counters: b * heads int32, zero on entry and left zero.
-// Launches one kernel on `stream` and returns cudaGetLastError() (0 on
-// success).
+// q: [b, 1, heads, d]; k, v: [b, s_max, heads, d]; all of one dtype (code
+// dtype: 0 f32, 1 bf16, 2 f16), the last dim contiguous, every other stride
+// given in elements (q_sb, q_sh; k_sb, k_ss, k_sh; v_sb, v_ss, v_sh) and a
+// multiple of 16 bytes. lens: [b] int32. out: [b, 1, heads, d] contiguous,
+// q's dtype. Key chunk c covers [c * chunk, (c + 1) * chunk) and splits *
+// chunk >= s_max. part: f32 scratch of b * heads * splits * (d + 2) values
+// (the partial states); counters: b * heads int32, zero on entry and left
+// zero. Launches one kernel on `stream` and returns cudaGetLastError() (0
+// on success); an unknown dtype code or head dim is cudaErrorInvalidValue.
+// The dtype picks an instantiation on the host: no kernel branches on it.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const int* lens, void* out, float* part,
                             int* counters, int b, int heads, int s_max,
                             int d, int splits, int chunk, long long q_sb,
                             long long q_sh, long long k_sb, long long k_ss,
                             long long k_sh, long long v_sb, long long v_ss,
-                            long long v_sh, int is_bf16, float sm_scale,
+                            long long v_sh, int dtype, float sm_scale,
                             void* stream) {
   if (b <= 0 || heads <= 0 || s_max <= 0 || splits <= 0 || chunk <= 0 ||
       b > 65535 || heads > 65535 || (long long)splits * chunk < s_max)
@@ -324,9 +326,13 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, 0, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const float scale_log2 = sm_scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(d, q, k, v, lens, out, part, counters, b, heads, s_max, splits, chunk, qs, ks, vs, scale_log2, st)
-              : dispatch_d<float>(d, q, k, v, lens, out, part, counters, b, heads, s_max, splits, chunk, qs, ks, vs, scale_log2, st);
+  int err;
+  switch (dtype) {
+    case 0: err = dispatch_d<float>(d, q, k, v, lens, out, part, counters, b, heads, s_max, splits, chunk, qs, ks, vs, scale_log2, st); break;
+    case 1: err = dispatch_d<__nv_bfloat16>(d, q, k, v, lens, out, part, counters, b, heads, s_max, splits, chunk, qs, ks, vs, scale_log2, st); break;
+    case 2: err = dispatch_d<__half>(d, q, k, v, lens, out, part, counters, b, heads, s_max, splits, chunk, qs, ks, vs, scale_log2, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,13 @@
 // (slot b, kv head h) the G query heads of that kv head attend the slot's
 // paged K/V history — keys [0, lens[b]) found through page_table[b] in the
 // head-major pools [Hkv, P, ps, D] — with an online softmax in f32; s and
-// p stay f32 (the reference rounds neither). int8 pools are dequantized as
-// value * scale in f32, the scales being [Hkv, P, ps, 1] f32
-// (flash_decode.py:68-70). lens[b] = 0 gives a zero row.
+// p stay f32 (the reference rounds neither). The pools are f32, bf16, f16
+// or int8, one instantiation each; int8 pools are dequantized as value *
+// scale in f32, the scales being [Hkv, P, ps, 1] f32 (flash_decode.py:
+// 68-70). q comes in as f32 and the output goes out as f32: the wrapper
+// casts both from and to q's dtype (f32, bf16 or f16), as the reference
+// reads q as f32 and writes the output in q's dtype. lens[b] = 0 gives a
+// zero row.
 //
 // What bounds it on the H100: bytes. Each step reads every live key and
 // value once, 2 * lens * D * sizeof(pool) bytes per (slot, kv head), against
@@ -31,7 +35,8 @@
 //     bit-equal whichever block finishes last;
 //   - 16-byte loads: a key row of a page (contiguous in the pool) is taken
 //     by a lane group of D * sizeof(pool) / 16 lanes (16 in f32 at D=64, 8
-//     in bf16, 4 in int8; at most 32, two chunks a lane for f32 at D=256),
+//     in bf16 and f16, 4 in int8; at most 32, two chunks a lane for f32 at
+//     D=256),
 //     whose q.k reduces in log2(group) shuffles; the int8 scales come with
 //     their rows;
 //   - loads ahead of the math: each thread streams its own rows through a
@@ -443,17 +448,59 @@ int dispatch_d(int d, const Args& a) {
   }
 }
 
+// f(P{}) for the pool type of code `pool_dtype` (0 f32, 1 bf16, 2 int8, 3
+// f16); an unknown code is cudaErrorInvalidValue
+template <typename F>
+int by_pool(int pool_dtype, F f) {
+  switch (pool_dtype) {
+    case 0: return f(float{});
+    case 1: return f(__nv_bfloat16{});
+    case 2: return f(int8_t{});
+    case 3: return f(__half{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// out: [blocks an SM resident, dynamic shared memory bytes, registers a
+// thread, local (spill) bytes a thread] of the instantiation a call with
+// these pools, head dim, query heads a kv head and pages a chunk runs
+template <typename P, int D, int GC>
+int residency(int ppc, int* out) {
+  const int smem = Ring<P, D>::BYTES + ppc * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_kernel<P, D, GC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Ring<P, D>::BYTES + kMaxPages * 4);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, paged_decode_kernel<P, D, GC>, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, paged_decode_kernel<P, D, GC>);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = smem;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+template <typename P, int D>
+int residency_g(int g, int ppc, int* out) {
+  return g == 1 ? residency<P, D, 1>(ppc, out)
+                : residency<P, D, kGroupsPerBlock>(ppc, out);
+}
+
 }  // namespace
 
 // q: [b, hkv, g, d] f32; k_pages, v_pages: [hkv, num_pages, ps, d] of
-// pool_dtype (0 f32, 1 bf16, 2 int8); k_scale, v_scale: [hkv, num_pages, ps]
-// f32 for int8 pools, else null; page_table: [b, mp] int32 (every live
-// entry a valid page id); lens: [b] int32; out: [b, hkv, g, d] f32. The
-// table row is cut into `splits` chunks of `ppc` pages, splits * ppc >= mp.
-// part: f32 scratch of b * hkv * g * splits * (d + 2) values (the partial
-// states); counters: b * hkv * ceil(g / 4) int32 (one for g = 1: b * hkv),
-// zero on entry and left zero. Launches one kernel on `stream` and returns
-// cudaGetLastError() (0 on success).
+// pool_dtype (0 f32, 1 bf16, 2 int8, 3 f16); k_scale, v_scale: [hkv,
+// num_pages, ps] f32 for int8 pools, else null; page_table: [b, mp] int32
+// (every live entry a valid page id); lens: [b] int32; out: [b, hkv, g, d]
+// f32. The table row is cut into `splits` chunks of `ppc` pages, splits *
+// ppc >= mp. part: f32 scratch of b * hkv * g * splits * (d + 2) values
+// (the partial states); counters: b * hkv * ceil(g / 4) int32 (one for g =
+// 1: b * hkv), zero on entry and left zero. Launches one kernel on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int paged_flash_decode(const float* q, const void* k_pages,
                                   const void* v_pages, const float* k_scale,
                                   const float* v_scale, const int* page_table,
@@ -474,13 +521,28 @@ extern "C" int paged_flash_decode(const float* q, const void* k_pages,
   const Args a{q, k_pages, v_pages, k_scale, v_scale, page_table, lens, out,
                part, counters, b, hkv, g, num_pages, ps, mp, ppc, splits,
                sm_scale * kLog2e, static_cast<cudaStream_t>(stream)};
-  int err;
-  switch (pool_dtype) {
-    case 0: err = dispatch_d<float>(d, a); break;
-    case 1: err = dispatch_d<__nv_bfloat16>(d, a); break;
-    case 2: err = dispatch_d<int8_t>(d, a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int err =
+      by_pool(pool_dtype, [&](auto p) { return dispatch_d<decltype(p)>(d, a); });
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+// What the card makes of the instantiation a call with pools of code
+// pool_dtype, head dim d, g query heads a kv head and ppc pages a chunk
+// launches: out = [blocks an SM resident
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the call's dynamic
+// shared memory), that shared memory in bytes, registers a thread, local
+// (spill) bytes a thread]. Launches nothing.
+extern "C" int paged_flash_decode_residency(int pool_dtype, int d, int g,
+                                            int ppc, int* out) {
+  if (g <= 0 || ppc <= 0 || ppc > kMaxPages) return (int)cudaErrorInvalidValue;
+  return by_pool(pool_dtype, [&](auto p) {
+    using P = decltype(p);
+    switch (d) {
+      case 64: return residency_g<P, 64>(g, ppc, out);
+      case 128: return residency_g<P, 128>(g, ppc, out);
+      case 256: return residency_g<P, 256>(g, ppc, out);
+    }
+    return (int)cudaErrorInvalidValue;
+  });
 }

@@ -11,9 +11,19 @@ does, once per forward for all layers (``rope_tables``).
 
 Attention: with no cache, kv heads are repeated to the query heads and
 ``F.scaled_dot_product_attention`` runs the flash-attention forward
-(causal; the CUDA kernel on the card), differentiable in training (the
-backward kernels on the card; each kv head's gradient sums its repeats
-through autograd).
+(causal, ``kv_lens`` the serving prefill's padding as key lengths; the
+CUDA kernel on the card), differentiable in training (the backward
+kernels on the card; each kv head's gradient sums its repeats through
+autograd).
+
+Serving (``nlp.serving.ServingEngine``): a list of ``PagedLayerCache``
+with ``cache_index`` the ``[B]`` per-slot positions on the device. The
+model builds the RoPE tables at those positions once a step ([B, 1],
+never read back to the host); each layer rotates q and k with them and
+hands them to ``paged_layer_forward``, which writes the post-RoPE K into
+the pages and attends through the paged decode kernel
+(``ops.attention.paged_flash_decode``), its G = heads / kv heads query
+heads a kv head in one pass.
 
 Training options, as the reference's: ``recompute`` checkpoints each
 decoder layer in training (``nn.scan_stack.checkpoint_block``);
@@ -32,11 +42,10 @@ prefill take the reference's grouped attention in plain PyTorch, which
 never repeats the ``[B, S_max, Hkv, D]`` buffers per query head.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-item): the paged serving cache (the RoPE branch of
-``paged_layer_forward``), cached dense decode (``cache=`` without
-``cache_index``), ``sequence_parallel``, ``use_flash_attention=False``
-and ``from_pretrained``. A ``scan_layers`` model serves no cached decode,
-as in the reference.
+item): cached dense decode (``cache=`` without ``cache_index``),
+``sequence_parallel``, ``use_flash_attention=False`` and
+``from_pretrained``. A ``scan_layers`` model serves no cached decode and
+no paged cache, as in the reference.
 """
 from __future__ import annotations
 
@@ -57,7 +66,7 @@ from .gpt import GPTPretrainingCriterion
 from .modeling_utils import (coerce_config, later, model_kw,
                              normalize_attention_mask,
                              static_cache_attention, static_index)
-from .paged_cache import PagedLayerCache
+from .paged_cache import PagedLayerCache, paged_layer_forward
 
 __all__ = ["LlamaConfig", "LLAMA_CONFIGS", "apply_rope", "rope_tables",
            "rotate", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
@@ -203,23 +212,31 @@ class LlamaAttention(nn.Module):
                 self.v_proj(x).reshape(b, s, -1, d))
 
     def forward(self, x, attn_mask=None, cache=None, cache_index=None, *,
-                rope):
+                rope, kv_lens=None):
         """cache=None: the no-cache forward; cache=(): the same, also
         returning this layer's (k, v) (RoPE applied to k); cache=(kbuf,
-        vbuf) with an int cache_index: the static-cache step. rope: the
-        (cos, sin) of ``rope_tables`` at this call's positions (0.. or
-        cache_index..), built once per forward by ``LlamaModel``."""
+        vbuf) with an int cache_index: the static-cache step; cache=a
+        ``PagedLayerCache``: the serving step (``paged_layer_forward``).
+        rope: the (cos, sin) of ``rope_tables`` at this call's positions
+        (0.., cache_index.., or each slot's position), built once per
+        forward by ``LlamaModel``. kv_lens: [B] key lengths (the serving
+        prefill's padding) for the no-cache forward."""
         cfg = self.cfg
         groups = cfg.num_attention_heads // cfg.num_key_value_heads
         q, k, v = self._shaped_qkv(x)
         b, s = q.shape[0], q.shape[1]
         q, k = rotate(q, *rope), rotate(k, *rope)
+        if isinstance(cache, PagedLayerCache):
+            # rotated already, at the slots' positions: no rope_theta
+            return paged_layer_forward(q, k, v, cache, self.o_proj,
+                                       groups=groups)
         if cache_index is not None:
             return self._forward_static_cache(q, k, v, cache, cache_index,
                                               groups)
         out = F.scaled_dot_product_attention(
             q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-            attn_mask=attn_mask, is_causal=True, training=self.training)
+            attn_mask=attn_mask, is_causal=True, training=self.training,
+            kv_lens=kv_lens)
         out = self.o_proj(out.reshape(b, s, -1))
         return (out, (k, v)) if cache is not None else out
 
@@ -261,13 +278,14 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, **kw)
 
     def forward(self, x, attn_mask=None, cache=None, cache_index=None, *,
-                rope):
+                rope, kv_lens=None):
         h = self.input_layernorm(x)
         if cache is not None:
             h, cache = self.self_attn(h, attn_mask, cache,
-                                      cache_index=cache_index, rope=rope)
+                                      cache_index=cache_index, rope=rope,
+                                      kv_lens=kv_lens)
         else:
-            h = self.self_attn(h, attn_mask, rope=rope)
+            h = self.self_attn(h, attn_mask, rope=rope, kv_lens=kv_lens)
         x = x + h
         x = x + self.mlp(self.post_attention_layernorm(x))
         return (x, cache) if cache is not None else x
@@ -304,20 +322,19 @@ class LlamaModel(nn.Module):
     from_pretrained = classmethod(refuse_from_pretrained)
 
     def forward(self, input_ids, attention_mask=None, use_cache=False,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, kv_lens=None):
         """use_cache=True also returns each layer's (k, v) [B, S, Hkv, D].
-        cache = a list of (k, v) [B, S_max, Hkv, D] buffers with
-        cache_index = one int (generate()'s static cache): the buffers are
-        written in place and returned."""
+        cache = a list of PagedLayerCache (serving decode) with cache_index
+        = the [B] per-slot positions; or a list of (k, v) [B, S_max, Hkv,
+        D] buffers with cache_index = one int (generate()'s static cache):
+        the buffers are written in place and returned. kv_lens: [B] key
+        lengths, the serving prefill's padding mask as the flash kernel
+        takes it."""
         if cache_index is not None and cache is None:
             raise ValueError(
                 "cache_index was given without cache: decode-by-index "
                 "needs the preallocated static KV buffers "
                 "(nlp.generation._alloc_cache), or drop cache_index")
-        if cache is not None and isinstance(cache[0], PagedLayerCache):
-            raise NotImplementedError(
-                f"Llama over the paged serving cache (the RoPE branch of "
-                f"paged_layer_forward) {later('3')}")
         if cache is not None and cache_index is None:
             raise NotImplementedError(f"cached dense decode {later('2.1')}")
         if self.config.scan_layers and (use_cache or cache is not None):
@@ -325,15 +342,25 @@ class LlamaModel(nn.Module):
                 "scan_layers=True serves the training/no-cache forward only; "
                 "build with scan_layers=False for cached decode "
                 "(unstack_layer_state converts a state)")
-        idx = None if cache_index is None else static_index(cache_index)
+        paged = cache is not None and isinstance(cache[0], PagedLayerCache)
         mask = normalize_attention_mask(attention_mask)
         if mask is not None:
             mask = mask.to(input_ids.device)
         x = self.embed_tokens(input_ids)
-        pos = torch.arange(input_ids.shape[1], device=x.device) + (idx or 0)
+        s = input_ids.shape[1]
+        idx = None
+        if paged:
+            # per-slot positions, [B] on the device: [B, s] tables
+            slot = torch.as_tensor(cache_index, device=x.device)
+            pos = slot[:, None] + torch.arange(s, device=x.device,
+                                               dtype=slot.dtype)[None, :]
+        else:
+            idx = None if cache_index is None else static_index(cache_index)
+            pos = torch.arange(s, device=x.device) + (idx or 0)
         rope = rope_tables(pos, self.config.head_dim, self.config.rope_theta)
         if self.config.scan_layers:
-            return self.norm(self.layers(x, mask, rope=rope))
+            return self.norm(self.layers(x, mask, rope=rope,
+                                         kv_lens=kv_lens))
         new_caches = [] if (use_cache or cache is not None) else None
         recompute = (self.config.recompute and self.training
                      and torch.is_grad_enabled())
@@ -341,12 +368,14 @@ class LlamaModel(nn.Module):
             if new_caches is not None:
                 # () asks a layer for its fresh (k, v)
                 layer_cache = cache[i] if cache is not None else ()
-                x, c = blk(x, mask, layer_cache, cache_index=idx, rope=rope)
+                x, c = blk(x, mask, layer_cache, cache_index=idx, rope=rope,
+                           kv_lens=kv_lens)
                 new_caches.append(c)
             elif recompute:
-                x = checkpoint_block(blk, x, mask, rope=rope)
+                x = checkpoint_block(blk, x, mask, rope=rope,
+                                     kv_lens=kv_lens)
             else:
-                x = blk(x, mask, rope=rope)
+                x = blk(x, mask, rope=rope, kv_lens=kv_lens)
         x = self.norm(x)
         return (x, new_caches) if new_caches is not None else x
 
@@ -384,9 +413,10 @@ class LlamaForCausalLM(nn.Module):
     from_pretrained = classmethod(refuse_from_pretrained)
 
     def forward(self, input_ids, attention_mask=None, use_cache=False,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, kv_lens=None):
         out = self.llama(input_ids, attention_mask, use_cache=use_cache,
-                         cache=cache, cache_index=cache_index)
+                         cache=cache, cache_index=cache_index,
+                         kv_lens=kv_lens)
         hidden, new_cache = out if isinstance(out, tuple) else (out, None)
         if self.config.chunked_ce and self.training and new_cache is None:
             # the criterion's head weight is [vocab, hidden]; the untied

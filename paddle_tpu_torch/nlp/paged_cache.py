@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import torch
 
-from ..framework import later
 from ..ops.kernels.flash_decode import paged_decode_plain
 
 __all__ = ["PagedLayerCache", "alloc_pages", "quantize_rows",
@@ -151,12 +150,23 @@ def write_prompt_kv(k_pages, v_pages, k_scale, v_scale, k_full, v_full,
 paged_attention_ref = paged_decode_plain
 
 
+def _rope_rows(x, positions, theta):
+    """RoPE of single-token rows x [B, H, D] at per-slot positions [B]: the
+    per-slot case of ``llama.rope_tables`` / ``rotate``, the one formula
+    prefill uses too (a second one would silently break K parity between
+    prefill and paged decode)."""
+    from .llama import rope_tables, rotate
+    cos, sin = rope_tables(positions[:, None], x.shape[-1], theta)
+    return rotate(x[:, None], cos, sin)[:, 0]
+
+
 def paged_layer_forward(q, k, v, cache, out_proj, groups=1,
                         rope_theta=None):
-    """The per-layer serving branch of GPTAttention: write + attend, then
-    the output projection. Returns (projected out, cache). The
-    reference's RoPE branch (``rope_theta``) raises NotImplementedError
-    naming item 3."""
+    """The per-layer serving branch of GPT's and Llama's attention: write +
+    attend (``paged_update_and_attend``), then the output projection.
+    Returns (projected out, cache). ``rope_theta`` rotates q and k at the
+    cache's positions first; a caller that rotated them already (Llama's
+    attention, with the model's per-slot tables) passes None."""
     out = paged_update_and_attend(q, k, v, cache, groups=groups,
                                   rope_theta=rope_theta)
     b, s = out.shape[0], out.shape[1]
@@ -164,27 +174,30 @@ def paged_layer_forward(q, k, v, cache, out_proj, groups=1,
 
 
 def paged_update_and_attend(q, k, v, cache, groups=1, rope_theta=None):
-    """The per-layer serving step: write the new token's K/V into the
-    pages first, then attend the single query row against the slot's
-    paged history with lens = positions + 1 (the token attends itself).
+    """The per-layer serving step: (with ``rope_theta``, RoPE of q and k at
+    the slots' positions,) write the new token's K/V into the pages, then
+    attend the single query row against the slot's paged history with
+    lens = positions + 1 (the token attends itself). The pages hold K after
+    RoPE, as prefill writes it.
 
-    q [B, 1, H, D]; k/v [B, 1, Hkv, D]. Returns out [B, 1, H, D]. Slots
-    whose table row is all trash write and read the trash page; the
-    engine discards their tokens."""
-    if rope_theta is not None:
-        raise NotImplementedError(f"the paged cache's RoPE branch (Llama "
-                                  f"serving) {later('3')}")
+    q [B, 1, H, D]; k/v [B, 1, Hkv, D], H = Hkv * groups. Returns out
+    [B, 1, H, D]. Slots whose table row is all trash write and read the
+    trash page; the engine discards their tokens."""
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("paged decode is the single-token path")
     hkv = k.shape[2]
     if h != hkv * groups:
         raise ValueError(f"heads {h} != kv heads {hkv} x groups {groups}")
+    q1, k1 = q[:, 0], k[:, 0]
+    if rope_theta is not None:
+        q1 = _rope_rows(q1, cache.positions, rope_theta)
+        k1 = _rope_rows(k1, cache.positions, rope_theta)
     live = torch.ones(b, dtype=torch.bool, device=q.device)
-    write_token_kv(cache, k[:, 0], v[:, 0], live)
+    write_token_kv(cache, k1, v[:, 0], live)
     lens = cache.positions + 1
     from ..ops.attention import paged_flash_decode
-    out = paged_flash_decode(q[:, 0].reshape(b, hkv, groups, d),
+    out = paged_flash_decode(q1.reshape(b, hkv, groups, d),
                              cache.k_pages, cache.v_pages, cache.page_table,
                              lens, k_scale=cache.k_scale,
                              v_scale=cache.v_scale)

@@ -12,8 +12,9 @@ Same scheduling contract as the reference:
   ``kv_lens=[true_len]`` (the reference's padding mask); bucket tail
   blocks past the allocation write to the trash page;
 - decode in dispatches of ``steps_per_dispatch`` batched single-token
-  steps over the whole slot pool, each step writing the token's K/V and
-  attending through the paged decode kernel. The K steps of a dispatch
+  steps over the whole slot pool, each step writing the token's K/V (after
+  RoPE at each slot's position, for Llama) and attending through the paged
+  decode kernel, G = heads / kv heads query heads a kv head. The K steps of a dispatch
   run on the device without a host sync; the host syncs once per dispatch
   to read the tokens, as the reference's scan does. Inactive slots hold
   an all-trash table row, and ``done`` is monotonic within a dispatch.
@@ -119,8 +120,10 @@ def row_uniforms(key_base, index, width):
 class ServingEngine:
     """Continuous-batching decode over a fixed slot pool.
 
-    model: a port ``GPTForCausalLM`` (anything whose attention layers
-    understand ``PagedLayerCache``), already on ``device``.
+    model: a port ``GPTForCausalLM`` or ``LlamaForCausalLM`` (anything
+    whose attention layers understand ``PagedLayerCache`` and whose
+    forward takes ``kv_lens``), already on ``device``, in any of its
+    dtypes (logits are sampled in f32).
     device: where the engine runs; None means CUDA and raises without a
         GPU. Must be the model's device.
     max_slots: decode batch width. page_size: tokens per KV page.
@@ -176,6 +179,7 @@ class ServingEngine:
         self.cfg = cfg
         self.kv_heads = (getattr(cfg, "num_key_value_heads", 0)
                          or cfg.num_attention_heads)
+        self.groups = cfg.num_attention_heads // self.kv_heads
         self.num_layers = cfg.num_hidden_layers
         self.head_dim = cfg.head_dim
         self.page_size = int(page_size)

@@ -33,10 +33,9 @@ folded ``[B*H, S, D]``; ``ops.attention.flash_attention`` takes the public
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Dtypes on the card: the forward and the backward take float32, bfloat16
-and float16 (``_DTYPES``); the dense decode takes float32 and bfloat16
-(``_DECODE_DTYPES``), and a float16 decode raises ``TypeError`` naming
-ROADMAP.md queue 2. Head dims on the card: 64, 128 and 256 for every
+Dtypes on the card: the forward, the backward and the dense decode take
+float32, bfloat16 and float16 (``_DTYPES``; the decode's q and cache share
+one). Head dims on the card: 64, 128 and 256 for every
 kernel (``HEAD_DIMS``); the f32 forward and the f32 backward also take 32
 (``F32_HEAD_DIMS``: DETR's d_model 256 over 8 heads). A bf16 or f16 call
 at 32 on CUDA raises, naming ROADMAP.md queue 2; the plain twins take any
@@ -82,11 +81,10 @@ HEAD_DIMS = (64, 128, 256)
 # 8 heads)
 F32_HEAD_DIMS = (32,) + HEAD_DIMS
 NEG_INF = -1e30  # the TPU kernel's masked-score sentinel
-# the forward's and the backward's dtypes on CUDA, and the kernels' codes
+# the forward's, the backward's and the dense decode's dtypes on CUDA, and
+# the kernels' codes
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the dense decode's (a float16 cache is still to port: ROADMAP.md queue 2)
-_DECODE_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # q, k, v, lens, o, lse; bh, sq, sk, d, causal; sm_scale; seed; thresh;
 # keep_prob; dtype code (0 f32, 1 bf16, 2 f16); stream
@@ -97,8 +95,8 @@ _DQ_ARGTYPES = [_P] * 10 + [_I] * 5 + [_F, _U, _F, _I, _P]
 # q, k, v, dout, lse, delta, lens, seed, dk, dv; then as above
 _DKV_ARGTYPES = _DQ_ARGTYPES
 # q, k, v, lens, out, part, counters; b, h, s, d, splits, chunk; the
-# strides q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh; is_bf16; sm_scale;
-# stream
+# strides q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh; dtype code;
+# sm_scale; stream
 _DECODE_ARGTYPES = ([_P] * 7 + [_I] * 6 + [ctypes.c_longlong] * 8
                     + [_I, _F, _P])
 # blocks a decode call aims for: four on each of the H100's 132 SMs (at
@@ -521,11 +519,8 @@ def _check_decode(q, k, v, lens):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{fn}: q must be [B, 1, H, D], got "
                          f"{tuple(q.shape)}")
-    if q.dtype not in _DECODE_DTYPES:
-        note = (" (the float16 decode kernel is still to port: ROADMAP.md "
-                "queue 2)" if q.dtype == torch.float16 else "")
-        raise TypeError(f"{fn}: dtype {q.dtype} not in {_DECODE_DTYPES}"
-                        f"{note}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: dtype {q.dtype} not in {_DTYPES}")
     b, _, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")
@@ -560,8 +555,8 @@ def _check_decode(q, k, v, lens):
 def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
     """Single-query decode attention over a dense padded cache -> [B, 1, H,
     D] in q's dtype. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise. q and the cache share one dtype (f32 or
-    bf16) and one head count; the cache is read in place, never copied;
+    launch the kernel or raise. q and the cache share one dtype (f32, bf16
+    or f16) and one head count; the cache is read in place, never copied;
     the wrapper never syncs with the device. One launch a call; its scratch
     (``_decode_scratch``) serves one call at a time, on one stream."""
     sm_scale = _scale(sm_scale, q)
@@ -579,7 +574,7 @@ def flash_decode(q, k_cache, v_cache, kv_lens, sm_scale=None):
             kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
             counters.data_ptr(), b, h, s, d, splits, chunk, q.stride(0),
             q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
-            int(q.dtype == torch.bfloat16), float(sm_scale))
+            _DTYPE_CODES[q.dtype], float(sm_scale))
     return out
 
 

@@ -12,6 +12,14 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_decode.py``
   It is also ``nlp.paged_cache.paged_attention_ref``.
 - ``paged_decode_split`` — how a call cuts each slot's page table row into
   chunks of whole pages, one block each, from shapes alone.
+- ``paged_decode_residency`` — what the card makes of the kernel a call
+  launches: blocks an SM resident, shared memory, registers, spills.
+
+Dtypes on the card, as the reference's: q in f32, bf16 or float16 (read
+as f32, the output in q's dtype); pools in f32, bf16, float16 or int8
+with f32 scales. The serving engine makes f32, bf16 and int8 pools only,
+as the reference's does; float16 pools are the function's, not an engine
+option.
 
 Kernel note (details in the .cu): bound by the bytes of the live pages
 (3.35 TB/s on the H100). One launch a call splits each slot's keys over
@@ -30,15 +38,19 @@ import math
 import torch
 
 __all__ = ["HEAD_DIMS", "paged_flash_decode", "paged_decode_plain",
-           "paged_decode_split"]
+           "paged_decode_split", "paged_decode_residency"]
 
 HEAD_DIMS = (64, 128, 256)
-_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
 # q, k/v pools, k/v scales, page_table, lens, out, part, counters; b, hkv,
 # g, num_pages, ps, max_pages, d, pool code, splits, pages a chunk;
 # sm_scale; stream
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
+# pool code, d, g, pages a chunk; out[4]
+_RESIDENCY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # blocks a call aims for at most: four on each of the H100's 132 SMs
 _PAGED_BLOCKS = 4 * 132
 # a chunk holds at least this many keys: one step of a block's four warps
@@ -60,7 +72,7 @@ def _dequant(pages, scale):
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, lens, k_scale=None,
                        v_scale=None, sm_scale=None):
-    """q [B, Hkv, G, D]; pages [Hkv, P, ps, D] (f32/bf16, or int8 with
+    """q [B, Hkv, G, D]; pages [Hkv, P, ps, D] (f32/bf16/f16, or int8 with
     scales [Hkv, P, ps, 1] f32); page_table [B, MP] int; lens [B] int —
     keys at flat index >= lens[b] are masked. Returns [B, Hkv, G, D] in
     q's dtype; a slot with lens 0 gives a zero row."""
@@ -88,20 +100,19 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lens, k_scale=None,
 
 def _check(q, k_pages, v_pages, page_table, lens, k_scale, v_scale):
     dev = q.device
-    if torch.float16 in (q.dtype, k_pages.dtype, v_pages.dtype):
-        raise TypeError(f"paged_flash_decode: float16 q or pools ({q.dtype},"
-                        f" {k_pages.dtype}/{v_pages.dtype}): the float16 "
-                        "kernel is still to port: ROADMAP.md queue 2")
-    if q.dim() != 4 or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"paged_flash_decode: q must be [B, Hkv, G, D] "
-                         f"f32/bf16, got {tuple(q.shape)} {q.dtype}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"paged_flash_decode: q dtype {q.dtype}, expected "
+                        "f32, bf16 or f16")
+    if q.dim() != 4:
+        raise ValueError(f"paged_flash_decode: q must be [B, Hkv, G, D], "
+                         f"got {tuple(q.shape)}")
     b, hkv, g, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"paged_flash_decode: head_dim {d} not in "
                          f"{HEAD_DIMS}")
     if k_pages.dtype not in _POOL_CODES or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_flash_decode: pools {k_pages.dtype}/"
-                        f"{v_pages.dtype}, expected f32, bf16 or int8")
+                        f"{v_pages.dtype}, expected f32, bf16, f16 or int8")
     if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
             or k_pages.shape[0] != hkv or k_pages.shape[3] != d):
         raise ValueError(f"paged_flash_decode: pools {tuple(k_pages.shape)}"
@@ -167,6 +178,24 @@ def _paged_scratch(device, b, hkv, g, splits, d):
         counters = torch.zeros(n_count, dtype=torch.int32, device=device)
     _PAGED_SCRATCH[device] = (part, counters)
     return part, counters
+
+
+def paged_decode_residency(pool_dtype, d, g, ppc, device="cuda"):
+    """What the card makes of the kernel a call with ``pool_dtype`` pools,
+    head dim ``d``, ``g`` query heads a kv head and ``ppc`` pages a chunk
+    launches: {"blocks_per_sm" (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at the call's shared memory), "smem", "registers", "spill_bytes"}.
+    Launches nothing."""
+    from .. import _build
+    entry = _build.load("paged_flash_decode", _RESIDENCY_ARGTYPES,
+                        "paged_flash_decode_residency")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device(device)):
+        err = entry(_POOL_CODES[pool_dtype], d, g, ppc, out)
+    if err:
+        raise RuntimeError(f"paged_decode_residency: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "smem", "registers", "spill_bytes"),
+                    out))
 
 
 def _on_cuda(q):

@@ -140,10 +140,12 @@ def test_cuda_branch_checks_raise(monkeypatch):
     bad = [
         ((_meta(2, 1, 4, 96), _meta(2, 32, 4, 96), _meta(2, 32, 4, 96)),
          lens, ValueError, "head_dim"),
-        ((_meta(2, 1, 4, 64, dtype=torch.float16),
-          _meta(2, 32, 4, 64, dtype=torch.float16),
-          _meta(2, 32, 4, 64, dtype=torch.float16)), lens, TypeError,
+        ((_meta(2, 1, 4, 64, dtype=torch.float64),
+          _meta(2, 32, 4, 64, dtype=torch.float64),
+          _meta(2, 32, 4, 64, dtype=torch.float64)), lens, TypeError,
          "dtype"),
+        ((_meta(2, 1, 4, 64, dtype=torch.float16), ok[1], ok[2]), lens,
+         TypeError, "k_cache"),
         ((ok[0], _meta(2, 32, 4, 64, dtype=torch.bfloat16), ok[2]), lens,
          TypeError, "k_cache"),
         ((ok[0], _meta(2, 32, 2, 64), _meta(2, 32, 2, 64)), lens,

@@ -233,8 +233,11 @@ def test_unported_paths_raise(ids):
                                                       device="cpu")
     x = torch.from_numpy(ids)
     paged = PagedLayerCache(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        pm(x, cache=[paged] * 2, cache_index=torch.zeros(3))
+    scanned = port_llama.LlamaForCausalLM.from_config_name(
+        "llama-tiny", device="cpu", scan_layers=True)
+    with pytest.raises(NotImplementedError, match="scan_layers"):
+        scanned(x, cache=[paged] * 2,
+                cache_index=torch.zeros(3, dtype=torch.int32))
     cache = port_gen._alloc_cache(pm.config, 3, _S0, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 2.1"):
         pm(x, cache=cache)

@@ -103,9 +103,10 @@ def _meta(*shape, dtype=torch.float32):
 
 
 def test_cuda_branch_checks_raise(monkeypatch):
-    """The kernel branch raises on an unsupported D, q dtype or pool
-    dtype, mismatched pools, missing or stray int8 scales, a bad page
-    table or lens, and a grid too large; the checks run before any build
+    """The kernel branch raises on an unsupported D, q dtype (float64) or
+    pool dtype (float64, or k and v pools of two dtypes), mismatched
+    pools, missing or stray int8 scales, a bad page table or lens, and a
+    grid too large; the checks run before any build
     (the meta device stands in for CUDA past the device test)."""
     def no_build(name, *args):
         raise AssertionError(f"reached the kernel build ({name})")
@@ -120,11 +121,13 @@ def test_cuda_branch_checks_raise(monkeypatch):
     bad = [
         ((_meta(2, 4, 1, 96), _meta(4, 9, 16, 96), _meta(4, 9, 16, 96), pt,
           lens), {}, ValueError, "head_dim"),
-        ((_meta(2, 4, 1, 64, dtype=torch.float16), pool, pool, pt, lens), {},
-         TypeError, "queue 2"),
-        ((q, _meta(4, 9, 16, 64, dtype=torch.float16),
-          _meta(4, 9, 16, 64, dtype=torch.float16), pt, lens), {}, TypeError,
+        ((_meta(2, 4, 1, 64, dtype=torch.float64), pool, pool, pt, lens), {},
+         TypeError, "q dtype"),
+        ((q, _meta(4, 9, 16, 64, dtype=torch.float64),
+          _meta(4, 9, 16, 64, dtype=torch.float64), pt, lens), {}, TypeError,
          "pools"),
+        ((q, pool, _meta(4, 9, 16, 64, dtype=torch.float16), pt, lens), {},
+         TypeError, "pools"),
         ((q, pool, _meta(4, 9, 8, 64), pt, lens), {}, ValueError,
          "do not match"),
         ((q, _meta(2, 9, 16, 64), _meta(2, 9, 16, 64), pt, lens), {},

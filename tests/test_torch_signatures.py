@@ -280,6 +280,19 @@ def test_layer_list_engine_and_paged_keywords():
     assert eng.metrics == [metric] and eng.amp_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="use_flash=False"):
         PagedLayerCache(None, None, None, None, use_flash=False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        paged_update_and_attend(None, None, None, None, 1, 10000.0)
+    # rope_theta is the sixth positional argument, as in the reference
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1, 2, 64, generator=gen) for _ in range(3))
+    pool = torch.randn(2, 2, 16, 64, generator=gen)
+
+    def cache():   # keys at positions 0-2 before the new one at 3
+        return PagedLayerCache(pool.clone(), pool.clone(),
+                               torch.tensor([[1]], dtype=torch.int32),
+                               torch.tensor([3], dtype=torch.int32))
+    positional = paged_update_and_attend(q, k, v, cache(), 1, 10000.0)
+    keyword = paged_update_and_attend(q, k, v, cache(), groups=1,
+                                      rope_theta=10000.0)
+    assert torch.equal(positional, keyword)
+    assert not torch.equal(positional,
+                           paged_update_and_attend(q, k, v, cache(), 1))
     assert nn.Identity("scope", "float32")(net.weight) is net.weight
