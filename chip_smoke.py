@@ -550,6 +550,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
              logits (bucket 128, kv_lens) within 1e-3 and 2 requests' 16
              greedy tokens equal (GREEDY_TIE excepted); runs after phase
              18 (alone with phase 52: --llama-serve).
+54. masked-flash — #1, #3 and #4 with a dense mask (their DENSE
+             instantiations) against their twins: padding,
+             generate_square_subsequent_mask, GPT's causal + left padding
+             (NaN rows), a [B, H, Sq, Sk] bias and a bias at the dtype's
+             lowest value (rows biased whole), f32 D 32-256, bf16 and
+             float16 D 64-256; lse's (hi, lo) pair held; each repeated bit
+             for bit; timed at ERNIE's fine-tune shape (bf16, f32) and
+             GPT's causal shape (bf16) beside the unmasked kernels, the
+             twins and SDPA with the mask (alone: --masked-flash).
+55. ernie-finetune — ernie-3.0-base-zh ErnieForSequenceClassification
+             through Model.fit at 32 x 128 on padded batches, bf16 O1
+             captured, then f32; evaluate and predict; every flash launch
+             masked (alone with phase 56: --ernie-finetune).
+56. transformer-mask — nn.Transformer(512, 8) with padding and
+             subsequent masks, one forward and backward against the CPU.
 
 Tolerances on the card (kernel vs plain twin, same inputs):
   f32  1e-4 — the kernel sums in another order than the dense plain path;
@@ -916,6 +931,11 @@ def _cuobjdump():
     return tool if os.path.exists(tool) else None
 
 
+# library path -> its SASS functions: each library is dumped once a
+# process (its path holds its sources' hash)
+_SASS = {}
+
+
 def _sass_function(lib, kernel):
     """The SASS (``cuobjdump -sass``) of the first function of ``lib`` whose
     name holds ``kernel``; None when cuobjdump or the function is
@@ -923,10 +943,11 @@ def _sass_function(lib, kernel):
     tool = _cuobjdump()
     if tool is None:
         return None
-    text = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
-    funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:]
-             if kernel in f.split("\n", 1)[0]]
+    if lib not in _SASS:
+        text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+        _SASS[lib] = re.split(r"\n\s*Function : ", text)[1:]
+    funcs = [f for f in _SASS[lib] if kernel in f.split("\n", 1)[0]]
     return funcs[0] if funcs else None
 
 
@@ -989,7 +1010,7 @@ def _f32_fwd_sass(lib):
     cores would take thousands a thread). Fails when an instantiation runs
     no TF32 HMMA or more FFMAs than HMMAs."""
     for d in (32, 64, 128, 256):
-        ops = sass_opcodes(lib, f"flash_fwd_f32_kernelILi{d}E")
+        ops = sass_opcodes(lib, f"flash_fwd_f32_kernelILb0ELi{d}E")
         if ops is None:
             log("build: cuobjdump or the f32 forward not found; its SASS not "
                 "counted")
@@ -1009,7 +1030,8 @@ def _f32_fwd_sass(lib):
 
 def _f32_bwd_sass(lib):
     """The f32 backward's products in SASS at D = 32 and 64 (the tensor-core
-    kernels; dq with and without its key split): TF32 HMMAs
+    kernels, plain and DENSE; dq with and without its key split): TF32
+    HMMAs
     (three m16n8k8 a product step in 3xTF32) beside the FFMAs of the whole
     function (the softmax gradient's). Fails when an instantiation is not
     found or runs no TF32 HMMA; skipped only where the toolkit has no
@@ -1017,11 +1039,15 @@ def _f32_bwd_sass(lib):
     if _cuobjdump() is None:
         log("build: no cuobjdump; the f32 backward's SASS not counted")
         return
-    for d in (32, 64):
+    for d, dense in ((32, 0), (64, 0), (32, 1), (64, 1)):
+        flag = ("false", "true")[dense]
         for kern, targs, name in (
-                ("flash_bwd_dq_f32_kernel", f"ILi{d}ELi1EE", f"{d},1"),
-                ("flash_bwd_dq_f32_kernel", f"ILi{d}ELi4EE", f"{d},4"),
-                ("flash_bwd_dkv_f32_kernel", f"ILi{d}EE", f"{d}")):
+                ("flash_bwd_dq_f32_kernel", f"ILb{dense}ELi{d}ELi1EE",
+                 f"{flag},{d},1"),
+                ("flash_bwd_dq_f32_kernel", f"ILb{dense}ELi{d}ELi4EE",
+                 f"{flag},{d},4"),
+                ("flash_bwd_dkv_f32_kernel", f"ILb{dense}ELi{d}EE",
+                 f"{flag},{d}")):
             ops = sass_opcodes(lib, kern + targs)
             check(ops is not None, f"build: {kern}<{name}> not found in {lib}")
             hmma = {k: n for k, n in ops.items() if k.startswith("HMMA")}
@@ -1092,7 +1118,7 @@ def phase_build():
                 log(f"build:   {kern}: {nreg} registers, {spill} bytes "
                     "spill stores")
                 # the LN backward and the f32 backward on the tensor
-                # cores must not spill
+                # cores (plain and DENSE) must not spill
                 check(not ((kern.startswith("ln_bwd")
                             or kern.startswith("flash_bwd_d")
                             and "_f32_kernel<" in kern) and spill),
@@ -1100,7 +1126,8 @@ def phase_build():
     # the forward's CUDA-core work: a tile's softmax is straight-line code
     # between its two products, over 32 (q, k) pairs a thread
     lib = _build._lib_path("flash_attention_fwd")[1]
-    blocks = sass_blocks(lib, "flash_fwd_tc_kernelILi64E13__nv_bfloat16E")
+    blocks = sass_blocks(lib,
+                         "flash_fwd_tc_kernelILb0ELi64E13__nv_bfloat16E")
     if blocks is None:
         log("build: cuobjdump or the kernel not found; the forward's SASS "
             "count not measured")
@@ -2151,8 +2178,11 @@ def _bwd_pair(torch, dq_fn, dkv_fn, q, k, v, o, do, lse, seed, causal,
     sk = k.shape[1]
     seed_ptr, thresh, keep = kfa._drop_args(seed, dropout)
     stream = torch.cuda.current_stream().cuda_stream
+    # no dense mask: a source from before the mask's arguments reads the
+    # first of them (a null pointer) as its stream, the default one, where
+    # the calls run anyway
     common = (bh, sq, sk, d, int(causal), 1.0 / math.sqrt(d), thresh, keep,
-              int(q.dtype == torch.bfloat16), stream)
+              int(q.dtype == torch.bfloat16), *kfa._mask_args(None), stream)
 
     def run_dq():
         dq = torch.empty_like(q)
@@ -2371,6 +2401,8 @@ def compare_fwd(torch, sources):
                          to.data_ptr(), tl.data_ptr(), b * h, s, s, d,
                          int(causal), 1.0 / math.sqrt(d), seed_ptr, thresh,
                          keep, int(dtype == "bfloat16"),
+                         # no dense mask (see _bwd_pair)
+                         *kfa._mask_args(None),
                          torch.cuda.current_stream().cuda_stream)
                 return err, to, tl
 
@@ -10353,6 +10385,690 @@ def _l2_flush(torch):
     return scratch.zero_
 
 
+
+# -- dense attention masks (phases masked-flash, ernie-finetune,
+# -- transformer-mask) ------------------------------------------------------
+
+# ERNIE-3.0-base fine-tuning as PaddleNLP's ERNIE 3.0 classification recipe
+# runs it (model_zoo/ernie-3.0 run_seq_cls.py defaults): batch 32 at
+# max_seq_length 128, 12 heads of 64
+ERNIE_FT_B, ERNIE_FT_S = 32, 128
+# the mangled names of the flash kernels' DENSE instantiations (a dense
+# mask's; their first template argument, csrc/flash_attention_{fwd,bwd}.cu)
+MASKED_NS = "_kernelILb1E"
+FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+
+
+def _masked_launches():
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    return {n: getattr(kfa, n).masked_launches for n in FLASH_WRAPPERS}
+
+
+def _zero_masked():
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    for n in FLASH_WRAPPERS:
+        getattr(kfa, n).masked_launches = 0
+
+
+def _test_mask(torch, kind, b, h, sq, sk, dtype, gen, device="cuda"):
+    """(mask as ops.attention hands it to the kernels: a [B, H, Sq, Sk]
+    view, stride 0 on its broadcast dims; causal; visible (q, k) pairs over
+    every head; the mask's own bytes) of one kind:
+    - "padding": ERNIE's [B, 1, 1, Sk] keep-mask, lengths from [8, Sk];
+    - "subsequent": nn.Transformer's generate_square_subsequent_mask
+      (f32, -inf above the diagonal);
+    - "gpt": GPT's causal + padding attn_mask, padded on the left, so the
+      rows before a sequence's first token see no key (NaN rows);
+    - "bias": a general [B, H, Sq, Sk] additive bias in q's dtype;
+    - "lowest": a [B, 1, Sq, Sk] bias in q's dtype of 0 or its lowest value
+      (-3.4e38 in f32 and bf16, -65504 in float16), with causal: row 3 of
+      batch 0 has every key biased, and the last batch is padded on the
+      left by 6 keys, so its first 6 rows have every key biased too (a
+      softmax over the biased scores, not NaN)."""
+    from paddle_tpu_torch.nn.layers_transformer import Transformer
+    from paddle_tpu_torch.ops.attention import _fold_mask
+    cpu = torch.Generator().manual_seed(int(torch.randint(
+        0, 2 ** 31 - 1, (1,), generator=gen, device=device).item()))
+    lens = torch.randint(min(8, sk), sk + 1, (b,), generator=cpu)
+    kpos = torch.arange(sk)
+    causal = kind in ("gpt", "lowest")
+    if kind == "padding":
+        m = (kpos[None, :] < lens[:, None])[:, None, None, :]
+    elif kind == "subsequent":
+        m = Transformer.generate_square_subsequent_mask(sq)
+    elif kind == "gpt":
+        m = (kpos[None, :] >= (sk - lens)[:, None])[:, None, None, :]
+    elif kind == "lowest":
+        dt = getattr(torch, dtype)
+        keep = torch.rand(b, 1, sq, sk, generator=cpu) < 0.7
+        keep[..., min(12, sk - 1)] = True
+        keep[0, 0, min(3, sq - 1), :] = False
+        keep[-1, :, :, :6] = False
+        m = torch.zeros(b, 1, sq, sk, dtype=dt).masked_fill(
+            ~keep, torch.finfo(dt).min)
+    else:
+        m = torch.randn(b, h, sq, sk, generator=cpu).to(getattr(torch,
+                                                                dtype))
+    m = m.to(device)
+    view = _fold_mask(m, b, h, sq, sk, device)
+    vis = view.bool() if view.dtype == torch.bool else view.isfinite()
+    if causal:
+        qpos = torch.arange(sq, device=device)[:, None]
+        vis = vis & (torch.arange(sk, device=device)[None, :]
+                     <= qpos + (sk - sq))
+    pairs = int(vis.sum().item())
+    return view, causal, pairs, m.numel() * m.element_size()
+
+
+def _same(a, b):
+    """Bit for bit, NaNs included (NaN in the same places, the rest
+    equal)."""
+    na, nb = a.isnan(), b.isnan()
+    return bool(torch_equal(na, nb)) and bool(torch_equal(a[~na], b[~nb]))
+
+
+def _check_masked(tag, name, dtype, got, want):
+    """got vs its twin at TOL (f32 absolute, else of max(1, |twin|)), NaN
+    in the same places; the error over the rest."""
+    gn, wn = got.isnan(), want.isnan()
+    check(bool(torch_equal(gn, wn)), f"{tag}: {name} NaN at "
+          f"{int(gn.ne(wn).sum().item())} places where its twin differs")
+    if bool(wn.all()):
+        return 0.0, int(gn.sum().item())
+    err, scaled = _err(got[~gn], want[~wn])
+    ok = err <= TOL[dtype] if dtype == "float32" else scaled <= TOL[dtype]
+    check(math.isfinite(err) and ok,
+          f"{tag}: {name} max_abs_err {err} (of max(1, |twin|): {scaled}) "
+          f"over the {dtype} tolerance {TOL[dtype]}")
+    return err, int(gn.sum().item())
+
+
+def _check_lse_pair(tag, got, want):
+    """A masked forward's lse pair [2, BH, Sq] (hi, lo) against its twin's:
+    NaN in the same places, and the pairs' difference (hi - hi') + (lo -
+    lo') in float64 within 1e-4, plus 4 f32 ulps of hi where the two hi
+    differ (a biased score's rounding may move the row max by an ulp):
+    where hi is the same, as on a row at -3.4e38, lo (its log l) is held
+    to 1e-4 alone. Returns the largest difference."""
+    gn, wn = got.isnan(), want.isnan()
+    check(bool(torch_equal(gn, wn)), f"{tag}: lse NaN at "
+          f"{int(gn.ne(wn).sum().item())} places where its twin differs")
+    ok = ~wn.any(0)
+    dh = got[0][ok].double() - want[0][ok].double()
+    d = (dh + (got[1][ok].double() - want[1][ok].double())).abs()
+    bar = 1e-4 + (dh != 0) * 4 * want[0][ok].double().abs() * 2.0 ** -23
+    worst = float(d.max().item()) if d.numel() else 0.0
+    check(bool((d <= bar).all()), f"{tag}: lse pair off its twin's by "
+          f"{worst} (bar 1e-4, and 4 ulps of hi where hi differs)")
+    return worst
+
+
+def masked_work(b, h, sq, sk, d, esz, pairs, mask_bytes):
+    """{kernel: (bytes, FLOPs)} of the masked flash kernels: flash_work's
+    over this run's visible pairs, each kernel also reading the mask's own
+    bytes once and lse as its pair (hi, lo)."""
+    nq, nk = b * h * sq * d, b * h * sk * d
+    stat = b * h * sq * 4
+    return {
+        "fwd": ((nq + 2 * nk + nq) * esz + 2 * stat + mask_bytes,
+                4 * d * pairs),
+        "dq": ((3 * nq + 2 * nk + nq) * esz + 3 * stat + mask_bytes,
+               6 * d * pairs),
+        "dkv": ((2 * nq + 2 * nk + 2 * nk) * esz + 3 * stat + mask_bytes,
+                8 * d * pairs),
+    }
+
+
+def _sdpa_backend(torch, fn):
+    """(backend, its largest CUDA kernel) of one SDPA call, read off a
+    profile: PyTorch picks among flash, memory-efficient (cutlass fmha),
+    cuDNN and the math path by the call's arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    if not rows:
+        return "not measured", None
+    top = max(rows, key=lambda a: a.self_device_time_total).key
+    names = " ".join(a.key.lower() for a in rows)
+    backend = ("cudnn" if "cudnn" in names else
+               "flash" if "flash" in names else
+               "efficient" if ("fmha" in names or "cutlass" in names
+                               or "efficient" in names) else "math")
+    return backend, top
+
+
+def _masked_case(torch, b, h, sq, sk, d, dtype, kind, dropout, gen, flush,
+                 timed, device="cuda"):
+    """#1, #3 and #4 with a dense mask vs their twins on one input, the
+    backward twins fed the kernels' own o, lse and delta; each kernel
+    repeated bit for bit (NaNs in place). ``timed``: each kernel's held ms
+    masked, and unmasked on the same q, k, v (the unmasked backward on its
+    own forward's o and lse), the twins', and SDPA's with the same
+    attn_mask (its forward; its backward for dq and for dk/dv), whose
+    backend is named."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    dt = getattr(torch, dtype)
+    mk = lambda s: torch.randn(b * h, s, d, generator=gen,  # noqa: E731
+                               device=device).to(dt)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    mask, causal, pairs, mask_bytes = _test_mask(torch, kind, b, h, sq, sk,
+                                                 dtype, gen, device)
+    seed = torch.tensor([4321], dtype=torch.int32, device=device)
+    rest = (None, seed, causal, None, dropout)
+    o, lse = kfa.flash_attention_fwd(q, k, v, *rest, mask=mask)
+    dq, delta = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest,
+                                           mask=mask)
+    dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest,
+                                         mask=mask)
+    torch.cuda.synchronize()
+    where = (f"{dtype} b{b} h{h} sq{sq} sk{sk} d{d} {kind} mask "
+             f"({mask.dtype}) dropout{dropout} causal={causal}")
+    tag = "masked-flash " + where
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, *rest, mask=mask)
+    pdq, pdelta = kfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
+                                                   *rest, mask=mask)
+    pdk, pdv = kfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                 *rest, mask=mask)
+    row = dict(dtype=dtype, b=b, h=h, sq=sq, sk=sk, d=d, kind=kind,
+               mask_dtype=str(mask.dtype).replace("torch.", ""),
+               dropout=dropout, causal=causal, pairs=pairs,
+               mask_bytes=mask_bytes, err={}, nan={})
+    for n, a, p in (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk),
+                    ("dv", dv, pdv)):
+        row["err"][n], row["nan"][n] = _check_masked(tag, n, dtype, a, p)
+    row["err"]["lse"] = _check_lse_pair(tag, lse, plse)
+    del po, pdq, pdk, pdv
+    o2, lse2 = kfa.flash_attention_fwd(q, k, v, *rest, mask=mask)
+    dq2, delta2 = kfa.flash_attention_bwd_dq(q, k, v, o, do, lse, *rest,
+                                             mask=mask)
+    dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *rest,
+                                           mask=mask)
+    torch.cuda.synchronize()
+    for n, a, a2 in (("o", o, o2), ("lse", lse, lse2), ("dq", dq, dq2),
+                     ("delta", delta, delta2), ("dk", dk, dk2),
+                     ("dv", dv, dv2)):
+        check(_same(a, a2), f"{tag}: a second call gave another {n}")
+    del o2, lse2, dq2, delta2, dk2, dv2
+    if not timed:
+        return row
+    kw = dict(mask=mask)
+    kern = {"fwd": lambda: kfa.flash_attention_fwd(q, k, v, *rest, **kw),
+            "dq": lambda: kfa.flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                     *rest, **kw),
+            "dkv": lambda: kfa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, *rest, **kw)}
+    plain = {"fwd": lambda: kfa.flash_attention_fwd_plain(q, k, v, *rest,
+                                                          **kw),
+             "dq": lambda: kfa.flash_attention_bwd_dq_plain(
+                 q, k, v, o, do, lse, *rest, **kw),
+             "dkv": lambda: kfa.flash_attention_bwd_dkv_plain(
+                 q, k, v, do, lse, delta, *rest, **kw)}
+    uo, ulse = kfa.flash_attention_fwd(q, k, v, *rest)
+    _, udelta = kfa.flash_attention_bwd_dq(q, k, v, uo, do, ulse, *rest)
+    unmasked = {"fwd": lambda: kfa.flash_attention_fwd(q, k, v, *rest),
+                "dq": lambda: kfa.flash_attention_bwd_dq(
+                    q, k, v, uo, do, ulse, *rest),
+                "dkv": lambda: kfa.flash_attention_bwd_dkv(
+                    q, k, v, do, ulse, udelta, *rest)}
+    row["ms"] = {n: time_ms(torch, f, flush=flush) for n, f in kern.items()}
+    row["unmasked_ms"] = {n: time_ms(torch, f, flush=flush)
+                          for n, f in unmasked.items()}
+    row["plain_ms"] = {n: time_ms(torch, f, flush=flush)
+                       for n, f in plain.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.view(b, h, -1, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                           is_causal=False, dropout_p=dropout)
+    if causal:  # SDPA takes no attn_mask with is_causal: fold it in
+        tri = torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+            sk - sq)
+        cm = (mask & tri if mask.dtype == torch.bool
+              else mask.masked_fill(~tri, -math.inf))
+        lib_fwd = lambda: sdpa(qt, kt, vt, attn_mask=cm,  # noqa: E731
+                               dropout_p=dropout)
+    with torch.no_grad():
+        row["library_backend"], row["library_kernel"] = _sdpa_backend(
+            torch, lib_fwd)
+        lib_fwd_ms = time_ms(torch, lib_fwd, flush=flush)
+    out = lib_fwd()
+    dout = do.view(b, h, sq, d)
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dout, retain_graph=True), flush=flush)
+    row["library_ms"] = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms,
+                         "dkv": lib_bwd_ms}
+    del out, qt, kt, vt
+    work = masked_work(b, h, sq, sk, d, q.element_size(), pairs, mask_bytes)
+    row["bound"] = {n: flash_bound(dtype, n, *w) for n, w in work.items()}
+    row["flops"] = {n: w[1] for n, w in work.items()}
+    return row
+
+
+MASK_KINDS = ("padding", "subsequent", "gpt", "bias", "lowest")
+# GPT's training shape (gpt3-345M: batch 8 x 16 heads x 1024, D = 64),
+# timed causal with its causal + padding attn_mask
+GPT_MASK_SHAPE = (8, 16, 1024, 64)
+
+
+def phase_masked_flash(torch, flush):
+    """#1, #3 and #4 with a dense mask (their DENSE instantiations)
+    against their twins on the card: every mask kind in f32 (D = 32, 64,
+    128, 256: the 3xTF32 forward, the 3xTF32 backward with and without its
+    key split, the CUDA-core backward), bf16 and float16 (D = 64, 128; 256
+    with the padding mask), ragged against the tiles, with and without
+    dropout, a bias at the dtype's lowest value with rows biased whole
+    among them; then ERNIE's fine-tune shape (32 x 12 x 128 x 128, D = 64,
+    its padding mask, dropout 0.1) in bf16 and f32, and GPT's training
+    shape causal with its causal + padding mask in bf16, each timed masked,
+    unmasked, as the twins and as SDPA with the same mask."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for dtype, dims in (("float32", (32, 64, 128, 256)),
+                        ("bfloat16", (64, 128)), ("float16", (64, 128))):
+        for d in dims:
+            for i, kind in enumerate(MASK_KINDS):
+                s = 200 if d < 256 else 130
+                rows.append(_masked_case(torch, 2, 2, s, s, d, dtype, kind,
+                                         0.1 * (i % 2), gen, flush, False))
+    for dtype in ("bfloat16", "float16"):
+        rows.append(_masked_case(torch, 2, 2, 130, 130, 256, dtype,
+                                 "padding", 0.1, gen, flush, False))
+    # few query rows (the f32 dq's key split) over more keys: DETR's
+    # decoder cross attention's shape with a padding mask
+    rows.append(_masked_case(torch, 1, 2, 100, 300, 32, "float32",
+                             "padding", 0.0, gen, flush, False))
+    nan_rows = [r for r in rows if r["nan"]["o"]]
+    check(nan_rows, "masked-flash: no case had a row with no visible key")
+    timed = {}
+    for dtype in ("bfloat16", "float32"):
+        r = _masked_case(torch, ERNIE_FT_B, 12, ERNIE_FT_S, ERNIE_FT_S, 64,
+                         dtype, "padding", 0.1, gen, flush, True)
+        rows.append(r)
+        timed[dtype] = r
+    # a causal masked call: the dk/dv kernels skip the query tiles the
+    # causal mask hides from their keys, as unmasked
+    gb, gh, gs, gd = GPT_MASK_SHAPE
+    r = _masked_case(torch, gb, gh, gs, gs, gd, "bfloat16", "gpt", 0.0, gen,
+                     flush, True)
+    rows.append(r)
+    timed["bfloat16 causal"] = r
+    for r in rows:
+        log(f"masked-flash: {r['dtype']} b{r['b']} h{r['h']} sq{r['sq']} "
+            f"sk{r['sk']} d{r['d']} {r['kind']} ({r['mask_dtype']}) dropout"
+            f" {r['dropout']} causal={r['causal']}: max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in r["err"].items())
+            + f"; NaN o/dq/dk/dv {r['nan']['o']}/{r['nan']['dq']}/"
+            f"{r['nan']['dk']}/{r['nan']['dv']} (as the twin)")
+    for dtype, r in timed.items():
+        where = ("GPT's shape, causal + left padding" if "causal" in dtype
+                 else "ERNIE fine-tune shape")
+        bwd, ubwd = (r["ms"]["dq"] + r["ms"]["dkv"],
+                     r["unmasked_ms"]["dq"] + r["unmasked_ms"]["dkv"])
+        log(f"masked-flash: {where} {dtype} backward (#3 + #4): held "
+            f"{bwd:.4f} ms, unmasked {ubwd:.4f}, SDPA's whole backward with "
+            f"the mask {r['library_ms']['dq']:.4f} "
+            f"({r['library_ms']['dq'] / bwd:.2f}x the kernels' time)")
+        for n in ("fwd", "dq", "dkv"):
+            bms, by = r["bound"][n]
+            log(f"masked-flash: {where} {dtype} {n}: held "
+                f"{r['ms'][n]:.4f} ms (unheld {unheld(r['ms'][n]):.4f}), "
+                f"unmasked {r['unmasked_ms'][n]:.4f}, twin "
+                f"{r['plain_ms'][n]:.4f}, SDPA with the mask "
+                f"{r['library_ms'][n]:.4f} ({r['library_backend']}: "
+                f"{r['library_kernel']}), bound {bms:.4f} ms ({by}; "
+                f"{r['pairs']} visible pairs, mask {r['mask_bytes']} "
+                "bytes)")
+    return dict(rows=rows, timed=timed)
+
+
+# the fine-tune's tokens: ids uniform in [1, FT_TOKENS), the vocabulary
+# examples/finetune_bert.py draws from, whose label (token 7 in the
+# sequence) then marks about 1 in 15; 0 is the padding
+FT_TOKENS = 1000
+FT_TRAIN, FT_EVAL, FT_F32_STEPS = 2048, 512, 16
+# the masked kernels a captured ERNIE step holds, by the dtype it runs in:
+# (wrapper, kernel name fragment) as _graph_node_names reads them
+FT_GRAPH_KERNELS = {
+    "bfloat16": (("flash_attention_fwd", "flash_fwd_tc_kernel"),
+                 ("flash_attention_bwd_dq", "flash_bwd_dq_tc_kernel"),
+                 ("flash_attention_bwd_dkv", "flash_bwd_dkv_tc_kernel")),
+    "float32": (("flash_attention_fwd", "flash_fwd_f32_kernel"),
+                ("flash_attention_bwd_dq", "flash_bwd_dq_f32_kernel"),
+                ("flash_attention_bwd_dkv", "flash_bwd_dkv_f32_kernel")),
+}
+
+
+def _ft_sets(s):
+    """(train, eval) sequence-classification sets from numpy seed 0, each
+    (input_ids, token_type_ids, attention_mask, labels [n, 1]) int64:
+    lengths uniform in [8, s], right padding with pad_token_id 0, the
+    tokenizer's 0/1 mask, label 1 where token 7 is in the unpadded
+    part."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+
+    def make(n):
+        lens = rng.integers(8, s + 1, n)
+        keep = np.arange(s)[None, :] < lens[:, None]
+        ids = np.where(keep, rng.integers(1, FT_TOKENS, (n, s)), 0)
+        labels = ((ids == 7) & keep).any(axis=1)
+        return (ids.astype(np.int64), np.zeros((n, s), np.int64),
+                keep.astype(np.int64), labels.astype(np.int64)[:, None])
+    return make(FT_TRAIN), make(FT_EVAL)
+
+
+def _ft_dataset(arrays, n=None):
+    """An io.Dataset over the first ``n`` samples of ``arrays``."""
+    from paddle_tpu_torch.io import Dataset
+    n = len(arrays[0]) if n is None else n
+
+    class _Seqs(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return tuple(a[i] for a in arrays)
+    return _Seqs()
+
+
+def _ft_model(net, amp):
+    """paddle.Model over ``net`` with three input specs and one label,
+    prepared as the fine-tune runs: AdamW(3e-5, weight_decay=0.01,
+    fused_kernel=True), cross entropy, accuracy."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import InputSpec
+    s = ERNIE_FT_S
+    specs = [InputSpec([None, s], "int64", n) for n in
+             ("input_ids", "token_type_ids", "attention_mask")]
+    m = Model(net, inputs=specs,
+              labels=[InputSpec([None, 1], "int64", "label")])
+    m.prepare(AdamW(3e-5, weight_decay=0.01, fused_kernel=True),
+              CrossEntropyLoss(), Accuracy(), amp_configs=amp)
+    return m
+
+
+def _ft_fit(torch, tag, net, dtype, amp, data, steps):
+    """One epoch of Model.fit over ``steps`` batches: ms a step (the
+    median batch-end to batch-end time of steps 8..end), sequences/s, a
+    profiled step's busy share, peak memory, every flash launch masked
+    (24 of each: the eager first step and the recording), the recorded
+    step holding 12 masked nodes of each flash kernel and no unmasked one,
+    no plain twin called, the fused AdamW in the graph."""
+    b = ERNIE_FT_B
+    m = _ft_model(net, amp)
+    probe = _FitProbe(torch, profile_after=min(40, steps - 3))
+    _zero_launches()
+    _zero_masked()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _TwinWatch() as twins:
+        m.fit(_ft_dataset(data, steps * b), batch_size=b, epochs=1,
+              shuffle=False, verbose=0, callbacks=[probe.callback])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not twins.calls, f"{tag}: plain twins ran on the card: "
+          f"{twins.calls}")
+    launches, masked = _read_launches(), _masked_launches()
+    layers = net.config.num_hidden_layers
+    for w in FLASH_WRAPPERS:
+        check(masked[w] == launches[w] == 2 * layers,
+              f"{tag}: {w} launched {launches[w]} times, {masked[w]} of them"
+              f" masked, over {steps} captured steps; want {2 * layers} "
+              "(the eager first step and the recording), every one masked")
+    nodes = _graph_node_names(torch, _recording(m._engine, "train").graph)
+    per_step = {w: sum(frag in n and MASKED_NS in n for n in nodes)
+                for w, frag in FT_GRAPH_KERNELS[dtype]}
+    plain_flash = sum(("flash_fwd" in n or "flash_bwd" in n)
+                      and MASKED_NS not in n for n in nodes)
+    adamw = sum("adamw_kernel" in n for n in nodes)
+    check(all(v == layers for v in per_step.values()) and not plain_flash
+          and adamw == 1,
+          f"{tag}: the recorded step holds masked flash nodes {per_step}, "
+          f"{plain_flash} unmasked ones and {adamw} AdamW; want {layers} "
+          "each, 0 and 1")
+    losses = probe.losses
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{tag}: losses {losses}")
+    gaps = sorted((probe.ends[i] - probe.ends[i - 1]) * 1e3
+                  for i in range(8, steps))
+    ms = gaps[len(gaps) // 2]
+    busy = probe.busy(tag)
+    log(f"{tag}: Model.fit, {steps} steps of {b} x {ERNIE_FT_S} in {wall:.2f}"
+        f" s ({dtype}); median {ms:.3f} ms a step = {b / ms * 1e3:.1f} "
+        f"sequences/s (batch end to batch end, steps 8..{steps - 1}, the "
+        f"profiled one among them); busy share "
+        f"{busy.get('busy_share')}; peak {peak_gb:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; masked launches {masked}, a "
+        f"replayed step {per_step} masked nodes")
+    return m, dict(ms_per_step=ms, seq_s=b / ms * 1e3, wall_s=wall,
+                   peak_gb=peak_gb, losses=losses, launches=launches,
+                   masked_launches=masked, per_step=per_step, **busy)
+
+
+def phase_ernie_finetune(torch):
+    """ERNIE-3.0-base-zh fine-tuning for sequence classification through
+    paddle.Model, as PaddleNLP's ERNIE 3.0 recipe shapes it: 2048 padded
+    sequences at batch 32 x 128 (weights from seed 0, dropout 0.1, the
+    default config: fused_ln off), one epoch in bf16 AMP O1 with
+    AdamW(fused_kernel=True), the step captured as one CUDA graph; then
+    evaluate and predict over 512 sequences (f32, eager); then 16 steps in
+    f32; then the card's f32 evaluate against the CPU's on the same
+    weights over 2 eval batches. Every attention call takes the padding
+    mask through the masked kernels (#1, #3, #4), none a plain path."""
+    import numpy as np
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.ernie import (ErnieForSequenceClassification,
+                                            _resolve_config)
+    b, s = ERNIE_FT_B, ERNIE_FT_S
+    train, evl = _ft_sets(s)
+    cfg = _resolve_config("ernie-3.0-base-zh", num_labels=2)
+    t0 = time.perf_counter()
+    net = ErnieForSequenceClassification(cfg, device="cuda",
+                                         generator=seed(0, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"ernie-finetune: ernie-3.0-base-zh sequence classifier built on "
+        f"cuda in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in net.parameters())} parameters, "
+        f"{len(net.state_dict())} state-dict keys, {cfg.num_hidden_layers} "
+        f"layers, dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}); {FT_TRAIN} train / {FT_EVAL} "
+        f"eval sequences, lengths 8..{s}, {float(train[3].mean()):.3f} "
+        "labelled 1")
+    out = {}
+    m, out["bfloat16"] = _ft_fit(torch, "ernie-finetune bf16", net,
+                                 "bfloat16", {"level": "O1",
+                                              "dtype": "bfloat16"},
+                                 train, FT_TRAIN // b)
+    losses = out["bfloat16"]["losses"]
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    check(last < first, f"ernie-finetune: the bf16 loss did not fall: "
+          f"{first:.4f} over the first 8 steps, {last:.4f} over the last 8")
+    for what, run in (("evaluate", lambda: m.evaluate(
+            _ft_dataset(evl), batch_size=b, verbose=0)),
+                      ("predict", lambda: m.predict(
+                          _ft_dataset(evl), batch_size=b,
+                          stack_outputs=True, verbose=0))):
+        _zero_launches()
+        _zero_masked()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        masked = _masked_launches()
+        want = cfg.num_hidden_layers * FT_EVAL // b
+        check(masked["flash_attention_fwd"] == want
+              == _read_launches()["flash_attention_fwd"]
+              and not masked["flash_attention_bwd_dq"],
+              f"ernie-finetune: {what} launched {masked} masked kernels, "
+              f"want {want} masked forwards (12 a batch), no backward")
+        if what == "predict":
+            check(res[0].shape == (FT_EVAL, 2)
+                  and bool(np.isfinite(res[0]).all()),
+                  f"ernie-finetune: predict gave {res[0].shape}")
+            res = {"logits_shape": list(res[0].shape)}
+        out[what] = dict(res, seconds=secs, masked_launches=masked,
+                         seq_s=FT_EVAL / secs)
+        log(f"ernie-finetune: {what} over {FT_EVAL} sequences (f32, eager) "
+            f"in {secs:.3f} s = {FT_EVAL / secs:.1f} sequences/s: {res}; "
+            f"masked launches {masked}")
+    _, out["float32"] = _ft_fit(torch, "ernie-finetune f32", net, "float32",
+                                None, train, FT_F32_STEPS)
+    out["cpu"] = _ft_cpu_check(torch, net, evl)
+    return out
+
+
+def _ft_cpu_check(torch, net, evl):
+    """The card's f32 evaluate and predict against the CPU's on the same
+    weights, 2 eval batches: the loss at 1e-3 relative, the logits at
+    1e-3 of their max-abs, the same accuracy."""
+    import numpy as np
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nlp.ernie import ErnieForSequenceClassification
+    b = ERNIE_FT_B
+    cpu = ErnieForSequenceClassification(net.config, device="cpu",
+                                         generator=seed(0, device="cpu"))
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in
+                         net.state_dict().items()})
+    res = {}
+    for dev, model in (("cuda", net), ("cpu", cpu)):
+        m = _ft_model(model, None)
+        _zero_masked()
+        t0 = time.perf_counter()
+        ev = m.evaluate(_ft_dataset(evl, 2 * b), batch_size=b, verbose=0)
+        logits = m.predict(_ft_dataset(evl, 2 * b), batch_size=b,
+                           stack_outputs=True, verbose=0)[0]
+        res[dev] = dict(ev, logits=logits, masked=_masked_launches(),
+                        seconds=time.perf_counter() - t0)
+    g, c = res["cuda"], res["cpu"]
+    layers = net.config.num_hidden_layers
+    check(g["masked"]["flash_attention_fwd"] == 4 * layers
+          and not c["masked"]["flash_attention_fwd"],
+          f"ernie-finetune cpu: masked forwards {g['masked']} on the card, "
+          f"{c['masked']} on the CPU; want {4 * layers} and none")
+    scale = float(np.abs(c["logits"]).max())
+    err = float(np.abs(g["logits"] - c["logits"]).max())
+    rel = abs(g["loss"][0] - c["loss"][0]) / abs(c["loss"][0])
+    check(err <= 1e-3 * scale and rel <= 1e-3 and g["acc"] == c["acc"],
+          f"ernie-finetune cpu: logits {err} (max-abs {scale}), loss "
+          f"{g['loss']} vs {c['loss']}, acc {g['acc']} vs {c['acc']}")
+    log(f"ernie-finetune cpu: f32 evaluate of 2 batches, card vs CPU on the "
+        f"same weights: loss {g['loss'][0]:.6f} vs {c['loss'][0]:.6f} "
+        f"({rel:.2e} relative), logits max_abs_err {err:.3e} of max-abs "
+        f"{scale:.3f}, acc {g['acc']} both; CPU {c['seconds']:.1f} s")
+    return dict(logits_err=err, logits_scale=scale, loss_rel=rel)
+
+
+def phase_transformer_mask(torch):
+    """nn.Transformer (d_model 512, 8 heads, 6 + 6 layers, f32, dropout 0,
+    GELU) with a padding src_mask and memory_mask ([B, 1, 1, S_src] bool)
+    and generate_square_subsequent_mask as tgt_mask: one forward and
+    backward on the card, every attention through the masked kernels (18
+    launches of each), held with the CPU's f32 run against a float64 run
+    on the CPU, same weights: the card's output and each gradient within
+    1e-3 of its max-abs from float64, or no further than twice the CPU's
+    f32. The feed-forward blocks run GELU, not the default ReLU: a ReLU
+    whose input lies within rounding of 0 flips between two f32 runs and
+    moves its linear1's gradient by 2e-2 and every gradient below it by
+    1e-3 (measured on the card: decoder layer 3's, with the kernels 1e-7
+    from the twins), which says nothing of the attention. A gradient that
+    is 0 in exact arithmetic (each attention's k_proj.bias: a softmax row
+    is blind to a shift of all its scores) is rounding on every run: it is
+    held to 1e-6 of the largest gradient on the card, and a max-abs below
+    1e-4 of the largest gradient's counts as rounding elsewhere."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nn.layers_transformer import Transformer
+    b, s_src, s_tgt, d = 8, 64, 48, 512
+    cpu = torch.Generator().manual_seed(21)
+    src = torch.randn(b, s_src, d, generator=cpu)
+    tgt = torch.randn(b, s_tgt, d, generator=cpu)
+    w = torch.randn(b, s_tgt, d, generator=cpu)
+    lens = torch.randint(16, s_src + 1, (b,), generator=cpu)
+    pad = (torch.arange(s_src)[None, :] < lens[:, None])[:, None, None, :]
+    sub = Transformer.generate_square_subsequent_mask(s_tgt)
+    gm = Transformer(d, 8, dropout=0.0, activation="gelu", device="cuda",
+                     generator=seed(3, device="cuda"))
+    state = {k: v.cpu() for k, v in gm.state_dict().items()}
+    res = {}
+    for tag, dev, dt, m in (
+            ("cuda", "cuda", torch.float32, gm),
+            ("cpu", "cpu", torch.float32, None),
+            ("float64", "cpu", torch.float64, None)):
+        if m is None:
+            m = Transformer(d, 8, dropout=0.0, activation="gelu",
+                            device="cpu", generator=seed(3, device="cpu"))
+            m.load_state_dict(state)
+            m = m.to(dt)
+        _zero_launches()
+        _zero_masked()
+        t = [x.to(dev) for x in (src, tgt, w, pad, sub)]
+        t = [x.to(dt) if x.is_floating_point() else x for x in t]
+        out = m(t[0], t[1], src_mask=t[3], tgt_mask=t[4], memory_mask=t[3])
+        (out * t[2]).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[tag] = dict(masked=_masked_launches(), launches=_read_launches(),
+                        vals={"out": out.detach().cpu().double(), **{
+                            n: p.grad.detach().cpu().double()
+                            for n, p in m.named_parameters()}})
+    g, c, f = res["cuda"], res["cpu"], res["float64"]
+    want = 18  # 6 encoder self-attentions, 6 decoder self, 6 cross
+    for n in FLASH_WRAPPERS:
+        check(g["masked"][n] == g["launches"][n] == want
+              and not c["masked"][n],
+              f"transformer-mask: {n} launched {g['launches'][n]} times, "
+              f"{g['masked'][n]} masked, on the card; want {want}, all "
+              "masked")
+    top = max(v.abs().max().item() for k, v in f["vals"].items()
+              if k != "out")
+    worst = {}
+    for name, ref in f["vals"].items():
+        if name.endswith("k_proj.bias"):
+            # 0 in exact arithmetic: rounding on every run, held by its
+            # size against the largest gradient, not against another run's
+            # rounding
+            e_card = g["vals"][name].abs().max().item() / top
+            e_cpu = c["vals"][name].abs().max().item() / top
+            check(math.isfinite(e_card) and e_card <= 1e-6,
+                  f"transformer-mask: {name} (0 in exact arithmetic) "
+                  f"{e_card:.3e} of the largest gradient on the card, "
+                  f"{e_cpu:.3e} on the CPU")
+            worst[name] = (e_card, e_cpu)
+            continue
+        scale = max(ref.abs().max().item(),
+                    1e-30 if name == "out" else 1e-4 * top)
+        e_card = (g["vals"][name] - ref).abs().max().item() / scale
+        e_cpu = (c["vals"][name] - ref).abs().max().item() / scale
+        check(math.isfinite(e_card) and e_card <= max(2 * e_cpu, 1e-3),
+              f"transformer-mask: {name} from float64 {e_card:.3e} of its "
+              f"max-abs on the card, {e_cpu:.3e} on the CPU")
+        worst[name] = (e_card, e_cpu)
+    order = sorted((k for k in worst if not k.endswith("k_proj.bias")),
+                   key=lambda k: -worst[k][0])
+    kb = max(worst[k][0] for k in worst if k.endswith("k_proj.bias"))
+    log(f"transformer-mask: nn.Transformer(512, 8, GELU), batch {b}, src "
+        f"{s_src}"
+        f" (padding mask, lengths {lens.tolist()}), tgt {s_tgt} "
+        f"(generate_square_subsequent_mask), f32 card and CPU from a "
+        f"float64 CPU run, of each max-abs: output {worst['out'][0]:.2e} "
+        f"(CPU {worst['out'][1]:.2e}); the largest of {len(worst) - 1} "
+        "gradients " + ", ".join(
+            f"{k} {worst[k][0]:.2e} (CPU {worst[k][1]:.2e})"
+            for k in order[:3]) + f"; k_proj.bias (0 in exact arithmetic) "
+        f"at most {kb:.2e} of the largest gradient; masked launches "
+        f"{g['masked']}")
+    return dict(worst=worst, masked=g["masked"])
+
+
 def _jsonable(x):
     """``x`` with every dict key a string and every tuple a list."""
     if isinstance(x, dict):
@@ -10399,7 +11115,12 @@ def main():
                  serve=phase_llama_serve(t), cpu=phase_llama_serve_cpu(t)),
              "--fp16-decode": lambda t: dict(
                  kernels=phase_fp16_decode(t, _l2_flush(t)),
-                 generate=phase_generate_fp16(t))}
+                 generate=phase_generate_fp16(t)),
+             "--masked-flash": lambda t: phase_masked_flash(
+                 t, _l2_flush(t))["timed"],
+             "--ernie-finetune": lambda t: dict(
+                 finetune=phase_ernie_finetune(t),
+                 transformer=phase_transformer_mask(t))}
     if sys.argv[1:2] and sys.argv[1] in alone:
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -10466,6 +11187,8 @@ def main():
     stamp("flash_d32")
     lflash = phase_llama_flash(torch, flush)
     stamp("llama_flash")
+    mflash = phase_masked_flash(torch, flush)
+    stamp("masked_flash")
     ddec = phase_dense_decode(torch, flush)
     stamp("dense_decode")
     f16dec = phase_fp16_decode(torch, flush)
@@ -10581,6 +11304,12 @@ def main():
     stamp("zoo_train")
     phase_vision_ops(torch)
     stamp("vision_ops")
+    torch.cuda.empty_cache()
+    eft = phase_ernie_finetune(torch)
+    stamp("ernie_finetune")
+    torch.cuda.empty_cache()
+    phase_transformer_mask(torch)
+    stamp("transformer_mask")
 
     dmain = next(r for r in decode if r["dtype"] == "float32"
                  and r["b"] == 8 and r["g"] == 1 and "ms" in r)
@@ -11024,6 +11753,36 @@ def main():
                   zt["launches"]["fused_adamw_multi_update"]),
         launches_recorded=zt["recorded_launches"][
             "fused_adamw_multi_update"]))
+    # the DENSE kernels of #1, #3, #4 (phase masked-flash, timed at
+    # ERNIE's fine-tune shape with its padding mask, dropout 0.1) on the
+    # fine-tune's path (phase ernie-finetune): "launches" the masked
+    # launches over the captured fit (its eager first step and its
+    # recording), "launches_per_step" the masked nodes of a replayed step;
+    # "unmasked_ms" the plain kernels on the same inputs, "library_ms" SDPA
+    # with the same attn_mask
+    for dtype in ("bfloat16", "float32"):
+        mt = mflash["timed"][dtype]
+        run = eft[dtype]
+        for name, parts, timing, source, replaces in (
+                ("flash_attention_fwd", ("o",), "fwd", fwd_src, fwd_tpu),
+                ("flash_attention_bwd_dq", ("dq",), "dq", bwd_src,
+                 "paddle_tpu/ops/pallas/flash_attention.py:365"),
+                ("flash_attention_bwd_dkv", ("dk", "dv"), "dkv", bwd_src,
+                 "paddle_tpu/ops/pallas/flash_attention.py:385")):
+            bms, by = mt["bound"][timing]
+            kernels.append(dict(
+                name=name, dtype=dtype, mask="padding [B, 1, 1, Sk] bool",
+                shape=f"{ERNIE_FT_B}x12x{ERNIE_FT_S}x{ERNIE_FT_S}x64",
+                path="ernie-finetune", route="cuda", source=source,
+                instantiation="DENSE", replaces=replaces,
+                launches=run["masked_launches"][name],
+                launches_per_step=run["per_step"][name],
+                max_abs_err=max(r["err"][p] for r in mflash["rows"]
+                                if r["dtype"] == dtype for p in parts),
+                ms=mt["ms"][timing], unmasked_ms=mt["unmasked_ms"][timing],
+                plain_ms=mt["plain_ms"][timing], bound_ms=bms, bound_by=by,
+                library_ms=mt["library_ms"][timing],
+                library_backend=mt["library_backend"]))
     # each kernel's float16 status on the card: ported where a float16 row
     # was held above, what fp16-guard saw raise (still to port: ROADMAP.md
     # queue 2), else no float16 operand (#10's leaves stay f32 under O1)

@@ -35,6 +35,7 @@ from . import incubate  # noqa: E402,F401
 from . import amp  # noqa: E402,F401
 from . import resilience  # noqa: E402,F401
 from . import observability  # noqa: E402,F401
+from . import static  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 from .hapi.summary import summary, flops  # noqa: E402,F401
 from .serialization import save, load  # noqa: E402,F401

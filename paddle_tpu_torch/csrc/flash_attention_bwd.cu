@@ -137,6 +137,24 @@
 //   three blocks an SM; dq D=64: 255 (195), dk/dv D=64: 224, two blocks an
 //   SM; no spills (the build phase fails on any)
 //   f32 (CUDA cores) dq 98-99, dk/dv 123, no spills
+//
+// A dense attention mask runs each kernel's DENSE instantiation (the C
+// entries pick it when given a mask; flash::DenseMask, as the forward):
+// the recompute applies the mask as the forward does (dense_mask), reads
+// lse as the forward's [2, bh, sq] pair and takes p = exp((s - hi) - lo),
+// so a row biased whole at -3.4e38 keeps its 1 / l. A cut element (a bool
+// mask's, the causal mask's) gets ds = 0, the reference's where() having
+// cut its gradient, and p = 0, or NaN on a row with no visible key (lse
+// NaN), whose softmax the reference gives as NaN at every key: the
+// reference's dV is then NaN at every key of the head. The dk/dv kernels
+// keep their causal skip; under a dense mask with causal each block reads
+// its head's lse first and, if a row is NaN, writes NaN dV
+// (head_has_empty_row). DENSE f32 kernels at D = 32 run two blocks an SM
+// (at three the dq spilled), the bf16/f16 dq at D = 64 one; the DENSE f32
+// dq reads
+// its rows' hi, lo and delta from shared memory (in registers it spilled
+// 12 bytes at D = 64). No DENSE f32 kernel spills (the build phase fails
+// on any).
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -144,6 +162,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::DenseMask;
 using flash::load4;
 using flash::store4;
 using flash_tc::align1024;
@@ -167,28 +186,37 @@ using tc::fence_acc;
 // layout a warp; the element of index i at row `row0 + 8 ((i / 2) % 2)`,
 // column `col0 + 8 (i / 4) + i % 2`, both absolute, in the accumulator's
 // own orientation). KT: rows are keys and columns queries
-// (dk/dv), else the other way round (dq). lse2 (lse * log2 e) and delta
-// come from `stat(h, e, j)`: the row's (dq) or the column's (dk/dv).
-template <bool KT, bool MASK, bool DROP, int N, typename Stat>
+// (dk/dv), else the other way round (dq). lse2 (lse * log2 e), lo and
+// delta come from `stat(h, e, j)`: the row's (dq) or the column's (dk/dv).
+// DENSE (a dense mask's kernels): s holds the scaled, biased scores
+// (dense_mask), lse2 is lse's hi and lo its lo (flash::two_sum), p =
+// exp((s - hi) - lo); `hidden` has bit i set where a bool mask hides
+// element i. Under a dense mask a cut element (a bool mask's, the causal
+// mask's) takes the reference's gradient: ds = 0, the where() having cut
+// it, and p = 0, or NaN in a row with no visible key (lse NaN), whose
+// softmax the reference gives as NaN at every key.
+template <bool KT, bool MASK, bool DROP, bool DENSE, int N, typename Stat>
 __device__ __forceinline__ void softmax_grad(float (&s)[N], float (&dp)[N],
                                              int row0, int col0,
                                              float scale_log2, Stat stat,
                                              int sq, int sk, int kv_len,
                                              int causal, uint32_t mix,
-                                             uint32_t thresh,
-                                             float inv_keep) {
+                                             uint32_t thresh, float inv_keep,
+                                             uint32_t hidden) {
   const int offset = sk - sq;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1, e = i & 1, j = i >> 2;
     const int r = row0 + 8 * h, c = col0 + 8 * j + e;
     const int qpos = KT ? c : r, key = KT ? r : c;
-    float lse2, dlt;
-    stat(h, e, j, lse2, dlt);
-    float p = exp2f(fmaf(s[i], scale_log2, -lse2));
-    if (MASK &&
-        !(key < kv_len && qpos < sq && (!causal || key <= qpos + offset)))
-      p = 0.f;
+    float lse2, lo, dlt;
+    stat(h, e, j, lse2, lo, dlt);
+    float p = DENSE ? exp2f(((s[i] - lse2) - lo) * kLog2e)
+                    : exp2f(fmaf(s[i], scale_log2, -lse2));
+    bool cut = MASK &&
+        !(key < kv_len && qpos < sq && (!causal || key <= qpos + offset));
+    if constexpr (DENSE) cut = cut || ((hidden >> i) & 1u);
+    if (cut) p = DENSE ? flash::cut_p(lse2) : 0.f;
     float pd = p, dpv = dp[i];
     if (DROP) {
       const bool keep = flash::dropout_keep(mix, qpos, key, sk, thresh);
@@ -196,32 +224,69 @@ __device__ __forceinline__ void softmax_grad(float (&s)[N], float (&dp)[N],
       dpv = keep ? dpv * inv_keep : 0.f;
     }
     s[i] = pd;
-    dp[i] = p * (dpv - dlt);
+    dp[i] = DENSE && cut ? 0.f : p * (dpv - dlt);
   }
 }
 
-template <bool KT, int N, typename Stat>
+template <bool KT, bool DENSE, int N, typename Stat>
 __device__ __forceinline__ void softmax_grad_any(
     bool mask, bool drop, float (&s)[N], float (&dp)[N], int row0,
     int col0, float scale_log2, Stat stat, int sq, int sk, int kv_len,
-    int causal, uint32_t mix, uint32_t thresh, float inv_keep) {
+    int causal, uint32_t mix, uint32_t thresh, float inv_keep,
+    uint32_t hidden) {
   if (mask) {
     if (drop)
-      softmax_grad<KT, true, true>(s, dp, row0, col0, scale_log2, stat, sq,
-                                   sk, kv_len, causal, mix, thresh, inv_keep);
+      softmax_grad<KT, true, true, DENSE>(s, dp, row0, col0, scale_log2, stat,
+                                          sq, sk, kv_len, causal, mix, thresh,
+                                          inv_keep, hidden);
     else
-      softmax_grad<KT, true, false>(s, dp, row0, col0, scale_log2, stat, sq,
-                                    sk, kv_len, causal, mix, thresh,
-                                    inv_keep);
+      softmax_grad<KT, true, false, DENSE>(s, dp, row0, col0, scale_log2,
+                                           stat, sq, sk, kv_len, causal, mix,
+                                           thresh, inv_keep, hidden);
   } else {
     if (drop)
-      softmax_grad<KT, false, true>(s, dp, row0, col0, scale_log2, stat, sq,
-                                    sk, kv_len, causal, mix, thresh,
-                                    inv_keep);
+      softmax_grad<KT, false, true, DENSE>(s, dp, row0, col0, scale_log2,
+                                           stat, sq, sk, kv_len, causal, mix,
+                                           thresh, inv_keep, hidden);
     else
-      softmax_grad<KT, false, false>(s, dp, row0, col0, scale_log2, stat,
-                                     sq, sk, kv_len, causal, mix, thresh,
-                                     inv_keep);
+      softmax_grad<KT, false, false, DENSE>(s, dp, row0, col0, scale_log2,
+                                            stat, sq, sk, kv_len, causal,
+                                            mix, thresh, inv_keep, hidden);
+  }
+}
+
+// The dense mask on one tile of raw scores before softmax_grad (0 and
+// nothing done unless DENSE): they become the scaled scores plus a float
+// mask's bias, and a bool mask returns its hidden elements' bits. KT as
+// softmax_grad's.
+template <bool DENSE, bool KT, int N>
+__device__ __forceinline__ uint32_t dense_mask(float (&s)[N],
+                                               const DenseMask& dm,
+                                               long long mbase, int row0,
+                                               int col0, int sq, int sk,
+                                               float sm_scale) {
+  if constexpr (DENSE)
+    return flash::mask_tile<KT>(s, dm, mbase, row0, col0, sq, sk, sm_scale);
+  else
+    return 0u;
+}
+
+// Under a dense mask with causal, whether any row of head bh has no
+// visible key (lse NaN), read by every thread of a dk/dv block before its
+// walk. Such a row's p is NaN at every key, so the reference's dV is NaN
+// at every key of the head; the walk skips the rows the causal mask hides
+// from the block's keys, so the block poisons its dV from this instead.
+template <bool DENSE>
+__device__ __forceinline__ bool head_has_empty_row(const float* lse_bh,
+                                                   int sq, int causal) {
+  if constexpr (DENSE) {
+    if (!causal) return false;
+    bool empty = false;
+    for (int r = threadIdx.x; r < sq; r += blockDim.x)
+      empty = empty || flash::is_nan(lse_bh[r]);
+    return __syncthreads_or(empty) != 0;
+  } else {
+    return false;
   }
 }
 
@@ -248,8 +313,8 @@ struct F32 {
   // dq: stages of a K and a V tile (dq_smem below)
   static constexpr int STAGE = 2 * BS * P;
   // dk/dv: two owned tiles (K, V), stages of a Q and a dO tile and their
-  // rows' lse and delta
-  static constexpr int KSTAGE = 2 * KBS * P + 2 * KBS;
+  // rows' lse, delta and (under a dense mask) lse's lo
+  static constexpr int KSTAGE = 2 * KBS * P + 3 * KBS;
   static constexpr int KSMEM = (2 * OWN + NS * KSTAGE) * 4;
   // blocks an SM: three at D=32 (dq 55.5 KB of shared memory a block,
   // dk/dv 36.5 KB), two at D=64
@@ -258,12 +323,12 @@ struct F32 {
 };
 
 // bytes of the dq kernel's shared memory with each key tile split over KW
-// warps: two owned tiles (Q, dO) of 64 / KW rows, lse and delta of those
-// rows, and the stages
+// warps: two owned tiles (Q, dO) of 64 / KW rows, lse, delta and (under a
+// dense mask) lse's lo of those rows, and the stages
 template <int D, int KW>
-constexpr int dq_smem =
-    (2 * (F32<D>::ROWS / KW) * (F32<D>::P + 1) + F32<D>::NS * F32<D>::STAGE) *
-    4;
+constexpr int dq_smem = (2 * (F32<D>::ROWS / KW) * (F32<D>::P + 1) +
+                         F32<D>::ROWS / KW + F32<D>::NS * F32<D>::STAGE) *
+                        4;
 
 // The A fragment (rows g and g + 8 of a warp's 16) of contraction step kk
 // over an owned tile in shared memory (x: the warp's first row), split
@@ -379,8 +444,11 @@ __device__ __forceinline__ void store_acc(float* dst,
 // += dS.K with dS in registers as the A fragment. KW = 4 is for calls with
 // few query rows (DETR's decoder: 100), whose 64-row blocks would leave
 // the card under-filled, each walking every key.
-template <int D, int KW>
-__global__ void __launch_bounds__(F32<D>::NT, F32<D>::BLOCKS)
+// DENSE at D = 32 runs two blocks an SM, where three capped a thread at
+// 168 registers and spilled 44 bytes
+template <bool DENSE, int D, int KW>
+__global__ void __launch_bounds__(F32<D>::NT,
+                                  DENSE ? 2 : F32<D>::BLOCKS)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -390,7 +458,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const int* __restrict__ lens,
                         const int* __restrict__ seed, float* __restrict__ dq,
                         float* __restrict__ delta, int sq, int sk, int causal,
-                        float sm_scale, uint32_t thresh, float keep_prob) {
+                        float sm_scale, uint32_t thresh, float keep_prob,
+                        const DenseMask dm) {
   using G = F32<D>;
   constexpr int NS = G::NS, BS = G::BS, P = G::P;
   constexpr int ROWS = G::ROWS / KW;  // query rows a block
@@ -401,7 +470,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   float* dos = qs + ROWS * P;
   float* lse_s = dos + ROWS * P;
   float* dl_s = lse_s + ROWS;
-  float* stages = dl_s + ROWS;
+  float* lo_s = dl_s + ROWS;
+  float* stages = lo_s + ROWS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -449,6 +519,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     if (tid % TPR == 0) {
       dl_s[r] = part;
       lse_s[r] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
+      lo_s[r] = DENSE && row < sq ? dm.lo[(size_t)bh * sq + row] : 0.f;
       if (row < sq) delta[(size_t)bh * sq + row] = part;
     }
   }
@@ -461,17 +532,29 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   int wkend = kv_len;  // the warp's own key end
   if (causal) wkend = min(wkend, min(wq0 + 15, sq - 1) + offset + 1);
   const bool live = wq0 < sq;
+  // lse2 and delta of the thread's rows, in registers; under a dense mask
+  // lse's hi, lo and delta read from shared memory at each tile (in
+  // registers its D = 64 build spilled 12 bytes)
   float lse2[2], dlt[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     lse2[h] = lse_s[wrow + g + 8 * h] * kLog2e;
     dlt[h] = dl_s[wrow + g + 8 * h];
   }
-  auto stat = [&](int h, int, int, float& l2, float& d) {
-    l2 = lse2[h];
-    d = dlt[h];
+  auto stat = [&](int h, int, int, float& l2, float& l0, float& d) {
+    if constexpr (DENSE) {
+      const int r = wrow + g + 8 * h;
+      l2 = lse_s[r];
+      l0 = lo_s[r];
+      d = dl_s[r];
+    } else {
+      l2 = lse2[h];
+      l0 = 0.f;
+      d = dlt[h];
+    }
   };
   const float scale_log2 = sm_scale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -499,9 +582,11 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     product_d<D>(dp, dos + wrow * P, vs, g, t);
     const bool mask = key0 + WK > kv_len ||
                       (causal && key0 + WK - 1 > wq0 + offset);
-    softmax_grad_any<false>(mask, drop, s, dp, wq0 + g, key0 + 2 * t,
+    const uint32_t hidden = dense_mask<DENSE, false>(
+        s, dm, mbase, wq0 + g, key0 + 2 * t, sq, sk, sm_scale);
+    softmax_grad_any<false, DENSE>(mask, drop, s, dp, wq0 + g, key0 + 2 * t,
                             scale_log2, stat, sq, sk, kv_len, causal, mix,
-                            thresh, inv_keep);
+                            thresh, inv_keep, hidden);
     product_rows<D>(acc, dp, ks, g, t);
   }
   tc::cp_async_wait<0>();
@@ -539,8 +624,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 // each warp computes S^T = K.Q^T and dP^T = V.dO^T, then P^T, the dropped
 // P^T and dS^T in the accumulators (rows keys, columns queries), and dV +=
 // P_drop^T.dO and dK += dS^T.Q.
-template <int D>
-__global__ void __launch_bounds__(F32<D>::NT, F32<D>::BLOCKS)
+template <bool DENSE, int D>
+__global__ void __launch_bounds__(F32<D>::NT,
+                                  DENSE ? 2 : F32<D>::BLOCKS)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -550,7 +636,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const int* __restrict__ lens,
                          const int* __restrict__ seed, float* __restrict__ dk,
                          float* __restrict__ dv, int sq, int sk, int causal,
-                         float sm_scale, uint32_t thresh, float keep_prob) {
+                         float sm_scale, uint32_t thresh, float keep_prob,
+                         const DenseMask dm) {
   using G = F32<D>;
   constexpr int NS = G::NS, BS = G::KBS, P = G::P;
   extern __shared__ __align__(16) float smem_f[];
@@ -569,6 +656,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   const size_t kv_base = (size_t)bh * sk * D;
   const float* lse_bh = lse + (size_t)bh * sq;
   const float* dl_bh = delta + (size_t)bh * sq;
+  const float* lo_bh = DENSE ? dm.lo + (size_t)bh * sq : nullptr;
+  const bool poison = head_has_empty_row<DENSE>(lse_bh, sq, causal);
 
   // the query tiles that see a key of the block: from the first row that
   // sees key0 (causal), aligned down to a streamed tile; none when every
@@ -587,6 +676,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
       const bool ok = q0 + tid < sq;
       tc::cp_async4(ls + tid, lse_bh + (ok ? q0 + tid : 0), ok);
       tc::cp_async4(ls + BS + tid, dl_bh + (ok ? q0 + tid : 0), ok);
+      if constexpr (DENSE)
+        tc::cp_async4(ls + 2 * BS + tid, lo_bh + (ok ? q0 + tid : 0), ok);
     }
   };
   // group 0 holds K, V (keys at or past the key length as zeros) and
@@ -600,6 +691,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   const int wkey0 = key0 + wrow;
   const bool live = wkey0 < kv_len;
   const float scale_log2 = sm_scale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -620,10 +712,13 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     const float* qs = stages + (tt % NS) * G::KSTAGE;
     const float* dos = qs + BS * P;
     const float* ls = dos + BS * P;
-    // lse2 and delta of this thread's query columns
-    auto stat = [&](int, int e, int j, float& l2, float& d) {
-      l2 = ls[8 * j + 2 * t + e] * kLog2e;
-      d = ls[BS + 8 * j + 2 * t + e];
+    // lse2 (lse's hi under a dense mask), lo and delta of this thread's
+    // query columns
+    auto stat = [&](int, int e, int j, float& l2, float& l0, float& d) {
+      const int c = 8 * j + 2 * t + e;
+      l2 = DENSE ? ls[c] : ls[c] * kLog2e;
+      l0 = DENSE ? ls[2 * BS + c] : 0.f;
+      d = ls[BS + c];
     };
 
     float s[BS / 2], dp[BS / 2];
@@ -631,15 +726,18 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     product_d<D>(dp, vs + wrow * P, dos, g, t);
     const bool mask = wkey0 + 16 > kv_len || q0 + BS > sq ||
                       (causal && wkey0 + 15 > q0 + offset);
-    softmax_grad_any<true>(mask, drop, s, dp, wkey0 + g, q0 + 2 * t,
+    const uint32_t hidden = dense_mask<DENSE, true>(
+        s, dm, mbase, wkey0 + g, q0 + 2 * t, sq, sk, sm_scale);
+    softmax_grad_any<true, DENSE>(mask, drop, s, dp, wkey0 + g, q0 + 2 * t,
                            scale_log2, stat, sq, sk, kv_len, causal, mix,
-                           thresh, inv_keep);
+                           thresh, inv_keep, hidden);
     product_rows<D>(dv_acc, s, dos, g, t);
     product_rows<D>(dk_acc, dp, qs, g, t);
   }
   tc::cp_async_wait<0>();
   store_acc<D>(dk + kv_base, dk_acc, wkey0 + g, t, sk, sm_scale);
-  store_acc<D>(dv + kv_base, dv_acc, wkey0 + g, t, sk, 1.f);
+  store_acc<D>(dv + kv_base, dv_acc, wkey0 + g, t, sk,
+               poison ? __uint_as_float(0x7fc00000u) : 1.f);
 }
 
 // -- f32 at D = 128 and 256: CUDA cores ------------------------------------
@@ -735,7 +833,7 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int r0,
   }
 }
 
-template <int D>
+template <bool DENSE, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ o,
@@ -744,7 +842,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int* __restrict__ lens, const int* __restrict__ seed,
                     float* __restrict__ dq, float* __restrict__ delta, int sq,
                     int sk, int causal, float sm_scale, uint32_t thresh,
-                    float keep_prob) {
+                    float keep_prob, const DenseMask dm) {
   using G = Geo<D>;
   __shared__ __align__(16) float ks[kTileElems];
   __shared__ __align__(16) float vs[kTileElems];
@@ -766,6 +864,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const size_t q_base = (size_t)bh * sq * D;
   const size_t kv_base = (size_t)bh * sk * D;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
 
   float qr[16], dor[16], acc[16];
   float dl = 0.f;
@@ -785,6 +884,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   dl = row_sum<G::TPR>(dl);
   if (row_ok && r == 0) delta[(size_t)bh * sq + row] = dl;
   const float lrow = row_ok ? lse[(size_t)bh * sq + row] : 0.f;
+  const float lo_row = DENSE && row_ok ? dm.lo[(size_t)bh * sq + row] : 0.f;
 
   for (int k0 = 0; k0 < kend; k0 += G::BT) {
     __syncthreads();  // the previous tile is consumed
@@ -794,21 +894,32 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 4
     for (int j = 0; j < G::BT; ++j) {
       const int kpos = k0 + j;
-      const float s =
-          row_sum<G::TPR>(dot_part<D>(qr, ks + j * D, r)) * sm_scale;
+      float s = row_sum<G::TPR>(dot_part<D>(qr, ks + j * D, r)) * sm_scale;
       float dp = row_sum<G::TPR>(dot_part<D>(dor, vs + j * D, r));
-      const bool ok = kpos < kv_len && kpos <= row_limit;
-      const float p = ok ? expf(s - lrow) : 0.f;
+      bool ok = kpos < kv_len && kpos <= row_limit;
+      if constexpr (DENSE) {
+        bool hidden;
+        float bias;
+        flash::mask_at(dm, mbase, row, kpos, sq, sk, hidden, bias);
+        ok = ok && !hidden;
+        s = __fadd_rn(s, bias);  // not fused with the scale
+      }
+      // under a dense mask p = exp((s - hi) - lo), and a cut element's p
+      // 0, or NaN in a row with no visible key (lrow NaN), and ds 0
+      // (softmax_grad's rule)
+      const float p = !ok    ? (DENSE ? flash::cut_p(lrow) : 0.f)
+                      : DENSE ? expf((s - lrow) - lo_row)
+                              : expf(s - lrow);
       if (drop)
         dp = flash::dropout_keep(mix, row, kpos, sk, thresh) ? dp / keep_prob
                                                              : 0.f;
-      axpy<D>(acc, p * (dp - dl), ks + j * D, r);
+      axpy<D>(acc, DENSE && !ok ? 0.f : p * (dp - dl), ks + j * D, r);
     }
   }
   if (row_ok) store_row<D>(dq + q_base + (size_t)row * D, r, acc, sm_scale);
 }
 
-template <int D>
+template <bool DENSE, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -818,12 +929,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const int* __restrict__ lens,
                      const int* __restrict__ seed, float* __restrict__ dk,
                      float* __restrict__ dv, int sq, int sk, int causal,
-                     float sm_scale, uint32_t thresh, float keep_prob) {
+                     float sm_scale, uint32_t thresh, float keep_prob,
+                     const DenseMask dm) {
   using G = Geo<D>;
   __shared__ __align__(16) float qs[kTileElems];
   __shared__ __align__(16) float dos[kTileElems];
   __shared__ float ls[G::BT];
   __shared__ float dls[G::BT];
+  __shared__ float los[DENSE ? G::BT : 1];
 
   const int bh = blockIdx.y;
   const int tid = threadIdx.x;
@@ -837,6 +950,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const size_t q_base = (size_t)bh * sq * D;
   const size_t kv_base = (size_t)bh * sk * D;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
+  const bool poison = head_has_empty_row<DENSE>(lse + (size_t)bh * sq, sq,
+                                                causal);
 
   float kr[16], vr[16], dka[16], dva[16];
   if (key_live) {
@@ -863,17 +979,26 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qp = q0 + tid;
       ls[tid] = qp < sq ? lse[(size_t)bh * sq + qp] : 0.f;
       dls[tid] = qp < sq ? delta[(size_t)bh * sq + qp] : 0.f;
+      if constexpr (DENSE)
+        los[tid] = qp < sq ? dm.lo[(size_t)bh * sq + qp] : 0.f;
     }
     __syncthreads();
 #pragma unroll 2
     for (int i = 0; i < G::BT; ++i) {
       const int qpos = q0 + i;
-      const float s =
-          row_sum<G::TPR>(dot_part<D>(kr, qs + i * D, r)) * sm_scale;
+      float s = row_sum<G::TPR>(dot_part<D>(kr, qs + i * D, r)) * sm_scale;
       float dp = row_sum<G::TPR>(dot_part<D>(vr, dos + i * D, r));
-      const bool ok =
-          key_live && qpos < sq && (!causal || key <= qpos + offset);
-      const float p = ok ? expf(s - ls[i]) : 0.f;
+      bool ok = key_live && qpos < sq && (!causal || key <= qpos + offset);
+      if constexpr (DENSE) {
+        bool hidden;
+        float bias;
+        flash::mask_at(dm, mbase, qpos, key, sq, sk, hidden, bias);
+        ok = ok && !hidden;
+        s = __fadd_rn(s, bias);  // not fused with the scale
+      }
+      const float p = !ok    ? (DENSE ? flash::cut_p(ls[i]) : 0.f)
+                      : DENSE ? expf((s - ls[i]) - los[i])
+                              : expf(s - ls[i]);
       float p_drop = p;
       if (drop) {
         const bool keep = flash::dropout_keep(mix, qpos, key, sk, thresh);
@@ -881,19 +1006,22 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dp = keep ? dp / keep_prob : 0.f;
       }
       axpy<D>(dva, p_drop, dos + i * D, r);
-      axpy<D>(dka, p * (dp - dls[i]), qs + i * D, r);
+      axpy<D>(dka, DENSE && !ok ? 0.f : p * (dp - dls[i]), qs + i * D, r);
     }
   }
   if (key < sk) {
     store_row<D>(dk + kv_base + (size_t)key * D, r, dka, sm_scale);
-    store_row<D>(dv + kv_base + (size_t)key * D, r, dva, 1.f);
+    store_row<D>(dv + kv_base + (size_t)key * D, r, dva,
+                 poison ? __uint_as_float(0x7fc00000u) : 1.f);
   }
 }
 
 // -- bf16 and f16: tensor cores (wgmma) -------------------------------------
 
-template <int D, typename T>
-__global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::DQ_BLOCKS)
+// two blocks an SM at D = 64 cap a thread at 128 registers, where the
+// DENSE kernel spilled 968 bytes: it runs one
+template <bool DENSE, int D, typename T>
+__global__ void __launch_bounds__(Tc<D>::NT, DENSE ? 1 : Tc<D>::DQ_BLOCKS)
 flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ o,
                        const T* __restrict__ dout,
@@ -901,7 +1029,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ lens,
                        const int* __restrict__ seed, T* __restrict__ dq,
                        float* __restrict__ delta, int sq, int sk, int causal,
-                       float sm_scale, uint32_t thresh, float keep_prob) {
+                       float sm_scale, uint32_t thresh, float keep_prob,
+                       const DenseMask dm) {
   using G = Tc<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -978,20 +1107,25 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wrow = wg * 64;                // in the block tile
   const int row = wrow + warp * 16 + lane / 4;
   const int wq0 = q0 + wrow;               // first query of the warpgroup
-  float lse2[2], dlt[2];
+  // lse2 (lse's hi under a dense mask), lo and delta of the thread's rows
+  float lse2[2], lo[2], dlt[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lse2[h] = lse_s[row + 8 * h] * kLog2e;
-    dlt[h] = dl_s[row + 8 * h];
+    const int r = row + 8 * h;
+    lse2[h] = DENSE ? lse_s[r] : lse_s[r] * kLog2e;
+    lo[h] = DENSE && q0 + r < sq ? dm.lo[(size_t)bh * sq + q0 + r] : 0.f;
+    dlt[h] = dl_s[r];
   }
-  auto stat = [&](int h, int, int, float& l2, float& d) {
+  auto stat = [&](int h, int, int, float& l2, float& l0, float& d) {
     l2 = lse2[h];
+    l0 = lo[h];
     d = dlt[h];
   };
   int wkend = kv_len;  // the warpgroup's own key end
   if (causal) wkend = min(wkend, min(wq0 + 63, sq - 1) + offset + 1);
   const bool wg_live = wq0 < sq;
   const float scale_log2 = sm_scale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -1026,9 +1160,12 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fence_acc(dp);
       const bool mask = key0 + G::BS > kv_len ||
                         (causal && key0 + G::BS - 1 > wq0 + offset);
-      softmax_grad_any<false>(mask, drop, s, dp, q0 + row,
+      const uint32_t hidden = dense_mask<DENSE, false>(
+          s, dm, mbase, q0 + row, key0 + 2 * (lane % 4), sq, sk, sm_scale);
+      softmax_grad_any<false, DENSE>(mask, drop, s, dp, q0 + row,
                               key0 + 2 * (lane % 4), scale_log2, stat, sq,
-                              sk, kv_len, causal, mix, thresh, inv_keep);
+                              sk, kv_len, causal, mix, thresh, inv_keep,
+                              hidden);
       uint32_t ds[16];
       to_frags<T>(dp, ds);  // ds rounded to T; in f16 past 65504: inf
 #pragma unroll
@@ -1050,7 +1187,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out<D>(dq + q_base, qs, q0, sq, col0);
 }
 
-template <int D, typename T>
+template <bool DENSE, int D, typename T>
 __global__ void __launch_bounds__(Tc<D>::NT, 1)
 flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
                         const T* __restrict__ k,
@@ -1061,7 +1198,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
                         const int* __restrict__ lens,
                         const int* __restrict__ seed, T* __restrict__ dk,
                         T* __restrict__ dv, int sq, int sk, int causal,
-                        float sm_scale, uint32_t thresh, float keep_prob) {
+                        float sm_scale, uint32_t thresh, float keep_prob,
+                        const DenseMask dm) {
   using G = Tc<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -1081,6 +1219,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
   const size_t kv_base = (size_t)bh * sk * D;
   const float* lse_bh = lse + (size_t)bh * sq;
   const float* dl_bh = delta + (size_t)bh * sq;
+  const float* lo_bh = DENSE ? dm.lo + (size_t)bh * sq : nullptr;
+  const bool poison = head_has_empty_row<DENSE>(lse_bh, sq, causal);
 
   // the query tiles that see a key of the block: from the first row that
   // sees key0 (causal), aligned down to a streamed tile; none when every
@@ -1100,6 +1240,9 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
       const bool ok = q0 + tid < sq;
       tc::cp_async4(ls + tid, lse_bh + (ok ? q0 + tid : 0), ok);
       tc::cp_async4(ls + G::BS + tid, dl_bh + (ok ? q0 + tid : 0), ok);
+      if constexpr (DENSE)
+        tc::cp_async4(ls + 2 * G::BS + tid, lo_bh + (ok ? q0 + tid : 0),
+                      ok);
     }
   };
   load_tile<G::ROWS, D, G::NT>(ks, k + kv_base, key0, sk, tid);
@@ -1112,6 +1255,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
   const int wkey0 = key0 + wrow;           // first key of the warpgroup
   const bool wg_live = wkey0 < kv_len;
   const float scale_log2 = sm_scale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -1136,11 +1280,14 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
     const uint8_t* st = stages + (t & 1) * G::STAGE;
     if (wg_live && (!causal || wkey0 <= q0 + G::BS - 1 + offset)) {
       const float* ls = reinterpret_cast<const float*>(st + 2 * G::STREAM);
-      // lse2 and delta of this thread's 16 query columns
+      // lse2 (lse's hi under a dense mask), lo and delta of this thread's
+      // 16 query columns
       const int cq = 2 * (lane % 4);
-      auto stat = [&](int, int e, int j, float& l2, float& d) {
-        l2 = ls[8 * j + cq + e] * kLog2e;
-        d = ls[G::BS + 8 * j + cq + e];
+      auto stat = [&](int, int e, int j, float& l2, float& l0, float& d) {
+        const int c = 8 * j + cq + e;
+        l2 = DENSE ? ls[c] : ls[c] * kLog2e;
+        l0 = DENSE ? ls[2 * G::BS + c] : 0.f;
+        d = ls[G::BS + c];
       };
       float s[32], dp[32];
       tc::wgmma_fence();
@@ -1153,9 +1300,11 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
       fence_acc(dp);
       const bool mask = wkey0 + 64 > kv_len || q0 + G::BS > sq ||
                         (causal && wkey0 + 63 > q0 + offset);
-      softmax_grad_any<true>(mask, drop, s, dp, key0 + row, q0 + cq,
+      const uint32_t hidden = dense_mask<DENSE, true>(
+          s, dm, mbase, key0 + row, q0 + cq, sq, sk, sm_scale);
+      softmax_grad_any<true, DENSE>(mask, drop, s, dp, key0 + row, q0 + cq,
                              scale_log2, stat, sq, sk, kv_len, causal, mix,
-                             thresh, inv_keep);
+                             thresh, inv_keep, hidden);
       uint32_t pa[16], dsa[16];
       to_frags<T>(s, pa);
       to_frags<T>(dp, dsa);
@@ -1181,7 +1330,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
   tc::cp_async_wait<0>();
   __syncthreads();
   stage_out<D, T>(ks, dk_acc, sm_scale, row);
-  stage_out<D, T>(vs, dv_acc, 1.f, row);
+  stage_out<D, T>(vs, dv_acc, poison ? __uint_as_float(0x7fc00000u) : 1.f, row);
   __syncthreads();
   store_out<D>(dk + kv_base, ks, key0, sk, col0);
   store_out<D>(dv + kv_base, vs, key0, sk, col0);
@@ -1206,12 +1355,13 @@ struct Args {
   float sm_scale;
   uint32_t thresh;
   float keep_prob;
+  DenseMask dm;
   cudaStream_t stream;
 };
 
 // the f32 dq kernel at D = 32 and 64, each key tile split over its warps
 // (KW = 4) or not
-template <int D, int KW>
+template <bool DENSE, int D, int KW>
 int launch_dq_tc_f32(const Args& a) {
   using G = F32<D>;
   constexpr int ROWS = G::ROWS / KW, SMEM = dq_smem<D, KW>;
@@ -1220,16 +1370,16 @@ int launch_dq_tc_f32(const Args& a) {
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory needs the opt-in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D, KW>,
+      flash_bwd_dq_f32_kernel<DENSE, D, KW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_bwd_dq_f32_kernel<D, KW><<<dim3(a.bh, tiles), G::NT, SMEM,
-                                   a.stream>>>(
+  flash_bwd_dq_f32_kernel<DENSE, D, KW><<<dim3(a.bh, tiles), G::NT, SMEM,
+                                          a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), a.lse, a.lens, a.seed,
       static_cast<float*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
-      a.sm_scale, a.thresh, a.keep_prob);
+      a.sm_scale, a.thresh, a.keep_prob, a.dm);
   return 0;
 }
 
@@ -1237,50 +1387,50 @@ int launch_dq_tc_f32(const Args& a) {
 // cores at D = 128 and 256. dq splits each tile's keys over its warps when
 // 64-row blocks would put fewer than two blocks on each of the H100's 132
 // SMs (a shape's rule, so a call is repeated bit for bit)
-template <int D>
+template <bool DENSE, int D>
 int launch_dq_f32(const Args& a) {
   if constexpr (D <= 64) {
     const long long blocks =
         (long long)a.bh * ((a.sq + F32<D>::ROWS - 1) / F32<D>::ROWS);
-    return blocks < 2 * 132 ? launch_dq_tc_f32<D, 4>(a)
-                            : launch_dq_tc_f32<D, 1>(a);
+    return blocks < 2 * 132 ? launch_dq_tc_f32<DENSE, D, 4>(a)
+                            : launch_dq_tc_f32<DENSE, D, 1>(a);
   } else {
     dim3 grid((a.sq + Geo<D>::ROWS - 1) / Geo<D>::ROWS, a.bh);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+    flash_bwd_dq_kernel<DENSE, D><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.o),
         static_cast<const float*>(a.dout), a.lse, a.lens, a.seed,
         static_cast<float*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
-        a.sm_scale, a.thresh, a.keep_prob);
+        a.sm_scale, a.thresh, a.keep_prob, a.dm);
   }
   return 0;
 }
 
-template <int D>
+template <bool DENSE, int D>
 int launch_dkv_f32(const Args& a) {
   if constexpr (D <= 64) {
     using G = F32<D>;
     const int tiles = (a.sk + G::ROWS - 1) / G::ROWS;
     if (tiles > 65535) return (int)cudaErrorInvalidValue;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkv_f32_kernel<D>,
+        flash_bwd_dkv_f32_kernel<DENSE, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::KSMEM);
     if (attr != cudaSuccess) return (int)attr;
-    flash_bwd_dkv_f32_kernel<D><<<dim3(a.bh, tiles), G::NT, G::KSMEM,
-                                  a.stream>>>(
+    flash_bwd_dkv_f32_kernel<DENSE, D><<<dim3(a.bh, tiles), G::NT,
+                                         G::KSMEM, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta_in, a.lens, a.seed, static_cast<float*>(a.out0),
         static_cast<float*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
-        a.thresh, a.keep_prob);
+        a.thresh, a.keep_prob, a.dm);
   } else {
     dim3 grid((a.sk + Geo<D>::ROWS - 1) / Geo<D>::ROWS, a.bh);
-    flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+    flash_bwd_dkv_kernel<DENSE, D><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta_in, a.lens, a.seed, static_cast<float*>(a.out0),
         static_cast<float*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
-        a.thresh, a.keep_prob);
+        a.thresh, a.keep_prob, a.dm);
   }
   return 0;
 }
@@ -1294,72 +1444,82 @@ bool tc_grid(int rows, int bh, dim3* grid) {
   return tiles <= 65535;
 }
 
-template <int D, typename T>
+template <bool DENSE, int D, typename T>
 int launch_dq_tc(const Args& a) {
   using G = Tc<D>;
   dim3 grid;
   if (!tc_grid<D>(a.sq, a.bh, &grid)) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory needs the opt-in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<D, T>,
+      flash_bwd_dq_tc_kernel<DENSE, D, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_bwd_dq_tc_kernel<D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
+  flash_bwd_dq_tc_kernel<DENSE, D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.o),
       static_cast<const T*>(a.dout), a.lse, a.lens, a.seed,
       static_cast<T*>(a.out0), a.delta_out, a.sq, a.sk, a.causal,
-      a.sm_scale, a.thresh, a.keep_prob);
+      a.sm_scale, a.thresh, a.keep_prob, a.dm);
   return 0;
 }
 
-template <int D, typename T>
+template <bool DENSE, int D, typename T>
 int launch_dkv_tc(const Args& a) {
   using G = Tc<D>;
   dim3 grid;
   if (!tc_grid<D>(a.sk, a.bh, &grid)) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<D, T>,
+      flash_bwd_dkv_tc_kernel<DENSE, D, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_bwd_dkv_tc_kernel<D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
+  flash_bwd_dkv_tc_kernel<DENSE, D, T><<<grid, G::NT, G::SMEM, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       a.lse, a.delta_in, a.lens, a.seed, static_cast<T*>(a.out0),
       static_cast<T*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale,
-      a.thresh, a.keep_prob);
+      a.thresh, a.keep_prob, a.dm);
   return 0;
 }
 
 // dtype: 0 f32, 1 bf16, 2 f16
-template <bool DQ, int D>
+template <bool DQ, bool DENSE, int D>
 int launch(const Args& a, int dtype) {
   switch (dtype) {
-    case 0: return DQ ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
-    case 1: return DQ ? launch_dq_tc<D, bf16>(a) : launch_dkv_tc<D, bf16>(a);
+    case 0:
+      return DQ ? launch_dq_f32<DENSE, D>(a) : launch_dkv_f32<DENSE, D>(a);
+    case 1:
+      return DQ ? launch_dq_tc<DENSE, D, bf16>(a)
+                : launch_dkv_tc<DENSE, D, bf16>(a);
     case 2:
-      return DQ ? launch_dq_tc<D, __half>(a) : launch_dkv_tc<D, __half>(a);
+      return DQ ? launch_dq_tc<DENSE, D, __half>(a)
+                : launch_dkv_tc<DENSE, D, __half>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool DQ>
-int run(const Args& a, int d, int dtype) {
-  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || a.bh > 65535)
-    return (int)cudaErrorInvalidValue;
-  int err;
+template <bool DQ, bool DENSE>
+int run_as(const Args& a, int d, int dtype) {
   switch (d) {
     // head_dim 32 (DETR's): the f32 kernel only; 16-bit tiles at 32 would
     // need wgmma's 64-byte swizzle
     case 32:
       if (dtype) return (int)cudaErrorInvalidValue;
-      err = DQ ? launch_dq_f32<32>(a) : launch_dkv_f32<32>(a);
-      break;
-    case 64: err = launch<DQ, 64>(a, dtype); break;
-    case 128: err = launch<DQ, 128>(a, dtype); break;
-    case 256: err = launch<DQ, 256>(a, dtype); break;
+      return DQ ? launch_dq_f32<DENSE, 32>(a) : launch_dkv_f32<DENSE, 32>(a);
+    case 64: return launch<DQ, DENSE, 64>(a, dtype);
+    case 128: return launch<DQ, DENSE, 128>(a, dtype);
+    case 256: return launch<DQ, DENSE, 256>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// a dense mask runs the DENSE kernels, else the plain ones
+template <bool DQ>
+int run(const Args& a, int d, int dtype) {
+  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || a.bh > 65535 ||
+      (a.dm.ptr != nullptr && !flash::mask_ok(a.dm)))
+    return (int)cudaErrorInvalidValue;
+  const int err = a.dm.ptr != nullptr ? run_as<DQ, true>(a, d, dtype)
+                                      : run_as<DQ, false>(a, d, dtype);
   if (err) return err;
   return (int)cudaGetLastError();
 }
@@ -1370,7 +1530,9 @@ int run(const Args& a, int d, int dtype) {
 // all f32 (dtype = 0), all bf16 (dtype = 1) or all f16 (dtype = 2); lse
 // [bh, sq] f32 from the
 // forward; lens [bh] int32 or null; seed one int32 on the device, or null
-// for no dropout; thresh = int(rate * 2^24), keep_prob = 1 - rate. Each
+// for no dropout; thresh = int(rate * 2^24), keep_prob = 1 - rate; mask:
+// the dense mask as flash_attention_fwd takes it, or null (with one, lse
+// is the forward's [2, bh, sq] pair and the DENSE kernels run). Each
 // launches on `stream` and returns cudaGetLastError() (0 on success).
 
 // Writes dq [bh, sq, d] (input dtype) and delta [bh, sq] f32.
@@ -1382,9 +1544,14 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int sk, int d, int causal,
                                       float sm_scale, unsigned thresh,
                                       float keep_prob, int dtype,
-                                      void* stream) {
+                                      const void* mask, int mask_kind,
+                                      int heads, long long msb,
+                                      long long msh, long long msr,
+                                      long long msc, void* stream) {
   const Args a{q, k, v, o, dout, lse, nullptr, lens, seed, dq, nullptr,
                delta, bh, sq, sk, causal, sm_scale, thresh, keep_prob,
+               DenseMask{mask, msb, msh, msr, msc, heads, mask_kind,
+                         const_cast<float*>(lse) + (size_t)bh * sq},
                static_cast<cudaStream_t>(stream)};
   return run<true>(a, d, dtype);
 }
@@ -1399,9 +1566,14 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int sk, int d, int causal,
                                        float sm_scale, unsigned thresh,
                                        float keep_prob, int dtype,
-                                       void* stream) {
+                                       const void* mask, int mask_kind,
+                                       int heads, long long msb,
+                                       long long msh, long long msr,
+                                       long long msc, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, delta, lens, seed, dk, dv,
                nullptr, bh, sq, sk, causal, sm_scale, thresh, keep_prob,
+               DenseMask{mask, msb, msh, msr, msc, heads, mask_kind,
+                         const_cast<float*>(lse) + (size_t)bh * sq},
                static_cast<cudaStream_t>(stream)};
   return run<false>(a, d, dtype);
 }

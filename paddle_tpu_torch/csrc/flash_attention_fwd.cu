@@ -153,6 +153,25 @@
 // blocks an SM and 23-52 % slower at one: each product is waited for at
 // once, and the four warpgroups an SM interleave one's products with
 // another's softmax.
+//
+// A dense attention mask (flash::DenseMask: a bool keep-mask or an f32,
+// bf16 or f16 bias read through its four strides) runs each kernel's
+// DENSE instantiation, which the C entry picks when it is given a mask:
+// the reference's dense path's function, not the TPU kernel's (which
+// takes no mask). Each tile's scores are scaled and biased (or hidden at
+// -inf) before the online softmax, whose max starts at -FLT_MAX and whose
+// p subtracts first, so a bias of -3.4e38 adds as the reference adds it;
+// no tile is skipped on the mask's account. A row with no visible key
+// gives NaN o and lse, as the reference's softmax of a row of -inf. lse
+// becomes a [2, bh, sq] pair (hi, lo; flash::two_sum), since a row biased
+// whole sits at -3.4e38 and keeps its log-sum only in lo. The DENSE
+// bf16/f16 kernel runs one block an SM at D = 64, where two spilled.
+// Measured (chip_smoke.py phase masked-flash, H100 80GB HBM3 at 700 W):
+// bf16 at ERNIE's fine-tune shape (32 x 12 x 128 x 128, D = 64, its
+// padding mask, dropout 0.1) 0.0373 ms against 0.0220 unmasked, and
+// at GPT's (8 x 16 x 1024, causal + left padding) 0.2030 against 0.0688:
+// the per-element mask reads and address arithmetic are CUDA-core work
+// the products wait on (PERF.md section 7).
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -160,6 +179,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash::DenseMask;
+using flash::kLowest;
 using flash::kNegInf;
 using flash_tc::align1024;
 using flash_tc::fence_async_smem;
@@ -190,8 +211,11 @@ __device__ __forceinline__ float ex2(float x) {
 // raw scores so far), l (this thread's part of the row sum) and the
 // factor alpha that rescales O; s becomes the dropped p as the next
 // product takes it. Masked scores are -inf, so their p is exactly 0, also
-// in a row with no visible key yet (m stays at the finite -1e30).
-template <bool MASK, bool DROP, int N>
+// in a row with no visible key yet (m stays at the finite -1e30). DENSE
+// (a dense mask's kernels): the scores come scaled, biased and as low as
+// -3.4e38, m starts at kLowest, and p = 2^((s - m) log2 e) subtracts
+// first, where s log2 e would overflow.
+template <bool MASK, bool DROP, bool DENSE, int N>
 __device__ __forceinline__ void online_softmax(
     float (&s)[N], float (&m)[2], float (&l)[2], float (&alpha)[2],
     int row0, int col0, float scale_log2, int sq, int sk, int kv_len,
@@ -221,7 +245,8 @@ __device__ __forceinline__ void online_softmax(
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1;
-    const float p = ex2(fmaf(s[i], scale_log2, -mb[h]));
+    const float p = DENSE ? ex2((s[i] - mx[h]) * scale_log2)
+                          : ex2(fmaf(s[i], scale_log2, -mb[h]));
     ps[h] += p;  // the row sum takes the undropped p
     float pd = p;
     if (DROP) {
@@ -234,29 +259,75 @@ __device__ __forceinline__ void online_softmax(
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ps[h];
 }
 
-template <bool MASK, int N>
+template <bool MASK, bool DENSE, int N>
 __device__ __forceinline__ void online_softmax_drop(
     bool drop, float (&s)[N], float (&m)[2], float (&l)[2],
     float (&alpha)[2], int row0, int col0, float scale_log2, int sq, int sk,
     int kv_len, int causal, uint32_t mix, uint32_t thresh, float inv_keep) {
   if (drop)
-    online_softmax<MASK, true>(s, m, l, alpha, row0, col0, scale_log2, sq,
-                               sk, kv_len, causal, mix, thresh, inv_keep);
+    online_softmax<MASK, true, DENSE>(s, m, l, alpha, row0, col0, scale_log2,
+                                      sq, sk, kv_len, causal, mix, thresh,
+                                      inv_keep);
   else
-    online_softmax<MASK, false>(s, m, l, alpha, row0, col0, scale_log2, sq,
-                                sk, kv_len, causal, mix, thresh, inv_keep);
+    online_softmax<MASK, false, DENSE>(s, m, l, alpha, row0, col0,
+                                       scale_log2, sq, sk, kv_len, causal,
+                                       mix, thresh, inv_keep);
+}
+
+// -- the dense mask (the DENSE instantiations) --------------------------------
+
+// The dense mask on one tile of raw scores before its online softmax: they
+// become the scaled scores plus a float mask's bias (the softmax then runs
+// at scale 1), -inf where a bool mask is false. No tile is skipped on the
+// mask's account: each is read and applied as it comes.
+template <int N>
+__device__ __forceinline__ void dense_mask(float (&s)[N], const DenseMask& dm,
+                                           long long mbase, int row0,
+                                           int col0, int sq, int sk,
+                                           float sm_scale) {
+  const uint32_t hidden = flash::mask_tile<false>(s, dm, mbase, row0, col0,
+                                                  sq, sk, sm_scale);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if ((hidden >> i) & 1u) s[i] = __uint_as_float(0xff800000u);  // -inf
+}
+
+// o's factor of a row with no visible key: 1 (o = 0, the TPU kernel's
+// answer under kv_lens), NaN under a dense mask, as the reference's dense
+// path gives (the softmax of a row of -inf)
+template <bool DENSE>
+__device__ __forceinline__ float empty_scale() {
+  return DENSE ? __uint_as_float(0x7fc00000u) : 1.f;
+}
+
+// lse of row `at` from its max m (of the scaled scores) and sum l: m +
+// log(l), or -1e30 with no visible key; under a dense mask hi and lo of
+// flash::two_sum (lo into dm.lo), NaN and NaN with no visible key
+template <bool DENSE>
+__device__ __forceinline__ void store_lse(float* lse, const DenseMask& dm,
+                                          size_t at, float m, float l) {
+  if constexpr (DENSE) {
+    float hi = __uint_as_float(0x7fc00000u), lo = hi;
+    if (l != 0.f) flash::two_sum(m, logf(l), hi, lo);
+    lse[at] = hi;
+    dm.lo[at] = lo;
+  } else {
+    lse[at] = l == 0.f ? kNegInf : m + logf(l);
+  }
 }
 
 // -- bf16 and f16: tensor cores (wgmma) -------------------------------------
 
-template <int D, typename T>
-__global__ void __launch_bounds__(Tc<D>::NT, Tc<D>::FWD_BLOCKS)
+// two blocks an SM at D = 64 cap a thread at 128 registers, where the
+// DENSE kernel spilled 100 bytes: it runs one
+template <bool DENSE, int D, typename T>
+__global__ void __launch_bounds__(Tc<D>::NT, DENSE ? 1 : Tc<D>::FWD_BLOCKS)
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lens,
                     T* __restrict__ o, float* __restrict__ lse, int sq,
                     int sk, int causal, float sm_scale,
                     const int* __restrict__ seed, uint32_t thresh,
-                    float keep_prob) {
+                    float keep_prob, const DenseMask dm) {
   using G = Tc<D>;
   constexpr int NS = G::KV_STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -302,7 +373,10 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int wkend = kv_len;  // the warpgroup's own key end
   if (causal) wkend = min(wkend, min(wq0 + 63, sq - 1) + offset + 1);
   const bool wg_live = wq0 < sq;
-  const float scale_log2 = sm_scale * kLog2e;
+  // under a dense mask the softmax runs on the scaled (biased) scores
+  const float mscale = DENSE ? 1.f : sm_scale;
+  const float scale_log2 = mscale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -312,7 +386,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < G::NB; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float m0 = DENSE ? kLowest : kNegInf;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
     // tile t has landed, and every warpgroup is done with tile t - 1,
@@ -335,14 +410,16 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (causal && key0 + G::BS - 1 > wq0 + offset);
       float alpha[2];
       const int row0 = q0 + row, col0_s = key0 + 2 * (lane % 4);
+      if constexpr (DENSE) dense_mask(s, dm, mbase, row0, col0_s, sq, sk,
+                                      sm_scale);
       if (mask)
-        online_softmax_drop<true>(drop, s, m, l, alpha, row0, col0_s,
-                                  scale_log2, sq, sk, kv_len, causal, mix,
-                                  thresh, inv_keep);
+        online_softmax_drop<true, DENSE>(drop, s, m, l, alpha, row0, col0_s,
+                                         scale_log2, sq, sk, kv_len, causal,
+                                         mix, thresh, inv_keep);
       else
-        online_softmax_drop<false>(drop, s, m, l, alpha, row0, col0_s,
-                                   scale_log2, sq, sk, kv_len, causal, mix,
-                                   thresh, inv_keep);
+        online_softmax_drop<false, DENSE>(drop, s, m, l, alpha, row0,
+                                          col0_s, scale_log2, sq, sk, kv_len,
+                                          causal, mix, thresh, inv_keep);
       uint32_t pf[16];
       to_frags<T>(s, pf);  // p rounded to T, as the reference rounds it
 #pragma unroll
@@ -361,17 +438,16 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // the row sums over the quad; o = acc / l, lse = m + log(l) (a row with
-  // no visible key: o = 0, lse = -1e30)
+  // no visible key: o = 0, lse = -1e30; under a dense mask both NaN)
   float inv_l[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    inv_l[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
+    inv_l[h] = l[h] == 0.f ? empty_scale<DENSE>() : 1.f / l[h];
     const int r = q0 + row + 8 * h;
     if (lane % 4 == 0 && col0 == 0 && r < sq)
-      lse[(size_t)bh * sq + r] =
-          l[h] == 0.f ? kNegInf : m[h] * sm_scale + logf(l[h]);
+      store_lse<DENSE>(lse, dm, (size_t)bh * sq + r, m[h] * mscale, l[h]);
   }
 #pragma unroll
   for (int c = 0; c < G::NB; ++c)
@@ -445,14 +521,14 @@ __device__ __forceinline__ void q_frag(const float* qrow, int kk, int t,
 // gives a thread keys 2t and 2t + 1 of each 8-key slice, which become the
 // A fragment's columns t and t + 4 by reading V's rows 2t and 2t + 1 as
 // the B fragment's rows t and t + 4.
-template <int D>
+template <bool DENSE, int D>
 __global__ void __launch_bounds__(F32<D>::NT, F32<D>::BLOCKS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ lens,
                      float* __restrict__ o, float* __restrict__ lse, int sq,
                      int sk, int causal, float sm_scale,
                      const int* __restrict__ seed, uint32_t thresh,
-                     float keep_prob) {
+                     float keep_prob, const DenseMask dm) {
   using G = F32<D>;
   constexpr int NS = G::NS, BK = G::BK;
   constexpr int NJ = BK / 8;  // 8-key slices of a tile
@@ -495,7 +571,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) wkend = min(wkend, min(wq0 + 15, sq - 1) + offset + 1);
   const bool live = wq0 < sq;
   const float* qrow = qs + (wrow + g) * G::KP;
-  const float scale_log2 = sm_scale * kLog2e;
+  // under a dense mask the softmax runs on the scaled (biased) scores
+  const float mscale = DENSE ? 1.f : sm_scale;
+  const float scale_log2 = mscale * kLog2e;
+  const long long mbase = DENSE ? flash::mask_base(dm, bh) : 0;
   const bool drop = seed != nullptr;
   const uint32_t mix = drop ? flash::dropout_mix(*seed, bh) : 0u;
   const float inv_keep = 1.f / keep_prob;
@@ -506,7 +585,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int c = 0; c < ND; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float m0 = DENSE ? kLowest : kNegInf;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
 
   for (int tt = 0; tt < n_tiles; ++tt) {
     // tile tt has landed, and every warp is done with tile tt - 1, whose
@@ -556,14 +636,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       (causal && key0 + BK - 1 > wq0 + offset);
     float alpha[2];
     const int row0 = wq0 + g, col0 = key0 + 2 * t;
+    if constexpr (DENSE) dense_mask(s, dm, mbase, row0, col0, sq, sk,
+                                    sm_scale);
     if (mask)
-      online_softmax_drop<true>(drop, s, m, l, alpha, row0, col0, scale_log2,
-                                sq, sk, kv_len, causal, mix, thresh,
-                                inv_keep);
+      online_softmax_drop<true, DENSE>(drop, s, m, l, alpha, row0, col0,
+                                       scale_log2, sq, sk, kv_len, causal,
+                                       mix, thresh, inv_keep);
     else
-      online_softmax_drop<false>(drop, s, m, l, alpha, row0, col0,
-                                 scale_log2, sq, sk, kv_len, causal, mix,
-                                 thresh, inv_keep);
+      online_softmax_drop<false, DENSE>(drop, s, m, l, alpha, row0, col0,
+                                        scale_log2, sq, sk, kv_len, causal,
+                                        mix, thresh, inv_keep);
     // the tile's P.V lands in pv (PV_APART), else in the rescaled acc
     float pv[G::PV_APART ? ND : 1][4];
 #pragma unroll
@@ -611,17 +693,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   tc::cp_async_wait<0>();
 
   // the row sums over the quad; o = acc / l, lse = m + log(l) (a row with
-  // no visible key: o = 0, lse = -1e30)
+  // no visible key: o = 0, lse = -1e30; under a dense mask both NaN)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const float inv_l = l[h] == 0.f ? 1.f : 1.f / l[h];
+    const float inv_l = l[h] == 0.f ? empty_scale<DENSE>() : 1.f / l[h];
     const int r = wq0 + g + 8 * h;
     if (r >= sq) continue;
     if (t == 0)
-      lse[(size_t)bh * sq + r] =
-          l[h] == 0.f ? kNegInf : m[h] * sm_scale + logf(l[h]);
+      store_lse<DENSE>(lse, dm, (size_t)bh * sq + r, m[h] * mscale, l[h]);
     float* orow = o + q_base + (size_t)r * D + 2 * t;
 #pragma unroll
     for (int c = 0; c < ND; ++c)
@@ -644,27 +725,29 @@ struct Args {
   const int* seed;
   uint32_t thresh;
   float keep_prob;
+  DenseMask dm;
   cudaStream_t stream;
 };
 
-template <int D>
+template <bool DENSE, int D>
 int launch_f32(const Args& a) {
   using G = F32<D>;
   const int tiles = (a.sq + G::ROWS - 1) / G::ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
+      flash_fwd_f32_kernel<DENSE, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_fwd_f32_kernel<D><<<dim3(a.bh, tiles), G::NT, G::SMEM, a.stream>>>(
+  flash_fwd_f32_kernel<DENSE, D><<<dim3(a.bh, tiles), G::NT, G::SMEM,
+                                   a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.lens, static_cast<float*>(a.o),
       a.lse, a.sq, a.sk, a.causal, a.sm_scale, a.seed, a.thresh,
-      a.keep_prob);
+      a.keep_prob, a.dm);
   return 0;
 }
 
-template <int D, typename T>
+template <bool DENSE, int D, typename T>
 int launch_tc(const Args& a) {
   using G = Tc<D>;
   const long long tiles =
@@ -672,24 +755,38 @@ int launch_tc(const Args& a) {
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory needs the opt-in, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::FWD_SMEM);
+      flash_fwd_tc_kernel<DENSE, D, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::FWD_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  flash_fwd_tc_kernel<D, T><<<dim3(a.bh, (unsigned)tiles), G::NT,
-                              G::FWD_SMEM, a.stream>>>(
+  flash_fwd_tc_kernel<DENSE, D, T><<<dim3(a.bh, (unsigned)tiles), G::NT,
+                                     G::FWD_SMEM, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.lse,
-      a.sq, a.sk, a.causal, a.sm_scale, a.seed, a.thresh, a.keep_prob);
+      a.sq, a.sk, a.causal, a.sm_scale, a.seed, a.thresh, a.keep_prob,
+      a.dm);
   return 0;
 }
 
 // dtype: 0 f32, 1 bf16, 2 f16
-template <int D>
+template <bool DENSE, int D>
 int launch(const Args& a, int dtype) {
   switch (dtype) {
-    case 0: return launch_f32<D>(a);
-    case 1: return launch_tc<D, bf16>(a);
-    case 2: return launch_tc<D, __half>(a);
+    case 0: return launch_f32<DENSE, D>(a);
+    case 1: return launch_tc<DENSE, D, bf16>(a);
+    case 2: return launch_tc<DENSE, D, __half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool DENSE>
+int run(const Args& a, int d, int dtype) {
+  switch (d) {
+    // head_dim 32 (DETR's): the f32 forward only
+    case 32:
+      return dtype ? (int)cudaErrorInvalidValue : launch_f32<DENSE, 32>(a);
+    case 64: return launch<DENSE, 64>(a, dtype);
+    case 128: return launch<DENSE, 128>(a, dtype);
+    case 256: return launch<DENSE, 256>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -700,28 +797,28 @@ int launch(const Args& a, int dtype) {
 // f16 (dtype = 2); d is 64, 128 or 256, and also 32 in f32;
 // lens: [bh] int32 or null; lse: [bh, sq] f32; seed: one int32 on the
 // device, or null for no dropout; thresh = int(rate * 2^24) and
-// keep_prob = 1 - rate. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// keep_prob = 1 - rate; mask: the dense mask (flash::DenseMask: mask_kind
+// 1 bool, 2 f32, 3 bf16, 4 f16; bh = b * heads + h; element strides msb,
+// msh, msr, msc), or null: with one the DENSE kernels run and lse is [2,
+// bh, sq], the log-sum-exp's hi and lo (flash::two_sum). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const int* lens, void* o, float* lse, int bh,
                                    int sq, int sk, int d, int causal,
                                    float sm_scale, const int* seed,
                                    unsigned thresh, float keep_prob,
-                                   int dtype, void* stream) {
+                                   int dtype, const void* mask, int mask_kind,
+                                   int heads, long long msb, long long msh,
+                                   long long msr, long long msc,
+                                   void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  const DenseMask dm{mask, msb, msh, msr, msc, heads, mask_kind,
+                     lse + (size_t)bh * sq};
+  if (mask != nullptr && !flash::mask_ok(dm)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, lens, o, lse, bh, sq, sk, causal, sm_scale, seed,
-               thresh, keep_prob, static_cast<cudaStream_t>(stream)};
-  int err;
-  switch (d) {
-    // head_dim 32 (DETR's): the f32 forward only
-    case 32:
-      err = dtype ? (int)cudaErrorInvalidValue : launch_f32<32>(a);
-      break;
-    case 64: err = launch<64>(a, dtype); break;
-    case 128: err = launch<128>(a, dtype); break;
-    case 256: err = launch<256>(a, dtype); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+               thresh, keep_prob, dm, static_cast<cudaStream_t>(stream)};
+  const int err = mask != nullptr ? run<true>(a, d, dtype)
+                                  : run<false>(a, d, dtype);
   if (err) return err;
   return (int)cudaGetLastError();
 }

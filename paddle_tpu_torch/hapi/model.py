@@ -41,6 +41,7 @@ dump (8).
 """
 from __future__ import annotations
 
+import inspect
 import os
 import warnings
 
@@ -328,14 +329,46 @@ class Model:
         return [list(c) for c in cols]
 
     def _split_batch(self, batch, predict=False):
+        """(inputs, labels) of a batch: as many inputs as there are input
+        specs, else all but the last field. ``predict`` takes the inputs
+        only: the first field, as the reference does, or with several
+        input specs that many fields (the reference passes a three-input
+        model its first field alone; ERNIE's predict then ran without its
+        token types and attention mask). The inputs are bound to the
+        network by ``_arranged``."""
         if isinstance(batch, (list, tuple)):
             batch = list(batch)
+            n_specs = len(self._inputs_spec) if self._inputs_spec else 0
             if predict:
+                if n_specs > 1:
+                    return self._arranged(batch[:n_specs]), []
                 return _to_list(batch[0]), []
-            n_in = len(self._inputs_spec) if self._inputs_spec else \
-                max(len(batch) - 1, 1)
-            return batch[:n_in], batch[n_in:]
+            n_in = n_specs or max(len(batch) - 1, 1)
+            return self._arranged(batch[:n_in]), batch[n_in:]
         return [batch], []
+
+    def _arranged(self, ins):
+        """The inputs in the order of the network's ``forward``: where
+        every input spec is named after one of its positional parameters,
+        each input goes to its parameter and the parameters between them
+        keep their defaults, so [input_ids, token_type_ids,
+        attention_mask] reach ERNIE's forward(input_ids, token_type_ids,
+        position_ids, attention_mask) as named. Else the inputs bind in
+        order, as the reference binds them all (it would hand ERNIE the
+        mask as position_ids)."""
+        names = [getattr(spec, "name", None)
+                 for spec in self._inputs_spec or ()]
+        if len(names) != len(ins) or not all(names):
+            return ins
+        try:
+            sig = inspect.signature(self.network.forward)
+            bound = sig.bind(**dict(zip(names, ins)))
+        except (TypeError, ValueError):
+            return ins
+        bound.apply_defaults()
+        args = list(bound.args)
+        n = 1 + max(list(sig.parameters).index(name) for name in names)
+        return args[:n] if len(args) >= n else ins
 
     def _make_logs(self, out):
         logs = {}

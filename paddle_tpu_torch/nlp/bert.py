@@ -6,10 +6,11 @@ blocks (the reference's ``normalize_before=False``), separate q/k/v
 projections, learned positions, token-type embeddings, a tanh pooler and
 an MLM head tied to the word embedding.
 
-Attention is bidirectional: with no dense mask ``F.scaled_dot_product_
-attention`` runs the flash kernels with ``is_causal=False`` (on the card;
-their plain twins on the CPU). A padding ``attention_mask`` takes the
-dense path, which only the CPU has (the card raises; ROADMAP.md).
+Attention is bidirectional: ``F.scaled_dot_product_attention`` runs the
+flash kernels with ``is_causal=False`` (on the card; their plain twins on
+the CPU). A padding ``attention_mask`` (the tokenizer's 0/1 ``[B, S]``)
+becomes a ``[B, 1, 1, S]`` keep-mask once a forward, on the model's
+device, which every layer's kernels read in place.
 
 ``fused_ln=True`` fuses both residual adds of a block into the following
 LayerNorm (``modeling_utils.fused_residual_ln`` with ``want_sum=False``:
@@ -24,12 +25,18 @@ Randomness as in the port's GPT: the model holds one ``torch.Generator``
 on its device for its weights and, in training, hidden and attention
 dropout.
 
+The task heads (``_TaskHead``: ``BertForSequenceClassification``,
+``...ForTokenClassification``, ``...ForQuestionAnswering``,
+``...ForMaskedLM``) build the backbone under the reference's attribute
+(``bert``; ERNIE's heads subclass them with ``ernie``), so their state
+dicts are the reference's key for key; their dropout draws from the
+model's generator. Every model class loads a local checkpoint through
+``from_pretrained`` (``modeling_utils.FromPretrainedMixin``).
+
 Not in this slice (each raises NotImplementedError, see ROADMAP.md):
-``scan_layers``, ``fused_qkv``, ``mlm_gather_capacity > 0``,
+``scan_layers``, ``fused_qkv``, ``mlm_gather_capacity > 0`` and
 ``use_flash_attention=False`` (the port has no plain attention path on
-the card), the task heads (``*ForSequenceClassification``,
-``*ForTokenClassification``, ``*ForQuestionAnswering``, ``*ForMaskedLM``)
-and ``from_pretrained``.
+the card).
 """
 from __future__ import annotations
 
@@ -44,8 +51,9 @@ from ..distributed.fleet.mpu import (ColumnParallelLinear,
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerList, Linear
 from ..nn.layers_norm import LayerNorm
-from .modeling_utils import (coerce_config, fused_residual_ln, later,
-                             model_kw, normalize_attention_mask)
+from .modeling_utils import (FromPretrainedMixin, coerce_config,
+                             fused_residual_ln, later, model_kw,
+                             normalize_attention_mask)
 
 __all__ = ["BertConfig", "BERT_CONFIGS", "BertSelfAttention", "BertLayer",
            "BertEmbeddings", "BertPooler", "BertModel",
@@ -240,14 +248,7 @@ class BertPooler(nn.Module):
         return self.act(self.dense(hidden[:, 0]))
 
 
-def refuse_from_pretrained(cls, *args, **kwargs):
-    raise NotImplementedError(f"{cls.__name__}.from_pretrained "
-                              f"{later('4.4')}; "
-                              "carry weights in with "
-                              "nlp.convert.load_numpy_state")
-
-
-class BertModel(nn.Module):
+class BertModel(FromPretrainedMixin, nn.Module):
     """ref: bert/modeling.py BertModel — returns (sequence_output,
     pooled_output). ``device`` defaults to CUDA (raises with no GPU);
     weights, and dropout in training, draw from ``generator``."""
@@ -273,8 +274,6 @@ class BertModel(nn.Module):
                          generator=None, **overrides):
         return cls(_resolve_config(name, **overrides), device=device,
                    dtype=dtype, generator=generator)
-
-    from_pretrained = classmethod(refuse_from_pretrained)
 
     def encode(self, x, attention_mask):
         mask = normalize_attention_mask(attention_mask)
@@ -328,7 +327,7 @@ class BertPretrainingHeads(nn.Module):
                 self.seq_relationship(pooled_output))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(FromPretrainedMixin, nn.Module):
     """ref: BertForPretraining — MLM + NSP: (prediction_scores [B, S,
     vocab], seq_relationship_score [B, 2])."""
 
@@ -345,8 +344,6 @@ class BertForPretraining(nn.Module):
                          generator=None, **overrides):
         return cls(_resolve_config(name, **overrides), device=device,
                    dtype=dtype, generator=generator)
-
-    from_pretrained = classmethod(refuse_from_pretrained)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
@@ -385,15 +382,115 @@ class BertPretrainingCriterion(nn.Module):
         return mlm_loss + nsp_loss
 
 
-def not_ported(name):
-    """A task-head class that raises NotImplementedError on construction."""
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} (a task head) {later('4.1')}")
-    return type(name, (nn.Module,), {"__init__": __init__,
-                                     "__doc__": f"{name}: not ported yet."})
+class _TaskHead(FromPretrainedMixin, nn.Module):
+    """The encoder task heads' scaffolding (ref: bert.py ``_TaskHead``):
+    builds the backbone under the reference's attribute name (``bert``;
+    ERNIE's heads swap ``backbone_cls``, ``backbone_attr`` and ``_resolve``)
+    so state-dict keys match, and exposes it as ``self.backbone``.
+    ``self.kw`` holds the resolved device, dtype and generator, from which
+    a head builds its own layers and draws its dropout."""
+
+    backbone_cls = BertModel
+    backbone_attr = "bert"
+    _resolve = staticmethod(_resolve_config)
+
+    def __init__(self, config=None, *, device=None, dtype=None,
+                 generator=None, **kwargs):
+        super().__init__()
+        self.kw = model_kw(device, dtype, generator)
+        backbone = self.backbone_cls(config, **self.kw, **kwargs)
+        setattr(self, self.backbone_attr, backbone)
+        self.config = backbone.config
+
+    @property
+    def backbone(self):
+        return getattr(self, self.backbone_attr)
+
+    @classmethod
+    def from_config_name(cls, name, *, device=None, dtype=None,
+                         generator=None, **overrides):
+        num_labels = overrides.pop("num_labels", None)
+        kw = {} if num_labels is None else {"num_labels": num_labels}
+        return cls(cls._resolve(name, **overrides), device=device,
+                   dtype=dtype, generator=generator, **kw)
+
+    def _classifier(self, n):
+        return Linear(self.config.hidden_size, n,
+                      init_std=self.config.initializer_range, **self.kw)
+
+    def _dropout(self):
+        return Dropout(self.config.hidden_dropout_prob,
+                       generator=self.kw["generator"])
 
 
-BertForSequenceClassification = not_ported("BertForSequenceClassification")
-BertForTokenClassification = not_ported("BertForTokenClassification")
-BertForQuestionAnswering = not_ported("BertForQuestionAnswering")
-BertForMaskedLM = not_ported("BertForMaskedLM")
+class BertForMaskedLM(_TaskHead):
+    """ref: BertForMaskedLM — the MLM head over the sequence output:
+    prediction scores [B, S, vocab], decoded against the tied word
+    embedding."""
+
+    def __init__(self, config=None, *, device=None, dtype=None,
+                 generator=None, **kwargs):
+        super().__init__(config, device=device, dtype=dtype,
+                         generator=generator, **kwargs)
+        self.cls = BertLMPredictionHead(self.config, **self.kw)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        seq, _ = self.backbone(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        return self.cls(seq, self.backbone.embeddings.word_embeddings.weight)
+
+
+class BertForSequenceClassification(_TaskHead):
+    """ref: BertForSequenceClassification — pooled output -> dropout ->
+    num_labels logits."""
+
+    def __init__(self, config=None, num_labels=None, *, device=None,
+                 dtype=None, generator=None, **kwargs):
+        super().__init__(config, device=device, dtype=dtype,
+                         generator=generator, **kwargs)
+        self.dropout = self._dropout()
+        self.classifier = self._classifier(num_labels
+                                           or self.config.num_labels)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        _, pooled = self.backbone(input_ids, token_type_ids, position_ids,
+                                  attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
+class BertForTokenClassification(_TaskHead):
+    """ref: BertForTokenClassification — sequence output -> dropout ->
+    num_labels logits a token."""
+
+    def __init__(self, config=None, num_labels=None, *, device=None,
+                 dtype=None, generator=None, **kwargs):
+        super().__init__(config, device=device, dtype=dtype,
+                         generator=generator, **kwargs)
+        self.dropout = self._dropout()
+        self.classifier = self._classifier(num_labels
+                                           or self.config.num_labels)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        seq, _ = self.backbone(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        return self.classifier(self.dropout(seq))
+
+
+class BertForQuestionAnswering(_TaskHead):
+    """ref: BertForQuestionAnswering — (start_logits, end_logits)."""
+
+    def __init__(self, config=None, *, device=None, dtype=None,
+                 generator=None, **kwargs):
+        super().__init__(config, device=device, dtype=dtype,
+                         generator=generator, **kwargs)
+        self.classifier = self._classifier(2)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        seq, _ = self.backbone(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        logits = self.classifier(seq)
+        return logits[:, :, 0], logits[:, :, 1]

@@ -7,8 +7,12 @@ Parameter names match the reference key for key: ``ernie.*`` (the
 backbone), ``cls.*`` (the MLM head, tied to the word embedding) and
 ``seq_relationship.*`` (NSP) — 207 keys for ernie-3.0-base-zh.
 
+The four ERNIE task heads are BERT's (``nlp.bert._TaskHead``) with the
+ERNIE backbone under ``ernie``, as the reference's are; every model class
+loads a local checkpoint through ``from_pretrained``.
+
 Not in this slice (each raises NotImplementedError, see ROADMAP.md): what
-``nlp.bert`` leaves out, and the ERNIE task heads.
+``nlp.bert`` leaves out.
 """
 from __future__ import annotations
 
@@ -17,10 +21,11 @@ from dataclasses import dataclass
 from torch import nn
 
 from ..nn.layers_common import Embedding, Linear
-from .bert import (BertConfig, BertEmbeddings, BertLMPredictionHead,
-                   BertModel, BertPretrainingCriterion, not_ported,
-                   refuse_from_pretrained)
-from .modeling_utils import model_kw
+from .bert import (BertConfig, BertEmbeddings, BertForMaskedLM,
+                   BertForQuestionAnswering, BertForSequenceClassification,
+                   BertForTokenClassification, BertLMPredictionHead,
+                   BertModel, BertPretrainingCriterion)
+from .modeling_utils import FromPretrainedMixin, model_kw
 
 __all__ = ["ErnieConfig", "ERNIE_CONFIGS", "ErnieEmbeddings", "ErnieModel",
            "ErnieForPretraining", "ErniePretrainingCriterion",
@@ -107,7 +112,7 @@ class ErnieModel(BertModel):
         return self.encode(x, attention_mask)
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(FromPretrainedMixin, nn.Module):
     """ref: ErnieForPretraining — MLM + NSP heads: (prediction_scores [B,
     S, vocab], seq_relationship_score [B, 2])."""
 
@@ -128,8 +133,6 @@ class ErnieForPretraining(nn.Module):
         return cls(_resolve_config(name, **overrides), device=device,
                    dtype=dtype, generator=generator)
 
-    from_pretrained = classmethod(refuse_from_pretrained)
-
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
@@ -142,7 +145,25 @@ class ErniePretrainingCriterion(BertPretrainingCriterion):
     """ref: ErniePretrainingCriterion — the same contract as BERT's."""
 
 
-ErnieForSequenceClassification = not_ported("ErnieForSequenceClassification")
-ErnieForTokenClassification = not_ported("ErnieForTokenClassification")
-ErnieForQuestionAnswering = not_ported("ErnieForQuestionAnswering")
-ErnieForMaskedLM = not_ported("ErnieForMaskedLM")
+class ErnieForSequenceClassification(BertForSequenceClassification):
+    backbone_cls = ErnieModel
+    backbone_attr = "ernie"
+    _resolve = staticmethod(_resolve_config)
+
+
+class ErnieForTokenClassification(BertForTokenClassification):
+    backbone_cls = ErnieModel
+    backbone_attr = "ernie"
+    _resolve = staticmethod(_resolve_config)
+
+
+class ErnieForQuestionAnswering(BertForQuestionAnswering):
+    backbone_cls = ErnieModel
+    backbone_attr = "ernie"
+    _resolve = staticmethod(_resolve_config)
+
+
+class ErnieForMaskedLM(BertForMaskedLM):
+    backbone_cls = ErnieModel
+    backbone_attr = "ernie"
+    _resolve = staticmethod(_resolve_config)

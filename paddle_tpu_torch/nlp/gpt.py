@@ -11,10 +11,14 @@ reference ties it).
 Attention: with no cache, ``F.scaled_dot_product_attention`` runs the
 flash-attention forward (the CUDA kernel on the card). Serving prefill
 passes ``kv_lens=[true_len]`` — the reference's padding mask expressed as
-key lengths, the same rows through the same kernel. A
-``PagedLayerCache`` routes each layer through the paged decode kernel. In
-train mode the same flash path is differentiable (the backward kernels
-on the card) and runs attention dropout in the kernel.
+key lengths, the same rows through the same kernel. A user's padding
+``attention_mask`` goes to the same kernels as a dense mask on top of the
+causal one (rows it leaves with no visible key give NaN, as the
+reference's dense path gives). A ``PagedLayerCache`` routes each layer
+through the paged decode kernel. In train mode the same flash path is
+differentiable (the backward kernels on the card) and runs attention
+dropout in the kernel. ``GPTModel`` and ``GPTForCausalLM`` load a local
+checkpoint through ``from_pretrained``, in any decoder layout.
 
 Randomness: the model holds one ``torch.Generator`` on its device
 (``generator``, or a fresh one seeded nondeterministically): weights are
@@ -68,8 +72,9 @@ from ..nn.layers_norm import LayerNorm
 from ..nn.scan_stack import (ScannedLayerStack, as_numpy,
                              checkpoint_block)
 from .generation import generate as _generate
-from .modeling_utils import (coerce_config, fused_residual_ln, later,
-                             model_kw, normalize_attention_mask,
+from .modeling_utils import (FromPretrainedMixin, coerce_config,
+                             fused_residual_ln, later, model_kw,
+                             normalize_attention_mask,
                              static_cache_attention, static_index)
 from .paged_cache import PagedLayerCache, paged_layer_forward
 
@@ -367,7 +372,7 @@ class GPTEmbeddings(nn.Module):
                             + self.position_embeddings(position_ids))
 
 
-class GPTModel(nn.Module):
+class GPTModel(FromPretrainedMixin, nn.Module):
     """ref: paddlenlp GPTModel. ``device`` defaults to CUDA (raises with no
     GPU); weights, and dropout in training, draw from ``generator`` (a
     torch.Generator on that device; None: a fresh one, seeded
@@ -452,7 +457,7 @@ class GPTModel(nn.Module):
         return x
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(FromPretrainedMixin, nn.Module):
     """GPTModel + the tied vocab-parallel LM head. With ``chunked_ce``, a
     training forward without a cache returns the reference's
     ``_loss_only_aux`` dict ({"hidden", "lm_weight", "chunked_ce"}) for

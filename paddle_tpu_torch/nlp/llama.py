@@ -43,9 +43,11 @@ never repeats the ``[B, S_max, Hkv, D]`` buffers per query head.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
 item): cached dense decode (``cache=`` without ``cache_index``),
-``sequence_parallel``, ``use_flash_attention=False`` and
-``from_pretrained``. A ``scan_layers`` model serves no cached decode and
-no paged cache, as in the reference.
+``sequence_parallel`` and ``use_flash_attention=False``. A
+``scan_layers`` model serves no cached decode and no paged cache, as in
+the reference. ``LlamaModel`` and ``LlamaForCausalLM`` load a local
+checkpoint through ``from_pretrained`` (``modeling_utils.
+FromPretrainedMixin``), in either decoder layout.
 """
 from __future__ import annotations
 
@@ -60,11 +62,10 @@ from ..nn import functional as F
 from ..nn.layers_common import LayerList
 from ..nn.layers_norm import RMSNorm
 from ..nn.scan_stack import ScannedLayerStack, checkpoint_block
-from .bert import refuse_from_pretrained
 from .generation import generate as _generate
 from .gpt import GPTPretrainingCriterion
-from .modeling_utils import (coerce_config, later, model_kw,
-                             normalize_attention_mask,
+from .modeling_utils import (FromPretrainedMixin, coerce_config, later,
+                             model_kw, normalize_attention_mask,
                              static_cache_attention, static_index)
 from .paged_cache import PagedLayerCache, paged_layer_forward
 
@@ -291,7 +292,7 @@ class LlamaDecoderLayer(nn.Module):
         return (x, cache) if cache is not None else x
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(FromPretrainedMixin, nn.Module):
     """ref: llama/modeling.py LlamaModel. ``device`` defaults to CUDA
     (raises with no GPU); weights draw from ``generator`` (a
     torch.Generator on that device; None: a fresh one, seeded
@@ -319,7 +320,6 @@ class LlamaModel(nn.Module):
         return cls(_resolve_config(name, **overrides), device=device,
                    dtype=dtype, generator=generator)
 
-    from_pretrained = classmethod(refuse_from_pretrained)
 
     def forward(self, input_ids, attention_mask=None, use_cache=False,
                 cache=None, cache_index=None, kv_lens=None):
@@ -385,7 +385,7 @@ class LlamaPretrainingCriterion(GPTPretrainingCriterion):
     causal-LM cross entropy as GPT's."""
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(FromPretrainedMixin, nn.Module):
     """ref: llama/modeling.py LlamaForCausalLM: an untied ``lm_head``
     ([hidden, vocab], the Linear layout) by default;
     ``tie_word_embeddings=True`` reuses the embedding. With
@@ -410,7 +410,6 @@ class LlamaForCausalLM(nn.Module):
         return cls(_resolve_config(name, **overrides), device=device,
                    dtype=dtype, generator=generator)
 
-    from_pretrained = classmethod(refuse_from_pretrained)
 
     def forward(self, input_ids, attention_mask=None, use_cache=False,
                 cache=None, cache_index=None, kv_lens=None):

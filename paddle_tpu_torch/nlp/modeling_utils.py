@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import math
+import os
+import sys
 
 import torch
 
@@ -13,7 +15,9 @@ from ..ops.kernels.fused_ln import (fused_add_layer_norm,
                                     fused_add_layer_norm_y)
 
 __all__ = ["normalize_attention_mask", "fused_residual_ln", "coerce_config",
-           "model_kw", "later", "static_index", "static_cache_attention"]
+           "model_kw", "later", "static_index", "static_cache_attention",
+           "from_pretrained_impl", "adapt_state_for_model",
+           "FromPretrainedMixin"]
 
 
 def coerce_config(cls, config, kwargs):
@@ -41,7 +45,9 @@ def normalize_attention_mask(attention_mask):
     """Normalise a user attention mask to [b, 1, sq|1, sk] broadcastable
     form: 2D/3D 0/1 padding masks (int or float — the tokenizer
     convention) become bool keep-masks; 4D float masks pass through as
-    additive biases."""
+    additive biases. The models call it once a forward and move the result
+    to their device once, so every layer's attention reads the same
+    tensor in place."""
     if attention_mask is None:
         return None
     m = torch.as_tensor(attention_mask)
@@ -116,3 +122,96 @@ def static_cache_attention(q, k, v, cache, idx, groups=1):
     o = torch.matmul(p, vh)                             # [B, Hkv, G*sq, D]
     return o.reshape(b, hkv, groups, sq, d).permute(0, 3, 1, 2, 4).reshape(
         b, sq, h, d)
+
+
+def from_pretrained_impl(cls, resolve, name_or_path, pretrained_path=None,
+                         config_name=None, **overrides):
+    """The reference's ``from_pretrained`` (paddle_tpu/nlp/modeling_utils.
+    py: PaddleNLP's, offline), in its three forms:
+
+    - ``from_pretrained('<config name>')`` needs a download: raises
+      NotImplementedError with the reference's convert-and-load recipe;
+    - ``from_pretrained('<config name>', pretrained_path='<file>')`` builds
+      the named config and loads the checkpoint;
+    - ``from_pretrained('<file>', config_name='<config name>')`` the same,
+      the checkpoint first.
+
+    The file is read by ``serialization.load`` (a ``.pdparams`` that
+    either package saved; a ``{"params", "buffers"}`` dict is merged),
+    brought to the model's decoder layout (``adapt_state_for_model``) and
+    loaded strictly: a missing parameter raises before anything is copied.
+    ``device``, ``dtype`` and ``generator`` among ``overrides`` go to the
+    model, the rest to the config. Unlike the reference, the bare name
+    raises before the model is built (the config is resolved first, so an
+    unknown name raises as there)."""
+    from ..serialization import load, set_state_dict
+    name = name_or_path
+    if os.path.exists(str(name_or_path)):
+        if pretrained_path is not None:
+            raise ValueError(
+                f"'{name_or_path}' is a checkpoint path AND "
+                f"pretrained_path='{pretrained_path}' was given — pass "
+                "exactly one weights source")
+        if not config_name:
+            raise ValueError(
+                f"'{name_or_path}' is a checkpoint path; also pass "
+                "config_name='<config>' so the architecture can be "
+                "built before loading the weights")
+        pretrained_path, name = str(name_or_path), config_name
+    build = {k: overrides.pop(k) for k in ("device", "dtype", "generator")
+             if k in overrides}
+    config = resolve(name, **overrides)
+    if pretrained_path is None:
+        raise NotImplementedError(
+            f"from_pretrained('{name}') needs a weights download, which "
+            "this offline environment cannot do. Recipe: in the "
+            "reference framework run `paddle.save(model.state_dict(), "
+            f"'{name}.pdparams')`, copy the file here, and call "
+            f"from_pretrained('{name}', pretrained_path='"
+            f"{name}.pdparams') — the .pdparams pickle loads directly "
+            "(paddle_tpu.compat.load_pdparams)")
+    model = cls(config, **build)
+    state = load(str(pretrained_path))
+    if isinstance(state, dict) and set(state) >= {"params"} and \
+            all(k in ("params", "buffers", "specs") for k in state):
+        state = {**state.get("params", {}), **state.get("buffers", {})}
+    state = adapt_state_for_model(model, state)
+    missing = [k for k in model.state_dict() if k not in state]
+    if missing:
+        raise ValueError(
+            f"checkpoint {pretrained_path} (after layout conversion) "
+            f"is missing parameters "
+            f"{missing[:8]}{'...' if len(missing) > 8 else ''} — "
+            "refusing a partial load")
+    set_state_dict(model, state)
+    return model
+
+
+def adapt_state_for_model(model, state):
+    """Bridge a checkpoint's decoder layout to the built model's: unrolled
+    per-layer keys <-> scan-stacked ``[L, ...]`` leaves (``scan_layers``)
+    and separate q/k/v projections <-> GPT's fused ``qkv_proj``
+    (``fused_qkv``), in either direction, composing (the reference's
+    function; the port's conversion is ``nlp.convert``'s). A state already
+    in the model's layout comes back as the same object."""
+    from .convert import _to_model_layout
+    if not isinstance(state, dict) or not state:
+        return state
+    return _to_model_layout(model, state)
+
+
+class FromPretrainedMixin:
+    """One ``from_pretrained`` for every model family: the config resolver
+    is ``cls._resolve`` (the task heads) or the defining module's
+    ``_resolve_config`` (backbones and LM heads)."""
+
+    @classmethod
+    def from_pretrained(cls, name_or_path, pretrained_path=None,
+                        config_name=None, **overrides):
+        resolve = getattr(cls, "_resolve", None)
+        if resolve is None:
+            resolve = getattr(sys.modules[cls.__module__],
+                              "_resolve_config")
+        return from_pretrained_impl(cls, resolve, name_or_path,
+                                    pretrained_path, config_name,
+                                    **overrides)

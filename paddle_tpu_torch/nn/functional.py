@@ -200,45 +200,38 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  *, kv_lens=None, generator=None):
     """ref: F.scaled_dot_product_attention, [B, S, H, D] layout.
 
-    With no dense mask, attention runs through the differentiable
-    ``ops.attention.flash_attention`` — the CUDA kernels on the card, their
-    plain twins on the CPU. ``kv_lens`` ([B] ints, a port extension) masks
-    keys at positions >= kv_lens[b] inside the kernel: the serving
-    prefill's padding mask. Attention dropout (training, dropout_p > 0)
-    runs in the kernel with the TPU kernel's hash; its seed is drawn from
-    ``generator`` on the device, as the reference draws it from its key
-    stream, so the call stays free of host syncs. A dense ``attn_mask``
-    (bool keep-mask or additive bias) takes the plain dense path, as it
-    takes the jnp path in the reference, and only on the CPU: no kernel of
-    this port takes a dense mask yet, so on the card it raises (express
-    padding as ``kv_lens``). ``use_flash=False`` (the reference's plain
-    jnp path) raises: the port has no plain attention path on the card."""
+    Attention runs through the differentiable ``ops.attention.
+    flash_attention`` — the CUDA kernels on the card, their plain twins on
+    the CPU — with or without a dense mask. ``attn_mask`` (a bool
+    keep-mask or an additive float bias, broadcastable to [B, H, Sq, Sk])
+    is read by the kernels in place, as the reference's dense path applies
+    it: after the scale and ``is_causal``'s mask, a bool mask by
+    ``where(mask, logits, -inf)``, a float one by addition; a row it
+    leaves with no visible key gives NaN, as there. ``kv_lens`` ([B] ints,
+    a port extension) masks keys at positions >= kv_lens[b] inside the
+    kernel: the serving prefill's padding mask, whose empty rows give 0; it
+    does not combine with ``attn_mask``. Attention dropout (training,
+    dropout_p > 0) runs in the kernel with the TPU kernel's hash, with or
+    without a mask; its seed is drawn from ``generator`` on the device, as
+    the reference draws it from its key stream, so the call stays free of
+    host syncs (the reference's dense path draws its keep mask with
+    jax.random instead: the draws differ, the distribution is the same).
+    ``use_flash=False`` (the reference's plain jnp path) raises: the port
+    has no plain attention path on the card."""
     if not use_flash:
         raise NotImplementedError(
             "scaled_dot_product_attention(use_flash=False): the port has no "
             "plain attention path on the card (ROADMAP.md, ground rules: "
             "no fallback)")
     eff_drop = float(dropout_p) if (dropout_p and training) else 0.0
-    if attn_mask is None:
-        seed = 0
-        if eff_drop:
-            _need_generator("scaled_dot_product_attention", generator)
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=query.device, dtype=torch.int32)
-        return _attn.flash_attention(query, key, value, causal=is_causal,
-                                     kv_lens=kv_lens, dropout_p=eff_drop,
-                                     dropout_seed=seed)
-    if query.device.type != "cpu":
-        raise NotImplementedError(
-            f"a dense attn_mask on the card {later('1.7')}; express "
-            "padding as kv_lens, which the flash kernel takes")
+    seed = 0
     if eff_drop:
-        raise NotImplementedError(
-            "attention dropout with a dense attn_mask (the reference draws "
-            f"it with jax.random there) {later('1.7')}; express padding as "
-            "kv_lens, which the flash kernel takes")
-    return _attn.reference_attention(query, key, value, causal=is_causal,
-                                     kv_lens=kv_lens, attn_mask=attn_mask)
+        _need_generator("scaled_dot_product_attention", generator)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=query.device, dtype=torch.int32)
+    return _attn.flash_attention(query, key, value, causal=is_causal,
+                                 kv_lens=kv_lens, dropout_p=eff_drop,
+                                 dropout_seed=seed, attn_mask=attn_mask)
 
 
 # -- convolution, normalisation and pooling ------------------------------------

@@ -7,11 +7,12 @@ transformer.py): ``MultiHeadAttention`` (with its ``Cache`` and
 Parameter names and shapes are the reference's (the projections are
 ``Linear``s with ``[in, out]`` weights), so a reference ``state_dict``
 loads key for key through ``nlp.convert.load_numpy_state``. The attention
-core is ``F.scaled_dot_product_attention`` on ``[B, S, H, D]``: with no
-dense mask, the flash kernel on the card (its f32 forward takes head_dim
-32, 64, 128 and 256) and its plain twin on the CPU; a dense ``attn_mask``
-runs the plain dense path on the CPU and raises on the card, as that
-function does. Every layer takes an explicit ``device``, ``dtype`` and
+core is ``F.scaled_dot_product_attention`` on ``[B, S, H, D]``: the flash
+kernels on the card (the f32 ones take head_dim 32, 64, 128 and 256) and
+their plain twins on the CPU, with or without a dense mask: the layers'
+``attn_mask`` and ``Transformer``'s ``src_mask``, ``tgt_mask`` (e.g.
+``generate_square_subsequent_mask``) and ``memory_mask`` reach the kernels
+as they are, read in place. Every layer takes an explicit ``device``, ``dtype`` and
 ``generator``: the weights are drawn from it, and attention and hidden
 dropout draw from it too (or from one bound later by
 ``framework.bind_generator``); the deep copies of a stack's layers share

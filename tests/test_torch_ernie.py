@@ -10,7 +10,9 @@ of ERNIE with ``fused_ln=True`` and ``AdamW(fused_kernel=True)`` within
 1e-5 in f32 and 1e-2 with bf16 AMP — the JAX side runs the Pallas
 LayerNorm kernels in interpret mode off the TPU, so this holds the port
 against the kernels themselves. ERNIE-3.0-base has the reference's 207
-keys and sends 77 leaves to the AdamW kernel. What the slice leaves out
+keys and sends 77 leaves to the AdamW kernel. The eight task heads give
+the reference's outputs on a padded batch; ``from_pretrained`` of a bare
+name raises the reference's download recipe. What the slice leaves out
 raises.
 """
 import numpy as np
@@ -97,8 +99,9 @@ def test_pretraining_forward_matches_jax(family, fused_ln):
 
 
 def test_padding_mask_matches_jax():
-    """A 0/1 padding attention_mask takes the dense path on both sides
-    (on the CPU; the card refuses a dense mask)."""
+    """A 0/1 padding attention_mask: the reference's dense path against
+    the port's flash path with the mask (its twins here; the kernels on
+    the card)."""
     jm, pm = _models("ernie", fused_ln=True)
     ids, _, _ = _batch(seed_=2)
     mask = (np.arange(_S)[None, :] < np.array([[40], [64]])).astype(np.int32)
@@ -223,9 +226,31 @@ def test_unported_options_raise(family, flag):
     "ForQuestionAnswering", "ForMaskedLM"])
 @pytest.mark.parametrize("family", ["Ernie", "Bert"])
 def test_task_heads_raise(family, head):
-    mod = port_ernie if family == "Ernie" else port_bert
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(mod, family + head)(device="cpu")
+    """Item 4.1 landed: each task head, built in the JAX package and
+    carried across by its state dict (the reference's keys), gives the
+    reference's outputs on a padded batch within 1e-5 in eval mode."""
+    jmod, pmod, name = ((jax_ernie, port_ernie, "ernie-tiny")
+                        if family == "Ernie" else
+                        (jax_bert, port_bert, "bert-tiny"))
+    paddle.seed(0)
+    jm = getattr(jmod, family + head)(jmod._resolve_config(name, **_OVR))
+    jm.eval()
+    pm = getattr(pmod, family + head)(pmod._resolve_config(name, **_OVR),
+                                      device="cpu",
+                                      generator=seed(0, device="cpu"))
+    assert list(pm.state_dict()) == list(numpy_state(jm))
+    load_numpy_state(pm, numpy_state(jm)).eval()
+    ids, _, _ = _batch(seed_=3)
+    mask = (np.arange(_S)[None, :] < np.array([[_S], [21]])).astype(np.int64)
+    want = jm(paddle.to_tensor(ids), attention_mask=paddle.to_tensor(mask))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w._value),
+                                   atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("cls", [port_bert.BertModel,
@@ -233,5 +258,12 @@ def test_task_heads_raise(family, head):
                                  port_ernie.ErnieModel,
                                  port_ernie.ErnieForPretraining])
 def test_from_pretrained_raises(cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls.from_pretrained("ernie-3.0-base-zh")
+    """Item 4.4 landed: a bare config name needs a download, and raises
+    the reference's recipe before anything is built (the reference's text:
+    save the state dict there, pass pretrained_path=)."""
+    name = "ernie-3.0-base-zh" if "Ernie" in cls.__name__ else \
+        "bert-base-uncased"
+    with pytest.raises(NotImplementedError, match="needs a weights download"
+                       ) as info:
+        cls.from_pretrained(name)
+    assert f"pretrained_path='{name}.pdparams'" in str(info.value)

@@ -147,18 +147,34 @@ def test_optimizer_and_engine_name_their_items():
 
 
 def test_dense_mask_refusals_name_their_item():
-    """Attention dropout with a dense mask raises on the CPU; a dense mask
-    on any other device (the meta device stands in for the card) raises
-    before any kernel is reached. Both name item 1.7."""
+    """Item 1.7 landed: attention dropout with a dense mask runs on the
+    CPU (the kernels' hash, drawn from the generator: the same seed
+    repeats, a masked key gets no weight); a dense mask with kv_lens
+    raises, on the CPU and before any kernel on another device (the meta
+    device stands in for the card)."""
     from paddle_tpu_torch.nn import functional as F
-    q = torch.zeros(1, 4, 2, 8)
+    q = torch.ones(1, 4, 2, 8)
     mask = torch.ones(1, 1, 4, 4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.7"):
+    mask[..., 3] = False
+    v = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0))
+    outs = [F.scaled_dot_product_attention(
+        q, q, v, attn_mask=mask, dropout_p=0.1, training=True,
+        generator=seed(5, device="cpu")) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    nokey = v.clone()
+    nokey[:, 3] = 1e4  # the masked key's value never reaches the output
+    again = F.scaled_dot_product_attention(
+        q, q, nokey, attn_mask=mask, dropout_p=0.1, training=True,
+        generator=seed(5, device="cpu"))
+    assert torch.equal(again, outs[0])
+    lens = torch.tensor([3])
+    with pytest.raises(ValueError, match="kv_lens"):
         F.scaled_dot_product_attention(q, q, q, attn_mask=mask,
-                                       dropout_p=0.1, training=True)
+                                       kv_lens=lens)
     qm = q.to("meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.7"):
-        F.scaled_dot_product_attention(qm, qm, qm, attn_mask=mask.to("meta"))
+    with pytest.raises(ValueError, match="kv_lens"):
+        F.scaled_dot_product_attention(qm, qm, qm, attn_mask=mask.to("meta"),
+                                       kv_lens=lens)
 
 
 def _transformer_step(seed_value):

@@ -97,12 +97,12 @@ def test_dense_mask_path_matches_kv_lens(models):
 
 
 def test_dense_mask_off_cpu_raises():
-    """The dense path is the CPU's alone: on any other device a dense
-    attn_mask raises rather than running plain attention there (the meta
-    device stands in for the card)."""
+    """A dense attn_mask goes to the flash kernels (item 1.7): on a device
+    that is neither the CPU (the twins) nor CUDA (the kernels) it raises
+    in the kernel wrapper rather than running plain attention there."""
     q = torch.empty(1, 8, 2, 64, device="meta")
     keep = torch.ones(1, 1, 8, 8, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError, match="kv_lens"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         port_F.scaled_dot_product_attention(q, q, q, attn_mask=keep,
                                             is_causal=True)
 
